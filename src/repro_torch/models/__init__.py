@@ -1,0 +1,2 @@
+"""Model families of the port: the dense transformer so far
+(``models.registry`` dispatches by family)."""
