@@ -57,48 +57,54 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds: Sequence[Sequence[str]], verbose: bool) -> None:
+def _run_all(cmds: Sequence[Sequence[str]]) -> str:
+    """Run the commands in parallel and return their joined output, or
+    raise with the output of those that failed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    failed = []
+    logs, failed = [], []
     for cmd, p in zip(cmds, procs):
         log, _ = p.communicate()
         if p.returncode:
             failed.append(f"$ {' '.join(cmd)}\n{log}")
-        elif verbose and log.strip():
-            print(log, end="", flush=True)
+        logs.append(log)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(logs)
 
 
-def build(verbose: bool = False) -> Path:
+def build() -> Path:
     """Compile the sources (if this digest is not built yet) and return
-    the library's path.  ``verbose`` adds ``-Xptxas -v`` and prints the
-    compiler's report of registers and shared memory per kernel."""
+    the library's path.  The compiler's report of registers, spills and
+    shared memory per kernel (``-Xptxas -v``) is written beside the
+    library, with the suffix ``.ptxas.txt``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"librepro_kernels-{_digest()}.so"
-    if lib.exists() and not verbose:
+    if lib.exists():
         return lib
     nvcc = _nvcc()
-    flags = list(NVCC_FLAGS) + (["-Xptxas", "-v"] if verbose else [])
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
-        _run_all([[nvcc, *flags, "-c", str(CSRC / s), "-o", o]
-                  for s, o in zip(SOURCES, objs)], verbose)
+        report = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                            str(CSRC / s), "-o", o]
+                           for s, o in zip(SOURCES, objs)])
         part = os.path.join(tmp, lib.name)
-        _run_all([[nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", part]],
-                 verbose)
-        os.replace(part, lib)           # atomic: a concurrent build is safe
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", part]])
+        part_report = os.path.join(tmp, "ptxas.txt")
+        Path(part_report).write_text(report)
+        # atomic renames, the library last: a concurrent build is safe
+        os.replace(part_report, lib.with_suffix(".ptxas.txt"))
+        os.replace(part, lib)
     return lib
 
 
-def load(verbose: bool = False) -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
     """Build if needed and load the library once per process."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = ctypes.CDLL(str(build(verbose)))
+            _lib = ctypes.CDLL(str(build()))
             _lib.rt_error_string.argtypes = [ctypes.c_int]
             _lib.rt_error_string.restype = ctypes.c_char_p
         return _lib

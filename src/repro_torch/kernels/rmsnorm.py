@@ -43,6 +43,8 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
     _build.check_rows(name, scale)
     out = torch.empty_like(x)
     rows = x.numel() // d
+    if rows == 0:                       # nothing to launch, nothing counted
+        return out
     fn = _build.function(name, _ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d,

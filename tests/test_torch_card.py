@@ -100,6 +100,13 @@ def test_ragged_decode_kernel(cuda, B, H, Hkv, Skv, hd, dtype):
     _close(got[:, 0], want, dtype)
 
 
+def test_rmsnorm_zero_rows_launches_nothing(cuda):
+    before = RN.launches
+    got = RN.rmsnorm_fwd(torch.zeros(0, 64, device=cuda),
+                         torch.zeros(64, device=cuda))
+    assert got.shape == (0, 64) and RN.launches == before
+
+
 def test_wrappers_raise_on_unsupported(cuda):
     q = torch.zeros(1, 2, 8, 32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
