@@ -7,5 +7,7 @@ nvcc at first use.  Entry points run on ``device="cuda"`` unless the
 caller asks for ``"cpu"``, where the kernels' plain PyTorch versions
 run; nothing moves to the CPU on its own.
 
-Ported so far: serving the dense family (``serving.ServingEngine``).
+Ported so far: serving the dense family (``serving.ServingEngine``) and
+training it with the Seesaw batch ramp (``train.trainer.Trainer``,
+``launch.train``).
 """

@@ -7,7 +7,8 @@ from typing import List
 
 from repro_torch.configs import llama3_2_3b, seesaw_paper
 from repro_torch.configs.base import (HybridConfig, ModelConfig, MoEConfig,
-                                      SSMConfig)
+                                      OptimizerConfig, RunConfig,
+                                      ScheduleConfig, SSMConfig)
 
 _CONFIGS = {
     "seesaw-150m": seesaw_paper.SEESAW_150M,
@@ -27,5 +28,6 @@ def list_archs() -> List[str]:
     return list(_CONFIGS)
 
 
-__all__ = ["HybridConfig", "ModelConfig", "MoEConfig", "SSMConfig",
-           "get_config", "list_archs"]
+__all__ = ["HybridConfig", "ModelConfig", "MoEConfig", "OptimizerConfig",
+           "RunConfig", "SSMConfig", "ScheduleConfig", "get_config",
+           "list_archs"]

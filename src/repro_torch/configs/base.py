@@ -1,10 +1,12 @@
-"""Model config: a frozen dataclass per architecture.
+"""Model and run configs: frozen dataclasses.
 
-This package's own copy of ``repro.configs.base.ModelConfig`` (the port
-imports nothing of the JAX package).  The fields, ``padded_vocab``,
-``param_count`` and ``reduced()`` are the reference's; there is no
-``kernel_backend`` field, because the port picks the kernel by the
-device a tensor lies on (see ``repro_torch.kernels.backend``).
+This package's own copy of ``repro.configs.base`` (the port imports
+nothing of the JAX package): ``ModelConfig`` with the reference's
+fields, ``padded_vocab``, ``param_count`` and ``reduced()``, and the
+training run's ``ScheduleConfig``, ``OptimizerConfig`` and
+``RunConfig``.  There is no ``kernel_backend`` field anywhere, because
+the port picks the kernel by the device a tensor lies on (see
+``repro_torch.kernels.backend``).
 """
 from __future__ import annotations
 
@@ -168,3 +170,50 @@ def _pattern(cfg: ModelConfig, n_layers: int) -> Tuple[str, ...]:
     h = cfg.hybrid or HybridConfig()
     reps = math.ceil(n_layers / len(h.pattern))
     return tuple((h.pattern * reps)[:n_layers])
+
+
+@dataclass(frozen=True)
+class ScheduleConfig:
+    """LR×batch schedule — the paper's contribution lives here."""
+    # cosine | step | seesaw | seesaw-general | constant | naive-ramp
+    # (| adaptive-seesaw, with the adaptive slice)
+    kind: str = "cosine"
+    base_lr: float = 3e-3
+    warmup_frac: float = 0.10      # paper: warmup for 10% of tokens
+    alpha: float = 2.0             # step-decay factor of the reference
+    beta: float = 1.0              # batch multiplier per cut
+    n_cuts: int = 8                # step-decay approximation depth of cosine
+    final_lr_frac: float = 0.0
+    max_batch_size: Optional[int] = None   # hardware cap on the ramp
+    # the reference's adaptive-seesaw controller knobs (ema_decay,
+    # plateau_*) come with the adaptive slice
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    kind: str = "adamw"            # adamw | adam | sgd | nsgd
+    beta1: float = 0.9             # paper §4
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0      # paper default λ=0
+    grad_clip: float = 1.0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    schedule: ScheduleConfig
+    optimizer: OptimizerConfig
+    seq_len: int = 1024
+    global_batch_size: int = 256   # B0 — sequences per step
+    total_tokens: int = 0          # 0 ⇒ Chinchilla D = 20·N
+    z_loss: float = 0.0
+    seed: int = 0
+    dtype: str = "bfloat16"        # compute dtype; params/opt state f32
+    remat: bool = True
+    log_every: int = 10
+
+    def resolved_total_tokens(self) -> int:
+        if self.total_tokens:
+            return self.total_tokens
+        return 20 * self.model.param_count()

@@ -1,0 +1,6 @@
+"""Synthetic data and the phase-aware loader (``repro.data`` in
+PyTorch)."""
+from repro_torch.data.pipeline import PhaseDataLoader
+from repro_torch.data.synthetic import MarkovLM
+
+__all__ = ["MarkovLM", "PhaseDataLoader"]

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("errors.cu", "rmsnorm.cu", "flash_fwd.cu", "paged_decode.cu")
+SOURCES = ("errors.cu", "rmsnorm.cu", "flash_fwd.cu", "flash_bwd.cu",
+           "paged_decode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -152,17 +153,24 @@ def dtype_code(name: str, *tensors) -> int:
     return code
 
 
-def check_rows(name: str, t) -> None:
-    """The kernels read rows of the last dim with 16-byte vectors: the
-    last dim must be contiguous and every row start 16-byte aligned
-    (the stride of a dim of size 1 is never used)."""
+def rows_aligned(t) -> bool:
+    """Whether the kernels can read ``t`` as it is: rows of the last dim
+    are read with 16-byte vectors, so the last dim must be contiguous
+    and every row start 16-byte aligned (the stride of a dim of size 1
+    is never used)."""
     es = t.element_size()
+    strides = [s for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1]
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and not any((s * es) % 16 for s in strides)
+            and (t.shape[-1] * es) % 16 == 0)
+
+
+def check_rows(name: str, t) -> None:
+    """Raise unless ``rows_aligned(t)``."""
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: last dim must be contiguous, strides "
                          f"{t.stride()}")
-    strides = [s for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1]
-    if t.data_ptr() % 16 or any((s * es) % 16 for s in strides) \
-            or (t.shape[-1] * es) % 16:
+    if not rows_aligned(t):
         raise ValueError(f"{name}: rows must be 16-byte aligned (shape "
                          f"{tuple(t.shape)}, strides {t.stride()})")
 

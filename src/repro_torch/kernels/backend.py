@@ -4,10 +4,13 @@ The counterpart of ``repro.kernels.backend``, without a backend switch:
 the device of the input picks the code.
 
 - A tensor on the CPU runs the plain PyTorch version (``kernels.ref``),
-  the path the CPU tests hold against the JAX package.
+  the path the CPU tests hold against the JAX package; torch's autograd
+  differentiates it.
 - A tensor on a CUDA device runs the hand-written kernel, or the call
-  raises (no nvcc, a failed build, an unsupported shape).  Nothing falls
-  back to the plain version or to the CPU.
+  raises (no nvcc, a failed build, an unsupported shape).  ``rmsnorm``
+  and ``attention`` are ``torch.autograd.Function``s there, whose
+  backward is the backward kernel.  Nothing falls back to the plain
+  version or to the CPU.
 - Any other device raises.
 
 The ops take the models' layouts (attention: (B, S, H, hd)); the kernels
@@ -37,19 +40,18 @@ def rmsnorm(x, scale, *, eps: float = 1e-5):
     """x: (..., d); scale: (d,) float32.  y = x·rsqrt(mean(x²)+eps)·
     (1+scale), in x's dtype."""
     if _on_card(x, "rmsnorm"):
-        return _rn.rmsnorm_fwd(x, scale, eps)
+        return _rn.rmsnorm(x, scale, eps)
     return _ref.rmsnorm_ref(x, scale, eps)
 
 
 def attention(q, k, v):
     """Causal self-attention in the models' layout: q (B, S, H, hd),
-    k/v (B, S, Hkv, hd) -> (B, S, H, hd).  On the card the flash kernel
-    masks a ragged S itself, so nothing is padded."""
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    k/v (B, S, Hkv, hd) -> (B, S, H, hd).  On the card the flash kernels
+    mask a ragged S themselves, so nothing is padded."""
     if _on_card(q, "attention"):
-        out, _lse = _fa.flash_fwd(qt, kt, vt)
-    else:
-        out, _lse = _ref.attention_ref(qt, kt, vt, causal=True)
+        return _fa.attention(q, k, v)
+    out, _lse = _ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=True)
     return out.transpose(1, 2)
 
 

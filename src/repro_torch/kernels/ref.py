@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each computes the same function as its kernel, in float32, with the
-reference package's masks and clamps.  ``kernels.backend`` runs them for
-tensors on the CPU; on the card they are what each kernel is held
-against.  They repeat the kernels' arithmetic and are no yardstick of
-speed.
+reference package's masks and clamps.  ``kernels.backend`` runs the
+forward ones for tensors on the CPU, where torch's autograd
+differentiates them; the backward ones (``*_bwd_ref``) write out the
+reference's backward kernels.  On the card they are what each kernel is
+held against.  They repeat the kernels' arithmetic and are no yardstick
+of speed.
 """
 from __future__ import annotations
 
@@ -24,6 +26,21 @@ def rmsnorm_ref(x, scale, eps: float = 1e-5):
     return out.to(x.dtype)
 
 
+def rmsnorm_bwd_ref(x, scale, g, eps: float = 1e-5):
+    """The VJP of ``rmsnorm_ref`` written out as the reference's backward
+    kernel computes it, in float32: rr = rsqrt(mean(x²)+eps), x̂ = x·rr,
+    gs = g·(1+scale); dx = rr·(gs − x̂·mean(gs·x̂)) in x's dtype and
+    dscale = Σ_rows g·x̂ in float32."""
+    x32, g32 = x.float(), g.float()
+    rr = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    xh = x32 * rr
+    gs = g32 * (1.0 + scale.float())
+    proj = (gs * xh).mean(dim=-1, keepdim=True)
+    dx = rr * (gs - xh * proj)
+    dscale = (g32 * xh).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale
+
+
 def attention_ref(q, k, v, *, causal: bool = True):
     """q: (B, H, S, hd); k, v: (B, Hkv, S, hd) with H % Hkv == 0.
     Naive softmax attention in float32.  Returns (out (B, H, S, hd) in
@@ -40,6 +57,34 @@ def attention_ref(q, k, v, *, causal: bool = True):
     lse = torch.logsumexp(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", torch.exp(s - lse[..., None]), v)
     return o.to(q.dtype), lse.reshape(B * H, S)
+
+
+def flash_bwd_ref(q, k, v, out, lse, do):
+    """The VJP of causal ``attention_ref`` as the reference's backward
+    kernels compute it, in float32: p = exp(s − lse) with the causal
+    mask, Δ = rowsum(do·out), ds = p·(do·vᵀ − Δ)·scale; dq = ds·k,
+    dk = dsᵀ·q and dv = pᵀ·do per query head, then summed over each GQA
+    group.  q, out, do: (B, H, S, hd); k, v: (B, Hkv, S, hd); lse
+    (B·H, S).  Returns (dq, dk, dv) in q's dtype."""
+    B, H, S, hd = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    q32, do32 = q.float(), do.float()
+    k32 = k.float().repeat_interleave(G, dim=1)
+    v32 = v.float().repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q32, k32) * scale
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - lse.reshape(B, H, S, 1))
+    delta = (do32 * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do32, v32) - delta) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k32)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q32)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
+    dk = dk.reshape(B, Hkv, G, S, hd).sum(dim=2)
+    dv = dv.reshape(B, Hkv, G, S, hd).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ragged_decode_ref(q, k, v, lengths):

@@ -1,11 +1,12 @@
-"""RMSNorm forward on the card: the wrapper of ``csrc/rmsnorm.cu``.
+"""RMSNorm on the card, forward and backward: the wrappers of
+``csrc/rmsnorm.cu`` and the ``torch.autograd.Function`` that joins them.
 
-Replaces the TPU kernel ``src/repro/kernels/rmsnorm.py::_rmsnorm_kernel``
-(through ``_pallas_fwd``).  Bound by bytes on the H100; the source says
-what its design does about that.  The plain version is
-``kernels.ref.rmsnorm_ref``; ``kernels.backend.rmsnorm`` picks between
-the two by the device of the input.  Forward only: the backward comes
-with the training slice.
+Replaces the TPU kernels ``src/repro/kernels/rmsnorm.py::_rmsnorm_kernel``
+(``rmsnorm_fwd``) and ``::_rmsnorm_bwd_kernel`` (``rmsnorm_bwd``), and
+``_rmsnorm_with_vjp`` (``rmsnorm``).  Bound by bytes on the H100; the
+source says what the designs do about that.  The plain versions are
+``kernels.ref.rmsnorm_ref`` and ``kernels.ref.rmsnorm_bwd_ref``;
+``kernels.backend.rmsnorm`` picks by the device of the input.
 """
 from __future__ import annotations
 
@@ -15,22 +16,19 @@ import torch
 
 from repro_torch.kernels import _build
 
-# launches of the kernel since the count was last set to 0
-launches = 0
+# launches of each kernel since the count was last set to 0
+launches = 0            # rmsnorm_fwd
+bwd_launches = 0        # rmsnorm_bwd
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
              ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_float, ctypes.c_int,
+                                         ctypes.c_void_p]
 
 
-def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
-                eps: float = 1e-5) -> torch.Tensor:
-    """x: (..., d) float32 or bfloat16 on a CUDA device, contiguous;
-    scale: (d,) float32 on the same device.  Returns
-    x·rsqrt(mean(x²)+eps)·(1+scale) in x's dtype."""
-    global launches
-    name = "rmsnorm_fwd"
-    code = _build.dtype_code(name, x)
+def _check_scale(name: str, x: torch.Tensor, scale: torch.Tensor) -> None:
     d = x.shape[-1]
     if scale.dtype != torch.float32 or tuple(scale.shape) != (d,) \
             or scale.device != x.device:
@@ -41,6 +39,18 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"{name}: x and scale must be contiguous")
     _build.check_rows(name, x)
     _build.check_rows(name, scale)
+
+
+def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., d) float32 or bfloat16 on a CUDA device, contiguous;
+    scale: (d,) float32 on the same device.  Returns
+    x·rsqrt(mean(x²)+eps)·(1+scale) in x's dtype."""
+    global launches
+    name = "rmsnorm_fwd"
+    code = _build.dtype_code(name, x)
+    _check_scale(name, x, scale)
+    d = x.shape[-1]
     out = torch.empty_like(x)
     rows = x.numel() // d
     if rows == 0:                       # nothing to launch, nothing counted
@@ -52,3 +62,63 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
     _build.check(err, name)
     launches += 1
     return out
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                eps: float = 1e-5):
+    """The VJP of ``rmsnorm_fwd`` at x for the output gradient g (x's
+    shape and dtype).  x and scale as for the forward; g is read as it
+    is when contiguous and copied once otherwise.  Returns (dx in x's
+    dtype, dscale (d,) float32): the kernel writes one float32 partial
+    of dscale per block, summed here."""
+    global bwd_launches
+    name = "rmsnorm_bwd"
+    if g.shape != x.shape:
+        raise ValueError(f"{name}: g {tuple(g.shape)} != x "
+                         f"{tuple(x.shape)}")
+    g = g.contiguous()
+    code = _build.dtype_code(name, x, g)
+    _check_scale(name, x, scale)
+    _build.check_rows(name, g)
+    d = x.shape[-1]
+    if d * 4 > 48 * 1024:
+        raise ValueError(f"{name}: d={d} needs more than 48 KB of shared "
+                         f"memory for the dscale partial")
+    dx = torch.empty_like(x)
+    rows = x.numel() // d
+    if rows == 0:
+        return dx, torch.zeros_like(scale)
+    blocks = _build.function("rmsnorm_bwd_blocks", [ctypes.c_int])(rows)
+    part = torch.empty(blocks, d, dtype=torch.float32, device=x.device)
+    fn = _build.function(name, _BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                 part.data_ptr(), rows, d, eps, code, _build.stream_of(x))
+    _build.check(err, name)
+    bwd_launches += 1
+    return dx, part.sum(dim=0)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """Forward ``rmsnorm_fwd``, backward ``rmsnorm_bwd``; like the
+    reference's custom VJP it saves x and scale, not rsqrt(mean(x²)),
+    which the backward recomputes."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, g, ctx.eps)
+        return dx, dscale, None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """Differentiable RMSNorm on the card: the forward kernel, and under
+    autograd the backward kernel."""
+    return _RMSNorm.apply(x, scale, eps)

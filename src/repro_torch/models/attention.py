@@ -1,6 +1,6 @@
 """GQA self-attention with RoPE (``repro.models.attention`` in PyTorch):
 the projections and ``attn_forward``, whose causal core goes through
-``kernels.backend.attention`` — the flash kernel on the card, the plain
+``kernels.backend.attention`` — the flash kernels on the card, the plain
 version on the CPU.  Full causal attention only: sliding windows and the
 ring cache come with a later slice."""
 from __future__ import annotations
@@ -39,11 +39,11 @@ def attn_forward(p: Attention, x, *, n_heads: int, n_kv_heads: int,
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q = (x @ p.w_q).reshape(B, S, n_heads, head_dim)
-    k = (x @ p.w_k).reshape(B, S, n_kv_heads, head_dim)
-    v = (x @ p.w_v).reshape(B, S, n_kv_heads, head_dim)
+    q = (x @ p.w_q.to(x.dtype)).reshape(B, S, n_heads, head_dim)
+    k = (x @ p.w_k.to(x.dtype)).reshape(B, S, n_kv_heads, head_dim)
+    v = (x @ p.w_v.to(x.dtype)).reshape(B, S, n_kv_heads, head_dim)
     if rope_theta:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     o = KB.attention(q, k, v).reshape(B, S, n_heads * head_dim)
-    return o @ p.w_o, (k, v)
+    return o @ p.w_o.to(x.dtype), (k, v)

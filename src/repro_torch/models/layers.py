@@ -1,13 +1,15 @@
 """Shared building blocks: RMSNorm, RoPE, the SwiGLU/GeLU MLP, the LM
-head and the init rules (``repro.models.layers`` in PyTorch).
+head, the chunked cross-entropy and the init rules
+(``repro.models.layers`` in PyTorch).
 
 Weights are ``(d_in, d_out)`` matrices used as ``x @ W``, the
 reference's layout, so weights load one to one (no transpose into
 ``nn.Linear``).  The reference keeps float32 weights and casts them at
-every matmul (``x @ W.astype(x.dtype)``); the cast is deterministic, so
-the port holds the cast copy, made once when the weights are created or
-loaded, and multiplies by it directly.  Norm scales stay float32: the
-norm adds them to 1 in float32.
+every matmul (``x @ W.astype(x.dtype)``); the port does the same with
+``W.to(x.dtype)``.  Training holds float32 master weights, and the cast
+carries the gradient back to them.  Serving holds the matrices already
+in the compute dtype, where ``W.to(x.dtype)`` is ``W`` itself: no copy.
+Norm scales stay float32: the norm adds them to 1 in float32.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import backend as KB
 
@@ -26,8 +29,9 @@ from repro_torch.kernels import backend as KB
 # --------------------------------------------------------------------- #
 
 def param(shape, *, dtype, device) -> nn.Parameter:
-    """An uninitialised inference weight (``init_weights`` or
-    ``weights.from_jax_params`` fills it)."""
+    """An uninitialised weight (``init_weights`` or
+    ``weights.from_jax_params`` fills it), frozen until a trainer asks
+    for gradients (``requires_grad_``)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -109,12 +113,12 @@ class MLP(nn.Module):
 
 
 def mlp(p: MLP, x, act: str):
-    up = x @ p.w_up
+    up = x @ p.w_up.to(x.dtype)
     if p.w_gate is not None:
-        h = act_fn(act)(x @ p.w_gate) * up
+        h = act_fn(act)(x @ p.w_gate.to(x.dtype)) * up
     else:
         h = act_fn(act)(up)
-    return h @ p.w_down
+    return h @ p.w_down.to(x.dtype)
 
 
 # --------------------------------------------------------------------- #
@@ -127,3 +131,43 @@ def lm_head_matrix(model) -> torch.Tensor:
     if model.lm_head is not None:
         return model.lm_head
     return model.tok.T
+
+
+def cross_entropy_chunked(h, W, labels, mask, logical_vocab: int, *,
+                          z_loss: float = 0.0, chunk: int = 512):
+    """Loss over (B, S, d) hiddens against (B, S) labels without holding
+    the (B, S, V) logits: the sequence goes in chunks of ``chunk``
+    tokens, each chunk's float32 logits recomputed in the backward
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+    of its scan body; the ragged remainder is not recomputed, as
+    there).  Logits of the padded vocab (ids >= ``logical_vocab``) are
+    masked to -1e30.  Returns (loss, z_sq) as float32 token means; the
+    loss includes ``z_loss · z_sq``."""
+    S, V = h.shape[1], W.shape[-1]
+    chunk = min(chunk, S)
+    n_chunks = S // chunk
+    rem = S - n_chunks * chunk
+    vocab_ok = torch.arange(V, device=h.device) < logical_vocab
+
+    def chunk_loss(hc, yc, mc):
+        logits = (hc @ W.to(hc.dtype)).float()
+        logits = torch.where(vocab_ok, logits, -1e30)
+        z = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, yc[..., None])[..., 0]
+        nll = (z - ll) * mc
+        return torch.stack([nll.sum(), (z.square() * mc).sum(), mc.sum()])
+
+    tot = torch.zeros(3, dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        tot = tot + checkpoint(chunk_loss, h[:, sl], labels[:, sl],
+                               mask[:, sl], use_reentrant=False)
+    if rem:
+        tot = tot + chunk_loss(h[:, -rem:], labels[:, -rem:],
+                               mask[:, -rem:])
+    loss_sum, z_sq, n_tok = tot.unbind()
+    n_tok = torch.clamp(n_tok, min=1.0)
+    loss = loss_sum / n_tok
+    if z_loss:
+        loss = loss + z_loss * z_sq / n_tok
+    return loss, z_sq / n_tok

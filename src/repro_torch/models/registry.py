@@ -1,4 +1,5 @@
-"""Family dispatch for serving (``repro.models.registry`` in PyTorch).
+"""Family dispatch for training and serving (``repro.models.registry``
+in PyTorch).
 
 ``supports_paged`` and ``serving_mode`` are the reference's rules,
 decided from the config alone.  The port runs the dense family so far;
@@ -33,15 +34,26 @@ def family(cfg: ModelConfig):
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, dtype=torch.bfloat16,
-               device="cuda") -> transformer.Transformer:
+               device="cuda", trainable: bool = False
+               ) -> transformer.Transformer:
     """The model at the reference's init rules, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``.  (The
     reference draws from ``jax.random``, so the numbers differ; to hold
     the two packages against each other, load the reference's weights
-    with ``weights.from_jax_params``.)"""
+    with ``weights.from_jax_params``.)  ``trainable`` turns on the
+    parameters' gradients; train with ``dtype=torch.float32`` (master
+    weights) and pick the compute dtype in ``loss_fn``."""
     fam = family(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return fam.Transformer(cfg, dtype=dtype, device=device).init_weights(gen)
+    model = fam.Transformer(cfg, dtype=dtype, device=device)
+    return model.init_weights(gen).requires_grad_(trainable)
+
+
+def loss_fn(model, cfg: ModelConfig, batch, *, z_loss: float = 0.0,
+            dtype=torch.bfloat16, remat: bool = True):
+    """The family's training loss: (loss, metrics)."""
+    return family(cfg).loss_fn(model, cfg, batch, z_loss=z_loss,
+                               dtype=dtype, remat=remat)
 
 
 def supports_paged(cfg: ModelConfig) -> bool:

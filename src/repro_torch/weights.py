@@ -14,8 +14,8 @@ The leading L dim is split into the ``ModuleList``; matrices keep their
 ``(d_in, d_out)`` layout (the port multiplies ``x @ W`` as the
 reference does).  Norm scales are zero-initialised and used as
 ``(1 + scale)`` in both packages, so they copy as they are, in float32.
-Matrices and the embedding are cast once to ``dtype``, the compute
-dtype.
+Matrices and the embedding are cast once to ``dtype``: the compute
+dtype to serve, float32 (with ``trainable=True``) to train.
 """
 from __future__ import annotations
 
@@ -37,9 +37,11 @@ def _copy(dst: torch.Tensor, src: np.ndarray, name: str) -> None:
 
 
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, *,
-                    dtype=torch.bfloat16, device="cuda") -> Transformer:
+                    dtype=torch.bfloat16, device="cuda",
+                    trainable: bool = False) -> Transformer:
     """Build the port's ``Transformer`` from the reference's parameter
-    pytree (numpy arrays) of the dense family."""
+    pytree (numpy arrays) of the dense family; ``trainable`` turns on
+    the parameters' gradients."""
     model = Transformer(cfg, dtype=dtype, device=device)
     emb = tree["embed"]
     _copy(model.tok, emb["tok"], "embed.tok")
@@ -59,4 +61,4 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, *,
             w = getattr(layer.mlp, n)
             if w is not None:
                 _copy(w, layers["mlp"][n][i], f"layers.mlp.{n}[{i}]")
-    return model
+    return model.requires_grad_(trainable)
