@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels, check them, serve seesaw-150m and train
-it with a Seesaw batch ramp on one NVIDIA card.
+it with a Seesaw batch ramp, and train mamba2-2.7b with a Seesaw ramp on
+one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -59,9 +60,40 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
   Loss within 1e-4; every grad within 1e-3 of its tensor's largest
   |grad|; AdamW applied on each device to the same (CPU) grads at a
   fixed LR within 1e-6.
+- Phase 1c, the SSD chunk kernel against its plain version, and RMSNorm
+  forward and backward at Mamba-2's widths (8192 rows of d = 2560 and
+  5120, float32 2e-5 and bfloat16 2e-2, timed in bfloat16).  The kernel: at
+  mamba2-2.7b's training shapes (B=4, S=2048, H=80, P=64, N=128, Q=256,
+  x, B and C as views of one (B, S, 5376) tensor as the mixer hands
+  them over) with its init's decay (A = -(1..80), dt around the
+  log-spaced [1e-3, 1e-1]: cum reaches ~-2000 inside a chunk), and at a
+  ragged S=1000; float32 and bfloat16.  There the kernel and the float32
+  plain version are both held to a float64 evaluation of the plain
+  version, and the kernel's error must be at most twice the plain
+  version's (float32 sums of such a cum differ by ~1e-4 relative).  At
+  small decays (the reduced config's heads, H=8, P=64, N=16, Q=32, and
+  a ragged S=100) it is held to the plain version at 2e-5 / 2e-2.  Then
+  timed as in phase 1 at the 2.7B shapes in bfloat16; no single PyTorch
+  call computes this function, so ``library_ms`` is null.
+- Phase 6, mamba2-2.7b at full width and depth (64 layers, d_model
+  2560, 80 SSD heads, 2.70B parameters), random weights from a seed:
+  ``kind="seesaw"``, α=2, B0=4, two cuts, seq 2048, 11·4·2048 tokens,
+  base LR 8e-4, ``fuse_steps=1``, ``max_device_batch=4``, bfloat16
+  compute with float32 weights and AdamW, remat on, data
+  ``MarkovLM(2048, 0)``: B = 4 / 8 / 16 over 7 / 1 / 1 steps, 13
+  micro-batches.  Every loss and grad norm must be finite, each step's
+  LR, batch size and phase the plan's, the last loss below the first,
+  and the launch counts exactly, per micro-batch, ``ssd_chunk`` 2L,
+  RMSNorm forward 4L+1 and backward 2L+1.  Reports tokens/s and wall
+  time per step at each batch size, peak memory, and a torch.profiler
+  breakdown of one more B=4 step.
+- Phase 7, the reduced mamba2 in float32 on the card against the CPU,
+  same weights: loss within 1e-4, grads within 1e-3 of each tensor's
+  largest |grad|.
 
 Prints the card's name and power limit, one ``kernels`` JSON line, one
-``engine`` and one ``train`` JSON line, and last ``{"ok": true,
+``engine`` and one ``train`` JSON line, one ``mamba2`` JSON line, and
+last ``{"ok": true,
 "device": {...}}``; the full record goes to
 ``chiprun_out/chip_smoke.json``.  Any failed check
 raises, so the script exits non-zero before the last line.  Without a
@@ -415,6 +447,147 @@ def measure_bwd(RN, FA, ref, inputs):
 
 
 # --------------------------------------------------------------------- #
+# phase 1c: the SSD chunk kernel against its plain version
+# --------------------------------------------------------------------- #
+
+def ssd_inputs(B, S, H, P, N, dtype, g, mamba_decay):
+    """x, B, C as views of one (B, S, H·P + 2N) tensor, as the mixer hands
+    them to the kernel.  ``mamba_decay``: mamba2-2.7b's init (A =
+    -(1..H), dt = softplus(dt_bias + 0.5·noise) around its log-spaced
+    [1e-3, 1e-1]); else small decays (A = -exp(0.3·noise), dt =
+    softplus(noise))."""
+    di = H * P
+    xbc = torch.randn(B, S, di + 2 * N, generator=g, device="cuda").to(dtype)
+    xh = xbc[..., :di].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., di:di + N], xbc[..., di + N:]
+    noise = torch.randn(B, S, H, generator=g, device="cuda")
+    if mamba_decay:
+        dt0 = torch.exp(torch.linspace(np.log(1e-3), np.log(1e-1), H,
+                                       device="cuda"))
+        dt = F.softplus(dt0 + torch.log(-torch.expm1(-dt0)) + 0.5 * noise)
+        A = -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
+    else:
+        dt = F.softplus(noise)
+        A = -torch.exp(0.3 * torch.randn(H, generator=g, device="cuda"))
+    return xh, dt, A, Bm, Cm
+
+
+def phase1c(SSD, RN, ref):
+    """Errors: at small decays the largest |kernel - plain| over the three
+    outputs, held to TOL; at mamba2-2.7b's decay the largest error of the
+    kernel and of the float32 plain version against a float64 evaluation
+    of the plain version, the kernel's at most twice the plain's.  And
+    RMSNorm forward and backward at Mamba-2's widths (the block norm at
+    d=2560, the gated norm at d=5120, 8192 rows: one micro-batch)."""
+    g = torch.Generator(device="cuda").manual_seed(20)
+    errors, f64, inputs = [], [], {}
+    for dtype in DTYPES:
+        dn = str(dtype).replace("torch.", "")
+        for d in (2560, 5120):
+            x, sc, err = rmsnorm_case(RN, ref, 8192, d, dtype, g)
+            errors.append(("rmsnorm_fwd", f"mamba2-d{d}", dn, err))
+            gy = torch.randn(8192, d, generator=g, device="cuda").to(dtype)
+            dx, ds = RN.rmsnorm_bwd(x, sc, gy, 1e-5)
+            torch.cuda.synchronize()
+            want_dx, want_ds = ref.rmsnorm_bwd_ref(x, sc, gy, 1e-5)
+            errors.append(("rmsnorm_bwd", f"mamba2-d{d}", dn,
+                           max_err(dx, want_dx, dtype)))
+            errors.append(("rmsnorm_bwd/dscale_rel", f"mamba2-d{d}", dn,
+                           dscale_rel_err(x, gy, ds, want_ds)))
+            inputs[("rmsnorm", d, dn)] = (x, sc, gy)
+        for B, S, H, P, N, Q, tag in ((2, 256, 8, 64, 16, 32, "reduced"),
+                                      (2, 100, 8, 64, 16, 32, "ragged")):
+            args = ssd_inputs(B, S, H, P, N, dtype, g, False)
+            got = SSD.ssd_chunk(*args, Q)
+            torch.cuda.synchronize()
+            want = ref.ssd_chunk_ref(*args, Q)
+            errors.append(("ssd_chunk", tag, dn, max(
+                max_err(a, b, dtype) for a, b in zip(got, want))))
+        for B, S, tag in ((4, 2048, "2.7b"), (1, 1000, "2.7b-ragged")):
+            args = ssd_inputs(B, S, 80, 64, 128, dtype, g, True)
+            got = SSD.ssd_chunk(*args, 256)
+            torch.cuda.synchronize()
+            plain = ref.ssd_chunk_ref(*args, 256)
+            exact = ref.ssd_chunk_ref(*(t.double() for t in args), 256)
+            for out, a, p, e in zip(("y_intra", "states", "T"), got, plain,
+                                    exact):
+                err = float((a.double() - e).abs().max())
+                perr = float((p.double() - e).abs().max())
+                if not (err <= 2 * perr and bool(torch.isfinite(a).all())):
+                    raise AssertionError(
+                        f"ssd_chunk {tag} {dn} {out}: error {err:.3g} vs "
+                        f"float64, plain float32 {perr:.3g}")
+                f64.append({"shape": tag, "dtype": dn, "output": out,
+                            "kernel_err": err, "plain_err": perr,
+                            "kernel_vs_plain": float((a - p).abs().max()),
+                            "exact_max_abs": float(e.abs().max())})
+            errors.append(("ssd_chunk", tag, dn,
+                           max(float((a - p).abs().max())
+                               for a, p in zip(got, plain))))
+            if tag == "2.7b":
+                inputs[("ssd", dn)] = args
+            del got, plain, exact
+            torch.cuda.empty_cache()
+    for name, tag, dn, err in errors:
+        log(f"phase 1c: {name} {tag} {dn}: max |err| {err:.3g}")
+    for r in f64:
+        log(f"phase 1c: vs float64 {r}")
+    return errors, f64, inputs
+
+
+def measure_ssd(SSD, RN, ref, inputs):
+    """Kernel and plain times at mamba2-2.7b's training shapes in
+    bfloat16, with the bound.  Bytes: x, B, C and dt read once, y_intra
+    and the states written once in float32.  Operations: the causal
+    halves of C·Bᵀ (2N per entry) and of M·x (2P per entry) and the
+    state's 2·Q·N·P, per (b, chunk, head) cell.  RMSNorm forward and
+    backward at Mamba-2's widths, timed as in phases 1 and 1b."""
+    timer = Timer(iters=20)
+    bf = torch.bfloat16
+    rows = {}
+    for d in (2560, 5120):
+        x, sc, gy = inputs[("rmsnorm", d, "bfloat16")]
+        n = x.shape[0]
+        w = (1.0 + sc).to(bf)
+        xr = x.detach().clone().requires_grad_()
+        wr = w.detach().clone().requires_grad_()
+        y = F.rms_norm(xr, (d,), wr, 1e-5)
+        rows[f"rmsnorm_fwd/mamba2-d{d}"] = dict(
+            ms=timer(lambda: RN.rmsnorm_fwd(x, sc, 1e-5)),
+            plain_ms=timer(lambda: ref.rmsnorm_ref(x, sc, 1e-5)),
+            library_ms=timer(lambda: F.rms_norm(x, (d,), w, 1e-5)),
+            shape=f"x ({n}, {d}) bf16",
+            **bound(4 * n * d + 4 * d, 4 * n * d, bf))
+        rows[f"rmsnorm_bwd/mamba2-d{d}"] = dict(
+            ms=timer(lambda: RN.rmsnorm_bwd(x, sc, gy, 1e-5)),
+            plain_ms=timer(lambda: ref.rmsnorm_bwd_ref(x, sc, gy, 1e-5)),
+            library_ms=timer(lambda: torch.autograd.grad(
+                y, (xr, wr), gy, retain_graph=True)),
+            shape=f"x, g ({n}, {d}) bf16",
+            **bound(6 * n * d + 8 * d, 12 * n * d, bf))
+        del xr, wr, y
+    xh, dt, A, Bm, Cm = inputs[("ssd", "bfloat16")]
+    B, S, H, P = xh.shape
+    N, Q = Bm.shape[-1], 256
+    nc = -(-S // Q)
+    es = xh.element_size()
+    n_bytes = (B * S * H * P * es + 2 * B * S * N * es + 4 * B * S * H
+               + 4 * H + 4 * B * S * H * P + 4 * B * nc * H * N * P
+               + 4 * B * nc * H)
+    n_ops = B * nc * H * (Q * (Q + 1) * (N + P) + 2 * Q * N * P)
+    rows["ssd_chunk"] = dict(
+        ms=timer(lambda: SSD.ssd_chunk(xh, dt, A, Bm, Cm, Q)),
+        plain_ms=timer(lambda: ref.ssd_chunk_ref(xh, dt, A, Bm, Cm, Q)),
+        library_ms=None,
+        library_note="no single PyTorch call computes the SSD chunk terms",
+        host_us=timer.host_us(lambda: SSD.ssd_chunk(xh, dt, A, Bm, Cm, Q)),
+        shape=f"x (B={B}, S={S}, H={H}, P={P}) bf16 strided as in the "
+              f"mixer, N={N}, Q={Q}",
+        **bound(n_bytes, n_ops, bf))
+    return rows
+
+
+# --------------------------------------------------------------------- #
 # phases 2 and 3: the engine
 # --------------------------------------------------------------------- #
 
@@ -558,29 +731,26 @@ def counters(RN, FA):
             "flash_bwd_dkv": (FA, "dkv_launches")}
 
 
-def phase4(cfg, RN, FA):
-    from repro_torch.configs import (OptimizerConfig, RunConfig,
-                                     ScheduleConfig)
+def run_ramp(run, ctr, *, fuse_steps, max_device_batch, want):
+    """Train ``run`` on the card through ``Trainer`` over its whole Seesaw
+    plan, on ``MarkovLM(2048, seed 0)``, with every engine call timed to
+    a sync.  ``want`` = (batch sizes, steps per phase, micro-batches per
+    step), checked before the run.  The launch counters ``ctr`` are set
+    to 0 just before the run and read just after.  Checks that every
+    loss and grad norm is finite and every step's LR, batch size and
+    phase are the plan's; returns the trainer and the run's numbers."""
     from repro_torch.data import MarkovLM, PhaseDataLoader
     from repro_torch.train.trainer import Trainer
-    run = RunConfig(model=cfg,
-                    schedule=ScheduleConfig(kind="seesaw", alpha=2.0,
-                                            n_cuts=2),
-                    optimizer=OptimizerConfig(kind="adamw", beta1=0.9,
-                                              beta2=0.95, grad_clip=1.0),
-                    seq_len=1024, global_batch_size=8,
-                    total_tokens=24 * 8 * 1024, dtype="bfloat16")
-    tr = Trainer(run, device="cuda", fuse_steps=4, max_device_batch=8)
+    tr = Trainer(run, device="cuda", fuse_steps=fuse_steps,
+                 max_device_batch=max_device_batch)
     plan, eng, seq = tr.plan, tr.engine, run.seq_len
     steps = plan.steps_per_phase(seq)
     micro = [eng.micro_batches(b) for b in plan.batch_sizes()]
-    if plan.batch_sizes() != [8, 16, 32] or steps != [16, 2, 1] \
-            or micro != [1, 2, 4]:
+    if (plan.batch_sizes(), steps, micro) != want:
         raise AssertionError(f"plan: batches {plan.batch_sizes()}, steps "
-                             f"{steps}, micro-batches {micro}")
+                             f"{steps}, micro-batches {micro}; want {want}")
     loader = PhaseDataLoader(MarkovLM(2048, seed=0), plan, seq,
                              device="cuda")
-    ctr = counters(RN, FA)
     # each engine call timed to a sync: (batch size, steps, seconds)
     chunks = []
     run_chunk = eng.run_chunk
@@ -610,8 +780,10 @@ def phase4(cfg, RN, FA):
     eng.run_chunk = run_chunk
 
     losses = [h["loss"] for h in hist]
-    if len(hist) != sum(steps) or not all(np.isfinite(losses)):
-        raise AssertionError(f"{len(hist)} steps, losses {losses}")
+    norms = [h["grad_norm"] for h in hist]
+    if len(hist) != sum(steps) or not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"{len(hist)} steps, losses {losses}, grad "
+                             f"norms {norms}")
     tok = 0
     for i, h in enumerate(hist):
         ph = plan.realized_phase_at(tok, seq)
@@ -623,18 +795,8 @@ def phase4(cfg, RN, FA):
                                  f"plan {want_lr}, {ph.batch_size}, "
                                  f"{ph.index}")
         tok += ph.batch_size * seq
-    drop = losses[0] - float(np.mean(losses[-3:]))
-    if drop < 0.5:
-        raise AssertionError(f"loss fell {drop:.3f} < 0.5 nats: {losses}")
-    L, mb = cfg.n_layers, sum(n * m for n, m in zip(steps, micro))
-    want = {"rmsnorm_fwd": (4 * L + 1) * mb, "rmsnorm_bwd": (2 * L + 1) * mb,
-            "flash_fwd": 2 * L * mb, "flash_bwd_dq": L * mb,
-            "flash_bwd_dkv": L * mb}
-    if launches != want:
-        raise AssertionError(f"launches {launches}, remat gives {want}")
-
     # wall per step at each batch size; the first chunk (cuBLAS set-up,
-    # the allocator's first growth) is left out of B=8's
+    # the allocator's first growth) is left out of the first batch size's
     stats = {}
     for b in plan.batch_sizes():
         timed_chunks = [(n, dt) for i, (bb, n, dt) in enumerate(chunks)
@@ -644,29 +806,63 @@ def phase4(cfg, RN, FA):
         stats[str(b)] = {"wall_s_per_step": sec / n,
                          "tok_per_s": b * seq * n / sec,
                          "steps_timed": n}
+    mb = sum(n * m for n, m in zip(steps, micro))
     return tr, {"steps": len(hist), "plan_steps": steps,
                 "batch_sizes": plan.batch_sizes(), "micro_batches": micro,
                 "wall_s": wall, "tokens": hist[-1]["tokens"],
                 "tok_per_s": hist[-1]["tokens"] / wall,
                 "per_batch_size": stats, "peak_mem_gb": peak,
-                "loss_first": losses[0], "loss_last3": float(
-                    np.mean(losses[-3:])), "losses": losses,
+                "loss_first": losses[0], "loss_last": losses[-1],
+                "loss_last3": float(np.mean(losses[-3:])),
+                "losses": losses, "grad_norms": norms,
                 "lrs": [h["lr"] for h in hist], "launches": launches,
-                "chunks": chunks,
-                "launches_per_micro_batch": {k: v // mb for k, v in
-                                             want.items()},
-                "micro_batches_run": mb}
+                "chunks": chunks, "micro_batches_run": mb}
 
 
-def profile_train(tr, step_s: float):
+def check_launches(out, want_per_micro_batch):
+    """The counts of the run must be exactly ``want`` per micro-batch."""
+    mb = out["micro_batches_run"]
+    want = {k: v * mb for k, v in want_per_micro_batch.items()}
+    if out["launches"] != want:
+        raise AssertionError(f"launches {out['launches']}, remat gives "
+                             f"{want}")
+    out["launches_per_micro_batch"] = want_per_micro_batch
+
+
+def phase4(cfg, RN, FA):
+    from repro_torch.configs import (OptimizerConfig, RunConfig,
+                                     ScheduleConfig)
+    run = RunConfig(model=cfg,
+                    schedule=ScheduleConfig(kind="seesaw", alpha=2.0,
+                                            n_cuts=2),
+                    optimizer=OptimizerConfig(kind="adamw", beta1=0.9,
+                                              beta2=0.95, grad_clip=1.0),
+                    seq_len=1024, global_batch_size=8,
+                    total_tokens=24 * 8 * 1024, dtype="bfloat16")
+    tr, out = run_ramp(run, counters(RN, FA), fuse_steps=4,
+                       max_device_batch=8,
+                       want=([8, 16, 32], [16, 2, 1], [1, 2, 4]))
+    losses = out["losses"]
+    drop = losses[0] - float(np.mean(losses[-3:]))
+    if drop < 0.5:
+        raise AssertionError(f"loss fell {drop:.3f} < 0.5 nats: {losses}")
+    L = cfg.n_layers
+    check_launches(out, {"rmsnorm_fwd": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
+                         "flash_fwd": 2 * L, "flash_bwd_dq": L,
+                         "flash_bwd_dkv": L})
+    return tr, out
+
+
+def profile_train(tr, step_s: float, batch: int, name: str):
     """Where the time goes: torch.profiler over one more optimizer step at
-    B=8 on the trained model.  Device time by kernel; the busy share is
-    that sum over the window's wall time, which holds the profiler's own
-    host cost, and ``busy_share_of_step`` the same sum over ``step_s``,
-    phase 4's unprofiled wall time of a B=8 step."""
+    the first batch size of the ramp on the trained model.  Device time
+    by kernel; the busy share is that sum over the window's wall time,
+    which holds the profiler's own host cost, and ``busy_share_of_step``
+    the same sum over ``step_s``, the ramp's unprofiled wall time of a
+    step at that batch size.  The table goes to ``chiprun_out/<name>``."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import MarkovLM
-    raw = MarkovLM(2048, seed=1).sample(0, 8, tr.cfg.seq_len)
+    raw = MarkovLM(2048, seed=1).sample(0, batch, tr.cfg.seq_len)
     batch = {k: torch.from_numpy(v.astype(np.int64))[None].cuda()
              for k, v in raw.items()}
     st = tr.state
@@ -690,7 +886,7 @@ def profile_train(tr, step_s: float):
                      reverse=True)
     busy_us = sum(k[0] for k in kernels)
     host_launches = sum(e.count for e in avgs if e.key == "cudaLaunchKernel")
-    with open(os.path.join(OUT_DIR, "profile_train.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, name), "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=50))
     return {"wall_us": wall_us, "device_busy_us": busy_us,
             "device_busy_share": busy_us / wall_us,
@@ -746,6 +942,79 @@ def phase5(cfg, R, O):
 
 
 # --------------------------------------------------------------------- #
+# phases 6 and 7: Mamba-2 training
+# --------------------------------------------------------------------- #
+
+def mamba2_counters(RN, FA, SSD):
+    """The launch counters phase 6 reads: Mamba-2's kernels, and the flash
+    kernels, which it must not launch."""
+    return {"ssd_chunk": (SSD, "launches"),
+            "rmsnorm_fwd": (RN, "launches"),
+            "rmsnorm_bwd": (RN, "bwd_launches"),
+            "flash_fwd": (FA, "launches"),
+            "flash_bwd_dq": (FA, "dq_launches"),
+            "flash_bwd_dkv": (FA, "dkv_launches")}
+
+
+def phase6(cfg, RN, FA, SSD):
+    from repro_torch.configs import (OptimizerConfig, RunConfig,
+                                     ScheduleConfig)
+    # base LR 8e-4: five times GPT-3's 2.7B rate, the Mamba recipe
+    run = RunConfig(model=cfg,
+                    schedule=ScheduleConfig(kind="seesaw", base_lr=8e-4,
+                                            alpha=2.0, n_cuts=2),
+                    optimizer=OptimizerConfig(kind="adamw", beta1=0.9,
+                                              beta2=0.95, grad_clip=1.0),
+                    seq_len=2048, global_batch_size=4,
+                    total_tokens=11 * 4 * 2048, dtype="bfloat16")
+    tr, out = run_ramp(run, mamba2_counters(RN, FA, SSD), fuse_steps=1,
+                       max_device_batch=4,
+                       want=([4, 8, 16], [7, 1, 1], [1, 2, 4]))
+    if not out["loss_last"] < out["loss_first"]:
+        raise AssertionError(f"last loss {out['loss_last']} not below the "
+                             f"first {out['loss_first']}")
+    L = cfg.n_layers
+    check_launches(out, {"ssd_chunk": 2 * L, "rmsnorm_fwd": 4 * L + 1,
+                         "rmsnorm_bwd": 2 * L + 1, "flash_fwd": 0,
+                         "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    out["param_count"] = sum(p.numel() for p in tr.state.model.parameters())
+    return tr, out
+
+
+def phase7(R):
+    """The reduced mamba2 (2 layers, d=256, 8 heads, d_state 16, chunk 32)
+    in float32 on the card and on the CPU with the same weights: the loss
+    and every grad, S=200 (a ragged last chunk)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovLM
+    small = get_config("mamba2-2.7b").reduced()
+    cpu = R.init_model(small, seed=4, dtype=torch.float32, device="cpu",
+                       trainable=True)
+    card = R.init_model(small, seed=4, dtype=torch.float32, device="cpu",
+                        trainable=True).cuda()
+    raw = MarkovLM(small.vocab_size, seed=3).sample(0, 2, 200)
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        batch = {k: torch.from_numpy(v.astype(np.int64)).to(dev)
+                 for k, v in raw.items()}
+        loss, _ = R.loss_fn(model, small, batch, dtype=torch.float32)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+    loss_diff = abs(out["cpu"][0] - out["cuda"][0])
+    if loss_diff > 1e-4:
+        raise AssertionError(f"loss differs by {loss_diff:.3g}")
+    grad_rel = 0.0
+    for (name, _), a, b in zip(cpu.named_parameters(), out["cpu"][1],
+                               out["cuda"][1]):
+        rel = float((a - b).abs().max() / a.abs().max().clamp(min=1e-30))
+        if rel > 1e-3:
+            raise AssertionError(f"grad of {name}: {rel:.3g} of its max")
+        grad_rel = max(grad_rel, rel)
+    return {"loss_cpu": out["cpu"][0], "loss_cuda": out["cuda"][0],
+            "loss_abs_diff": loss_diff, "grad_max_rel_diff": grad_rel}
+
+
+# --------------------------------------------------------------------- #
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -759,6 +1028,7 @@ def main() -> int:
     from repro_torch.kernels import paged as PG
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd as SSD
     from repro_torch.models import registry as R
     from repro_torch.models import transformer
     from repro_torch.optim import optimizers as O
@@ -800,6 +1070,14 @@ def main() -> int:
     record["phase1b"] = {"errors": bwd_errors, "times": bwd_times,
                          "s": time.perf_counter() - t}
     log(f"phase 1b: {record['phase1b']['s']:.1f} s {bwd_times}")
+    t = time.perf_counter()
+    ssd_errors, ssd_f64, inputs = phase1c(SSD, RN, ref)
+    ssd_times = measure_ssd(SSD, RN, ref, inputs)
+    del inputs
+    torch.cuda.empty_cache()
+    record["phase1c"] = {"errors": ssd_errors, "vs_float64": ssd_f64,
+                         "times": ssd_times, "s": time.perf_counter() - t}
+    log(f"phase 1c: {record['phase1c']['s']:.1f} s {ssd_times}")
 
     cfg = get_config("seesaw-150m")
     t = time.perf_counter()
@@ -816,7 +1094,8 @@ def main() -> int:
     tr, record["train"] = phase4(cfg, RN, FA)
     log(f"phase 4: {time.perf_counter() - t:.1f} s {record['train']}")
     record["train_profile"] = profile_train(
-        tr, record["train"]["per_batch_size"]["8"]["wall_s_per_step"])
+        tr, record["train"]["per_batch_size"]["8"]["wall_s_per_step"], 8,
+        "profile_train.txt")
     log(f"train profile: {record['train_profile']}")
     del tr
     torch.cuda.empty_cache()
@@ -824,10 +1103,27 @@ def main() -> int:
     record["train_card_vs_cpu"] = phase5(cfg, R, O)
     log(f"phase 5: {time.perf_counter() - t:.1f} s "
         f"{record['train_card_vs_cpu']}")
+    torch.cuda.empty_cache()
+    mcfg = get_config("mamba2-2.7b")
+    t = time.perf_counter()
+    tr, record["mamba2"] = phase6(mcfg, RN, FA, SSD)
+    record["mamba2"]["s"] = time.perf_counter() - t
+    log(f"phase 6: {record['mamba2']['s']:.1f} s {record['mamba2']}")
+    record["mamba2_profile"] = profile_train(
+        tr, record["mamba2"]["per_batch_size"]["4"]["wall_s_per_step"], 4,
+        "profile_mamba2.txt")
+    log(f"mamba2 profile: {record['mamba2_profile']}")
+    del tr
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    record["mamba2_card_vs_cpu"] = phase7(R)
+    log(f"phase 7: {time.perf_counter() - t:.1f} s "
+        f"{record['mamba2_card_vs_cpu']}")
 
     launches = record["engine"]["launches"]
     train_launches = record["train"]["launches"]
-    err_of = {(n, tag, dn): e for n, tag, dn, e in errors + bwd_errors}
+    err_of = {(n, tag, dn): e
+              for n, tag, dn, e in errors + bwd_errors + ssd_errors}
     kernels = []
     for name, mod, src, replaces, key, tag in (
             ("rmsnorm_fwd", "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
@@ -883,6 +1179,34 @@ def main() -> int:
             entry["plain_and_library_compute"] = "dq, dk and dv together"
             entry["flash_bwd_ms"] = bwd_times["flash_bwd"]["ms"]
         kernels.append(entry)
+    tm = ssd_times["ssd_chunk"]
+    kernels.append({
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd.py:28",
+        "launches": record["mamba2"]["launches"]["ssd_chunk"],
+        "max_abs_err": err_of[("ssd_chunk", "2.7b", "bfloat16")],
+        "max_abs_err_f32": err_of[("ssd_chunk", "2.7b", "float32")],
+        "max_abs_err_small_decay": err_of[("ssd_chunk", "ragged",
+                                           "bfloat16")],
+        "vs_float64": [r for r in ssd_f64 if r["shape"] == "2.7b"],
+        "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+        "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+        "library_ms": None, "library_note": tm["library_note"],
+        "host_us": tm["host_us"], "shape": tm["shape"]})
+    for k in kernels:
+        if k["name"] in ("rmsnorm_fwd", "rmsnorm_bwd"):
+            k["mamba2_launches"] = record["mamba2"]["launches"][k["name"]]
+            for d in (2560, 5120):
+                tm = ssd_times[f"{k['name']}/mamba2-d{d}"]
+                k[f"mamba2_d{d}"] = {
+                    "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+                    "library_ms": tm["library_ms"],
+                    "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+                    "max_abs_err": err_of[(k["name"], f"mamba2-d{d}",
+                                           "bfloat16")],
+                    "max_abs_err_f32": err_of[(k["name"], f"mamba2-d{d}",
+                                               "float32")]}
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -892,10 +1216,14 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"engine": record["engine"],
                       "card_vs_cpu": record["card_vs_cpu"]}))
-    train = {k: v for k, v in record["train"].items()
-             if k not in ("losses", "lrs", "chunks")}
+    long = ("losses", "lrs", "chunks", "grad_norms")
+    train = {k: v for k, v in record["train"].items() if k not in long}
     print(json.dumps({"train": train, "profile": record["train_profile"],
                       "card_vs_cpu": record["train_card_vs_cpu"]}))
+    mamba2 = {k: v for k, v in record["mamba2"].items() if k not in long}
+    print(json.dumps({"mamba2": mamba2,
+                      "profile": record["mamba2_profile"],
+                      "card_vs_cpu": record["mamba2_card_vs_cpu"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

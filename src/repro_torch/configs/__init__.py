@@ -1,11 +1,11 @@
 """Config registry: ``get_config('<arch-id>')`` for the architectures the
-port serves so far — the paper's 150M/300M/600M presets and
-``llama3.2-3b`` (for its GQA shapes)."""
+port runs so far — the paper's 150M/300M/600M presets, ``llama3.2-3b``
+(for its GQA shapes) and ``mamba2-2.7b`` (the SSM family, trained)."""
 from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import llama3_2_3b, seesaw_paper
+from repro_torch.configs import llama3_2_3b, mamba2_2_7b, seesaw_paper
 from repro_torch.configs.base import (HybridConfig, ModelConfig, MoEConfig,
                                       OptimizerConfig, RunConfig,
                                       ScheduleConfig, SSMConfig)
@@ -15,6 +15,7 @@ _CONFIGS = {
     "seesaw-300m": seesaw_paper.SEESAW_300M,
     "seesaw-600m": seesaw_paper.SEESAW_600M,
     "llama3.2-3b": llama3_2_3b.CONFIG,
+    "mamba2-2.7b": mamba2_2_7b.CONFIG,
 }
 
 

@@ -9,8 +9,10 @@ the device of the input picks the code.
 - A tensor on a CUDA device runs the hand-written kernel, or the call
   raises (no nvcc, a failed build, an unsupported shape).  ``rmsnorm``
   and ``attention`` are ``torch.autograd.Function``s there, whose
-  backward is the backward kernel.  Nothing falls back to the plain
-  version or to the CPU.
+  backward is the backward kernel; ``ssd``'s backward recomputes
+  through the plain chunked scan, as the reference's does (it has no
+  backward kernel).  Nothing falls back to the plain version or to the
+  CPU.
 - Any other device raises.
 
 The ops take the models' layouts (attention: (B, S, H, hd)); the kernels
@@ -24,6 +26,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged as _paged
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd as _ssd
 
 
 def _on_card(t: torch.Tensor, op: str) -> bool:
@@ -71,3 +74,15 @@ def paged_decode_attention(q, k, v, lengths):
     else:
         out = _ref.ragged_decode_ref(qt, kt, vt, lengths)
     return out[:, None]
+
+
+def ssd(xh, dt, A, Bm, Cm, D, *, chunk: int):
+    """The Mamba-2 SSD scan: xh (B, S, H, P), dt (B, S, H) float32
+    (post-softplus), A (H,) float32, Bm/Cm (B, S, N) in xh's dtype, D
+    (H,) float32 -> (y (B, S, H, P) in xh's dtype, h_final (B, H, P, N)
+    float32).  On the card the chunk kernel's forward with the plain
+    recompute backward; on the CPU the plain chunked scan."""
+    if _on_card(xh, "ssd"):
+        return _ssd.ssd(xh, dt, A, Bm, Cm, D, chunk=chunk)
+    from repro_torch.models.mamba2 import ssd_chunked    # import cycle
+    return ssd_chunked(xh, dt, A, Bm, Cm, D, chunk=chunk)

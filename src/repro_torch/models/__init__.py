@@ -1,2 +1,2 @@
-"""Model families of the port: the dense transformer so far
+"""Model families of the port: the dense transformer and Mamba-2
 (``models.registry`` dispatches by family)."""

@@ -2,23 +2,24 @@
 in PyTorch).
 
 ``supports_paged`` and ``serving_mode`` are the reference's rules,
-decided from the config alone.  The port runs the dense family so far;
-every other family raises ``NotImplementedError`` naming the slice that
-brings it.
+decided from the config alone.  The port trains and serves the dense
+family and trains the ssm family (Mamba-2); serving it, and every other
+family, raises ``NotImplementedError`` naming the slice that brings it.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer
 
 _TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
+_FAMILIES = {"dense": transformer, "ssm": mamba2}
+STATE_SERVING_SLICE = "the Mamba-2 state-serving slice"
 
 _LATER = {
     "moe": "the other-families slice (MoE)",
     "vlm": "the other-families slice (VLM prefix)",
-    "ssm": "the Mamba-2 slice",
     "hybrid": "the other-families slice (RG-LRU hybrid)",
     "encdec": "the other-families slice (enc-dec)",
     "audio": "the other-families slice (enc-dec audio)",
@@ -26,16 +27,16 @@ _LATER = {
 
 
 def family(cfg: ModelConfig):
-    if cfg.arch_type == "dense":
-        return transformer
+    fam = _FAMILIES.get(cfg.arch_type)
+    if fam is not None:
+        return fam
     raise NotImplementedError(
         f"arch_type {cfg.arch_type!r} is not ported yet; it comes with "
         f"{_LATER.get(cfg.arch_type, 'a later slice')}")
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, dtype=torch.bfloat16,
-               device="cuda", trainable: bool = False
-               ) -> transformer.Transformer:
+               device="cuda", trainable: bool = False):
     """The model at the reference's init rules, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``.  (The
     reference draws from ``jax.random``, so the numbers differ; to hold
@@ -45,7 +46,7 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, dtype=torch.bfloat16,
     weights) and pick the compute dtype in ``loss_fn``."""
     fam = family(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = fam.Transformer(cfg, dtype=dtype, device=device)
+    model = fam.Model(cfg, dtype=dtype, device=device)
     return model.init_weights(gen).requires_grad_(trainable)
 
 
@@ -77,6 +78,10 @@ def prefill_ragged(model, cfg: ModelConfig, tokens, lengths):
     """Bucketed prefill (full-attention transformer families only).
     Returns (logits at each request's last real token, per-layer k, v
     (L, B, S, Hkv, hd)) for the page pool to scatter."""
+    if cfg.arch_type == "ssm":
+        raise NotImplementedError(
+            f"Mamba-2 prefill fills a recurrent state, not pages; it "
+            f"comes with {STATE_SERVING_SLICE}")
     if not supports_paged(cfg):
         raise NotImplementedError(
             f"ragged prefill needs full attention; {cfg.arch_type} with "

@@ -81,6 +81,9 @@ class Transformer(nn.Module):
         return self
 
 
+Model = Transformer
+
+
 # --------------------------------------------------------------------- #
 # training forward and loss
 # --------------------------------------------------------------------- #

@@ -1,6 +1,6 @@
 """The paged KV cache for serving (``repro.serving.cache`` in PyTorch):
 the reference's ``"attn"`` pool kind.  Its ``"state"`` kind, one page of
-recurrent state per request, comes with the Mamba-2 slice.
+recurrent state per request, comes with the Mamba-2 state-serving slice.
 
 One preallocated pool per model holds every request's K/V in fixed-size
 pages, head-interleaved as in the reference:

@@ -99,7 +99,7 @@ class ServingEngine:
                 f"with a later slice")
         if self.mode == "state":
             raise NotImplementedError(
-                "state-mode serving comes with the Mamba-2 slice")
+                f"state-mode serving comes with {R.STATE_SERVING_SLICE}")
         if model.dtype != dtype:
             raise ValueError(f"model holds {model.dtype} weights; build it "
                              f"with dtype={dtype} to serve in {dtype}")

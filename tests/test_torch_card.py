@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels on the card, each against its plain
-version, and the serving engine and one training step on the card
-against the same on the CPU.
+version, and the serving engine and one training step of the dense
+model and of Mamba-2 on the card against the same on the CPU.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no JAX, so it runs on the card's machine as it is:
@@ -8,7 +8,11 @@ imports no JAX, so it runs on the card's machine as it is:
     python -m pytest -m gpu tests/test_torch_card.py
 
 Tolerances: 2e-5 in float32 (sums in another order), 2e-2 in bfloat16
-(one rounding of the output), TF32 off.
+(one rounding of the output), TF32 off.  The SSD chunk kernel at
+mamba2-2.7b's decay (A down to -80, Q = 256: cum reaches ~-2000 within
+a chunk, where float32 sums of it differ by ~1e-4 relative) is held to
+a float64 evaluation of its plain version instead: its error must not
+exceed twice the float32 plain version's.
 """
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ from repro_torch.kernels import backend as KB
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as RN
+from repro_torch.kernels import ssd as SSD
 from repro_torch.models import registry as R
 from repro_torch.serving import GenerationRequest, ServingEngine
 
@@ -45,7 +50,8 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8, 1024), (1, 1000, 1024), (37, 64),
-                                   (3, 3072)])
+                                   (3, 3072), (2, 512, 2560),
+                                   (2, 512, 5120)])
 def test_rmsnorm_kernel(cuda, shape, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
@@ -102,7 +108,8 @@ def test_ragged_decode_kernel(cuda, B, H, Hkv, Skv, hd, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8, 1024, 1024), (1000, 3072), (37, 64),
-                                   (3, 5, 256)])
+                                   (3, 5, 256), (4, 2048, 2560),
+                                   (4, 2048, 5120)])
 def test_rmsnorm_bwd_kernel(cuda, shape, dtype):
     g_ = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(shape, generator=g_, device=cuda).to(dtype)
@@ -242,3 +249,120 @@ def test_engine_on_card_matches_cpu(cuda):
     assert outs[0].keys() == outs[1].keys()
     for rid in outs[0]:
         np.testing.assert_array_equal(outs[0][rid], outs[1][rid])
+
+
+def _ssd_inputs(cuda, B, S, H, P, N, dtype, seed, mamba_decay):
+    """x, B, C as views of one (B, S, H·P + 2N) tensor, as the mixer
+    hands them to the kernel.  ``mamba_decay``: mamba2-2.7b's init
+    (A = -(1..H), dt around its log-spaced [1e-3, 1e-1]); else the
+    reference's kernel tests' small decays."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    di = H * P
+    xbc = torch.randn(B, S, di + 2 * N, generator=g, device=cuda).to(dtype)
+    xh = xbc[..., :di].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., di:di + N], xbc[..., di + N:]
+    if mamba_decay:
+        lo, hi = torch.log(torch.tensor(1e-3)), torch.log(torch.tensor(1e-1))
+        dt0 = torch.exp(torch.linspace(float(lo), float(hi), H,
+                                       device=cuda))
+        bias = dt0 + torch.log(-torch.expm1(-dt0))
+        dt = torch.nn.functional.softplus(
+            bias + 0.5 * torch.randn(B, S, H, generator=g, device=cuda))
+        A = -torch.arange(1, H + 1, dtype=torch.float32, device=cuda)
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, S, H, generator=g, device=cuda))
+        A = -torch.exp(0.3 * torch.randn(H, generator=g, device=cuda))
+    return xh, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,P,N,Q", [
+    (2, 96, 4, 32, 16, 32),     # tests/test_kernels.py::TestSSD
+    (1, 128, 2, 64, 32, 64),
+    (2, 100, 3, 16, 8, 32),     # ragged S
+    (2, 64, 8, 64, 16, 32),     # the reduced mamba2
+])
+def test_ssd_chunk_kernel(cuda, B, S, H, P, N, Q, dtype):
+    xh, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, P, N, dtype, 8, False)
+    got = SSD.ssd_chunk(xh, dt, A, Bm, Cm, Q)
+    torch.cuda.synchronize()
+    want = ref.ssd_chunk_ref(xh, dt, A, Bm, Cm, Q)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,H,mamba_decay", [
+    (2048, 80, True), (1000, 80, True),     # mamba2-2.7b's heads and decay
+    (300, 5, False),            # its head shapes, ragged, cum to ~-200
+])
+def test_ssd_chunk_kernel_at_full_chunk(cuda, S, H, mamba_decay, dtype):
+    """mamba2-2.7b's chunk (P=64, N=128, Q=256), where |cum| grows to the
+    hundreds or thousands: the kernel's error against a float64
+    evaluation of the plain version is at most twice the float32 plain
+    version's."""
+    xh, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, S, H, 64, 128, dtype, 9,
+                                    mamba_decay)
+    got = SSD.ssd_chunk(xh, dt, A, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    plain = ref.ssd_chunk_ref(xh, dt, A, Bm, Cm, 256)
+    exact = ref.ssd_chunk_ref(*(t.double() for t in (xh, dt, A, Bm, Cm)),
+                              256)
+    for a, p, e in zip(got, plain, exact):
+        assert torch.isfinite(a).all()
+        err, perr = (float((t.double() - e).abs().max()) for t in (a, p))
+        assert err <= 2 * perr + 1e-12, (err, perr)
+
+
+def test_ssd_on_card_matches_plain_scan(cuda):
+    """backend.ssd on CUDA tensors: the kernel forward (counted) within
+    2e-5 of the plain scan, and grads equal to the plain scan's (the
+    backward recomputes through it)."""
+    xh, dt, A, Bm, Cm = _ssd_inputs(cuda, 2, 100, 3, 16, 8, torch.float32,
+                                    10, False)
+    D = torch.full((3,), 0.5, device=cuda)
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (xh, dt, A, Bm, Cm, D)]
+    before = SSD.launches
+    y, h = KB.ssd(*leaves, chunk=32)
+    assert SSD.launches == before + 1
+    from repro_torch.models.mamba2 import ssd_chunked
+    leaves2 = [t.detach().clone().requires_grad_()
+               for t in (xh, dt, A, Bm, Cm, D)]
+    wy, wh = ssd_chunked(*leaves2, chunk=32)
+    _close(y, wy, torch.float32)
+    _close(h, wh, torch.float32)
+    gy = torch.randn_like(y)
+    got = torch.autograd.grad((y * gy).sum() + h.sum(), leaves)
+    want = torch.autograd.grad((wy * gy).sum() + wh.sum(), leaves2)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+def test_mamba2_train_step_on_card_matches_cpu(cuda):
+    """One reduced mamba2 loss and its grads on the card (kernels) against
+    the CPU (plain versions), float32, same weights: loss within 1e-4,
+    grads within 1e-3 of each tensor's largest |grad|; the chunk kernel
+    runs twice per layer under remat."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-2.7b").reduced()
+    cpu = R.init_model(cfg, seed=0, dtype=torch.float32, device="cpu",
+                       trainable=True)
+    card = R.init_model(cfg, seed=0, dtype=torch.float32, device="cpu",
+                        trainable=True).to(cuda)
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 81))).long()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    before = SSD.launches
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        b = {n: t.to(dev) for n, t in batch.items()}
+        loss, _ = R.loss_fn(model, cfg, b, z_loss=1e-4, dtype=torch.float32)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+    assert SSD.launches == before + 2 * cfg.n_layers
+    assert abs(out["cpu"][0] - out["cuda"][0]) < 1e-4
+    for a, b in zip(out["cpu"][1], out["cuda"][1]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max())
