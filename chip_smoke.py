@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels, check them, serve seesaw-150m and train
-it with a Seesaw batch ramp, and train mamba2-2.7b with a Seesaw ramp on
-one NVIDIA card.
+it with a Seesaw batch ramp, train mamba2-2.7b with a Seesaw ramp, and
+run the kernel benchmark on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -21,6 +21,15 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
   events, L2 flushed before every launch and the host's enqueue hidden
   behind a device spin (``Timer``), at the serving path's shapes in
   bfloat16.
+- Phase 1d, the streaming normalize of the kernel benchmark's overlap
+  probe (``kernels/overlap.py``, bulk asynchronous copies through a
+  ring of ``depth`` shared-memory stages) against its plain version in
+  float32 (2e-5): at 8192 x 512 at every (block_rows, depth) of the
+  benchmark's sweep that fits the card's shared memory, and at edge
+  shapes (fewer row-blocks than SMs, more depth than row-blocks per SM,
+  d = 256, 1028 and 4, depth 3 and 16).  Then, for what the kernel's
+  gap to its bound is made of, two reference times with the same timer:
+  a device copy of the same 8192 x 512 and a kernel touching 4 bytes.
 - Phase 2, the engine: ``get_config("seesaw-150m")`` unreduced, random
   weights from a seed, bfloat16, 8 decode slots, page 16, max_len 1024;
   16 seeded requests with prompts of 64-768 tokens and 32-128 new
@@ -91,11 +100,24 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
   same weights: loss within 1e-4, grads within 1e-3 of each tensor's
   largest |grad|.
 
-Prints the card's name and power limit, one ``kernels`` JSON line, one
-``engine`` and one ``train`` JSON line, one ``mamba2`` JSON line, and
-last ``{"ok": true,
-"device": {...}}``; the full record goes to
-``chiprun_out/chip_smoke.json``.  Any failed check
+- Phase 8, the kernel benchmark: ``repro_torch.bench.kernels`` at full
+  size through its ``main`` (the reference's attention, RMSNorm and SSD
+  sweeps in float32, kernel and plain, forward and forward+backward; the
+  overlap profile at 8192 x 512 over block rows 1-32 and depth 1-8),
+  written to ``chiprun_out/bench_kernels.json``.  Every overlap config
+  run must be within 2e-5 of the plain version; every sweep row must
+  hold its four times, and its outputs and grads must be within 2e-5
+  abs/rel of the plain version's on the same inputs (RMSNorm's dscale,
+  a sum over every row, within 2e-5 of its terms' magnitude, as in
+  phase 1b); the seven kernels
+  on the benchmark's path
+  (RMSNorm forward and backward, flash forward, dq, dk/dv, the SSD
+  chunk, the overlap normalize) must each be launched in the run.
+
+Prints the card's name and power limit, one ``kernels`` JSON line (the
+eight kernels), one ``engine`` and one ``train`` JSON line, one
+``mamba2`` JSON line, and last ``{"ok": true, "device": {...}}``; the
+full record goes to ``chiprun_out/chip_smoke.json``.  Any failed check
 raises, so the script exits non-zero before the last line.  Without a
 CUDA device it exits with code 2 and prints no result.
 """
@@ -113,9 +135,10 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+from repro_torch.bench.timing import Timer, bound  # noqa: E402
+
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 DTYPES = (torch.float32, torch.bfloat16)
@@ -123,83 +146,6 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
-
-
-# --------------------------------------------------------------------- #
-# timing and bounds
-# --------------------------------------------------------------------- #
-
-class Timer:
-    """Device time of one call: CUDA events around each call, median of
-    ``iters``.  Before each call the queue is drained, a 64 MB write
-    leaves the 50 MB L2 cold,
-    as the bound assumes, and a device spin keeps the card busy while the
-    host enqueues the call, so the events bracket the call's kernels and
-    not the host's time to launch them.  The spin is sized from the
-    call's own host time (four times ``host_us`` plus 50 us), and each
-    call's enqueue time is measured: a timing counts only if the host
-    finished enqueuing within three quarters of the spin, and if fewer
-    than half do, the spin doubles and the timing is made again.
-
-    ``host_us`` is the mean wall time of one call with the queue never
-    drained in between: what a decode step pays per call when the card
-    waits for the host."""
-
-    def __init__(self, iters: int = 30, warmup: int = 3):
-        self.iters, self.warmup = iters, warmup
-        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-        # clock cycles of torch.cuda._sleep per microsecond
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(1_000_000)
-        start.record()
-        torch.cuda._sleep(4_000_000)
-        end.record()
-        torch.cuda.synchronize()
-        self.cycles_per_us = 4_000_000 / (start.elapsed_time(end) * 1e3)
-
-    def __call__(self, fn) -> float:
-        for _ in range(self.warmup):
-            fn()
-        spin_us = 4 * self.host_us(fn, calls=20) + 50
-        for _ in range(6):
-            ev = [(torch.cuda.Event(enable_timing=True),
-                   torch.cuda.Event(enable_timing=True))
-                  for _ in range(self.iters)]
-            enqueue_us = []
-            for start, end in ev:
-                torch.cuda.synchronize()        # an empty queue each time
-                self.flush.zero_()
-                torch.cuda._sleep(int(spin_us * self.cycles_per_us))
-                t = time.perf_counter()
-                start.record()
-                fn()
-                end.record()
-                enqueue_us.append((time.perf_counter() - t) * 1e6)
-            torch.cuda.synchronize()
-            on_time = [s.elapsed_time(e) for (s, e), u in zip(ev, enqueue_us)
-                       if u < 0.75 * spin_us]
-            if 2 * len(on_time) >= self.iters:
-                return float(np.median(on_time))
-            spin_us *= 2
-        raise RuntimeError("timer: the host never got ahead of the device")
-
-    def host_us(self, fn, calls: int = 200) -> float:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        t = time.perf_counter() - t
-        torch.cuda.synchronize()
-        return t / calls * 1e6
-
-
-def bound(n_bytes: float, n_ops: float, dtype) -> dict:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "ops": n_ops}
 
 
 def max_err(got, want, dtype) -> float:
@@ -585,6 +531,116 @@ def measure_ssd(SSD, RN, ref, inputs):
               f"mixer, N={N}, Q={Q}",
         **bound(n_bytes, n_ops, bf))
     return rows
+
+
+# --------------------------------------------------------------------- #
+# phase 1d: the overlap kernel against its plain version
+# --------------------------------------------------------------------- #
+
+def phase1d(OV, ref):
+    """The streaming normalize against ``overlap_norm_ref`` in float32
+    (2e-5): at the benchmark's 8192 x 512 at every (block_rows, depth)
+    of its sweep whose stages fit the card's shared memory, and at edge
+    shapes.  Returns [(rows, d, block_rows, depth, max |err|)], the
+    configs over budget as (rows, d, block_rows, depth, None), and the
+    times of a device copy of the 8192 x 512 input (``copy_ms``) and of
+    a kernel touching 4 bytes (``launch_floor_ms``)."""
+    from repro_torch.bench.kernels import OVERLAP
+    g = torch.Generator(device="cuda").manual_seed(30)
+    rows, d, blocks, depths = OVERLAP[False]
+    cases = [(rows, d, b, k) for b in blocks for k in depths]
+    cases += [
+        (64, 512, 16, 1),       # 4 row-blocks: fewer than SMs
+        (64, 512, 4, 8),        # 16 row-blocks, deeper than each one
+        (4096, 256, 16, 4),     # 256 row-blocks: ~2 a block, depth 4
+        (4096, 256, 1, 2), (4096, 256, 8, 8),               # d = 256
+        (8192, 512, 1, 16),     # deeper than the 8 stores waited on
+        (264, 1028, 2, 3),      # d not a power of 2, odd depth
+        (1000, 4, 8, 2)]        # 16-byte rows, one vector each
+    budget = OV.smem_budget("cuda")
+    out, xs = [], {}
+    for n, dd, b, k in cases:
+        if OV.smem_bytes(b, dd, k) > budget:
+            out.append((n, dd, b, k, None))
+            continue
+        if (n, dd) not in xs:
+            xs[(n, dd)] = torch.randn(n, dd, generator=g, device="cuda")
+        x = xs[(n, dd)]
+        got = OV.overlap_norm(x, block_rows=b, depth=k)
+        torch.cuda.synchronize()
+        out.append((n, dd, b, k,
+                    max_err(got, ref.overlap_norm_ref(x), torch.float32)))
+    for n, dd, b, k, err in out:
+        log(f"phase 1d: overlap_norm {n}x{dd} block_rows {b} depth {k}: "
+            + ("over the shared memory budget" if err is None
+               else f"max |err| {err:.3g}"))
+    timer = Timer(iters=20)
+    x = xs[(rows, d)]
+    y = torch.empty_like(x)
+    probes = {"copy_ms": timer(lambda: y.copy_(x)),
+              "launch_floor_ms": timer(lambda: y[:1, :1].zero_())}
+    log(f"phase 1d: {probes}")
+    return out, probes
+
+
+# --------------------------------------------------------------------- #
+# phase 8: the kernel benchmark
+# --------------------------------------------------------------------- #
+
+def phase8(ctr):
+    """``python -m repro_torch.bench.kernels`` at full size through its
+    ``main``, writing ``chiprun_out/bench_kernels.json``.  The launch
+    counters ``ctr`` are set to 0 just before and read just after; each
+    must be > 0.  Every overlap config run must be within 2e-5 of the
+    plain version, at least one at depth 1 and one deeper; every sweep
+    row must hold its four times, and its outputs' and grads' errors
+    (``fwd_err``, ``grad_err``: |kernel - plain| / (1 + |plain|), for
+    RMSNorm's dscale / its terms' magnitude) must be within TOL[float32],
+    whose atol and rtol are equal."""
+    import contextlib
+    from repro_torch.bench import kernels as BK
+    for mod, attr in ctr.values():
+        setattr(mod, attr, 0)
+    with contextlib.redirect_stdout(sys.stderr):
+        res = BK.main(["--out", os.path.join(OUT_DIR, "bench_kernels.json")])
+    torch.cuda.synchronize()
+    launches = {name: getattr(mod, attr) for name, (mod, attr)
+                in ctr.items()}
+    for name, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"benchmark: kernel {name} never launched")
+    times = ("kernel_fwd_ms", "kernel_bwd_ms", "plain_fwd_ms",
+             "plain_bwd_ms")
+    tol = TOL[torch.float32]["atol"]
+    assert tol == TOL[torch.float32]["rtol"]
+    for section, cfgs in (("attention", BK.ATTENTION[False]),
+                          ("rmsnorm", BK.RMSNORM[False]),
+                          ("ssd", BK.SSD[False])):
+        if len(res[section]) != len(cfgs):
+            raise AssertionError(f"benchmark: {section} has "
+                                 f"{len(res[section])} rows of {len(cfgs)}")
+        for row in res[section]:
+            if not all(np.isfinite(row.get(t, np.nan)) for t in times):
+                raise AssertionError(f"benchmark: {section} row {row}")
+            errs = [row["fwd_err"], *row["grad_err"].values()]
+            if not all(e <= tol for e in errs):
+                raise AssertionError(f"benchmark: {section} row {row}: "
+                                     f"kernel vs plain over {tol}")
+    ov = res["overlap"]
+    ran = [c for c in ov["configs"] if "ms" in c]
+    bad = [c for c in ran if not c["max_err"] <= 2e-5]
+    if bad or not any(c["buffer_depth"] == 1 for c in ran) \
+            or not any(c["buffer_depth"] >= 2 for c in ran):
+        raise AssertionError(f"benchmark: overlap configs {ov['configs']}")
+    skipped = [c for c in ov["configs"] if "skipped" in c]
+    return {"launches": launches, "overlap": ov,
+            "skipped": [(c["block_rows"], c["buffer_depth"])
+                        for c in skipped],
+            "errors": {s: max(max(r["fwd_err"], *r["grad_err"].values())
+                              for r in res[s])
+                       for s in ("attention", "rmsnorm", "ssd")},
+            "rows": {s: len(res[s]) for s in ("attention", "rmsnorm",
+                                              "ssd")}}
 
 
 # --------------------------------------------------------------------- #
@@ -1021,10 +1077,10 @@ def main() -> int:
         log("chip_smoke: no CUDA device; the port's kernels run only on "
             "an NVIDIA card")
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import overlap as OV
     from repro_torch.kernels import paged as PG
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as RN
@@ -1078,6 +1134,12 @@ def main() -> int:
     record["phase1c"] = {"errors": ssd_errors, "vs_float64": ssd_f64,
                          "times": ssd_times, "s": time.perf_counter() - t}
     log(f"phase 1c: {record['phase1c']['s']:.1f} s {ssd_times}")
+    t = time.perf_counter()
+    ov_errors, ov_probes = phase1d(OV, ref)
+    record["phase1d"] = {"errors": ov_errors, "probes": ov_probes,
+                         "s": time.perf_counter() - t}
+    log(f"phase 1d: {record['phase1d']['s']:.1f} s")
+    OV.launches = 0         # phases 2-7 must not launch it
 
     cfg = get_config("seesaw-150m")
     t = time.perf_counter()
@@ -1119,6 +1181,17 @@ def main() -> int:
     record["mamba2_card_vs_cpu"] = phase7(R)
     log(f"phase 7: {time.perf_counter() - t:.1f} s "
         f"{record['mamba2_card_vs_cpu']}")
+    if OV.launches:
+        raise AssertionError(f"overlap_norm launched {OV.launches} times "
+                             f"on the serving and training paths")
+    t = time.perf_counter()
+    bench_ctr = dict(counters(RN, FA), ssd_chunk=(SSD, "launches"),
+                     overlap_norm=(OV, "launches"))
+    record["bench_kernels"] = phase8(bench_ctr)
+    record["bench_kernels"]["s"] = time.perf_counter() - t
+    log(f"phase 8: {record['bench_kernels']['s']:.1f} s "
+        f"{record['bench_kernels']['launches']} "
+        f"{record['bench_kernels']['errors']}")
 
     launches = record["engine"]["launches"]
     train_launches = record["train"]["launches"]
@@ -1207,6 +1280,26 @@ def main() -> int:
                                            "bfloat16")],
                     "max_abs_err_f32": err_of[(k["name"], f"mamba2-d{d}",
                                                "float32")]}
+    ov = record["bench_kernels"]["overlap"]
+    best = ov["best"]
+    kernels.append({
+        "name": "overlap_norm", "route": "cuda",
+        "source": "src/repro_torch/csrc/overlap.cu",
+        "replaces": "benchmarks/bench_kernels.py:187",
+        "launches": record["bench_kernels"]["launches"]["overlap_norm"],
+        "max_abs_err": max(c["max_err"] for c in ov["configs"]
+                           if "ms" in c),
+        "max_abs_err_f32": max(e for n, d, b, k, e in ov_errors
+                               if e is not None and (n, d) == (8192, 512)),
+        "ms": best["ms"], "depth1_ms": ov["depth1_ms"],
+        "block_rows": best["block_rows"], "depth": best["buffer_depth"],
+        "plain_ms": ov["plain_ms"], "bound_ms": ov["bound_ms"],
+        "bound_by": ov["bound_by"], "library_ms": ov["library_ms"],
+        **ov_probes,
+        "skipped_over_budget": record["bench_kernels"]["skipped"],
+        "serving_and_training_launches": 0,
+        "shape": f"x ({ov['rows']}, {ov['d']}) float32, the kernel "
+                 f"benchmark's path (phase 8)"})
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -4,7 +4,8 @@ Each computes the same function as its kernel, in float32, with the
 reference package's masks and clamps.  ``kernels.backend`` runs the
 forward ones for tensors on the CPU, where torch's autograd
 differentiates them; the backward ones (``*_bwd_ref``) write out the
-reference's backward kernels.  ``ssd_chunk_ref`` is the SSD chunk
+reference's backward kernels.  ``overlap_norm_ref`` is the kernel
+benchmark's overlap probe.  ``ssd_chunk_ref`` is the SSD chunk
 kernel's (the CPU runs the whole scan, ``models.mamba2.ssd_chunked``),
 and ``ssd_ref`` the SSD's sequential definition.  On the card they are what each kernel is
 held against.  They repeat the kernels' arithmetic and are no yardstick
@@ -26,6 +27,13 @@ def rmsnorm_ref(x, scale, eps: float = 1e-5):
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(x.dtype)
+
+
+def overlap_norm_ref(x, eps: float = 1e-5):
+    """The streaming normalize of the kernel benchmark's overlap probe:
+    x (rows, d) float32 -> x·rsqrt(mean(x²)+eps), float32 (the
+    reference's ``_overlap_kernel``, whose out-buffers are float32)."""
+    return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
 
 
 def rmsnorm_bwd_ref(x, scale, g, eps: float = 1e-5):

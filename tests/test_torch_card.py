@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels on the card, each against its plain
-version, and the serving engine and one training step of the dense
-model and of Mamba-2 on the card against the same on the CPU.
+version, the serving engine and one training step of the dense model
+and of Mamba-2 on the card against the same on the CPU, and a CI-sized
+run of the kernel benchmark.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no JAX, so it runs on the card's machine as it is:
@@ -21,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import backend as KB
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import overlap as OV
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels import ssd as SSD
@@ -366,3 +368,75 @@ def test_mamba2_train_step_on_card_matches_cpu(cuda):
     assert abs(out["cpu"][0] - out["cuda"][0]) < 1e-4
     for a, b in zip(out["cpu"][1], out["cuda"][1]):
         assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max())
+
+
+# --------------------------------------------------------------------- #
+# the kernel benchmark's overlap probe
+# --------------------------------------------------------------------- #
+
+OVERLAP_CASES = (
+    # the benchmark's 8192 x 512 sweep; the configs over the card's
+    # shared memory must raise
+    [(8192, 512, b, k) for b in (1, 2, 4, 8, 16, 32) for k in (1, 2, 4, 8)]
+    + [(64, 512, 16, 1), (64, 512, 4, 8),   # fewer row-blocks than SMs
+       (4096, 256, 16, 4),      # deeper than the row-blocks of a block
+       (4096, 256, 1, 2), (2048, 256, 4, 8),
+       (8192, 512, 1, 16),      # deeper than the stores waited on
+       (264, 1028, 2, 3), (1000, 4, 8, 2)])
+
+
+@pytest.mark.parametrize("rows,d,block_rows,depth", OVERLAP_CASES)
+def test_overlap_norm_kernel(cuda, rows, d, block_rows, depth):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(rows, d, generator=g, device=cuda)
+    if OV.smem_bytes(block_rows, d, depth) > OV.smem_budget(cuda):
+        with pytest.raises(ValueError, match="shared memory"):
+            OV.overlap_norm(x, block_rows=block_rows, depth=depth)
+        return
+    before = OV.launches
+    got = OV.overlap_norm(x, block_rows=block_rows, depth=depth)
+    torch.cuda.synchronize()
+    assert OV.launches == before + 1
+    _close(got, ref.overlap_norm_ref(x), torch.float32)
+
+
+def test_overlap_norm_raises_on_unsupported(cuda):
+    x = torch.randn(512, 64, device=cuda)
+    with pytest.raises(ValueError, match="multiple of block_rows"):
+        OV.overlap_norm(x[:500], block_rows=64, depth=2)
+    with pytest.raises(TypeError, match="float32"):
+        OV.overlap_norm(x.bfloat16(), block_rows=64, depth=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        OV.overlap_norm(x.t(), block_rows=16, depth=2)
+    with pytest.raises(ValueError, match="16-byte"):
+        OV.overlap_norm(x[:, :6].contiguous(), block_rows=64, depth=2)
+    with pytest.raises(ValueError, match="shared memory"):
+        OV.overlap_norm(x, block_rows=512, depth=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        OV.overlap_norm(x.cpu(), block_rows=64, depth=2)
+
+
+def test_bench_kernels_ci_on_card(cuda, tmp_path):
+    """``python -m repro_torch.bench.kernels --ci`` through its main: every
+    sweep row timed and within 2e-5 of the plain version, every overlap
+    config within 2e-5 of the plain version, and the kernels of the path
+    launched."""
+    from repro_torch.bench import kernels as BK
+    counts = (RN, "launches"), (RN, "bwd_launches"), (FA, "launches"), \
+        (FA, "dq_launches"), (FA, "dkv_launches"), (SSD, "launches"), \
+        (OV, "launches")
+    before = [getattr(m, a) for m, a in counts]
+    res = BK.main(["--ci", "--out", str(tmp_path / "bench.json")])
+    assert all(getattr(m, a) > b for (m, a), b in zip(counts, before))
+    for section in ("attention", "rmsnorm", "ssd"):
+        assert len(res[section]) == 1
+        row = res[section][0]
+        for key in ("kernel_fwd_ms", "kernel_bwd_ms", "plain_fwd_ms",
+                    "plain_bwd_ms"):
+            assert np.isfinite(row[key])
+        # outputs and grads within 2e-5 abs/rel of the plain version's
+        assert max(row["fwd_err"], *row["grad_err"].values()) <= 2e-5, row
+    ov = res["overlap"]
+    assert len(ov["configs"]) == 8 and all("ms" in c for c in ov["configs"])
+    assert max(c["max_err"] for c in ov["configs"]) <= 2e-5
+    assert ov["bound_by"] == "bytes" and ov["library_ms"] > 0
