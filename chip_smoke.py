@@ -9,13 +9,20 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
 ``src/repro_torch`` from this checkout.
 
 - Build: nvcc compiles ``src/repro_torch/csrc`` for sm_90a (one process
-  per source, in parallel) into ``build/kernels``.
+  per source, in parallel) into ``build/kernels``.  Then what was
+  compiled is read back: the bfloat16 flash forward and dk/dv kernels
+  (hd 64 and 128) must hold HMMA (tensor-core mma.sync) instructions in
+  their SASS (``cuobjdump -sass``) and their float32 forms none, and
+  ptxas must report no spills for the bfloat16 ones at hd 64; HMMA
+  counts, registers and spill bytes go into the ``kernels`` line.
 - Phase 1, kernels against their plain versions: RMSNorm forward, the
   causal GQA flash forward and the ragged paged decode, each on the
   serving path's shapes (seesaw-150m prefill at S=1024, decode at 8 slots
   over a 1024-token window with ragged lengths) and on llama3.2-3b's GQA
   heads (H=24, Hkv=8, hd=128), in float32 (tolerance 2e-5) and bfloat16
-  (2e-2), TF32 off.  Then each kernel (``ms``), its plain version
+  (2e-2), TF32 off; the flash forward also at S = 1, 15, 16, 63, 64, 65
+  and 129 (hd 64, MHA; hd 128, GQA groups of 3), the edges of the bf16
+  kernel's tiles.  Then each kernel (``ms``), its plain version
   (``plain_ms``) and one PyTorch call that computes the same function
   (``library_ms``, a yardstick the port never calls) are timed with CUDA
   events, L2 flushed before every launch and the host's enqueue hidden
@@ -45,12 +52,15 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
   backward at the training rows (8·1024 × 1024) and at (1000 × 3072);
   the flash backward (dq, dk/dv) at seesaw-150m's training shapes (B=8,
   S=1024, H=Hkv=16, hd=64) and at llama3.2-3b's GQA heads with a ragged
-  S=1000; float32 (2e-5) and bfloat16 (2e-2), TF32 off.  RMSNorm's
+  S=1000, and at phase 1's edge lengths; float32 (2e-5) and bfloat16
+  (2e-2), TF32 off.  RMSNorm's
   dscale, a float32 sum over all rows, is held to 2e-5 of the sum of its
   terms' magnitudes.  Then each is timed as in phase 1 at the training
   shapes in bfloat16; ``library_ms`` is ``torch.autograd.grad`` through
   ``F.rms_norm`` and through ``F.scaled_dot_product_attention``, the
-  forward outside the timed call.
+  forward outside the timed call.  The flash forward is timed at the
+  training shape too, beside SDPA's forward and its bound
+  (``train_shape_*`` in its ``kernels`` entry).
 - Phase 4, training at full width: seesaw-150m unreduced, bfloat16
   compute with float32 weights and AdamW state (β 0.9/0.95, clip 1.0),
   ``kind="seesaw"``, α=2, B0=8, two cuts, seq 1024, 24·8·1024 tokens,
@@ -125,6 +135,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -142,6 +153,12 @@ from repro_torch.bench.timing import Timer, bound  # noqa: E402
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 DTYPES = (torch.float32, torch.bfloat16)
+# (B, S, H, Hkv, hd, tag): lengths that start, fill, cross and overrun the
+# bf16 flash kernels' 16-row warp tiles and 32/64-row block tiles, at hd 64
+# (MHA) and hd 128 (GQA groups of 3)
+FLASH_EDGES = tuple((B, S, H, Hkv, hd, f"edge-S{S}-hd{hd}")
+                    for B, H, Hkv, hd in ((2, 4, 4, 64), (1, 6, 2, 128))
+                    for S in (1, 15, 16, 63, 64, 65, 129))
 
 
 def log(msg: str) -> None:
@@ -207,7 +224,8 @@ def phase1(RN, FA, PG, ref):
             errors.append(("rmsnorm_fwd", tag, dn, err))
             inputs[("rmsnorm_fwd", tag, dn)] = (x, s)
         for B, S, H, Hkv, hd, tag in ((1, 1024, 16, 16, 64, "seesaw"),
-                                      (1, 1000, 24, 8, 128, "llama")):
+                                      (1, 1000, 24, 8, 128, "llama"),
+                                      *FLASH_EDGES):
             t, err = flash_case(FA, ref, B, S, H, Hkv, hd, dtype, g)
             errors.append(("flash_fwd", tag, dn, err))
             inputs[("flash_fwd", tag, dn)] = t
@@ -312,7 +330,8 @@ def phase1b(RN, FA, ref):
                            dscale_rel_err(x, gy, ds, want_ds)))
             inputs[("rmsnorm_bwd", tag, dn)] = (x, s, gy)
         for B, S, H, Hkv, hd, tag in ((8, 1024, 16, 16, 64, "seesaw"),
-                                      (1, 1000, 24, 8, 128, "llama")):
+                                      (1, 1000, 24, 8, 128, "llama"),
+                                      *FLASH_EDGES):
             q, k, v, do = (torch.randn(B, S, n, hd, generator=g,
                                        device="cuda").to(dtype)
                            for n in (H, Hkv, Hkv, H))
@@ -389,7 +408,44 @@ def measure_bwd(RN, FA, ref, inputs):
     rows["flash_bwd"] = dict(
         ms=timer(lambda: FA.flash_bwd(qt, kt, vt, out, lse, dot)),
         shape=shape + "; delta, dq and dk/dv")
+    # the forward at the training shape, as remat launches it 2L times a
+    # micro-batch
+    rows["flash_fwd/train"] = dict(
+        ms=timer(lambda: FA.flash_fwd(qt, kt, vt)),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        shape=shape,
+        **bound((2 * B * H + 2 * B * Hkv) * S * hd * es + 4 * B * H * S,
+                4 * hd * pairs, bf))
     return rows
+
+
+def compiled_report(_build, lib):
+    """What the build made of the flash kernels: per instantiation, the
+    count of HMMA (mma.sync) instructions in its SASS (``cuobjdump
+    -sass``) and ptxas's registers and spill bytes.  The bfloat16 forward
+    and dk/dv kernels must hold HMMA and spill nothing at hd 64; their
+    float32 forms must hold none."""
+    regs = _build.ptxas_report(lib)
+    hmma = _build.sass_counts(lib, "HMMA")
+    out = {}
+    for mangled, r in regs.items():
+        m = re.search(r"(flash_[a-z_]+?_kernel)I(f|13__nv_bfloat16)?"
+                      r"Li(\d+)E", mangled)
+        if m:
+            name, t, hd = m.groups()
+            dtype = "float32" if t == "f" else "bfloat16"
+            out[f"{name}<{dtype}, hd {hd}>"] = dict(hmma=hmma[mangled], **r)
+    for name in ("flash_fwd", "flash_bwd_dkv"):
+        for hd in (64, 128):
+            tc = out[f"{name}_mma_kernel<bfloat16, hd {hd}>"]
+            f32 = out[f"{name}_kernel<float32, hd {hd}>"]
+            if not tc["hmma"] > 0 or f32["hmma"] != 0:
+                raise AssertionError(f"{name} hd {hd}: HMMA in the bf16 "
+                                     f"form {tc}, in the f32 form {f32}")
+            if hd == 64 and (tc["spill_stores"] or tc["spill_loads"]):
+                raise AssertionError(f"{name} bf16 hd 64 spills: {tc}")
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -1110,6 +1166,8 @@ def main() -> int:
     log(f"build: {record['build_s']:.1f} s")
     for ln in record["ptxas"]:
         log(f"  {ln.strip()}")
+    record["compiled"] = compiled_report(_build, lib)
+    log(f"compiled: {record['compiled']}")
 
     t = time.perf_counter()
     errors, inputs = phase1(RN, FA, PG, ref)
@@ -1219,6 +1277,12 @@ def main() -> int:
                  "host_us": tm["host_us"],
                  "library_host_us": tm["library_host_us"],
                  "shape": tm["shape"]}
+        if name == "flash_fwd":
+            tr = bwd_times["flash_fwd/train"]
+            entry.update(train_shape_ms=tr["ms"],
+                         train_shape_library_ms=tr["library_ms"],
+                         train_shape_bound_ms=tr["bound_ms"],
+                         train_shape=tr["shape"])
         if name == "rmsnorm_fwd":
             dec = times["rmsnorm_fwd/decode"]
             entry.update(decode_rows_ms=dec["ms"],
@@ -1226,6 +1290,9 @@ def main() -> int:
                          decode_rows_library_ms=dec["library_ms"])
         if name in train_launches:
             entry["train_launches"] = train_launches[name]
+        if name == "flash_fwd":
+            entry["compiled"] = {k: v for k, v in record["compiled"].items()
+                                 if k.startswith("flash_fwd")}
         kernels.append(entry)
     for name, src, replaces, tag in (
             ("rmsnorm_bwd", "src/repro_torch/csrc/rmsnorm.cu",
@@ -1251,6 +1318,8 @@ def main() -> int:
         else:
             entry["plain_and_library_compute"] = "dq, dk and dv together"
             entry["flash_bwd_ms"] = bwd_times["flash_bwd"]["ms"]
+            entry["compiled"] = {k: v for k, v in record["compiled"].items()
+                                 if k.startswith(name)}
         kernels.append(entry)
     tm = ssd_times["ssd_chunk"]
     kernels.append({

@@ -18,31 +18,57 @@
 // lse and delta read, dq written: 25 us at 3.35 TB/s) for 3 causal
 // matmuls (26 GFLOP, 26 us on the bf16 tensor cores), the dk/dv kernel
 // about 100 MB (30 us) for 4 matmuls (34 GFLOP, 35 us): bytes and
-// operations bound them about equally.  This first version does its
-// products on the CUDA cores in float32, as flash_fwd.cu does (no mma or
-// wgmma yet), so it sits far above that bound.  What the design does:
+// operations bound them about equally.  What every form does:
 //
 // - The TPU grids carried dq, dk and dv in VMEM across a sequential grid
 //   axis; Hopper blocks run in no order, so that axis became a loop inside
 //   the block.  flash_bwd_dq: one block per (batch * head, tile of query
-//   rows) loops over 32-key tiles up to the tile's causal limit.
+//   rows) loops over key tiles up to the tile's causal limit.
 //   flash_bwd_dkv: one block per (batch * kv head, tile of keys) loops
-//   over the query heads of its group and, for each, over 32-query tiles
+//   over the query heads of its group and, for each, over query tiles
 //   from the tile's causal limit to the end.  Each output row is written
 //   once by the block that owns it: no atomics, and the sums run in the
 //   same order on every run.
 // - GQA: looping over the group inside the dk/dv block sums the group's
 //   contributions in registers, so no per-query-head float32 dk and dv
 //   (two B x H x S x hd buffers in the reference) are ever written.
-// - A row is held by hd / 16 neighbouring threads (16 dims each, so head
-//   dims 64 and 128 use the same 48-64 registers of row state), their
-//   partial dot products meeting by warp shuffles; the tile being swept
-//   sits in shared memory as float32, and every thread reads the same
-//   tile row at a time (a broadcast, no bank conflicts).
 // - The ragged tail (S not a multiple of a tile) is masked here: rows past
 //   S are zero-filled, read nothing and write nothing, so the caller pads
 //   nothing.  Inputs and outputs are read through their strides.
+//
+// flash_bwd_dkv in bfloat16 (flash_bwd_dkv_mma_kernel) runs its four
+// products on the tensor cores (m16n8k16 mma.sync, mma.cuh):
+// - A block is 4 warps owning 64 keys of one (batch, kv head), 16 keys a
+//   warp.  It works in the transposed form, a row per key and a column
+//   per query: S^T = K Q^T and dP^T = V dO^T (Q and dO by plain
+//   ldmatrix), P^T = exp(S^T scale - lse_col) masked (only on the query
+//   tiles that cross the diagonal or S), dS^T = P^T (dP^T - delta_col)
+//   scale; P^T and dS^T are rounded to bf16 and repacked in registers
+//   into A fragments for dV += P^T dO and dK += dS^T Q (dO and Q by
+//   ldmatrix.trans).  Nothing S x S touches shared memory.  Rounding P^T
+//   and dS^T before those products is the one arithmetic difference from
+//   the float32 plain version.
+// - Q and dO tiles, with their lse and delta rows, stream through a
+//   2-stage cp.async ring, the group's heads one after another in one
+//   stream, so the next tile is in flight while this one is multiplied.
+// - hd 64: K and V are A fragments in registers for the whole loop (K 16,
+//   V 16, dK 32, dV 32, S^T 32, dP^T 32 registers), 64-query tiles, 49 KB
+//   of shared memory.  hd 128 does not fit so: K and V stay in shared
+//   memory and are re-read by ldmatrix at each query tile, 32-query
+//   tiles, 65 KB.  Both opt in to dynamic shared memory before the launch.
+// - Epilogue: dK and dV go through the warp's own rows of the K and V
+//   tiles to 16-byte stores.
+//
+// The float32 forms, and flash_bwd_dq in both dtypes, keep their CUDA-core
+// bodies: the tensor cores' float32 (TF32) keeps about three digits, and
+// the float32 gates (2e-5 of the plain version, the card against the CPU)
+// need all of float32.  There a row is held by hd / 16 neighbouring
+// threads (16 dims each), their partial dot products meeting by warp
+// shuffles, while 32-row tiles of the swept operand sit in shared memory
+// as float32.  The entry dispatches by dtype: a bfloat16 dk/dv call
+// launches the tensor-core kernel and nothing else.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -294,14 +320,247 @@ void launch_dkv(const Args& a) {
       a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, a.sm_scale);
 }
 
+// ---------------------------------------------------------------------
+// flash_bwd_dkv in bfloat16: tensor cores
+// ---------------------------------------------------------------------
+
+constexpr int kMmaKeys = 64;            // keys per block, 16 a warp
+constexpr int kMmaThreads = 128;
+
+// hd 64: K and V live in registers as A fragments and queries stream in
+// tiles of 64; hd 128 does not fit so (dK and dV alone take 128
+// registers), so K and V stay in shared memory, re-read by ldmatrix at
+// every query tile, and queries stream in tiles of 32
+template <int HD>
+struct Dkv {
+  static constexpr int QT = HD == 64 ? 64 : 32;
+  static constexpr bool KV_IN_REGS = HD == 64;
+  static constexpr int KV_TILE = kMmaKeys * HD * 2;
+  static constexpr int Q_TILE = QT * HD * 2;
+  // K, V; 2 stages of (Q, dO); 2 stages of (lse, delta)
+  static constexpr int SMEM = 2 * KV_TILE + 4 * Q_TILE + 4 * QT * 4;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int H, int Hkv,
+                         int S, int BHkv, rt::Strides qs, rt::Strides ks,
+                         rt::Strides vs, rt::Strides dos, rt::Strides dks,
+                         rt::Strides dvs, float sm_scale) {
+  using C = Dkv<HD>;
+  constexpr int QT = C::QT;
+  constexpr int CPR = HD / 8;           // 16-byte chunks a row
+  constexpr int KB = HD / 16;           // k-blocks of head_dim (K Q^T)
+  constexpr int NB = HD / 8;            // n-blocks of head_dim (P^T dO)
+  constexpr int NS = QT / 8;            // n-blocks of a query tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t k_s = mma::smem_u32(smem), v_s = k_s + C::KV_TILE;
+  const uint32_t ring = k_s + 2 * C::KV_TILE;   // stage st: Q, dO
+  float* const rows = reinterpret_cast<float*>(
+      smem + 2 * C::KV_TILE + 4 * C::Q_TILE);   // stage st: lse, delta
+
+  // the first key tiles are seen by the most queries: scheduled first
+  const int kt = static_cast<int>(blockIdx.x) / BHkv;
+  const int bhk = static_cast<int>(blockIdx.x) % BHkv;
+  const int b = bhk / Hkv, hk = bhk % Hkv;
+  const int G = H / Hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = kt * kMmaKeys;
+  // query tiles from the first that sees this key tile (its first key)
+  // to S, for each query head of the group, as one stream
+  const int qt0 = k0 / QT;
+  const int n_qt = (S + QT - 1) / QT - qt0;
+  const int n_it = G * n_qt;
+
+  auto issue = [&](int it) {
+    const int st = it & 1;
+    const int h = hk * G + it / n_qt;
+    const int q0 = (qt0 + it % n_qt) * QT;
+    const uint32_t q_st = ring + st * 2 * C::Q_TILE;
+    mma::load_tile<QT, HD, kMmaThreads>(q_st, q + b * qs.b + h * qs.h, qs.s,
+                                        q0, S);
+    mma::load_tile<QT, HD, kMmaThreads>(q_st + C::Q_TILE,
+                                        dout + b * dos.b + h * dos.h, dos.s,
+                                        q0, S);
+    if (threadIdx.x < 2 * QT) {         // lse, then delta
+      const int i = threadIdx.x % QT;
+      const float* src = (threadIdx.x < QT ? lse : delta)
+                         + (static_cast<int64_t>(b) * H + h) * S;
+      const bool ok = q0 + i < S;
+      mma::cp_async4(mma::smem_u32(rows + (2 * st) * QT + threadIdx.x),
+                     ok ? src + q0 + i : src, ok);
+    }
+  };
+
+  mma::load_tile<kMmaKeys, HD, kMmaThreads>(k_s, k + b * ks.b + hk * ks.h,
+                                            ks.s, k0, S);
+  mma::load_tile<kMmaKeys, HD, kMmaThreads>(v_s, v + b * vs.b + hk * vs.h,
+                                            vs.s, k0, S);
+  mma::cp_async_commit();
+  issue(0);
+  mma::cp_async_commit();
+
+  uint32_t kf[C::KV_IN_REGS ? KB : 1][4], vf[C::KV_IN_REGS ? KB : 1][4];
+  if constexpr (C::KV_IN_REGS) {
+    mma::cp_async_wait<1>();            // K and V have landed
+    __syncthreads();
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb) {
+      mma::ldsm_x4(kf[kb], mma::a_addr<CPR>(k_s, warp * 16, 2 * kb, lane));
+      mma::ldsm_x4(vf[kb], mma::a_addr<CPR>(v_s, warp * 16, 2 * kb, lane));
+    }
+  }
+  float dka[NB][4], dva[NB][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nb][e] = dva[nb][e] = 0.f;
+  const float sl2 = sm_scale * mma::LOG2E;
+  // the keys of this lane's accumulator rows: key0 and key0 + 8
+  const int key0 = k0 + warp * 16 + (lane >> 2);
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) {                // the next tile into the other stage
+      issue(it + 1);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int st = it & 1;
+    const int q0 = (qt0 + it % n_qt) * QT;
+    const uint32_t q_st = ring + st * 2 * C::Q_TILE, do_st = q_st + C::Q_TILE;
+    const float* lse_st = rows + 2 * st * QT;
+    const float* delta_st = lse_st + QT;
+
+    // S^T = K Q^T and dP^T = V dO^T: a row per key, a column per query
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int nb = 0; nb < NS; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb) {
+      uint32_t ka[4], va[4];
+      if constexpr (C::KV_IN_REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ka[i] = kf[kb][i];
+          va[i] = vf[kb][i];
+        }
+      } else {
+        mma::ldsm_x4(ka, mma::a_addr<CPR>(k_s, warp * 16, 2 * kb, lane));
+        mma::ldsm_x4(va, mma::a_addr<CPR>(v_s, warp * 16, 2 * kb, lane));
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        uint32_t r[4];
+        mma::ldsm_x4(r, mma::b_addr<CPR>(q_st, n2 * 16, 2 * kb, lane));
+        mma::mma16816(s[2 * n2], ka, r[0], r[1]);
+        mma::mma16816(s[2 * n2 + 1], ka, r[2], r[3]);
+        mma::ldsm_x4(r, mma::b_addr<CPR>(do_st, n2 * 16, 2 * kb, lane));
+        mma::mma16816(dp[2 * n2], va, r[0], r[1]);
+        mma::mma16816(dp[2 * n2 + 1], va, r[2], r[3]);
+      }
+    }
+
+    // P^T = exp(S^T scale - lse_col), masked on the tiles that cross the
+    // diagonal or S; dS^T = P^T (dP^T - delta_col) scale
+    const bool edge = q0 < k0 + kMmaKeys || q0 + QT > S;
+#pragma unroll
+    for (int nb = 0; nb < NS; ++nb) {
+      const int qc = nb * 8 + 2 * (lane & 3);
+      const float2 lc = *reinterpret_cast<const float2*>(lse_st + qc);
+      const float2 dc = *reinterpret_cast<const float2*>(delta_st + qc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lv = (e & 1) ? lc.y : lc.x;
+        const float dl = (e & 1) ? dc.y : dc.x;
+        float p = exp2f(fmaf(s[nb][e], sl2, -lv * mma::LOG2E));
+        if (edge) {
+          const int qp = q0 + qc + (e & 1);
+          if (key0 + 8 * (e >> 1) > qp || qp >= S) p = 0.f;
+        }
+        s[nb][e] = p;
+        dp[nb][e] = p * (dp[nb][e] - dl) * sm_scale;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T from registers
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      uint32_t pa[4], da[4];
+      mma::acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+      mma::acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < NB / 2; ++n2) {
+        uint32_t r[4];
+        mma::ldsm_x4_t(r, mma::a_addr<CPR>(do_st, kk * 16, 2 * n2, lane));
+        mma::mma16816(dva[2 * n2], pa, r[0], r[1]);
+        mma::mma16816(dva[2 * n2 + 1], pa, r[2], r[3]);
+        mma::ldsm_x4_t(r, mma::a_addr<CPR>(q_st, kk * 16, 2 * n2, lane));
+        mma::mma16816(dka[2 * n2], da, r[0], r[1]);
+        mma::mma16816(dka[2 * n2 + 1], da, r[2], r[3]);
+      }
+    }
+    __syncthreads();                    // the stage is consumed
+  }
+
+  // dK, dV through the warp's own rows of the K and V tiles, then
+  // 16-byte stores of the keys below S
+  mma::acc_to_tile<HD>(smem, warp * 16, dka, 1.f, 1.f, lane);
+  mma::acc_to_tile<HD>(smem + C::KV_TILE, warp * 16, dva, 1.f, 1.f, lane);
+  __syncwarp();
+  mma::tile_to_global<HD>(smem, warp * 16, dk + b * dks.b + hk * dks.h,
+                          dks.s, k0 + warp * 16, S, lane);
+  mma::tile_to_global<HD>(smem + C::KV_TILE, warp * 16,
+                          dv + b * dvs.b + hk * dvs.h, dvs.s, k0 + warp * 16,
+                          S, lane);
+}
+
+template <int HD>
+int launch_dkv_mma(const Args& a) {
+  constexpr int smem = Dkv<HD>::SMEM;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_mma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();                 // clear it; report it once
+    return static_cast<int>(err);
+  }
+  const int BHkv = a.B * a.Hkv;
+  const int n_k = (a.S + kMmaKeys - 1) / kMmaKeys;
+  flash_bwd_dkv_mma_kernel<HD><<<n_k * BHkv, kMmaThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
+      a.H, a.Hkv, a.S, BHkv, a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs,
+      a.sm_scale);
+  return 0;
+}
+
 template <bool DQ>
 int dispatch(const Args& a, int hd, int dtype) {
   if (a.B < 1 || a.S < 1 || a.Hkv < 1 || a.H % a.Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
+  int err = 0;
   if (dtype == rt::DTYPE_BF16 && hd == 64) {
-    DQ ? launch_dq<__nv_bfloat16, 64>(a) : launch_dkv<__nv_bfloat16, 64>(a);
+    if constexpr (DQ) launch_dq<__nv_bfloat16, 64>(a);
+    else err = launch_dkv_mma<64>(a);
   } else if (dtype == rt::DTYPE_BF16 && hd == 128) {
-    DQ ? launch_dq<__nv_bfloat16, 128>(a) : launch_dkv<__nv_bfloat16, 128>(a);
+    if constexpr (DQ) launch_dq<__nv_bfloat16, 128>(a);
+    else err = launch_dkv_mma<128>(a);
   } else if (dtype == rt::DTYPE_F32 && hd == 64) {
     DQ ? launch_dq<float, 64>(a) : launch_dkv<float, 64>(a);
   } else if (dtype == rt::DTYPE_F32 && hd == 128) {
@@ -309,6 +568,7 @@ int dispatch(const Args& a, int hd, int dtype) {
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,18 +11,22 @@ is loaded as it is.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises when that is not 0.
+``ptxas_report`` and ``sass_counts`` read back what was compiled:
+registers and spills per kernel, and instructions of one opcode in each
+kernel's machine code (``cuobjdump -sass``).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -98,6 +102,63 @@ def build() -> Path:
         os.replace(part_report, lib.with_suffix(".ptxas.txt"))
         os.replace(part, lib)
     return lib
+
+
+def ptxas_report(lib: Path) -> Dict[str, dict]:
+    """Registers and spill bytes of every kernel in the build of ``lib``,
+    by mangled name, from the ptxas report written beside it."""
+    out: Dict[str, dict] = {}
+    name = None
+    for ln in lib.with_suffix(".ptxas.txt").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$]+)", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return {n: r for n, r in out.items() if "registers" in r}
+
+
+def cuobjdump() -> Optional[str]:
+    """The CUDA toolkit's ``cuobjdump``, or None where there is none."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    try:
+        beside = Path(_nvcc()).parent / "cuobjdump"
+    except RuntimeError:
+        return None
+    return str(beside) if beside.exists() else None
+
+
+def sass_counts(lib: Path, opcode: str) -> Dict[str, int]:
+    """Instructions whose opcode starts with ``opcode`` (``HMMA`` for the
+    tensor cores' mma.sync) in each kernel of ``lib``, by mangled name,
+    from ``cuobjdump -sass``."""
+    tool = cuobjdump()
+    if tool is None:
+        raise RuntimeError("cuobjdump not found")
+    text = subprocess.run([tool, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    out: Dict[str, int] = {}
+    name = None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            out[name] = 0
+        elif name and re.search(r"\*/\s+(?:@!?\w+\s+)?" + re.escape(opcode)
+                                + r"\b", ln):
+            out[name] += 1
+    return out
 
 
 def load() -> ctypes.CDLL:

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels on the card, each against its plain
 version, the serving engine and one training step of the dense model
 and of Mamba-2 on the card against the same on the CPU, and a CI-sized
-run of the kernel benchmark.
+run of the kernel benchmark; and, in the built library's machine code,
+that the bfloat16 flash forward and dk/dv run on the tensor cores.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no JAX, so it runs on the card's machine as it is:
@@ -34,6 +35,11 @@ pytestmark = pytest.mark.gpu
 F32 = dict(atol=2e-5, rtol=2e-5)
 BF16 = dict(atol=2e-2, rtol=2e-2)
 DTYPES = [torch.float32, torch.bfloat16]
+# lengths that start, fill, cross and overrun the bf16 flash kernels'
+# 16-row warp tiles and 32/64-row block tiles, at hd 64 (MHA) and hd 128
+# (GQA groups of 3)
+FLASH_EDGES = ([(2, 4, 4, S, 64) for S in (1, 15, 16, 63, 64, 65, 129)]
+               + [(1, 6, 2, S, 128) for S in (1, 15, 16, 63, 64, 65, 129)])
 
 
 @pytest.fixture
@@ -70,7 +76,7 @@ def test_rmsnorm_kernel(cuda, shape, dtype):
     (1, 24, 8, 1000, 128),      # llama3.2-3b heads, ragged tail
     (2, 4, 2, 77, 64),
     (1, 2, 1, 1, 128),
-])
+] + FLASH_EDGES)
 def test_flash_fwd_kernel(cuda, B, H, Hkv, S, hd, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
     # the models' (B, S, H, hd) layout, read as transposed views
@@ -136,7 +142,7 @@ def test_rmsnorm_bwd_kernel(cuda, shape, dtype):
     (1, 24, 8, 1000, 128),      # llama3.2-3b heads, ragged tail
     (2, 4, 2, 77, 64),
     (1, 4, 1, 33, 128),
-])
+] + FLASH_EDGES)
 def test_flash_bwd_kernels(cuda, B, H, Hkv, S, hd, dtype):
     g = torch.Generator(device=cuda).manual_seed(4)
     q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
@@ -151,6 +157,34 @@ def test_flash_bwd_kernels(cuda, B, H, Hkv, S, hd, dtype):
     for a, b in zip(got, want):
         assert a.dtype == dtype
         _close(a, b, dtype)
+
+
+@pytest.fixture
+def sass(cuda):
+    """The build module, where the toolkit's cuobjdump can read the
+    library's machine code."""
+    from repro_torch.kernels import _build
+    if _build.cuobjdump() is None:
+        pytest.skip("needs the CUDA toolkit's cuobjdump")
+    return _build
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dkv"])
+def test_bf16_flash_kernels_run_on_tensor_cores(sass, name):
+    """The bfloat16 instantiations (hd 64 and 128) hold mma.sync (HMMA in
+    the SASS), the float32 ones none; ptxas spills nothing at hd 64."""
+    lib = sass.build()
+    hmma = sass.sass_counts(lib, "HMMA")
+    bf16 = {n: c for n, c in hmma.items() if f"{name}_mma_kernel" in n}
+    f32 = {n: c for n, c in hmma.items() if f"{name}_kernelIf" in n}
+    assert len(bf16) == 2 and len(f32) == 2, sorted(hmma)
+    assert all(c > 0 for c in bf16.values()), bf16
+    assert all(c == 0 for c in f32.values()), f32
+    report = sass.ptxas_report(lib)
+    hd64 = [n for n in bf16 if "ILi64E" in n]
+    assert len(hd64) == 1
+    r = report[hd64[0]]
+    assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
 
 
 def test_autograd_on_card_launches_the_backward_kernels(cuda):
