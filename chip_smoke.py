@@ -53,7 +53,9 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
   the flash backward (dq, dk/dv) at seesaw-150m's training shapes (B=8,
   S=1024, H=Hkv=16, hd=64) and at llama3.2-3b's GQA heads with a ragged
   S=1000, and at phase 1's edge lengths; float32 (2e-5) and bfloat16
-  (2e-2), TF32 off.  RMSNorm's
+  (2e-2), TF32 off.  At each of those shapes the flash forward's out and
+  lse are held to ``attention_ref`` too before the backward reads them
+  (``train_shape_max_abs_err`` in its ``kernels`` entry).  RMSNorm's
   dscale, a float32 sum over all rows, is held to 2e-5 of the sum of its
   terms' magnitudes.  Then each is timed as in phase 1 at the training
   shapes in bfloat16; ``library_ms`` is ``torch.autograd.grad`` through
@@ -337,6 +339,14 @@ def phase1b(RN, FA, ref):
                            for n in (H, Hkv, Hkv, H))
             qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
             out, lse = FA.flash_fwd(qt, kt, vt)
+            torch.cuda.synchronize()
+            # the forward at the shapes training gives it, before the
+            # backward reads its out and lse
+            want, want_lse = ref.attention_ref(qt, kt, vt)
+            errors.append(("flash_fwd", f"bwd-{tag}", dn,
+                           max_err(out, want, dtype)))
+            max_err(lse, want_lse, dtype)
+            del want, want_lse
             dq, dk, dv = FA.flash_bwd(qt, kt, vt, out, lse, dot)
             torch.cuda.synchronize()
             wq, wk, wv = ref.flash_bwd_ref(qt, kt, vt, out, lse, dot)
@@ -434,7 +444,10 @@ def compiled_report(_build, lib):
                       r"Li(\d+)E", mangled)
         if m:
             name, t, hd = m.groups()
-            dtype = "float32" if t == "f" else "bfloat16"
+            # only dq keeps a type parameter; the other CUDA-core forms
+            # are float32 alone, the mma forms bfloat16 alone
+            bf16 = t == "13__nv_bfloat16" or name.endswith("_mma_kernel")
+            dtype = "bfloat16" if bf16 else "float32"
             out[f"{name}<{dtype}, hd {hd}>"] = dict(hmma=hmma[mangled], **r)
     for name in ("flash_fwd", "flash_bwd_dkv"):
         for hd in (64, 128):
@@ -1279,7 +1292,11 @@ def main() -> int:
                  "shape": tm["shape"]}
         if name == "flash_fwd":
             tr = bwd_times["flash_fwd/train"]
-            entry.update(train_shape_ms=tr["ms"],
+            entry.update(train_shape_max_abs_err=err_of[
+                             ("flash_fwd", "bwd-seesaw", "bfloat16")],
+                         train_shape_max_abs_err_f32=err_of[
+                             ("flash_fwd", "bwd-seesaw", "float32")],
+                         train_shape_ms=tr["ms"],
                          train_shape_library_ms=tr["library_ms"],
                          train_shape_bound_ms=tr["bound_ms"],
                          train_shape=tr["shape"])

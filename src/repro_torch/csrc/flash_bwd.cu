@@ -208,13 +208,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        + h * dqs.h, g, acc);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Hkv, int S, int BHkv,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int Hkv, int S, int BHkv,
                      rt::Strides qs, rt::Strides ks, rt::Strides vs,
                      rt::Strides dos, rt::Strides dks, rt::Strides dvs,
                      float sm_scale) {
@@ -235,10 +237,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float kr[16], vr[16], dka[16], dva[16];
   if (row_ok) {
-    load_part<T, TPR>(k + b * ks.b + static_cast<int64_t>(kpos) * ks.s
-                      + hk * ks.h, g, kr);
-    load_part<T, TPR>(v + b * vs.b + static_cast<int64_t>(kpos) * vs.s
-                      + hk * vs.h, g, vr);
+    load_part<float, TPR>(k + b * ks.b + static_cast<int64_t>(kpos) * ks.s
+                          + hk * ks.h, g, kr);
+    load_part<float, TPR>(v + b * vs.b + static_cast<int64_t>(kpos) * vs.s
+                          + hk * vs.h, g, vr);
   }
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
@@ -249,13 +251,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int gi = 0; gi < G; ++gi) {
     const int h = hk * G + gi;
     const int64_t bh = static_cast<int64_t>(b) * H + h;
-    const T* qbase = q + b * qs.b + h * qs.h;
-    const T* dobase = dout + b * dos.b + h * dos.h;
+    const float* qbase = q + b * qs.b + h * qs.h;
+    const float* dobase = dout + b * dos.b + h * dos.h;
     // the first query that sees this tile is its first key
     for (int q0 = kt * ROWS; q0 < S; q0 += kTile) {
       __syncthreads();                  // the previous tile is consumed
-      load_tile<T, HD>(q_tile, qbase, qs.s, q0, S);
-      load_tile<T, HD>(do_tile, dobase, dos.s, q0, S);
+      load_tile<float, HD>(q_tile, qbase, qs.s, q0, S);
+      load_tile<float, HD>(do_tile, dobase, dos.s, q0, S);
       if (threadIdx.x < kTile) {
         const int qp = q0 + threadIdx.x;
         lse_t[threadIdx.x] = qp < S ? lse[bh * S + qp] : 0.f;
@@ -278,10 +280,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (row_ok) {
-    store_part<T, TPR>(dk + b * dks.b + static_cast<int64_t>(kpos) * dks.s
-                       + hk * dks.h, g, dka);
-    store_part<T, TPR>(dv + b * dvs.b + static_cast<int64_t>(kpos) * dvs.s
-                       + hk * dvs.h, g, dva);
+    store_part<float, TPR>(dk + b * dks.b
+                           + static_cast<int64_t>(kpos) * dks.s + hk * dks.h,
+                           g, dka);
+    store_part<float, TPR>(dv + b * dvs.b
+                           + static_cast<int64_t>(kpos) * dvs.s + hk * dvs.h,
+                           g, dva);
   }
 }
 
@@ -307,17 +311,17 @@ void launch_dq(const Args& a) {
       a.dqs, a.sm_scale);
 }
 
-template <typename T, int HD>
+template <int HD>
 void launch_dkv(const Args& a) {
   constexpr int ROWS = kThreads / (HD / 16);
   const int BHkv = a.B * a.Hkv;
   const int n_k = (a.S + ROWS - 1) / ROWS;
-  flash_bwd_dkv_kernel<T, HD><<<n_k * BHkv, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_bwd_dkv_kernel<HD><<<n_k * BHkv, kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.Hkv, a.S, BHkv,
-      a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, a.sm_scale);
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H, a.Hkv, a.S,
+      BHkv, a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, a.sm_scale);
 }
 
 // ---------------------------------------------------------------------
@@ -562,9 +566,9 @@ int dispatch(const Args& a, int hd, int dtype) {
     if constexpr (DQ) launch_dq<__nv_bfloat16, 128>(a);
     else err = launch_dkv_mma<128>(a);
   } else if (dtype == rt::DTYPE_F32 && hd == 64) {
-    DQ ? launch_dq<float, 64>(a) : launch_dkv<float, 64>(a);
+    DQ ? launch_dq<float, 64>(a) : launch_dkv<64>(a);
   } else if (dtype == rt::DTYPE_F32 && hd == 128) {
-    DQ ? launch_dq<float, 128>(a) : launch_dkv<float, 128>(a);
+    DQ ? launch_dq<float, 128>(a) : launch_dkv<128>(a);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -40,7 +40,7 @@
 // - Rows past S are zero-filled by the copies (src-size 0) and never
 //   stored, so the caller pads nothing.
 //
-// float32 (flash_fwd_kernel<float, HD>) keeps its CUDA-core body: the
+// float32 (flash_fwd_kernel<HD>) keeps its CUDA-core body: the
 // tensor cores' float32 (TF32) keeps about three digits, and the float32
 // gates (2e-5 of the plain version, the card against the CPU) need all
 // of float32.  A block owns one (batch, head) and 64 query rows; four
@@ -65,15 +65,14 @@ constexpr int kBK = 32;                 // keys per shared-memory tile
 constexpr int kTPR = 4;                 // threads per query row
 constexpr int kThreads = kBQ * kTPR;
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int H, int Hkv, int S, int BH,
                  rt::Strides qs, rt::Strides ks, rt::Strides vs,
                  rt::Strides os, float sm_scale) {
   constexpr int NC = HD / (4 * kTPR);   // 4-element chunks per thread
-  constexpr int V = rt::Vec<T>::N;
   __shared__ __align__(16) float k_tile[kBK][HD];
   __shared__ __align__(16) float v_tile[kBK][HD];
 
@@ -88,7 +87,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // this thread's dims of the row: chunk c covers [c*16 + g*4, +4)
   float qr[4 * NC], acc[4 * NC];
-  const T* qrow = q + b * qs.b + static_cast<int64_t>(qpos) * qs.s + h * qs.h;
+  const float* qrow =
+      q + b * qs.b + static_cast<int64_t>(qpos) * qs.s + h * qs.h;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     if (row_ok) {
@@ -102,27 +102,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = rt::NEG_INF, l = 0.f;
 
-  const T* kbase = k + b * ks.b + hk * ks.h;
-  const T* vbase = v + b * vs.b + hk * vs.h;
+  const float* kbase = k + b * ks.b + hk * ks.h;
+  const float* vbase = v + b * vs.b + hk * vs.h;
   const int kv_end = min(S, qt * kBQ + kBQ);   // causal reach of the last row
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();                    // the previous tile is consumed
-    for (int i = threadIdx.x; i < kBK * HD / V; i += kThreads) {
-      const int j = i / (HD / V), c = (i % (HD / V)) * V;
+    for (int i = threadIdx.x; i < kBK * HD / 4; i += kThreads) {
+      const int j = i / (HD / 4), c = (i % (HD / 4)) * 4;
       const int kp = k0 + j;
-      float tk[V], tv[V];
+      float tk[4] = {0.f, 0.f, 0.f, 0.f}, tv[4] = {0.f, 0.f, 0.f, 0.f};
       if (kp < S) {
-        rt::load_vec(kbase + static_cast<int64_t>(kp) * ks.s + c, tk);
-        rt::load_vec(vbase + static_cast<int64_t>(kp) * vs.s + c, tv);
-      } else {
-#pragma unroll
-        for (int e = 0; e < V; ++e) tk[e] = tv[e] = 0.f;
+        rt::load4(kbase + static_cast<int64_t>(kp) * ks.s + c, tk);
+        rt::load4(vbase + static_cast<int64_t>(kp) * vs.s + c, tv);
       }
-#pragma unroll
-      for (int e = 0; e < V; e += 4) {
-        rt::store4(&k_tile[j][c + e], tk + e);
-        rt::store4(&v_tile[j][c + e], tv + e);
-      }
+      rt::store4(&k_tile[j][c], tk);
+      rt::store4(&v_tile[j][c], tv);
     }
     __syncthreads();
 
@@ -167,7 +161,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row_ok) {
     const float lc = fmaxf(l, 1e-30f);
-    T* orow = out + b * os.b + static_cast<int64_t>(qpos) * os.s + h * os.h;
+    float* orow = out + b * os.b + static_cast<int64_t>(qpos) * os.s + h * os.h;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       float o[4];
@@ -179,16 +173,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 void launch(const void* q, const void* k, const void* v, void* out,
             void* lse, int B, int H, int Hkv, int S, rt::Strides qs,
             rt::Strides ks, rt::Strides vs, rt::Strides os, float sm_scale,
             cudaStream_t stream) {
   const int BH = B * H;
   const int n_q = (S + kBQ - 1) / kBQ;
-  flash_fwd_kernel<T, HD><<<n_q * BH, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
+  flash_fwd_kernel<HD><<<n_q * BH, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), H, Hkv, S, BH, qs, ks, vs, os, sm_scale);
 }
 
@@ -392,11 +386,11 @@ int dispatch_f32(int hd, const void* q, const void* k, const void* v,
                  rt::Strides qs, rt::Strides ks, rt::Strides vs,
                  rt::Strides os, float sm_scale, cudaStream_t stream) {
   if (hd == 64) {
-    launch<float, 64>(q, k, v, out, lse, B, H, Hkv, S, qs, ks, vs, os,
-                      sm_scale, stream);
+    launch<64>(q, k, v, out, lse, B, H, Hkv, S, qs, ks, vs, os, sm_scale,
+               stream);
   } else if (hd == 128) {
-    launch<float, 128>(q, k, v, out, lse, B, H, Hkv, S, qs, ks, vs, os,
-                       sm_scale, stream);
+    launch<128>(q, k, v, out, lse, B, H, Hkv, S, qs, ks, vs, os, sm_scale,
+                stream);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -73,6 +73,7 @@ def test_rmsnorm_kernel(cuda, shape, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,H,Hkv,S,hd", [
     (1, 16, 16, 1024, 64),      # seesaw-150m prefill
+    (8, 16, 16, 1024, 64),      # seesaw-150m training
     (1, 24, 8, 1000, 128),      # llama3.2-3b heads, ragged tail
     (2, 4, 2, 77, 64),
     (1, 2, 1, 1, 128),
@@ -176,7 +177,7 @@ def test_bf16_flash_kernels_run_on_tensor_cores(sass, name):
     lib = sass.build()
     hmma = sass.sass_counts(lib, "HMMA")
     bf16 = {n: c for n, c in hmma.items() if f"{name}_mma_kernel" in n}
-    f32 = {n: c for n, c in hmma.items() if f"{name}_kernelIf" in n}
+    f32 = {n: c for n, c in hmma.items() if f"{name}_kernelILi" in n}
     assert len(bf16) == 2 and len(f32) == 2, sorted(hmma)
     assert all(c > 0 for c in bf16.values()), bf16
     assert all(c == 0 for c in f32.values()), f32
