@@ -10,24 +10,33 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
 
 - Build: nvcc compiles ``src/repro_torch/csrc`` for sm_90a (one process
   per source, in parallel) into ``build/kernels``.  Then what was
-  compiled is read back: the bfloat16 flash forward and dk/dv kernels
+  compiled is read back: the bfloat16 flash forward, dq and dk/dv kernels
   (hd 64 and 128) must hold HMMA (tensor-core mma.sync) instructions in
   their SASS (``cuobjdump -sass``) and their float32 forms none, and
   ptxas must report no spills for the bfloat16 ones at hd 64; HMMA
   counts, registers and spill bytes go into the ``kernels`` line.
 - Phase 1, kernels against their plain versions: RMSNorm forward, the
-  causal GQA flash forward and the ragged paged decode, each on the
-  serving path's shapes (seesaw-150m prefill at S=1024, decode at 8 slots
-  over a 1024-token window with ragged lengths) and on llama3.2-3b's GQA
-  heads (H=24, Hkv=8, hd=128), in float32 (tolerance 2e-5) and bfloat16
+  causal GQA flash forward and the ragged decode, each on the serving
+  path's shapes (seesaw-150m prefill at S=1024, decode at 8 slots over a
+  1024-token window with ragged lengths) and on llama3.2-3b's GQA heads
+  (H=24, Hkv=8, hd=128), in float32 (tolerance 2e-5) and bfloat16
   (2e-2), TF32 off; the flash forward also at S = 1, 15, 16, 63, 64, 65
   and 129 (hd 64, MHA; hd 128, GQA groups of 3), the edges of the bf16
-  kernel's tiles.  Then each kernel (``ms``), its plain version
-  (``plain_ms``) and one PyTorch call that computes the same function
-  (``library_ms``, a yardstick the port never calls) are timed with CUDA
-  events, L2 flushed before every launch and the host's enqueue hidden
-  behind a device spin (``Timer``), at the serving path's shapes in
-  bfloat16.
+  kernel's tiles.  The decode kernel twice: through its gathered-window
+  entry (against ``ragged_decode_ref``), and reading K and V through the
+  page table from a pool (``paged_decode_attention_pool``, against
+  ``paged_decode_ref``) at page sizes 1, 4 and 16, with shuffled page
+  ids, null-page entries, an inactive slot and lengths at the page edges
+  and at the window's last key.  Then each kernel (``ms``), its plain
+  version (``plain_ms``) and one PyTorch call that computes the same
+  function (``library_ms``, a yardstick the port never calls) are timed
+  with CUDA events, L2 flushed before every launch and the host's
+  enqueue hidden behind a device spin (``Timer``), at the serving path's
+  shapes in bfloat16; the decode also at lengths that fit one split of
+  the kernel (no merge) and at full windows, its paged entry (page 16,
+  the same lengths) beside its gathered one, and ``gather_pages`` alone
+  at phase 2's table shape (8 x 64 pages of 16), the copy the page-table
+  read spares the serving step.
 - Phase 1d, the streaming normalize of the kernel benchmark's overlap
   probe (``kernels/overlap.py``, bulk asynchronous copies through a
   ring of ``depth`` shared-memory stages) against its plain version in
@@ -43,7 +52,8 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
   tokens, EOS off.  Every request must finish with exactly its
   max_new_tokens tokens in [0, vocab) and the pool must drain to 0 pages.
   The kernels' launch counts are set to 0 just before this run and read
-  just after; each must be > 0.
+  just after; each must be > 0.  A torch.profiler run of 8 more requests
+  gives the device time per decode step.
 - Phase 3, the card against the CPU: two of those requests, 8 new tokens
   each, in float32 through the same engine on the card (kernels) and on
   the CPU (plain versions), same weights.  First-token logits must agree
@@ -211,7 +221,35 @@ def decode_case(PG, ref, B, Skv, H, Hkv, hd, dtype, g, rng):
     got = PG.ragged_decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
     err = max_err(got, ref.ragged_decode_ref(q, k, v, lengths), dtype)
-    return (q, k, v, lengths, lens), err
+    return (q, k, v, lengths, lens, kv), err
+
+
+def paged_case(PG, ref, B, window, H, Hkv, hd, ps, dtype, g, rng):
+    """A random pool and a shuffled page table: lengths ps - 1, ps, ps + 1
+    (the page edges), an inactive slot (length 0, all-null row), the
+    window's last key, the rest random; live pages distinct and shuffled,
+    the other entries the null page 0, whose data is random too."""
+    P = window // ps
+    lens = rng.integers(1, window, B)
+    lens[:5] = [ps - 1, ps, ps + 1, 0, window - 1]
+    need = [0 if b == 3 else int(n) // ps + 1 for b, n in enumerate(lens)]
+    n_pages = sum(need) + 5
+    ids = rng.permutation(np.arange(1, n_pages))
+    table = np.zeros((B, P), np.int64)
+    used = 0
+    for b, n in enumerate(need):
+        table[b, :n] = ids[used:used + n]
+        used += n
+    pool = torch.randn(n_pages, ps, 2 * Hkv, hd, generator=g,
+                       device="cuda").to(dtype)
+    q = torch.randn(B, H, hd, generator=g, device="cuda").to(dtype)
+    pages = torch.from_numpy(table).cuda()
+    lengths = torch.from_numpy(lens.astype(np.int32)).cuda()
+    got = PG.paged_decode_attention_pool(q, pool, pages, lengths,
+                                         page_size=ps)
+    torch.cuda.synchronize()
+    return max_err(got, ref.paged_decode_ref(q, pool, pages, lengths,
+                                             page_size=ps), dtype)
 
 
 def phase1(RN, FA, PG, ref):
@@ -236,14 +274,34 @@ def phase1(RN, FA, PG, ref):
             t, err = decode_case(PG, ref, B, Skv, H, Hkv, hd, dtype, g, rng)
             errors.append(("ragged_decode", tag, dn, err))
             inputs[("ragged_decode", tag, dn)] = t
+            for ps in (1, 4, 16):
+                err = paged_case(PG, ref, B, Skv, H, Hkv, hd, ps, dtype, g,
+                                 rng)
+                errors.append(("paged_decode", f"{tag}-ps{ps}", dn, err))
     for name, tag, dn, err in errors:
         log(f"phase 1: {name} {tag} {dn}: max |err| {err:.3g}")
     return errors, inputs
 
 
-def measure(RN, FA, PG, ref, inputs):
+def paged_window(kv, ps, seed=0):
+    """The gathered window kv (B, Skv, 2·Hkv, hd) scattered into a pool of
+    pages of ``ps`` under a shuffled page table (every page of the window
+    allocated, page 0 left null): (pool, pages (B, Skv / ps) int64)."""
+    B, Skv = kv.shape[:2]
+    P = Skv // ps
+    ids = np.random.default_rng(seed).permutation(np.arange(1, B * P + 1))
+    pages = torch.from_numpy(ids.reshape(B, P).astype(np.int64)).cuda()
+    pool = torch.zeros(B * P + 1, ps, *kv.shape[2:], dtype=kv.dtype,
+                       device="cuda")
+    pool[pages] = kv.reshape(B, P, ps, *kv.shape[2:])
+    return pool, pages
+
+
+def measure(RN, FA, PG, ref, SC, inputs):
     """Kernel, plain and library times at the serving path's shapes in
-    bfloat16, each with its bound."""
+    bfloat16, each with its bound; the decode kernel's paged entry at the
+    same lengths with page 16 (which must agree with its gathered entry
+    to 2e-2), and ``gather_pages`` alone at that table."""
     timer = Timer()
     bf = torch.bfloat16
     rows = {}
@@ -276,7 +334,8 @@ def measure(RN, FA, PG, ref, inputs):
         bound(4 * qt.numel() * es + 4 * B * H * S,
               4 * B * H * hd * S * (S + 1) / 2, bf))
 
-    q, k, v, lengths, lens = inputs[("ragged_decode", "seesaw", "bfloat16")]
+    q, k, v, lengths, lens, kv = inputs[("ragged_decode", "seesaw",
+                                         "bfloat16")]
     B, H, hd = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     keys = float(np.sum(lens.astype(np.int64) + 1))
@@ -291,6 +350,49 @@ def measure(RN, FA, PG, ref, inputs):
         lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask),
         bound(2 * q.numel() * es + 2 * keys * Hkv * hd * es + 4 * B,
               4 * keys * H * hd, bf))
+
+    # the same window at lengths that fit one split of the kernel (no
+    # merge) and at full windows (every split, then the merge)
+    for tag, n in (("one_split", 100), ("full_window", Skv - 1)):
+        ln = torch.full((B,), n, dtype=torch.int32, device="cuda")
+        mk = (torch.arange(Skv, device="cuda")[None, :]
+              <= ln.long()[:, None])[:, None, None, :]
+        nk = float(B * (n + 1))
+        row(f"ragged_decode/{tag}",
+            f"the same q and window, every length {n}",
+            lambda: PG.ragged_decode_attention(q, k, v, ln),
+            lambda: ref.ragged_decode_ref(q, k, v, ln),
+            lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mk),
+            bound(2 * q.numel() * es + 2 * nk * Hkv * hd * es + 4 * B,
+                  4 * nk * H * hd, bf))
+
+    # the same window and lengths read through a page table of 16
+    ps = 16
+    pool, pages = paged_window(kv, ps)
+    want = PG.ragged_decode_attention(q, k, v, lengths)
+    got = PG.paged_decode_attention_pool(q, pool, pages, lengths,
+                                         page_size=ps)
+    torch.cuda.synchronize()
+    paged_vs_gathered = max_err(got, want, bf)
+    n_table = float(np.sum((lens.astype(np.int64) + ps) // ps))
+    rows["ragged_decode/paged"] = dict(
+        ms=timer(lambda: PG.paged_decode_attention_pool(
+            q, pool, pages, lengths, page_size=ps)),
+        plain_ms=timer(lambda: ref.paged_decode_ref(
+            q, pool, pages, lengths, page_size=ps)),
+        host_us=timer.host_us(lambda: PG.paged_decode_attention_pool(
+            q, pool, pages, lengths, page_size=ps)),
+        max_abs_err_vs_gathered=paged_vs_gathered,
+        shape=f"the same q and lengths, K/V read through a shuffled page "
+              f"table ({B} x {pages.shape[1]} pages of {ps}) bf16",
+        **bound(2 * q.numel() * es + 2 * keys * Hkv * hd * es + 4 * B
+                + 8 * n_table, 4 * keys * H * hd, bf))
+    rows["gather_pages"] = dict(
+        ms=timer(lambda: SC.gather_pages(pool, pages, page_size=ps)),
+        shape=f"pool[pages] of a ({B}, {pages.shape[1]}) table, pages of "
+              f"{ps} x {2 * Hkv} x {hd} bf16: the window copy the serving "
+              f"step made before each decode launch, per layer",
+        **bound(2 * pool[pages].numel() * es + 8 * pages.numel(), 0, bf))
     return rows
 
 
@@ -433,23 +535,21 @@ def measure_bwd(RN, FA, ref, inputs):
 def compiled_report(_build, lib):
     """What the build made of the flash kernels: per instantiation, the
     count of HMMA (mma.sync) instructions in its SASS (``cuobjdump
-    -sass``) and ptxas's registers and spill bytes.  The bfloat16 forward
-    and dk/dv kernels must hold HMMA and spill nothing at hd 64; their
-    float32 forms must hold none."""
+    -sass``) and ptxas's registers and spill bytes.  The bfloat16
+    forward, dq and dk/dv kernels must hold HMMA and spill nothing at hd
+    64; their float32 forms must hold none."""
     regs = _build.ptxas_report(lib)
     hmma = _build.sass_counts(lib, "HMMA")
     out = {}
     for mangled, r in regs.items():
-        m = re.search(r"(flash_[a-z_]+?_kernel)I(f|13__nv_bfloat16)?"
-                      r"Li(\d+)E", mangled)
+        m = re.search(r"(flash_[a-z_]+?_kernel)ILi(\d+)E", mangled)
         if m:
-            name, t, hd = m.groups()
-            # only dq keeps a type parameter; the other CUDA-core forms
-            # are float32 alone, the mma forms bfloat16 alone
-            bf16 = t == "13__nv_bfloat16" or name.endswith("_mma_kernel")
-            dtype = "bfloat16" if bf16 else "float32"
+            name, hd = m.groups()
+            # the CUDA-core forms are float32 alone, the mma forms
+            # bfloat16 alone
+            dtype = "bfloat16" if name.endswith("_mma_kernel") else "float32"
             out[f"{name}<{dtype}, hd {hd}>"] = dict(hmma=hmma[mangled], **r)
-    for name in ("flash_fwd", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         for hd in (64, 128):
             tc = out[f"{name}_mma_kernel<bfloat16, hd {hd}>"]
             f32 = out[f"{name}_kernel<float32, hd {hd}>"]
@@ -785,12 +885,14 @@ def profile_engine(cfg, eng, serving):
         eng.submit(serving.GenerationRequest(prompt=prompt,
                                              max_new_tokens=16))
     torch.cuda.synchronize()
+    steps0 = eng.steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         eng.drain()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
+    steps = eng.steps - steps0
     avgs = prof.key_averages()
     kernels = []
     for e in avgs:
@@ -802,9 +904,15 @@ def profile_engine(cfg, eng, serving):
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=40))
         f.write("\n")
         f.write(avgs.table(sort_by="self_cpu_time_total", row_limit=40))
+    decode_us = sum(us for us, name, _ in kernels
+                    if "paged_decode_kernel" in name)
     return {"wall_us": wall_us, "device_busy_us": busy_us,
             "device_busy_share": busy_us / wall_us,
-            "decode_steps": eng.steps, "top_kernels": [
+            "decode_steps": steps,
+            "device_us_per_decode_step": busy_us / steps,
+            "decode_kernel_us": decode_us,
+            "decode_kernel_share_of_device": decode_us / busy_us,
+            "top_kernels": [
                 {"us": us, "name": name[:90], "count": n}
                 for us, name, n in kernels[:12]]}
 
@@ -1184,7 +1292,7 @@ def main() -> int:
 
     t = time.perf_counter()
     errors, inputs = phase1(RN, FA, PG, ref)
-    times = measure(RN, FA, PG, ref, inputs)
+    times = measure(RN, FA, PG, ref, serving.cache, inputs)
     del inputs
     record["phase1"] = {"errors": errors, "times": times,
                         "s": time.perf_counter() - t}
@@ -1300,6 +1408,27 @@ def main() -> int:
                          train_shape_library_ms=tr["library_ms"],
                          train_shape_bound_ms=tr["bound_ms"],
                          train_shape=tr["shape"])
+        if name == "ragged_decode":
+            pg, ga = times["ragged_decode/paged"], times["gather_pages"]
+            paged = [e for n, _, _, e in errors if n == "paged_decode"]
+            entry.update(
+                paged_ms=pg["ms"], paged_plain_ms=pg["plain_ms"],
+                paged_bound_ms=pg["bound_ms"], paged_host_us=pg["host_us"],
+                paged_max_abs_err=max(
+                    e for n, _, dn, e in errors
+                    if n == "paged_decode" and dn == "bfloat16"),
+                paged_max_abs_err_f32=max(
+                    e for n, _, dn, e in errors
+                    if n == "paged_decode" and dn == "float32"),
+                paged_cases=len(paged),
+                paged_vs_gathered_max_abs_err=pg["max_abs_err_vs_gathered"],
+                paged_shape=pg["shape"],
+                **{f"{t}_{f}": times[f"ragged_decode/{t}"][f]
+                   for t in ("one_split", "full_window")
+                   for f in ("ms", "bound_ms", "library_ms")},
+                gather_pages_ms=ga["ms"],
+                gather_pages_bound_ms=ga["bound_ms"],
+                gather_pages_shape=ga["shape"])
         if name == "rmsnorm_fwd":
             dec = times["rmsnorm_fwd/decode"]
             entry.update(decode_rows_ms=dec["ms"],

@@ -23,12 +23,12 @@
 // - The TPU grids carried dq, dk and dv in VMEM across a sequential grid
 //   axis; Hopper blocks run in no order, so that axis became a loop inside
 //   the block.  flash_bwd_dq: one block per (batch * head, tile of query
-//   rows) loops over key tiles up to the tile's causal limit.
-//   flash_bwd_dkv: one block per (batch * kv head, tile of keys) loops
-//   over the query heads of its group and, for each, over query tiles
-//   from the tile's causal limit to the end.  Each output row is written
-//   once by the block that owns it: no atomics, and the sums run in the
-//   same order on every run.
+//   rows) loops over key tiles up to the tile's causal limit, the tiles
+//   that reach the most keys scheduled first.  flash_bwd_dkv: one block
+//   per (batch * kv head, tile of keys) loops over the query heads of its
+//   group and, for each, over query tiles from the tile's causal limit to
+//   the end.  Each output row is written once by the block that owns it:
+//   no atomics, and the sums run in the same order on every run.
 // - GQA: looping over the group inside the dk/dv block sums the group's
 //   contributions in registers, so no per-query-head float32 dk and dv
 //   (two B x H x S x hd buffers in the reference) are ever written.
@@ -36,18 +36,40 @@
 //   S are zero-filled, read nothing and write nothing, so the caller pads
 //   nothing.  Inputs and outputs are read through their strides.
 //
-// flash_bwd_dkv in bfloat16 (flash_bwd_dkv_mma_kernel) runs its four
-// products on the tensor cores (m16n8k16 mma.sync, mma.cuh):
-// - A block is 4 warps owning 64 keys of one (batch, kv head), 16 keys a
-//   warp.  It works in the transposed form, a row per key and a column
-//   per query: S^T = K Q^T and dP^T = V dO^T (Q and dO by plain
-//   ldmatrix), P^T = exp(S^T scale - lse_col) masked (only on the query
-//   tiles that cross the diagonal or S), dS^T = P^T (dP^T - delta_col)
-//   scale; P^T and dS^T are rounded to bf16 and repacked in registers
-//   into A fragments for dV += P^T dO and dK += dS^T Q (dO and Q by
-//   ldmatrix.trans).  Nothing S x S touches shared memory.  Rounding P^T
-//   and dS^T before those products is the one arithmetic difference from
-//   the float32 plain version.
+// In bfloat16 both kernels run their products on the tensor cores
+// (m16n8k16 mma.sync, mma.cuh), 4 warps of 16 rows a block, and opt in
+// to dynamic shared memory before the launch.
+//
+// flash_bwd_dq_mma_kernel: 64 query rows of one (batch, head) a block.
+// - The untransposed form, a row per query and a column per key: S = Q K^T
+//   and dP = dO V^T (K and V as the "col" B operand, by plain ldmatrix),
+//   P = exp2(S scale log2e - lse log2e) masked only on the key tiles that
+//   cross the diagonal, dS = P (dP - delta) scale, rounded to bf16 and
+//   repacked in registers into A fragments for dQ += dS K (K as the
+//   k-major B operand, by ldmatrix.trans).  Nothing S x S touches shared
+//   memory.  Rounding dS before that product is the one arithmetic
+//   difference from the float32 plain version.  At the training shape the
+//   three products are 26 GFLOP: 0.0261 ms at 989 TFLOP/s.
+// - K and V tiles stream through a 2-stage cp.async ring (tile j + 1 in
+//   flight while tile j is multiplied), zero-filled past S; query head h
+//   reads kv head h / (H / Hkv).  The lse and delta of the lane's two rows
+//   stay in registers.
+// - hd 64: Q and dO are A fragments in registers for the whole loop (Q 16,
+//   dO 16, dQ 32, S 32, dP 32 registers), 64-key tiles, 48 KB of shared
+//   memory.  hd 128: Q and dO stay in shared memory and are re-read by
+//   ldmatrix at each key tile, 32-key tiles, 64 KB.
+// - Epilogue: dQ goes through the warp's own rows of the Q tile to 16-byte
+//   stores of the rows below S.
+//
+// flash_bwd_dkv_mma_kernel: 64 keys of one (batch, kv head) a block.
+// - The transposed form, a row per key and a column per query:
+//   S^T = K Q^T and dP^T = V dO^T (Q and dO by plain ldmatrix),
+//   P^T = exp(S^T scale - lse_col) masked (only on the query tiles that
+//   cross the diagonal or S), dS^T = P^T (dP^T - delta_col) scale; P^T and
+//   dS^T are rounded to bf16 and repacked in registers into A fragments
+//   for dV += P^T dO and dK += dS^T Q (dO and Q by ldmatrix.trans).
+//   Rounding P^T and dS^T before those products is the one arithmetic
+//   difference from the float32 plain version.
 // - Q and dO tiles, with their lse and delta rows, stream through a
 //   2-stage cp.async ring, the group's heads one after another in one
 //   stream, so the next tile is in flight while this one is multiplied.
@@ -55,18 +77,18 @@
 //   V 16, dK 32, dV 32, S^T 32, dP^T 32 registers), 64-query tiles, 49 KB
 //   of shared memory.  hd 128 does not fit so: K and V stay in shared
 //   memory and are re-read by ldmatrix at each query tile, 32-query
-//   tiles, 65 KB.  Both opt in to dynamic shared memory before the launch.
+//   tiles, 65 KB.
 // - Epilogue: dK and dV go through the warp's own rows of the K and V
 //   tiles to 16-byte stores.
 //
-// The float32 forms, and flash_bwd_dq in both dtypes, keep their CUDA-core
-// bodies: the tensor cores' float32 (TF32) keeps about three digits, and
-// the float32 gates (2e-5 of the plain version, the card against the CPU)
-// need all of float32.  There a row is held by hd / 16 neighbouring
-// threads (16 dims each), their partial dot products meeting by warp
-// shuffles, while 32-row tiles of the swept operand sit in shared memory
-// as float32.  The entry dispatches by dtype: a bfloat16 dk/dv call
-// launches the tensor-core kernel and nothing else.
+// The float32 forms keep their CUDA-core bodies: the tensor cores'
+// float32 (TF32) keeps about three digits, and the float32 gates (2e-5
+// of the plain version, the card against the CPU) need all of float32.
+// There a row is held by hd / 16 neighbouring threads (16 dims each),
+// their partial dot products meeting by warp shuffles, while 32-row tiles
+// of the swept operand sit in shared memory as float32.  The entries
+// dispatch by dtype: a bfloat16 call launches the tensor-core kernel and
+// nothing else.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -76,15 +98,17 @@ constexpr int kThreads = 256;
 constexpr int kTile = 32;               // rows of the tile swept in smem
 
 // thread g of a row holds dims [c * 4 * TPR + g * 4, +4), c = 0..3
-template <typename T, int TPR>
-__device__ __forceinline__ void load_part(const T* row, int g, float* dst) {
+template <int TPR>
+__device__ __forceinline__ void load_part(const float* row, int g,
+                                          float* dst) {
 #pragma unroll
   for (int c = 0; c < 4; ++c)
     rt::load4(row + c * 4 * TPR + g * 4, dst + 4 * c);
 }
 
-template <typename T, int TPR>
-__device__ __forceinline__ void store_part(T* row, int g, const float* src) {
+template <int TPR>
+__device__ __forceinline__ void store_part(float* row, int g,
+                                           const float* src) {
 #pragma unroll
   for (int c = 0; c < 4; ++c)
     rt::store4(row + c * 4 * TPR + g * 4, src + 4 * c);
@@ -124,31 +148,27 @@ __device__ __forceinline__ void row_axpy(float a, const float* tile_row,
 
 // rows p0 .. p0 + kTile - 1 of one (batch, head) into a float32 tile,
 // zeros past S
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float (*tile)[HD], const T* base,
+template <int HD>
+__device__ __forceinline__ void load_tile(float (*tile)[HD],
+                                          const float* base,
                                           int64_t stride_s, int p0, int S) {
-  constexpr int V = rt::Vec<T>::N;
-  for (int i = threadIdx.x; i < kTile * HD / V; i += kThreads) {
-    const int j = i / (HD / V), c = (i % (HD / V)) * V;
+  for (int i = threadIdx.x; i < kTile * HD / 4; i += kThreads) {
+    const int j = i / (HD / 4), c = (i % (HD / 4)) * 4;
     const int p = p0 + j;
-    float t[V];
-    if (p < S) {
-      rt::load_vec(base + static_cast<int64_t>(p) * stride_s + c, t);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) t[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < V; e += 4) rt::store4(&tile[j][c + e], t + e);
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    if (p < S) rt::load4(base + static_cast<int64_t>(p) * stride_s + c, t);
+    rt::store4(&tile[j][c], t);
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int Hkv, int S, int BH, rt::Strides qs,
                     rt::Strides ks, rt::Strides vs, rt::Strides dos,
                     rt::Strides dqs, float sm_scale) {
@@ -169,10 +189,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float qr[16], dor[16], acc[16];
   if (row_ok) {
-    load_part<T, TPR>(q + b * qs.b + static_cast<int64_t>(qpos) * qs.s
-                      + h * qs.h, g, qr);
-    load_part<T, TPR>(dout + b * dos.b + static_cast<int64_t>(qpos) * dos.s
-                      + h * dos.h, g, dor);
+    load_part<TPR>(q + b * qs.b + static_cast<int64_t>(qpos) * qs.s
+                   + h * qs.h, g, qr);
+    load_part<TPR>(dout + b * dos.b + static_cast<int64_t>(qpos) * dos.s
+                   + h * dos.h, g, dor);
   }
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
@@ -183,13 +203,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float lse_r = row_ok ? lse[rix] : 0.f;
   const float delta_r = row_ok ? delta[rix] : 0.f;
 
-  const T* kbase = k + b * ks.b + hk * ks.h;
-  const T* vbase = v + b * vs.b + hk * vs.h;
+  const float* kbase = k + b * ks.b + hk * ks.h;
+  const float* vbase = v + b * vs.b + hk * vs.h;
   const int kv_end = min(S, qt * ROWS + ROWS);  // causal reach of the tile
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();                    // the previous tile is consumed
-    load_tile<T, HD>(k_tile, kbase, ks.s, k0, S);
-    load_tile<T, HD>(v_tile, vbase, vs.s, k0, S);
+    load_tile<HD>(k_tile, kbase, ks.s, k0, S);
+    load_tile<HD>(v_tile, vbase, vs.s, k0, S);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kTile; ++j) {
@@ -204,8 +224,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (row_ok)
-    store_part<T, TPR>(dq + b * dqs.b + static_cast<int64_t>(qpos) * dqs.s
-                       + h * dqs.h, g, acc);
+    store_part<TPR>(dq + b * dqs.b + static_cast<int64_t>(qpos) * dqs.s
+                    + h * dqs.h, g, acc);
 }
 
 template <int HD>
@@ -237,10 +257,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
 
   float kr[16], vr[16], dka[16], dva[16];
   if (row_ok) {
-    load_part<float, TPR>(k + b * ks.b + static_cast<int64_t>(kpos) * ks.s
-                          + hk * ks.h, g, kr);
-    load_part<float, TPR>(v + b * vs.b + static_cast<int64_t>(kpos) * vs.s
-                          + hk * vs.h, g, vr);
+    load_part<TPR>(k + b * ks.b + static_cast<int64_t>(kpos) * ks.s
+                   + hk * ks.h, g, kr);
+    load_part<TPR>(v + b * vs.b + static_cast<int64_t>(kpos) * vs.s
+                   + hk * vs.h, g, vr);
   }
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
@@ -256,8 +276,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
     // the first query that sees this tile is its first key
     for (int q0 = kt * ROWS; q0 < S; q0 += kTile) {
       __syncthreads();                  // the previous tile is consumed
-      load_tile<float, HD>(q_tile, qbase, qs.s, q0, S);
-      load_tile<float, HD>(do_tile, dobase, dos.s, q0, S);
+      load_tile<HD>(q_tile, qbase, qs.s, q0, S);
+      load_tile<HD>(do_tile, dobase, dos.s, q0, S);
       if (threadIdx.x < kTile) {
         const int qp = q0 + threadIdx.x;
         lse_t[threadIdx.x] = qp < S ? lse[bh * S + qp] : 0.f;
@@ -280,12 +300,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
     }
   }
   if (row_ok) {
-    store_part<float, TPR>(dk + b * dks.b
-                           + static_cast<int64_t>(kpos) * dks.s + hk * dks.h,
-                           g, dka);
-    store_part<float, TPR>(dv + b * dvs.b
-                           + static_cast<int64_t>(kpos) * dvs.s + hk * dvs.h,
-                           g, dva);
+    store_part<TPR>(dk + b * dks.b + static_cast<int64_t>(kpos) * dks.s
+                    + hk * dks.h, g, dka);
+    store_part<TPR>(dv + b * dvs.b + static_cast<int64_t>(kpos) * dvs.s
+                    + hk * dvs.h, g, dva);
   }
 }
 
@@ -298,17 +316,17 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int HD>
+template <int HD>
 void launch_dq(const Args& a) {
   constexpr int ROWS = kThreads / (HD / 16);
   const int BH = a.B * a.H;
   const int n_q = (a.S + ROWS - 1) / ROWS;
-  flash_bwd_dq_kernel<T, HD><<<n_q * BH, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_bwd_dq_kernel<HD><<<n_q * BH, kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dq), a.H, a.Hkv, a.S, BH, a.qs, a.ks, a.vs, a.dos,
-      a.dqs, a.sm_scale);
+      static_cast<float*>(a.dq), a.H, a.Hkv, a.S, BH, a.qs, a.ks, a.vs,
+      a.dos, a.dqs, a.sm_scale);
 }
 
 template <int HD>
@@ -554,21 +572,223 @@ int launch_dkv_mma(const Args& a) {
   return 0;
 }
 
+// ---------------------------------------------------------------------
+// flash_bwd_dq in bfloat16: tensor cores
+// ---------------------------------------------------------------------
+
+constexpr int kMmaRows = 64;            // query rows per block, 16 a warp
+
+// hd 64: Q and dO live in registers as A fragments and keys stream in
+// tiles of 64; at hd 128 (dQ alone takes 64 registers) Q and dO stay in
+// shared memory, re-read by ldmatrix at every key tile, and keys stream
+// in tiles of 32
+template <int HD>
+struct Dq {
+  static constexpr int KT = HD == 64 ? 64 : 32;
+  static constexpr bool Q_IN_REGS = HD == 64;
+  static constexpr int Q_TILE = kMmaRows * HD * 2;
+  static constexpr int K_TILE = KT * HD * 2;
+  // Q, dO; 2 stages of (K, V)
+  static constexpr int SMEM = 2 * Q_TILE + 4 * K_TILE;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int H, int Hkv,
+                        int S, int BH, rt::Strides qs, rt::Strides ks,
+                        rt::Strides vs, rt::Strides dos, rt::Strides dqs,
+                        float sm_scale) {
+  using C = Dq<HD>;
+  constexpr int KT = C::KT;
+  constexpr int CPR = HD / 8;           // 16-byte chunks a row
+  constexpr int KB = HD / 16;           // k-blocks of head_dim (Q K^T)
+  constexpr int NB = HD / 8;            // n-blocks of head_dim (dS K)
+  constexpr int NS = KT / 8;            // n-blocks of a key tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t q_s = mma::smem_u32(smem), do_s = q_s + C::Q_TILE;
+  const uint32_t ring = q_s + 2 * C::Q_TILE;    // stage st: K, V
+
+  const int n_q = (S + kMmaRows - 1) / kMmaRows;
+  // the last query tiles reach the most keys: schedule them first
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.x) / BH;
+  const int bh = static_cast<int>(blockIdx.x) % BH;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = qt * kMmaRows;
+  const __nv_bfloat16* kbase = k + b * ks.b + hk * ks.h;
+  const __nv_bfloat16* vbase = v + b * vs.b + hk * vs.h;
+  // key tiles up to the causal reach of the block's last row
+  const int n_tiles = (min(S, q0 + kMmaRows) + KT - 1) / KT;
+
+  auto issue = [&](int j) {
+    const uint32_t k_st = ring + (j & 1) * 2 * C::K_TILE;
+    mma::load_tile<KT, HD, kMmaThreads>(k_st, kbase, ks.s, j * KT, S);
+    mma::load_tile<KT, HD, kMmaThreads>(k_st + C::K_TILE, vbase, vs.s,
+                                        j * KT, S);
+  };
+  mma::load_tile<kMmaRows, HD, kMmaThreads>(q_s, q + b * qs.b + h * qs.h,
+                                            qs.s, q0, S);
+  mma::load_tile<kMmaRows, HD, kMmaThreads>(
+      do_s, dout + b * dos.b + h * dos.h, dos.s, q0, S);
+  issue(0);
+  mma::cp_async_commit();
+
+  // the rows of this lane's accumulators, row0 and row0 + 8, with their
+  // lse (times log2 e) and delta; rows past S read nothing
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const int64_t rix = static_cast<int64_t>(bh) * S + row;
+    lse2[i] = row < S ? lse[rix] * mma::LOG2E : 0.f;
+    dl[i] = row < S ? delta[rix] : 0.f;
+  }
+  uint32_t qf[C::Q_IN_REGS ? KB : 1][4], df[C::Q_IN_REGS ? KB : 1][4];
+  float acc[NB][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  const float sl2 = sm_scale * mma::LOG2E;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {              // tile j + 1 into the other stage
+      issue(j + 1);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (C::Q_IN_REGS) {
+      if (j == 0) {
+#pragma unroll
+        for (int kb = 0; kb < KB; ++kb) {
+          mma::ldsm_x4(qf[kb], mma::a_addr<CPR>(q_s, warp * 16, 2 * kb,
+                                                lane));
+          mma::ldsm_x4(df[kb], mma::a_addr<CPR>(do_s, warp * 16, 2 * kb,
+                                                lane));
+        }
+      }
+    }
+    const int k0 = j * KT;
+    const uint32_t k_s = ring + (j & 1) * 2 * C::K_TILE;
+    const uint32_t v_s = k_s + C::K_TILE;
+
+    // S = Q K^T and dP = dO V^T: a row per query, a column per key
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int nb = 0; nb < NS; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb) {
+      uint32_t qa[4], da[4];
+      if constexpr (C::Q_IN_REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qa[i] = qf[kb][i];
+          da[i] = df[kb][i];
+        }
+      } else {
+        mma::ldsm_x4(qa, mma::a_addr<CPR>(q_s, warp * 16, 2 * kb, lane));
+        mma::ldsm_x4(da, mma::a_addr<CPR>(do_s, warp * 16, 2 * kb, lane));
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        uint32_t r[4];
+        mma::ldsm_x4(r, mma::b_addr<CPR>(k_s, n2 * 16, 2 * kb, lane));
+        mma::mma16816(s[2 * n2], qa, r[0], r[1]);
+        mma::mma16816(s[2 * n2 + 1], qa, r[2], r[3]);
+        mma::ldsm_x4(r, mma::b_addr<CPR>(v_s, n2 * 16, 2 * kb, lane));
+        mma::mma16816(dp[2 * n2], da, r[0], r[1]);
+        mma::mma16816(dp[2 * n2 + 1], da, r[2], r[3]);
+      }
+    }
+
+    // P = exp(S scale - lse), masked on the tiles that cross the warp's
+    // diagonal (keys past S lie above every row below S, so the causal
+    // mask covers them); dS = P (dP - delta) scale, kept in dp
+    const bool edge = k0 + KT - 1 > q0 + warp * 16;
+#pragma unroll
+    for (int nb = 0; nb < NS; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[nb][e], sl2, -lse2[e >> 1]));
+        if (edge && k0 + nb * 8 + 2 * (lane & 3) + (e & 1) >
+                        row0 + 8 * (e >> 1))
+          p = 0.f;
+        dp[nb][e] = p * (dp[nb][e] - dl[e >> 1]) * sm_scale;
+      }
+
+    // dQ += dS K, dS from registers, K by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      uint32_t da[4];
+      mma::acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < NB / 2; ++n2) {
+        uint32_t r[4];
+        mma::ldsm_x4_t(r, mma::a_addr<CPR>(k_s, kk * 16, 2 * n2, lane));
+        mma::mma16816(acc[2 * n2], da, r[0], r[1]);
+        mma::mma16816(acc[2 * n2 + 1], da, r[2], r[3]);
+      }
+    }
+    __syncthreads();                    // the stage is consumed
+  }
+
+  // dQ through the warp's own rows of the Q tile, then 16-byte stores of
+  // the rows below S
+  mma::acc_to_tile<HD>(smem, warp * 16, acc, 1.f, 1.f, lane);
+  __syncwarp();
+  mma::tile_to_global<HD>(smem, warp * 16, dq + b * dqs.b + h * dqs.h,
+                          dqs.s, q0 + warp * 16, S, lane);
+}
+
+template <int HD>
+int launch_dq_mma(const Args& a) {
+  constexpr int smem = Dq<HD>::SMEM;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();                 // clear it; report it once
+    return static_cast<int>(err);
+  }
+  const int BH = a.B * a.H;
+  const int n_q = (a.S + kMmaRows - 1) / kMmaRows;
+  flash_bwd_dq_mma_kernel<HD><<<n_q * BH, kMmaThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(a.dq), a.H, a.Hkv, a.S, BH, a.qs, a.ks,
+      a.vs, a.dos, a.dqs, a.sm_scale);
+  return 0;
+}
+
 template <bool DQ>
 int dispatch(const Args& a, int hd, int dtype) {
   if (a.B < 1 || a.S < 1 || a.Hkv < 1 || a.H % a.Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   int err = 0;
   if (dtype == rt::DTYPE_BF16 && hd == 64) {
-    if constexpr (DQ) launch_dq<__nv_bfloat16, 64>(a);
-    else err = launch_dkv_mma<64>(a);
+    err = DQ ? launch_dq_mma<64>(a) : launch_dkv_mma<64>(a);
   } else if (dtype == rt::DTYPE_BF16 && hd == 128) {
-    if constexpr (DQ) launch_dq<__nv_bfloat16, 128>(a);
-    else err = launch_dkv_mma<128>(a);
+    err = DQ ? launch_dq_mma<128>(a) : launch_dkv_mma<128>(a);
   } else if (dtype == rt::DTYPE_F32 && hd == 64) {
-    DQ ? launch_dq<float, 64>(a) : launch_dkv<64>(a);
+    DQ ? launch_dq<64>(a) : launch_dkv<64>(a);
   } else if (dtype == rt::DTYPE_F32 && hd == 128) {
-    DQ ? launch_dq<float, 128>(a) : launch_dkv<128>(a);
+    DQ ? launch_dq<128>(a) : launch_dkv<128>(a);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -59,8 +59,7 @@ def attention(q, k, v):
 
 
 def paged_decode_attention(q, k, v, lengths):
-    """Ragged single-token decode attention over a gathered page window
-    (the serving hot path; see ``repro_torch.serving.cache``).
+    """Ragged single-token decode attention over a gathered page window.
 
     q: (B, 1, H, hd), the new token's query at per-request position
     ``lengths[b]``; k, v: (B, Skv, Hkv, hd) whose slot ``s`` holds
@@ -73,6 +72,32 @@ def paged_decode_attention(q, k, v, lengths):
         out = _paged.ragged_decode_attention(qt, kt, vt, lengths)
     else:
         out = _ref.ragged_decode_ref(qt, kt, vt, lengths)
+    return out[:, None]
+
+
+def paged_decode_attention_pool(q, pool_layer, pages, lengths, *,
+                                page_size: int):
+    """Ragged single-token decode attention with K and V read through the
+    page table from the pool (the serving hot path; see
+    ``repro_torch.serving.cache``): what ``paged_decode_attention``
+    computes over the gathered window, with no window gathered on the
+    card.
+
+    q: (B, 1, H, hd) at per-request position ``lengths[b]``; pool_layer:
+    (n_pages, page_size, 2·Hkv, hd) in q's dtype, head-interleaved;
+    pages: (B, P) int64, key s of request b at row s % page_size of page
+    pages[b, s // page_size]; lengths: (B,) int32, keys 0..lengths[b]
+    inclusive valid.  Returns (B, 1, H, hd)."""
+    if pool_layer.dtype != q.dtype:
+        raise TypeError(f"paged_decode_attention_pool: pool dtype "
+                        f"{pool_layer.dtype} differs from q's {q.dtype}")
+    if _on_card(q, "paged_decode_attention_pool"):
+        out = _paged.paged_decode_attention_pool(q[:, 0], pool_layer, pages,
+                                                 lengths,
+                                                 page_size=page_size)
+    else:
+        out = _ref.paged_decode_ref(q[:, 0], pool_layer, pages, lengths,
+                                    page_size=page_size)
     return out[:, None]
 
 

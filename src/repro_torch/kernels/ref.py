@@ -115,6 +115,20 @@ def ragged_decode_ref(q, k, v, lengths):
     return torch.einsum("bhk,bhkd->bhd", p, v).to(q.dtype)
 
 
+def paged_decode_ref(q, pool_layer, pages, lengths, *, page_size: int):
+    """``ragged_decode_ref`` over the keys a page table names: the
+    request's window gathered from the pool (``serving.cache.
+    gather_pages``), then attended.  q: (B, H, hd); pool_layer:
+    (n_pages, page_size, 2·Hkv, hd), kv head j's K at index 2j and its V
+    at 2j + 1; pages: (B, P) int64, key s of request b at row
+    s % page_size of page pages[b, s // page_size]; lengths: (B,) int.
+    Returns (B, H, hd) in q's dtype."""
+    from repro_torch.serving.cache import gather_pages   # import cycle
+    k, v = gather_pages(pool_layer, pages, page_size=page_size)
+    return ragged_decode_ref(q, k.transpose(1, 2), v.transpose(1, 2),
+                             lengths)
+
+
 def _ssd_dtype(x):
     """The SSD's arithmetic type: float32, or float64 for float64 inputs
     (a float64 evaluation is what the card's checks hold both the kernel

@@ -18,6 +18,12 @@ same code as live ones.  Stale data in it, or in any page beyond a
 request's length, is unreachable: the decode attention reads no key past
 ``lengths[b]``.
 
+The decode step's attention reads K and V through the page table
+(``kernels.backend.paged_decode_attention_pool``): on the card the
+kernel reads the pool in place, so no window is gathered; on the CPU
+the plain version gathers the window (``gather_pages``) and attends, as
+the reference does.
+
 Unlike the reference, whose arrays are immutable, the prefill scatter
 and the decode write update the pool in place (``index_put_``), which
 spares a copy of the whole pool per step.
@@ -198,7 +204,8 @@ def paged_decode_attn(p, x, pool_layer, pages, lengths, *, page_size: int,
     (B,) int32 tokens already cached per slot (= the new token's absolute
     position).  Inactive slots carry all-null page rows, so their writes
     land in the null page and their outputs are discarded by the host.
-    Returns out (B, 1, d)."""
+    The attention reads K and V through ``pages`` (no window is gathered
+    on the card); the pool's dtype must be x's.  Returns out (B, 1, d)."""
     B = x.shape[0]
     q = (x @ p.w_q).reshape(B, 1, n_heads, head_dim)
     k = (x @ p.w_k).reshape(B, 1, n_kv_heads, head_dim)
@@ -214,9 +221,8 @@ def paged_decode_attn(p, x, pool_layer, pages, lengths, *, page_size: int,
     page = pages.gather(1, (pos // page_size)[:, None])[:, 0]   # (B,)
     pool_layer[page, pos % page_size] = kv_tok
 
-    kk, vv = gather_pages(pool_layer, pages, page_size=page_size)
-    o = KB.paged_decode_attention(q, kk.to(q.dtype), vv.to(q.dtype),
-                                  lengths)
+    o = KB.paged_decode_attention_pool(q, pool_layer, pages, lengths,
+                                       page_size=page_size)
     return o.reshape(B, 1, n_heads * head_dim) @ p.w_o
 
 

@@ -2,7 +2,7 @@
 version, the serving engine and one training step of the dense model
 and of Mamba-2 on the card against the same on the CPU, and a CI-sized
 run of the kernel benchmark; and, in the built library's machine code,
-that the bfloat16 flash forward and dk/dv run on the tensor cores.
+that the bfloat16 flash forward, dq and dk/dv run on the tensor cores.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no JAX, so it runs on the card's machine as it is:
@@ -27,8 +27,10 @@ from repro_torch.kernels import overlap as OV
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels import ssd as SSD
+from repro_torch.kernels import paged as PG
 from repro_torch.models import registry as R
 from repro_torch.serving import GenerationRequest, ServingEngine
+from repro_torch.serving import cache as SC
 
 pytestmark = pytest.mark.gpu
 
@@ -115,6 +117,79 @@ def test_ragged_decode_kernel(cuda, B, H, Hkv, Skv, hd, dtype):
     _close(got[:, 0], want, dtype)
 
 
+def _page_table(cuda, B, H, Hkv, hd, ps, window, dtype, seed):
+    """A random pool and a shuffled page table for B requests: lengths
+    ps - 1, ps, ps + 1 (the page edges), an inactive slot (length 0,
+    all-null row), the window's last key window - 1, the rest random.
+    Live pages are distinct, shuffled ids; the other entries are the null
+    page 0, whose data is random too."""
+    rng = np.random.default_rng(seed)
+    P = window // ps
+    lens = rng.integers(1, window, B)
+    lens[:5] = [ps - 1, ps, ps + 1, 0, window - 1]
+    need = [0 if b == 3 else n // ps + 1 for b, n in enumerate(lens)]
+    n_pages = sum(need) + 5
+    ids = rng.permutation(np.arange(1, n_pages))
+    pages = np.zeros((B, P), np.int64)
+    used = 0
+    for b, n in enumerate(need):
+        pages[b, :n] = ids[used:used + n]
+        used += n
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pool = torch.randn(n_pages, ps, 2 * Hkv, hd, generator=g,
+                       device=cuda).to(dtype)
+    q = torch.randn(B, H, hd, generator=g, device=cuda).to(dtype)
+    return (q, pool, torch.from_numpy(pages).to(cuda),
+            torch.from_numpy(lens.astype(np.int32)).to(cuda))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ps", [1, 4, 16])
+@pytest.mark.parametrize("H,Hkv,hd,window", [
+    (16, 16, 64, 1024),         # seesaw-150m decode
+    (24, 8, 128, 1008),         # llama3.2-3b heads
+])
+def test_paged_decode_kernel(cuda, H, Hkv, hd, window, ps, dtype):
+    """The kernel reading K and V through the page table, against the
+    plain gather-then-attend, at page sizes 1, 4 and 16."""
+    q, pool, pages, lengths = _page_table(cuda, 8, H, Hkv, hd, ps, window,
+                                          dtype, seed=ps)
+    before = PG.launches
+    got = PG.paged_decode_attention_pool(q, pool, pages, lengths,
+                                         page_size=ps)
+    torch.cuda.synchronize()
+    assert PG.launches == before + 1 and got.dtype == dtype
+    _close(got, ref.paged_decode_ref(q, pool, pages, lengths, page_size=ps),
+           dtype)
+    # the same call again: the split counters were left at zero
+    again = PG.paged_decode_attention_pool(q, pool, pages, lengths,
+                                           page_size=ps)
+    assert torch.equal(got, again)
+
+
+def test_serving_on_card_reads_pages_in_place(cuda, monkeypatch):
+    """The card's decode step reads K and V through the page table: no
+    window is gathered (the plain version would gather one)."""
+    def boom(*args, **kwargs):
+        raise AssertionError("gathered a page window on the card")
+
+    monkeypatch.setattr(SC, "gather_pages", boom)
+    cfg = ModelConfig(name="card-tiny", arch_type="dense", n_layers=2,
+                      d_model=128, n_heads=2, n_kv_heads=1, head_dim=64,
+                      d_ff=256, vocab_size=256, max_seq_len=64,
+                      rope_theta=1e4)
+    model = R.init_model(cfg, seed=0, dtype=torch.float32, device=cuda)
+    eng = ServingEngine(cfg, model, dtype=torch.float32, decode_slots=2,
+                        page_size=4, max_len=32)
+    before = PG.launches
+    for n in (3, 9, 17):
+        eng.submit(GenerationRequest(prompt=np.arange(n, dtype=np.int32),
+                                     max_new_tokens=5))
+    done = eng.drain()
+    assert len(done) == 3 and all(len(r.tokens) == 5 for r in done)
+    assert PG.launches > before and eng.pool.n_used == 0
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8, 1024, 1024), (1000, 3072), (37, 64),
                                    (3, 5, 256), (4, 2048, 2560),
@@ -170,7 +245,8 @@ def sass(cuda):
     return _build
 
 
-@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dkv"])
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"])
 def test_bf16_flash_kernels_run_on_tensor_cores(sass, name):
     """The bfloat16 instantiations (hd 64 and 128) hold mma.sync (HMMA in
     the SASS), the float32 ones none; ptxas spills nothing at hd 64."""

@@ -2,8 +2,8 @@
 
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` run their bfloat16
 forms on the tensor cores: bf16 inputs, float32 products and sums, and
-the probabilities P (forward), Pᵀ and dSᵀ (dk/dv) rounded to bf16 before
-the second product of each pair.  That rounding is the one arithmetic
+the probabilities P (forward), dS (dq), Pᵀ and dSᵀ (dk/dv) rounded to
+bf16 before the second product of each pair.  That rounding is the one arithmetic
 difference from the float32 plain versions, and the kernels run only on
 the card; so here plain torch repeats what the kernels compute (the
 forward tile by tile, 64 keys at a time, with its online softmax) and is
@@ -93,6 +93,26 @@ def mma_flash_bwd_dkv(q, k, v, out, lse, do):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def mma_flash_bwd_dq(q, k, v, out, lse, do):
+    """What ``flash_bwd_dq_mma_kernel`` computes: S and dP as float32 sums
+    of bf16 products, P = exp(S·scale − lse) masked to kpos ≤ qpos,
+    dS = P(dP − delta)·scale rounded to bf16 before dQ = dS·K, summed in
+    float32.  Query head h reads kv head h // (H / Hkv).  Returns dq bf16
+    (B, H, S, hd)."""
+    B, H, S, hd = q.shape
+    G = H // k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    k32 = k.float().repeat_interleave(G, dim=1)
+    v32 = v.float().repeat_interleave(G, dim=1)
+    mask = torch.ones(S, S, dtype=torch.bool).tril()      # [q, key]
+    s = q.float() @ k32.transpose(-1, -2)
+    p = torch.exp(s * scale - lse.reshape(B, H, S, 1)).masked_fill(~mask,
+                                                                   0.0)
+    ds = p * (do.float() @ v32.transpose(-1, -2) - delta) * scale
+    return (ds.bfloat16().float() @ k32).to(q.dtype)
+
+
 def _inputs(B, H, Hkv, S, hd, seed):
     """q, k, v, do (B, heads, S, hd) in bf16, from numpy normals."""
     rng = np.random.default_rng(seed)
@@ -135,6 +155,18 @@ def test_mma_dkv_rounding_within_bf16_tolerance(B, H, Hkv, S, hd):
     _close(dv, want_dv)
 
 
+@pytest.mark.parametrize("B,H,Hkv,S,hd", MAIN_SHAPES + EDGE_SHAPES)
+def test_mma_dq_rounding_within_bf16_tolerance(B, H, Hkv, S, hd):
+    """dq with dS rounded, against the float32 plain backward on the same
+    out and lse (the forward's, as on the card)."""
+    q, k, v, do = _inputs(B, H, Hkv, S, hd, seed=S + 2)
+    out, lse = mma_flash_fwd(q, k, v)
+    dq = mma_flash_bwd_dq(q, k, v, out, lse, do)
+    want_dq, _, _ = ref.flash_bwd_ref(q, k, v, out, lse, do)
+    assert dq.dtype == torch.bfloat16
+    _close(dq, want_dq)
+
+
 @pytest.mark.parametrize("B,H,Hkv,S,hd,blk", [
     (1, 4, 4, 48, 64, 16),      # MHA at hd 64
     (2, 6, 2, 37, 128, 16),     # GQA groups of 3 at hd 128, ragged S
@@ -151,11 +183,13 @@ def test_mma_rounding_matches_jax_flash(B, H, Hkv, S, hd, blk):
                        for t in (q, k, v, do))
     jo, jlse = _flash_fwd(jq, jk, jv, causal=True, block_q=blk,
                           block_k=blk, interpret=True)
-    _, jdk, jdv = _flash_bwd(jq, jk, jv, jo, jlse, jdo, causal=True,
-                             block_q=blk, block_k=blk, interpret=True)
+    jdq, jdk, jdv = _flash_bwd(jq, jk, jv, jo, jlse, jdo, causal=True,
+                               block_q=blk, block_k=blk, interpret=True)
     out, lse = mma_flash_fwd(q, k, v)
     _close(out, torch.tensor(np.asarray(jo)[:, :, :S]))
     _close(lse, torch.tensor(np.asarray(jlse)[:, :S]))
+    dq = mma_flash_bwd_dq(q, k, v, out, lse, do)
+    _close(dq, torch.tensor(np.asarray(jdq)[:, :, :S]))
     dk, dv = mma_flash_bwd_dkv(q, k, v, out, lse, do)
     _close(dk, torch.tensor(np.asarray(jdk)[:, :, :S]))
     _close(dv, torch.tensor(np.asarray(jdv)[:, :, :S]))

@@ -18,6 +18,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import _flash_fwd
 from repro.kernels.paged import ragged_decode_attention as j_ragged
 from repro.kernels.rmsnorm import rmsnorm as j_rmsnorm
+from repro.serving.cache import gather_pages as j_gather_pages
 from repro_torch.kernels import backend as KB
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import paged as PG
@@ -130,6 +131,119 @@ def test_ragged_decode_ignores_stale_tail():
     assert torch.equal(a, b_)
 
 
+def split_merge_decode(q, k, v, lengths, split):
+    """What the decode kernel computes, in float32 plain torch: each split
+    of ``split`` keys keeps its own softmax state (m, l, acc) over the
+    valid keys it holds, and the states are merged one after another in
+    split order, l clamped at 1e-30.  q (B, H, hd); k, v (B, Hkv, Skv,
+    hd); lengths (B,).  Returns (B, H, hd) float32."""
+    B, H, hd = q.shape
+    Skv = k.shape[2]
+    G = H // k.shape[1]
+    k = k.float().repeat_interleave(G, dim=1)
+    v = v.float().repeat_interleave(G, dim=1)
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), k) / np.sqrt(hd)
+    kpos = torch.arange(Skv)
+    valid = kpos[None, :] <= lengths.long()[:, None]          # (B, Skv)
+    states = []
+    for s0 in range(0, Skv, split):
+        inside = valid[:, None, s0:s0 + split]
+        ss = s[..., s0:s0 + split].masked_fill(~inside, ref.NEG_INF)
+        m = ss.amax(-1)
+        p = torch.exp(ss - m[..., None]) * inside
+        states.append((m, p.sum(-1),
+                       torch.einsum("bhk,bhkd->bhd", p,
+                                    v[:, :, s0:s0 + split])))
+    M = torch.full((B, H), ref.NEG_INF)
+    L = torch.zeros(B, H)
+    A = torch.zeros(B, H, hd)
+    for m, l, acc in states:
+        mx = torch.maximum(M, m)
+        ca, cb = torch.exp(M - mx), torch.exp(m - mx)
+        L = L * ca + l * cb
+        A = A * ca[..., None] + acc * cb[..., None]
+        M = mx
+    return A / L.clamp_min(1e-30)[..., None]
+
+
+@pytest.mark.parametrize("split", [4, 7, 128])
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (2, 2), (4, 1)])
+def test_split_merge_decode_matches_plain_and_jax(H, Hkv, split):
+    """The decode kernel's split-and-merge order of the softmax, with
+    splits that cut a request's keys into 1-7 pieces, against the plain
+    version and the reference's Pallas kernel (interpret mode)."""
+    rng = np.random.default_rng(4)
+    B, Skv, hd = 5, 24, 16
+    q, k, v = _decode_inputs(rng, B, H, Hkv, Skv, hd)
+    q, k, v = q[:, 0], np.swapaxes(k, 1, 2), np.swapaxes(v, 1, 2)
+    lengths = np.array([5, 23, 0, 12, 7], np.int32)
+    got = split_merge_decode(_t(q), _t(k), _t(v), _t(lengths), split)
+    want = ref.ragged_decode_ref(_t(q), _t(k), _t(v), _t(lengths))
+    torch.testing.assert_close(got, want, **F32)
+    pallas = np.asarray(j_ragged(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), jnp.asarray(lengths),
+                                 block_k=8, interpret=True))
+    np.testing.assert_allclose(got.numpy(), pallas, **F32)
+
+
+def page_table_case(rng, page_size, P, n_pages, H, Hkv, hd):
+    """A pool of random junk (the null page too), and a table of 5
+    requests: lengths page_size - 1, page_size and page_size + 1 (the
+    page edges), an inactive slot (length 0, all-null row) and the
+    window's last key, P·page_size - 1.
+    Live pages are distinct, shuffled ids; entries past a request's last
+    page are the null page 0."""
+    pool = _normal(rng, (n_pages, page_size, 2 * Hkv, hd))
+    lengths = np.array([page_size - 1, page_size, page_size + 1, 0,
+                        P * page_size - 1], np.int32)
+    ids = rng.permutation(np.arange(1, n_pages))
+    pages = np.zeros((len(lengths), P), np.int64)
+    used = 0
+    for b, n in enumerate(lengths):
+        if b == 3:
+            continue                             # inactive: all null
+        need = n // page_size + 1
+        pages[b, :need] = ids[used:used + need]
+        used += need
+    q = _normal(rng, (len(lengths), H, hd))
+    return q, pool, pages, lengths
+
+
+@pytest.mark.parametrize("page_size", [1, 4, 16])
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (3, 1)])
+def test_paged_decode_ref_matches_jax_gather_and_ragged(page_size, H, Hkv):
+    """The plain version of the page-table read against the reference's
+    gather_pages + ragged_decode_attention (interpret mode); the backend
+    op on CPU tensors runs it."""
+    rng = np.random.default_rng(page_size)
+    P = -(-40 // page_size)
+    q, pool, pages, lengths = page_table_case(rng, page_size, P,
+                                              4 * P + 1, H, Hkv, 16)
+    got = ref.paged_decode_ref(_t(q), _t(pool), _t(pages), _t(lengths),
+                               page_size=page_size)
+    jk, jv = j_gather_pages(jnp.asarray(pool),
+                            jnp.asarray(pages.astype(np.int32)),
+                            page_size=page_size)
+    want = np.asarray(j_ragged(
+        jnp.asarray(q), jnp.swapaxes(jk, 1, 2), jnp.swapaxes(jv, 1, 2),
+        jnp.asarray(lengths), block_k=8, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    op = KB.paged_decode_attention_pool(_t(q)[:, None], _t(pool),
+                                        _t(pages), _t(lengths),
+                                        page_size=page_size)
+    assert torch.equal(op[:, 0], got)
+
+
+def test_paged_decode_refuses_a_pool_of_another_dtype():
+    q = torch.zeros(1, 1, 2, 64)
+    pool = torch.zeros(3, 4, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="pool dtype"):
+        KB.paged_decode_attention_pool(q, pool,
+                                       torch.zeros(1, 2, dtype=torch.int64),
+                                       torch.zeros(1, dtype=torch.int32),
+                                       page_size=4)
+
+
 def test_wrappers_refuse_cpu_tensors():
     """A kernel wrapper never runs its plain version: given a tensor that
     is not on a CUDA device it raises before building anything."""
@@ -143,6 +257,11 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         PG.ragged_decode_attention(torch.zeros(1, 2, 64), q, q,
                                    torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        PG.paged_decode_attention_pool(
+            torch.zeros(1, 2, 64), torch.zeros(3, 4, 2, 64),
+            torch.zeros(1, 2, dtype=torch.int64),
+            torch.zeros(1, dtype=torch.int32), page_size=4)
     assert (RN.launches, FA.launches, PG.launches) == before
 
 
