@@ -13,8 +13,10 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
   compiled is read back: the bfloat16 flash forward, dq and dk/dv kernels
   (hd 64 and 128) must hold HMMA (tensor-core mma.sync) instructions in
   their SASS (``cuobjdump -sass``) and their float32 forms none, and
-  ptxas must report no spills for the bfloat16 ones at hd 64; HMMA
-  counts, registers and spill bytes go into the ``kernels`` line.
+  ptxas must report no spills for the bfloat16 ones at hd 64; likewise
+  the bfloat16 SSD chunk kernel must hold HMMA and spill nothing and its
+  float32 form hold none; HMMA counts, registers and spill bytes (the
+  RMSNorm backward's too) go into the ``kernels`` line.
 - Phase 1, kernels against their plain versions: RMSNorm forward, the
   causal GQA flash forward and the ragged decode, each on the serving
   path's shapes (seesaw-150m prefill at S=1024, decode at 8 slots over a
@@ -59,7 +61,8 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
   the CPU (plain versions), same weights.  First-token logits must agree
   within 1e-3 and the greedy tokens must be equal.
 - Phase 1b, the backward kernels against their plain versions: RMSNorm
-  backward at the training rows (8·1024 × 1024) and at (1000 × 3072);
+  backward at the training rows (8·1024 × 1024), at (1000 × 3072) and
+  at 150 × 2560 (fewer rows than the kernel's grid has blocks);
   the flash backward (dq, dk/dv) at seesaw-150m's training shapes (B=8,
   S=1024, H=Hkv=16, hd=64) and at llama3.2-3b's GQA heads with a ragged
   S=1000, and at phase 1's edge lengths; float32 (2e-5) and bfloat16
@@ -70,9 +73,11 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
   terms' magnitudes.  Then each is timed as in phase 1 at the training
   shapes in bfloat16; ``library_ms`` is ``torch.autograd.grad`` through
   ``F.rms_norm`` and through ``F.scaled_dot_product_attention``, the
-  forward outside the timed call.  The flash forward is timed at the
-  training shape too, beside SDPA's forward and its bound
-  (``train_shape_*`` in its ``kernels`` entry).
+  forward outside the timed call; the RMSNorm backward's time includes
+  dscale, summed inside its one launch.  The flash forward and the
+  RMSNorm forward are timed at the training shape too, beside SDPA's
+  forward / ``F.rms_norm`` and their bounds (``train_shape_*`` in their
+  ``kernels`` entries).
 - Phase 4, training at full width: seesaw-150m unreduced, bfloat16
   compute with float32 weights and AdamW state (β 0.9/0.95, clip 1.0),
   ``kind="seesaw"``, α=2, B0=8, two cuts, seq 1024, 24·8·1024 tokens,
@@ -104,8 +109,10 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
   version's (float32 sums of such a cum differ by ~1e-4 relative).  At
   small decays (the reduced config's heads, H=8, P=64, N=16, Q=32, and
   a ragged S=100) it is held to the plain version at 2e-5 / 2e-2.  Then
-  timed as in phase 1 at the 2.7B shapes in bfloat16; no single PyTorch
-  call computes this function, so ``library_ms`` is null.
+  timed as in phase 1 at the 2.7B shapes in bfloat16 (the bfloat16
+  kernel runs on the tensor cores; ``tflops`` counts the causal work of
+  the bound, not the split products); no single PyTorch call computes
+  this function, so ``library_ms`` is null.
 - Phase 6, mamba2-2.7b at full width and depth (64 layers, d_model
   2560, 80 SSD heads, 2.70B parameters), random weights from a seed:
   ``kind="seesaw"``, α=2, B0=4, two cuts, seq 2048, 11·4·2048 tokens,
@@ -421,7 +428,8 @@ def phase1b(RN, FA, ref):
     for dtype in DTYPES:
         dn = str(dtype).replace("torch.", "")
         for rows, d, tag in ((8 * 1024, 1024, "train"),
-                             (1000, 3072, "llama")):
+                             (1000, 3072, "llama"),
+                             (150, 2560, "few-rows")):
             x = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
             s = 0.1 * torch.randn(d, generator=g, device="cuda")
             gy = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
@@ -484,10 +492,17 @@ def measure_bwd(RN, FA, ref, inputs):
         library_ms=timer(lambda: torch.autograd.grad(
             y, (xr, w), gy, retain_graph=True)),
         host_us=timer.host_us(lambda: RN.rmsnorm_bwd(x, s, gy, 1e-5)),
-        shape=f"x, g ({n}, {d}) bf16; ms includes summing the per-block "
-              f"dscale partials",
+        shape=f"x, g ({n}, {d}) bf16; dx and dscale from one launch",
         **bound(3 * n * d * es + 8 * d, 12 * n * d, bf))
     del xr, w, y
+    # the forward at the training shape (4L+1 launches a micro-batch)
+    wb = (1.0 + s).to(bf)
+    rows["rmsnorm_fwd/train"] = dict(
+        ms=timer(lambda: RN.rmsnorm_fwd(x, s, 1e-5)),
+        plain_ms=timer(lambda: ref.rmsnorm_ref(x, s, 1e-5)),
+        library_ms=timer(lambda: F.rms_norm(x, (d,), wb, 1e-5)),
+        shape=f"x ({n}, {d}) bf16",
+        **bound(2 * n * d * es + 4 * d, 4 * n * d, bf))
 
     qt, kt, vt, out, lse, dot = inputs[("flash_bwd", "seesaw", "bfloat16")]
     B, H, S, hd = qt.shape
@@ -533,11 +548,13 @@ def measure_bwd(RN, FA, ref, inputs):
 
 
 def compiled_report(_build, lib):
-    """What the build made of the flash kernels: per instantiation, the
-    count of HMMA (mma.sync) instructions in its SASS (``cuobjdump
-    -sass``) and ptxas's registers and spill bytes.  The bfloat16
-    forward, dq and dk/dv kernels must hold HMMA and spill nothing at hd
-    64; their float32 forms must hold none."""
+    """What the build made of the flash, SSD chunk and RMSNorm backward
+    kernels: per instantiation, the count of HMMA (mma.sync)
+    instructions in its SASS (``cuobjdump -sass``) and ptxas's registers
+    and spill bytes.  The bfloat16 forward, dq and dk/dv kernels must
+    hold HMMA and spill nothing at hd 64, the bfloat16 SSD chunk kernel
+    must hold HMMA and spill nothing; their float32 forms must hold
+    none."""
     regs = _build.ptxas_report(lib)
     hmma = _build.sass_counts(lib, "HMMA")
     out = {}
@@ -549,6 +566,21 @@ def compiled_report(_build, lib):
             # bfloat16 alone
             dtype = "bfloat16" if name.endswith("_mma_kernel") else "float32"
             out[f"{name}<{dtype}, hd {hd}>"] = dict(hmma=hmma[mangled], **r)
+        if "ssd_chunk_mma_kernel" in mangled:
+            out["ssd_chunk_mma_kernel<bfloat16>"] = dict(hmma=hmma[mangled],
+                                                         **r)
+        m = re.search(r"(ssd_chunk|rmsnorm_bwd)_kernelI(f|13__nv_bfloat16)E",
+                      mangled)
+        if m:
+            dtype = "float32" if m.group(2) == "f" else "bfloat16"
+            out[f"{m.group(1)}_kernel<{dtype}>"] = dict(hmma=hmma[mangled],
+                                                        **r)
+    tc, f32 = (out["ssd_chunk_mma_kernel<bfloat16>"],
+               out["ssd_chunk_kernel<float32>"])
+    if not tc["hmma"] > 0 or f32["hmma"] != 0 \
+            or tc["spill_stores"] or tc["spill_loads"]:
+        raise AssertionError(f"ssd_chunk: HMMA and spills in the bf16 form "
+                             f"{tc}, HMMA in the f32 form {f32}")
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         for hd in (64, 128):
             tc = out[f"{name}_mma_kernel<bfloat16, hd {hd}>"]
@@ -699,6 +731,7 @@ def measure_ssd(SSD, RN, ref, inputs):
         shape=f"x (B={B}, S={S}, H={H}, P={P}) bf16 strided as in the "
               f"mixer, N={N}, Q={Q}",
         **bound(n_bytes, n_ops, bf))
+    rows["ssd_chunk"]["tflops"] = n_ops / rows["ssd_chunk"]["ms"] / 1e9
     return rows
 
 
@@ -1431,9 +1464,15 @@ def main() -> int:
                 gather_pages_shape=ga["shape"])
         if name == "rmsnorm_fwd":
             dec = times["rmsnorm_fwd/decode"]
+            tr = bwd_times["rmsnorm_fwd/train"]
             entry.update(decode_rows_ms=dec["ms"],
                          decode_rows_bound_ms=dec["bound_ms"],
-                         decode_rows_library_ms=dec["library_ms"])
+                         decode_rows_library_ms=dec["library_ms"],
+                         train_shape_ms=tr["ms"],
+                         train_shape_plain_ms=tr["plain_ms"],
+                         train_shape_bound_ms=tr["bound_ms"],
+                         train_shape_library_ms=tr["library_ms"],
+                         train_shape=tr["shape"])
         if name in train_launches:
             entry["train_launches"] = train_launches[name]
         if name == "flash_fwd":
@@ -1461,6 +1500,10 @@ def main() -> int:
                                               tag, "bfloat16")]
             entry["dscale_rel_err_f32"] = err_of[("rmsnorm_bwd/dscale_rel",
                                                   tag, "float32")]
+            entry["few_rows_max_abs_err"] = err_of[("rmsnorm_bwd",
+                                                    "few-rows", "bfloat16")]
+            entry["compiled"] = {k: v for k, v in record["compiled"].items()
+                                 if k.startswith(name)}
         else:
             entry["plain_and_library_compute"] = "dq, dk and dv together"
             entry["flash_bwd_ms"] = bwd_times["flash_bwd"]["ms"]
@@ -1481,7 +1524,10 @@ def main() -> int:
         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
         "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
         "library_ms": None, "library_note": tm["library_note"],
-        "host_us": tm["host_us"], "shape": tm["shape"]})
+        "tflops": tm["tflops"], "host_us": tm["host_us"],
+        "shape": tm["shape"],
+        "compiled": {k: v for k, v in record["compiled"].items()
+                     if k.startswith("ssd_chunk")}})
     for k in kernels:
         if k["name"] in ("rmsnorm_fwd", "rmsnorm_bwd"):
             k["mamba2_launches"] = record["mamba2"]["launches"][k["name"]]

@@ -95,7 +95,7 @@ def attention_tile(hd: int) -> str:
 
 
 RMSNORM_TILE = ("rmsnorm_fwd: one 128-thread block a row; rmsnorm_bwd: "
-                "min(rows, 528) blocks of 128 threads")
+                "at most one 512-thread block an SM, 1-16 warps a row")
 SSD_TILE = "ssd_chunk: one block a (batch, chunk, head), 64-row tiles"
 
 

@@ -238,3 +238,20 @@ def check_rows(name: str, t) -> None:
 
 def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_counters: Dict[tuple, torch.Tensor] = {}
+
+
+def counters(kernel: str, device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters on ``device`` for the kernel named
+    ``kernel``, zero before its first launch.  The kernels whose last
+    block to finish merges the others' partials count finished blocks
+    here and leave every counter at 0 when they end, so the buffer is
+    made (and zeroed) once and no launch needs a memset."""
+    key = (kernel, torch.device(device))
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf

@@ -38,10 +38,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
              + [ctypes.c_int64] * 11
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
-# per device: the split counters (zero between launches, so no memset
-# launch per call); per (device, B): the page table arange(B)[:, None] of
-# a gathered window; the kernel's (keys a split, query heads a group)
-_counters: Dict[torch.device, torch.Tensor] = {}
+# per (device, B): the page table arange(B)[:, None] of a gathered
+# window; the kernel's (keys a split, query heads a group)
 _tables: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 _layout: Tuple[int, int] = ()
 
@@ -57,14 +55,6 @@ def layout() -> Tuple[int, int]:
         fn(ctypes.byref(split), ctypes.byref(heads))
         _layout = (split.value, heads.value)
     return _layout
-
-
-def _counters_for(device, n: int) -> torch.Tensor:
-    buf = _counters.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _counters[device] = buf
-    return buf
 
 
 def _launch(name, q, k, v, pages, lengths, page_size: int):
@@ -107,7 +97,8 @@ def _launch(name, q, k, v, pages, lengths, page_size: int):
     part = torch.empty(B * H * n_split * (hd + 2) if n_split > 1 else 0,
                        dtype=torch.float32, device=q.device)
     G = H // Hkv
-    ctr = _counters_for(q.device, B * Hkv * (1 if G == 1 else -(-G // heads)))
+    ctr = _build.counters("paged_decode", q.device,
+                          B * Hkv * (1 if G == 1 else -(-G // heads)))
     fn = _build.function("paged_decode", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pages.data_ptr(),

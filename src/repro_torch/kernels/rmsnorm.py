@@ -23,9 +23,20 @@ bwd_launches = 0        # rmsnorm_bwd
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
              ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
                                          ctypes.c_float, ctypes.c_int,
                                          ctypes.c_void_p]
+_SCRATCH_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+
+
+def _bwd_scratch(rows: int, d: int, code: int):
+    """(float32 partial rows, int32 counters) the backward kernel needs for
+    this call, or None when d is too long for it."""
+    fn = _build.function("rmsnorm_bwd_scratch", _SCRATCH_ARGTYPES)
+    part, ctrs = ctypes.c_int(), ctypes.c_int()
+    if not fn(rows, d, code, ctypes.byref(part), ctypes.byref(ctrs)):
+        return None
+    return part.value, ctrs.value
 
 
 def _check_scale(name: str, x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -68,9 +79,10 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
                 eps: float = 1e-5):
     """The VJP of ``rmsnorm_fwd`` at x for the output gradient g (x's
     shape and dtype).  x and scale as for the forward; g is read as it
-    is when contiguous and copied once otherwise.  Returns (dx in x's
-    dtype, dscale (d,) float32): the kernel writes one float32 partial
-    of dscale per block, summed here."""
+    is when contiguous and copied once otherwise.  d up to 16384
+    (bfloat16) or 8192 (float32).  Returns (dx in x's dtype, dscale (d,)
+    float32), both from one launch: the kernel sums dscale over the rows
+    itself, in a fixed order."""
     global bwd_launches
     name = "rmsnorm_bwd"
     if g.shape != x.shape:
@@ -81,22 +93,25 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     _check_scale(name, x, scale)
     _build.check_rows(name, g)
     d = x.shape[-1]
-    if d * 4 > 48 * 1024:
-        raise ValueError(f"{name}: d={d} needs more than 48 KB of shared "
-                         f"memory for the dscale partial")
     dx = torch.empty_like(x)
     rows = x.numel() // d
     if rows == 0:
         return dx, torch.zeros_like(scale)
-    blocks = _build.function("rmsnorm_bwd_blocks", [ctypes.c_int])(rows)
-    part = torch.empty(blocks, d, dtype=torch.float32, device=x.device)
+    scratch = _bwd_scratch(rows, d, code)
+    if scratch is None:
+        raise ValueError(f"{name}: d={d} is longer than a block holds "
+                         f"(16384 in bfloat16, 8192 in float32)")
+    part = torch.empty(scratch[0], d, dtype=torch.float32, device=x.device)
+    dscale = torch.empty_like(scale)
+    ctrs = _build.counters(name, x.device, scratch[1])
     fn = _build.function(name, _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                 part.data_ptr(), rows, d, eps, code, _build.stream_of(x))
+                 dscale.data_ptr(), part.data_ptr(), ctrs.data_ptr(), rows,
+                 d, eps, code, _build.stream_of(x))
     _build.check(err, name)
     bwd_launches += 1
-    return dx, part.sum(dim=0)
+    return dx, dscale
 
 
 class _RMSNorm(torch.autograd.Function):

@@ -47,7 +47,9 @@ def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     Returns float32 (y_intra (B, S, H, P), states (B, nc, H, N, P),
     T (B, nc, H)) with nc = ceil(S / chunk): ``kernels.ref.
-    ssd_chunk_ref``'s outputs."""
+    ssd_chunk_ref``'s outputs.  bfloat16 with chunk <= 256 runs on the
+    tensor cores, float32 and longer chunks on the CUDA cores; one launch
+    either way."""
     global launches
     name = "ssd_chunk"
     code = _build.dtype_code(name, xh, Bm, Cm)

@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels on the card, each against its plain
 version, the serving engine and one training step of the dense model
 and of Mamba-2 on the card against the same on the CPU, and a CI-sized
-run of the kernel benchmark; and, in the built library's machine code,
-that the bfloat16 flash forward, dq and dk/dv run on the tensor cores.
+run of the kernel benchmark; in the built library's machine code, that
+the bfloat16 flash forward, dq and dk/dv and the bfloat16 SSD chunk
+kernel run on the tensor cores; and that the RMSNorm backward is one
+launch.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no JAX, so it runs on the card's machine as it is:
@@ -193,7 +195,8 @@ def test_serving_on_card_reads_pages_in_place(cuda, monkeypatch):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8, 1024, 1024), (1000, 3072), (37, 64),
                                    (3, 5, 256), (4, 2048, 2560),
-                                   (4, 2048, 5120)])
+                                   (4, 2048, 5120),
+                                   (150, 2560)])    # fewer rows than blocks
 def test_rmsnorm_bwd_kernel(cuda, shape, dtype):
     g_ = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(shape, generator=g_, device=cuda).to(dtype)
@@ -210,6 +213,29 @@ def test_rmsnorm_bwd_kernel(cuda, shape, dtype):
     xh = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + 1e-5)
     mag = (g.float().reshape(-1, shape[-1]) * xh).abs().sum(0)
     assert bool(((ds - want_ds).abs() <= 2e-5 * mag + 1e-6).all())
+
+
+@pytest.mark.parametrize("shape", [(8192, 1024), (8192, 5120), (3, 256)])
+def test_rmsnorm_bwd_is_one_launch(cuda, shape):
+    """dx and dscale come from one CUDA kernel: no torch reduction (or any
+    other kernel) runs after it, and two calls give the same bits."""
+    from torch.profiler import ProfilerActivity, profile
+    g_ = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(shape, generator=g_, device=cuda).bfloat16()
+    s = 0.1 * torch.randn(shape[-1], generator=g_, device=cuda)
+    g = torch.randn(shape, generator=g_, device=cuda).bfloat16()
+    first = RN.rmsnorm_bwd(x, s, g, 1e-5)     # the counters are made here
+    torch.cuda.synchronize()
+    before = RN.bwd_launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dx, ds = RN.rmsnorm_bwd(x, s, g, 1e-5)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               for _ in range(e.count)
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "rmsnorm_bwd" in kernels[0], kernels
+    assert RN.bwd_launches == before + 1
+    assert torch.equal(dx, first[0]) and torch.equal(ds, first[1])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -261,6 +287,20 @@ def test_bf16_flash_kernels_run_on_tensor_cores(sass, name):
     hd64 = [n for n in bf16 if "ILi64E" in n]
     assert len(hd64) == 1
     r = report[hd64[0]]
+    assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
+
+
+def test_bf16_ssd_chunk_runs_on_tensor_cores(sass):
+    """The bfloat16 SSD chunk kernel holds mma.sync (HMMA in the SASS) and
+    spills nothing; its float32 form holds none."""
+    lib = sass.build()
+    hmma = sass.sass_counts(lib, "HMMA")
+    bf16 = {n: c for n, c in hmma.items() if "ssd_chunk_mma_kernel" in n}
+    f32 = {n: c for n, c in hmma.items() if "ssd_chunk_kernelIfE" in n}
+    assert len(bf16) == 1 and len(f32) == 1, sorted(hmma)
+    assert all(c > 0 for c in bf16.values()), bf16
+    assert all(c == 0 for c in f32.values()), f32
+    r = sass.ptxas_report(lib)[next(iter(bf16))]
     assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
 
 
@@ -395,6 +435,7 @@ def _ssd_inputs(cuda, B, S, H, P, N, dtype, seed, mamba_decay):
     (1, 128, 2, 64, 32, 64),
     (2, 100, 3, 16, 8, 32),     # ragged S
     (2, 64, 8, 64, 16, 32),     # the reduced mamba2
+    (4, 2048, 8, 64, 16, 32),   # its heads at B=4, S=2048
 ])
 def test_ssd_chunk_kernel(cuda, B, S, H, P, N, Q, dtype):
     xh, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, P, N, dtype, 8, False)
@@ -407,22 +448,26 @@ def test_ssd_chunk_kernel(cuda, B, S, H, P, N, Q, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("S,H,mamba_decay", [
-    (2048, 80, True), (1000, 80, True),     # mamba2-2.7b's heads and decay
-    (300, 5, False),            # its head shapes, ragged, cum to ~-200
+@pytest.mark.parametrize("B,S,H,mamba_decay,Q", [
+    (1, 2048, 80, True, 256),   # mamba2-2.7b's heads and decay
+    (1, 1000, 80, True, 256),
+    (1, 300, 5, False, 256),    # its head shapes, ragged, cum to ~-200
+    (4, 2048, 80, True, 256),   # its training micro-batch
+    (1, 600, 4, False, 512),    # a chunk longer than the bf16 mma kernel's
 ])
-def test_ssd_chunk_kernel_at_full_chunk(cuda, S, H, mamba_decay, dtype):
-    """mamba2-2.7b's chunk (P=64, N=128, Q=256), where |cum| grows to the
-    hundreds or thousands: the kernel's error against a float64
-    evaluation of the plain version is at most twice the float32 plain
-    version's."""
-    xh, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, S, H, 64, 128, dtype, 9,
+def test_ssd_chunk_kernel_at_full_chunk(cuda, B, S, H, mamba_decay, Q,
+                                        dtype):
+    """mamba2-2.7b's head shapes (P=64, N=128) over whole chunks, where
+    |cum| grows to the hundreds or thousands: the kernel's error against
+    a float64 evaluation of the plain version is at most twice the
+    float32 plain version's."""
+    xh, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, 64, 128, dtype, 9,
                                     mamba_decay)
-    got = SSD.ssd_chunk(xh, dt, A, Bm, Cm, 256)
+    got = SSD.ssd_chunk(xh, dt, A, Bm, Cm, Q)
     torch.cuda.synchronize()
-    plain = ref.ssd_chunk_ref(xh, dt, A, Bm, Cm, 256)
+    plain = ref.ssd_chunk_ref(xh, dt, A, Bm, Cm, Q)
     exact = ref.ssd_chunk_ref(*(t.double() for t in (xh, dt, A, Bm, Cm)),
-                              256)
+                              Q)
     for a, p, e in zip(got, plain, exact):
         assert torch.isfinite(a).all()
         err, perr = (float((t.double() - e).abs().max()) for t in (a, p))
