@@ -6,7 +6,10 @@ run the kernel benchmark on one NVIDIA card.
     python3 chip_smoke.py
 
 Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
-``src/repro_torch`` from this checkout.
+``src/repro_torch`` from this checkout.  The engines run on the card
+through CUDA graphs, the port's compile cache: one captured graph per
+training (batch size, micro) and per serving prompt bucket, and one
+decode graph, each replayed once per step.
 
 - Build: nvcc compiles ``src/repro_torch/csrc`` for sm_90a (one process
   per source, in parallel) into ``build/kernels``.  Then what was
@@ -51,11 +54,19 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
 - Phase 2, the engine: ``get_config("seesaw-150m")`` unreduced, random
   weights from a seed, bfloat16, 8 decode slots, page 16, max_len 1024;
   16 seeded requests with prompts of 64-768 tokens and 32-128 new
-  tokens, EOS off.  Every request must finish with exactly its
-  max_new_tokens tokens in [0, vocab) and the pool must drain to 0 pages.
-  The kernels' launch counts are set to 0 just before this run and read
-  just after; each must be > 0.  A torch.profiler run of 8 more requests
-  gives the device time per decode step.
+  tokens, EOS off.  A warm-up of one request per bucket this mix and the
+  profiled one use runs the first prefill and decode eagerly and
+  captures the CUDA graphs (one per bucket, one decode graph); the timed
+  run is replays only and must capture nothing.  Every request must
+  finish with exactly its max_new_tokens tokens in [0, vocab), the pool
+  must drain to 0 pages, the engine must hold one decode entry and no
+  more entries than its budget (buckets + 1), and the tokens must equal
+  those of the same mix served by an engine whose every call runs
+  eagerly (timed too: ``eager_tok_per_s``).  The kernels' launch counts
+  (counted through the replays) are set to 0 just before the timed run
+  and read just after; each must be > 0.  A torch.profiler run of 8 more
+  requests gives the device time per decode step and the graph and
+  kernel launches the host made.
 - Phase 3, the card against the CPU: two of those requests, 8 new tokens
   each, in float32 through the same engine on the card (kernels) and on
   the CPU (plain versions), same weights.  First-token logits must agree
@@ -88,14 +99,26 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
   be at least 0.5 below step 1's, and the five training kernels' launch
   counts (set to 0 just before the run, read just after) must equal
   what remat gives per micro-batch: RMSNorm forward 4L+1, backward
-  2L+1, flash forward 2L, dq and dk/dv L each.  Reports tokens/s and
-  wall time per step at each batch size, peak memory, and a
-  torch.profiler breakdown of one more step at B=8.
+  2L+1, flash forward 2L, dq and dk/dv L each.  The first step runs
+  eagerly, every later one as the replay of its (batch size, micro)
+  graph: the step cache must hold exactly the three keys, each captured
+  once.  Reports tokens/s and wall time per step at each batch size
+  (capture time taken out; ``captures_s`` beside), peak memory, and a
+  torch.profiler breakdown of one more step at B=8, which must be one
+  ``cudaGraphLaunch`` and fewer than 50 ``cudaLaunchKernel`` calls.
 - Phase 5, training on the card against the CPU in float32:
   seesaw-150m widths at 2 layers, S=256, B=2, the same weights on both.
   Loss within 1e-4; every grad within 1e-3 of its tensor's largest
   |grad|; AdamW applied on each device to the same (CPU) grads at a
-  fixed LR within 1e-6.
+  fixed LR within 1e-6.  Then three engine steps on each device (on the
+  card an eager one, a capture and its replay, a replay), SGD at LR
+  0.1: every step's loss within 1e-4, each tensor's change within 1e-3
+  of its largest change.
+- Phase 9, replays against eager steps bit for bit: seesaw-150m cut to
+  2 layers of d_model 256; two training steps at micro 1 and two at
+  micro 2 (AdamW, bf16), each replayed by the engine and run eagerly
+  on a clone of the state before it (parameters, AdamW state with its
+  count, metrics), and three decode steps (next tokens, pool).
 - Phase 1c, the SSD chunk kernel against its plain version, and RMSNorm
   forward and backward at Mamba-2's widths (8192 rows of d = 2560 and
   5120, float32 2e-5 and bfloat16 2e-2, timed in bfloat16).  The kernel: at
@@ -121,13 +144,15 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
   ``MarkovLM(2048, 0)``: B = 4 / 8 / 16 over 7 / 1 / 1 steps, 13
   micro-batches.  Every loss and grad norm must be finite, each step's
   LR, batch size and phase the plan's, the last loss below the first,
-  and the launch counts exactly, per micro-batch, ``ssd_chunk`` 2L,
-  RMSNorm forward 4L+1 and backward 2L+1.  Reports tokens/s and wall
-  time per step at each batch size, peak memory, and a torch.profiler
-  breakdown of one more B=4 step.
+  the launch counts exactly, per micro-batch, ``ssd_chunk`` 2L,
+  RMSNorm forward 4L+1 and backward 2L+1 (through the replays), and
+  the step cache the three keys, as in phase 4.  Reports tokens/s and
+  wall time per step at each batch size, capture time, peak memory,
+  and a torch.profiler breakdown of one more B=4 step (one replay).
 - Phase 7, the reduced mamba2 in float32 on the card against the CPU,
   same weights: loss within 1e-4, grads within 1e-3 of each tensor's
-  largest |grad|.
+  largest |grad|; then three engine steps on each device, replays on
+  the card, as in phase 5.
 
 - Phase 8, the kernel benchmark: ``repro_torch.bench.kernels`` at full
   size through its ``main`` (the reference's attention, RMSNorm and SSD
@@ -144,8 +169,9 @@ Imports nothing of JAX and nothing of the JAX package ``repro``; it runs
   chunk, the overlap normalize) must each be launched in the run.
 
 Prints the card's name and power limit, one ``kernels`` JSON line (the
-eight kernels), one ``engine`` and one ``train`` JSON line, one
-``mamba2`` JSON line, and last ``{"ok": true, "device": {...}}``; the
+eight kernels), one ``engine`` and one ``train`` JSON line (phase 9's
+result in the latter), one ``mamba2`` JSON line, and last ``{"ok":
+true, "device": {...}}``; the
 full record goes to ``chiprun_out/chip_smoke.json``.  Any failed check
 raises, so the script exits non-zero before the last line.  Without a
 CUDA device it exits with code 2 and prints no result.
@@ -859,29 +885,70 @@ def requests(cfg, n=16, seed=0):
     return out
 
 
-def phase2(cfg, R, serving, kernel_modules):
-    model = R.init_model(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
-    eng = serving.ServingEngine(cfg, model, decode_slots=8, page_size=16,
-                                max_len=1024, dtype=torch.bfloat16)
-    # warm-up (cuBLAS handles, allocator), outside the counted run
-    eng.submit(serving.GenerationRequest(
-        prompt=np.arange(64, dtype=np.int32), max_new_tokens=4))
-    eng.drain()
-    eng.reset()
-    reqs = requests(cfg)
-    for m in kernel_modules:
-        m.launches = 0
+class _EveryCallEager(set):
+    """A ``ServingEngine._warm`` that never records a kind as warm, so
+    each call runs its entry's eager function: the reference the
+    replayed engine's tokens are held to."""
+
+    def add(self, kind):
+        pass
+
+
+def serve(eng, serving, reqs):
+    """Serve ``reqs`` through ``eng.drain()``, timed to a sync; returns
+    (rids, results, seconds)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rids = [eng.submit(serving.GenerationRequest(prompt=prompt,
                                                  max_new_tokens=n))
             for prompt, n in reqs]
     done = {r.rid: r for r in eng.drain()}
-    results = [done.get(rid) for rid in rids]
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return rids, [done.get(rid) for rid in rids], time.perf_counter() - t0
+
+
+def phase2(cfg, R, serving, kernel_modules):
+    model = R.init_model(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    eng = serving.ServingEngine(cfg, model, decode_slots=8, page_size=16,
+                                max_len=1024, dtype=torch.bfloat16)
+    reqs = requests(cfg)
+    # warm-up, outside the counted run: the first prefill and the first
+    # decode run eagerly (kernel build, cuBLAS handles); then one graph
+    # per bucket this mix and the profiled one use and the decode graph
+    # are captured
+    buckets = sorted({eng._bucket_for(len(p)) for p, _ in
+                      reqs + requests(cfg, n=8, seed=1)})
+    for b in buckets[:1] + buckets:
+        eng.submit(serving.GenerationRequest(
+            prompt=np.arange(b - 8, dtype=np.int32), max_new_tokens=4))
+    eng.drain()
+    eng.reset()
+    warm = {"captures": eng.captures, "captures_s": eng.capture_s}
+    for m in kernel_modules:
+        m.launches = 0
+    rids, results, wall = serve(eng, serving, reqs)
+    done = {r.rid for r in results if r is not None}
     launches = {m.__name__.rsplit(".", 1)[-1]: m.launches
                 for m in kernel_modules}
+    if eng.captures != warm["captures"]:
+        raise AssertionError(f"{eng.captures - warm['captures']} graphs "
+                             f"captured during the timed run")
+    if eng.n_decode_executables != 1 or \
+            eng.executables > eng.executable_budget:
+        raise AssertionError(f"{eng.n_prefill_executables} prefill + "
+                             f"{eng.n_decode_executables} decode entries, "
+                             f"budget {eng.executable_budget}")
+    # the same mix through an engine whose every call runs eagerly
+    ref = serving.ServingEngine(cfg, model, decode_slots=8, page_size=16,
+                                max_len=1024, dtype=torch.bfloat16)
+    ref._warm = _EveryCallEager()
+    _, eager, eager_wall = serve(ref, serving, reqs)
+    if ref.captures:
+        raise AssertionError("the eager reference engine captured graphs")
+    for rid, a, b in zip(rids, results, eager):
+        if a is None or b is None or a.tokens.tolist() != b.tokens.tolist():
+            raise AssertionError(f"rid {rid}: replayed tokens differ from "
+                                 f"the eager engine's")
 
     if len(done) != len(reqs) or None in results:
         raise AssertionError(f"{len(done)} of {len(reqs)} finished")
@@ -904,21 +971,39 @@ def phase2(cfg, R, serving, kernel_modules):
             "decode_steps": eng.steps, "wall_s": wall,
             "tok_per_s": n_tok / wall, "mean_occupancy":
             eng.mean_occupancy(), "launches": launches,
+            "n_prefill_executables": eng.n_prefill_executables,
+            "n_decode_executables": eng.n_decode_executables,
+            "executables": eng.executables,
+            "executable_budget": eng.executable_budget,
+            "captures": eng.captures, "captures_s": warm["captures_s"],
+            "eager_wall_s": eager_wall,
+            "eager_tok_per_s": n_tok / eager_wall,
+            "tokens_equal_eager": True,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def host_calls(avgs):
+    """Graph launches and kernel launches the host made in a profiled
+    window."""
+    return {"cuda_graph_launch_calls": sum(
+                e.count for e in avgs if e.key == "cudaGraphLaunch"),
+            "cuda_launch_kernel_calls": sum(
+                e.count for e in avgs if e.key == "cudaLaunchKernel")}
 
 
 def profile_engine(cfg, eng, serving):
     """Where the time goes: torch.profiler over a short run of the warm
-    phase-2 engine (8 more requests, 16 new tokens each).  Sums device
-    time by kernel; the device's busy share is that sum over the wall
-    time of the window (the profiler's own cost is in the wall time)."""
+    phase-2 engine (8 more requests, 16 new tokens each), replays only.
+    Sums device time by kernel; the device's busy share is that sum over
+    the wall time of the window (the profiler's own cost is in the wall
+    time)."""
     from torch.profiler import ProfilerActivity, profile
     reqs = requests(cfg, n=8, seed=1)
     for prompt, _ in reqs:
         eng.submit(serving.GenerationRequest(prompt=prompt,
                                              max_new_tokens=16))
     torch.cuda.synchronize()
-    steps0 = eng.steps
+    steps0, captures0 = eng.steps, eng.captures
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -926,6 +1011,8 @@ def profile_engine(cfg, eng, serving):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     steps = eng.steps - steps0
+    if eng.captures != captures0:
+        raise AssertionError("the profiled requests captured a graph")
     avgs = prof.key_averages()
     kernels = []
     for e in avgs:
@@ -941,6 +1028,7 @@ def profile_engine(cfg, eng, serving):
                     if "paged_decode_kernel" in name)
     return {"wall_us": wall_us, "device_busy_us": busy_us,
             "device_busy_share": busy_us / wall_us,
+            **host_calls(avgs),
             "decode_steps": steps,
             "device_us_per_decode_step": busy_us / steps,
             "decode_kernel_us": decode_us,
@@ -1023,12 +1111,12 @@ def run_ramp(run, ctr, *, fuse_steps, max_device_batch, want):
 
     def timed(model, opt_state, tokens_seen, stacked, n_valid=None,
               step=None):
-        t = time.perf_counter()
+        t, cap = time.perf_counter(), eng.capture_s
         out = run_chunk(model, opt_state, tokens_seen, stacked,
                         n_valid=n_valid, step=step)
         torch.cuda.synchronize()
         chunks.append((next(iter(stacked.values())).shape[1], n_valid,
-                       time.perf_counter() - t))
+                       time.perf_counter() - t, eng.capture_s - cap))
         return out
 
     eng.run_chunk = timed
@@ -1043,6 +1131,7 @@ def run_ramp(run, ctr, *, fuse_steps, max_device_batch, want):
     launches = {name: getattr(mod, attr) for name, (mod, attr)
                 in ctr.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
+    peak_reserved = torch.cuda.max_memory_reserved() / 1e9
     eng.run_chunk = run_chunk
 
     losses = [h["loss"] for h in hist]
@@ -1061,11 +1150,18 @@ def run_ramp(run, ctr, *, fuse_steps, max_device_batch, want):
                                  f"plan {want_lr}, {ph.batch_size}, "
                                  f"{ph.index}")
         tok += ph.batch_size * seq
-    # wall per step at each batch size; the first chunk (cuBLAS set-up,
-    # the allocator's first growth) is left out of the first batch size's
+    # the compile cache: one graph per (batch size, micro)
+    keys = [(b, m) for b, m in zip(plan.batch_sizes(), micro)]
+    if sorted(tr._step_cache) != sorted(keys) or eng.captures != len(keys):
+        raise AssertionError(f"step cache {sorted(tr._step_cache)}, "
+                             f"{eng.captures} captures; want {keys}")
+    # wall per step at each batch size, capture time taken out; the first
+    # chunk (its first step eager: the kernels' build, cuBLAS set-up, the
+    # allocator's first growth) is left out of the first batch size's
     stats = {}
     for b in plan.batch_sizes():
-        timed_chunks = [(n, dt) for i, (bb, n, dt) in enumerate(chunks)
+        timed_chunks = [(n, dt - cap) for i, (bb, n, dt, cap)
+                        in enumerate(chunks)
                         if bb == b and not (i == 0 and len(chunks) > 1)]
         n = sum(c[0] for c in timed_chunks)
         sec = sum(c[1] for c in timed_chunks)
@@ -1075,9 +1171,12 @@ def run_ramp(run, ctr, *, fuse_steps, max_device_batch, want):
     mb = sum(n * m for n, m in zip(steps, micro))
     return tr, {"steps": len(hist), "plan_steps": steps,
                 "batch_sizes": plan.batch_sizes(), "micro_batches": micro,
+                "executables": len(tr._step_cache),
+                "captures_s": eng.capture_s,
                 "wall_s": wall, "tokens": hist[-1]["tokens"],
                 "tok_per_s": hist[-1]["tokens"] / wall,
                 "per_batch_size": stats, "peak_mem_gb": peak,
+                "peak_reserved_gb": peak_reserved,
                 "loss_first": losses[0], "loss_last": losses[-1],
                 "loss_last3": float(np.mean(losses[-3:])),
                 "losses": losses, "grad_norms": norms,
@@ -1121,7 +1220,9 @@ def phase4(cfg, RN, FA):
 
 def profile_train(tr, step_s: float, batch: int, name: str):
     """Where the time goes: torch.profiler over one more optimizer step at
-    the first batch size of the ramp on the trained model.  Device time
+    the first batch size of the ramp on the trained model, one replay of
+    that batch size's graph (one ``cudaGraphLaunch``, and fewer than 50
+    ``cudaLaunchKernel`` calls for the copies around it).  Device time
     by kernel; the busy share is that sum over the window's wall time,
     which holds the profiler's own host cost, and ``busy_share_of_step``
     the same sum over ``step_s``, the ramp's unprofiled wall time of a
@@ -1151,16 +1252,75 @@ def profile_train(tr, step_s: float, batch: int, name: str):
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      reverse=True)
     busy_us = sum(k[0] for k in kernels)
-    host_launches = sum(e.count for e in avgs if e.key == "cudaLaunchKernel")
     with open(os.path.join(OUT_DIR, name), "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=50))
-    return {"wall_us": wall_us, "device_busy_us": busy_us,
-            "device_busy_share": busy_us / wall_us,
-            "busy_share_of_step": busy_us / (step_s * 1e6),
-            "device_kernels": sum(k[2] for k in kernels),
-            "cuda_launch_kernel_calls": host_launches,
-            "top_kernels": [{"us": us, "name": name[:70], "count": n}
-                            for us, name, n in kernels[:15]]}
+    out = {"wall_us": wall_us, "device_busy_us": busy_us,
+           "device_busy_share": busy_us / wall_us,
+           "busy_share_of_step": busy_us / (step_s * 1e6),
+           "device_kernels": sum(k[2] for k in kernels),
+           **host_calls(avgs),
+           "top_kernels": [{"us": us, "name": name[:70], "count": n}
+                           for us, name, n in kernels[:15]]}
+    # the profiled step is one replay of the batch size's graph
+    if out["cuda_graph_launch_calls"] != 1 or \
+            out["cuda_launch_kernel_calls"] >= 50 or not out["device_kernels"]:
+        raise AssertionError(f"profiled step: {out}")
+    return out
+
+
+def replayed_card_vs_cpu(small, cpu_model, seq, batch_size, raw):
+    """Three engine steps on the CPU and on the card from ``cpu_model``'s
+    weights, on the same batches: on the card the first runs eagerly,
+    the second is captured and replayed, the third replayed.  Float32,
+    SGD at a constant LR 0.1, no clipping, so the parameters' change is
+    -0.1 × the sum of the grads.  Every step's loss must agree within
+    1e-4 and each tensor's change within 1e-3 of its largest |change|:
+    phase 5's gates for the loss and the grads, on replayed steps."""
+    import copy
+    from repro_torch.configs import (OptimizerConfig, RunConfig,
+                                     ScheduleConfig)
+    from repro_torch.core.seesaw import build_plan
+    from repro_torch.optim import optimizers as O
+    from repro_torch.train import engine as E
+    run = RunConfig(model=small, schedule=ScheduleConfig(),
+                    optimizer=OptimizerConfig(kind="sgd", grad_clip=0.0),
+                    seq_len=seq, global_batch_size=batch_size,
+                    dtype="float32")
+    plan = build_plan(kind="constant", base_lr=0.1, total_tokens=1e9,
+                      warmup_frac=0.0, b0=batch_size)
+    stacked = {k: torch.from_numpy(v.astype(np.int64))
+               for k, v in raw.items()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(cpu_model).to(dev)
+        before = [p.detach().clone() for p in model.parameters()]
+        eng = E.PhaseEngine(run, O.sgd(), plan)
+        opt_state = O.sgd().init(dict(model.named_parameters()))
+        _, _, m = eng.run_chunk(model, opt_state, 0,
+                                {k: v.to(dev) for k, v in stacked.items()},
+                                step=0)
+        if dev == "cuda" and eng.captures != 1:
+            raise AssertionError(f"{eng.captures} captures, want 1")
+        out[dev] = ([float(x) for x in m["loss"].cpu()],
+                    [(p.detach() - b).cpu()
+                     for p, b in zip(model.parameters(), before)])
+    loss_diff = max(abs(a - b) for a, b in zip(out["cpu"][0],
+                                               out["cuda"][0]))
+    if loss_diff > 1e-4:
+        raise AssertionError(f"replayed steps' losses {out['cuda'][0]}, "
+                             f"cpu {out['cpu'][0]}")
+    rel = 0.0
+    for (name, _), a, b in zip(cpu_model.named_parameters(), out["cpu"][1],
+                               out["cuda"][1]):
+        r = float((a - b).abs().max() / a.abs().max().clamp(min=1e-30))
+        if r > 1e-3:
+            raise AssertionError(f"update of {name} after replays: {r:.3g} "
+                                 f"of its max")
+        rel = max(rel, r)
+    return {"replayed_losses_cpu": out["cpu"][0],
+            "replayed_losses_cuda": out["cuda"][0],
+            "replayed_loss_abs_diff": loss_diff,
+            "replayed_update_max_rel_diff": rel}
 
 
 def phase5(cfg, R, O):
@@ -1204,7 +1364,123 @@ def phase5(cfg, R, O):
         raise AssertionError(f"AdamW update differs by {upd:.3g}")
     return {"loss_cpu": out["cpu"][0], "loss_cuda": out["cuda"][0],
             "loss_abs_diff": loss_diff, "grad_max_rel_diff": grad_rel,
-            "adamw_param_max_abs_diff": upd}
+            "adamw_param_max_abs_diff": upd,
+            **replayed_card_vs_cpu(small, cpu, 256, 2, {
+                k: v.reshape(3, 2, 256) for k, v in
+                MarkovLM(2048, seed=2).sample(2, 6, 256).items()})}
+
+
+# --------------------------------------------------------------------- #
+# phase 9: replays against the eager step, bit for bit
+# --------------------------------------------------------------------- #
+
+def clone_state(model, opt_state):
+    import copy
+    return copy.deepcopy(model), {
+        k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+            else v.clone()) for k, v in opt_state.items()}
+
+
+def same_state(a, b) -> bool:
+    (ma, oa), (mb, ob) = a, b
+    if not all(torch.equal(p, q) for p, q in zip(ma.parameters(),
+                                                 mb.parameters())):
+        return False
+    return all(all(torch.equal(oa[k][n], ob[k][n]) for n in oa[k])
+               if isinstance(oa[k], dict) else torch.equal(oa[k], ob[k])
+               for k in oa)
+
+
+def phase9(cfg, R, serving):
+    """seesaw-150m cut to 2 layers of d_model 256 (4 heads of 64, d_ff
+    1024), random weights from a seed, bfloat16 compute.  Training (AdamW,
+    clip 1.0, S=256, ``max_device_batch=4``): after the engine's eager
+    first step, two steps at B=4 (micro 1) and two at B=8 (micro 2), each
+    run once as the engine's replay and once as the eager step it was
+    captured from, on a clone of the state before it: parameters, AdamW
+    state (the step count included) and metrics must be equal bit for
+    bit.  Serving (4 slots, page 16): three decode steps, each replayed
+    by the engine and run eagerly on a copy of the pool from the same
+    packed input: the next tokens and the pool bit for bit."""
+    import dataclasses
+    from repro_torch.configs import (OptimizerConfig, RunConfig,
+                                     ScheduleConfig)
+    from repro_torch.data import MarkovLM
+    from repro_torch.serving import engine as SE
+    from repro_torch.train.trainer import Trainer
+    small = dataclasses.replace(cfg, n_layers=2, d_model=256, n_heads=4,
+                                n_kv_heads=4, head_dim=64, d_ff=1024)
+    seq = 256
+    run = RunConfig(model=small,
+                    schedule=ScheduleConfig(kind="constant", base_lr=3e-3,
+                                            warmup_frac=0.5),
+                    optimizer=OptimizerConfig(kind="adamw", beta1=0.9,
+                                              beta2=0.95, grad_clip=1.0),
+                    seq_len=seq, global_batch_size=4,
+                    total_tokens=seq * 4 * 16, dtype="bfloat16")
+    tr = Trainer(run, device="cuda", max_device_batch=4)
+    eng, st = tr.engine, tr.state
+    src = MarkovLM(2048, seed=5)
+
+    def batch(start, b):
+        return {k: torch.from_numpy(v.astype(np.int64))[None].cuda()
+                for k, v in src.sample(start, b, seq).items()}
+
+    eng.run_chunk(st.model, st.opt_state, 0, batch(0, 4), step=0)
+    out, step, tok, start = {}, 1, 4 * seq, 4
+    for b in (4, 8):
+        for _ in range(2):
+            chunk = batch(start, b)
+            twin = clone_state(st.model, st.opt_state)
+            _, _, m = eng.run_chunk(st.model, st.opt_state, tok, chunk,
+                                    step=step)
+            _, _, want = eng.step_for(b).grad(
+                *twin, {k: v[0] for k, v in chunk.items()},
+                m["lr"][0].cuda())
+            torch.cuda.synchronize()
+            if not same_state((st.model, st.opt_state), twin) or not all(
+                    torch.equal(m[k][0], v) for k, v in want.items()):
+                raise AssertionError(f"B={b} step {step}: the replay "
+                                     f"differs from the eager step")
+            step, tok, start = step + 1, tok + b * seq, start + b
+        out[f"train_micro{eng.micro_batches(b)}_steps"] = 2
+    if eng.captures != 2 or int(st.opt_state["count"]) != 5:
+        raise AssertionError(f"{eng.captures} captures, count "
+                             f"{int(st.opt_state['count'])}")
+    del tr, eng, st
+
+    model = R.init_model(small, seed=6, dtype=torch.bfloat16, device="cuda")
+    srv = serving.ServingEngine(small, model, decode_slots=4, page_size=16,
+                                max_len=256, dtype=torch.bfloat16)
+    rng = np.random.default_rng(7)
+    for s_, n in zip((20, 70, 33, 100), (12, 9, 16, 10)):
+        srv.submit(serving.GenerationRequest(
+            prompt=rng.integers(0, 2048, s_).astype(np.int32),
+            max_new_tokens=n))
+    seen = []
+    inputs = srv._decode_inputs
+    srv._decode_inputs = lambda active: seen.append(inputs(active)) or \
+        seen[-1]
+    checked = 0
+    while checked < 3:
+        ent = srv._decode_fns.get(srv.decode_slots)
+        if ent is None or ent.graph is None or srv.n_pending:
+            srv.step()
+            continue
+        kv0 = srv.pool.kv.clone()
+        srv.step()
+        want = SE._decode_packed(model, small, kv0,
+                                 torch.from_numpy(seen[-1]).cuda(),
+                                 slots=srv.decode_slots, page_size=16)
+        torch.cuda.synchronize()
+        if not (torch.equal(ent.graph.out, want)
+                and torch.equal(srv.pool.kv, kv0)):
+            raise AssertionError(f"decode step {srv.steps}: the replay "
+                                 f"differs from the eager step")
+        checked += 1
+    out["decode_steps"] = checked
+    out["bitwise"] = True
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -1276,8 +1552,11 @@ def phase7(R):
         if rel > 1e-3:
             raise AssertionError(f"grad of {name}: {rel:.3g} of its max")
         grad_rel = max(grad_rel, rel)
+    raw3 = MarkovLM(small.vocab_size, seed=3).sample(0, 6, 200)
+    raw3 = {k: v.reshape(3, 2, 200) for k, v in raw3.items()}
     return {"loss_cpu": out["cpu"][0], "loss_cuda": out["cuda"][0],
-            "loss_abs_diff": loss_diff, "grad_max_rel_diff": grad_rel}
+            "loss_abs_diff": loss_diff, "grad_max_rel_diff": grad_rel,
+            **replayed_card_vs_cpu(small, cpu, 200, 2, raw3)}
 
 
 # --------------------------------------------------------------------- #
@@ -1377,6 +1656,10 @@ def main() -> int:
     record["train_card_vs_cpu"] = phase5(cfg, R, O)
     log(f"phase 5: {time.perf_counter() - t:.1f} s "
         f"{record['train_card_vs_cpu']}")
+    t = time.perf_counter()
+    record["graphs_bitwise"] = phase9(cfg, R, serving)
+    log(f"phase 9: {time.perf_counter() - t:.1f} s "
+        f"{record['graphs_bitwise']}")
     torch.cuda.empty_cache()
     mcfg = get_config("mamba2-2.7b")
     t = time.perf_counter()
@@ -1573,7 +1856,8 @@ def main() -> int:
     long = ("losses", "lrs", "chunks", "grad_norms")
     train = {k: v for k, v in record["train"].items() if k not in long}
     print(json.dumps({"train": train, "profile": record["train_profile"],
-                      "card_vs_cpu": record["train_card_vs_cpu"]}))
+                      "card_vs_cpu": record["train_card_vs_cpu"],
+                      "graphs_bitwise": record["graphs_bitwise"]}))
     mamba2 = {k: v for k, v in record["mamba2"].items() if k not in long}
     print(json.dumps({"mamba2": mamba2,
                       "profile": record["mamba2_profile"],

@@ -4,10 +4,10 @@ All schedule math is in *tokens*, so it is batch-size independent —
 what makes the Seesaw ramp a drop-in.  Each curve is a function
 ``lr(tok, step=None)`` that returns a float32 0-d tensor, computed in
 float32 torch arithmetic with every constant rounded to float32 first,
-as the reference's jnp arithmetic does.  The port runs eagerly: the
-engine evaluates the curve on the host once per step and hands the 0-d
-CPU tensor to the optimizer update, which multiplies the card's tensors
-by it without a sync.
+as the reference's jnp arithmetic does.  The engine evaluates the curve
+on the host once per step (``train.engine.chunk_lrs``): on the CPU the
+update reads the 0-d tensor itself; on the card the engine stages it
+into the 0-d device tensor its captured graphs read, without a sync.
 """
 from __future__ import annotations
 

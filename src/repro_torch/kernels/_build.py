@@ -248,10 +248,16 @@ def counters(kernel: str, device, n: int) -> torch.Tensor:
     ``kernel``, zero before its first launch.  The kernels whose last
     block to finish merges the others' partials count finished blocks
     here and leave every counter at 0 when they end, so the buffer is
-    made (and zeroed) once and no launch needs a memset."""
+    made (and zeroed) once and no launch needs a memset.  A CUDA graph
+    reads the buffer it was captured with, so the buffer must exist
+    before the capture: the engines' first step runs eagerly."""
     key = (kernel, torch.device(device))
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{kernel}: its counters would be made during a CUDA graph "
+                f"capture; launch it once before capturing")
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _counters[key] = buf
     return buf

@@ -53,6 +53,20 @@ def out_std(n_layers: int) -> float:
 
 
 # --------------------------------------------------------------------- #
+# recompute in the backward
+# --------------------------------------------------------------------- #
+
+def recompute(fn, *args):
+    """``fn(*args)``, recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant).  No forward here draws
+    random numbers (there is no dropout), so the recompute stashes no
+    RNG state: the result is the same, and a CUDA graph capture, during
+    which the card's generator state cannot be read, can run it."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+# --------------------------------------------------------------------- #
 # norms / activations
 # --------------------------------------------------------------------- #
 
@@ -160,8 +174,8 @@ def cross_entropy_chunked(h, W, labels, mask, logical_vocab: int, *,
     tot = torch.zeros(3, dtype=torch.float32, device=h.device)
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
-        tot = tot + checkpoint(chunk_loss, h[:, sl], labels[:, sl],
-                               mask[:, sl], use_reentrant=False)
+        tot = tot + recompute(chunk_loss, h[:, sl], labels[:, sl],
+                              mask[:, sl])
     if rem:
         tot = tot + chunk_loss(h[:, -rem:], labels[:, -rem:],
                                mask[:, -rem:])

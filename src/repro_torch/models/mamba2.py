@@ -18,13 +18,12 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import backend as KB
 from repro_torch.kernels.ref import cumsum16
 from repro_torch.models.layers import (cross_entropy_chunked, lm_head_matrix,
-                                       out_std, param, rmsnorm,
+                                       out_std, param, recompute, rmsnorm,
                                        trunc_normal_)
 
 
@@ -263,7 +262,7 @@ def forward_hidden(model: Mamba2, cfg: ModelConfig, tokens, *,
     x = F.embedding(tokens, model.tok.to(dtype))
     for blk in model.layers:
         if remat:
-            x = checkpoint(_block, blk, x, cfg, use_reentrant=False)
+            x = recompute(_block, blk, x, cfg)
         else:
             x = _block(blk, x, cfg)
     return rmsnorm(x, model.final_norm, cfg.norm_eps)

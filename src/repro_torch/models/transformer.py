@@ -11,13 +11,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import Attention, attn_forward
 from repro_torch.models.layers import (MLP, cross_entropy_chunked,
-                                       lm_head_matrix, mlp, param, rmsnorm,
-                                       trunc_normal_)
+                                       lm_head_matrix, mlp, param, recompute,
+                                       rmsnorm, trunc_normal_)
 
 
 class Layer(nn.Module):
@@ -97,7 +96,7 @@ def _layer(layer: Layer, x, cfg: ModelConfig):
     h = rmsnorm(x, layer.norm2, cfg.norm_eps)
     # sub-layer remat, as the reference's: the backward recomputes the
     # MLP apart from attention, so the peak holds one of their interiors
-    f = checkpoint(mlp, layer.mlp, h, cfg.act, use_reentrant=False)
+    f = recompute(mlp, layer.mlp, h, cfg.act)
     return x + f
 
 
@@ -115,7 +114,7 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, tokens, *,
     x = F.embedding(tokens, model.tok.to(dtype))
     for layer in model.layers:
         if remat:
-            x = checkpoint(_layer, layer, x, cfg, use_reentrant=False)
+            x = recompute(_layer, layer, x, cfg)
         else:
             x = _layer(layer, x, cfg)
     return rmsnorm(x, model.final_norm, cfg.norm_eps)

@@ -10,8 +10,11 @@ and added after ``m̂/(√v̂+eps)``.  ``torch.optim`` is not used: its
 arithmetic differs.  To keep one copy of the weights and of the moments
 on the card, ``update`` works in place: it writes the new values into
 the ``params`` and ``state`` tensors (and clips ``grads`` in place) and
-returns the same dicts.  ``lr`` is a float or a float32 0-d tensor (a
-CPU one is read by the card's kernels without a sync).
+returns the same dicts.  The step ``count`` too is advanced in place,
+in the tensor ``init`` made, so a CUDA graph captured over the state
+reads and advances the same count at every replay.  ``lr`` is a float
+or a float32 0-d tensor (a CPU one is read by the card's kernels without
+a sync; a captured graph reads a device one).
 """
 from __future__ import annotations
 
@@ -66,7 +69,7 @@ def sgd(momentum: float = 0.0, grad_clip: float = 0.0) -> Optimizer:
             if momentum:
                 g = state["mu"][n].mul_(momentum).add_(g)
             p.sub_(lr * g)
-        state["count"] = state["count"] + 1
+        state["count"].add_(1)
         return params, state
 
     return Optimizer(init, update)
@@ -86,7 +89,7 @@ def nsgd(grad_clip: float = 0.0, eps: float = 1e-12) -> Optimizer:
         scale = lr / torch.clamp(norm, min=eps)
         for n, p in params.items():
             p.sub_(scale * grads[n])
-        state["count"] = state["count"] + 1
+        state["count"].add_(1)
         return params, state
 
     return Optimizer(init, update)
@@ -102,7 +105,7 @@ def adamw(beta1: float = 0.9, beta2: float = 0.95, eps: float = 1e-8,
     @torch.no_grad()
     def update(grads, state, params, lr):
         _clip_by_global_norm_(grads, grad_clip)
-        c = state["count"] + 1
+        c = state["count"].add_(1)
         bc1 = 1.0 - torch.pow(beta1, c.float())
         bc2 = 1.0 - torch.pow(beta2, c.float())
         for n, p in params.items():
@@ -113,7 +116,6 @@ def adamw(beta1: float = 0.9, beta2: float = 0.95, eps: float = 1e-8,
             if weight_decay:
                 step = step + weight_decay * p
             p.sub_(lr * step)
-        state["count"] = c
         return params, state
 
     return Optimizer(init, update)

@@ -134,9 +134,9 @@ class PagePool:
 
     def defrag(self, tables: Sequence[List[int]]) -> None:
         """Compact every live page to the lowest ids: one device gather
-        permutes the pool, and each table in ``tables`` (mutable lists of
-        page ids) is rewritten in place.  Pages not covered by any table
-        are treated as free."""
+        permutes the pool in place, and each table in ``tables`` (mutable
+        lists of page ids) is rewritten in place.  Pages not covered by
+        any table are treated as free."""
         live = [p for table in tables for p in table]
         if len(set(live)) != len(live):
             raise ValueError("defrag: a page id appears in two tables")
@@ -145,7 +145,9 @@ class PagePool:
         for old, new in remap.items():
             src[new] = old
         perm = torch.tensor(src, dtype=torch.long, device=self.kv.device)
-        self.kv = self.kv.index_select(1, perm)
+        # back into the same storage: a CUDA graph captured over the pool
+        # reads it where it was
+        self.kv.copy_(self.kv.index_select(1, perm))
         for table in tables:
             table[:] = [remap[p] for p in table]
         self._free = list(range(self.n_pages - 1, len(live), -1))

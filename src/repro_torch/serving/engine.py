@@ -10,7 +10,7 @@
   bucket lengths), then the page scatter and a greedy first token.
   Decode runs every slot, live or not, at one fixed slot count.  The
   bucket ladder and the fixed slot count fix the shapes the card sees,
-  so a later CUDA graph can capture them.
+  so one graph per bucket and one decode graph serve every call.
 - **Admit/evict at every step.**  A pending request is admitted when the
   pool can cover its worst-case page demand (so no admitted request can
   run out mid-decode); a finished one (EOS or max tokens) is evicted and
@@ -18,6 +18,22 @@
   when a slot's length crosses a page boundary.
 - **Greedy decoding**, held token for token against the reference
   engine by the tests.
+- **The compile cache.**  As the reference keeps one prefill executable
+  per prompt bucket and one decode executable, the engine keeps one
+  entry per bucket (``_prefill_fns``) and one for its fixed decode slot
+  count (``_decode_fns``), with the reference's bookkeeping
+  (``executables <= executable_budget``).  Each entry reads one packed
+  int64 input: the tokens, the page-table rows and the lengths, built on
+  the host and sent in one copy.  On the card an entry holds a CUDA
+  graph captured over a static copy of that input, the weights and the
+  pool, which the step updates in place; a step is one staged copy from
+  pinned memory and one replay, and the sampled tokens are read back
+  outside the graph.  The first prefill and the first decode of an
+  engine run eagerly (they build the kernels and make cuBLAS's handles
+  and the decode kernel's counters); every later call replays its
+  entry's graph, capturing it first if it is new.  ``reset()`` keeps the
+  graphs, as the reference keeps its executables.  A failed capture
+  raises.  On the CPU an entry holds the eager function.
 
 Inactive slots run with an all-null page-table row: their writes land in
 the null page and their outputs are discarded.
@@ -29,11 +45,13 @@ from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import graphs as G
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry as R
 from repro_torch.serving import cache as SC
@@ -70,6 +88,17 @@ class GenerationResult:
     finish_reason: str
     prompt_len: int
     text: Optional[str] = None
+
+
+class _Call:
+    """One entry of the engine's cache: ``fn(packed) -> (B, 1)`` int64
+    greedy tokens, and on the card the static packed input it reads and,
+    once captured, its graph."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.packed: Optional[torch.Tensor] = None
+        self.graph: Optional[G.Graph] = None
 
 
 @dataclass
@@ -131,6 +160,62 @@ class ServingEngine:
         self._reserved = 0              # future pages owed to active slots
         self.steps = 0
         self._occupancy_sum = 0.0
+        self._prefill_fns: Dict[int, _Call] = {}     # bucket -> entry
+        self._decode_fns: Dict[int, _Call] = {}      # batch -> entry
+        self._warm: set = set()         # kinds whose first call has run
+        self.captures = 0               # graphs captured
+        self.capture_s = 0.0            # seconds spent capturing them
+        if self.device.type == "cuda":
+            self._stage = G.PinnedStage(torch.int64)
+            self._pool = torch.cuda.graph_pool_handle()
+
+    # ----------------------------------------------------------------- #
+    # compile-cache bookkeeping
+    # ----------------------------------------------------------------- #
+
+    @property
+    def n_prefill_executables(self) -> int:
+        return len(self._prefill_fns)
+
+    @property
+    def n_decode_executables(self) -> int:
+        return len(self._decode_fns)
+
+    @property
+    def executables(self) -> int:
+        return self.n_prefill_executables + self.n_decode_executables
+
+    @property
+    def executable_budget(self) -> int:
+        """The serving compile invariant: one prefill entry per prompt
+        bucket plus one decode entry for the engine's one fixed slot
+        count."""
+        return len(self.buckets) + 1
+
+    def _run(self, kind: str, fns: Dict[int, _Call], key: int,
+             make: Callable[[], Callable], host: np.ndarray) -> torch.Tensor:
+        """Run the entry ``fns[key]`` (its function made by ``make`` on
+        first use: a partial holding no reference to the engine, so a
+        dropped engine frees its graphs at once) on the packed host input
+        ``host``; returns its (B, 1) tokens on the engine's device."""
+        ent = fns.get(key)
+        if ent is None:
+            ent = fns[key] = _Call(make())
+        if self.device.type != "cuda":
+            return ent.fn(torch.from_numpy(host))
+        if ent.packed is None:
+            ent.packed = torch.empty(host.shape, dtype=torch.int64,
+                                     device=self.device)
+        ent.packed.copy_(self._stage.put(host), non_blocking=True)
+        self._stage.done()
+        if kind not in self._warm:
+            self._warm.add(kind)
+            return ent.fn(ent.packed)
+        if ent.graph is None:
+            ent.graph = G.Graph(lambda: ent.fn(ent.packed), self._pool)
+            self.captures += 1
+            self.capture_s += ent.graph.capture_s
+        return ent.graph.replay()
 
     def _bucket_for(self, s: int) -> int:
         for b in self.buckets:
@@ -138,9 +223,6 @@ class ServingEngine:
                 return b
         raise ValueError(f"prompt length {s} exceeds largest bucket "
                          f"{self.buckets[-1]}")
-
-    def _tensor(self, a: np.ndarray, dtype) -> torch.Tensor:
-        return torch.from_numpy(a).to(device=self.device, dtype=dtype)
 
     # ----------------------------------------------------------------- #
     # request lifecycle
@@ -206,15 +288,18 @@ class ServingEngine:
 
     def _run_prefill(self, slot: _Slot) -> int:
         S = len(slot.req.prompt)
-        row = np.full((1, self.pages_per_slot), SC.NULL_PAGE, np.int64)
-        row[0, :len(slot.pages)] = slot.pages
-        toks = np.zeros((1, self._bucket_for(S)), np.int64)
-        toks[0, :S] = slot.req.prompt
-        tok = _prefill(self.model, self.cfg, self.pool.kv,
-                       self._tensor(toks, torch.long),
-                       self._tensor(np.asarray([S]), torch.int32),
-                       self._tensor(row, torch.long),
-                       page_size=self.page_size)
+        bucket = self._bucket_for(S)
+        # packed: the right-padded prompt, its length, its page-table row
+        host = np.zeros(bucket + 1 + self.pages_per_slot, np.int64)
+        host[:S] = slot.req.prompt
+        host[bucket] = S
+        host[bucket + 1:] = SC.NULL_PAGE
+        host[bucket + 1:bucket + 1 + len(slot.pages)] = slot.pages
+        tok = self._run("prefill", self._prefill_fns, bucket,
+                        lambda: partial(_prefill_packed, self.model,
+                                        self.cfg, self.pool.kv,
+                                        bucket=bucket,
+                                        page_size=self.page_size), host)
         return int(tok[0, 0])
 
     def _emit(self, i: int, slot: _Slot, tok: int, events) -> None:
@@ -266,23 +351,29 @@ class ServingEngine:
             return events
         self._grow_pages()
         B = self.decode_slots
-        pages = np.full((B, self.pages_per_slot), SC.NULL_PAGE, np.int64)
-        lengths = np.zeros((B,), np.int32)
-        toks = np.zeros((B, 1), np.int64)
-        for i, slot in active:
-            pages[i, :len(slot.pages)] = slot.pages
-            lengths[i] = slot.length
-            toks[i, 0] = slot.last_token
-        cache = self.pool.cache(self._tensor(pages, torch.long),
-                                self._tensor(lengths, torch.int32))
-        nxt = _decode(self.model, self.cfg, cache,
-                      self._tensor(toks, torch.long)).cpu().numpy()
+        nxt = self._run("decode", self._decode_fns, B, lambda: partial(
+            _decode_packed, self.model, self.cfg, self.pool.kv, slots=B,
+            page_size=self.page_size), self._decode_inputs(active))
+        nxt = nxt.cpu().numpy()
         for i, slot in active:
             slot.length += 1
             self._emit(i, slot, int(nxt[i, 0]), events)
         self.steps += 1
         self._occupancy_sum += len(active) / self.decode_slots
         return events
+
+    def _decode_inputs(self, active) -> np.ndarray:
+        """The decode step's packed input: every slot's last token, its
+        page-table row (all null for an inactive slot) and its length."""
+        B, P = self.decode_slots, self.pages_per_slot
+        host = np.zeros(B + B * P + B, np.int64)
+        pages = host[B:B + B * P].reshape(B, P)
+        pages[:] = SC.NULL_PAGE
+        for i, slot in active:
+            host[i] = slot.last_token
+            pages[i, :len(slot.pages)] = slot.pages
+            host[B + B * P + i] = slot.length
+        return host
 
     def drain(self, max_steps: Optional[int] = None) \
             -> List[GenerationResult]:
@@ -326,7 +417,8 @@ class ServingEngine:
         self.pool.defrag([s.pages for s in self.slots if s is not None])
 
     def reset(self) -> None:
-        """Drop all requests and free every page."""
+        """Drop all requests and free every page; the cache's entries and
+        graphs are kept (capturing them is the expensive part)."""
         for i, slot in enumerate(self.slots):
             if slot is not None:
                 self._finish(i, "reset")
@@ -367,3 +459,24 @@ def _decode(model, cfg, cache, token):
     """One decode step over every slot + greedy sampling."""
     logits, _ = R.decode_step(model, cfg, cache, token)
     return _greedy(logits)
+
+
+@torch.inference_mode()
+def _prefill_packed(model, cfg, pool_kv, packed, *, bucket, page_size):
+    """``_prefill`` on the engine's packed input (bucket + 1 + P,) int64:
+    the right-padded prompt, its length, its page-table row."""
+    return _prefill(model, cfg, pool_kv, packed[:bucket][None],
+                    packed[bucket:bucket + 1].to(torch.int32),
+                    packed[bucket + 1:][None], page_size=page_size)
+
+
+@torch.inference_mode()
+def _decode_packed(model, cfg, pool_kv, packed, *, slots, page_size):
+    """``_decode`` on the engine's packed input (B + B·P + B,) int64:
+    the slots' last tokens, their page-table rows and their lengths."""
+    B = slots
+    P = (packed.shape[0] - 2 * B) // B
+    cache = SC.PagedKVCache(kv=pool_kv, pages=packed[B:B + B * P].view(B, P),
+                            lengths=packed[B + B * P:].to(torch.int32),
+                            page_size=page_size)
+    return _decode(model, cfg, cache, packed[:B][:, None])

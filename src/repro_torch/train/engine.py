@@ -8,26 +8,44 @@ process) — the one train-step stack under ``Trainer`` and
 2. ``plan_lr_fn`` — the plan's token-indexed LR, with the realized
    (step-quantized) cut boundaries summed as exact integers and the
    exact int32 step compare.
-3. ``make_fused_step`` — up to K steps per call with the reference's
-   exact int step offset, ``step0 < 0`` sentinel and ``n_valid`` mask;
-   metrics come back stacked ``(K,)`` on the device, read by the caller
-   at its log boundaries.
-4. ``PhaseEngine`` — the accumulation count per batch size and
-   ``run_chunk``.
+3. ``chunk_lrs`` — the LR of each step of a K-step chunk, on the host,
+   with the reference's exact int step offset and ``step0 < 0``
+   sentinel.
+4. ``PhaseEngine`` — the accumulation count per batch size, the step
+   cache and ``run_chunk``: up to K steps a call, with the reference's
+   ``n_valid`` mask; metrics come back stacked ``(K,)`` on the device,
+   read by the caller at its log boundaries.
 
-PyTorch runs eagerly, so there is no compile cache: the reference's
-per-(batch size, micro, K) executables are a plain loop here.  The LR is
-evaluated on the host in float32 torch arithmetic (the reference's) and
-handed to the update as a 0-d CPU tensor, which the card reads without a
-sync.  The model's parameters and the optimizer state are updated in
-place.
+The step cache is the reference's compile cache (one executable per
+``(batch_size, micro, K)``): one entry per ``(batch_size, micro)`` in
+``PhaseEngine._cache``, K being a loop on the host.  On the card an
+entry holds a CUDA graph of one optimizer step, ``make_grad_step``'s
+body, captured over static buffers: the batch, the LR as a 0-d device
+tensor, the metrics, and the parameters and optimizer state, which the
+step updates in place.  ``run_chunk`` replays it once per real step:
+batch i is copied into the static batch on the device, the LR staged
+from pinned memory (no sync), the graph replayed and its metric row
+copied into the chunk's stacked outputs; rows past ``n_valid`` stay
+zero, so a short chunk captures nothing new.  The engine's first step
+runs eagerly: it builds the kernels and makes cuBLAS's handles and the
+kernels' counters before any capture.  Every later key is captured
+directly and then replayed, with no eager step of its own (at 2.7B an
+eager step would not fit beside the graphs' pool).  The graphs of one
+engine share one memory pool, captured in ramp order and never replayed
+concurrently.  A failed capture raises.  On the CPU an entry holds the
+eager step, which ``run_chunk`` calls: the same bookkeeping and the
+same numbers.
+
+The LR is evaluated on the host in float32 torch arithmetic (the
+reference's); the CPU step reads it as a 0-d CPU tensor.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import graphs as G
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import schedules as S
 from repro_torch.core.seesaw import SeesawPlan
@@ -66,6 +84,9 @@ def make_grad_step(cfg: ModelConfig, optimizer: O.Optimizer, *,
                 else:                   # in place: one set of grads held
                     for a, gi in zip(gacc, g):
                         a.add_(gi)
+                # freed before the next backward, which would otherwise
+                # hold a third set of grads from the third micro-batch on
+                g = gi = None
                 rows.append(dict(aux, loss=loss))
             grads = [a.div_(micro_batches) for a in gacc]
             metrics = {k: torch.stack([r[k].detach() for r in rows]).mean()
@@ -116,48 +137,43 @@ def plan_lr_fn(plan: SeesawPlan,
 
 
 # --------------------------------------------------------------------- #
-# 3. K-step dispatch
+# 3. the LRs of a K-step chunk
 # --------------------------------------------------------------------- #
 
-def make_fused_step(grad_step: Callable, lr_fn: Callable,
-                    tokens_per_step: int) -> Callable:
-    """Wrap a grad step into ``fused(model, opt_state, tokens_seen,
-    step0, n_valid, batches) → (model, opt_state, metrics)``, where
-    ``batches`` has a leading K dim.  Step i's token count is the
-    once-rounded float32 ``tokens_seen`` plus ``i * tokens_per_step``
-    computed in int32; its global step index is ``step0 + i``, or the
-    sentinel -1 for every step when ``step0 < 0``.  Steps ``i >=
-    n_valid`` run nothing and give zero metric rows.  Metrics come back
-    stacked (K,): the LR on the host, the rest on the device."""
+def chunk_lrs(lr_fn: Callable, tokens_seen, step0: int, n: int,
+              tokens_per_step: int) -> torch.Tensor:
+    """The (n,) float32 LRs of a chunk's first n steps, on the host.
+    Step i's token count is the once-rounded float32 ``tokens_seen``
+    plus ``i * tokens_per_step`` computed in int32; its global step index
+    is ``step0 + i``, or the sentinel -1 for every step when ``step0 <
+    0``."""
     tps = torch.tensor(int(tokens_per_step), dtype=torch.int32)
-
-    def fused(model, opt_state, tokens_seen, step0, n_valid, batches):
-        k = next(iter(batches.values())).shape[0]
-        tok0 = torch.tensor(float(tokens_seen), dtype=torch.float32)
-        rows = []
-        for i in range(min(int(n_valid), k)):
-            tok = tok0 + (torch.tensor(i, dtype=torch.int32) * tps).float()
-            lr = lr_fn(tok, -1 if step0 < 0 else step0 + i)
-            model, opt_state, m = grad_step(
-                model, opt_state, {n: v[i] for n, v in batches.items()}, lr)
-            rows.append(dict(m, lr=lr))
-        metrics: Dict[str, torch.Tensor] = {}
-        for name in (rows[0] if rows else ()):
-            col = torch.stack([r[name] for r in rows])
-            metrics[name] = torch.cat([col, col.new_zeros(k - len(rows))])
-        return model, opt_state, metrics
-
-    return fused
+    tok0 = torch.tensor(float(tokens_seen), dtype=torch.float32)
+    lrs = [lr_fn(tok0 + (torch.tensor(i, dtype=torch.int32) * tps).float(),
+                 -1 if step0 < 0 else step0 + i) for i in range(n)]
+    return torch.stack(lrs) if lrs else torch.zeros(0)
 
 
 # --------------------------------------------------------------------- #
 # 4. the engine
 # --------------------------------------------------------------------- #
 
+class _Step:
+    """One cache entry: the grad step of a ``(batch_size, micro)`` key
+    and, on the card once captured, its graph, the static batch it reads
+    and the (model, optimizer state) it updates."""
+
+    def __init__(self, grad: Callable):
+        self.grad = grad
+        self.graph: Optional[G.Graph] = None
+        self.batch: Optional[Dict[str, torch.Tensor]] = None
+        self.state: Optional[Tuple] = None
+
+
 class PhaseEngine:
-    """Dispatcher for one run: the accumulation count per batch size and
-    the K-step chunk call.  The adaptive kind (live plan, loss EMA,
-    runtime LR tables) comes with the adaptive slice."""
+    """Dispatcher for one run: the accumulation count per batch size, the
+    step cache and the K-step chunk call.  The adaptive kind (live plan,
+    loss EMA, runtime LR tables) comes with the adaptive slice."""
 
     def __init__(self, cfg: RunConfig, optimizer: O.Optimizer,
                  plan: SeesawPlan, *, max_device_batch: Optional[int] = None):
@@ -168,6 +184,13 @@ class PhaseEngine:
         self.max_device_batch = max_device_batch
         self.lr_fn = plan_lr_fn(plan, cfg.seq_len)
         self.dtype = DTYPES[cfg.dtype]
+        self._cache: Dict[Tuple[int, int], _Step] = {}
+        self.captures = 0                 # graphs captured
+        self.capture_s = 0.0              # seconds spent capturing them
+        self.lr: Optional[torch.Tensor] = None   # the graphs' LR (card)
+        self._warm = False                # the first (eager) step has run
+        self._pool = None
+        self._stage: Optional[G.PinnedStage] = None
 
     def micro_batches(self, batch_size: int) -> int:
         """Accumulation count for a global batch: the least count whose
@@ -180,6 +203,18 @@ class PhaseEngine:
             micro += 1
         return micro
 
+    def step_for(self, batch_size: int) -> _Step:
+        """The cache entry of a global batch size (made on first use)."""
+        micro = self.micro_batches(batch_size)
+        key = (batch_size, micro)
+        ent = self._cache.get(key)
+        if ent is None:
+            ent = self._cache[key] = _Step(make_grad_step(
+                self.model, self.optimizer, micro_batches=micro,
+                z_loss=self.cfg.z_loss, dtype=self.dtype,
+                remat=self.cfg.remat))
+        return ent
+
     def run_chunk(self, model, opt_state, tokens_seen, stacked_batch,
                   n_valid: Optional[int] = None,
                   step: Optional[int] = None):
@@ -187,21 +222,85 @@ class PhaseEngine:
         stacked metrics) without a sync; rows past ``n_valid`` (default
         all K) are zeros.  ``tokens_seen`` is the host's exact token
         count; ``step`` the global index of the chunk's first step
-        (None: select LR cuts by tokens)."""
+        (None: select LR cuts by tokens).  Metrics come back stacked
+        (K,): the LR on the host, the rest on the batch's device."""
         first = next(iter(stacked_batch.values()))
         k, batch_size = first.shape[0], first.shape[1]
-        if n_valid is None:
-            n_valid = k
+        n = k if n_valid is None else min(int(n_valid), k)
         if k * batch_size * self.cfg.seq_len >= 2 ** 31:
             raise ValueError(
                 f"chunk of {k}x{batch_size}x{self.cfg.seq_len} tokens "
                 f"overflows the int32 token offset — lower fuse_steps")
-        grad = make_grad_step(self.model, self.optimizer,
-                              micro_batches=self.micro_batches(batch_size),
-                              z_loss=self.cfg.z_loss, dtype=self.dtype,
-                              remat=self.cfg.remat)
-        fused = make_fused_step(grad, self.lr_fn,
-                                batch_size * self.cfg.seq_len)
-        return fused(model, opt_state, tokens_seen,
-                     -1 if step is None else int(step), n_valid,
-                     stacked_batch)
+        ent = self.step_for(batch_size)
+        lrs = chunk_lrs(self.lr_fn, tokens_seen,
+                        -1 if step is None else int(step), n,
+                        batch_size * self.cfg.seq_len)
+        if first.device.type == "cuda":
+            metrics = self._run_card(ent, model, opt_state, stacked_batch,
+                                     lrs, k)
+        else:
+            rows = []
+            for i in range(n):
+                model, opt_state, m = ent.grad(
+                    model, opt_state,
+                    {name: v[i] for name, v in stacked_batch.items()},
+                    lrs[i])
+                rows.append(m)
+            metrics = {}
+            for name in (rows[0] if rows else ()):
+                col = torch.stack([r[name] for r in rows])
+                metrics[name] = torch.cat([col, col.new_zeros(k - n)])
+        if n:
+            metrics["lr"] = torch.cat([lrs, lrs.new_zeros(k - n)])
+        return model, opt_state, metrics
+
+    # -- the card: eager first step, then captured graphs --------------- #
+    def _run_card(self, ent: _Step, model, opt_state, stacked, lrs,
+                  k: int) -> Dict[str, torch.Tensor]:
+        device = next(iter(stacked.values())).device
+        if self.lr is None:
+            self.lr = torch.zeros((), dtype=torch.float32, device=device)
+            self._stage = G.PinnedStage(torch.float32)
+            self._pool = torch.cuda.graph_pool_handle()
+        host_lrs = self._stage.put(lrs)
+        out: Dict[str, torch.Tensor] = {}
+        for i in range(len(lrs)):
+            self.lr.copy_(host_lrs[i], non_blocking=True)
+            batch = {name: v[i] for name, v in stacked.items()}
+            if not self._warm:
+                _, _, m = ent.grad(model, opt_state, batch, self.lr)
+                self._warm = True
+                # the eager step's cached blocks go back before the
+                # graphs' pool takes its own
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            else:
+                if ent.graph is None:
+                    self._capture(ent, model, opt_state, batch)
+                elif ent.state[0] is not model or ent.state[1] is not \
+                        opt_state:
+                    raise ValueError(
+                        "run_chunk: this batch size's graph was captured "
+                        "over another model or optimizer state")
+                for name, buf in ent.batch.items():
+                    buf.copy_(batch[name])
+                m = ent.graph.replay()
+            if not out:
+                rows = torch.zeros(len(m), k, dtype=torch.float32,
+                                   device=device)
+                out = dict(zip(m, rows.unbind()))
+            for name, v in m.items():
+                out[name][i].copy_(v)
+        self._stage.done()
+        return out
+
+    def _capture(self, ent: _Step, model, opt_state, batch) -> None:
+        """Capture ``ent``'s step over a static copy of ``batch``, the
+        engine's LR and the given model and state."""
+        ent.batch = {name: v.clone() for name, v in batch.items()}
+        ent.state = (model, opt_state)
+        ent.graph = G.Graph(
+            lambda: ent.grad(model, opt_state, ent.batch, self.lr)[2],
+            self._pool)
+        self.captures += 1
+        self.capture_s += ent.graph.capture_s

@@ -70,6 +70,13 @@ class Trainer:
         self.state = TrainState(model, opt_state)
         self.history: List[Dict[str, float]] = []
 
+    @property
+    def _step_cache(self):
+        """The engine's step cache: one entry per ``(batch_size,
+        micro)``, on the card one captured graph each (the reference's
+        one executable per key)."""
+        return self.engine._cache
+
     def save_checkpoint(self, path: str, **kw):
         raise NotImplementedError(
             f"checkpointing comes with {CHECKPOINT_SLICE}")

@@ -3,8 +3,11 @@ version, the serving engine and one training step of the dense model
 and of Mamba-2 on the card against the same on the CPU, and a CI-sized
 run of the kernel benchmark; in the built library's machine code, that
 the bfloat16 flash forward, dq and dk/dv and the bfloat16 SSD chunk
-kernel run on the tensor cores; and that the RMSNorm backward is one
-launch.
+kernel run on the tensor cores; that the RMSNorm backward is one
+launch; and that the engines' CUDA graphs replay their eager steps bit
+for bit, count launches through replays, capture nothing new for a
+short chunk or after a reset, and read a pool defragmented between
+replays.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no JAX, so it runs on the card's machine as it is:
@@ -596,3 +599,203 @@ def test_bench_kernels_ci_on_card(cuda, tmp_path):
     assert len(ov["configs"]) == 8 and all("ms" in c for c in ov["configs"])
     assert max(c["max_err"] for c in ov["configs"]) <= 2e-5
     assert ov["bound_by"] == "bytes" and ov["library_ms"] > 0
+
+
+# --------------------------------------------------------------------- #
+# CUDA graphs: the engines' compile cache
+# --------------------------------------------------------------------- #
+
+GRAPH_CFG = ModelConfig(name="card-graphs", arch_type="dense", n_layers=2,
+                        d_model=256, n_heads=4, n_kv_heads=4, head_dim=64,
+                        d_ff=512, vocab_size=512, max_seq_len=128,
+                        rope_theta=1e4)
+GRAPH_SEQ = 64
+
+
+def _graph_trainer(max_device_batch=4):
+    """A bf16 AdamW trainer on the card at a constant LR after a short
+    warmup (the graphs read the staged LR, so it must change)."""
+    from repro_torch.configs import (OptimizerConfig, RunConfig,
+                                     ScheduleConfig)
+    from repro_torch.train.trainer import Trainer
+    run = RunConfig(model=GRAPH_CFG,
+                    schedule=ScheduleConfig(kind="constant", base_lr=3e-3,
+                                            warmup_frac=0.5),
+                    optimizer=OptimizerConfig(kind="adamw",
+                                              weight_decay=0.1),
+                    seq_len=GRAPH_SEQ, global_batch_size=4,
+                    total_tokens=GRAPH_SEQ * 4 * 16, dtype="bfloat16")
+    return Trainer(run, device="cuda", max_device_batch=max_device_batch)
+
+
+def _stacked(cuda, k, B, seed):
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, GRAPH_CFG.vocab_size,
+                                         (k, B, GRAPH_SEQ + 1)))
+    return {"tokens": toks[..., :-1].to(cuda),
+            "labels": toks[..., 1:].to(cuda)}
+
+
+def _clone_state(model, opt_state):
+    import copy
+    return copy.deepcopy(model), {
+        k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+            else v.clone()) for k, v in opt_state.items()}
+
+
+def _assert_same_state(a, b):
+    (ma, oa), (mb, ob) = a, b
+    for (n, p), q in zip(ma.named_parameters(), mb.parameters()):
+        assert torch.equal(p, q), n
+    assert oa.keys() == ob.keys()
+    for k in oa:
+        if isinstance(oa[k], dict):
+            for n in oa[k]:
+                assert torch.equal(oa[k][n], ob[k][n]), (k, n)
+        else:
+            assert torch.equal(oa[k], ob[k]), k
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+def test_train_replay_equals_eager_step(cuda, micro):
+    """From one cloned state, a replayed step and the eager step it was
+    captured from give the same parameters, AdamW state (the step count
+    included) and metrics, bit for bit, at the capture and at later
+    replays (the count and the staged LR advance)."""
+    tr = _graph_trainer()
+    eng, st = tr.engine, tr.state
+    B = 4 * micro
+    eng.run_chunk(st.model, st.opt_state, 0, _stacked(cuda, 1, 4, 0),
+                  step=0)                           # the eager first step
+    assert eng.captures == 0
+    tok, step = 4 * GRAPH_SEQ, 1
+    for seed in (1, 2, 3):
+        batch = _stacked(cuda, 1, B, seed)
+        twin = _clone_state(st.model, st.opt_state)
+        _, _, m = eng.run_chunk(st.model, st.opt_state, tok, batch,
+                                step=step)
+        ent = eng.step_for(B)
+        assert ent.graph is not None and eng.captures == 1
+        _, _, want = ent.grad(*twin, {k: v[0] for k, v in batch.items()},
+                              m["lr"][0].to(cuda))
+        torch.cuda.synchronize()
+        _assert_same_state((st.model, st.opt_state), twin)
+        for name, v in want.items():
+            assert torch.equal(m[name][0], v), name
+        tok, step = tok + B * GRAPH_SEQ, step + 1
+    assert int(st.opt_state["count"]) == 4
+
+
+def test_replay_counts_the_captured_launches(cuda):
+    """A capture adds nothing to the launch counters; each replay adds
+    what the eager step launches."""
+    from repro_torch import graphs as G
+    tr = _graph_trainer()
+    eng, st = tr.engine, tr.state
+    c0 = G.launch_counts()
+    eng.run_chunk(st.model, st.opt_state, 0, _stacked(cuda, 1, 4, 0),
+                  step=0)
+    eager = tuple(b - a for a, b in zip(c0, G.launch_counts()))
+    L = GRAPH_CFG.n_layers
+    assert eager[:5] == (4 * L + 1, 2 * L + 1, 2 * L, L, L)
+    deltas = []
+    for i in range(3):
+        c = G.launch_counts()
+        eng.run_chunk(st.model, st.opt_state, 0, _stacked(cuda, 1, 4, i),
+                      step=1 + i)
+        deltas.append(tuple(b - a for a, b in zip(c, G.launch_counts())))
+    assert eng.step_for(4).graph.launches == eager
+    assert deltas == [eager] * 3
+
+
+def test_n_valid_and_reset_capture_nothing_new(cuda):
+    """A short chunk replays the key's graph and leaves its rows past
+    n_valid zero; the serving engine's reset keeps its graphs."""
+    tr = _graph_trainer()
+    eng, st = tr.engine, tr.state
+    eng.run_chunk(st.model, st.opt_state, 0, _stacked(cuda, 1, 4, 0),
+                  step=0)
+    for n in (3, 1, 2):
+        _, _, m = eng.run_chunk(st.model, st.opt_state, 0,
+                                _stacked(cuda, 3, 4, n), n_valid=n, step=1)
+        assert eng.captures == 1 and len(eng._cache) == 1
+        assert bool((m["loss"][n:] == 0).all())
+        assert bool((m["loss"][:n] > 0).all())
+    model = R.init_model(GRAPH_CFG, seed=0, dtype=torch.bfloat16,
+                         device=cuda)
+    srv = ServingEngine(GRAPH_CFG, model, dtype=torch.bfloat16,
+                        decode_slots=3, page_size=16, max_len=96)
+    rng = np.random.default_rng(3)
+    for wave in range(2):
+        for s in (5, 20, 40, 7):
+            srv.submit(GenerationRequest(
+                prompt=rng.integers(0, 512, (s,)).astype(np.int32),
+                max_new_tokens=6))
+        srv.drain()
+        if wave == 0:
+            seen = (srv.captures, srv.executables)
+            srv.reset()
+    assert (srv.captures, srv.executables) == seen
+    assert srv.n_decode_executables == 1
+    assert srv.executables <= srv.executable_budget
+
+
+def _serving(cuda):
+    model = R.init_model(GRAPH_CFG, seed=1, dtype=torch.bfloat16,
+                         device=cuda)
+    return model, ServingEngine(GRAPH_CFG, model, dtype=torch.bfloat16,
+                                decode_slots=4, page_size=16, max_len=96)
+
+
+def _graph_requests(seed=4):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 512, (s,)).astype(np.int32), n)
+            for s, n in zip((9, 30, 17, 50, 3, 24), (12, 9, 20, 6, 15, 8))]
+
+
+def test_decode_replay_equals_eager(cuda):
+    """The decode graph's replay against the eager decode on a copy of the
+    pool, from the same packed input: next tokens and pool bit for
+    bit."""
+    from repro_torch.serving import engine as SE
+    model, eng = _serving(cuda)
+    for p, n in _graph_requests():
+        eng.submit(GenerationRequest(prompt=p, max_new_tokens=n))
+    seen = []
+    inputs = eng._decode_inputs
+    eng._decode_inputs = lambda active: seen.append(inputs(active)) or \
+        seen[-1]
+    checked = 0
+    while not eng.done:
+        ent = eng._decode_fns.get(eng.decode_slots)
+        if ent is None or ent.graph is None or eng.n_pending:
+            eng.step()          # no graph yet, or a prefill comes first
+            continue
+        kv0 = eng.pool.kv.clone()
+        eng.step()
+        want = SE._decode_packed(model, GRAPH_CFG, kv0,
+                                 torch.from_numpy(seen[-1]).to(cuda),
+                                 slots=eng.decode_slots, page_size=16)
+        torch.cuda.synchronize()
+        assert torch.equal(ent.graph.out, want)
+        assert torch.equal(eng.pool.kv, kv0)
+        checked += 1
+    assert checked >= 5 and eng.captures >= 2
+
+
+def test_defrag_between_decode_replays_is_transparent(cuda):
+    """Defrag writes the permuted pool back in place, so the decode graph
+    captured before it reads the compacted pool: the same tokens as an
+    engine that never defrags."""
+    _, plain = _serving(cuda)
+    _, defragged = _serving(cuda)
+    for eng in (plain, defragged):
+        for p, n in _graph_requests(5):
+            eng.submit(GenerationRequest(prompt=p, max_new_tokens=n))
+    kv = defragged.pool.kv
+    while not plain.done:
+        ev = plain.step()
+        defragged.defrag()
+        assert defragged.step() == ev
+    assert defragged.pool.kv is kv
+    assert defragged._decode_fns[4].graph is not None
