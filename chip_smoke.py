@@ -41,7 +41,13 @@ decode graph, each replayed once per step.
   the kernel (no merge) and at full windows, its paged entry (page 16,
   the same lengths) beside its gathered one, and ``gather_pages`` alone
   at phase 2's table shape (8 x 64 pages of 16), the copy the page-table
-  read spares the serving step.
+  read spares the serving step.  The RMSNorm forward is checked and timed
+  at the other prompt buckets of phase 2's mix too (64-512 rows of 1024),
+  and beside its ``ms`` it gets ``graph_us``: the device time of one
+  launch as a CUDA graph of 200 back-to-back calls replays it
+  (``GraphTimer``, L2 warm, no host launch cost), below ``Timer``'s
+  floor of ~5 us; ``F.rms_norm`` beside it (``library_graph_us``), and
+  so at the training shapes of phases 1b and 1c.
 - Phase 1d, the streaming normalize of the kernel benchmark's overlap
   probe (``kernels/overlap.py``, bulk asynchronous copies through a
   ring of ``depth`` shared-memory stages) against its plain version in
@@ -73,7 +79,9 @@ decode graph, each replayed once per step.
   within 1e-3 and the greedy tokens must be equal.
 - Phase 1b, the backward kernels against their plain versions: RMSNorm
   backward at the training rows (8·1024 × 1024), at (1000 × 3072) and
-  at 150 × 2560 (fewer rows than the kernel's grid has blocks);
+  at 150 × 2560 (fewer rows than the kernel's grid has blocks), and the
+  RMSNorm forward on the training rows' x (its staged form; the
+  ``train_shape_max_abs_err`` of its ``kernels`` entry);
   the flash backward (dq, dk/dv) at seesaw-150m's training shapes (B=8,
   S=1024, H=Hkv=16, hd=64) and at llama3.2-3b's GQA heads with a ragged
   S=1000, and at phase 1's edge lengths; float32 (2e-5) and bfloat16
@@ -193,7 +201,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.bench.timing import Timer, bound  # noqa: E402
+from repro_torch.bench.timing import GraphTimer, Timer, bound  # noqa: E402
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -204,6 +212,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 FLASH_EDGES = tuple((B, S, H, Hkv, hd, f"edge-S{S}-hd{hd}")
                     for B, H, Hkv, hd in ((2, 4, 4, 64), (1, 6, 2, 128))
                     for S in (1, 15, 16, 63, 64, 65, 129))
+# the prompt buckets phase 2's mix prefills (rows of d_model 1024); the
+# largest is phase 1's "prefill" shape
+PREFILL_BUCKETS = (64, 128, 256, 512)
 
 
 def log(msg: str) -> None:
@@ -292,7 +303,9 @@ def phase1(RN, FA, PG, ref):
     for dtype in DTYPES:
         dn = str(dtype).replace("torch.", "")
         for rows, d, tag in ((1024, 1024, "prefill"), (8, 1024, "decode"),
-                             (1000, 3072, "llama")):
+                             (1000, 3072, "llama"),
+                             *((n, 1024, f"bucket{n}")
+                               for n in PREFILL_BUCKETS)):
             x, s, err = rmsnorm_case(RN, ref, rows, d, dtype, g)
             errors.append(("rmsnorm_fwd", tag, dn, err))
             inputs[("rmsnorm_fwd", tag, dn)] = (x, s)
@@ -335,7 +348,7 @@ def measure(RN, FA, PG, ref, SC, inputs):
     bfloat16, each with its bound; the decode kernel's paged entry at the
     same lengths with page 16 (which must agree with its gathered entry
     to 2e-2), and ``gather_pages`` alone at that table."""
-    timer = Timer()
+    timer, graph_timer = Timer(), GraphTimer()
     bf = torch.bfloat16
     rows = {}
 
@@ -356,6 +369,24 @@ def measure(RN, FA, PG, ref, SC, inputs):
             lambda: F.rms_norm(x, (d,), w, 1e-5),
             bound(2 * x.numel() * x.element_size() + 4 * d,
                   4 * x.numel(), bf))
+        rows[f"rmsnorm_fwd/{tag}"].update(
+            graph_us=graph_timer(lambda: RN.rmsnorm_fwd(x, s, 1e-5)),
+            library_graph_us=graph_timer(
+                lambda: F.rms_norm(x, (d,), w, 1e-5)))
+    # the other prompt buckets, cold and as the prefill graphs replay them
+    for n in PREFILL_BUCKETS:
+        x, s = inputs[("rmsnorm_fwd", f"bucket{n}", "bfloat16")]
+        w = (1.0 + s).to(bf)
+        d = x.shape[-1]
+        rows[f"rmsnorm_fwd/bucket{n}"] = dict(
+            ms=timer(lambda: RN.rmsnorm_fwd(x, s, 1e-5)),
+            library_ms=timer(lambda: F.rms_norm(x, (d,), w, 1e-5)),
+            graph_us=graph_timer(lambda: RN.rmsnorm_fwd(x, s, 1e-5)),
+            library_graph_us=graph_timer(
+                lambda: F.rms_norm(x, (d,), w, 1e-5)),
+            shape=f"x ({n}, {d}) bf16",
+            **bound(2 * x.numel() * x.element_size() + 4 * d,
+                    4 * x.numel(), bf))
 
     qt, kt, vt = inputs[("flash_fwd", "seesaw", "bfloat16")]
     B, H, S, hd = qt.shape
@@ -467,6 +498,14 @@ def phase1b(RN, FA, ref):
             errors.append(("rmsnorm_bwd/dscale_rel", tag, dn,
                            dscale_rel_err(x, gy, ds, want_ds)))
             inputs[("rmsnorm_bwd", tag, dn)] = (x, s, gy)
+            if tag == "train":
+                # the forward at the dense training shape (the staged
+                # form), on the x that measure_bwd times it at
+                y = RN.rmsnorm_fwd(x, s, 1e-5)
+                torch.cuda.synchronize()
+                errors.append(("rmsnorm_fwd", tag, dn, max_err(
+                    y, ref.rmsnorm_ref(x, s, 1e-5), dtype)))
+                del y
         for B, S, H, Hkv, hd, tag in ((8, 1024, 16, 16, 64, "seesaw"),
                                       (1, 1000, 24, 8, 128, "llama"),
                                       *FLASH_EDGES):
@@ -527,6 +566,9 @@ def measure_bwd(RN, FA, ref, inputs):
         ms=timer(lambda: RN.rmsnorm_fwd(x, s, 1e-5)),
         plain_ms=timer(lambda: ref.rmsnorm_ref(x, s, 1e-5)),
         library_ms=timer(lambda: F.rms_norm(x, (d,), wb, 1e-5)),
+        graph_us=GraphTimer()(lambda: RN.rmsnorm_fwd(x, s, 1e-5)),
+        library_graph_us=GraphTimer()(lambda: F.rms_norm(x, (d,), wb,
+                                                         1e-5)),
         shape=f"x ({n}, {d}) bf16",
         **bound(2 * n * d * es + 4 * d, 4 * n * d, bf))
 
@@ -729,6 +771,9 @@ def measure_ssd(SSD, RN, ref, inputs):
             ms=timer(lambda: RN.rmsnorm_fwd(x, sc, 1e-5)),
             plain_ms=timer(lambda: ref.rmsnorm_ref(x, sc, 1e-5)),
             library_ms=timer(lambda: F.rms_norm(x, (d,), w, 1e-5)),
+            graph_us=GraphTimer()(lambda: RN.rmsnorm_fwd(x, sc, 1e-5)),
+            library_graph_us=GraphTimer()(
+                lambda: F.rms_norm(x, (d,), w, 1e-5)),
             shape=f"x ({n}, {d}) bf16",
             **bound(4 * n * d + 4 * d, 4 * n * d, bf))
         rows[f"rmsnorm_bwd/mamba2-d{d}"] = dict(
@@ -1748,14 +1793,32 @@ def main() -> int:
         if name == "rmsnorm_fwd":
             dec = times["rmsnorm_fwd/decode"]
             tr = bwd_times["rmsnorm_fwd/train"]
-            entry.update(decode_rows_ms=dec["ms"],
+            entry.update(graph_us=tm["graph_us"],
+                         library_graph_us=tm["library_graph_us"],
+                         decode_rows_ms=dec["ms"],
+                         decode_rows_graph_us=dec["graph_us"],
                          decode_rows_bound_ms=dec["bound_ms"],
                          decode_rows_library_ms=dec["library_ms"],
+                         decode_rows_library_graph_us=dec[
+                             "library_graph_us"],
+                         train_shape_max_abs_err=err_of[
+                             ("rmsnorm_fwd", "train", "bfloat16")],
+                         train_shape_max_abs_err_f32=err_of[
+                             ("rmsnorm_fwd", "train", "float32")],
                          train_shape_ms=tr["ms"],
+                         train_shape_graph_us=tr["graph_us"],
                          train_shape_plain_ms=tr["plain_ms"],
                          train_shape_bound_ms=tr["bound_ms"],
                          train_shape_library_ms=tr["library_ms"],
-                         train_shape=tr["shape"])
+                         train_shape_library_graph_us=tr[
+                             "library_graph_us"],
+                         train_shape=tr["shape"],
+                         prefill_buckets={
+                             n: {f: times[f"rmsnorm_fwd/bucket{n}"][f]
+                                 for f in ("ms", "graph_us", "bound_ms",
+                                           "library_ms",
+                                           "library_graph_us")}
+                             for n in PREFILL_BUCKETS})
         if name in train_launches:
             entry["train_launches"] = train_launches[name]
         if name == "flash_fwd":
@@ -1819,6 +1882,8 @@ def main() -> int:
                 k[f"mamba2_d{d}"] = {
                     "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                     "library_ms": tm["library_ms"],
+                    **{f: tm[f] for f in ("graph_us", "library_graph_us")
+                       if f in tm},
                     "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
                     "max_abs_err": err_of[(k["name"], f"mamba2-d{d}",
                                            "bfloat16")],

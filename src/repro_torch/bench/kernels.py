@@ -94,8 +94,12 @@ def attention_tile(hd: int) -> str:
             f"{256 // (hd // 16)} rows a block, 32-row tiles")
 
 
-RMSNORM_TILE = ("rmsnorm_fwd: one 128-thread block a row; rmsnorm_bwd: "
-                "at most one 512-thread block an SM, 1-16 warps a row")
+RMSNORM_TILE = ("rmsnorm_fwd: 1-16 warps a row (fwd_layout), blocks of up "
+                "to 512 threads, x read once: into registers at one vector "
+                "a lane for calls the card holds at once, into shared "
+                "memory by cp.async at up to 4 vectors a lane for more; "
+                "rmsnorm_bwd: at most one 512-thread block an SM, 1-16 "
+                "warps a row")
 SSD_TILE = "ssd_chunk: one block a (batch, chunk, head), 64-row tiles"
 
 

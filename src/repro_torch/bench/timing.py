@@ -2,8 +2,10 @@
 take for the same work.
 
 ``Timer`` times calls with CUDA events, the L2 cache flushed and the
-host's enqueue hidden behind a device spin; ``bound`` turns a call's
-bytes and operations into the H100's least time for them.  ``chip_smoke.py``
+host's enqueue hidden behind a device spin; ``GraphTimer`` times a call
+as a CUDA graph replays it, among many others, with no launch cost of
+the host's; ``bound`` turns a call's bytes and operations into the
+H100's least time for them.  ``chip_smoke.py``
 and ``repro_torch.bench.kernels`` time with these, so their numbers are
 comparable.  Everything here needs a CUDA device.
 """
@@ -81,6 +83,46 @@ class Timer:
         t = time.perf_counter() - t
         torch.cuda.synchronize()
         return t / calls * 1e6
+
+
+class GraphTimer:
+    """Device time of one call as a graph replay pays it, in
+    microseconds: ``n`` back-to-back calls captured in one CUDA graph
+    (``repro_torch.graphs.Graph``, which leaves the launch counters as
+    they were; the replays here count nothing), replayed ``warmup``
+    times, then ``iters`` times between CUDA events; the median replay
+    over ``n``.  Nothing is flushed between the calls, so the L2 holds
+    what the last one left, as in the serving and training graphs, where
+    a norm reads the x the kernel before it just wrote.  Below ``Timer``'s
+    floor of a few microseconds (its events and the spin around one
+    launch), this is the number that says what a decode step's launches
+    cost."""
+
+    def __init__(self, n: int = 200, iters: int = 20, warmup: int = 3):
+        self.n, self.iters, self.warmup = n, iters, warmup
+
+    def __call__(self, fn) -> float:
+        from repro_torch.graphs import Graph
+        fn()                    # anything made at a first call, made here
+        torch.cuda.synchronize()
+
+        def calls():
+            for _ in range(self.n):
+                fn()            # each output freed, its memory reused
+        graph = Graph(calls).graph
+        for _ in range(self.warmup):
+            graph.replay()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(self.iters)]
+        for start, end in ev:
+            start.record()
+            graph.replay()
+            end.record()
+        torch.cuda.synchronize()
+        ms = float(np.median([s.elapsed_time(e) for s, e in ev]))
+        del graph
+        return ms * 1e3 / self.n
 
 
 def bound(n_bytes: float, n_ops: float, dtype) -> dict:

@@ -4,12 +4,14 @@ change, built and timed side by side on the card.
 No profiler that reads the SMs' counters runs where the card is, so a
 kernel's time is taken apart by difference instead: a variant leaves
 out one piece of work (a role of the blocks, two of the three split
-products, the exp, the x loads, the dscale merge) or changes one
-constant, and its time beside the unchanged kernel's says what that
-piece costs.  A variant that leaves work out computes wrong outputs;
-only its time is read.
+products, the exp, the x loads, the dscale merge), moves it (the RMSNorm
+forward's scale loads behind the sum) or changes one constant or the
+form a call takes, and its time beside the unchanged kernel's says what
+that piece costs.  A variant that leaves work out computes
+wrong outputs; only its time is read.
 
-    PYTHONPATH=src python -m repro_torch.bench.variants \\
+    PYTHONPATH=src python -m repro_torch.bench.variants [NAME ...] \\
+        [--against OTHER/csrc/rmsnorm.cu] \\
         [--out chiprun_out/kernel_variants.json]
 
 Each variant is the source in ``csrc/`` with text substitutions
@@ -19,9 +21,14 @@ port's nvcc flags into its own library under ``build/variants/`` (in
 parallel, seconds each) and is called through its C entry with the
 shapes of the Mamba-2 training path: the SSD chunk at mamba2-2.7b's (B=4,
 S=2048, H=80, P=64, N=128, Q=256, bf16, strided as in the mixer, its
-init's decay) and the RMSNorm backward at 8192 rows of d = 1024, 2560
-and 5120 in bf16, timed by ``bench.timing.Timer``.  Needs a CUDA
-device.
+init's decay) and the RMSNorm backward at 8192 rows of d = 1024, 2560 and
+5120 in bf16, timed by ``bench.timing.Timer``.  The RMSNorm forward's
+variants, and ``--against`` another tree's forward (the parent commit's,
+unpacked by ``git archive``), are timed together at ``FWD_SHAPES`` (the
+training shapes, a prefill, the prompt buckets, a decode step), each in
+its own tree's layout, cold (``Timer``) and as a graph replays them
+(``GraphTimer``, ``graph_us``), in rounds that move their buffers and
+rotate their order; the medians are kept.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -35,9 +42,11 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import rmsnorm as RN
 
 OUT_DIR = _build.BUILD_DIR.parent / "variants"
 
@@ -53,6 +62,13 @@ _EXP_A = "    m[0][e] = cbv[0][e] * ex2(ea) * dj[e];"
 _EXP_B = "    m[1][e] = cbv[1][e] * ex2(eb) * dj[e];"
 _ONE_TERM = "mma_split(acc, hi, hi, hi, xt, kb, npb, lane);\n"
 _MERGE = "  const int q = blockIdx.x / merge, q0 = q * merge;"
+# text of rmsnorm.cu's forward: the register form's early scale loads and
+# its stores, the choice of form
+_FWD_SCALE = ("#pragma unroll\n    for (int k = 0; k < KV; ++k) {\n"
+              "      const int i = t + k * stride;\n"
+              "      if (i < nvec) load_scale<V>(scale, i, s[k]);\n    }\n")
+_FWD_STORE = "        store_y<T, V>(yr, i, v, rr, s[k]);\n"
+_FWD_FORM = "  if (staged)\n"
 
 # name -> (source, [(old, new), ...]); "ssd_only_y" etc. run one role
 VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
@@ -100,6 +116,18 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "rmsnorm_bwd_stages3": ("rmsnorm.cu",
                             [("constexpr int kBwdStages = 2;",
                               "constexpr int kBwdStages = 3;")]),
+    "rmsnorm_fwd": ("rmsnorm.cu", []),
+    # every call of rows of one chunk in the staged form
+    "rmsnorm_fwd_staged": ("rmsnorm.cu",
+                           [(_FWD_FORM, "  if (d / rt::Vec<T>::N <= "
+                                        "wpr * 32 * kVec)\n")]),
+    # the register form reading scale after the sum, a second trip to
+    # memory
+    "rmsnorm_fwd_scale_late": ("rmsnorm.cu",
+                               [(_FWD_SCALE, ""),
+                                (_FWD_STORE,
+                                 "        load_scale<V>(scale, i, s[k]);\n"
+                                 + _FWD_STORE)]),
 }
 
 
@@ -116,15 +144,17 @@ def variant_source(name: str) -> str:
     return text
 
 
-def build_variant(name: str) -> Tuple[Path, List[str]]:
-    """Compile variant ``name`` into its own shared library; returns its
-    path and ptxas's register and spill lines."""
+def build_variant(name: str, text: str = None,
+                  headers: Path = _build.CSRC) -> Tuple[Path, List[str]]:
+    """Compile variant ``name`` (or ``text``, a source whose headers are in
+    ``headers``) into its own shared library; returns its path and
+    ptxas's register and spill lines."""
     d = OUT_DIR / name
     d.mkdir(parents=True, exist_ok=True)
-    for h in _build.CSRC.glob("*.cuh"):
+    for h in headers.glob("*.cuh"):
         (d / h.name).write_text(h.read_text())
     cu = d / f"{name}.cu"
-    cu.write_text(variant_source(name))
+    cu.write_text(variant_source(name) if text is None else text)
     lib = d / f"lib{name}.so"
     r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
                         "-shared", str(cu), "-o", str(lib)],
@@ -193,40 +223,121 @@ def _rmsnorm_calls(lib, g):
     return calls
 
 
-def measure(names=None) -> dict:
-    """Build every variant (in parallel) and time each at its shapes."""
+# the RMSNorm forward's shapes (bf16): a training micro-batch at the dense
+# model's and Mamba-2's widths, a prefill of 1024, phase 2's prompt
+# buckets, a decode step
+FWD_SHAPES = ((8192, 1024), (8192, 2560), (8192, 5120), (1024, 1024),
+              (512, 1024), (256, 1024), (128, 1024), (64, 1024), (8, 1024))
+FWD_ROUNDS = 7              # rounds the forwards are timed in
+
+
+def _rmsnorm_fwd_entry(lib, text: str):
+    """The forward entry of a built ``rmsnorm.cu`` and the layout it
+    takes for n rows of d: ``fwd_layout``'s where the entry takes one,
+    none where it lays itself out (an older source)."""
+    fn = lib.rmsnorm_fwd
+    if "int warps_per_row" in text:
+        fn.argtypes = RN._ARGTYPES
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        return fn, lambda n, d: RN.fwd_layout(n, d, 1, sms)
+    fn.argtypes = RN._ARGTYPES[:7] + [ctypes.c_void_p]
+    return fn, lambda n, d: ()
+
+
+def _time_forwards(entries: dict) -> dict:
+    """``graph_us`` and cold ``ms`` of each forward entry at every shape
+    of ``FWD_SHAPES``, the medians of ``FWD_ROUNDS`` rounds.  Each round
+    copies x to a new address and gives each entry a new y, and the
+    entries take turns in a rotated order, so no entry keeps the
+    placement of its buffers or its place in the sequence."""
+    from repro_torch.bench.timing import GraphTimer, Timer
+    timer, graph_timer = Timer(iters=20), GraphTimer()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    names = list(entries)
+    out = {name: {"graph_us": {}, "ms": {}} for name in names}
+    for n, d in FWD_SHAPES:
+        x = torch.randn(n, d, generator=g, device="cuda").bfloat16()
+        s = 0.1 * torch.randn(d, generator=g, device="cuda")
+        runs = {name: ([], []) for name in names}
+        for r in range(FWD_ROUNDS):
+            pad = torch.empty(256 * (1 + r * 97 % 4093), device="cuda")
+            xr = x.clone()
+            for name in names[r % len(names):] + names[:r % len(names)]:
+                fn, layout = entries[name]
+                y = torch.empty_like(x)
+                args = (xr.data_ptr(), s.data_ptr(), y.data_ptr(), n, d,
+                        1e-5, 1, *layout(n, d))
+
+                def call(fn=fn, args=args):
+                    return fn(*args, torch.cuda.current_stream().cuda_stream)
+                if call():
+                    raise RuntimeError(f"{name} at {n} x {d}: CUDA error")
+                runs[name][0].append(graph_timer(call))
+                runs[name][1].append(timer(call))
+            del pad
+        for name, (gus, ms) in runs.items():
+            out[name]["graph_us"][f"{n} x {d}"] = float(np.median(gus))
+            out[name]["ms"][f"{n} x {d}"] = float(np.median(ms))
+    return out
+
+
+def measure(names=None, against: str = None) -> dict:
+    """Build every variant (in parallel) and time each at its shapes; the
+    RMSNorm forward's variants together, in rounds, beside ``against``
+    (another tree's ``csrc/rmsnorm.cu``, such as the parent commit's)
+    where one is given."""
     if not torch.cuda.is_available():
         raise RuntimeError("kernel variants are timed on an NVIDIA card")
     from repro_torch.bench.timing import Timer
     names = list(names or VARIANTS)
-    with ThreadPoolExecutor(len(names)) as ex:
-        built = dict(zip(names, ex.map(build_variant, names)))
+    jobs = [(name, None, _build.CSRC) for name in names]
+    texts = {name: variant_source(name) for name in names}
+    if against:
+        texts["against"] = Path(against).read_text()
+        jobs.append(("against", texts["against"], Path(against).parent))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = dict(zip([j[0] for j in jobs],
+                         ex.map(lambda j: build_variant(*j), jobs)))
     timer = Timer(iters=20)
     out = {"device": torch.cuda.get_device_name(0), "variants": {}}
-    for name in names:
-        lib_path, ptxas = built[name]
+    forwards = {}
+    for name, (lib_path, ptxas) in built.items():
         lib = ctypes.CDLL(str(lib_path))
+        out["variants"][name] = rec = {"ptxas": ptxas, "ms": {}}
+        if name == "against" or name.startswith("rmsnorm_fwd"):
+            forwards[name] = _rmsnorm_fwd_entry(lib, texts[name])
+            continue
         g = torch.Generator(device="cuda").manual_seed(3)
-        calls = (_ssd_call if VARIANTS[name][0] == "ssd_chunk.cu"
-                 else _rmsnorm_calls)(lib, g)
-        rec = {"ptxas": ptxas, "ms": {}}
+        calls = (_ssd_call if name.startswith("ssd") else _rmsnorm_calls)(
+            lib, g)
         for shape, (call, _keep) in calls.items():
             err = call()
             torch.cuda.synchronize()
             if err:
                 raise RuntimeError(f"{name} at {shape}: CUDA error {err}")
             rec["ms"][shape] = timer(call)
-        out["variants"][name] = rec
         print(f"{name}: {rec['ms']}", flush=True)
+    if forwards:
+        for name, rec in _time_forwards(forwards).items():
+            out["variants"][name].update(rec)
+            print(f"{name}: graph_us {rec['graph_us']}", flush=True)
     return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("names", nargs="*",
+                    help="variants to build and time (default: all)")
+    ap.add_argument("--against", default=None,
+                    help="another tree's csrc/rmsnorm.cu, whose forward is "
+                         "timed beside the forward variants")
     ap.add_argument("--out", default=os.path.join("chiprun_out",
                                                   "kernel_variants.json"))
     args = ap.parse_args(argv)
-    result = measure()
+    unknown = sorted(set(args.names) - set(VARIANTS))
+    if unknown:
+        ap.error(f"no such variant: {', '.join(unknown)}")
+    result = measure(args.names, args.against)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

@@ -12,17 +12,47 @@
 // (called through _pallas_bwd).  Like it, rr is recomputed from x rather
 // than saved by the forward.
 //
-// Bound on the H100, both directions: bytes.  Each element is read once and written once
-// (2 + 2 bytes in bfloat16) for about four float operations, far below
-// the ~295 operations per byte where the tensor cores would become the
-// limit.  The design therefore only moves bytes well: one block of 128
-// threads per row, 16-byte vector loads and stores with neighbouring
-// threads on neighbouring addresses, the sum of squares reduced in
-// registers, by warp shuffles and through 4 words of shared memory.  The
-// second pass re-reads the row, which a 2 KB row (d = 1024 in bfloat16)
-// finds in L1.  With 8 rows (one decode step at 8 slots) only 8 of the
-// 132 SMs have work and the launch itself dominates; that is left as it
-// is here.
+// Bound on the H100, both directions: bytes.  Each element is read once
+// and written once (2 + 2 bytes in bfloat16) for about four float
+// operations, far below the ~295 operations per byte where the tensor
+// cores would become the limit.  The design therefore only moves bytes
+// well.
+//
+// The forward (8 rows of a decode step, 64-1024 of a prefill, 8192 of a
+// training micro-batch; d = 1024 to 5120):
+// - One sum order for a row, fixed by d alone: the squares of each
+//   16-byte vector in one chain, the 32 vectors of a group (vectors 32 j
+//   to 32 j + 31, vector 32 j + l held by lane l) by warp shuffles, and
+//   the groups' sums added in group order.  Any number of warps can hold
+//   a row and keep that order: they pass the groups' sums through shared
+//   memory at a barrier of their own and each adds them all in order.  So
+//   the layout may follow the call, and a row's output still has the same
+//   bits whatever the call.  The layout comes from the wrapper
+//   (kernels/rmsnorm.py::fwd_layout); the entry checks only that it
+//   covers the row.
+// - One read of x.
+// - Calls whose rows all fit on the card at once (a decode step, a
+//   prefill) are bound by latency: the register form gives each row a
+//   block of the fewest warps whose lanes hold it at one vector each (4
+//   at d = 1024 in bfloat16; 16 warps and up to 4 vectors a lane for
+//   longer rows), starts every load of the row, x's vectors and then
+//   scale's floats, before any arithmetic, and forms y from the same
+//   registers: one trip to memory before the stores, and one barrier.
+// - Calls with more rows (a training micro-batch) are bound by the bytes
+//   in flight.  Their rows take the fewest warps whose lanes hold a row at
+//   4 vectors each (1 at d = 1024, 4 at 2560 and 3072, 8 at 5120 in
+//   bfloat16), 512 / (32 w) rows a block, a block's rows taking the grid's
+//   stride.  Rows held in registers would cap an SM at one 512-thread
+//   block (80-105 registers) or spill; the staged form copies x's vectors
+//   into shared memory by cp.async instead, which holds no register while
+//   the copy is in flight, so four 512-thread blocks of 32 registers an SM
+//   (80-128 KB of x at d = 1024-5120) wait on memory at once; scale
+//   follows the sum, from L1 once the SM's first rows have brought it in.
+//   Four groups a warp are summed at once in 6 shuffles.
+// - A row longer than 16 warps hold at 4 vectors a lane (d above 16384 in
+//   bfloat16, 8192 in float32) takes the register form, a chunk of 2048
+//   vectors at a time: the first chunk stays in registers, the others are
+//   summed, then read again for y.
 //
 // The backward reads x and g and writes dx (6 bytes an element in
 // bfloat16) for about a dozen float operations, again far below the
@@ -57,74 +87,19 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kVec = 4;                 // a lane's 16-byte vectors of a row
+constexpr int kFwdThreads = 512;        // forward: at most 16 warps a block
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kFwdGroups = kFwdWarps * kVec;    // 32-vector groups held
 constexpr int kBwdThreads = 512;        // backward: 16 warps a block
 constexpr int kBwdWarps = kBwdThreads / 32;
-constexpr int kBwdVec = 4;              // 16-byte vectors a lane holds of a row
 constexpr int kBwdStages = 2;           // rows of a slot in the cp.async ring
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                   T* __restrict__ out, int d, float eps) {
-  constexpr int V = rt::Vec<T>::N;
-  const T* xr = x + static_cast<size_t>(blockIdx.x) * d;
-  T* yr = out + static_cast<size_t>(blockIdx.x) * d;
-  const int nvec = d / V;
-
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    float v[V];
-    rt::load_vec(xr + i * V, v);
-#pragma unroll
-    for (int j = 0; j < V; ++j) ss = fmaf(v[j], v[j], ss);
-  }
-  __shared__ float part[kThreads / 32];
-  ss = rt::warp_sum(ss);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
-  __syncthreads();
-  float total = 0.f;
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) total += part[w];
-  const float rr = rsqrtf(total / static_cast<float>(d) + eps);
-
-  for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    float v[V], s[V];
-    rt::load_vec(xr + i * V, v);
-#pragma unroll
-    for (int j = 0; j < V; j += 4) rt::load4(scale + i * V + j, s + j);
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = v[j] * rr * (1.f + s[j]);
-    rt::store_vec(yr + i * V, v);
-  }
-}
-
 // warps that own one row of nvec 16-byte vectors (0 if a row is too long)
-__host__ __device__ __forceinline__ int bwd_warps_per_row(int nvec) {
+__host__ __device__ __forceinline__ int warps_per_row(int nvec) {
   for (int w = 1; w <= kBwdWarps; w *= 2)
-    if (w * 32 * kBwdVec >= nvec) return w;
+    if (w * 32 * kVec >= nvec) return w;
   return 0;
-}
-
-struct BwdLayout {
-  int wpr, blocks, merge, groups;       // merge: blocks a merge group
-};
-
-BwdLayout bwd_layout(int rows, int d, int dtype) {
-  BwdLayout L{};
-  const int V = dtype == rt::DTYPE_BF16 ? 8 : 4;
-  L.wpr = bwd_warps_per_row(d / V);
-  if (L.wpr == 0 || rows < 1) return L;
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int per = kBwdWarps / L.wpr;    // rows in flight in a block
-  const int need = (rows + per - 1) / per;
-  L.blocks = need < sms ? need : sms;
-  L.merge = 1;
-  while (L.merge * L.merge < L.blocks) ++L.merge;
-  L.groups = (L.blocks + L.merge - 1) / L.merge;
-  return L;
 }
 
 template <typename T>
@@ -144,6 +119,287 @@ __device__ __forceinline__ void to_floats(const uint4& r, float* o) {
       o[2 * i + 1] = f.y;
     }
   }
+}
+
+// scale's V floats at vector i
+template <int V>
+__device__ __forceinline__ void load_scale(const float* scale, int i,
+                                           float* s) {
+#pragma unroll
+  for (int j = 0; j < V; j += 4) rt::load4(scale + i * V + j, s + j);
+}
+
+// the sum of a vector's squares: one chain, from 0
+template <int V>
+__device__ __forceinline__ float squares(const float* v) {
+  float p = 0.f;
+#pragma unroll
+  for (int j = 0; j < V; ++j) p = fmaf(v[j], v[j], p);
+  return p;
+}
+
+// y's V elements at vector i from x's floats v
+template <typename T, int V>
+__device__ __forceinline__ void store_y(T* yr, int i, float* v, float rr,
+                                        const float* s) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = v[j] * rr * (1.f + s[j]);
+  rt::store_vec(yr + i * V, v);
+}
+
+// the sums of four groups at once, each by rt::warp_sum's butterfly (so
+// with its bits) in 6 shuffles where four warp_sums take 20: p[k] is this
+// lane's part of group k; lane l ends with group l / 8's sum
+__device__ __forceinline__ float warp_sum4(const float* p, int lane) {
+  const bool h16 = lane & 16, h8 = lane & 8;
+  float a = h16 ? p[2] : p[0], b = h16 ? p[3] : p[1];
+  a += __shfl_xor_sync(rt::FULL_MASK, h16 ? p[0] : p[2], 16);
+  b += __shfl_xor_sync(rt::FULL_MASK, h16 ? p[1] : p[3], 16);
+  float c = h8 ? b : a;
+  c += __shfl_xor_sync(rt::FULL_MASK, h8 ? a : b, 8);
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) c += __shfl_xor_sync(rt::FULL_MASK, c, o);
+  return c;
+}
+
+// The sums of this warp's groups of 32 vectors into r[group]: the warp is
+// the wi-th of its row's wpr and holds groups wi, wi + wpr, ...; p[k] is its
+// lane's vector's squares in group wi + k wpr (0 past the row), for k below
+// KV (1 or kVec), and groups from ng on are left out.  The caller meets the
+// row's other warps at a barrier, then adds r[0 .. ng) in order.
+template <int KV>
+__device__ __forceinline__ void put_groups(const float* p, int ng, int wpr,
+                                           int wi, int lane, float* r) {
+  static_assert(KV == 1 || KV == kVec, "one vector a lane, or kVec");
+  if constexpr (KV == 1) {
+    const float g = rt::warp_sum(p[0]);
+    if (lane == 0 && wi < ng) r[wi] = g;
+  } else {
+    const float g = warp_sum4(p, lane);
+    const int k = lane / 8;
+    if (lane % 8 == 0 && wi + k * wpr < ng) r[wi + k * wpr] = g;
+  }
+}
+
+// r[0 .. ng) added to ss in order
+__device__ __forceinline__ float add_groups(float ss, const float* r,
+                                            int ng) {
+  for (int j = 0; j < ng; ++j) ss += r[j];
+  return ss;
+}
+
+// The register form, for calls whose rows all fit on the card at once, and
+// rows longer than the staged form takes: a block a row, of blockDim.x / 32
+// warps, KV vectors a lane (1 when the block's lanes hold the row so, else
+// kVec), lane t owning vectors t, t + blockDim.x, ...  x's vectors and
+// scale's floats of the first chunk go to registers, every load started
+// before any arithmetic; a longer row's other chunks are summed, then read
+// again for y.
+template <typename T, int KV>
+__global__ void __launch_bounds__(kFwdThreads)
+rmsnorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                   T* __restrict__ out, int rows, int d, float eps) {
+  constexpr int V = rt::Vec<T>::N;
+  __shared__ float part[kFwdGroups];           // a chunk's group sums
+  const int nvec = d / V, groups = (nvec + 31) / 32;
+  const int t = threadIdx.x, lane = t % 32, wi = t / 32;
+  const int stride = blockDim.x, wpr = stride / 32;
+  const int chunk = stride * KV;                // vectors held at once
+  const int cgroups = wpr * KV;                 // their groups
+  // ss plus the chunk's ng group sums, in order; part is read here, so the
+  // block meets again before the next call writes it
+  auto chunk_sum = [&](float ss, const float* p, int ng) {
+    put_groups<KV>(p, ng, wpr, wi, lane, part);
+    __syncthreads();
+    return add_groups(ss, part, ng);
+  };
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + static_cast<size_t>(row) * d;
+    T* yr = out + static_cast<size_t>(row) * d;
+    uint4 xv[KV];
+    float s[KV][V], p[KV];
+#pragma unroll
+    for (int k = 0; k < KV; ++k) {
+      const int i = t + k * stride;
+      if (i < nvec) xv[k] = *reinterpret_cast<const uint4*>(xr + i * V);
+    }
+#pragma unroll
+    for (int k = 0; k < KV; ++k) {
+      const int i = t + k * stride;
+      if (i < nvec) load_scale<V>(scale, i, s[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < KV; ++k) {
+      p[k] = 0.f;
+      if (t + k * stride < nvec) {
+        float v[V];
+        to_floats<T>(xv[k], v);
+        p[k] = squares<V>(v);
+      }
+    }
+    float ss = chunk_sum(0.f, p, min(cgroups, groups));
+    // the other chunks of a row longer than the block holds at once (the
+    // one-vector form is never given one, and compiles without them: the
+    // code alone slowed its small calls)
+    if constexpr (KV > 1) {
+      for (int c = chunk, g0 = cgroups; c < nvec;
+           c += chunk, g0 += cgroups) {
+        __syncthreads();
+        uint4 cv[KV];
+#pragma unroll
+        for (int k = 0; k < KV; ++k) {
+          const int i = c + t + k * stride;
+          if (i < nvec) cv[k] = *reinterpret_cast<const uint4*>(xr + i * V);
+        }
+#pragma unroll
+        for (int k = 0; k < KV; ++k) {
+          p[k] = 0.f;
+          if (c + t + k * stride < nvec) {
+            float v[V];
+            to_floats<T>(cv[k], v);
+            p[k] = squares<V>(v);
+          }
+        }
+        ss = chunk_sum(ss, p, min(cgroups, groups - g0));
+      }
+    }
+    const float rr = rsqrtf(ss / static_cast<float>(d) + eps);
+#pragma unroll
+    for (int k = 0; k < KV; ++k) {
+      const int i = t + k * stride;
+      if (i < nvec) {
+        float v[V];
+        to_floats<T>(xv[k], v);
+        store_y<T, V>(yr, i, v, rr, s[k]);
+      }
+    }
+    if constexpr (KV > 1) {
+      for (int c = chunk; c < nvec; c += chunk) {
+#pragma unroll
+        for (int k = 0; k < KV; ++k) {
+          const int i = c + t + k * stride;
+          if (i < nvec) {
+            float v[V], sc[V];
+            rt::load_vec(xr + i * V, v);
+            load_scale<V>(scale, i, sc);
+            store_y<T, V>(yr, i, v, rr, sc);
+          }
+        }
+      }
+    }
+    __syncthreads();            // after the stores, off the row's path
+  }
+}
+
+// The staged form, for calls with more rows than the card holds at once
+// and rows their lanes hold at kVec vectors each: blocks of rpb rows of wpr
+// warps, row r of a block taking rows blockIdx.x * rpb + r, then one
+// grid's worth on, lane gl of a row owning vectors gl, gl + 32 wpr, ...
+// x's vectors go to shared memory by cp.async (no register holds a load in
+// flight, so four 512-thread blocks an SM have every row's loads in flight
+// at once), then are summed and scaled from there; scale is read after the
+// sum, from L1 once the SM's first rows have brought it in.
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads, 4)
+rmsnorm_fwd_staged_kernel(const T* __restrict__ x,
+                          const float* __restrict__ scale,
+                          T* __restrict__ out, int rows, int d, int wpr,
+                          int rpb, float eps) {
+  constexpr int V = rt::Vec<T>::N;
+  extern __shared__ __align__(16) unsigned char stage[];   // rpb rows of x
+  __shared__ float red[2][kFwdGroups];
+  const int nvec = d / V, groups = (nvec + 31) / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slot = warp / wpr, wi = warp % wpr, gl = wi * 32 + lane;
+  const int stride = wpr * 32;
+  const unsigned char* xs = stage + static_cast<size_t>(slot) * nvec * 16;
+  const uint32_t xs32 = mma::smem_u32(xs);
+  int parity = 0;
+  for (int row = blockIdx.x * rpb + slot; row < rows;
+       row += gridDim.x * rpb) {
+    const T* xr = x + static_cast<size_t>(row) * d;
+    T* yr = out + static_cast<size_t>(row) * d;
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const int i = gl + k * stride;
+      if (i < nvec) mma::cp_async16(xs32 + 16 * i, xr + i * V, true);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<0>();    // a lane reads back only what it copied
+    float p[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const int i = gl + k * stride;
+      p[k] = 0.f;
+      if (i < nvec) {
+        float v[V];
+        to_floats<T>(*reinterpret_cast<const uint4*>(xs + 16 * i), v);
+        p[k] = squares<V>(v);
+      }
+    }
+    // the row's warps meet at a barrier of their own (ids 1 ..); the two
+    // buffers alternate, so one barrier a row suffices
+    float* r = red[parity] + slot * wpr * kVec;
+    put_groups<kVec>(p, groups, wpr, wi, lane, r);
+    if (wpr == 1)
+      __syncwarp();
+    else
+      asm volatile("bar.sync %0, %1;" ::"r"(slot + 1), "r"(stride)
+                   : "memory");
+    const float ss = add_groups(0.f, r, groups);
+    parity ^= 1;
+    const float rr = rsqrtf(ss / static_cast<float>(d) + eps);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const int i = gl + k * stride;
+      if (i < nvec) {
+        float v[V], s[V];
+        to_floats<T>(*reinterpret_cast<const uint4*>(xs + 16 * i), v);
+        load_scale<V>(scale, i, s);
+        store_y<T, V>(yr, i, v, rr, s);
+      }
+    }
+  }
+}
+
+template <typename T>
+void launch_fwd(const void* x, const void* scale, void* out, int rows, int d,
+                int wpr, int rpb, int blocks, bool staged, float eps,
+                cudaStream_t s) {
+  const int threads = rpb * wpr * 32;
+  const T* xt = static_cast<const T*>(x);
+  const float* st = static_cast<const float*>(scale);
+  T* ot = static_cast<T*>(out);
+  if (staged)
+    rmsnorm_fwd_staged_kernel<T><<<blocks, threads, rpb * d * sizeof(T), s>>>(
+        xt, st, ot, rows, d, wpr, rpb, eps);
+  else if (threads * rt::Vec<T>::N >= d)
+    rmsnorm_fwd_kernel<T, 1><<<blocks, threads, 0, s>>>(xt, st, ot, rows, d,
+                                                        eps);
+  else
+    rmsnorm_fwd_kernel<T, kVec><<<blocks, threads, 0, s>>>(xt, st, ot, rows,
+                                                           d, eps);
+}
+
+struct BwdLayout {
+  int wpr, blocks, merge, groups;       // merge: blocks a merge group
+};
+
+BwdLayout bwd_layout(int rows, int d, int dtype) {
+  BwdLayout L{};
+  const int V = dtype == rt::DTYPE_BF16 ? 8 : 4;
+  L.wpr = warps_per_row(d / V);
+  if (L.wpr == 0 || rows < 1) return L;
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int per = kBwdWarps / L.wpr;    // rows in flight in a block
+  const int need = (rows + per - 1) / per;
+  L.blocks = need < sms ? need : sms;
+  L.merge = 1;
+  while (L.merge * L.merge < L.blocks) ++L.merge;
+  L.groups = (L.blocks + L.merge - 1) / L.merge;
+  return L;
 }
 
 // sum of `n` rows of `d` floats from row r0 of `src` (written by other
@@ -216,7 +472,7 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     const T* xr = x + static_cast<size_t>(row) * d;
     const T* gr = g + static_cast<size_t>(row) * d;
 #pragma unroll
-    for (int k = 0; k < kBwdVec; ++k) {
+    for (int k = 0; k < kVec; ++k) {
       const int i = gl + k * stride;
       if (i < nvec) {
         mma::cp_async16(dst + 16 * i, xr + i * V, true);
@@ -225,9 +481,9 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     }
   };
 
-  float acc[kBwdVec * V];
+  float acc[kVec * V];
 #pragma unroll
-  for (int e = 0; e < kBwdVec * V; ++e) acc[e] = 0.f;
+  for (int e = 0; e < kVec * V; ++e) acc[e] = 0.f;
   int parity = 0;
   const int step = gridDim.x * per, first = blockIdx.x * per + slot;
 #pragma unroll
@@ -241,9 +497,9 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     mma::cp_async_commit();
     mma::cp_async_wait<kBwdStages - 1>();   // this row's copies are in
     const unsigned char* cur = stage(n % kBwdStages);
-    uint4 xv[kBwdVec], gv[kBwdVec];
+    uint4 xv[kVec], gv[kVec];
 #pragma unroll
-    for (int k = 0; k < kBwdVec; ++k) {
+    for (int k = 0; k < kVec; ++k) {
       const int i = gl + k * stride;
       if (i < nvec) {
         xv[k] = *reinterpret_cast<const uint4*>(cur + 16 * i);
@@ -252,7 +508,7 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     }
     float ss = 0.f, gx = 0.f;
 #pragma unroll
-    for (int k = 0; k < kBwdVec; ++k) {
+    for (int k = 0; k < kVec; ++k) {
       const int i = gl + k * stride;
       if (i < nvec) {
         float xf[V], gf[V], s[V];
@@ -290,7 +546,7 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 
     T* dxr = dx + static_cast<size_t>(row) * d;
 #pragma unroll
-    for (int k = 0; k < kBwdVec; ++k) {
+    for (int k = 0; k < kVec; ++k) {
       const int i = gl + k * stride;
       if (i < nvec) {
         float xf[V], gf[V], s[V], o[V];
@@ -316,7 +572,7 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   __syncthreads();
   float* own = reinterpret_cast<float*>(ring) + static_cast<size_t>(slot) * d;
 #pragma unroll
-  for (int kk = 0; kk < kBwdVec; ++kk) {
+  for (int kk = 0; kk < kVec; ++kk) {
     const int i = gl + kk * stride;
     if (i < nvec) {
 #pragma unroll
@@ -379,25 +635,32 @@ int launch_bwd(const void* x, const void* scale, const void* g, void* dx,
 }  // namespace
 
 // x, out: (rows, d) contiguous, d a multiple of 8 (bfloat16) or 4
-// (float32), 16-byte aligned; scale: (d,) float32.  Returns the CUDA
-// error of the launch (0 on success).
+// (float32), 16-byte aligned; scale: (d,) float32.  The layout as
+// kernels/rmsnorm.py::fwd_layout gives it: rows_per_block rows of
+// warps_per_row warps, at most 512 threads a block; staged (the
+// shared-memory form) only for rows the lanes hold at 4 vectors each, the
+// register form one row a block.  Any such layout gives a row the same
+// bits.  Returns cudaErrorInvalidValue
+// for any other layout, else the CUDA error of the launch (0 on success).
 extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out,
                            int rows, int d, float eps, int dtype,
-                           void* stream) {
+                           int warps_per_row, int rows_per_block, int blocks,
+                           int staged, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows > 0) {
-    if (dtype == rt::DTYPE_BF16) {
-      rmsnorm_fwd_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const float*>(scale),
-          static_cast<__nv_bfloat16*>(out), d, eps);
-    } else if (dtype == rt::DTYPE_F32) {
-      rmsnorm_fwd_kernel<float><<<rows, kThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<const float*>(scale),
-          static_cast<float*>(out), d, eps);
-    } else {
+    const int V = dtype == rt::DTYPE_BF16 ? 8 : 4;
+    if ((dtype != rt::DTYPE_BF16 && dtype != rt::DTYPE_F32) || d < V
+        || d % V || warps_per_row < 1 || rows_per_block < 1
+        || rows_per_block * warps_per_row > kFwdWarps || blocks < 1
+        || (staged ? d / V > warps_per_row * 32 * kVec
+                   : rows_per_block != 1))
       return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (dtype == rt::DTYPE_BF16)
+      launch_fwd<__nv_bfloat16>(x, scale, out, rows, d, warps_per_row,
+                                rows_per_block, blocks, staged, eps, s);
+    else
+      launch_fwd<float>(x, scale, out, rows, d, warps_per_row,
+                        rows_per_block, blocks, staged, eps, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,11 +22,50 @@ bwd_launches = 0        # rmsnorm_bwd
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
                                          ctypes.c_float, ctypes.c_int,
                                          ctypes.c_void_p]
 _SCRATCH_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+
+# the forward's layout (csrc/rmsnorm.cu: kFwdThreads, kVec)
+FWD_THREADS = 512       # the most threads a block has
+VEC = 4                 # the most 16-byte vectors a lane holds of a row
+_WARPS = (1, 2, 4, 8, 16)
+_sms = {}               # SMs of each device, read once
+
+
+def fwd_layout(rows: int, d: int, dtype_code: int, sms: int):
+    """(warps_per_row, rows_per_block, blocks, staged) of the forward
+    kernel for ``rows`` ≥ 1 rows of ``d`` in dtype code 0 (float32) or 1
+    (bfloat16) on a card of ``sms`` SMs.
+
+    The kernel sums a row in one order fixed by d (groups of 32 vectors,
+    added in group order), so a row's bits do not depend on the layout,
+    which follows the call.  A call with more rows than the card holds at
+    once, in full blocks of the fewest warps whose lanes hold a row at
+    ``VEC`` vectors of 16 bytes each, is bound by the bytes in flight and
+    takes the staged form (x copied through shared memory) in that
+    layout.  Any other call, and rows longer than 16 warps hold, is bound
+    by latency and takes the register form: a block a row, of the fewest
+    warps whose lanes hold it at one vector each (16 warps and up to
+    ``VEC`` vectors a lane for a longer row, which past 16 warps' worth
+    is walked a chunk at a time)."""
+    nvec = d // (8 if dtype_code == 1 else 4)
+    most = FWD_THREADS // 32
+    held = next((w for w in _WARPS if w * 32 * VEC >= nvec), None)
+    if held is not None and rows > sms * (most // held):
+        rpb = most // held
+        return held, rpb, -(-rows // rpb), 1
+    return next((w for w in _WARPS if w * 32 >= nvec), most), 1, rows, 0
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _sms:
+        _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device.index]
 
 
 def _bwd_scratch(rows: int, d: int, code: int):
@@ -56,7 +95,9 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
     """x: (..., d) float32 or bfloat16 on a CUDA device, contiguous;
     scale: (d,) float32 on the same device.  Returns
-    x·rsqrt(mean(x²)+eps)·(1+scale) in x's dtype."""
+    x·rsqrt(mean(x²)+eps)·(1+scale) in x's dtype, from one launch laid
+    out by ``fwd_layout``: a row's bits depend on that row, scale, eps, d
+    and the dtype alone, not on the rows around it."""
     global launches
     name = "rmsnorm_fwd"
     code = _build.dtype_code(name, x)
@@ -66,10 +107,11 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
     rows = x.numel() // d
     if rows == 0:                       # nothing to launch, nothing counted
         return out
+    layout = fwd_layout(rows, d, code, _sm_count(x.device))
     fn = _build.function(name, _ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d,
-                 eps, code, _build.stream_of(x))
+                 eps, code, *layout, _build.stream_of(x))
     _build.check(err, name)
     launches += 1
     return out

@@ -77,6 +77,108 @@ def test_rmsnorm_kernel(cuda, shape, dtype):
     _close(got, ref.rmsnorm_ref(x, s, 1e-5), dtype)
 
 
+# the forward's warps a row switch at these d: for a few rows (one vector
+# a lane) 1 -> 2 -> ... -> 16 warps, then up to 4 vectors a lane, then
+# chunks of 16 warps' worth; for 8192 rows (4 vectors a lane, staged)
+# 1 -> ... -> 16 warps, then chunks.  Each switch and 8 on either side.
+_FWD_SWITCHES = {torch.bfloat16: (256, 512, 1024, 2048, 4096, 16384),
+                 torch.float32: (128, 256, 512, 1024, 2048, 8192)}
+_FWD_EDGES = [(dt, d + e) for dt, ds in _FWD_SWITCHES.items() for d in ds
+              for e in (-8, 0, 8)]
+_FWD_STAGED_SWITCHES = {torch.bfloat16: (1024, 2048, 4096, 8192, 16384),
+                        torch.float32: (512, 1024, 2048, 4096, 8192)}
+
+
+@pytest.mark.parametrize("dtype,d", _FWD_EDGES + [(torch.bfloat16, 32768),
+                                                  (torch.float32, 16384),
+                                                  (torch.bfloat16, 8),
+                                                  (torch.float32, 4)])
+def test_rmsnorm_fwd_layout_edges(cuda, dtype, d):
+    """Widths at each switch of the forward's layout for a few rows and
+    rows longer than 16 warps hold (walked a chunk at a time), at 1, 7, 8
+    and 9 rows."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    s = 0.1 * torch.randn(d, generator=g, device=cuda)
+    for rows in (1, 7, 8, 9):
+        x = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+        got = RN.rmsnorm_fwd(x, s, 1e-5)
+        torch.cuda.synchronize()
+        _close(got, ref.rmsnorm_ref(x, s, 1e-5), dtype)
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 1024), (torch.bfloat16, 2560), (torch.bfloat16, 5120),
+    (torch.bfloat16, 32768), (torch.float32, 1024), (torch.float32, 16384)]
+    + [(dt, d + e) for dt, ds in _FWD_STAGED_SWITCHES.items() for d in ds
+       for e in (-8, 8)])
+def test_rmsnorm_fwd_8192_rows(cuda, dtype, d):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(8192, d, generator=g, device=cuda).to(dtype)
+    s = 0.1 * torch.randn(d, generator=g, device=cuda)
+    got = RN.rmsnorm_fwd(x, s, 1e-5)
+    torch.cuda.synchronize()
+    _close(got, ref.rmsnorm_ref(x, s, 1e-5), dtype)
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 1024), (torch.bfloat16, 2560), (torch.bfloat16, 5120),
+    (torch.bfloat16, 32768), (torch.float32, 3072), (torch.float32, 16384)])
+def test_rmsnorm_fwd_row_bits_do_not_depend_on_the_call(cuda, dtype, d):
+    """A row's output has the same bits whether it comes alone, among the
+    first k rows or among 8192 (other layouts and forms: a block a row at
+    one vector a lane in registers for the first, the fewest warps at four
+    vectors a lane staged in shared memory for the last where a row fits
+    16 warps), and from call to call; one CUDA kernel a call."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(8192, d, generator=g, device=cuda).to(dtype)
+    s = 0.1 * torch.randn(d, generator=g, device=cuda)
+    full = RN.rmsnorm_fwd(x, s, 1e-5)
+    torch.cuda.synchronize()
+    before = RN.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = RN.rmsnorm_fwd(x, s, 1e-5)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               for _ in range(e.count)
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "rmsnorm_fwd" in kernels[0], kernels
+    assert RN.launches == before + 1
+    assert torch.equal(again, full)
+    for k in (9, 1000):
+        assert torch.equal(RN.rmsnorm_fwd(x[:k], s, 1e-5), full[:k])
+    for i in (0, 5, 4097, 8191):
+        assert torch.equal(RN.rmsnorm_fwd(x[i:i + 1], s, 1e-5)[0], full[i])
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 1024), (torch.bfloat16, 1032), (torch.bfloat16, 2560),
+    (torch.bfloat16, 5120), (torch.float32, 3072)])
+def test_rmsnorm_fwd_same_bits_in_every_layout(cuda, monkeypatch, dtype, d):
+    """The kernel sums a row in one order fixed by d: every layout the C
+    entry takes (1-16 warps a row; the register form a block a row, the
+    staged one, where it holds the row, 1 or all rows a block; one block
+    or one a row) gives the same bits as the wrapper's own."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(300, d, generator=g, device=cuda).to(dtype)
+    s = 0.1 * torch.randn(d, generator=g, device=cuda)
+    want = RN.rmsnorm_fwd(x, s, 1e-5)
+    nvec = d // (8 if dtype == torch.bfloat16 else 4)
+    for wpr in (1, 2, 4, 8, 16):
+        for staged in (0, 1):
+            if staged and wpr * 32 * RN.VEC < nvec:
+                continue
+            for rpb in sorted({1, 16 // wpr if staged else 1}):
+                for blocks in (1, -(-300 // rpb)):
+                    layout = (wpr, rpb, blocks, staged)
+                    monkeypatch.setattr(RN, "fwd_layout",
+                                        lambda *a, lay=layout: lay)
+                    got = RN.rmsnorm_fwd(x, s, 1e-5)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), layout
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,H,Hkv,S,hd", [
     (1, 16, 16, 1024, 64),      # seesaw-150m prefill

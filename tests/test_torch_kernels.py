@@ -40,7 +40,12 @@ def _t(a):
 # CPU: the port's plain versions against the reference's kernels
 # --------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("shape", [(4, 7, 64), (33, 256), (1, 1024)])
+@pytest.mark.parametrize("shape", [
+    (4, 7, 64), (33, 256), (1, 1024),
+    # the card's forward layout switches here: 1 warp a bfloat16 row up
+    # to d = 1024 (2 a float32 row), 2 warps just above; 4 at 2560, 8 at
+    # 5120
+    (5, 8), (3, 1016), (6, 1024), (3, 1032), (4, 2560), (2, 5120)])
 def test_rmsnorm_matches_jax(shape):
     rng = np.random.default_rng(0)
     x, s = _normal(rng, shape), _normal(rng, shape[-1:], 0.1)
