@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels, check them, serve seesaw-150m and train
-it with a Seesaw batch ramp, train mamba2-2.7b with a Seesaw ramp, and
-run the kernel benchmark on one NVIDIA card.
+it with a Seesaw batch ramp, save, stop and resume that run and train it
+under the adaptive ramp, train mamba2-2.7b with a Seesaw ramp, and run
+the kernel benchmark on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -127,6 +128,25 @@ decode graph, each replayed once per step.
   micro 2 (AdamW, bf16), each replayed by the engine and run eagerly
   on a clone of the state before it (parameters, AdamW state with its
   count, metrics), and three decode steps (next tokens, pool).
+- Phase 10, checkpoint and adaptive (after phase 4's profile, on its
+  trainer): (a) phase 4's run again in a fresh ``Trainer`` with async
+  saves every 8 steps (``save_every=8``), stopped by ``stop_fn`` at step
+  16, the 8 -> 16 boundary; its steps 1-16 must be phase 4's bit for
+  bit. The loop's stall on an async save (the snapshot on the card) is
+  timed beside a sync save of the same state. A fresh trainer restores
+  with ``verify=True`` and runs steps 17-19; phase 4's trainer, whose
+  three graphs are captured, restores the same checkpoint in place and
+  replays 17-19 with no capture. Each must end on phase 4's losses, LR,
+  batch, phase, parameters, m, v and count bit for bit, and launch the
+  five training kernels as phase 4 did over those steps. (b) The same
+  model and data under ``adaptive-seesaw`` (``ADAPTIVE``): at least two
+  cuts within ``ADAPTIVE_STEPS``, each cutting the LR by 1/sqrt(2) and
+  doubling the batch, one graph per (batch size, micro), and a resume
+  between the first two cuts ending bit for bit on the uninterrupted run
+  with the same cut steps. The controller replayed on the host over the
+  run's own losses must give the same cuts; the band of thresholds that
+  make them, and the run's margin in it, go into the ``adaptive`` record.
+  The checkpoints go to a temporary directory the phase deletes.
 - Phase 1c, the SSD chunk kernel against its plain version, and RMSNorm
   forward and backward at Mamba-2's widths (8192 rows of d = 2560 and
   5120, float32 2e-5 and bfloat16 2e-2, timed in bfloat16).  The kernel: at
@@ -178,8 +198,11 @@ decode graph, each replayed once per step.
 
 Prints the card's name and power limit, one ``kernels`` JSON line (the
 eight kernels), one ``engine`` and one ``train`` JSON line (phase 9's
-result in the latter), one ``mamba2`` JSON line, and last ``{"ok":
-true, "device": {...}}``; the
+result in the latter), one ``mamba2`` JSON line, one ``checkpoint`` line
+(phase 10: bytes written, write, restore and verify seconds and GB/s,
+the async save's stall beside a sync save's time, the adaptive run's
+cuts, the card's name and power limit), and last ``{"ok": true,
+"device": {...}}``; the
 full record goes to ``chiprun_out/chip_smoke.json``.  Any failed check
 raises, so the script exits non-zero before the last line.  Without a
 CUDA device it exits with code 2 and prints no result.
@@ -187,6 +210,7 @@ CUDA device it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -1155,10 +1179,10 @@ def run_ramp(run, ctr, *, fuse_steps, max_device_batch, want):
     run_chunk = eng.run_chunk
 
     def timed(model, opt_state, tokens_seen, stacked, n_valid=None,
-              step=None):
+              **kw):
         t, cap = time.perf_counter(), eng.capture_s
         out = run_chunk(model, opt_state, tokens_seen, stacked,
-                        n_valid=n_valid, step=step)
+                        n_valid=n_valid, **kw)
         torch.cuda.synchronize()
         chunks.append((next(iter(stacked.values())).shape[1], n_valid,
                        time.perf_counter() - t, eng.capture_s - cap))
@@ -1239,16 +1263,23 @@ def check_launches(out, want_per_micro_batch):
     out["launches_per_micro_batch"] = want_per_micro_batch
 
 
-def phase4(cfg, RN, FA):
+def phase4_run(cfg, total_tokens=24 * 8 * 1024, **schedule):
+    """Phase 4's run config: seesaw-150m, B0=8, seq 1024, AdamW, bf16;
+    ``schedule`` overrides the Seesaw schedule (phase 10's adaptive
+    ramp)."""
     from repro_torch.configs import (OptimizerConfig, RunConfig,
                                      ScheduleConfig)
-    run = RunConfig(model=cfg,
-                    schedule=ScheduleConfig(kind="seesaw", alpha=2.0,
-                                            n_cuts=2),
-                    optimizer=OptimizerConfig(kind="adamw", beta1=0.9,
-                                              beta2=0.95, grad_clip=1.0),
-                    seq_len=1024, global_batch_size=8,
-                    total_tokens=24 * 8 * 1024, dtype="bfloat16")
+    sch = dict(kind="seesaw", alpha=2.0, n_cuts=2)
+    sch.update(schedule)
+    return RunConfig(model=cfg, schedule=ScheduleConfig(**sch),
+                     optimizer=OptimizerConfig(kind="adamw", beta1=0.9,
+                                               beta2=0.95, grad_clip=1.0),
+                     seq_len=1024, global_batch_size=8,
+                     total_tokens=total_tokens, dtype="bfloat16")
+
+
+def phase4(cfg, RN, FA):
+    run = phase4_run(cfg)
     tr, out = run_ramp(run, counters(RN, FA), fuse_steps=4,
                        max_device_batch=8,
                        want=([8, 16, 32], [16, 2, 1], [1, 2, 4]))
@@ -1529,6 +1560,313 @@ def phase9(cfg, R, serving):
 
 
 # --------------------------------------------------------------------- #
+# phase 10: checkpoint, resume and the adaptive ramp
+# --------------------------------------------------------------------- #
+
+# phase 10b's adaptive Seesaw: phase 4's model, data and optimizer, a
+# horizon of 40 steps at B=32, a 2% warmup, the plateau controller's
+# knobs set to fire its two cuts (B 8 -> 16 -> 32) within ADAPTIVE_STEPS.
+# The threshold sits mid-band: the thresholds that make this run's cut
+# decisions are those above its firing tests' relative gains and at most
+# the gain of the test that re-arms it (``controller_replay``)
+ADAPTIVE = dict(kind="adaptive-seesaw", alpha=2.0, n_cuts=2, base_lr=3e-3,
+                warmup_frac=0.02, ema_decay=0.5, plateau_window=4,
+                plateau_threshold=2.25e-3, plateau_min_steps=4)
+ADAPTIVE_TOKENS = 40 * 32 * 1024
+ADAPTIVE_STEPS = 40
+HIST_KEYS = ("step", "tokens", "lr", "batch_size", "phase", "loss",
+             "grad_norm")
+
+
+def hist_rows(hist):
+    return [[h[k] for k in HIST_KEYS] for h in hist]
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def resumed_loader(tr, tokens=0):
+    from repro_torch.data import MarkovLM, PhaseDataLoader
+    return PhaseDataLoader(MarkovLM(2048, seed=0), tr.plan, tr.cfg.seq_len,
+                           device="cuda").resume(tokens)
+
+
+def counted_run(tr, ctr, tokens, **kw):
+    """``tr.run`` from ``tokens`` with the launch counters set to 0 just
+    before and read just after."""
+    for mod, attr in ctr.values():
+        setattr(mod, attr, 0)
+    tr.run(resumed_loader(tr, tokens), **kw)
+    torch.cuda.synchronize()
+    return {name: getattr(mod, attr) for name, (mod, attr) in ctr.items()}
+
+
+def phase10a(cfg, RN, FA, tr4, hist4, final4, per_micro, tmp):
+    """Save and resume at full width on phase 4's plan.  A fresh trainer
+    trains with async saves every 8 steps and stops by ``stop_fn`` at
+    step 16, the 8 -> 16 boundary; its steps 1-16 must be phase 4's bit
+    for bit.  There the loop's stall on an async save (snapshot, to a
+    sync) is timed against a sync save of the same state.  A fresh
+    trainer restores with ``verify=True`` and runs steps 17-19 (the first
+    eager, then captures); then phase 4's trainer, whose three graphs are
+    captured, restores the same checkpoint in place and replays 17-19
+    with no capture.  Both must end on phase 4's history and final
+    parameters, m, v and count bit for bit, with phase 4's launches over
+    those steps (its per-micro-batch counts times the 2 + 2 + 4
+    micro-batches)."""
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train.trainer import Trainer
+    ctr = counters(RN, FA)
+    run = phase4_run(cfg)
+    path = os.path.join(tmp, "ck")
+    tr = Trainer(run, device="cuda", fuse_steps=4, max_device_batch=8)
+    stamps = {}
+
+    def stop_at_16():
+        # each chunk boundary timed to a sync: steps 9-16 train while the
+        # step-8 save streams on the writer thread
+        torch.cuda.synchronize()
+        stamps[tr.state.step] = time.perf_counter()
+        return tr.state.step >= 16
+
+    tr.run(resumed_loader(tr), checkpoint_path=path, save_every=8,
+           stop_fn=stop_at_16)
+    tr.close()
+    mgr = tr.checkpoint_manager
+    if (tr.state.step, mgr.saves_committed) != (16, 2):
+        raise AssertionError(f"stopped at step {tr.state.step} after "
+                             f"{mgr.saves_committed} saves; want 16, 2")
+    if hist_rows(tr.history) != hist_rows(hist4[:16]):
+        raise AssertionError("steps 1-16 differ from phase 4's")
+    nbytes = dir_bytes(path)
+    loop_write_s, loop_stall_s = mgr.last_write_s, mgr.last_stall_s
+    # the loop's stall: an async save (the on-card snapshot) against a
+    # sync save of the same state
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tr.save_checkpoint(os.path.join(tmp, "async"), block=False)
+    torch.cuda.synchronize()
+    async_stall_s = time.perf_counter() - t
+    mgr.finalize()
+    async_write_s = mgr.last_write_s
+    t = time.perf_counter()
+    tr.save_checkpoint(os.path.join(tmp, "sync"))
+    sync_s = time.perf_counter() - t
+    man = {}
+    for name in ("ck", "async", "sync"):
+        with open(os.path.join(tmp, name, "manifest.json")) as f:
+            m = json.load(f)
+        man[name] = (m["meta"], {k: [sh["crc32"] for sh in e["shards"]]
+                                 for k, e in m["arrays"].items()})
+    if not man["ck"] == man["async"] == man["sync"]:
+        raise AssertionError("the step-16 saves differ")
+    del tr, mgr
+    torch.cuda.empty_cache()
+
+    tr = Trainer(run, device="cuda", fuse_steps=4, max_device_batch=8)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    meta = tr.restore_checkpoint(path, verify=True)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with open(os.path.join(path, "manifest.json")) as f:
+        CKPT._verify_manifest(path, json.load(f))
+    verify_s = time.perf_counter() - t
+    if (meta["step"], meta["phase"], meta["batch_size"]) != (16, 1, 16):
+        raise AssertionError(f"checkpoint meta {meta}")
+    want_launches = {k: v * (2 + 2 + 4) for k, v in per_micro.items()}
+    launches = counted_run(tr, ctr, tr.state.tokens_seen)
+    if hist_rows(tr.history) != hist_rows(hist4[16:]) or \
+            not same_state((tr.state.model, tr.state.opt_state), final4):
+        raise AssertionError("the resumed run differs from phase 4's")
+    if launches != want_launches:
+        raise AssertionError(f"resumed launches {launches}, phase 4's "
+                             f"{want_launches}")
+    fresh = {"captures": tr.engine.captures, "launches": launches}
+    del tr
+    torch.cuda.empty_cache()
+
+    captures = tr4.engine.captures
+    tr4.history = []
+    tr4.restore_checkpoint(path)
+    launches = counted_run(tr4, ctr, tr4.state.tokens_seen)
+    if tr4.engine.captures != captures:
+        raise AssertionError(f"{tr4.engine.captures - captures} captures "
+                             f"after an in-place restore")
+    if hist_rows(tr4.history) != hist_rows(hist4[16:]) or \
+            not same_state((tr4.state.model, tr4.state.opt_state), final4):
+        raise AssertionError("the in-place restore's replays differ from "
+                             "phase 4's")
+    if launches != want_launches:
+        raise AssertionError(f"replayed launches {launches}, phase 4's "
+                             f"{want_launches}")
+    gb = nbytes / 1e9
+    return {"bytes": nbytes, "leaves": len(man["ck"][1]),
+            "write_s": sync_s, "write_gb_s": gb / sync_s,
+            "async_write_s": async_write_s,
+            "async_write_gb_s": gb / async_write_s,
+            "restore_s": restore_s, "restore_gb_s": gb / restore_s,
+            "verify_s": verify_s, "verify_gb_s": gb / verify_s,
+            "async_stall_s": async_stall_s, "sync_save_s": sync_s,
+            "loop_request_s": loop_stall_s, "loop_write_s": loop_write_s,
+            "steps_9_16_s_while_saving": stamps[16] - stamps[8],
+            "resume_step": meta["step"], "resumed_steps": 3,
+            "fresh_trainer": fresh,
+            "in_place": {"captures_before": captures,
+                         "captures_after": tr4.engine.captures,
+                         "launches": launches},
+            "bitwise": True}
+
+
+def controller_replay(losses, sch, fuse: int):
+    """The run's plateau controller replayed on the host over the run's
+    own losses: each ``fuse``-step chunk's loss EMA by the engine's
+    float32 recursion (``ema_update``), fed to a fresh ``AdaptiveSeesaw``
+    with the run's knobs.  Returns the cut steps at the run's threshold,
+    each plateau test's (step, relative gain) along the run, and the
+    band (lo, hi] of thresholds that make the same decisions, so the
+    same run: a test with a gain below the threshold does not improve."""
+    from repro_torch.core.adaptive import AdaptiveSeesaw
+    from repro_torch.train.engine import ema_update
+    stream, ema = [], torch.tensor(-1.0)
+    for s in range(0, len(losses), fuse):
+        chunk = torch.tensor(losses[s:s + fuse], dtype=torch.float32)
+        ema = ema_update(ema, chunk, len(chunk), sch["ema_decay"])
+        stream.append((len(chunk), float(ema)))
+    min_steps = sch.get("plateau_min_steps") or sch["plateau_window"]
+
+    def replay(threshold):
+        c = AdaptiveSeesaw(alpha=sch["alpha"], window=sch["plateau_window"],
+                           rel_threshold=threshold, max_cuts=sch["n_cuts"],
+                           min_steps_between=min_steps)
+        gains, test = [], c._test_window
+
+        def traced(mean):
+            prev = c._prev_window_mean
+            if prev is not None:
+                gains.append((c.steps,
+                              (prev - mean) / max(abs(prev), 1e-12)))
+            return test(mean)
+
+        c._test_window = traced
+        for n, e in stream:
+            c.observe_smoothed(e, n)
+        return c.cut_steps, gains
+
+    t = sch["plateau_threshold"]
+    cuts, gains = replay(t)
+    # between two neighbouring gains every decision is the same
+    edges = [-math.inf] + sorted({g for _, g in gains}) + [math.inf]
+
+    def same(i):
+        lo, hi = edges[i], edges[i + 1]
+        mid = (hi - 1.0 if lo == -math.inf else
+               lo + 1.0 if hi == math.inf else (lo + hi) / 2)
+        return replay(mid)[0] == cuts
+
+    i = next(i for i in range(len(edges) - 1) if t <= edges[i + 1])
+    j = i
+    while i > 0 and same(i - 1):
+        i -= 1
+    while j < len(edges) - 2 and same(j + 1):
+        j += 1
+    return cuts, gains, (edges[i], edges[j + 1])
+
+
+def phase10b(cfg, RN, FA, tmp, knobs=None, steps=ADAPTIVE_STEPS):
+    """The adaptive ramp at full width: phase 4's model, data and
+    optimizer under ``ADAPTIVE`` for ``steps`` steps.  At least two cuts;
+    at each the LR x 1/sqrt(alpha) and the batch x alpha; one graph per
+    (batch size, micro).  The run saves (async) at the chunk boundary 4
+    steps past its first cut; a fresh trainer restores it with
+    ``verify=True`` and must fire the same later cuts and end on the
+    uninterrupted run's history and state bit for bit."""
+    from repro_torch.train.trainer import Trainer
+    sch = dict(ADAPTIVE, **(knobs or {}))
+    run = phase4_run(cfg, total_tokens=ADAPTIVE_TOKENS, **sch)
+    path = os.path.join(tmp, "adaptive")
+    tr = Trainer(run, device="cuda", fuse_steps=4, max_device_batch=8)
+
+    def save_between_cuts():
+        cuts = tr.controller.cut_steps
+        if len(cuts) == 1 and tr.state.step == cuts[0] + 4:
+            tr.save_checkpoint(path, block=False)
+        return False
+
+    tr.run(resumed_loader(tr), max_steps=steps, stop_fn=save_between_cuts)
+    tr.close()
+    cuts, hist = tr.controller.cut_steps, tr.history
+    out = {"knobs": sch, "steps": len(hist), "cut_steps": cuts,
+           "cut_tokens": tr.cut_tokens,
+           "batch_sizes": tr.plan.batch_sizes(),
+           "losses": [h["loss"] for h in hist],
+           "lrs": [h["lr"] for h in hist], "loss_ema": tr.state.loss_ema}
+    if len(hist) != steps or not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"adaptive run: {out}")
+    # a flip of a plateau decision (the threshold left its band) is told
+    # apart from a fault (the run's controller disagrees with the host's)
+    replayed, gains, band = controller_replay(out["losses"], sch, 4)
+    t = sch["plateau_threshold"]
+    out.update(replayed_cut_steps=replayed, plateau_gains=gains,
+               threshold_band=list(band),
+               threshold_margin=min(t - band[0], band[1] - t) / t)
+    if replayed != cuts:
+        raise AssertionError(f"the run cut at {cuts}, its controller "
+                             f"replayed on the host over the run's own "
+                             f"losses at {replayed}: {out}")
+    if len(cuts) < 2:
+        raise AssertionError(f"{len(cuts)} cut(s), as the host replay "
+                             f"of this run's losses: a plateau decision "
+                             f"moved (thresholds in {band} give these "
+                             f"cuts): {out}")
+    by_step = {h["step"]: h for h in hist}
+    for c in cuts:
+        a, b = by_step[c], by_step[c + 1]
+        if b["batch_size"] != 2 * a["batch_size"] or \
+                abs(b["lr"] * 2 ** 0.5 / a["lr"] - 1) > 1e-6:
+            raise AssertionError(f"cut at step {c}: {a} -> {b}")
+    eng = tr.engine
+    keys = sorted({(h["batch_size"], eng.micro_batches(h["batch_size"]))
+                   for h in hist})
+    if sorted(tr._step_cache) != keys or eng.captures != len(keys):
+        raise AssertionError(f"step cache {sorted(tr._step_cache)}, "
+                             f"{eng.captures} captures; want {keys}")
+    out["graphs"] = [list(k) for k in keys]
+
+    tr2 = Trainer(run, device="cuda", fuse_steps=4, max_device_batch=8)
+    meta = tr2.restore_checkpoint(path, verify=True)
+    tr2.run(resumed_loader(tr2, tr2.state.tokens_seen), max_steps=steps)
+    if tr2.controller.cut_steps != cuts or \
+            hist_rows(tr2.history) != hist_rows(hist[meta["step"]:]) or \
+            not same_state((tr2.state.model, tr2.state.opt_state),
+                           (tr.state.model, tr.state.opt_state)):
+        raise AssertionError(f"resume at step {meta['step']}: cuts "
+                             f"{tr2.controller.cut_steps}, want {cuts}; "
+                             f"or the history or state differ")
+    out.update(resume_step=meta["step"], resumed_cut_steps=cuts,
+               bitwise=True)
+    return out
+
+
+def phase10(cfg, RN, FA, tr4, hist4, final4, per_micro):
+    """Checkpoint and adaptive, on the card; the checkpoints go to a
+    temporary directory that the phase deletes."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        out = phase10a(cfg, RN, FA, tr4, hist4, final4, per_micro, tmp)
+        torch.cuda.empty_cache()
+        adaptive = phase10b(cfg, RN, FA, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, adaptive
+
+
+# --------------------------------------------------------------------- #
 # phases 6 and 7: Mamba-2 training
 # --------------------------------------------------------------------- #
 
@@ -1691,11 +2029,20 @@ def main() -> int:
     t = time.perf_counter()
     tr, record["train"] = phase4(cfg, RN, FA)
     log(f"phase 4: {time.perf_counter() - t:.1f} s {record['train']}")
+    hist4 = list(tr.history)
+    final4 = clone_state(tr.state.model, tr.state.opt_state)
     record["train_profile"] = profile_train(
         tr, record["train"]["per_batch_size"]["8"]["wall_s_per_step"], 8,
         "profile_train.txt")
     log(f"train profile: {record['train_profile']}")
-    del tr
+    t = time.perf_counter()
+    record["checkpoint"], record["adaptive"] = phase10(
+        cfg, RN, FA, tr, hist4, final4,
+        record["train"]["launches_per_micro_batch"])
+    record["checkpoint"]["s"] = time.perf_counter() - t
+    log(f"phase 10: {record['checkpoint']['s']:.1f} s "
+        f"{record['checkpoint']} {record['adaptive']}")
+    del tr, final4
     torch.cuda.empty_cache()
     t = time.perf_counter()
     record["train_card_vs_cpu"] = phase5(cfg, R, O)
@@ -1927,6 +2274,10 @@ def main() -> int:
     print(json.dumps({"mamba2": mamba2,
                       "profile": record["mamba2_profile"],
                       "card_vs_cpu": record["mamba2_card_vs_cpu"]}))
+    adaptive = {k: v for k, v in record["adaptive"].items()
+                if k not in ("losses", "lrs")}
+    print(json.dumps({"checkpoint": record["checkpoint"],
+                      "adaptive": adaptive, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

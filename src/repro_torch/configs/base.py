@@ -176,17 +176,23 @@ def _pattern(cfg: ModelConfig, n_layers: int) -> Tuple[str, ...]:
 class ScheduleConfig:
     """LR×batch schedule — the paper's contribution lives here."""
     # cosine | step | seesaw | seesaw-general | constant | naive-ramp
-    # (| adaptive-seesaw, with the adaptive slice)
+    # | adaptive-seesaw
     kind: str = "cosine"
     base_lr: float = 3e-3
     warmup_frac: float = 0.10      # paper: warmup for 10% of tokens
     alpha: float = 2.0             # step-decay factor of the reference
     beta: float = 1.0              # batch multiplier per cut
-    n_cuts: int = 8                # step-decay approximation depth of cosine
+    n_cuts: int = 8                # step-decay approximation depth of cosine;
+    #                                adaptive-seesaw: most cuts the controller
+    #                                may fire (sizes the LR table)
     final_lr_frac: float = 0.0
     max_batch_size: Optional[int] = None   # hardware cap on the ramp
-    # the reference's adaptive-seesaw controller knobs (ema_decay,
-    # plateau_*) come with the adaptive slice
+    # adaptive-seesaw controller knobs (ignored by every other kind)
+    ema_decay: float = 0.98        # loss-EMA decay per step
+    plateau_window: int = 50       # steps per plateau test
+    plateau_threshold: float = 2e-3  # relative improvement floor
+    plateau_min_steps: Optional[int] = None  # min steps between cuts
+    #                                          (None: plateau_window)
 
 
 @dataclass(frozen=True)

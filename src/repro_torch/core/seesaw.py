@@ -10,18 +10,18 @@ multiplier, batch size).  Guarantees enforced here (paper §3):
 - the equivalence invariant: a Seesaw plan and its step-decay reference
   have the same α√β product (Corollary 1).
 
-The adaptive kind and the live extension of a plan (``extend_at``) come
-with the adaptive slice.
+The adaptive kind starts as one phase and grows at runtime: each cut of
+``repro_torch.core.adaptive.AdaptiveSeesaw`` appends a phase through
+:meth:`SeesawPlan.extend_at`.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 from repro_torch.core import schedules as S
-
-ADAPTIVE_SLICE = "the adaptive-Seesaw slice"
 
 
 @dataclass(frozen=True)
@@ -88,6 +88,13 @@ class SeesawPlan:
                 segs.append((phase.batch_size, [(phase, n)]))
         return segs
 
+    def phase_at_tokens(self, tok: float) -> Phase:
+        """Phase of an ideal (unquantized) token count."""
+        for p in self.phases:
+            if tok < p.end_tokens:
+                return p
+        return self.phases[-1]
+
     def realized_phase_at(self, tok: float, seq_len: int) -> Phase:
         """Phase of the step that *starts* at ``tok``, under the
         step-quantized boundaries of :meth:`steps_per_phase`."""
@@ -121,6 +128,41 @@ class SeesawPlan:
                 f"sqrt(beta)={math.sqrt(self.beta)}")
         return self
 
+    # -- live extension (adaptive Seesaw) ------------------------------- #
+    def extend_at(self, cut_tokens: int, *, seq_len: int,
+                  max_batch_size: Optional[int] = None) -> "SeesawPlan":
+        """A new plan with the last phase cut at ``cut_tokens`` and a
+        (LR ÷ α, batch × β) phase appended up to ``total_tokens``: one
+        adaptive cut.  ``cut_tokens`` must lie on a realized step boundary
+        strictly inside the last phase (the trainer cuts at chunk
+        boundaries), so the re-chunked loader, the LR and a resume agree
+        on one integer boundary.  ``max_batch_size`` clamps the new batch
+        (the LR keeps cutting).  The new plan is validated."""
+        last = self.phases[-1]
+        cut = int(cut_tokens)
+        realized_start = 0
+        for p, n in zip(self.phases[:-1],
+                        self.steps_per_phase(seq_len)[:-1]):
+            realized_start += n * p.batch_size * seq_len
+        tok_per_step = last.batch_size * seq_len
+        if not realized_start < cut < self.total_tokens:
+            raise ValueError(
+                f"cut at {cut} tokens is outside the open last phase "
+                f"({realized_start}, {self.total_tokens:.0f})")
+        if (cut - realized_start) % tok_per_step:
+            raise ValueError(
+                f"cut at {cut} tokens is not on a step boundary of "
+                f"phase {last.index} (B={last.batch_size}, "
+                f"seq_len={seq_len}: {tok_per_step} tokens/step)")
+        new_b = int(round(last.batch_size * self.beta))
+        if max_batch_size:
+            new_b = min(new_b, max_batch_size)
+        phases = list(self.phases[:-1])
+        phases.append(dataclasses.replace(last, end_tokens=float(cut)))
+        phases.append(Phase(last.index + 1, float(cut), self.total_tokens,
+                            last.lr_scale / self.alpha, new_b))
+        return dataclasses.replace(self, phases=phases).validate()
+
 
 def build_plan(*, kind: str, base_lr: float, total_tokens: float,
                warmup_frac: float, b0: int, alpha: float = 2.0,
@@ -128,7 +170,7 @@ def build_plan(*, kind: str, base_lr: float, total_tokens: float,
                max_batch_size: Optional[int] = None,
                cut_tokens: Optional[Sequence[float]] = None,
                quarter_cosine: bool = True) -> SeesawPlan:
-    """The phase plan of one of the paper's prescheduled schedulers:
+    """The phase plan of one of the paper's schedulers:
 
     - ``cosine``: one phase at B0; the LR is the continuous curve.
     - ``step``: the α-step-decay approximation of cosine (β=1).
@@ -136,20 +178,19 @@ def build_plan(*, kind: str, base_lr: float, total_tokens: float,
     - ``seesaw-general``: any (α, β), validated against Lemma 4.
     - ``constant``: constant LR and batch (Figure 5 baseline).
     - ``naive-ramp``: constant LR, batch ×β per cut (Figure 5).
+    - ``adaptive-seesaw``: one (LR 1.0, B0) phase; each cut of the
+      plateau controller appends a (÷√α LR, ×α batch) phase through
+      :meth:`SeesawPlan.extend_at` (``total_tokens`` is the run's
+      horizon).
 
-    ``adaptive-seesaw`` raises ``NotImplementedError``: it comes with
-    the adaptive slice.  An explicit ``cut_tokens`` list must be
-    strictly increasing and lie strictly inside (warmup, total_tokens).
+    An explicit ``cut_tokens`` list must be strictly increasing and lie
+    strictly inside (warmup, total_tokens).
     """
-    if kind == "adaptive-seesaw":
-        raise NotImplementedError(
-            f"kind='adaptive-seesaw' is not ported yet; it comes with "
-            f"{ADAPTIVE_SLICE}")
     warmup = warmup_frac * total_tokens
     if cut_tokens is None:
         cut_tokens = S.cosine_cut_points(total_tokens, warmup, alpha,
                                          n_cuts, quarter=quarter_cosine)
-    elif kind != "cosine":
+    elif kind not in ("cosine", "adaptive-seesaw"):
         explicit = [float(c) for c in cut_tokens]
         for a, b in zip(explicit, explicit[1:]):
             if b <= a:
@@ -168,6 +209,14 @@ def build_plan(*, kind: str, base_lr: float, total_tokens: float,
         phases = [Phase(0, 0.0, total_tokens, 1.0, b0)]
         return SeesawPlan(base_lr, warmup, total_tokens, phases,
                           alpha=1.0, beta=1.0, kind=kind).validate()
+
+    if kind == "adaptive-seesaw":
+        # the per-cut factors extend_at applies (α_s=√α, β=α), on the
+        # Seesaw line α_s√β = α (Corollary 1)
+        phases = [Phase(0, 0.0, total_tokens, 1.0, b0)]
+        return SeesawPlan(base_lr, warmup, total_tokens, phases,
+                          alpha=math.sqrt(alpha), beta=alpha,
+                          kind=kind).validate()
 
     if kind == "constant":
         lr_cut, b_mult = 1.0, 1.0

@@ -15,17 +15,17 @@ partitioned into batches by the plan.  Two ways to consume it:
 A daemon thread samples ahead of the consumer through a bounded queue.
 Batches reach the device as int64 tensors: on a CUDA device through
 pinned host memory with ``non_blocking=True``.  ``resume(tokens_seen)``
-repositions the stream on the exact step boundary a run stopped at.
+repositions the stream on the exact step boundary a run stopped at, and
+``rechunk(plan, tokens_seen)`` swaps in an extended plan there (an
+adaptive cut); the caller closes the streams it superseded.
 
 Feeding per host (``per_host``, a mesh) comes with the multi-process
-slice, and re-chunking a live plan (``rechunk``) with the adaptive
 slice.
 """
 from __future__ import annotations
 
 import queue
 import threading
-import warnings
 from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
@@ -33,28 +33,9 @@ import torch
 
 from repro_torch.core.seesaw import SeesawPlan
 from repro_torch.data.synthetic import MarkovLM
+from repro_torch.train.checkpoint import exact_tokens
 
 _DONE = object()
-
-
-def exact_tokens(tokens_seen) -> int:
-    """A ``tokens_seen`` as an exact int (the reference's
-    ``repro.train.checkpoint.exact_tokens``).  An int passes through; a
-    float is accepted when it is exactly an integer, and otherwise
-    rounded with a warning."""
-    if isinstance(tokens_seen, int):
-        return tokens_seen
-    f = float(tokens_seen)
-    if not f.is_integer():
-        warnings.warn(
-            f"tokens_seen={f!r} is not exactly representable as an int; "
-            f"rounding to {int(round(f))} — the resumed data position may "
-            f"be off by up to one step", stacklevel=2)
-    elif abs(f) >= 2.0 ** 53:
-        warnings.warn(
-            f"float tokens_seen={f!r} exceeds 2^53: the true token count "
-            f"may have been rounded", stacklevel=2)
-    return int(round(f))
 
 
 class PhaseDataLoader:
@@ -94,6 +75,19 @@ class PhaseDataLoader:
         """Reposition the stream to continue a run at ``tokens_seen``."""
         self._start = self.position_at(tokens_seen)
         return self
+
+    def rechunk(self, plan, tokens_seen) -> "PhaseDataLoader":
+        """Swap in an extended plan mid-stream (an adaptive cut) and
+        reposition on the exact ``tokens_seen`` boundary.  The sequence
+        stream is indexed by absolute sequence number, so the examples
+        after the cut are the ones the old plan would have produced; only
+        their grouping into batches changes.  Streams made before (live
+        ``iter_chunks`` / ``__iter__`` generators) are superseded: the
+        caller must ``close()`` them, which stops and joins their
+        sampling threads and drops the batches they hold.  Make a fresh
+        one after rechunking."""
+        self.plan = plan
+        return self.resume(tokens_seen)
 
     # -- to the device -------------------------------------------------- #
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
@@ -169,34 +163,57 @@ class PhaseDataLoader:
 
     @staticmethod
     def _prefetched(gen, depth: int):
-        """Run ``gen`` in a daemon thread, ``depth`` items ahead.  (An
-        abandoned iterator parks the thread on the bounded queue.)"""
+        """Run ``gen`` in a daemon thread, ``depth`` items ahead.  The
+        thread ends when ``gen`` does, or when the consumer closes this
+        generator (or drops it); then the queue it fed is emptied."""
         q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
         def worker():
             try:
                 for item in gen:
-                    q.put(item)
-                q.put(_DONE)
+                    if not put(item):
+                        return
+                put(_DONE)
             except BaseException as e:            # propagate to consumer
-                q.put(e)
+                put(e)
 
-        threading.Thread(target=worker, daemon=True).start()
-        while True:
-            item = q.get()
-            if item is _DONE:
-                return
-            if isinstance(item, BaseException):
-                raise item
-            yield item
+        t = threading.Thread(target=worker, daemon=True,
+                             name="loader-prefetch")
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _DONE:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            t.join()
+            while not q.empty():
+                q.get_nowait()
 
     # -- consumption ---------------------------------------------------- #
     def __iter__(self) -> Iterator[Tuple[Any, int, Dict[str, Any]]]:
         gen = self._host_steps()
         if self.prefetch:
             gen = self._prefetched(gen, self.prefetch)
-        for phase, s, batch in gen:
-            yield phase, s, self._to_device(batch)
+        try:
+            for phase, s, batch in gen:
+                yield phase, s, self._to_device(batch)
+        finally:
+            gen.close()
 
     def iter_chunks(self, k: int) -> Iterator[Tuple[Any, Dict, int]]:
         """Yield (phase of the first step, stacked (k, B, ...) chunk on
@@ -207,5 +224,8 @@ class PhaseDataLoader:
         gen = self._host_chunks(k)
         if self.prefetch:
             gen = self._prefetched(gen, self.prefetch)
-        for phase, chunk, m in gen:
-            yield phase, self._to_device(chunk), m
+        try:
+            for phase, chunk, m in gen:
+                yield phase, self._to_device(chunk), m
+        finally:
+            gen.close()

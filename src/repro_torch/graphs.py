@@ -12,7 +12,9 @@ what they share.
 - ``Graph`` captures one call of a function and replays it.  A capture
   runs nothing on the card, so it leaves the kernels' launch counters
   where they were; every replay adds what the capture counted, so the
-  counters go on counting launches through replays.
+  counters go on counting launches through replays.  It captures in
+  thread-local mode: an async checkpoint's writer thread may be copying
+  on its own stream meanwhile.
 - ``PinnedStage`` carries host values to the card without a sync: a
   ``copy_`` from pageable memory would synchronise the stream.
 
@@ -69,7 +71,10 @@ class Graph:
         was_enabled = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
+            # thread-local: another thread's CUDA calls (the checkpoint
+            # writer's copies on its own stream) leave this capture alone
+            with torch.cuda.graph(self.graph, pool=pool,
+                                  capture_error_mode="thread_local"):
                 self.out = fn()
         finally:
             if was_enabled:

@@ -38,6 +38,17 @@ same numbers.
 
 The LR is evaluated on the host in float32 torch arithmetic (the
 reference's); the CPU step reads it as a 0-d CPU tensor.
+
+An ``adaptive-seesaw`` plan grows at runtime.  Its LR is
+``plan_lr_fn`` of the current plan, rebuilt at each cut
+(``update_plan``): a cut changes values the host computes and nothing
+on the card, so no graph is captured again, and a cut that only cuts
+the LR (a ramp clamped by ``max_batch_size``) keeps its batch size's
+graph.  (The reference passes the phase table as runtime arguments,
+padded to a fixed width, only because its step is compiled.)
+``run_chunk`` then also carries the loss EMA the plateau controller
+reads, one float32 scalar a chunk (``make_fused_step(ema_decay=...)`` in
+the reference).
 """
 from __future__ import annotations
 
@@ -170,10 +181,26 @@ class _Step:
         self.state: Optional[Tuple] = None
 
 
+def ema_update(ema: torch.Tensor, losses: torch.Tensor, n: int,
+               decay: float) -> torch.Tensor:
+    """The reference's loss-EMA carry over a chunk's first ``n`` steps:
+    ``ema ← d·ema + (1−d)·loss`` per step in float32, ``1−d`` computed in
+    float32, seeded by the first loss when ``ema < 0`` (unseeded); padded
+    steps leave it alone.  Runs where ``losses`` lie, without a sync."""
+    d = torch.tensor(decay, dtype=torch.float32, device=losses.device)
+    one_minus = torch.tensor(1.0, dtype=torch.float32,
+                             device=losses.device) - d
+    for i in range(n):
+        loss = losses[i]
+        ema = torch.where(ema < 0, loss, d * ema + one_minus * loss)
+    return ema
+
+
 class PhaseEngine:
     """Dispatcher for one run: the accumulation count per batch size, the
-    step cache and the K-step chunk call.  The adaptive kind (live plan,
-    loss EMA, runtime LR tables) comes with the adaptive slice."""
+    step cache and the K-step chunk call.  An ``adaptive-seesaw`` plan
+    adds the live plan (``update_plan``) and the loss EMA
+    (``run_chunk(loss_ema=)``)."""
 
     def __init__(self, cfg: RunConfig, optimizer: O.Optimizer,
                  plan: SeesawPlan, *, max_device_batch: Optional[int] = None):
@@ -182,6 +209,9 @@ class PhaseEngine:
         self.optimizer = optimizer
         self.plan = plan
         self.max_device_batch = max_device_batch
+        self.adaptive = plan.kind == "adaptive-seesaw"
+        if self.adaptive:
+            self.ema_decay = float(cfg.schedule.ema_decay or 0.98)
         self.lr_fn = plan_lr_fn(plan, cfg.seq_len)
         self.dtype = DTYPES[cfg.dtype]
         self._cache: Dict[Tuple[int, int], _Step] = {}
@@ -203,6 +233,28 @@ class PhaseEngine:
             micro += 1
         return micro
 
+    def update_plan(self, plan: SeesawPlan) -> None:
+        """Swap in an extended plan after an adaptive cut.  Only for the
+        adaptive kind: a prescheduled plan's LR is fixed for the run."""
+        if not self.adaptive:
+            raise ValueError(
+                "update_plan is only valid for adaptive-seesaw engines; "
+                "a prescheduled plan is fixed for the run")
+        self.plan = plan
+        self.lr_fn = plan_lr_fn(plan, self.cfg.seq_len)
+
+    def host_lr(self, tokens: float, step: Optional[int] = None) -> float:
+        """The schedule's LR at a host-known position."""
+        return float(self.lr_fn(float(tokens), step))
+
+    def make_checkpoint_manager(self, **kw):
+        """A :class:`checkpoint.CheckpointManager` bound to this engine's
+        plan and seq_len, so its saves carry the phase metadata of the
+        trainer's sync path; ``kw`` passes through (``chunk_bytes``)."""
+        from repro_torch.train.checkpoint import CheckpointManager
+        return CheckpointManager(plan=self.plan, seq_len=self.cfg.seq_len,
+                                 **kw)
+
     def step_for(self, batch_size: int) -> _Step:
         """The cache entry of a global batch size (made on first use)."""
         micro = self.micro_batches(batch_size)
@@ -217,13 +269,16 @@ class PhaseEngine:
 
     def run_chunk(self, model, opt_state, tokens_seen, stacked_batch,
                   n_valid: Optional[int] = None,
-                  step: Optional[int] = None):
+                  step: Optional[int] = None, loss_ema=None):
         """One call: up to K optimizer steps.  Returns (model, opt_state,
         stacked metrics) without a sync; rows past ``n_valid`` (default
         all K) are zeros.  ``tokens_seen`` is the host's exact token
         count; ``step`` the global index of the chunk's first step
         (None: select LR cuts by tokens).  Metrics come back stacked
-        (K,): the LR on the host, the rest on the batch's device."""
+        (K,): the LR on the host, the rest on the batch's device.  An
+        adaptive engine returns a fourth element, the loss EMA after the
+        chunk (a float32 0-d tensor on the batch's device), carried from
+        ``loss_ema`` (None: unseeded, the first loss seeds it)."""
         first = next(iter(stacked_batch.values()))
         k, batch_size = first.shape[0], first.shape[1]
         n = k if n_valid is None else min(int(n_valid), k)
@@ -252,7 +307,13 @@ class PhaseEngine:
                 metrics[name] = torch.cat([col, col.new_zeros(k - n)])
         if n:
             metrics["lr"] = torch.cat([lrs, lrs.new_zeros(k - n)])
-        return model, opt_state, metrics
+        if not self.adaptive:
+            return model, opt_state, metrics
+        ema = torch.tensor(-1.0 if loss_ema is None else float(loss_ema),
+                           dtype=torch.float32, device=first.device)
+        if n:
+            ema = ema_update(ema, metrics["loss"], n, self.ema_decay)
+        return model, opt_state, metrics, ema
 
     # -- the card: eager first step, then captured graphs --------------- #
     def _run_card(self, ent: _Step, model, opt_state, stacked, lrs,

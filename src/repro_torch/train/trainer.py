@@ -10,12 +10,19 @@ cross phase boundaries untouched; ``tokens_seen`` is an exact Python
 int.  Metrics stay on the device until a ``log_every`` boundary, where
 one transfer reads them.
 
-Checkpointing and the preemption hook (``stop_fn``) come with the
-checkpointing slice, the adaptive controller with the adaptive slice;
-asking for them raises ``NotImplementedError``.
+Checkpoints are the reference's format (``train.checkpoint``): periodic
+saves at chunk boundaries, async by default (a snapshot on the device,
+streamed by a writer thread), and ``stop_fn``, the preemption hook,
+polled at each boundary.  A restore copies into the live parameters and
+optimizer state in place, so a trainer keeps replaying the CUDA graphs
+it captured.  An ``adaptive-seesaw`` run feeds the engine's loss EMA to
+the plateau controller at each chunk boundary; a cut extends the plan,
+re-chunks the loader there and restarts the chunk stream, and the
+controller's state rides in every checkpoint.
 """
 from __future__ import annotations
 
+import copy
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -23,12 +30,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.core.adaptive import AdaptiveSeesaw
 from repro_torch.core.seesaw import build_plan
 from repro_torch.models import registry as R
 from repro_torch.optim import optimizers as O
+from repro_torch.train import checkpoint as CKPT
 from repro_torch.train import engine as E
-
-CHECKPOINT_SLICE = "the checkpointing slice"
+from repro_torch.weights import opt_tree, param_tree
 
 
 @dataclass
@@ -38,6 +46,9 @@ class TrainState:
     step: int = 0
     # exact integer token count: the host is the source of truth
     tokens_seen: int = 0
+    # adaptive-seesaw only: the loss EMA after the last chunk (None =
+    # unseeded), carried into the next chunk and through checkpoints
+    loss_ema: Optional[float] = None
 
 
 class Trainer:
@@ -60,6 +71,19 @@ class Trainer:
             beta=(sch.beta if sch.kind in ("seesaw-general", "naive-ramp")
                   else None),
             n_cuts=sch.n_cuts, max_batch_size=sch.max_batch_size)
+        # the adaptive plan grows at runtime; the one-phase seed stays so
+        # a resume can rebuild the extended plan from the saved cut tokens
+        self._base_plan = self.plan
+        self.controller: Optional[AdaptiveSeesaw] = None
+        self.cut_tokens: List[int] = []
+        if sch.kind == "adaptive-seesaw":
+            mn = sch.plateau_min_steps
+            self.controller = AdaptiveSeesaw(
+                alpha=sch.alpha, window=int(sch.plateau_window),
+                rel_threshold=float(sch.plateau_threshold),
+                max_cuts=int(sch.n_cuts),
+                min_steps_between=int(mn if mn is not None
+                                      else sch.plateau_window))
         self.optimizer = O.from_config(cfg.optimizer)
         self.engine = E.PhaseEngine(cfg, self.optimizer, self.plan,
                                     max_device_batch=max_device_batch)
@@ -69,6 +93,7 @@ class Trainer:
         opt_state = self.optimizer.init(dict(model.named_parameters()))
         self.state = TrainState(model, opt_state)
         self.history: List[Dict[str, float]] = []
+        self._ckpt_manager: Optional[CKPT.CheckpointManager] = None
 
     @property
     def _step_cache(self):
@@ -77,26 +102,127 @@ class Trainer:
         one executable per key)."""
         return self.engine._cache
 
-    def save_checkpoint(self, path: str, **kw):
-        raise NotImplementedError(
-            f"checkpointing comes with {CHECKPOINT_SLICE}")
+    # -- checkpointing -------------------------------------------------- #
+    def _trees(self):
+        """The live state in the reference's layout (no copy)."""
+        st = self.state
+        return param_tree(st.model), opt_tree(st.model, st.opt_state)
 
-    def restore_checkpoint(self, path: str, **kw):
-        raise NotImplementedError(
-            f"checkpointing comes with {CHECKPOINT_SLICE}")
+    @property
+    def checkpoint_manager(self) -> CKPT.CheckpointManager:
+        """The async checkpoint writer, made at first use."""
+        if self._ckpt_manager is None:
+            self._ckpt_manager = self.engine.make_checkpoint_manager()
+        return self._ckpt_manager
+
+    def save_checkpoint(self, path: str,
+                        chunk_bytes: int = CKPT.DEFAULT_CHUNK_BYTES,
+                        block: bool = True):
+        """Write a checkpoint directory, streamed in ``chunk_bytes``
+        slices.  ``block=False`` snapshots the state on its device and
+        returns while the :attr:`checkpoint_manager`'s writer streams
+        it."""
+        extra = self._adaptive_extra()
+        params, opt_state = self._trees()
+        st = self.state
+        if not block:
+            self.checkpoint_manager.request_save(
+                path, params, opt_state, st.step, st.tokens_seen, extra)
+            return
+        if self._ckpt_manager is not None:
+            # an async save of an older snapshot lands first: generations
+            # are sequential per directory
+            self._ckpt_manager.finalize()
+        CKPT.save_phase_checkpoint(path, params, opt_state, st.step,
+                                   st.tokens_seen, plan=self.plan,
+                                   seq_len=self.cfg.seq_len, extra=extra,
+                                   chunk_bytes=chunk_bytes)
+
+    def _adaptive_extra(self) -> Optional[Dict[str, Any]]:
+        """What lets a resume replay an adaptive run bit for bit: the
+        controller's state, every cut's token boundary (to rebuild the
+        extended plan) and the carried loss EMA."""
+        if self.controller is None:
+            return None
+        return {"adaptive": {
+            "controller": self.controller.state_dict(),
+            "cut_tokens": list(self.cut_tokens),
+            "loss_ema": self.state.loss_ema}}
+
+    def restore_checkpoint(self, path: str,
+                           verify: bool = False) -> Dict[str, Any]:
+        """Restore a checkpoint directory or a legacy ``.npz`` into the
+        live state, in place.  ``verify=True`` checks every block's crc32
+        first.  An adaptive trainer first reads the metadata alone: the
+        saved cut tokens rebuild the extended plan (replaying
+        :meth:`SeesawPlan.extend_at` from the one-phase plan) and the
+        controller's state is loaded, so the phase check runs against the
+        plan the run had at the save and later cuts fire at the same
+        steps.  Everything is checked before anything changes: a refused
+        checkpoint leaves the trainer as it was."""
+        if self._ckpt_manager is not None:
+            self._ckpt_manager.finalize()
+        plan, ad = self.plan, None
+        if self.controller is not None:
+            ad = CKPT.read_meta(path).get("adaptive")
+            if ad is None:
+                raise ValueError(
+                    f"checkpoint {path!r} carries no adaptive "
+                    f"controller state — it was saved by a "
+                    f"prescheduled run and cannot resume an "
+                    f"adaptive-seesaw trainer")
+            plan = self._base_plan
+            for ct in ad["cut_tokens"]:
+                plan = plan.extend_at(
+                    int(ct), seq_len=self.cfg.seq_len,
+                    max_batch_size=self.cfg.schedule.max_batch_size)
+            # a malformed state fails here, on a copy
+            copy.deepcopy(self.controller).load_state_dict(ad["controller"])
+        # the plan, controller and EMA change only once every check (the
+        # phase, each leaf) has passed and the arrays are in
+        params, opt_state = self._trees()
+        _, _, meta = CKPT.restore_phase_checkpoint(
+            path, params, opt_state, plan=plan,
+            seq_len=self.cfg.seq_len, verify=verify)
+        if ad is not None:
+            self._set_plan(plan)
+            self.controller.load_state_dict(ad["controller"])
+            self.cut_tokens = [int(ct) for ct in ad["cut_tokens"]]
+            ema = ad.get("loss_ema")
+            self.state.loss_ema = None if ema is None else float(ema)
+        self.state.step = int(meta["step"])
+        self.state.tokens_seen = CKPT.exact_tokens(meta["tokens_seen"])
+        return meta
+
+    def _set_plan(self, plan) -> None:
+        self.plan = plan
+        self.engine.update_plan(plan)
+        if self._ckpt_manager is not None:
+            self._ckpt_manager.plan = plan
+
+    def close(self):
+        """Join the async checkpoint writer and surface its error, if
+        any; idempotent."""
+        if self._ckpt_manager is not None:
+            self._ckpt_manager.finalize()
 
     # -- run loop ------------------------------------------------------- #
     def _chunks(self, loader, max_steps):
         """(head phase, stacked batches, n) with n ≤ fuse_steps real
-        steps; a ``max_steps`` budget only lowers n."""
+        steps; a ``max_steps`` budget only lowers n.  Closing this
+        generator closes the loader's stream (and stops its thread)."""
         st = self.state
-        for phase, stacked, n in loader.iter_chunks(self.fuse_steps):
-            if max_steps is not None:
-                r = max_steps - st.step
-                if r <= 0:
-                    return
-                n = min(n, r)
-            yield phase, stacked, n
+        stream = loader.iter_chunks(self.fuse_steps)
+        try:
+            for phase, stacked, n in stream:
+                if max_steps is not None:
+                    r = max_steps - st.step
+                    if r <= 0:
+                        return
+                    n = min(n, r)
+                yield phase, stacked, n
+        finally:
+            stream.close()
 
     def _flush(self, pending, log_cb):
         """One device→host transfer per chunk, deferred to log
@@ -130,33 +256,86 @@ class Trainer:
             log_cb: Optional[Callable] = None, *,
             checkpoint_path: Optional[str] = None,
             save_every: Optional[int] = None,
+            async_save: bool = True,
             stop_fn: Optional[Callable[[], bool]] = None
             ) -> List[Dict[str, float]]:
         """Run the chunk loop over ``loader`` (a ``PhaseDataLoader`` of
-        this trainer's plan) up to ``max_steps``; ``log_cb(record)``
-        sees every ``log_every``-th step.  Returns the history, one
-        record per step."""
-        if checkpoint_path or save_every:
-            raise NotImplementedError(
-                f"periodic checkpoints come with {CHECKPOINT_SLICE}")
-        if stop_fn is not None:
-            raise NotImplementedError(
-                f"the preemption hook (stop_fn) comes with "
-                f"{CHECKPOINT_SLICE}")
+        this trainer's plan) up to ``max_steps``; ``log_cb(record)`` sees
+        every ``log_every``-th step.  Returns the history, one record per
+        step.
+
+        ``checkpoint_path`` + ``save_every`` save at each chunk boundary
+        that crosses a ``save_every``-step boundary, async unless
+        ``async_save=False``; a writer error surfaces at the next
+        boundary.  ``stop_fn`` is polled at each boundary: True ends the
+        loop there, so a final save resumes bit for bit.  The order at a
+        boundary is the reference's: the writer's check, the step, the
+        adaptive cut decision, the metric flush, the save, ``stop_fn``
+        — a checkpoint holds the plan and controller after the
+        decision."""
         st = self.state
         t0 = time.time()
         le = max(self.cfg.log_every, 1)
+        se = max(save_every, 1) if save_every else None
         pending: List[Tuple] = []
-        for phase, stacked, n in self._chunks(loader, max_steps):
-            st.model, st.opt_state, metrics = self.engine.run_chunk(
-                st.model, st.opt_state, st.tokens_seen, stacked,
-                n_valid=n, step=st.step)
-            base_step, base_tok = st.step, st.tokens_seen
-            st.step += n
-            st.tokens_seen += n * phase.batch_size * self.cfg.seq_len
-            pending.append((base_step, base_tok, phase, time.time() - t0,
-                            metrics, n))
-            if st.step // le > base_step // le:
-                self._flush(pending, log_cb)
+        stop = False
+        rechunk = True
+        while rechunk and not stop:
+            rechunk = False
+            # closed here, not when dropped: a cut's superseded stream
+            # stops its sampling thread before the next stream starts
+            chunks = self._chunks(loader, max_steps)
+            try:
+                for phase, stacked, n in chunks:
+                    if self._ckpt_manager is not None:
+                        self._ckpt_manager.check()
+                    out = self.engine.run_chunk(
+                        st.model, st.opt_state, st.tokens_seen, stacked,
+                        n_valid=n, step=st.step, loss_ema=st.loss_ema)
+                    if self.controller is not None:
+                        st.model, st.opt_state, metrics, ema = out
+                        st.loss_ema = float(ema)
+                    else:
+                        st.model, st.opt_state, metrics = out
+                    base_step, base_tok = st.step, st.tokens_seen
+                    st.step += n
+                    st.tokens_seen += n * phase.batch_size * self.cfg.seq_len
+                    pending.append((base_step, base_tok, phase,
+                                    time.time() - t0, metrics, n))
+                    if (self.controller is not None
+                            and self.controller.observe_smoothed(
+                                st.loss_ema, n)):
+                        self._fire_cut(loader)
+                        rechunk = True
+                    if st.step // le > base_step // le:
+                        self._flush(pending, log_cb)
+                    if (se and checkpoint_path
+                            and st.step // se > base_step // se):
+                        self.save_checkpoint(checkpoint_path,
+                                             block=not async_save)
+                    if stop_fn is not None and stop_fn():
+                        stop = True
+                    if rechunk or stop:
+                        break
+            finally:
+                chunks.close()
         self._flush(pending, log_cb)
         return self.history
+
+    def _fire_cut(self, loader) -> None:
+        """One adaptive cut at this chunk boundary: extend the plan with
+        a (÷√α LR, ×α batch) phase from ``tokens_seen`` and swap it into
+        the engine, the checkpoint writer and the loader; the run loop
+        then closes the superseded stream."""
+        st = self.state
+        new_plan = self.plan.extend_at(
+            st.tokens_seen, seq_len=self.cfg.seq_len,
+            max_batch_size=self.cfg.schedule.max_batch_size)
+        self._set_plan(new_plan)
+        self.cut_tokens.append(int(st.tokens_seen))
+        if not hasattr(loader, "rechunk"):
+            raise ValueError(
+                "adaptive-seesaw fired a cut but the loader cannot "
+                "re-chunk mid-stream — use PhaseDataLoader (or any "
+                "loader with rechunk(plan, tokens_seen))")
+        loader.rechunk(new_plan, st.tokens_seen)

@@ -1,4 +1,5 @@
-"""Load the reference package's parameters into the port's model.
+"""The name map between the port's model and the reference package's
+parameter pytree, both ways.
 
 ``from_jax_params`` takes the reference's parameter pytree as nested
 dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` on the
@@ -21,10 +22,20 @@ reference does).  Norm scales are zero-initialised and used as
 Matrices, the conv and the embedding are cast once to ``dtype``: the
 compute dtype to serve, float32 (with ``trainable=True``) to train; the
 SSD's per-head parameters stay float32.
+
+The other way, ``param_tree`` and ``opt_tree`` give the reference's
+layout over the port's live tensors without copying them: a per-layer
+leaf is a :class:`Stacked` of the L layers' tensors, stacked only where
+it is written (the checkpoint streams layer i's bytes after layer
+i−1's).  ``to_jax_params`` / ``to_jax_opt_state`` materialise them as
+numpy, and ``from_jax_opt_state`` maps the reference's optimizer state
+(``{"m": tree, "v": tree, "count"}``, or ``{"count"}`` / ``{"mu",
+"count"}`` for SGD and normalized SGD) onto the port's ``{slot: {name:
+tensor}}``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +43,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.transformer import Transformer
+from repro_torch.train.checkpoint import Stacked
 
 
 def _copy(dst: torch.Tensor, src: np.ndarray, name: str) -> None:
@@ -94,3 +106,110 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, *,
         raise NotImplementedError(
             f"from_jax_params: arch_type {cfg.arch_type!r} is not ported")
     return load(tree, cfg, dtype, device).requires_grad_(trainable)
+
+
+# --------------------------------------------------------------------- #
+# the port's tensors in the reference's layout
+# --------------------------------------------------------------------- #
+
+def _ref_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """(reference path, layer index or None) of a port parameter name:
+    ``tok`` -> ``embed/tok``, ``layers.3.attn.w_q`` -> ``layers/attn/w_q``
+    at layer 3."""
+    parts = name.split(".")
+    if parts[0] in ("tok", "lm_head"):
+        return ("embed", parts[0]), None
+    if parts[0] == "layers":
+        return ("layers", *parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def _put(tree: Dict, path: Tuple[str, ...], leaf) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def _tree_of(model, tensors: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's tree over ``tensors`` (keyed by ``model``'s
+    parameter names)."""
+    if getattr(model.cfg, "arch_type", None) not in _FAMILIES:
+        raise NotImplementedError(
+            f"no reference layout for arch_type {model.cfg.arch_type!r}")
+    tree: Dict[str, Any] = {}
+    stacks: Dict[Tuple[str, ...], List] = {}
+    for name, _ in model.named_parameters():
+        path, layer = _ref_path(name)
+        if layer is None:
+            _put(tree, path, tensors[name])
+        else:
+            stacks.setdefault(path, []).append((layer, tensors[name]))
+    for path, items in stacks.items():
+        items.sort(key=lambda it: it[0])
+        if [i for i, _ in items] != list(range(len(items))):
+            raise ValueError(f"{'/'.join(path)}: layers "
+                             f"{[i for i, _ in items]} are not 0..L-1")
+        _put(tree, path, Stacked(t for _, t in items))
+    return tree
+
+
+def param_tree(model) -> Dict[str, Any]:
+    """The reference's parameter tree over ``model``'s live parameters
+    (no copy)."""
+    return _tree_of(model, dict(model.named_parameters()))
+
+
+def opt_tree(model, opt_state: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's optimizer-state tree over the port's live state:
+    each per-parameter slot (``m``, ``v``, ``mu``) in the parameters'
+    layout, ``count`` as it is."""
+    return {slot: _tree_of(model, v) if isinstance(v, dict) else v
+            for slot, v in opt_state.items()}
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, Stacked):
+        return np.stack([t.detach().cpu().numpy() for t in tree])
+    return tree.detach().cpu().numpy().copy()
+
+
+def to_jax_params(model) -> Dict[str, Any]:
+    """``model``'s parameters as the reference's pytree of numpy arrays
+    (the inverse of :func:`from_jax_params`)."""
+    return _to_numpy(param_tree(model))
+
+
+def to_jax_opt_state(model, opt_state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's optimizer state as the reference's pytree of numpy
+    arrays."""
+    return _to_numpy(opt_tree(model, opt_state))
+
+
+def _ref_leaf(tree, name: str) -> np.ndarray:
+    path, layer = _ref_path(name)
+    node = tree
+    for k in path:
+        node = node[k]
+    return np.asarray(node if layer is None else node[layer])
+
+
+def from_jax_opt_state(tree: Dict[str, Any], model) -> Dict[str, Any]:
+    """The reference's optimizer state (numpy leaves) as the port's
+    ``{slot: {name: tensor}, "count": tensor}`` on ``model``'s device."""
+    device = next(model.parameters()).device
+    out: Dict[str, Any] = {}
+    for slot, v in tree.items():
+        if isinstance(v, dict):
+            out[slot] = {}
+            for name, p in model.named_parameters():
+                a = _ref_leaf(v, name)
+                if tuple(a.shape) != tuple(p.shape):
+                    raise ValueError(f"{slot}/{name}: reference shape "
+                                     f"{tuple(a.shape)} != port shape "
+                                     f"{tuple(p.shape)}")
+                out[slot][name] = torch.from_numpy(np.array(a)).to(device)
+        else:
+            out[slot] = torch.from_numpy(np.array(v)).to(device)
+    return out

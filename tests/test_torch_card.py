@@ -901,3 +901,76 @@ def test_defrag_between_decode_replays_is_transparent(cuda):
         assert defragged.step() == ev
     assert defragged.pool.kv is kv
     assert defragged._decode_fns[4].graph is not None
+
+
+def test_async_snapshot_and_in_place_restore_under_replays(cuda, tmp_path):
+    """The async save's snapshot holds the state of its step while later
+    replays update the live tensors in place (the writer reads it on a
+    stream of its own); a restore into the trainer whose graph is
+    captured copies in place, and its replays then give the bits of the
+    steps that followed the save, with no capture."""
+    tr = _graph_trainer()
+    eng, st = tr.engine, tr.state
+    eng.run_chunk(st.model, st.opt_state, 0, _stacked(cuda, 1, 4, 0),
+                  step=0)                           # the eager first step
+    eng.run_chunk(st.model, st.opt_state, 4 * GRAPH_SEQ,
+                  _stacked(cuda, 1, 4, 1), step=1)  # capture and replay
+    st.step, st.tokens_seen = 2, 2 * 4 * GRAPH_SEQ
+    saved = _clone_state(st.model, st.opt_state)
+    path = str(tmp_path / "ck")
+    tr.save_checkpoint(path, block=False)
+
+    def two_more():
+        ms = []
+        for i, seed in enumerate((2, 3)):
+            _, _, m = eng.run_chunk(st.model, st.opt_state,
+                                    (2 + i) * 4 * GRAPH_SEQ,
+                                    _stacked(cuda, 1, 4, seed), step=2 + i)
+            ms.append({k: v.clone() for k, v in m.items()})
+        torch.cuda.synchronize()
+        return ms
+
+    want = two_more()
+    after = _clone_state(st.model, st.opt_state)
+    tr.close()
+    captures = eng.captures
+    meta = tr.restore_checkpoint(path, verify=True)
+    assert (meta["step"], tr.state.step) == (2, 2)
+    _assert_same_state((st.model, st.opt_state), saved)
+    got = two_more()
+    assert eng.captures == captures == 1
+    _assert_same_state((st.model, st.opt_state), after)
+    for a, b in zip(got, want):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+
+
+def test_capture_while_an_async_save_streams(cuda, tmp_path):
+    """A graph captured on the step loop's stream while the checkpoint
+    writer copies on its own (here ~18k slices of 1 KiB) is not
+    invalidated (the capture is thread-local), its replay equals the
+    eager step, and the save commits."""
+    tr = _graph_trainer()
+    eng, st = tr.engine, tr.state
+    eng.run_chunk(st.model, st.opt_state, 0, _stacked(cuda, 1, 4, 0),
+                  step=0)                           # the eager first step
+    st.step, st.tokens_seen = 1, 4 * GRAPH_SEQ
+    tr._ckpt_manager = eng.make_checkpoint_manager(chunk_bytes=1024)
+    path = str(tmp_path / "ck")
+    tr.save_checkpoint(path, block=False)
+    assert tr.checkpoint_manager.in_flight
+    twin = _clone_state(st.model, st.opt_state)
+    batch = _stacked(cuda, 1, 8, 1)
+    _, _, m = eng.run_chunk(st.model, st.opt_state, 4 * GRAPH_SEQ, batch,
+                            step=1)                 # B=8: a capture
+    ent = eng.step_for(8)
+    assert ent.graph is not None and eng.captures == 1
+    _, _, want = ent.grad(*twin, {k: v[0] for k, v in batch.items()},
+                          m["lr"][0].to(cuda))
+    torch.cuda.synchronize()
+    _assert_same_state((st.model, st.opt_state), twin)
+    for name, v in want.items():
+        assert torch.equal(m[name][0], v), name
+    tr.close()
+    from repro_torch.train import checkpoint as CKPT
+    assert CKPT.read_meta(path)["step"] == 1

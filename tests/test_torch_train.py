@@ -100,12 +100,10 @@ def _jax_name(tree, name):
     (ScheduleConfig, JScheduleConfig), (OptimizerConfig, JOptimizerConfig),
     (RunConfig, JRunConfig)])
 def test_run_configs_match_reference(ours, theirs):
-    """Same fields and defaults, less the reference's kernel_backend and
-    its adaptive controller's knobs (the adaptive slice)."""
-    later = ("kernel_backend", "ema_decay", "plateau_window",
-             "plateau_threshold", "plateau_min_steps")
+    """Same fields and defaults, the adaptive controller's knobs
+    included, less the reference's kernel_backend."""
     want = {f.name: f.default for f in dataclasses.fields(theirs)
-            if f.name not in later}
+            if f.name != "kernel_backend"}
     got = {f.name: f.default for f in dataclasses.fields(ours)}
     assert got == want
 
@@ -184,9 +182,16 @@ def test_plan_validation_matches_reference():
         for build in (SS.build_plan, JSS.build_plan):
             with pytest.raises(ValueError):
                 build(**args)
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        SS.build_plan(kind="adaptive-seesaw", base_lr=1.0,
-                      total_tokens=1e5, warmup_frac=0.1, b0=8)
+    # the adaptive plan builds, as the reference's: one phase at B0 and
+    # the per-cut factors (√α, α)
+    kw = dict(kind="adaptive-seesaw", base_lr=1.0, total_tokens=1e5,
+              warmup_frac=0.1, b0=8, cut_tokens=[3e4, 2e4])
+    ours, theirs = SS.build_plan(**kw), JSS.build_plan(**kw)
+    assert [dataclasses.astuple(p) for p in ours.phases] == \
+        [dataclasses.astuple(p) for p in theirs.phases] == \
+        [(0, 0.0, 1e5, 1.0, 8)]
+    assert (ours.alpha, ours.beta, ours.kind) == \
+        (theirs.alpha, theirs.beta, theirs.kind)
 
 
 def test_speedup_accounting_matches_reference():
@@ -620,19 +625,28 @@ def test_max_steps_and_log_every():
     assert tr.state.step == 7
 
 
-def test_trainer_raises_for_later_slices():
-    tr = Trainer(_ramp_cfg(True), device="cpu")
+def test_trainer_raises_for_later_slices(tmp_path):
+    """Checkpoints, the preemption hook and the adaptive plan work: a run
+    with periodic saves and ``stop_fn`` stops on its chunk boundary with
+    the save committed, ``save_checkpoint`` writes the reference's
+    format, and an adaptive trainer starts from a one-phase plan."""
+    tr = Trainer(_ramp_cfg(True), device="cpu", fuse_steps=2)
     lo = PhaseDataLoader(MarkovLM(128), tr.plan, 32, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpointing"):
-        tr.run(lo, checkpoint_path="ck", save_every=2)
-    with pytest.raises(NotImplementedError, match="checkpointing"):
-        tr.run(lo, stop_fn=lambda: False)
-    with pytest.raises(NotImplementedError, match="checkpointing"):
-        tr.save_checkpoint("ck")
+    path = str(tmp_path / "ck")
+    hist = tr.run(lo, checkpoint_path=path, save_every=2,
+                  stop_fn=lambda: tr.state.step >= 4)
+    tr.close()
+    assert [h["step"] for h in hist] == [1, 2, 3, 4]
+    from repro_torch.train import checkpoint as CKPT
+    assert CKPT.read_meta(path)["step"] == 4
+    tr.save_checkpoint(str(tmp_path / "sync"))
+    meta = CKPT.read_meta(str(tmp_path / "sync"))
+    assert (meta["step"], meta["tokens_seen"], meta["schedule_kind"]) == \
+        (4, 4 * 4 * 32, "seesaw")
     cfg = dataclasses.replace(
         _ramp_cfg(True), schedule=ScheduleConfig(kind="adaptive-seesaw"))
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        Trainer(cfg, device="cpu")
+    ad = Trainer(cfg, device="cpu")
+    assert len(ad.plan.phases) == 1 and ad.controller is not None
 
 
 def test_trainer_and_launcher_need_a_card_for_cuda():
