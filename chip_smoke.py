@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels, check them, serve seesaw-150m and train
 it with a Seesaw batch ramp, save, stop and resume that run and train it
-under the adaptive ramp, train mamba2-2.7b with a Seesaw ramp, and run
-the kernel benchmark on one NVIDIA card.
+under the adaptive ramp, train mamba2-2.7b with a Seesaw ramp and serve
+it from the recurrent state pool, and run the kernel benchmark on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -163,7 +164,15 @@ decode graph, each replayed once per step.
   timed as in phase 1 at the 2.7B shapes in bfloat16 (the bfloat16
   kernel runs on the tensor cores; ``tflops`` counts the causal work of
   the bound, not the split products); no single PyTorch call computes
-  this function, so ``library_ms`` is null.
+  this function, so ``library_ms`` is null.  Then the kernel as the
+  Mamba-2 serving prefill calls it: one request (B=1) at mamba2-2.7b's
+  heads and decay, S = 1, 3, 77, 255, 257 and 768, Q = min(256, S),
+  float32 and bfloat16, under the float64 rule above (with one float32
+  ulp of the largest output as the least error allowed: at S = 1 or 3 a
+  single C·B product sets the plain version's error), and timed in
+  bfloat16 (``prefill_shapes`` of its ``kernels`` entry, ``graph_us``
+  beside ``ms``); and the RMSNorm forward at a decode step's rows, 8 x
+  2560 and 8 x 5120, checked and timed (``mamba2_decode_d*``).
 - Phase 6, mamba2-2.7b at full width and depth (64 layers, d_model
   2560, 80 SSD heads, 2.70B parameters), random weights from a seed:
   ``kind="seesaw"``, α=2, B0=4, two cuts, seq 2048, 11·4·2048 tokens,
@@ -181,6 +190,27 @@ decode graph, each replayed once per step.
   same weights: loss within 1e-4, grads within 1e-3 of each tensor's
   largest |grad|; then three engine steps on each device, replays on
   the card, as in phase 5.
+- Phase 11, mamba2-2.7b served at full width and depth (after phase
+  6's trainer is freed): ``ServingEngine`` in its ``"state"`` mode,
+  random weights from a seed, bfloat16, 8 slots, max_len 1024, one
+  state page per request (h and the conv rows of all 64 layers), phase
+  2's request mix.  A warm-up runs the first prefill and decode eagerly
+  and captures one graph per distinct prompt length of the mix and the
+  decode graph; the timed run must capture nothing.  Every request must
+  finish with its max_new_tokens tokens, the pool drain to 0 pages, the
+  engine hold one prefill entry per distinct length and one decode
+  entry (its budget), the tokens equal those of an engine whose every
+  call runs eagerly, and the launches (set to 0 just before the timed
+  run) be exactly ``ssd_chunk`` 64 a prefill and the RMSNorm forward
+  129 a prefill and a decode step, every other kernel 0.  Reports tok/s
+  (and eager), decode steps, occupancy, captures and their seconds,
+  peak memory, the pool's bytes, and one replayed decode step under
+  torch.profiler (busy share, top kernels) beside its bytes bound.
+- Phase 11b, the reduced mamba2 in float32 served on the card and on
+  the CPU, same weights: first-token logits within 1e-3 and equal
+  greedy tokens over a short mix (prompts of 2-100); and on the card
+  the prefill of p[:-8] then 8 decode steps of p's last 8 tokens give
+  the logits of the prefill of p within 1e-3.
 
 - Phase 8, the kernel benchmark: ``repro_torch.bench.kernels`` at full
   size through its ``main`` (the reference's attention, RMSNorm and SSD
@@ -198,7 +228,8 @@ decode graph, each replayed once per step.
 
 Prints the card's name and power limit, one ``kernels`` JSON line (the
 eight kernels), one ``engine`` and one ``train`` JSON line (phase 9's
-result in the latter), one ``mamba2`` JSON line, one ``checkpoint`` line
+result in the latter), one ``mamba2`` JSON line, one ``mamba2_serve``
+line (phases 11 and 11b, with the card), one ``checkpoint`` line
 (phase 10: bytes written, write, restore and verify seconds and GB/s,
 the async save's stall beside a sync save's time, the adaptive run's
 cuts, the card's name and power limit), and last ``{"ok": true,
@@ -239,6 +270,12 @@ FLASH_EDGES = tuple((B, S, H, Hkv, hd, f"edge-S{S}-hd{hd}")
 # the prompt buckets phase 2's mix prefills (rows of d_model 1024); the
 # largest is phase 1's "prefill" shape
 PREFILL_BUCKETS = (64, 128, 256, 512)
+# prompt lengths at which phase 1c holds the SSD chunk kernel as the
+# Mamba-2 serving prefill calls it (B = 1, Q = min(256, S)): a chunk of
+# 1 and of d_conv - 1 steps, chunks that are no multiple of 16 or 64,
+# one step past a chunk, three chunks
+PREFILL_SSD_S = (1, 3, 77, 255, 257, 768)
+F32_EPS = float(torch.finfo(torch.float32).eps)
 
 
 def log(msg: str) -> None:
@@ -767,6 +804,43 @@ def phase1c(SSD, RN, ref):
                 inputs[("ssd", dn)] = args
             del got, plain, exact
             torch.cuda.empty_cache()
+        # the serving prefill's calls: one request, Q = min(256, S)
+        for S in PREFILL_SSD_S:
+            tag, Q = f"prefill-S{S}", min(256, S)
+            args = ssd_inputs(1, S, 80, 64, 128, dtype, g, True)
+            got = SSD.ssd_chunk(*args, Q)
+            torch.cuda.synchronize()
+            plain = ref.ssd_chunk_ref(*args, Q)
+            exact = ref.ssd_chunk_ref(*(t.double() for t in args), Q)
+            for out, a, p, e in zip(("y_intra", "states", "T"), got, plain,
+                                    exact):
+                err = float((a.double() - e).abs().max())
+                perr = float((p.double() - e).abs().max())
+                # at S = 1 or 3 one C.B product decides the plain error,
+                # which can land near 0: an error within one float32 ulp
+                # of the largest output passes as well
+                ulp = F32_EPS * float(e.abs().max())
+                if not (err <= 2 * max(perr, ulp)
+                        and bool(torch.isfinite(a).all())):
+                    raise AssertionError(
+                        f"ssd_chunk {tag} {dn} {out}: error {err:.3g} vs "
+                        f"float64, plain float32 {perr:.3g}, ulp {ulp:.3g}")
+                f64.append({"shape": tag, "dtype": dn, "output": out,
+                            "kernel_err": err, "plain_err": perr,
+                            "ulp_floor": ulp,
+                            "kernel_vs_plain": float((a - p).abs().max()),
+                            "exact_max_abs": float(e.abs().max())})
+            errors.append(("ssd_chunk", tag, dn,
+                           max(float((a - p).abs().max())
+                               for a, p in zip(got, plain))))
+            if dtype == torch.bfloat16:
+                inputs[("ssd", tag)] = args
+            del got, plain, exact
+        # the decode step's norms: 8 slots at d = 2560 and d_inner 5120
+        for d in (2560, 5120):
+            x, sc, err = rmsnorm_case(RN, ref, 8, d, dtype, g)
+            errors.append(("rmsnorm_fwd", f"mamba2-decode-d{d}", dn, err))
+            inputs[("rmsnorm_decode", d, dn)] = (x, sc)
     for name, tag, dn, err in errors:
         log(f"phase 1c: {name} {tag} {dn}: max |err| {err:.3g}")
     for r in f64:
@@ -808,25 +882,49 @@ def measure_ssd(SSD, RN, ref, inputs):
             shape=f"x, g ({n}, {d}) bf16",
             **bound(6 * n * d + 8 * d, 12 * n * d, bf))
         del xr, wr, y
-    xh, dt, A, Bm, Cm = inputs[("ssd", "bfloat16")]
-    B, S, H, P = xh.shape
-    N, Q = Bm.shape[-1], 256
-    nc = -(-S // Q)
-    es = xh.element_size()
-    n_bytes = (B * S * H * P * es + 2 * B * S * N * es + 4 * B * S * H
-               + 4 * H + 4 * B * S * H * P + 4 * B * nc * H * N * P
-               + 4 * B * nc * H)
-    n_ops = B * nc * H * (Q * (Q + 1) * (N + P) + 2 * Q * N * P)
-    rows["ssd_chunk"] = dict(
-        ms=timer(lambda: SSD.ssd_chunk(xh, dt, A, Bm, Cm, Q)),
-        plain_ms=timer(lambda: ref.ssd_chunk_ref(xh, dt, A, Bm, Cm, Q)),
-        library_ms=None,
-        library_note="no single PyTorch call computes the SSD chunk terms",
-        host_us=timer.host_us(lambda: SSD.ssd_chunk(xh, dt, A, Bm, Cm, Q)),
-        shape=f"x (B={B}, S={S}, H={H}, P={P}) bf16 strided as in the "
-              f"mixer, N={N}, Q={Q}",
-        **bound(n_bytes, n_ops, bf))
-    rows["ssd_chunk"]["tflops"] = n_ops / rows["ssd_chunk"]["ms"] / 1e9
+    for d in (2560, 5120):
+        x, sc = inputs[("rmsnorm_decode", d, "bfloat16")]
+        w = (1.0 + sc).to(bf)
+        rows[f"rmsnorm_fwd/mamba2-decode-d{d}"] = dict(
+            ms=timer(lambda: RN.rmsnorm_fwd(x, sc, 1e-5)),
+            graph_us=GraphTimer()(lambda: RN.rmsnorm_fwd(x, sc, 1e-5)),
+            plain_ms=timer(lambda: ref.rmsnorm_ref(x, sc, 1e-5)),
+            library_ms=timer(lambda: F.rms_norm(x, (d,), w, 1e-5)),
+            library_graph_us=GraphTimer()(
+                lambda: F.rms_norm(x, (d,), w, 1e-5)),
+            shape=f"x (8, {d}) bf16: a Mamba-2 decode step at 8 slots",
+            **bound(4 * 8 * d + 4 * d, 4 * 8 * d, bf))
+
+    def ssd_row(xh, dt, A, Bm, Cm, Q, graph):
+        B, S, H, P = xh.shape
+        N = Bm.shape[-1]
+        nc = -(-S // Q)
+        es = xh.element_size()
+        n_bytes = (B * S * H * P * es + 2 * B * S * N * es + 4 * B * S * H
+                   + 4 * H + 4 * B * S * H * P + 4 * B * nc * H * N * P
+                   + 4 * B * nc * H)
+        n_ops = B * nc * H * (Q * (Q + 1) * (N + P) + 2 * Q * N * P)
+        row = dict(
+            ms=timer(lambda: SSD.ssd_chunk(xh, dt, A, Bm, Cm, Q)),
+            plain_ms=timer(lambda: ref.ssd_chunk_ref(xh, dt, A, Bm, Cm, Q)),
+            library_ms=None,
+            host_us=timer.host_us(
+                lambda: SSD.ssd_chunk(xh, dt, A, Bm, Cm, Q)),
+            shape=f"x (B={B}, S={S}, H={H}, P={P}) bf16 strided as in the "
+                  f"mixer, N={N}, Q={Q}",
+            **bound(n_bytes, n_ops, bf))
+        if graph:
+            row["graph_us"] = GraphTimer(n=50)(
+                lambda: SSD.ssd_chunk(xh, dt, A, Bm, Cm, Q))
+        row["tflops"] = n_ops / row["ms"] / 1e9
+        return row
+
+    rows["ssd_chunk"] = ssd_row(*inputs[("ssd", "bfloat16")], 256, False)
+    rows["ssd_chunk"]["library_note"] = \
+        "no single PyTorch call computes the SSD chunk terms"
+    rows["ssd_chunk/prefill"] = {
+        S: ssd_row(*inputs[("ssd", f"prefill-S{S}")], min(256, S), True)
+        for S in PREFILL_SSD_S}
     return rows
 
 
@@ -1943,6 +2041,243 @@ def phase7(R):
 
 
 # --------------------------------------------------------------------- #
+# phases 11 and 11b: Mamba-2 served from the recurrent state pool
+# --------------------------------------------------------------------- #
+
+def serve_counters(RN, FA, PG, SSD, OV):
+    """Every kernel's launch counter: phase 11 reads the two Mamba-2
+    serving launches and holds the others at 0."""
+    return dict(mamba2_counters(RN, FA, SSD),
+                ragged_decode=(PG, "launches"),
+                overlap_norm=(OV, "launches"))
+
+
+def decode_step_bytes(model, eng) -> int:
+    """The least bytes a decode step moves: every weight read once, and
+    each slot's state (h and the conv rows) read and written once."""
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    page = sum(t[:, 0].numel() * t.element_size()
+               for t in eng.pool.leaves())
+    return weights + 2 * eng.decode_slots * page
+
+
+def profile_state_decode(cfg, eng, serving, reqs):
+    """Replayed decode steps under torch.profiler: 8 requests of the mix
+    (lengths already captured) fill the slots, then two ``step()`` calls
+    with nothing to admit, the second timed to a sync.  A profiler's
+    first replay can lose its first kernels (126 of a step's 128 ``w_z``
+    and ``w_x`` GEMVs were seen once), so only the second step's kernels
+    count: those after the widest gap on the device timeline, the host's
+    time between the two replays.  Reports their sum (busy), the span
+    from its first kernel's start to its last one's end (the sum plus
+    the gaps between the graph's kernels) and the top kernels; then 8
+    more steps between CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+    for prompt, _ in reqs[:eng.decode_slots]:
+        eng.submit(serving.GenerationRequest(prompt=prompt,
+                                             max_new_tokens=24))
+    eng.step()                          # admits all and decodes once
+    if eng.n_pending or eng.n_active != eng.decode_slots:
+        raise AssertionError("the profiled step's slots are not all live")
+    captures0 = eng.captures
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    t = time.perf_counter()
+    for _ in range(8):
+        eng.step()
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3 / 8
+    events_ms = start.elapsed_time(end) / 8
+    eng.drain()
+    if eng.captures != captures0:
+        raise AssertionError("the profiled decode steps captured a graph")
+    kern = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if len(kern) > 1:
+        cut = max(range(1, len(kern)),
+                  key=lambda i: kern[i][0] - kern[i - 1][1])
+        kern = kern[cut:]
+    by_name = {}
+    for s0, s1, name in kern:
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + s1 - s0, n + 1)
+    top = sorted(((us, name, n) for name, (us, n) in by_name.items()),
+                 reverse=True)
+    busy_us = sum(us for us, _, _ in top)
+    span_us = kern[-1][1] - kern[0][0] if kern else 0.0
+    with open(os.path.join(OUT_DIR, "profile_mamba2_decode.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=40))
+    return {"wall_us": wall_us, "device_busy_us": busy_us,
+            "device_busy_share": busy_us / wall_us,
+            "device_span_us": span_us, "device_kernels": len(kern),
+            "rmsnorm_kernels_seen": sum(n for _, name, n in top
+                                        if "rmsnorm_fwd" in name),
+            "profiled_steps": 2, **host_calls(prof.key_averages()),
+            "step_ms_events": events_ms, "step_ms_host": host_ms,
+            "top_kernels": [{"us": us, "name": name[:90], "count": n}
+                            for us, name, n in top[:12]]}
+
+
+def phase11(cfg, R, serving, ctr, smi):
+    """mamba2-2.7b at full width and depth, bf16, served in the engine's
+    state mode: 8 slots, max_len 1024, phase 2's request mix."""
+    torch.cuda.reset_peak_memory_stats()
+    model = R.init_model(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    eng = serving.ServingEngine(cfg, model, decode_slots=8, max_len=1024,
+                                dtype=torch.bfloat16)
+    if (eng.mode, eng.page_size, eng.pages_per_slot) != ("state", 1, 1):
+        raise AssertionError(f"engine mode {eng.mode}, page size "
+                             f"{eng.page_size}")
+    reqs = requests(cfg)
+    lengths = sorted({len(p) for p, _ in reqs})
+    # warm-up, outside the counted run: the first prefill and the first
+    # decode run eagerly; then one graph per distinct prompt length of
+    # the mix and the decode graph are captured
+    rng = np.random.default_rng(11)
+    for n in lengths[:1] + lengths:
+        eng.submit(serving.GenerationRequest(
+            prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+            max_new_tokens=4))
+    eng.drain()
+    eng.reset()
+    if eng.captures != len(lengths) + 1:
+        raise AssertionError(f"warm-up captured {eng.captures} graphs, "
+                             f"want {len(lengths) + 1}")
+    warm = {"captures": eng.captures, "captures_s": eng.capture_s}
+    for m, a in ctr.values():
+        setattr(m, a, 0)
+    rids, results, wall = serve(eng, serving, reqs)
+    launches = {n: getattr(m, a) for n, (m, a) in ctr.items()}
+    steps, occupancy = eng.steps, eng.mean_occupancy()
+    if eng.captures != warm["captures"]:
+        raise AssertionError(f"{eng.captures - warm['captures']} graphs "
+                             f"captured during the timed run")
+    if (eng.n_prefill_executables, eng.n_decode_executables) != \
+            (len(lengths), 1) or eng.executables != eng.executable_budget:
+        raise AssertionError(f"{eng.n_prefill_executables} prefill + "
+                             f"{eng.n_decode_executables} decode entries, "
+                             f"budget {eng.executable_budget}, "
+                             f"{len(lengths)} lengths")
+    L = cfg.n_layers
+    want = dict({n: 0 for n in ctr}, ssd_chunk=L * len(reqs),
+                rmsnorm_fwd=(2 * L + 1) * (len(reqs) + steps))
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    n_tok = 0
+    for rid, res, (prompt, n) in zip(rids, results, reqs):
+        if res is None or len(res.tokens) != n \
+                or res.finish_reason != "length":
+            raise AssertionError(f"rid {rid}: {res}, want {n} tokens")
+        # the greedy runs over the padded vocab, as the reference's does
+        if res.tokens.min() < 0 or res.tokens.max() >= cfg.padded_vocab:
+            raise AssertionError(f"rid {rid}: token out of the vocab")
+        n_tok += n
+    if eng.pool.n_used != 0:
+        raise AssertionError(f"{eng.pool.n_used} pages still in use")
+    # the same mix through an engine whose every call runs eagerly
+    ref = serving.ServingEngine(cfg, model, decode_slots=8, max_len=1024,
+                                dtype=torch.bfloat16)
+    ref._warm = _EveryCallEager()
+    _, eager, eager_wall = serve(ref, serving, reqs)
+    if ref.captures:
+        raise AssertionError("the eager reference engine captured graphs")
+    for rid, a, b in zip(rids, results, eager):
+        if b is None or a.tokens.tolist() != b.tokens.tolist():
+            raise AssertionError(f"rid {rid}: replayed tokens differ from "
+                                 f"the eager engine's")
+    del ref
+    torch.cuda.empty_cache()
+    eng.reset()
+    prof = profile_state_decode(cfg, eng, serving, reqs)
+    step_bound = bound(decode_step_bytes(model, eng), 0, torch.bfloat16)
+    return {"model": cfg.name, "requests": len(reqs), "tokens": n_tok,
+            "prompt_tokens": int(sum(len(p) for p, _ in reqs)),
+            "distinct_lengths": len(lengths), "decode_steps": steps,
+            "wall_s": wall, "tok_per_s": n_tok / wall,
+            "mean_occupancy": occupancy,
+            "launches": launches,
+            "n_prefill_executables": eng.n_prefill_executables,
+            "n_decode_executables": eng.n_decode_executables,
+            "executables": eng.executables,
+            "executable_budget": eng.executable_budget,
+            "captures": warm["captures"], "captures_s": warm["captures_s"],
+            "eager_wall_s": eager_wall,
+            "eager_tok_per_s": n_tok / eager_wall,
+            "tokens_equal_eager": True,
+            "pool_bytes": eng.pool.nbytes,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "decode_step": {**prof, "bound_ms": step_bound["bound_ms"],
+                            "bound_bytes": step_bound["bytes"]},
+            "card": smi}
+
+
+def phase11b(R, serving):
+    """The reduced mamba2 in float32 served on the card and on the CPU
+    with the same weights: first-token logits within 1e-3 and equal
+    greedy tokens over a short mix (prompts of 2-100); on the card, the
+    prefill of p[:-8] and 8 decode steps of p's last 8 tokens give the
+    prefill of p's logits within 1e-3."""
+    from repro_torch.configs import get_config
+    small = get_config("mamba2-2.7b").reduced()
+    cpu = R.init_model(small, seed=5, dtype=torch.float32, device="cpu")
+    card = R.init_model(small, seed=5, dtype=torch.float32,
+                        device="cpu").cuda()
+    rng = np.random.default_rng(9)
+    reqs = [(rng.integers(0, small.vocab_size, n).astype(np.int32), k)
+            for n, k in ((2, 6), (37, 8), (100, 5), (64, 7), (37, 4))]
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        logits = []
+        with torch.inference_mode():
+            for prompt, _ in reqs:
+                toks = torch.from_numpy(prompt.astype(np.int64))[None]
+                lg, _ = R.prefill(model, small, toks.to(dev))
+                logits.append(lg.cpu())
+        eng = serving.ServingEngine(small, model, decode_slots=2,
+                                    max_len=128, dtype=torch.float32)
+        for prompt, n in reqs:
+            eng.submit(serving.GenerationRequest(prompt=prompt,
+                                                 max_new_tokens=n))
+        out[dev] = (logits, {r.rid: r.tokens.tolist() for r in eng.drain()})
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    if diff > 1e-3:
+        raise AssertionError(f"first-token logits differ by {diff:.3g}")
+    if out["cuda"][1] != out["cpu"][1]:
+        raise AssertionError(f"tokens differ: card {out['cuda'][1]}, "
+                             f"cpu {out['cpu'][1]}")
+    k = 8
+    p = torch.from_numpy(rng.integers(0, small.vocab_size, 150))[None]
+    p = p.cuda()
+    with torch.inference_mode():
+        want, _ = R.prefill(card, small, p)
+        got, cache = R.prefill(card, small, p[:, :-k])
+        for i in range(k, 0, -1):
+            got, cache = R.decode_step(card, small, cache,
+                                       p[:, -i:p.shape[1] - i + 1])
+    step_diff = float((got - want).abs().max())
+    if step_diff > 1e-3 or cache.lengths.tolist() != [p.shape[1]]:
+        raise AssertionError(f"prefill + {k} decode steps differ from the "
+                             f"prefill by {step_diff:.3g}")
+    return {"first_token_logit_max_abs_diff": diff,
+            "tokens": out["cuda"][1],
+            "prefill_plus_decode_vs_prefill_max_abs_diff": step_diff,
+            "decode_steps": k}
+
+
+# --------------------------------------------------------------------- #
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2071,6 +2406,19 @@ def main() -> int:
     if OV.launches:
         raise AssertionError(f"overlap_norm launched {OV.launches} times "
                              f"on the serving and training paths")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    record["mamba2_serve"] = phase11(mcfg, R, serving,
+                                     serve_counters(RN, FA, PG, SSD, OV),
+                                     smi)
+    record["mamba2_serve"]["s"] = time.perf_counter() - t
+    log(f"phase 11: {record['mamba2_serve']['s']:.1f} s "
+        f"{record['mamba2_serve']}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    record["mamba2_serve_card_vs_cpu"] = phase11b(R, serving)
+    log(f"phase 11b: {time.perf_counter() - t:.1f} s "
+        f"{record['mamba2_serve_card_vs_cpu']}")
     t = time.perf_counter()
     bench_ctr = dict(counters(RN, FA), ssd_chunk=(SSD, "launches"),
                      overlap_norm=(OV, "launches"))
@@ -2219,9 +2567,30 @@ def main() -> int:
         "library_ms": None, "library_note": tm["library_note"],
         "tflops": tm["tflops"], "host_us": tm["host_us"],
         "shape": tm["shape"],
+        "serving_launches": record["mamba2_serve"]["launches"]["ssd_chunk"],
+        "prefill_shapes": {
+            S: {**{f: r[f] for f in ("ms", "graph_us", "plain_ms",
+                                     "bound_ms", "bound_by", "shape")},
+                "max_abs_err": err_of[("ssd_chunk", f"prefill-S{S}",
+                                       "bfloat16")],
+                "max_abs_err_f32": err_of[("ssd_chunk", f"prefill-S{S}",
+                                           "float32")]}
+            for S, r in ssd_times["ssd_chunk/prefill"].items()},
         "compiled": {k: v for k, v in record["compiled"].items()
                      if k.startswith("ssd_chunk")}})
     for k in kernels:
+        if k["name"] == "rmsnorm_fwd":
+            k["mamba2_serving_launches"] = \
+                record["mamba2_serve"]["launches"]["rmsnorm_fwd"]
+            for d in (2560, 5120):
+                tm = ssd_times[f"rmsnorm_fwd/mamba2-decode-d{d}"]
+                k[f"mamba2_decode_d{d}"] = {
+                    **{f: tm[f] for f in ("ms", "graph_us", "plain_ms",
+                                          "library_ms", "library_graph_us",
+                                          "bound_ms", "bound_by")},
+                    "max_abs_err": err_of[("rmsnorm_fwd",
+                                           f"mamba2-decode-d{d}",
+                                           "bfloat16")]}
         if k["name"] in ("rmsnorm_fwd", "rmsnorm_bwd"):
             k["mamba2_launches"] = record["mamba2"]["launches"][k["name"]]
             for d in (2560, 5120):
@@ -2274,6 +2643,8 @@ def main() -> int:
     print(json.dumps({"mamba2": mamba2,
                       "profile": record["mamba2_profile"],
                       "card_vs_cpu": record["mamba2_card_vs_cpu"]}))
+    print(json.dumps({"mamba2_serve": record["mamba2_serve"],
+                      "card_vs_cpu": record["mamba2_serve_card_vs_cpu"]}))
     adaptive = {k: v for k, v in record["adaptive"].items()
                 if k not in ("losses", "lrs")}
     print(json.dumps({"checkpoint": record["checkpoint"],

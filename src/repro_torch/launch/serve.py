@@ -6,8 +6,12 @@ CLI (the counterpart of ``repro.launch.serve``).
         [--max-len 256] [--max-new 32] [--seed 0] [--device cuda|cpu]
 
 Builds the reduced config of the named architecture with seeded random
-weights, submits a seeded batch of ragged requests, streams tokens as
-the engine emits them, and reports the drain throughput.  ``--device``
+weights, submits a seeded batch of ragged requests (prompts of 2 tokens
+and more), streams tokens as the engine emits them, and reports the
+drain throughput.  A dense architecture serves from the paged KV pool
+(``--page-size`` tokens a page); ``--arch mamba2-2.7b`` serves from the
+recurrent state pool, one page of state per request, with one prefill
+entry per distinct prompt length.  ``--device``
 (default ``cuda``) picks where it runs: the hand-written kernels on the
 card, their plain versions on the CPU.  There is no kernel-backend flag:
 the device decides.
@@ -40,9 +44,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch).reduced()
-    if R.serving_mode(cfg) != "paged":
+    if R.serving_mode(cfg) is None:
         raise SystemExit(f"arch {cfg.name} (arch_type={cfg.arch_type}) has "
-                         f"no paged serving mode in the port yet")
+                         f"no continuous-batching mode in the port yet")
     dtype = torch.bfloat16
     model = R.init_model(cfg, seed=args.seed, dtype=dtype,
                          device=args.device)
@@ -59,8 +63,9 @@ def main(argv=None):
             prompt=rng.integers(0, cfg.vocab_size, (s,)).astype(np.int32),
             max_new_tokens=n))
 
-    print(f"arch={cfg.name} device={args.device} slots={args.decode_slots} "
-          f"page_size={eng.page_size} pool={eng.pool.capacity} pages")
+    print(f"arch={cfg.name} device={args.device} mode={eng.mode} "
+          f"slots={args.decode_slots} page_size={eng.page_size} "
+          f"pool={eng.pool.capacity} pages")
     t0 = time.perf_counter()
     n_tok = 0
     while not eng.done:
@@ -73,7 +78,8 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     print(f"{args.requests} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / max(dt, 1e-9):.1f} tok/s); occupancy "
-          f"{eng.mean_occupancy():.2f}")
+          f"{eng.mean_occupancy():.2f}; {eng.executables} executables "
+          f"(budget {eng.executable_budget})")
 
 
 if __name__ == "__main__":

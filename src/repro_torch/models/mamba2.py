@@ -1,15 +1,17 @@
 """Mamba-2 SSD (state-space duality, arXiv:2405.21060) in PyTorch: the
-training forward and loss (``repro.models.mamba2``).
+training forward and loss, the exact-length prefill and the recurrent
+decode step (``repro.models.mamba2``).
 
-Training uses the chunked SSD algorithm: the sequence splits into chunks
-of Q tokens; within a chunk the recurrence is a masked quadratic form,
-across chunks a small (H, P, N) state is carried.  On the card the
-chunk terms run in the hand-written kernel (``kernels.backend.ssd``); on
-the CPU, and in the card's backward, they run in ``ssd_chunked`` here.
+Training and prefill use the chunked SSD algorithm: the sequence splits
+into chunks of Q tokens; within a chunk the recurrence is a masked
+quadratic form, across chunks a small (H, P, N) state is carried.  On
+the card the chunk terms run in the hand-written kernel
+(``kernels.backend.ssd``); on the CPU, and in the card's backward, they
+run in ``ssd_chunked`` here.  Decode is the O(1) recurrent step
+(``ssd_step``) on a state of one (H, P, N) float32 SSD state and the
+last d_conv − 1 conv inputs per layer and request.
 The reference stacks its layers along a leading L dim and scans them;
 here each block is a module of a ``ModuleList`` and the loop is Python.
-Serving (``prefill``, ``decode_step`` and the recurrent ``ssd_step``)
-comes with the Mamba-2 state-serving slice.
 """
 from __future__ import annotations
 
@@ -226,9 +228,15 @@ def ssd_chunked(xh, dt, A, Bm, Cm, D, *, chunk: int, h0=None):
 # mixer, blocks and the loss
 # --------------------------------------------------------------------- #
 
-def mixer_forward(m: Mamba2Mixer, x, cfg: ModelConfig):
+def mixer_forward(m: Mamba2Mixer, x, cfg: ModelConfig, *,
+                  with_state: bool = False):
     """x: (B, S, d) -> (B, S, d).  The SSD scan and the gated output norm
-    run through ``kernels.backend`` (the kernels on the card)."""
+    run through ``kernels.backend`` (the kernels on the card).  With
+    ``with_state`` also the state a decode step continues from:
+    {"h": the SSD's final state (B, H, P, N) float32, "conv": the last
+    d_conv − 1 conv inputs (B, d_conv − 1, d_inner + 2N)}, zero rows on
+    the left of a sequence shorter than that, as the causal conv pads
+    it."""
     s, di, H, P, N = _dims(cfg)
     B_, S, _ = x.shape
     z = x @ m.w_z.to(x.dtype)
@@ -236,15 +244,20 @@ def mixer_forward(m: Mamba2Mixer, x, cfg: ModelConfig):
     Bm = x @ m.w_B.to(x.dtype)
     Cm = x @ m.w_C.to(x.dtype)
     dt = F.softplus((x @ m.w_dt.to(x.dtype)).float() + m.dt_bias)
-    xbc = torch.cat([xin, Bm, Cm], dim=-1)
-    xbc = F.silu(causal_conv1d(xbc, m.conv_w, m.conv_b))
+    xbc_in = torch.cat([xin, Bm, Cm], dim=-1)
+    xbc = F.silu(causal_conv1d(xbc_in, m.conv_w, m.conv_b))
     xin, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
     xh = xin.reshape(B_, S, H, P)          # a view: the kernel reads strides
     A = -torch.exp(m.A_log)
-    y, _ = KB.ssd(xh, dt, A, Bm, Cm, m.D, chunk=s.chunk_size)
+    y, h_final = KB.ssd(xh, dt, A, Bm, Cm, m.D, chunk=s.chunk_size)
     y = y.reshape(B_, S, di)
     y = rmsnorm(y * F.silu(z), m.norm, cfg.norm_eps)
-    return y @ m.w_out.to(x.dtype)
+    out = y @ m.w_out.to(x.dtype)
+    if not with_state:
+        return out
+    K = s.d_conv
+    tail = F.pad(xbc_in, (0, 0, K - 1, 0))[:, -(K - 1):]
+    return out, {"h": h_final, "conv": tail}
 
 
 def _block(blk: Block, x, cfg: ModelConfig):
@@ -283,3 +296,107 @@ def loss_fn(model: Mamba2, cfg: ModelConfig, batch, *, z_loss: float = 0.0,
     loss, z_sq = cross_entropy_chunked(h, lm_head_matrix(model), labels,
                                        mask, cfg.vocab_size, z_loss=z_loss)
     return loss, {"ce_loss": loss, "z_sq": z_sq, "loss": loss}
+
+
+# --------------------------------------------------------------------- #
+# serving: the recurrent step, prefill and decode
+# --------------------------------------------------------------------- #
+
+def ssd_step(h, x, dt, A, Bv, Cv, D):
+    """One recurrent SSD step (the reference's ``ssd_step``).  h: (B, H,
+    P, N) float32; x: (B, H, P); dt: (B, H) (post-softplus); A, D: (H,)
+    float32; Bv, Cv: (B, N).  h' = h·exp(dt·A) + dt·B ⊗ x and
+    y = h'·C + D·x, in float32.  Returns (h' float32, y in x's dtype)."""
+    dt32, x32 = dt.float(), x.float()
+    a = torch.exp(dt32 * A)                                   # (B, H)
+    dBx = (dt32[:, :, None] * x32)[..., None] \
+        * Bv.float()[:, None, None, :]                        # (B, H, P, N)
+    h = h * a[:, :, None, None] + dBx
+    y = torch.einsum("bhpn,bn->bhp", h, Cv.float())
+    y = y + D[None, :, None] * x32
+    return h, y.to(x.dtype)
+
+
+def mixer_decode(m: Mamba2Mixer, x, state, cfg: ModelConfig):
+    """One token through the mixer.  x: (B, 1, d); state: {"h": (B, H, P,
+    N) float32, "conv": (B, d_conv − 1, d_inner + 2N)}.  The conv runs
+    over the carried rows and the new one, its K products summed in x's
+    dtype in the order i = 0..K−1 as ``causal_conv1d`` sums them; the
+    gated norm runs through ``kernels.backend``.  Returns (out (B, 1, d),
+    the new state)."""
+    s, di, H, P, N = _dims(cfg)
+    B_ = x.shape[0]
+    xt = x[:, 0]
+    z = xt @ m.w_z.to(x.dtype)
+    xin = xt @ m.w_x.to(x.dtype)
+    Bm = xt @ m.w_B.to(x.dtype)
+    Cm = xt @ m.w_C.to(x.dtype)
+    dt = F.softplus((xt @ m.w_dt.to(x.dtype)).float() + m.dt_bias)
+    xbc = torch.cat([xin, Bm, Cm], dim=-1)                    # (B, di+2N)
+    buf = torch.cat([state["conv"], xbc[:, None]], dim=1)
+    w = m.conv_w.to(x.dtype)
+    out = buf[:, 0] * w[0]
+    for i in range(1, s.d_conv):
+        out = out + buf[:, i] * w[i]
+    xbc = F.silu(out + m.conv_b.to(x.dtype))
+    xin, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
+    h, y = ssd_step(state["h"], xin.reshape(B_, H, P), dt,
+                    -torch.exp(m.A_log), Bm, Cm, m.D)
+    y = rmsnorm(y.reshape(B_, di) * F.silu(z), m.norm, cfg.norm_eps)
+    return (y @ m.w_out.to(x.dtype))[:, None], {"h": h, "conv": buf[:, 1:]}
+
+
+def state_struct(cfg: ModelConfig, batch: int, *, dtype=torch.bfloat16,
+                 device="cuda"):
+    """Zeroed decode state for ``batch`` rows (the reference's
+    ``_state_struct``; its ``_cache_struct`` is this, since the state is
+    O(1) in the length): "h" (L, batch, H, P, N) float32, "conv" (L,
+    batch, d_conv − 1, d_inner + 2N) in ``dtype``."""
+    s, di, H, P, N = _dims(cfg)
+    L = cfg.n_layers
+    return {"h": torch.zeros(L, batch, H, P, N, dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros(L, batch, s.d_conv - 1, di + 2 * N,
+                                dtype=dtype, device=device)}
+
+
+def prefill(model: Mamba2, cfg: ModelConfig, tokens):
+    """Run the prompt, tokens (B, S) int, at its exact length in the
+    model's dtype.  Returns (logits (B, 1, V) float32 at the last
+    position, the decode state {"h": (L, B, H, P, N) float32, "conv":
+    (L, B, d_conv − 1, d_inner + 2N)}).
+
+    The reference keeps ``xbc[:, -(d_conv-1):]`` as the conv state, which
+    holds fewer rows than that for a prompt shorter than d_conv − 1
+    (its ``scatter_state`` then fails at S = 2 and broadcasts one row
+    into every slot at S = 1).  Here the missing rows are zeros, the
+    padding the causal conv reads there."""
+    x = F.embedding(tokens, model.tok)
+    hs, convs = [], []
+    for blk in model.layers:
+        y, st = mixer_forward(blk.mixer, rmsnorm(x, blk.norm, cfg.norm_eps),
+                              cfg, with_state=True)
+        x = x + y
+        hs.append(st["h"])
+        convs.append(st["conv"])
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return (x[:, -1:] @ lm_head_matrix(model)).float(), \
+        {"h": torch.stack(hs), "conv": torch.stack(convs)}
+
+
+def decode_step(model: Mamba2, cfg: ModelConfig, state, token):
+    """One token per row through every layer.  token: (B, 1) int; state:
+    leaves (L, B, ...) as ``prefill`` returns them.  The recurrent step
+    needs no position: the state is the history.  Returns (logits (B, 1,
+    V) float32, the new state); ``state`` is left as it was."""
+    x = F.embedding(token, model.tok)
+    hs, convs = [], []
+    for blk, h, conv in zip(model.layers, state["h"], state["conv"]):
+        y, st = mixer_decode(blk.mixer, rmsnorm(x, blk.norm, cfg.norm_eps),
+                             {"h": h, "conv": conv}, cfg)
+        x = x + y
+        hs.append(st["h"])
+        convs.append(st["conv"])
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return (x @ lm_head_matrix(model)).float(), \
+        {"h": torch.stack(hs), "conv": torch.stack(convs)}

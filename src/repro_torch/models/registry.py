@@ -3,8 +3,10 @@ in PyTorch).
 
 ``supports_paged`` and ``serving_mode`` are the reference's rules,
 decided from the config alone.  The port trains and serves the dense
-family and trains the ssm family (Mamba-2); serving it, and every other
-family, raises ``NotImplementedError`` naming the slice that brings it.
+family (from the paged KV pool) and the ssm family (Mamba-2, from the
+recurrent state pool); every other family, and the dense family's
+contiguous cache (the ``Server`` oracle), raises ``NotImplementedError``
+naming the slice that brings it.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from repro_torch.models import mamba2, transformer
 
 _TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 _FAMILIES = {"dense": transformer, "ssm": mamba2}
-STATE_SERVING_SLICE = "the Mamba-2 state-serving slice"
+SERVER_SLICE = "the dense Server oracle slice"
 
 _LATER = {
     "moe": "the other-families slice (MoE)",
@@ -74,30 +76,72 @@ def serving_mode(cfg: ModelConfig):
     return None
 
 
+def prefill(model, cfg: ModelConfig, tokens):
+    """Run the prompt, tokens (B, S), at its exact length and build the
+    decode cache.  Returns (logits (B, 1, V) float32, a
+    ``serving.cache.DenseKVCache`` whose ``lengths`` are all S).  The
+    ssm family only: the dense family's contiguous cache comes with
+    the dense ``Server`` oracle."""
+    from repro_torch.serving import cache as sc   # serving imports this
+    if cfg.arch_type != "ssm":
+        family(cfg)             # raises for a family not ported yet
+        raise NotImplementedError(
+            f"the {cfg.arch_type} family's contiguous cache comes with "
+            f"{SERVER_SLICE}; serve it from the page pool")
+    logits, data = family(cfg).prefill(model, cfg, tokens)
+    B, S = tokens.shape
+    lengths = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+    return logits, sc.DenseKVCache(data=data, lengths=lengths)
+
+
 def prefill_ragged(model, cfg: ModelConfig, tokens, lengths):
     """Bucketed prefill (full-attention transformer families only).
     Returns (logits at each request's last real token, per-layer k, v
     (L, B, S, Hkv, hd)) for the page pool to scatter."""
-    if cfg.arch_type == "ssm":
-        raise NotImplementedError(
-            f"Mamba-2 prefill fills a recurrent state, not pages; it "
-            f"comes with {STATE_SERVING_SLICE}")
     if not supports_paged(cfg):
+        why = (" (Mamba-2 prefills each prompt at its own length into "
+               "the state pool: padding would run the recurrence over "
+               "it)" if cfg.arch_type == "ssm" else "")
         raise NotImplementedError(
             f"ragged prefill needs full attention; {cfg.arch_type} with "
-            f"window={cfg.sliding_window} keeps the exact-length path")
+            f"window={cfg.sliding_window} keeps the exact-length path{why}")
     return family(cfg).prefill_ragged(model, cfg, tokens, lengths)
 
 
 def decode_step(model, cfg: ModelConfig, cache, token):
-    """One decode step against the paged KV cache.  Returns (logits
-    (B, 1, V), the cache with lengths advanced by one); the pool is
-    updated in place."""
+    """One decode step against a typed cache, dispatched on its type: a
+    ``PagedKVCache`` (the serving pools, updated in place: attention
+    pages or recurrent state rows) or a ``DenseKVCache`` (the ssm
+    family's contiguous state from ``prefill``; all rows at one depth,
+    ``lengths[0]``, which the recurrent step does not need).  Returns
+    (logits (B, 1, V), the cache with lengths advanced by one)."""
     from repro_torch.serving import cache as sc   # serving imports this
-    if not isinstance(cache, sc.PagedKVCache):
+    if isinstance(cache, sc.PagedKVCache):
+        family(cfg)             # raises for a family not ported yet
+        return sc.paged_decode(model, cfg, cache, token)
+    if not isinstance(cache, sc.DenseKVCache):
         raise TypeError(
-            f"decode_step takes a PagedKVCache, got "
-            f"{type(cache).__name__}; the dense cache comes with the "
-            f"dense Server oracle in a later slice")
-    family(cfg)                 # raises for a family not ported yet
-    return sc.paged_decode(model, cfg, cache, token)
+            f"decode_step takes a DenseKVCache or a PagedKVCache, got "
+            f"{type(cache).__name__}; build one with registry.prefill or "
+            f"a serving.cache.PagePool")
+    if cfg.arch_type != "ssm":
+        family(cfg)
+        raise NotImplementedError(
+            f"the {cfg.arch_type} family's contiguous cache comes with "
+            f"{SERVER_SLICE}")
+    logits, data = family(cfg).decode_step(model, cfg, cache.data, token)
+    return logits, sc.DenseKVCache(data=data, lengths=cache.lengths + 1)
+
+
+def cache_struct(cfg: ModelConfig, batch: int, max_len: int = 0, *,
+                 dtype=torch.bfloat16, device="cuda"):
+    """Zeroed contiguous decode cache for ``batch`` rows: the ssm
+    family's recurrent state (O(1) in ``max_len``), leaves (L, batch,
+    ...).  The state pool builds its buffer from it, with the page id on
+    axis 1."""
+    if cfg.arch_type != "ssm":
+        family(cfg)
+        raise NotImplementedError(
+            f"the {cfg.arch_type} family's contiguous cache comes with "
+            f"{SERVER_SLICE}")
+    return family(cfg).state_struct(cfg, batch, dtype=dtype, device=device)

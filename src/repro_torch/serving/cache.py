@@ -1,16 +1,23 @@
-"""The paged KV cache for serving (``repro.serving.cache`` in PyTorch):
-the reference's ``"attn"`` pool kind.  Its ``"state"`` kind, one page of
-recurrent state per request, comes with the Mamba-2 state-serving slice.
+"""The serving caches (``repro.serving.cache`` in PyTorch): the
+contiguous ``DenseKVCache`` and the pooled ``PagedKVCache`` of two
+kinds.
 
-One preallocated pool per model holds every request's K/V in fixed-size
-pages, head-interleaved as in the reference:
+- ``kind="attn"``: one preallocated pool per model holds every
+  request's K/V in fixed-size pages, head-interleaved as in the
+  reference:
 
-    kv: (L, n_pages, page_size, 2 * n_kv_heads, head_dim)
+      kv: (L, n_pages, page_size, 2 * n_kv_heads, head_dim)
 
-where head h's K lives at index 2h and its V at 2h + 1 —
-``[K0, V0, K1, V1, ...]`` — so one page gather lands both operands of
-attention.  Keeping the reference's layout lets the tests compare pools
-directly.
+  where head h's K lives at index 2h and its V at 2h + 1 —
+  ``[K0, V0, K1, V1, ...]`` — so one page gather lands both operands of
+  attention.
+- ``kind="state"``: a recurrent family (Mamba-2) holds O(1) state, so a
+  request owns exactly one page (``page_size == 1``) of a pool whose
+  leaves put the page id on axis 1: {"h": (L, n_pages, H, P, N) float32,
+  "conv": (L, n_pages, d_conv − 1, d_inner + 2N)}.  The decode step
+  gathers the rows of its slots, steps them and scatters them back.
+
+Keeping the reference's layouts lets the tests compare pools directly.
 
 Page 0 is the NULL page: never handed out, it takes every write of an
 inactive decode slot or of prefill padding, so inactive slots run the
@@ -25,13 +32,15 @@ the plain version gathers the window (``gather_pages``) and attends, as
 the reference does.
 
 Unlike the reference, whose arrays are immutable, the prefill scatter
-and the decode write update the pool in place (``index_put_``), which
-spares a copy of the whole pool per step.
+and the decode write update the pool in place (``index_put_``,
+``index_copy_``), which spares a copy of the whole pool per step; and
+``reset`` and ``defrag`` write into the same storage, because captured
+CUDA graphs hold the pool's addresses.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import Any, List, Sequence
 
 import torch
 
@@ -48,15 +57,28 @@ class OutOfPages(RuntimeError):
 
 
 @dataclasses.dataclass
-class PagedKVCache:
-    """The pool buffer ``kv`` plus a batch's page tables ``pages`` (B, P)
-    int64 (unused entries hold ``NULL_PAGE``) and ``lengths`` (B,) int32,
-    the tokens cached per request."""
+class DenseKVCache:
+    """The contiguous per-family cache: ``data`` is what the family's
+    ``prefill`` builds (row b of every leaf is request b) and
+    ``lengths`` (B,) int32 the tokens cached per request; the recurrent
+    state keeps all rows at one depth."""
 
-    kv: torch.Tensor
+    data: Any
+    lengths: torch.Tensor
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """The pool buffer ``kv`` (the attention pool, or the state dict for
+    ``kind="state"``) plus a batch's page tables ``pages`` (B, P) int64
+    (unused entries hold ``NULL_PAGE``) and ``lengths`` (B,) int32, the
+    tokens cached per request."""
+
+    kv: Any
     pages: torch.Tensor
     lengths: torch.Tensor
     page_size: int = 16
+    kind: str = "attn"
 
 
 # --------------------------------------------------------------------- #
@@ -71,26 +93,47 @@ class PagePool:
     decode step; the host side only tracks which page ids are free."""
 
     def __init__(self, cfg: ModelConfig, n_pages: int, page_size: int, *,
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda", kind: str = "attn"):
         if n_pages < 2:
             raise ValueError("PagePool needs >= 2 pages (page 0 is the "
                              "reserved null page)")
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if kind not in ("attn", "state"):
+            raise ValueError(f"unknown pool kind {kind!r}")
+        if kind == "state" and page_size != 1:
+            raise ValueError("state pools hold one fixed-size state per "
+                             "page; page_size must be 1")
         self.cfg = cfg
         self.page_size = page_size
         self.n_pages = n_pages
         self.dtype = dtype
-        self.kv = torch.zeros(
-            (cfg.n_layers, n_pages, page_size, 2 * cfg.n_kv_heads,
-             cfg.head_dim), dtype=dtype, device=device)
+        self.kind = kind
+        if kind == "attn":
+            self.kv = torch.zeros(
+                (cfg.n_layers, n_pages, page_size, 2 * cfg.n_kv_heads,
+                 cfg.head_dim), dtype=dtype, device=device)
+        else:
+            from repro_torch.models import registry as R   # import cycle
+            # the state's leaves with the page id on axis 1
+            self.kv = R.cache_struct(cfg, n_pages, dtype=dtype,
+                                     device=device)
         # LIFO free list: freshly freed (hot) pages are reused first
         self._free: List[int] = list(range(n_pages - 1, 0, -1))
+
+    def leaves(self) -> List[torch.Tensor]:
+        """The pool's buffers: the attention pool, or the state's leaves."""
+        return [self.kv] if isinstance(self.kv, torch.Tensor) \
+            else list(self.kv.values())
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.leaves())
 
     def cache(self, pages, lengths) -> PagedKVCache:
         """View the pool + a batch's tables/lengths as a PagedKVCache."""
         return PagedKVCache(kv=self.kv, pages=pages, lengths=lengths,
-                            page_size=self.page_size)
+                            page_size=self.page_size, kind=self.kind)
 
     @property
     def capacity(self) -> int:
@@ -128,15 +171,16 @@ class PagePool:
         self._free.extend(pages)
 
     def reset(self) -> None:
-        """Free everything and zero the buffer."""
-        self.kv.zero_()
+        """Free everything and zero the buffers, in place."""
+        for t in self.leaves():
+            t.zero_()
         self._free = list(range(self.n_pages - 1, 0, -1))
 
     def defrag(self, tables: Sequence[List[int]]) -> None:
         """Compact every live page to the lowest ids: one device gather
-        permutes the pool in place, and each table in ``tables`` (mutable
-        lists of page ids) is rewritten in place.  Pages not covered by
-        any table are treated as free."""
+        a buffer permutes the pool in place, and each table in ``tables``
+        (mutable lists of page ids) is rewritten in place.  Pages not
+        covered by any table are treated as free."""
         live = [p for table in tables for p in table]
         if len(set(live)) != len(live):
             raise ValueError("defrag: a page id appears in two tables")
@@ -144,10 +188,12 @@ class PagePool:
         src = list(range(self.n_pages))          # new id -> old id
         for old, new in remap.items():
             src[new] = old
-        perm = torch.tensor(src, dtype=torch.long, device=self.kv.device)
+        bufs = self.leaves()
+        perm = torch.tensor(src, dtype=torch.long, device=bufs[0].device)
         # back into the same storage: a CUDA graph captured over the pool
         # reads it where it was
-        self.kv.copy_(self.kv.index_select(1, perm))
+        for t in bufs:
+            t.copy_(t.index_select(1, perm))
         for table in tables:
             table[:] = [remap[p] for p in table]
         self._free = list(range(self.n_pages - 1, len(live), -1))
@@ -194,6 +240,23 @@ def scatter_prefill(pool_kv, k, v, pages, lengths, *, page_size: int):
     return pool_kv
 
 
+def scatter_state(pool_kv, state, rows):
+    """Write per-request recurrent state into its pool rows, in place.
+    pool_kv leaves: (L, n_pages, ...); state leaves: (L, B, ...); rows:
+    (B,) int64 page ids (one page per request).  Repeated ids (inactive
+    slots, all at the null page) leave the null page's row undefined,
+    which no request reads.  Returns ``pool_kv``."""
+    for k, p in pool_kv.items():
+        p.index_copy_(1, rows, state[k].to(p.dtype))
+    return pool_kv
+
+
+def gather_state(pool_kv, rows):
+    """Per-request state rows out of the pool: the inverse of
+    ``scatter_state`` (leaves (L, n_pages, ...) -> (L, B, ...))."""
+    return {k: p.index_select(1, rows) for k, p in pool_kv.items()}
+
+
 # --------------------------------------------------------------------- #
 # paged decode forward
 # --------------------------------------------------------------------- #
@@ -228,11 +291,11 @@ def paged_decode_attn(p, x, pool_layer, pages, lengths, *, page_size: int,
     return o.reshape(B, 1, n_heads * head_dim) @ p.w_o
 
 
-def paged_decode(model, cfg: ModelConfig, cache: PagedKVCache, token):
-    """One decode step over the attention page pool: ``registry.
-    decode_step``'s paged branch.  token: (B, 1) int64.  Returns (logits
-    (B, 1, V) float32, the cache with lengths + 1); the pool is updated
-    in place."""
+def _paged_attn_decode(model, cfg: ModelConfig, cache: PagedKVCache,
+                       token):
+    """One decode step over the attention page pool.  token: (B, 1)
+    int64.  Returns (logits (B, 1, V) float32, the cache with lengths +
+    1); the pool is updated in place."""
     x = model.tok[token]
     for layer, pool_layer in zip(model.layers, cache.kv):
         h = rmsnorm(x, layer.norm1, cfg.norm_eps)
@@ -246,3 +309,27 @@ def paged_decode(model, cfg: ModelConfig, cache: PagedKVCache, token):
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
     logits = logits_from_hidden(model, x)
     return logits, dataclasses.replace(cache, lengths=cache.lengths + 1)
+
+
+def _paged_state_decode(model, cfg: ModelConfig, cache: PagedKVCache,
+                        token):
+    """One decode step of a recurrent family served from a state pool:
+    gather each slot's state row (``pages[:, 0]``), run the family's
+    decode step, which needs no position, and scatter the rows back in
+    place.  Inactive slots read and write the null row, which no live
+    request reads."""
+    from repro_torch.models import registry as R   # import cycle
+    rows = cache.pages[:, 0]
+    logits, state = R.family(cfg).decode_step(
+        model, cfg, gather_state(cache.kv, rows), token)
+    scatter_state(cache.kv, state, rows)
+    return logits, dataclasses.replace(cache, lengths=cache.lengths + 1)
+
+
+def paged_decode(model, cfg: ModelConfig, cache: PagedKVCache, token):
+    """``registry.decode_step``'s paged branch, dispatched on the pool
+    kind.  token: (B, 1) int64.  Returns (logits (B, 1, V) float32, the
+    cache with lengths + 1); the pool is updated in place."""
+    if cache.kind == "attn":
+        return _paged_attn_decode(model, cfg, cache, token)
+    return _paged_state_decode(model, cfg, cache, token)

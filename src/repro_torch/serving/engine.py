@@ -1,27 +1,33 @@
-"""Continuous-batching serving engine over the paged KV pool
+"""Continuous-batching serving engine over a page pool
 (``repro.serving.engine`` in PyTorch).
 
 - **Request API.**  Callers ``submit()`` a ``GenerationRequest`` and
   either pump ``step()`` (each returns (rid, token, finished) events as
   they are sampled) or call ``drain()`` for the finished
   ``GenerationResult``s; ``generate()`` is the blocking wrapper.
-- **Prefill and decode.**  Prefill runs one request at a time through
-  the bucketed ragged prefill (prompts right-padded to a ladder of
-  bucket lengths), then the page scatter and a greedy first token.
-  Decode runs every slot, live or not, at one fixed slot count.  The
-  bucket ladder and the fixed slot count fix the shapes the card sees,
-  so one graph per bucket and one decode graph serve every call.
+- **Two modes** (``registry.serving_mode``).  ``"paged"`` (the dense
+  family): prefill runs one request at a time through the bucketed
+  ragged prefill (prompts right-padded to a ladder of bucket lengths),
+  then the page scatter and a greedy first token; pages of
+  ``page_size`` tokens are allocated lazily, when a slot's length
+  crosses a page boundary.  ``"state"`` (Mamba-2): each request holds
+  exactly one page of recurrent state that never grows
+  (``page_size == pages_per_slot == 1``), and prefill runs at the
+  prompt's exact length (padding would run the recurrence over the
+  padding tokens), so there is one prefill entry per distinct prompt
+  length instead of per bucket.  Decode runs every slot, live or not,
+  at one fixed slot count.
 - **Admit/evict at every step.**  A pending request is admitted when the
   pool can cover its worst-case page demand (so no admitted request can
   run out mid-decode); a finished one (EOS or max tokens) is evicted and
-  its pages freed the step it finishes.  Pages are allocated lazily,
-  when a slot's length crosses a page boundary.
+  its pages freed the step it finishes.
 - **Greedy decoding**, held token for token against the reference
   engine by the tests.
 - **The compile cache.**  As the reference keeps one prefill executable
-  per prompt bucket and one decode executable, the engine keeps one
-  entry per bucket (``_prefill_fns``) and one for its fixed decode slot
-  count (``_decode_fns``), with the reference's bookkeeping
+  per prompt bucket (per prompt length in state mode) and one decode
+  executable, the engine keeps one entry per bucket or length
+  (``_prefill_fns``) and one for its fixed decode slot count
+  (``_decode_fns``), with the reference's bookkeeping
   (``executables <= executable_budget``).  Each entry reads one packed
   int64 input: the tokens, the page-table rows and the lengths, built on
   the host and sent in one copy.  On the card an entry holds a CUDA
@@ -36,7 +42,7 @@
   raises.  On the CPU an entry holds the eager function.
 
 Inactive slots run with an all-null page-table row: their writes land in
-the null page and their outputs are discarded.
+the null page (the null state row) and their outputs are discarded.
 
 The engine runs on the model's device: the kernels on the card, the
 plain versions on the CPU.
@@ -122,13 +128,10 @@ class ServingEngine:
         self.mode = R.serving_mode(cfg)
         if self.mode is None:
             raise NotImplementedError(
-                f"continuous batching needs a paged cache; arch_type="
-                f"{cfg.arch_type!r} with sliding_window="
+                f"continuous batching needs a paged or single-page cache; "
+                f"arch_type={cfg.arch_type!r} with sliding_window="
                 f"{cfg.sliding_window} needs the dense Server, which comes "
-                f"with a later slice")
-        if self.mode == "state":
-            raise NotImplementedError(
-                f"state-mode serving comes with {R.STATE_SERVING_SLICE}")
+                f"with {R.SERVER_SLICE}")
         if model.dtype != dtype:
             raise ValueError(f"model holds {model.dtype} weights; build it "
                              f"with dtype={dtype} to serve in {dtype}")
@@ -136,18 +139,23 @@ class ServingEngine:
         self.model = model
         self.dtype = dtype
         self.device = model.device
-        self.page_size = page_size
+        self.page_size = page_size if self.mode == "paged" else 1
         self.max_len = max_len                    # prompt + generated cap
         self.decode_slots = decode_slots
         self.detokenizer = detokenizer
-        self.pages_per_slot = -(-max_len // page_size)
+        if self.mode == "paged":
+            self.pages_per_slot = -(-max_len // self.page_size)
+        else:
+            self.pages_per_slot = 1               # O(1) recurrent state
         if n_pages is None:
             n_pages = decode_slots * self.pages_per_slot + 1
-        self.pool = SC.PagePool(cfg, n_pages, page_size, dtype=dtype,
-                                device=self.device)
+        self.pool = SC.PagePool(
+            cfg, n_pages, self.page_size, dtype=dtype, device=self.device,
+            kind="attn" if self.mode == "paged" else "state")
         self.buckets = tuple(sorted(buckets)) if buckets else \
             pow2_buckets(max_len)
-        if self.buckets[-1] > self.pages_per_slot * page_size:
+        if self.mode == "paged" and \
+                self.buckets[-1] > self.pages_per_slot * self.page_size:
             raise ValueError(
                 f"largest bucket {self.buckets[-1]} exceeds the per-slot "
                 f"page window {self.pages_per_slot * page_size}")
@@ -160,7 +168,7 @@ class ServingEngine:
         self._reserved = 0              # future pages owed to active slots
         self.steps = 0
         self._occupancy_sum = 0.0
-        self._prefill_fns: Dict[int, _Call] = {}     # bucket -> entry
+        self._prefill_fns: Dict[int, _Call] = {}     # bucket/length -> entry
         self._decode_fns: Dict[int, _Call] = {}      # batch -> entry
         self._warm: set = set()         # kinds whose first call has run
         self.captures = 0               # graphs captured
@@ -188,9 +196,12 @@ class ServingEngine:
     @property
     def executable_budget(self) -> int:
         """The serving compile invariant: one prefill entry per prompt
-        bucket plus one decode entry for the engine's one fixed slot
-        count."""
-        return len(self.buckets) + 1
+        bucket (``"paged"``; per distinct prompt length for ``"state"``,
+        whose exact-length prefill cannot be padded) plus one decode
+        entry for the engine's one fixed slot count."""
+        if self.mode == "paged":
+            return len(self.buckets) + 1
+        return len(self._prefill_fns) + 1
 
     def _run(self, kind: str, fns: Dict[int, _Call], key: int,
              make: Callable[[], Callable], host: np.ndarray) -> torch.Tensor:
@@ -240,7 +251,8 @@ class ServingEngine:
             raise ValueError(
                 f"request: prompt {s} + max_new_tokens "
                 f"{req.max_new_tokens} exceeds max_len {self.max_len}")
-        self._bucket_for(s)             # fail fast on oversized prompts
+        if self.mode == "paged":
+            self._bucket_for(s)         # fail fast on oversized prompts
         if req.rid is None:
             req.rid = self._next_rid
             self._next_rid += 1
@@ -274,11 +286,12 @@ class ServingEngine:
             S = len(req.prompt)
             # the last sampled token is never written back, so the
             # worst case stores S + max_new_tokens - 1 positions
-            total = self.pool.pages_for(S + req.max_new_tokens - 1)
+            # (recurrent state is O(1): always exactly one page)
+            total = self._pages_needed(S + req.max_new_tokens - 1)
             if self.pool.n_free - self._reserved < total:
                 break                   # head-of-line blocking, FIFO order
             self._pending.popleft()
-            pages = self.pool.alloc(self.pool.pages_for(S))
+            pages = self.pool.alloc(self._pages_needed(S))
             self._reserved += total - len(pages)
             slot = _Slot(req=req, length=0, pages=pages, total_pages=total)
             self.slots[i] = slot
@@ -288,6 +301,17 @@ class ServingEngine:
 
     def _run_prefill(self, slot: _Slot) -> int:
         S = len(slot.req.prompt)
+        if self.mode == "state":
+            # exact length: the prompt, its length, its one page id
+            host = np.zeros(S + 2, np.int64)
+            host[:S] = slot.req.prompt
+            host[S] = S
+            host[S + 1] = slot.pages[0]
+            tok = self._run("prefill", self._prefill_fns, S,
+                            lambda: partial(_state_prefill_packed,
+                                            self.model, self.cfg,
+                                            self.pool.kv, length=S), host)
+            return int(tok[0, 0])
         bucket = self._bucket_for(S)
         # packed: the right-padded prompt, its length, its page-table row
         host = np.zeros(bucket + 1 + self.pages_per_slot, np.int64)
@@ -326,9 +350,19 @@ class ServingEngine:
         self._live_rids.discard(slot.req.rid)
         self.slots[i] = None
 
+    def _pages_needed(self, n_tokens: int) -> int:
+        """Worst-case pages for ``n_tokens``: token-granular for the
+        paged mode, exactly one fixed-size state page for ``"state"``."""
+        if self.mode == "state":
+            return 1
+        return self.pool.pages_for(n_tokens)
+
     def _grow_pages(self) -> None:
         """Lazy allocation: a slot gets its next page only when the next
-        write would cross into it (covered by the admit reservation)."""
+        write would cross into it (covered by the admit reservation).
+        State slots never grow: their page holds O(1) state."""
+        if self.mode == "state":
+            return
         for slot in self.slots:
             if slot is None:
                 continue
@@ -353,7 +387,8 @@ class ServingEngine:
         B = self.decode_slots
         nxt = self._run("decode", self._decode_fns, B, lambda: partial(
             _decode_packed, self.model, self.cfg, self.pool.kv, slots=B,
-            page_size=self.page_size), self._decode_inputs(active))
+            page_size=self.page_size, kind=self.pool.kind),
+            self._decode_inputs(active))
         nxt = nxt.cpu().numpy()
         for i, slot in active:
             slot.length += 1
@@ -455,6 +490,15 @@ def _prefill(model, cfg, pool_kv, tokens, lengths, pages_row, *,
 
 
 @torch.inference_mode()
+def _state_prefill(model, cfg, pool_kv, tokens, pages_row):
+    """Prefill one request (B=1) at its exact length, scatter its state
+    into its one page (in place) and greedy-sample the first token."""
+    logits, cache = R.prefill(model, cfg, tokens)
+    SC.scatter_state(pool_kv, cache.data, pages_row[:, 0])
+    return _greedy(logits)
+
+
+@torch.inference_mode()
 def _decode(model, cfg, cache, token):
     """One decode step over every slot + greedy sampling."""
     logits, _ = R.decode_step(model, cfg, cache, token)
@@ -471,12 +515,21 @@ def _prefill_packed(model, cfg, pool_kv, packed, *, bucket, page_size):
 
 
 @torch.inference_mode()
-def _decode_packed(model, cfg, pool_kv, packed, *, slots, page_size):
+def _state_prefill_packed(model, cfg, pool_kv, packed, *, length):
+    """``_state_prefill`` on the engine's packed input (length + 2,)
+    int64: the prompt, its length, its page id."""
+    return _state_prefill(model, cfg, pool_kv, packed[:length][None],
+                          packed[length + 1:][None])
+
+
+@torch.inference_mode()
+def _decode_packed(model, cfg, pool_kv, packed, *, slots, page_size,
+                   kind="attn"):
     """``_decode`` on the engine's packed input (B + B·P + B,) int64:
     the slots' last tokens, their page-table rows and their lengths."""
     B = slots
     P = (packed.shape[0] - 2 * B) // B
     cache = SC.PagedKVCache(kv=pool_kv, pages=packed[B:B + B * P].view(B, P),
                             lengths=packed[B + B * P:].to(torch.int32),
-                            page_size=page_size)
+                            page_size=page_size, kind=kind)
     return _decode(model, cfg, cache, packed[:B][:, None])

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels on the card, each against its plain
-version, the serving engine and one training step of the dense model
-and of Mamba-2 on the card against the same on the CPU, and a CI-sized
+version, the serving engine (dense, and Mamba-2 from the state pool)
+and one training step of the dense model and of Mamba-2 on the card
+against the same on the CPU, and a CI-sized
 run of the kernel benchmark; in the built library's machine code, that
 the bfloat16 flash forward, dq and dk/dv and the bfloat16 SSD chunk
 kernel run on the tensor cores; that the RMSNorm backward is one
@@ -629,6 +630,51 @@ def test_mamba2_train_step_on_card_matches_cpu(cuda):
     assert abs(out["cpu"][0] - out["cuda"][0]) < 1e-4
     for a, b in zip(out["cpu"][1], out["cuda"][1]):
         assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max())
+
+
+def test_mamba2_state_engine_on_card_matches_cpu(cuda, monkeypatch):
+    """The reduced mamba2 served in the engine's state mode on the card
+    (the chunk and RMSNorm kernels, graphs replayed after the first
+    prefill and decode) against the same engine on the CPU (plain
+    versions), float32, same weights: the same tokens, one prefill entry
+    per prompt length, and on the card the kernels' launches exactly,
+    ``ssd_chunk`` L a prefill and the RMSNorm forward 2L+1 a prefill and
+    a decode step, with the plain versions never called."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2 as M
+    cfg = get_config("mamba2-2.7b").reduced()
+    cpu = R.init_model(cfg, seed=3, dtype=torch.float32, device="cpu")
+    card = R.init_model(cfg, seed=3, dtype=torch.float32,
+                        device="cpu").to(cuda)
+    rng = np.random.default_rng(12)
+    sizes, news = (2, 40, 77, 40, 5, 100), (6, 4, 9, 5, 7, 3)
+    reqs = [(rng.integers(0, cfg.vocab_size, (s,)).astype(np.int32), n)
+            for s, n in zip(sizes, news)]
+    outs, engines = [], []
+    for model in (cpu, card):
+        if model is card:
+            def refuse(*a, **k):
+                raise AssertionError("a plain version ran on the card")
+            for mod, name in ((ref, "rmsnorm_ref"), (ref, "ssd_chunk_ref"),
+                              (M, "ssd_chunked")):
+                monkeypatch.setattr(mod, name, refuse)
+            before = (SSD.launches, RN.launches)
+        eng = ServingEngine(cfg, model, dtype=torch.float32,
+                            decode_slots=2, max_len=128)
+        for p, n in reqs:
+            eng.submit(GenerationRequest(prompt=p, max_new_tokens=n))
+        outs.append({r.rid: r.tokens.tolist() for r in eng.drain()})
+        engines.append(eng)
+    assert outs[0] == outs[1]
+    eng = engines[1]
+    L = cfg.n_layers
+    assert (SSD.launches - before[0], RN.launches - before[1]) == \
+        (L * len(sizes), (2 * L + 1) * (len(sizes) + eng.steps))
+    assert eng.n_prefill_executables == len(set(sizes))
+    assert eng.executables == eng.executable_budget
+    # every prompt length but the first one's (eager), and the decode
+    assert eng.captures == len(set(sizes))
+    assert eng.pool.n_used == 0
 
 
 # --------------------------------------------------------------------- #

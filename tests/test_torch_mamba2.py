@@ -381,14 +381,22 @@ def test_init_model_follows_reference_rules(reduced):
     assert float(mix.conv_w.abs().max()) <= 3 * 0.2 + 1e-6
 
 
-def test_serving_raises_for_the_ssm_family(reduced):
+def test_ssm_family_serves_from_the_state_pool(reduced):
+    """Mamba-2 serves in the engine's ``"state"`` mode (the serving slice
+    is held to the reference in ``tests/test_torch_mamba2_serving.py``);
+    the bucketed ragged prefill stays closed to it, as in the
+    reference."""
     cfg = reduced[2]
     model = R.init_model(cfg, dtype=torch.float32, device="cpu")
     assert R.serving_mode(cfg) == "state"
-    with pytest.raises(NotImplementedError, match="state-serving"):
-        ServingEngine(cfg, model, dtype=torch.float32)
+    eng = ServingEngine(cfg, model, dtype=torch.float32, decode_slots=2,
+                        max_len=16)
+    assert (eng.mode, eng.pool.kind, eng.page_size) == ("state", "state", 1)
+    out = eng.generate(np.arange(8, dtype=np.int32)[None], 3)
+    assert out.shape == (1, 3) and eng.pool.n_used == 0
     toks = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="state-serving"):
+    with pytest.raises(NotImplementedError,
+                       match="ragged prefill needs full attention"):
         R.prefill_ragged(model, cfg, toks, torch.tensor([4]))
 
 

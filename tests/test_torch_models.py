@@ -193,9 +193,19 @@ def test_serving_mode_matches_reference(arch_type, window):
 @pytest.mark.parametrize("arch_type,slice_name", [
     ("moe", "other-families"), ("ssm", "Mamba-2")])
 def test_unported_families_name_their_slice(arch_type, slice_name):
-    """MoE is not ported at all; Mamba-2 trains, and serving it raises
-    naming the state-serving slice."""
+    """MoE is not ported at all.  Mamba-2 trains and serves from the
+    recurrent state pool; the one serving path closed to it, the
+    bucketed ragged prefill, says that Mamba-2 keeps the exact-length
+    path."""
     cfg = ModelConfig(**dict(TINY, arch_type=arch_type))
+    if arch_type == "ssm":
+        model = R.init_model(cfg, dtype=torch.float32, device="cpu")
+        assert ServingEngine(cfg, model, dtype=torch.float32).mode == \
+            "state"
+        with pytest.raises(NotImplementedError, match=slice_name):
+            R.prefill_ragged(model, cfg, torch.zeros(1, 4).long(),
+                             torch.tensor([4]))
+        return
     with pytest.raises(NotImplementedError, match=slice_name):
         model = R.init_model(cfg, dtype=torch.float32, device="cpu")
         ServingEngine(cfg, model, dtype=torch.float32)
