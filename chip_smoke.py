@@ -2,8 +2,9 @@
 """Build the port's CUDA kernels, check them, serve seesaw-150m and train
 it with a Seesaw batch ramp, save, stop and resume that run and train it
 under the adaptive ramp, train mamba2-2.7b with a Seesaw ramp and serve
-it from the recurrent state pool, and run the kernel benchmark on one
-NVIDIA card.
+it from the recurrent state pool, serve seesaw-150m and starcoder2-3b
+through the blocking ``Server`` (starcoder2-3b from its sliding-window
+ring cache), and run the kernel benchmark on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -211,6 +212,36 @@ decode graph, each replayed once per step.
   greedy tokens over a short mix (prompts of 2-100); and on the card
   the prefill of p[:-8] then 8 decode steps of p's last 8 tokens give
   the logits of the prefill of p within 1e-3.
+- Phase 12, the blocking ``Server`` (``repro_torch.train.serve``) over
+  the contiguous caches, decoding through one captured graph per
+  (batch, cache layout) after an eager first step.  (a) seesaw-150m at
+  full width and depth, bf16, max_len 1024: 8 prompts of 500 (bucket
+  512), 64 new each; launches exactly flash 12 (one prefill), the
+  RMSNorm forward 25 a prefill and a decode step, the ragged decode 12
+  a decode step; tokens equal to an all-eager Server's; tok/s, the
+  prefill's ms, a replayed step beside its bytes bound.  Then float32:
+  phase 2's first 8 requests through the engine (8 slots) and each
+  alone through a Server sized to the engine's page window (the
+  reference's oracle test): first-token logits within 1e-3, tokens
+  equal.  (b) starcoder2-3b at full width and depth (30 layers, GQA
+  24/2, hd 128, a 4096-token window), bf16, max_len 8192: a ring of
+  4096 slots a layer.  2 prompts of 4,500 with 64 new (the ring built
+  from S >= W), 2 of 4,000 with 160 new (the ring wraps at decode step
+  97); launches exactly the ragged decode 30 a decode step, the RMSNorm
+  forward 61 a prefill and a decode step, flash 0 (windowed layers run
+  ``chunked_attention``); tokens equal to an all-eager Server's; tok/s,
+  the prefill's seconds, peak memory, a replayed step beside its bytes
+  bound and under torch.profiler, and one windowed layer's attention
+  at S = 4,500 beside the flash kernel's with no window.  (c) float32:
+  starcoder2-3b's width at 4 layers, the prefill of p[:-k] and k decode
+  steps against the prefill of p within 1e-3 at (4,090, 12), which
+  wraps the ring, and (4,500, 8); the reduced starcoder2 on the card
+  and on the CPU, same weights, through the Server: first-token logits
+  within 1e-3, tokens equal, over prompts that wrap its 64-slot ring.
+  Phase 1 also checks the ragged decode at starcoder2-3b's ring (B=2,
+  Skv=4096, H=24, Hkv=2, hd=128) and the RMSNorm forward at 2 x 3072;
+  both are timed (the decode at full windows, beside SDPA with GQA and a
+  length mask), as is the RMSNorm forward at 1000 x 3072.
 
 - Phase 8, the kernel benchmark: ``repro_torch.bench.kernels`` at full
   size through its ``main`` (the reference's attention, RMSNorm and SSD
@@ -229,7 +260,8 @@ decode graph, each replayed once per step.
 Prints the card's name and power limit, one ``kernels`` JSON line (the
 eight kernels), one ``engine`` and one ``train`` JSON line (phase 9's
 result in the latter), one ``mamba2`` JSON line, one ``mamba2_serve``
-line (phases 11 and 11b, with the card), one ``checkpoint`` line
+line (phases 11 and 11b, with the card), one ``server`` line (phase
+12), one ``checkpoint`` line
 (phase 10: bytes written, write, restore and verify seconds and GB/s,
 the async save's stall beside a sync save's time, the adaptive run's
 cuts, the card's name and power limit), and last ``{"ok": true,
@@ -240,6 +272,7 @@ CUDA device it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -247,6 +280,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -365,6 +399,7 @@ def phase1(RN, FA, PG, ref):
         dn = str(dtype).replace("torch.", "")
         for rows, d, tag in ((1024, 1024, "prefill"), (8, 1024, "decode"),
                              (1000, 3072, "llama"),
+                             (2, 3072, "starcoder2-decode"),
                              *((n, 1024, f"bucket{n}")
                                for n in PREFILL_BUCKETS)):
             x, s, err = rmsnorm_case(RN, ref, rows, d, dtype, g)
@@ -377,10 +412,13 @@ def phase1(RN, FA, PG, ref):
             errors.append(("flash_fwd", tag, dn, err))
             inputs[("flash_fwd", tag, dn)] = t
         for B, Skv, H, Hkv, hd, tag in ((8, 1024, 16, 16, 64, "seesaw"),
-                                        (8, 1008, 24, 8, 128, "llama")):
+                                        (8, 1008, 24, 8, 128, "llama"),
+                                        (2, 4096, 24, 2, 128, "starcoder2")):
             t, err = decode_case(PG, ref, B, Skv, H, Hkv, hd, dtype, g, rng)
             errors.append(("ragged_decode", tag, dn, err))
             inputs[("ragged_decode", tag, dn)] = t
+            if tag == "starcoder2":
+                continue        # the Server's ring is a gathered window
             for ps in (1, 4, 16):
                 err = paged_case(PG, ref, B, Skv, H, Hkv, hd, ps, dtype, g,
                                  rng)
@@ -420,7 +458,7 @@ def measure(RN, FA, PG, ref, SC, inputs):
                           library_host_us=timer.host_us(library),
                           shape=key, **b)
 
-    for tag in ("prefill", "decode"):
+    for tag in ("prefill", "decode", "llama", "starcoder2-decode"):
         x, s = inputs[("rmsnorm_fwd", tag, "bfloat16")]
         w = (1.0 + s).to(bf)
         d = x.shape[-1]
@@ -490,6 +528,30 @@ def measure(RN, FA, PG, ref, SC, inputs):
             lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mk),
             bound(2 * q.numel() * es + 2 * nk * Hkv * hd * es + 4 * B,
                   4 * nk * H * hd, bf))
+
+    # starcoder2-3b's ring after a wrap: every one of the W = 4096 slots
+    # in the window (lengths W - 1), the Server's decode at batch 2
+    q2, k2, v2, _, _, _ = inputs[("ragged_decode", "starcoder2",
+                                  "bfloat16")]
+    B2, H2, _ = q2.shape
+    Hkv2, W = k2.shape[1], k2.shape[2]
+    ln = torch.full((B2,), W - 1, dtype=torch.int32, device="cuda")
+    got = PG.ragged_decode_attention(q2, k2, v2, ln)
+    torch.cuda.synchronize()
+    ring_err = max_err(got, ref.ragged_decode_ref(q2, k2, v2, ln), bf)
+    nk = float(B2 * W)
+    row("ragged_decode/starcoder2",
+        f"q (B={B2}, H={H2}, hd={q2.shape[2]}), ring Skv={W}, Hkv={Hkv2}, "
+        f"every length {W - 1} bf16",
+        lambda: PG.ragged_decode_attention(q2, k2, v2, ln),
+        lambda: ref.ragged_decode_ref(q2, k2, v2, ln),
+        lambda: F.scaled_dot_product_attention(
+            q2[:, :, None], k2, v2, attn_mask=(
+                torch.arange(W, device="cuda")[None, :]
+                <= ln.long()[:, None])[:, None, None, :], enable_gqa=True),
+        bound(2 * q2.numel() * es + 2 * nk * Hkv2 * q2.shape[2] * es
+              + 4 * B2, 4 * nk * H2 * q2.shape[2], bf))
+    rows["ragged_decode/starcoder2"]["max_abs_err"] = ring_err
 
     # the same window and lengths read through a page table of 16
     ps = 16
@@ -1500,7 +1562,6 @@ def replayed_card_vs_cpu(small, cpu_model, seq, batch_size, raw):
 def phase5(cfg, R, O):
     """seesaw-150m widths at 2 layers, float32, on the card and the CPU
     with the same weights: loss, grads, and AdamW on the same grads."""
-    import dataclasses
     from repro_torch.data import MarkovLM
     small = dataclasses.replace(cfg, n_layers=2)
     cpu = R.init_model(small, seed=3, dtype=torch.float32, device="cpu",
@@ -1576,7 +1637,6 @@ def phase9(cfg, R, serving):
     bit.  Serving (4 slots, page 16): three decode steps, each replayed
     by the engine and run eagerly on a copy of the pool from the same
     packed input: the next tokens and the pool bit for bit."""
-    import dataclasses
     from repro_torch.configs import (OptimizerConfig, RunConfig,
                                      ScheduleConfig)
     from repro_torch.data import MarkovLM
@@ -2070,8 +2130,8 @@ def profile_state_decode(cfg, eng, serving, reqs):
     count: those after the widest gap on the device timeline, the host's
     time between the two replays.  Reports their sum (busy), the span
     from its first kernel's start to its last one's end (the sum plus
-    the gaps between the graph's kernels) and the top kernels; then 8
-    more steps between CUDA events."""
+    the gaps between the graph's kernels) and the top kernels
+    (``second_step_kernels``); then 8 more steps between CUDA events."""
     from torch.profiler import ProfilerActivity, profile
     for prompt, _ in reqs[:eng.decode_slots]:
         eng.submit(serving.GenerationRequest(prompt=prompt,
@@ -2101,6 +2161,18 @@ def profile_state_decode(cfg, eng, serving, reqs):
     eng.drain()
     if eng.captures != captures0:
         raise AssertionError("the profiled decode steps captured a graph")
+    return {**second_step_kernels(prof, wall_us, "profile_mamba2_decode.txt"),
+            "step_ms_events": events_ms, "step_ms_host": host_ms}
+
+
+def second_step_kernels(prof, wall_us: float, fname: str) -> dict:
+    """The kernels of the second of two profiled steps: those after the
+    widest gap on the device timeline, the host's time between the two
+    replays (a profiler's first replay can lose its first kernels).
+    Their summed time (busy) over the second step's wall, the span from
+    its first kernel's start to its last one's end (the sum plus the
+    gaps between the graph's kernels), the top kernels; the table goes
+    to ``chiprun_out/<fname>``."""
     kern = sorted((e.time_range.start, e.time_range.end, e.name)
                   for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -2116,7 +2188,7 @@ def profile_state_decode(cfg, eng, serving, reqs):
                  reverse=True)
     busy_us = sum(us for us, _, _ in top)
     span_us = kern[-1][1] - kern[0][0] if kern else 0.0
-    with open(os.path.join(OUT_DIR, "profile_mamba2_decode.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, fname), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=40))
     return {"wall_us": wall_us, "device_busy_us": busy_us,
@@ -2125,7 +2197,6 @@ def profile_state_decode(cfg, eng, serving, reqs):
             "rmsnorm_kernels_seen": sum(n for _, name, n in top
                                         if "rmsnorm_fwd" in name),
             "profiled_steps": 2, **host_calls(prof.key_averages()),
-            "step_ms_events": events_ms, "step_ms_host": host_ms,
             "top_kernels": [{"us": us, "name": name[:90], "count": n}
                             for us, name, n in top[:12]]}
 
@@ -2278,6 +2349,305 @@ def phase11b(R, serving):
 
 
 # --------------------------------------------------------------------- #
+# phase 12: the blocking Server over the contiguous caches
+# --------------------------------------------------------------------- #
+
+def quiet_generate(srv, toks, n_new):
+    """``srv.generate`` without its DeprecationWarning, timed to its end
+    (it returns after reading the tokens back): (tokens, seconds)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        out = srv.generate(toks, n_new)
+    return out, time.perf_counter() - t
+
+
+def event_ms(fn, reps: int) -> float:
+    """Median device ms of ``fn()`` between CUDA events over ``reps``
+    calls, the queue drained before each."""
+    ms = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return float(np.median(ms))
+
+
+def server_step(srv, cfg, positions: int, smi, profile_name=None):
+    """The Server's one captured decode graph, each replay continuing the
+    last batch from where it stopped: ``step_ms``, the mean of 10
+    replays queued back to back between CUDA events (as a generation
+    queues its steps; median of 3 runs), and ``one_replay_ms``, one
+    replay on a drained queue (median of 10; it adds the graph launch's
+    latency), beside the step's bytes bound: every weight read once (of
+    the embedding only the rows the batch looks up, when it is not the
+    tied head) and the ``positions`` cache slots a row reads, K and V,
+    every layer.  With ``profile_name``, two more replays under
+    torch.profiler."""
+    (ent,) = [e for e in srv._decode_fns.values() if e.graph is not None]
+    model = srv.model
+    B = ent.token.shape[0]
+    es = model.tok.element_size()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    if model.lm_head is not None:
+        weights -= model.tok.numel() * es - B * cfg.d_model * es
+    cache = B * cfg.n_layers * positions * 2 * cfg.kv_dim * es
+    replay = ent.graph.replay
+    one_ms = event_ms(replay, 10)
+    step_ms = event_ms(lambda: [replay() for _ in range(10)], 3) / 10
+    out = {"step_ms": step_ms, "one_replay_ms": one_ms,
+           **bound(weights + cache, 0, srv.dtype),
+           "weight_bytes": weights, "cache_bytes": cache,
+           "batch": B, "card": smi}
+    if profile_name:
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            replay()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            replay()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+        out["profile"] = second_step_kernels(prof, wall_us, profile_name)
+        # the profiler's own cost stretches the profiled wall; the busy
+        # share of a step as the events time it
+        out["profile"]["device_busy_share_of_step_ms"] = \
+            out["profile"]["device_busy_us"] / (step_ms * 1e3)
+    return out
+
+
+def eager_server(Server, cfg, model, **kw):
+    """A Server whose every decode step runs eagerly: the reference its
+    replayed tokens are held to."""
+    srv = Server(cfg, model, **kw)
+    srv._warm = _EveryCallEager()
+    return srv
+
+
+def phase12a(cfg, R, serving, Server, ctr, smi):
+    """seesaw-150m at full width and depth.  bf16: ``Server(max_len=
+    1024)`` generates 64 tokens for 8 prompts of 500 (bucket 512), after
+    a warm-up that runs the entry's first step eagerly and captures its
+    graph; launches exact, tokens equal to an all-eager Server's; tok/s,
+    the prefill's ms and a replayed step against its bound.  float32:
+    phase 2's first 8 requests through the engine at 8 slots and each
+    alone through a Server sized to the engine's page window with its
+    buckets (the reference's oracle test): first-token logits within
+    1e-3 (the Server's prefill against the engine's prefill entry's
+    function), greedy tokens equal."""
+    bf = torch.bfloat16
+    L = cfg.n_layers
+    model = R.init_model(cfg, seed=0, dtype=bf, device="cuda")
+    srv = Server(cfg, model, max_len=1024, dtype=bf)
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, cfg.vocab_size, (8, 500)).astype(np.int32)
+    quiet_generate(srv, toks, 3)     # eager first step, then the capture
+    if srv.captures != 1:
+        raise AssertionError(f"warm-up captured {srv.captures} graphs")
+    for m, a in ctr.values():
+        setattr(m, a, 0)
+    out, wall = quiet_generate(srv, toks, 64)
+    launches = {n: getattr(m, a) for n, (m, a) in ctr.items()}
+    want = dict({n: 0 for n in ctr}, rmsnorm_fwd=(2 * L + 1) * 64,
+                flash_fwd=L, ragged_decode=L * 63)
+    if launches != want or srv.captures != 1:
+        raise AssertionError(f"launches {launches}, want {want}; "
+                             f"{srv.captures} captures")
+    eager, eager_wall = quiet_generate(
+        eager_server(Server, cfg, model, max_len=1024, dtype=bf), toks, 64)
+    if not np.array_equal(out, eager):
+        raise AssertionError("replayed tokens differ from the eager ones")
+    if out.min() < 0 or out.max() >= cfg.padded_vocab:
+        raise AssertionError("token out of the vocab")
+    dev = torch.from_numpy(toks.astype(np.int64)).cuda()
+    prefill_ms = event_ms(lambda: srv.prefill(dev), 5)
+    step = server_step(srv, cfg, 500 + 63 + 1, smi)
+    bf_rec = {"batch": 8, "prompt": 500, "bucket": 512, "new": 64,
+              "wall_s": wall, "tok_per_s": 8 * 64 / wall,
+              "eager_wall_s": eager_wall,
+              "eager_tok_per_s": 8 * 64 / eager_wall,
+              "tokens_equal_eager": True, "launches": launches,
+              "captures": srv.captures, "captures_s": srv.capture_s,
+              "n_prefill_executables": srv.n_prefill_executables,
+              "prefill_ms": prefill_ms, "decode_step": step}
+    del srv, model
+    torch.cuda.empty_cache()
+
+    f32 = torch.float32
+    model = R.init_model(cfg, seed=0, dtype=f32, device="cuda")
+    eng = serving.ServingEngine(cfg, model, decode_slots=8, page_size=16,
+                                max_len=1024, dtype=f32)
+    reqs = requests(cfg)[:8]
+    rids, results, _ = serve(eng, serving, reqs)
+    oracle = Server(cfg, model, max_len=eng.pages_per_slot * eng.page_size,
+                    buckets=eng.buckets, dtype=f32)
+    diff = 0.0
+    for rid, res, (prompt, n) in zip(rids, results, reqs):
+        solo, _ = quiet_generate(oracle, prompt[None], n)
+        if res is None or res.tokens.tolist() != solo[0].tolist():
+            raise AssertionError(f"rid {rid}: the engine's tokens differ "
+                                 f"from the solo Server's")
+        S = len(prompt)
+        bucket = eng._bucket_for(S)
+        padded = torch.zeros(1, bucket, dtype=torch.int64, device="cuda")
+        padded[0, :S] = torch.from_numpy(prompt.astype(np.int64))
+        with torch.inference_mode():
+            got, _ = oracle.prefill(padded[:, :S])
+            want, _, _ = R.prefill_ragged(
+                model, cfg, padded, torch.tensor([S], dtype=torch.int32,
+                                                 device="cuda"))
+        diff = max(diff, float((got - want).abs().max()))
+    if diff > 1e-3:
+        raise AssertionError(f"first-token logits differ by {diff:.3g}")
+    return {**bf_rec, "oracle": {
+        "requests": len(reqs), "dtype": "float32",
+        "tokens_equal": True, "first_token_logit_max_abs_diff": diff,
+        "oracle_max_len": oracle.max_len,
+        "oracle_captures": oracle.captures}}
+
+
+def phase12b(cfg, R, Server, ctr, smi):
+    """starcoder2-3b at full width and depth, bf16, ``Server(max_len=
+    8192)``: a ring of W = 4096 slots a layer.  Batch (i): 2 prompts of
+    4,500, 64 new (the window binds in the prefill, the ring is built
+    from S >= W); batch (ii): 2 prompts of 4,000, 160 new (the ring
+    wraps at decode step 97).  Launches exact (the ragged decode 30 a
+    decode step, the RMSNorm forward 61 a prefill and a decode step,
+    flash 0), tokens equal to an all-eager Server's; tok/s, the
+    prefill's seconds, peak memory, a replayed step against its bound
+    and under torch.profiler; and one windowed layer's attention
+    (``chunked_attention``) at S = 4,500 beside the flash kernel's with
+    no window."""
+    from repro_torch.kernels import backend as KB
+    from repro_torch.models.attention import chunked_attention
+    bf = torch.bfloat16
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = R.init_model(cfg, seed=0, dtype=bf, device="cuda")
+    srv = Server(cfg, model, max_len=8192, dtype=bf)
+    eager = eager_server(Server, cfg, model, max_len=8192, dtype=bf)
+    rng = np.random.default_rng(13)
+    quiet_generate(srv, rng.integers(0, cfg.vocab_size, (2, 64)), 3)
+    if srv.captures != 1:
+        raise AssertionError(f"warm-up captured {srv.captures} graphs")
+    batches = {}
+    for tag, S, n_new in (("i", 4500, 64), ("ii", 4000, 160)):
+        toks = rng.integers(0, cfg.vocab_size, (2, S)).astype(np.int32)
+        for m, a in ctr.values():
+            setattr(m, a, 0)
+        out, wall = quiet_generate(srv, toks, n_new)
+        launches = {n: getattr(m, a) for n, (m, a) in ctr.items()}
+        want = dict({n: 0 for n in ctr}, rmsnorm_fwd=(2 * L + 1) * n_new,
+                    ragged_decode=L * (n_new - 1))
+        if launches != want or srv.captures != 1:
+            raise AssertionError(f"batch {tag}: launches {launches}, want "
+                                 f"{want}; {srv.captures} captures")
+        ref_out, eager_wall = quiet_generate(eager, toks, n_new)
+        if not np.array_equal(out, ref_out):
+            raise AssertionError(f"batch {tag}: replayed tokens differ "
+                                 f"from the eager ones")
+        if out.min() < 0 or out.max() >= cfg.padded_vocab:
+            raise AssertionError(f"batch {tag}: token out of the vocab")
+        dev = torch.from_numpy(toks.astype(np.int64)).cuda()
+        batches[tag] = {"batch": 2, "prompt": S, "new": n_new,
+                        "wall_s": wall, "tok_per_s": 2 * n_new / wall,
+                        "eager_wall_s": eager_wall,
+                        "eager_tok_per_s": 2 * n_new / eager_wall,
+                        "tokens_equal_eager": True, "launches": launches,
+                        "prefill_s": event_ms(lambda: srv.prefill(dev),
+                                              3) / 1e3}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step = server_step(srv, cfg, 4096, smi, "profile_starcoder2_decode.txt")
+    del srv, eager
+    torch.cuda.empty_cache()
+    # one windowed layer's attention at S = 4,500 beside flash's
+    g = torch.Generator(device="cuda").manual_seed(12)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn(2, 4500, H, hd, generator=g, device="cuda").to(bf)
+    k = torch.randn(2, 4500, Hkv, hd, generator=g, device="cuda").to(bf)
+    v = torch.randn(2, 4500, Hkv, hd, generator=g, device="cuda").to(bf)
+    timer = Timer(iters=10)
+    with torch.inference_mode():
+        window_ms = timer(lambda: chunked_attention(
+            q, k, v, window=cfg.sliding_window))
+        flash_ms = timer(lambda: KB.attention(q, k, v))
+    return {"model": cfg.name, "params": cfg.param_count(),
+            "weight_gb": sum(p.numel() * p.element_size()
+                             for p in model.parameters()) / 1e9,
+            "max_len": 8192, "ring_slots": min(cfg.sliding_window, 8192),
+            "batches": batches, "captures": 1, "peak_mem_gb": peak,
+            "decode_step": step,
+            "windowed_attention_layer_ms": window_ms,
+            "flash_layer_ms_no_window": flash_ms,
+            "attention_shape": f"q (2, 4500, {H}, {hd}), k/v (2, 4500, "
+                               f"{Hkv}, {hd}) bf16", "card": smi}
+
+
+def phase12c(cfg, R, Server):
+    """The ring's numbers.  float32 on the card, starcoder2-3b's full
+    width cut to 4 layers: the prefill of p[:-k] then k decode steps give
+    the prefill of p's last logits within 1e-3, at (S0 = 4,090, k = 12),
+    which wraps the ring during the decode, and (4,500, 8).  The reduced
+    starcoder2 (window 64) in float32 on the card and on the CPU with
+    the same weights: first-token logits within 1e-3 and equal greedy
+    tokens over prompts that wrap its 64-slot ring."""
+    f32 = torch.float32
+    cut = dataclasses.replace(cfg, n_layers=4)
+    model = R.init_model(cut, seed=1, dtype=f32, device="cuda")
+    rng = np.random.default_rng(14)
+    ring = {}
+    with torch.inference_mode():
+        for S0, k in ((4090, 12), (4500, 8)):
+            p = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                              (1, S0 + k))).cuda()
+            want, _ = R.prefill(model, cut, p, cache_len_cap=8192)
+            got, cache = R.prefill(model, cut, p[:, :S0], cache_len_cap=8192)
+            for i in range(S0, S0 + k):
+                got, cache = R.decode_step(model, cut, cache, p[:, i:i + 1])
+            d = float((got - want).abs().max())
+            if d > 1e-3 or cache.lengths.tolist() != [S0 + k]:
+                raise AssertionError(f"S0 {S0}, k {k}: prefill + decode "
+                                     f"differ from the prefill by {d:.3g}")
+            ring[f"S0={S0},k={k}"] = d
+    del model, cache
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+    small = get_config("starcoder2-3b").reduced()
+    cpu = R.init_model(small, seed=5, dtype=f32, device="cpu")
+    card = R.init_model(small, seed=5, dtype=f32, device="cpu").cuda()
+    batches = [(rng.integers(0, small.vocab_size, (2, 60)), 20),
+               (rng.integers(0, small.vocab_size, (1, 100)), 30)]
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        srv = Server(small, model, max_len=256, dtype=f32)
+        logits, toks = [], []
+        for t, n in batches:
+            with torch.inference_mode():
+                lg, _ = srv.prefill(torch.from_numpy(t).to(dev))
+            logits.append(lg.cpu())
+            toks.append(quiet_generate(srv, t, n)[0].tolist())
+        out[dev] = (logits, toks)
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    if diff > 1e-3:
+        raise AssertionError(f"first-token logits differ by {diff:.3g}")
+    if out["cuda"][1] != out["cpu"][1]:
+        raise AssertionError(f"tokens differ: card {out['cuda'][1]}, cpu "
+                             f"{out['cpu'][1]}")
+    return {"prefill_plus_decode_vs_prefill_max_abs_diff": ring,
+            "reduced_first_token_logit_max_abs_diff": diff,
+            "reduced_tokens": out["cuda"][1]}
+
+
+
+# --------------------------------------------------------------------- #
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2419,6 +2789,20 @@ def main() -> int:
     record["mamba2_serve_card_vs_cpu"] = phase11b(R, serving)
     log(f"phase 11b: {time.perf_counter() - t:.1f} s "
         f"{record['mamba2_serve_card_vs_cpu']}")
+    torch.cuda.empty_cache()
+    from repro_torch.train.serve import Server
+    ctr = serve_counters(RN, FA, PG, SSD, OV)
+    t = time.perf_counter()
+    record["server"] = {"seesaw": phase12a(cfg, R, serving, Server, ctr,
+                                           smi)}
+    torch.cuda.empty_cache()
+    record["server"]["starcoder2"] = phase12b(get_config("starcoder2-3b"),
+                                              R, Server, ctr, smi)
+    torch.cuda.empty_cache()
+    record["server"]["ring"] = phase12c(get_config("starcoder2-3b"), R,
+                                        Server)
+    record["server"]["s"] = time.perf_counter() - t
+    log(f"phase 12: {record['server']['s']:.1f} s {record['server']}")
     t = time.perf_counter()
     bench_ctr = dict(counters(RN, FA), ssd_chunk=(SSD, "launches"),
                      overlap_norm=(OV, "launches"))
@@ -2578,8 +2962,27 @@ def main() -> int:
             for S, r in ssd_times["ssd_chunk/prefill"].items()},
         "compiled": {k: v for k, v in record["compiled"].items()
                      if k.startswith("ssd_chunk")}})
+    server = record["server"]
     for k in kernels:
+        if k["name"] in ("rmsnorm_fwd", "flash_fwd", "ragged_decode"):
+            k["server_launches"] = {
+                "seesaw": server["seesaw"]["launches"][k["name"]],
+                **{f"starcoder2_{t}": b["launches"][k["name"]]
+                   for t, b in server["starcoder2"]["batches"].items()}}
+        if k["name"] == "ragged_decode":
+            tm = times["ragged_decode/starcoder2"]
+            k["starcoder2_ring"] = {f: tm[f] for f in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err", "shape")}
         if k["name"] == "rmsnorm_fwd":
+            k["d3072"] = {
+                tag: {**{f: times[f"rmsnorm_fwd/{tag}"][f] for f in (
+                          "ms", "graph_us", "plain_ms", "library_ms",
+                          "library_graph_us", "bound_ms", "bound_by",
+                          "shape")},
+                      "max_abs_err": err_of[("rmsnorm_fwd", tag,
+                                             "bfloat16")]}
+                for tag in ("llama", "starcoder2-decode")}
             k["mamba2_serving_launches"] = \
                 record["mamba2_serve"]["launches"]["rmsnorm_fwd"]
             for d in (2560, 5120):
@@ -2645,6 +3048,7 @@ def main() -> int:
                       "card_vs_cpu": record["mamba2_card_vs_cpu"]}))
     print(json.dumps({"mamba2_serve": record["mamba2_serve"],
                       "card_vs_cpu": record["mamba2_serve_card_vs_cpu"]}))
+    print(json.dumps({"server": record["server"]}))
     adaptive = {k: v for k, v in record["adaptive"].items()
                 if k not in ("losses", "lrs")}
     print(json.dumps({"checkpoint": record["checkpoint"],

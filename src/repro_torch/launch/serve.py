@@ -45,8 +45,10 @@ def main(argv=None):
 
     cfg = get_config(args.arch).reduced()
     if R.serving_mode(cfg) is None:
-        raise SystemExit(f"arch {cfg.name} (arch_type={cfg.arch_type}) has "
-                         f"no continuous-batching mode in the port yet")
+        raise SystemExit(
+            f"arch {cfg.name} (arch_type={cfg.arch_type}, window="
+            f"{cfg.sliding_window}) has no paged/state serving mode; use "
+            f"repro_torch.train.serve.Server")
     dtype = torch.bfloat16
     model = R.init_model(cfg, seed=args.seed, dtype=dtype,
                          device=args.device)

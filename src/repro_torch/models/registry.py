@@ -2,13 +2,18 @@
 in PyTorch).
 
 ``supports_paged`` and ``serving_mode`` are the reference's rules,
-decided from the config alone.  The port trains and serves the dense
-family (from the paged KV pool) and the ssm family (Mamba-2, from the
-recurrent state pool); every other family, and the dense family's
-contiguous cache (the ``Server`` oracle), raises ``NotImplementedError``
-naming the slice that brings it.
+decided from the config alone.  The port trains the dense family (full
+attention) and the ssm family (Mamba-2), and serves both: the dense
+family from the paged KV pool or, with a sliding window, through the
+``Server``'s contiguous ring cache; Mamba-2 from the recurrent state
+pool.  The contiguous caches of ``prefill``, ``decode_step`` and
+``cache_struct`` (``serving.cache.DenseKVCache``) serve both families.
+Every other family raises ``NotImplementedError`` naming the slice
+that brings it.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -17,7 +22,6 @@ from repro_torch.models import mamba2, transformer
 
 _TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 _FAMILIES = {"dense": transformer, "ssm": mamba2}
-SERVER_SLICE = "the dense Server oracle slice"
 
 _LATER = {
     "moe": "the other-families slice (MoE)",
@@ -67,8 +71,9 @@ def supports_paged(cfg: ModelConfig) -> bool:
 
 
 def serving_mode(cfg: ModelConfig):
-    """``"paged"``, ``"state"`` (recurrent families) or ``None`` (the
-    dense oracle only)."""
+    """``"paged"``, ``"state"`` (recurrent families) or ``None``
+    (``train.serve.Server`` only: a ring cache's rows share one position
+    array, so they cannot step at their own depths)."""
     if supports_paged(cfg):
         return "paged"
     if cfg.arch_type == "ssm":
@@ -76,19 +81,24 @@ def serving_mode(cfg: ModelConfig):
     return None
 
 
-def prefill(model, cfg: ModelConfig, tokens):
+def prefill(model, cfg: ModelConfig, tokens, *,
+            cache_len_cap: Optional[int] = None):
     """Run the prompt, tokens (B, S), at its exact length and build the
     decode cache.  Returns (logits (B, 1, V) float32, a
     ``serving.cache.DenseKVCache`` whose ``lengths`` are all S).  The
-    ssm family only: the dense family's contiguous cache comes with
-    the dense ``Server`` oracle."""
+    dense family needs ``cache_len_cap``: its full cache holds that many
+    positions, its ring min(window, cap) slots; the ssm family's state
+    is O(1) in the length and takes none."""
     from repro_torch.serving import cache as sc   # serving imports this
-    if cfg.arch_type != "ssm":
-        family(cfg)             # raises for a family not ported yet
-        raise NotImplementedError(
-            f"the {cfg.arch_type} family's contiguous cache comes with "
-            f"{SERVER_SLICE}; serve it from the page pool")
-    logits, data = family(cfg).prefill(model, cfg, tokens)
+    fam = family(cfg)
+    if cfg.arch_type == "ssm":
+        logits, data = fam.prefill(model, cfg, tokens)
+    elif cache_len_cap is None:
+        raise ValueError(f"the {cfg.arch_type} family's prefill needs "
+                         f"cache_len_cap")
+    else:
+        logits, data = fam.prefill(model, cfg, tokens,
+                                   cache_len_cap=cache_len_cap)
     B, S = tokens.shape
     lengths = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
     return logits, sc.DenseKVCache(data=data, lengths=lengths)
@@ -111,37 +121,42 @@ def prefill_ragged(model, cfg: ModelConfig, tokens, lengths):
 def decode_step(model, cfg: ModelConfig, cache, token):
     """One decode step against a typed cache, dispatched on its type: a
     ``PagedKVCache`` (the serving pools, updated in place: attention
-    pages or recurrent state rows) or a ``DenseKVCache`` (the ssm
-    family's contiguous state from ``prefill``; all rows at one depth,
-    ``lengths[0]``, which the recurrent step does not need).  Returns
-    (logits (B, 1, V), the cache with lengths advanced by one)."""
+    pages or recurrent state rows) or a ``DenseKVCache`` from
+    ``prefill`` or ``cache_struct``.  A dense cache steps at per-request
+    depths (``lengths``) when the config can serve from pages, and at
+    one depth (``lengths[0]``) otherwise: a ring's rows share one
+    ``pos``, and the recurrent step needs no position.  The dense
+    family's K/V are written in place; the ssm family's state is left
+    as it was.  Returns (logits (B, 1, V), the cache with lengths
+    advanced by one)."""
     from repro_torch.serving import cache as sc   # serving imports this
+    fam = family(cfg)
     if isinstance(cache, sc.PagedKVCache):
-        family(cfg)             # raises for a family not ported yet
         return sc.paged_decode(model, cfg, cache, token)
     if not isinstance(cache, sc.DenseKVCache):
         raise TypeError(
             f"decode_step takes a DenseKVCache or a PagedKVCache, got "
             f"{type(cache).__name__}; build one with registry.prefill or "
             f"a serving.cache.PagePool")
-    if cfg.arch_type != "ssm":
-        family(cfg)
-        raise NotImplementedError(
-            f"the {cfg.arch_type} family's contiguous cache comes with "
-            f"{SERVER_SLICE}")
-    logits, data = family(cfg).decode_step(model, cfg, cache.data, token)
+    if cfg.arch_type == "ssm":
+        logits, data = fam.decode_step(model, cfg, cache.data, token)
+    else:
+        cl = cache.lengths if supports_paged(cfg) else cache.lengths[0]
+        logits, data = fam.decode_step(model, cfg, cache.data, cl, token)
     return logits, sc.DenseKVCache(data=data, lengths=cache.lengths + 1)
 
 
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int = 0, *,
                  dtype=torch.bfloat16, device="cuda"):
-    """Zeroed contiguous decode cache for ``batch`` rows: the ssm
-    family's recurrent state (O(1) in ``max_len``), leaves (L, batch,
-    ...).  The state pool builds its buffer from it, with the page id on
-    axis 1."""
-    if cfg.arch_type != "ssm":
-        family(cfg)
-        raise NotImplementedError(
-            f"the {cfg.arch_type} family's contiguous cache comes with "
-            f"{SERVER_SLICE}")
-    return family(cfg).state_struct(cfg, batch, dtype=dtype, device=device)
+    """Zeroed contiguous decode cache for ``batch`` rows, leaves (L,
+    batch, ...): the dense family's full KV cache of ``max_len``
+    positions or its ring of min(window, max_len) slots (with ``pos``),
+    or the ssm family's recurrent state (O(1) in ``max_len``), from
+    which the state pool builds its buffer with the page id on axis 1."""
+    fam = family(cfg)
+    if cfg.arch_type == "ssm":
+        return fam.state_struct(cfg, batch, dtype=dtype, device=device)
+    if max_len < 1:
+        raise ValueError(f"the {cfg.arch_type} family's cache needs "
+                         f"max_len >= 1, got {max_len}")
+    return fam.cache_struct(cfg, batch, max_len, dtype=dtype, device=device)

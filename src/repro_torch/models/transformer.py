@@ -1,5 +1,7 @@
 """Dense decoder-only transformer (``repro.models.transformer`` in
-PyTorch): the training forward and loss, the ragged bucketed prefill and
+PyTorch): the training forward and loss, and serving: the exact-length
+``prefill`` into a contiguous cache (full, or a ring for a sliding
+window), the ragged bucketed prefill, the one-token ``decode_step`` and
 the logits.
 
 The reference stacks its layers along a leading L dim and scans them;
@@ -13,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
 from repro_torch.models.attention import Attention, attn_forward
 from repro_torch.models.layers import (MLP, cross_entropy_chunked,
                                        lm_head_matrix, mlp, param, recompute,
@@ -110,7 +113,9 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, tokens, *,
     (``torch.utils.checkpoint``); it changes memory, not the numbers."""
     if cfg.sliding_window is not None:
         raise NotImplementedError(
-            "sliding-window attention comes with a later slice")
+            "training a sliding-window arch comes with a later slice: "
+            "windowed attention with a backward (serve it through "
+            "train.serve.Server)")
     x = F.embedding(tokens, model.tok.to(dtype))
     for layer in model.layers:
         if remat:
@@ -147,6 +152,69 @@ def logits_from_hidden(model: Transformer, h):
     return (h @ lm_head_matrix(model)).float()
 
 
+def cache_struct(cfg: ModelConfig, batch: int, max_len: int, *,
+                 dtype=torch.bfloat16, device="cuda"):
+    """Zeroed contiguous decode cache (the reference's ``_cache_struct``),
+    leaves stacked along a leading L dim: a full cache {"k", "v"} (L,
+    batch, max_len, Hkv, hd), or for a sliding window a ring of W =
+    min(window, max_len) slots, {"k", "v"} (L, batch, W, Hkv, hd) and
+    "pos" (L, W) int32, -1 while empty."""
+    if cfg.sliding_window is not None:
+        one = A.init_ring_cache(batch, min(cfg.sliding_window, max_len),
+                                cfg.n_kv_heads, cfg.head_dim, dtype=dtype,
+                                device=device)
+    else:
+        one = A.init_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
+                           dtype=dtype, device=device)
+    return {n: t.expand(cfg.n_layers, *t.shape).contiguous()
+            for n, t in one.items()}
+
+
+def _prefill_trunk(model: Transformer, cfg: ModelConfig, tokens,
+                   window):
+    """Every layer over the prompt: (final hidden (B, S, d) after the
+    final norm, the layers' K/V lists, each (B, S, Hkv, hd))."""
+    x = model.tok[tokens]
+    ks, vs = [], []
+    for layer in model.layers:
+        h = rmsnorm(x, layer.norm1, cfg.norm_eps)
+        a, (k, v) = attn_forward(
+            layer.attn, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, window=window)
+        x = x + a
+        h = rmsnorm(x, layer.norm2, cfg.norm_eps)
+        x = x + mlp(layer.mlp, h, cfg.act)
+        ks.append(k)
+        vs.append(v)
+    return rmsnorm(x, model.final_norm, cfg.norm_eps), ks, vs
+
+
+def prefill(model: Transformer, cfg: ModelConfig, tokens, *,
+            cache_len_cap: int):
+    """Run the prompt, tokens (B, S), at its exact length and build the
+    decode cache.  Returns (logits (B, 1, V) float32 at the last
+    position, the cache): a full cache of ``cache_len_cap`` rows whose
+    first S hold the prompt's K/V (the rest zeros), or for a sliding
+    window a ring of min(window, cache_len_cap) slots
+    (``attention.ring_from_prefill``)."""
+    B, S = tokens.shape
+    window = cfg.sliding_window
+    if window is None and S > cache_len_cap:
+        raise ValueError(f"prompt of {S} tokens exceeds cache_len_cap "
+                         f"{cache_len_cap}")
+    x, ks, vs = _prefill_trunk(model, cfg, tokens, window)
+    if window is not None:
+        W = min(window, cache_len_cap)
+        rings = [A.ring_from_prefill(k, v, S, W) for k, v in zip(ks, vs)]
+        data = {n: torch.stack([r[n] for r in rings]) for n in rings[0]}
+    else:
+        data = cache_struct(cfg, B, cache_len_cap, dtype=ks[0].dtype,
+                            device=x.device)
+        data["k"][:, :, :S] = torch.stack(ks)
+        data["v"][:, :, :S] = torch.stack(vs)
+    return logits_from_hidden(model, x[:, -1:]), data
+
+
 def prefill_ragged(model: Transformer, cfg: ModelConfig, tokens, lengths):
     """Bucketed prefill: tokens (B, S_bucket) right-padded to a shared
     bucket length, lengths (B,) true lengths.  Causality keeps every real
@@ -154,26 +222,38 @@ def prefill_ragged(model: Transformer, cfg: ModelConfig, tokens, lengths):
 
     Returns (logits (B, 1, V) float32 at each request's last real token,
     k, v (L, B, S, Hkv, hd)); rows at positions >= lengths[b] hold
-    padding junk that the page pool masks by the causal reach."""
+    padding junk that the cache masks: the decode attention reads no key
+    past a request's length (the page pool, the Server's full cache)."""
     if cfg.sliding_window is not None:
         raise NotImplementedError(
             "ragged bucketed prefill supports full attention only; "
-            "sliding-window archs come with a later slice")
-    x = model.tok[tokens]
-    B, S, _ = x.shape
-    ks, vs = [], []
-    for layer in model.layers:
-        h = rmsnorm(x, layer.norm1, cfg.norm_eps)
-        a, (k, v) = attn_forward(
-            layer.attn, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
-        x = x + a
-        h = rmsnorm(x, layer.norm2, cfg.norm_eps)
-        x = x + mlp(layer.mlp, h, cfg.act)
-        ks.append(k)
-        vs.append(v)
-    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+            "sliding-window (ring-cache) archs keep the exact-length "
+            "prefill path")
+    B, S = tokens.shape
+    x, ks, vs = _prefill_trunk(model, cfg, tokens, None)
     idx = (lengths.long() - 1).clamp(0, S - 1)
     h_last = x[torch.arange(B, device=x.device), idx][:, None]   # (B, 1, d)
     return logits_from_hidden(model, h_last), torch.stack(ks), \
         torch.stack(vs)
+
+
+def decode_step(model: Transformer, cfg: ModelConfig, data, cache_len,
+                token):
+    """One decode step.  token: (B, 1) int; data: the layer-stacked cache
+    from ``prefill`` or ``cache_struct``, written in place (so a captured
+    CUDA graph can replay the step); cache_len: the new token's position,
+    a 0-d tensor (or int) for all rows, or (B,) per request (full cache
+    only).  Returns (logits (B, 1, V) float32, data)."""
+    x = model.tok[token]
+    for i, layer in enumerate(model.layers):
+        h = rmsnorm(x, layer.norm1, cfg.norm_eps)
+        a, _ = A.decode_attn(
+            layer.attn, h, {n: t[i] for n, t in data.items()}, cache_len,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            window=cfg.sliding_window)
+        x = x + a
+        h = rmsnorm(x, layer.norm2, cfg.norm_eps)
+        x = x + mlp(layer.mlp, h, cfg.act)
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return logits_from_hidden(model, x), data

@@ -130,8 +130,8 @@ class ServingEngine:
             raise NotImplementedError(
                 f"continuous batching needs a paged or single-page cache; "
                 f"arch_type={cfg.arch_type!r} with sliding_window="
-                f"{cfg.sliding_window} needs the dense Server, which comes "
-                f"with {R.SERVER_SLICE}")
+                f"{cfg.sliding_window} is served by "
+                f"repro_torch.train.serve.Server")
         if model.dtype != dtype:
             raise ValueError(f"model holds {model.dtype} weights; build it "
                              f"with dtype={dtype} to serve in {dtype}")

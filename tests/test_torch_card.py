@@ -8,7 +8,10 @@ kernel run on the tensor cores; that the RMSNorm backward is one
 launch; and that the engines' CUDA graphs replay their eager steps bit
 for bit, count launches through replays, capture nothing new for a
 short chunk or after a reset, and read a pool defragmented between
-replays.
+replays.  The blocking ``Server`` (full cache and sliding-window ring)
+on the card against the CPU and against its own eager steps, the ring's
+prefill plus decode against the prefill of the whole, and the engine
+against its solo Server oracle.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no JAX, so it runs on the card's machine as it is:
@@ -1020,3 +1023,94 @@ def test_capture_while_an_async_save_streams(cuda, tmp_path):
     tr.close()
     from repro_torch.train import checkpoint as CKPT
     assert CKPT.read_meta(path)["step"] == 1
+
+
+# --------------------------------------------------------------------- #
+# the blocking Server over the full and ring caches
+# --------------------------------------------------------------------- #
+
+SERVER_CFG = dict(name="card-server", arch_type="dense", n_layers=2,
+                  d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                  d_ff=512, vocab_size=512, max_seq_len=4096,
+                  rope_theta=1e4)
+
+
+def _server_models(cuda, **kw):
+    from repro_torch.train.serve import Server
+    cfg = ModelConfig(**dict(SERVER_CFG, **kw))
+    cpu = R.init_model(cfg, seed=3, dtype=torch.float32, device="cpu")
+    card = R.init_model(cfg, seed=3, dtype=torch.float32,
+                        device="cpu").to(cuda)
+    return Server, cfg, cpu, card
+
+
+def _generate(srv, toks, n):
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return srv.generate(toks, n)
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_server_on_card_matches_cpu_and_its_eager_steps(cuda, window):
+    """The Server on the card (a full cache, bucketed; or a ring of 64
+    that the decode wraps) against the CPU's plain versions, float32:
+    first-token logits within 1e-3, tokens equal; and a second batch
+    through the captured decode graph equals an all-eager Server's."""
+    Server, cfg, cpu, card = _server_models(cuda, sliding_window=window)
+    rng = np.random.default_rng(21)
+    batches = [(rng.integers(0, 512, (2, 60)), 20),
+               (rng.integers(0, 512, (2, 75)), 12)]
+    got = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        srv = Server(cfg, model, max_len=128, dtype=torch.float32)
+        with torch.inference_mode():
+            logits, _ = srv.prefill(torch.from_numpy(batches[0][0]).to(dev))
+        got[dev] = (logits.cpu(), [_generate(srv, t, n) for t, n in batches])
+    torch.testing.assert_close(got["cuda"][0], got["cpu"][0], atol=1e-3,
+                               rtol=0)
+    for a, b in zip(got["cuda"][1], got["cpu"][1]):
+        np.testing.assert_array_equal(a, b)
+    srv = Server(cfg, card, max_len=128, dtype=torch.float32)
+    eager = Server(cfg, card, max_len=128, dtype=torch.float32)
+    eager._warm = type("Never", (set,), {"add": lambda self, k: None})()
+    for t, n in batches:
+        np.testing.assert_array_equal(_generate(srv, t, n),
+                                      _generate(eager, t, n))
+    assert srv.captures == 1 and eager.captures == 0
+
+
+def test_ring_prefill_and_decode_on_card_match_the_prefill(cuda):
+    """A ring of 64: the prefill of p[:-k] then k decode steps against the
+    prefill of p, within 1e-3 in float32, for S0 below, at and past the
+    ring (the decode wraps it)."""
+    _, cfg, _, card = _server_models(cuda, sliding_window=64)
+    rng = np.random.default_rng(22)
+    with torch.inference_mode():
+        for S0, k in ((60, 10), (64, 5), (150, 8)):
+            p = torch.from_numpy(rng.integers(0, 512, (2, S0 + k))).to(cuda)
+            want, _ = R.prefill(card, cfg, p, cache_len_cap=4096)
+            got, cache = R.prefill(card, cfg, p[:, :S0], cache_len_cap=4096)
+            for i in range(S0, S0 + k):
+                got, cache = R.decode_step(card, cfg, cache, p[:, i:i + 1])
+            torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+
+
+def test_engine_on_card_matches_solo_server(cuda):
+    """The reference's oracle test on the card: ragged requests through
+    the engine's 2 slots, each equal to its solo run through a Server
+    sized to the engine's page window, float32."""
+    Server, cfg, _, card = _server_models(cuda)
+    eng = ServingEngine(cfg, card, decode_slots=2, page_size=16, max_len=96,
+                        dtype=torch.float32)
+    oracle = Server(cfg, card, max_len=eng.pages_per_slot * eng.page_size,
+                    buckets=eng.buckets, dtype=torch.float32)
+    rng = np.random.default_rng(23)
+    reqs = [(rng.integers(0, 512, (s,)).astype(np.int32), n)
+            for s, n in zip((3, 40, 17, 64, 9), (6, 12, 8, 20, 5))]
+    for p, n in reqs:
+        eng.submit(GenerationRequest(prompt=p, max_new_tokens=n))
+    done = {r.rid: r.tokens for r in eng.drain()}
+    for rid, (p, n) in enumerate(reqs):
+        np.testing.assert_array_equal(done[rid], _generate(oracle, p[None],
+                                                           n)[0])

@@ -202,6 +202,10 @@ def test_decode_steps_match_jax(pair):
 
 
 def test_decode_step_checks_the_cache(pair):
+    """A raw cache and the ragged prefill raise for Mamba-2; the dense
+    family's contiguous cache, which raised before the dense Server was
+    ported, now runs through the same three registry calls (held to JAX
+    in ``tests/test_torch_server.py``), and its prefill needs a cap."""
     _, _, cfg, model = pair
     tok = torch.zeros(1, 1, dtype=torch.long)
     with pytest.raises(TypeError, match="PagedKVCache"):
@@ -209,12 +213,18 @@ def test_decode_step_checks_the_cache(pair):
     dense = ModelConfig(name="d", arch_type="dense", n_layers=1, d_model=32,
                         n_heads=2, n_kv_heads=1, head_dim=16, d_ff=64,
                         vocab_size=64, max_seq_len=64)
-    with pytest.raises(NotImplementedError, match="Server"):
-        R.decode_step(None, dense, DenseKVCache({}, torch.zeros(1)), tok)
-    with pytest.raises(NotImplementedError, match="Server"):
-        R.prefill(None, dense, tok)
-    with pytest.raises(NotImplementedError, match="Server"):
-        R.cache_struct(dense, 2, 8, device="cpu")
+    dmodel = R.init_model(dense, dtype=torch.float32, device="cpu")
+    empty = R.cache_struct(dense, 2, 8, dtype=torch.float32, device="cpu")
+    assert {n: tuple(t.shape) for n, t in empty.items()} == \
+        {"k": (1, 2, 8, 1, 16), "v": (1, 2, 8, 1, 16)}
+    with pytest.raises(ValueError, match="cache_len_cap"):
+        R.prefill(dmodel, dense, tok)
+    with torch.inference_mode():
+        _, dcache = R.prefill(dmodel, dense, tok, cache_len_cap=8)
+        assert isinstance(dcache, DenseKVCache)
+        logits, dcache = R.decode_step(dmodel, dense, dcache, tok)
+    assert logits.shape == (1, 1, dense.padded_vocab)
+    assert dcache.lengths.tolist() == [2]
     with pytest.raises(NotImplementedError,
                        match="ragged prefill needs full attention"):
         R.prefill_ragged(model, cfg, tok, torch.ones(1, dtype=torch.int32))
