@@ -4,7 +4,9 @@ it with a Seesaw batch ramp, save, stop and resume that run and train it
 under the adaptive ramp, train mamba2-2.7b with a Seesaw ramp and serve
 it from the recurrent state pool, serve seesaw-150m and starcoder2-3b
 through the blocking ``Server`` (starcoder2-3b from its sliding-window
-ring cache), and run the kernel benchmark on one NVIDIA card.
+ring cache), run the paper's benchmarks and train seesaw-150m at its
+critical batch size, Seesaw against cosine, and run the kernel
+benchmark on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -243,6 +245,29 @@ decode graph, each replayed once per step.
   both are timed (the decode at full windows, beside SDPA with GQA and a
   length mask), as is the RMSNorm forward at 1000 x 3072.
 
+- Phase 13, the paper's runs.  (a) The flash forward, dq and dk/dv at
+  head_dim 32 (the figure LMs' 4 heads of 32) against their plain
+  versions, float32 (2e-5) and bfloat16 (2e-2), at (B, S, H, Hkv) = (8,
+  64, 4, 4), (128, 64, 4, 4), (8, 77, 4, 4) and (8, 64, 4, 2); timed in
+  bfloat16 at B = 128 and 8 beside SDPA forward and backward and their
+  bounds (the ``*/hd32`` entries of the ``kernels`` line).  (b) Every
+  suite of ``repro_torch.bench.run`` on the card, in process: every row
+  printed, an ``ERROR`` row fails the phase; each of the 7 LM runs
+  (figures 1, 4 and 6, bf16, remat off) launches exactly, per
+  micro-batch, RMSNorm forward 2L+1 and backward 2L+1, flash forward, dq
+  and dk/dv L each (counts set to 0 just before each ``Trainer.run``).
+  Then figure 1's model and Seesaw plan in float32 on the card against
+  the CPU from the same weights, 10 steps: loss within 1e-4 at every
+  step, LR, batch and phase equal.  (c) seesaw-150m at full width and
+  depth at its CBS: ``paper_run`` (AdamW 0.9/0.95, 10% warmup, lr 3e-3,
+  α = 2, seq 1024, bf16, remat), B0 = ``CBS`` = 256, cut to a horizon of
+  20 cosine steps (5,242,880 tokens) and 2 cuts, ``MarkovLM(2048, 0)``,
+  micro-batches of 32: cosine 20 steps at 256, Seesaw 14 / 1 / 1 at 256
+  / 512 / 1024.  Both must train exactly 5,242,880 tokens on the plan at
+  every step, launch exactly (remat's counts), stay finite and fall 0.5
+  nats; the loss at the token counts both reach, each run's first step
+  and second within 0.05 nats of cosine's final loss, tok/s per batch
+  size, captures and peak memory are reported (the ``paper`` line).
 - Phase 8, the kernel benchmark: ``repro_torch.bench.kernels`` at full
   size through its ``main`` (the reference's attention, RMSNorm and SSD
   sweeps in float32, kernel and plain, forward and forward+backward; the
@@ -261,7 +286,7 @@ Prints the card's name and power limit, one ``kernels`` JSON line (the
 eight kernels), one ``engine`` and one ``train`` JSON line (phase 9's
 result in the latter), one ``mamba2`` JSON line, one ``mamba2_serve``
 line (phases 11 and 11b, with the card), one ``server`` line (phase
-12), one ``checkpoint`` line
+12), one ``paper`` line (phase 13), one ``checkpoint`` line
 (phase 10: bytes written, write, restore and verify seconds and GB/s,
 the async save's stall beside a sync save's time, the adaptive run's
 cuts, the card's name and power limit), and last ``{"ok": true,
@@ -695,7 +720,22 @@ def measure_bwd(RN, FA, ref, inputs):
         shape=f"x ({n}, {d}) bf16",
         **bound(2 * n * d * es + 4 * d, 4 * n * d, bf))
 
-    qt, kt, vt, out, lse, dot = inputs[("flash_bwd", "seesaw", "bfloat16")]
+    flash = flash_rows(FA, ref, inputs[("flash_bwd", "seesaw", "bfloat16")],
+                       timer)
+    rows.update({"flash_bwd_dq": flash["dq"], "flash_bwd_dkv": flash["dkv"],
+                 "flash_bwd": flash["bwd"], "flash_fwd/train": flash["fwd"]})
+    return rows
+
+
+def flash_rows(FA, ref, t, timer):
+    """The flash forward, dq and dk/dv timed on one MHA (q, k, v, out,
+    lse, do) in bfloat16, each beside its plain version, one PyTorch call and
+    its bound: ``fwd``, ``dq``, ``dkv`` and ``bwd`` (delta, dq and dk/dv
+    through ``flash_bwd``).  The plain version and the library call
+    compute dq, dk and dv together, so the two backward rows share
+    them."""
+    bf = torch.bfloat16
+    qt, kt, vt, out, lse, dot = t
     B, H, S, hd = qt.shape
     Hkv = kt.shape[1]
     es = qt.element_size()
@@ -703,33 +743,34 @@ def measure_bwd(RN, FA, ref, inputs):
         .contiguous()
     pairs = B * H * S * (S + 1) / 2
     reads = (2 * B * H + 2 * B * Hkv) * S * hd * es + 8 * B * H * S
-    qa, ka, va = (t.detach().clone().requires_grad_() for t in (qt, kt, vt))
+    qa, ka, va = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
     o = F.scaled_dot_product_attention(qa, ka, va, is_causal=True)
     plain_ms = timer(lambda: ref.flash_bwd_ref(qt, kt, vt, out, lse, dot))
     library_ms = timer(lambda: torch.autograd.grad(
         o, (qa, ka, va), dot, retain_graph=True))
     shape = f"q (B={B}, S={S}, H={H}, hd={hd}) bf16, causal"
-    rows["flash_bwd_dq"] = dict(
+    rows = {}
+    rows["dq"] = dict(
         ms=timer(lambda: FA.flash_bwd_dq(qt, kt, vt, dot, lse, delta)),
         plain_ms=plain_ms, library_ms=library_ms,
         host_us=timer.host_us(
             lambda: FA.flash_bwd_dq(qt, kt, vt, dot, lse, delta)),
         shape=shape, **bound(reads + B * H * S * hd * es, 6 * hd * pairs,
                              bf))
-    rows["flash_bwd_dkv"] = dict(
+    rows["dkv"] = dict(
         ms=timer(lambda: FA.flash_bwd_dkv(qt, kt, vt, dot, lse, delta)),
         plain_ms=plain_ms, library_ms=library_ms,
         host_us=timer.host_us(
             lambda: FA.flash_bwd_dkv(qt, kt, vt, dot, lse, delta)),
         shape=shape, **bound(reads + 2 * B * Hkv * S * hd * es,
                              8 * hd * pairs, bf))
-    rows["flash_bwd"] = dict(
+    rows["bwd"] = dict(
         ms=timer(lambda: FA.flash_bwd(qt, kt, vt, out, lse, dot)),
         shape=shape + "; delta, dq and dk/dv")
-    # the forward at the training shape, as remat launches it 2L times a
-    # micro-batch
-    rows["flash_fwd/train"] = dict(
+    # the forward, as remat launches it 2L times a micro-batch (L without)
+    rows["fwd"] = dict(
         ms=timer(lambda: FA.flash_fwd(qt, kt, vt)),
+        plain_ms=timer(lambda: ref.attention_ref(qt, kt, vt)),
         library_ms=timer(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
         shape=shape,
@@ -773,7 +814,7 @@ def compiled_report(_build, lib):
         raise AssertionError(f"ssd_chunk: HMMA and spills in the bf16 form "
                              f"{tc}, HMMA in the f32 form {f32}")
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        for hd in (64, 128):
+        for hd in (32, 64, 128):
             tc = out[f"{name}_mma_kernel<bfloat16, hd {hd}>"]
             f32 = out[f"{name}_kernel<float32, hd {hd}>"]
             if not tc["hmma"] > 0 or f32["hmma"] != 0:
@@ -1447,10 +1488,7 @@ def phase4(cfg, RN, FA):
     drop = losses[0] - float(np.mean(losses[-3:]))
     if drop < 0.5:
         raise AssertionError(f"loss fell {drop:.3f} < 0.5 nats: {losses}")
-    L = cfg.n_layers
-    check_launches(out, {"rmsnorm_fwd": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
-                         "flash_fwd": 2 * L, "flash_bwd_dq": L,
-                         "flash_bwd_dkv": L})
+    check_launches(out, per_micro_batch(cfg, run.remat))
     return tr, out
 
 
@@ -2649,6 +2687,245 @@ def phase12c(cfg, R, Server):
 
 # --------------------------------------------------------------------- #
 
+# --------------------------------------------------------------------- #
+# phase 13: the paper's runs
+# --------------------------------------------------------------------- #
+
+# (B, S, H, Hkv, tag): the figure LMs' attention (4 heads of 32, S = 64,
+# B = 8 and the ramp's 128), a ragged S and GQA; hd 32 throughout
+FLASH_HD32 = ((8, 64, 4, 4, "fig-B8"), (128, 64, 4, 4, "fig-B128"),
+              (8, 77, 4, 4, "ragged-S77"), (8, 64, 4, 2, "gqa"))
+# 13c: seesaw-150m at its CBS, the horizon cut to 20 cosine steps and the
+# schedule to 2 cuts (the reference's planner then keeps every token)
+PAPER_HORIZON, PAPER_CUTS, PAPER_MICRO = 20, 2, 32
+
+
+def phase13a(FA, ref):
+    """The flash forward, dq and dk/dv at hd 32 against their plain
+    versions in float32 (2e-5) and bfloat16 (2e-2) at ``FLASH_HD32``, then
+    timed in bfloat16 at the two figure-LM shapes."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    errors, inputs = [], {}
+    for dtype in DTYPES:
+        dn = str(dtype).replace("torch.", "")
+        for B, S, H, Hkv, tag in FLASH_HD32:
+            q, k, v, do = (torch.randn(B, S, n, 32, generator=g,
+                                       device="cuda").to(dtype)
+                           for n in (H, Hkv, Hkv, H))
+            qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+            out, lse = FA.flash_fwd(qt, kt, vt)
+            torch.cuda.synchronize()
+            want, want_lse = ref.attention_ref(qt, kt, vt)
+            errors.append(("flash_fwd", f"hd32-{tag}", dn,
+                           max(max_err(out, want, dtype),
+                               max_err(lse, want_lse, dtype))))
+            dq, dk, dv = FA.flash_bwd(qt, kt, vt, out, lse, dot)
+            torch.cuda.synchronize()
+            wq, wk, wv = ref.flash_bwd_ref(qt, kt, vt, out, lse, dot)
+            errors.append(("flash_bwd_dq", f"hd32-{tag}", dn,
+                           max_err(dq, wq, dtype)))
+            errors.append(("flash_bwd_dkv", f"hd32-{tag}", dn,
+                           max(max_err(dk, wk, dtype),
+                               max_err(dv, wv, dtype))))
+            inputs[(tag, dn)] = (qt, kt, vt, out, lse, dot)
+    for name, tag, dn, err in errors:
+        log(f"phase 13a: {name} {tag} {dn}: max |err| {err:.3g}")
+    timer = Timer(iters=30)
+    times = {tag: flash_rows(FA, ref, inputs[(tag, "bfloat16")], timer)
+             for tag in ("fig-B128", "fig-B8")}
+    return errors, times
+
+
+def per_micro_batch(cfg, remat: bool) -> dict:
+    """The five training kernels' launches a micro-batch: under remat
+    each layer's forward kernels run twice."""
+    L, r = cfg.n_layers, 2 if remat else 1
+    return {"rmsnorm_fwd": 2 * L * r + 1, "rmsnorm_bwd": 2 * L + 1,
+            "flash_fwd": L * r, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+
+
+def figure1_card_vs_cpu(steps=10):
+    """Figure 1's model and Seesaw plan in float32 on the card and on the
+    CPU from the same weights, for its first ``steps`` steps: the loss
+    within 1e-4 at every step, LR, batch and phase equal."""
+    from repro_torch.bench import figure1 as F1
+    from repro_torch.data import MarkovLM, PhaseDataLoader
+    from repro_torch.train.trainer import Trainer
+    cfg = F1.config("seesaw", dtype="float32")
+    hist = {}
+    cpu = Trainer(cfg, device="cpu")
+    card = Trainer(cfg, device="cuda")
+    card.state.model.load_state_dict(cpu.state.model.state_dict())
+    for dev, tr in (("cpu", cpu), ("cuda", card)):
+        hist[dev] = tr.run(PhaseDataLoader(MarkovLM(512, seed=0), tr.plan,
+                                           cfg.seq_len, device=dev),
+                           max_steps=steps)
+    diffs = []
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        if (a["lr"], a["batch_size"], a["phase"], a["tokens"]) != \
+                (b["lr"], b["batch_size"], b["phase"], b["tokens"]):
+            raise AssertionError(f"figure 1, step {a['step']}: card {a}, "
+                                 f"CPU {b}")
+        diffs.append(abs(a["loss"] - b["loss"]))
+    if len(diffs) != steps or max(diffs) > 1e-4:
+        raise AssertionError(f"figure 1 card vs CPU: {len(diffs)} steps, "
+                             f"loss diffs {diffs}")
+    return {"steps": steps, "max_loss_diff": max(diffs),
+            "loss_diffs": diffs,
+            "losses": [h["loss"] for h in hist["cuda"]]}
+
+
+def phase13b(ctr):
+    """``repro_torch.bench.run``'s suites on the card, in process: every
+    row (an ``ERROR`` row fails the phase), and each LM run's launches,
+    set to 0 just before its ``Trainer.run`` and read just after, exactly
+    ``per_micro_batch`` times its micro-batches.  Then the float32 gate
+    of figure 1 against the CPU."""
+    from repro_torch.bench import figure1 as F1
+    from repro_torch.bench import run as BR
+    from repro_torch.train import trainer as TRN
+    runs, rows, suite_s = [], [], {}
+    plain_run = TRN.Trainer.run
+
+    def counted_run(self, loader, *a, **kw):
+        for mod, attr in ctr.values():
+            setattr(mod, attr, 0)
+        t = time.perf_counter()
+        hist = plain_run(self, loader, *a, **kw)
+        torch.cuda.synchronize()
+        launches = {n: getattr(mod, attr) for n, (mod, attr) in ctr.items()}
+        mb = sum(self.engine.micro_batches(h["batch_size"]) for h in hist)
+        want = {k: v * mb for k, v in per_micro_batch(
+            self.cfg.model, self.cfg.remat).items()}
+        runs.append({"model": self.cfg.model.name,
+                     "kind": self.cfg.schedule.kind,
+                     "z_loss": self.cfg.z_loss,
+                     "weight_decay": self.cfg.optimizer.weight_decay,
+                     "dtype": self.cfg.dtype, "steps": len(hist),
+                     "tokens": hist[-1]["tokens"],
+                     "batch_sizes": sorted({h["batch_size"] for h in hist}),
+                     "captures": self.engine.captures,
+                     "captures_s": self.engine.capture_s,
+                     "wall_s": time.perf_counter() - t,
+                     "micro_batches_run": mb, "launches": launches,
+                     "launches_ok": launches == want})
+        if launches != want:
+            raise AssertionError(f"{self.cfg.model.name} "
+                                 f"{self.cfg.schedule.kind}: launches "
+                                 f"{launches}, want {want}")
+        return hist
+
+    TRN.Trainer.run = counted_run
+    errors = []
+    try:
+        for name in BR.SUITES:
+            t = time.perf_counter()
+            try:
+                got = BR.suite_rows(name, "cuda")
+            except Exception as e:       # an ERROR row, then the phase fails
+                errors.append(f"{name}/ERROR,0,{type(e).__name__}:{e}")
+                log(errors[-1])
+                continue
+            finally:
+                suite_s[name] = time.perf_counter() - t
+            for row in got:
+                rows.append(BR.csv_row(*row))
+                log(f"phase 13b: {rows[-1]}")
+    finally:
+        TRN.Trainer.run = plain_run
+    if errors:
+        raise AssertionError(f"phase 13b: {errors}")
+    if len(runs) != 7 or not all(r["launches_ok"] for r in runs):
+        raise AssertionError(f"phase 13b: {len(runs)} LM runs, want 7: "
+                             f"{runs}")
+    return {"rows": rows, "runs": runs, "suite_s": suite_s,
+            "launches_per_micro_batch": per_micro_batch(
+                F1.MODEL, F1.config("cosine").remat),
+            "figure1_card_vs_cpu": figure1_card_vs_cpu()}
+
+
+def paper_cfg(cfg, kind):
+    """13c's run: ``paper_run`` of seesaw-150m at its CBS, cut to
+    ``PAPER_HORIZON`` cosine steps of tokens and ``PAPER_CUTS`` cuts."""
+    from repro_torch.configs.seesaw_paper import CBS, paper_run
+    run = paper_run(cfg, kind=kind)
+    b0 = CBS[cfg.name]
+    return dataclasses.replace(
+        run, total_tokens=PAPER_HORIZON * b0 * run.seq_len,
+        schedule=dataclasses.replace(run.schedule, n_cuts=PAPER_CUTS))
+
+
+def phase13c(cfg, ctr):
+    """seesaw-150m at its critical batch size, Seesaw against cosine at
+    equal tokens (``paper_cfg``), each a fresh ``Trainer`` through
+    ``run_ramp`` (one step an engine call, timed to a sync): both train
+    exactly the horizon's tokens on the plan at every step, with exact
+    launches and a loss that falls at least 0.5 nats.  Reports per step
+    the loss, LR, batch, tokens and wall second (captures apart), tok/s
+    at each batch size, peak memory, the losses at the token counts both
+    runs reach, and the step and second at which each run first comes
+    within 0.05 nats of the cosine run's final loss (a reading, not a
+    gate)."""
+    from repro_torch.core.seesaw import measured_speedup
+    want = {"cosine": ([256], [20], [8]),
+            "seesaw": ([256, 512, 1024], [14, 1, 1], [8, 16, 32])}
+    out, plans = {}, {}
+    for kind in ("cosine", "seesaw"):
+        run = paper_cfg(cfg, kind)
+        tr, res = run_ramp(run, ctr, fuse_steps=1,
+                           max_device_batch=PAPER_MICRO, want=want[kind])
+        check_launches(res, per_micro_batch(cfg, run.remat))
+        tokens = PAPER_HORIZON * run.global_batch_size * run.seq_len
+        if res["tokens"] != tokens:
+            raise AssertionError(f"13c {kind}: trained {res['tokens']} "
+                                 f"tokens, want {tokens}")
+        drop = res["losses"][0] - res["loss_last3"]
+        if drop < 0.5:
+            raise AssertionError(f"13c {kind}: loss fell {drop:.3f} < 0.5 "
+                                 f"nats: {res['losses']}")
+        hist = tr.history
+        # per step: the engine call's seconds, its capture apart
+        walls = np.cumsum([dt - cap for _, _, dt, cap in res["chunks"]])
+        res.update(kind=kind, loss_drop=drop,
+                   tokens_per_step=[h["tokens"] for h in hist],
+                   batch_per_step=[h["batch_size"] for h in hist],
+                   wall_s_at_step=[float(w) for w in walls],
+                   wall_s_excl_captures=float(walls[-1]),
+                   micro=PAPER_MICRO, horizon_cosine_steps=PAPER_HORIZON,
+                   n_cuts=PAPER_CUTS,
+                   tokens_scheduled=tr.plan.total_tokens_scheduled(
+                       run.seq_len))
+        plans[kind] = tr.plan
+        out[kind] = res
+        log(f"phase 13c {kind}: {res['steps']} steps, {res['tokens']} "
+            f"tokens, wall {res['wall_s']:.1f} s ({res['captures_s']:.1f} "
+            f"s captures), {res['per_batch_size']}, peak "
+            f"{res['peak_mem_gb']:.2f} GB, losses {res['losses']}")
+        del tr
+        torch.cuda.empty_cache()
+    cos, see = out["cosine"], out["seesaw"]
+    common = sorted(set(cos["tokens_per_step"]) & set(see["tokens_per_step"]))
+    at = {k: dict(zip(out[k]["tokens_per_step"], out[k]["losses"]))
+          for k in out}
+    target = cos["losses"][-1] + 0.05
+    reach = {}
+    for k, r in out.items():
+        hit = next((i for i, v in enumerate(r["losses"]) if v <= target),
+                   None)
+        reach[k] = None if hit is None else {
+            "step": hit + 1, "tokens": r["tokens_per_step"][hit],
+            "wall_s": r["wall_s_at_step"][hit]}
+    return {"runs": out,
+            "loss_at_common_tokens": {t: {k: at[k][t] for k in at}
+                                      for t in common},
+            "final_loss_gap": see["losses"][-1] - cos["losses"][-1],
+            "target_loss": target, "first_within_0.05_of_cosine": reach,
+            "measured_speedup": measured_speedup(plans["seesaw"],
+                                                 plans["cosine"], 1024),
+            "wall_ratio_seesaw_over_cosine": (see["wall_s_excl_captures"]
+                                              / cos["wall_s_excl_captures"])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2803,6 +3080,25 @@ def main() -> int:
                                         Server)
     record["server"]["s"] = time.perf_counter() - t
     log(f"phase 12: {record['server']['s']:.1f} s {record['server']}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    hd32_errors, hd32_times = phase13a(FA, ref)
+    record["paper"] = {"flash_hd32": {"errors": hd32_errors,
+                                      "times": hd32_times}}
+    log(f"phase 13a: {time.perf_counter() - t:.1f} s {hd32_times}")
+    t13 = time.perf_counter()
+    record["paper"]["benchmarks"] = phase13b(counters(RN, FA))
+    record["paper"]["benchmarks"]["s"] = time.perf_counter() - t13
+    log(f"phase 13b: {record['paper']['benchmarks']['s']:.1f} s "
+        f"{record['paper']['benchmarks']['runs']} "
+        f"{record['paper']['benchmarks']['figure1_card_vs_cpu']}")
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    record["paper"]["cbs"] = phase13c(cfg, counters(RN, FA))
+    record["paper"]["cbs"]["s"] = time.perf_counter() - t13
+    record["paper"]["s"] = time.perf_counter() - t
+    log(f"phase 13: {record['paper']['s']:.1f} s")
+    torch.cuda.empty_cache()
     t = time.perf_counter()
     bench_ctr = dict(counters(RN, FA), ssd_chunk=(SSD, "launches"),
                      overlap_norm=(OV, "launches"))
@@ -3028,6 +3324,41 @@ def main() -> int:
         "serving_and_training_launches": 0,
         "shape": f"x ({ov['rows']}, {ov['d']}) float32, the kernel "
                  f"benchmark's path (phase 8)"})
+    # phase 13: the flash kernels at hd 32, launched by the figure LMs
+    paper = record["paper"]
+    err13 = {(n, tag, dn): e for n, tag, dn, e in hd32_errors}
+    for name, key, src, replaces in (
+            ("flash_fwd", "fwd", "src/repro_torch/csrc/flash_fwd.cu",
+             "src/repro/kernels/flash_attention.py:58"),
+            ("flash_bwd_dq", "dq", "src/repro_torch/csrc/flash_bwd.cu",
+             "src/repro/kernels/flash_attention.py:161"),
+            ("flash_bwd_dkv", "dkv", "src/repro_torch/csrc/flash_bwd.cu",
+             "src/repro/kernels/flash_attention.py:200")):
+        tm, tm8 = hd32_times["fig-B128"][key], hd32_times["fig-B8"][key]
+        kernels.append({
+            "name": f"{name}/hd32", "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": sum(r["launches"][name]
+                            for r in paper["benchmarks"]["runs"]),
+            "max_abs_err": err13[(name, "hd32-fig-B128", "bfloat16")],
+            "max_abs_err_f32": err13[(name, "hd32-fig-B128", "float32")],
+            "max_abs_err_all_shapes": {
+                dn: max(e for n, _, d, e in hd32_errors
+                        if n == name and d == dn)
+                for dn in ("bfloat16", "float32")},
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"], "shape": tm["shape"],
+            "b8": {f: tm8[f] for f in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "shape")},
+            "launches_by_run": {f"{r['model']} {r['kind']}":
+                                r["launches"][name]
+                                for r in paper["benchmarks"]["runs"]}})
+    for k in kernels:
+        if k["name"] in counters(RN, FA):
+            k["paper_cbs_launches"] = {
+                kind: r["launches"][k["name"]]
+                for kind, r in paper["cbs"]["runs"].items()}
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -3051,6 +3382,12 @@ def main() -> int:
     print(json.dumps({"server": record["server"]}))
     adaptive = {k: v for k, v in record["adaptive"].items()
                 if k not in ("losses", "lrs")}
+    cbs = dict(paper["cbs"], runs={
+        kind: {k: v for k, v in r.items() if k != "chunks"}
+        for kind, r in paper["cbs"]["runs"].items()})
+    print(json.dumps({"paper": {
+        "benchmarks": paper["benchmarks"], "cbs": cbs,
+        "flash_hd32_errors": hd32_errors, "s": paper["s"], "card": smi}}))
     print(json.dumps({"checkpoint": record["checkpoint"],
                       "adaptive": adaptive, "card": smi}))
     print(json.dumps({"ok": True, "device": {

@@ -48,11 +48,15 @@ class SeesawPlan:
     kind: str = "seesaw"
 
     def steps_per_phase(self, seq_len: int) -> List[int]:
-        """Whole steps per phase, with a token carry across phases so
-        the total token budget is conserved exactly (±1 step) whatever
-        the ramp — the equal-FLOPs comparison depends on it.  This is
-        the authoritative allocation: the loader, the LR cuts and the
-        phase of every step follow it."""
+        """Whole steps per phase, with a token carry across phases.
+        This is the authoritative allocation: the loader, the LR cuts and
+        the phase of every step follow it.  The last phase rounds its
+        carry to the nearest whole step of its own batch, so when that
+        batch is large against the budget the plan trains fewer (or
+        more) tokens than ``total_tokens``: a step of the last phase,
+        not of the first (:meth:`total_tokens_scheduled`).  It is the
+        reference's allocation, kept so that plans, and the checkpoints
+        that carry them, are the reference's."""
         out = []
         carry = 0.0
         for i, p in enumerate(self.phases):
@@ -68,6 +72,12 @@ class SeesawPlan:
 
     def total_steps(self, seq_len: int) -> int:
         return sum(self.steps_per_phase(seq_len))
+
+    def total_tokens_scheduled(self, seq_len: int) -> float:
+        """The tokens the realized steps train: ``total_tokens`` less
+        what the last phase's rounding drops, or more."""
+        return sum(s * p.batch_size * seq_len for s, p in
+                   zip(self.steps_per_phase(seq_len), self.phases))
 
     def batch_sizes(self) -> List[int]:
         return [p.batch_size for p in self.phases]
@@ -245,6 +255,23 @@ def build_plan(*, kind: str, base_lr: float, total_tokens: float,
         b *= b_mult
     return SeesawPlan(base_lr, warmup, total_tokens, phases,
                       alpha=lr_cut, beta=b_mult, kind=kind).validate()
+
+
+def divergence_risk(alpha: float, beta: float) -> bool:
+    """Lemma 4: the effective NSGD LR scales by (√β/α) per cut — a ramp
+    with α < √β grows the effective LR without bound."""
+    return alpha < math.sqrt(beta) - 1e-12
+
+
+def effective_lr_ratio(alpha: float, beta: float, k: int) -> float:
+    """η̃_k/η̃_0 for NSGD under Assumption 2:  (√β/α)^k."""
+    return (math.sqrt(beta) / alpha) ** k
+
+
+def theoretical_speedup() -> float:
+    """Lemma 1: serial-step reduction of Seesaw vs quarter-cosine in the
+    continuous limit = 1 − 2/π ≈ 0.3634."""
+    return 1.0 - 2.0 / math.pi
 
 
 def measured_speedup(plan_seesaw: SeesawPlan, plan_ref: SeesawPlan,

@@ -56,8 +56,10 @@
 //   stay in registers.
 // - hd 64: Q and dO are A fragments in registers for the whole loop (Q 16,
 //   dO 16, dQ 32, S 32, dP 32 registers), 64-key tiles, 48 KB of shared
-//   memory.  hd 128: Q and dO stay in shared memory and are re-read by
-//   ldmatrix at each key tile, 32-key tiles, 64 KB.
+//   memory.  hd 32 (the paper's figure LMs) takes the same layout at half
+//   the registers for Q, dO and dQ and 24 KB, its 64-byte rows swizzled
+//   as mma.cuh says.  hd 128: Q and dO stay in shared memory and are
+//   re-read by ldmatrix at each key tile, 32-key tiles, 64 KB.
 // - Epilogue: dQ goes through the warp's own rows of the Q tile to 16-byte
 //   stores of the rows below S.
 //
@@ -75,16 +77,17 @@
 //   stream, so the next tile is in flight while this one is multiplied.
 // - hd 64: K and V are A fragments in registers for the whole loop (K 16,
 //   V 16, dK 32, dV 32, S^T 32, dP^T 32 registers), 64-query tiles, 49 KB
-//   of shared memory.  hd 128 does not fit so: K and V stay in shared
-//   memory and are re-read by ldmatrix at each query tile, 32-query
-//   tiles, 65 KB.
+//   of shared memory (hd 32: the same layout, 25 KB).  hd 128 does not
+//   fit so: K and V stay in shared memory and are re-read by ldmatrix at
+//   each query tile, 32-query tiles, 65 KB.
 // - Epilogue: dK and dV go through the warp's own rows of the K and V
 //   tiles to 16-byte stores.
 //
 // The float32 forms keep their CUDA-core bodies: the tensor cores'
 // float32 (TF32) keeps about three digits, and the float32 gates (2e-5
 // of the plain version, the card against the CPU) need all of float32.
-// There a row is held by hd / 16 neighbouring threads (16 dims each),
+// There a row is held by hd / 16 neighbouring threads (16 dims each; 2
+// threads a row at hd 32, 128 rows a block),
 // their partial dot products meeting by warp shuffles, while 32-row tiles
 // of the swept operand sit in shared memory as float32.  The entries
 // dispatch by dtype: a bfloat16 call launches the tensor-core kernel and
@@ -349,14 +352,15 @@ void launch_dkv(const Args& a) {
 constexpr int kMmaKeys = 64;            // keys per block, 16 a warp
 constexpr int kMmaThreads = 128;
 
-// hd 64: K and V live in registers as A fragments and queries stream in
-// tiles of 64; hd 128 does not fit so (dK and dV alone take 128
+// hd 32 and 64: K and V live in registers as A fragments and queries
+// stream in tiles of 64; hd 128 does not fit so (dK and dV alone take 128
 // registers), so K and V stay in shared memory, re-read by ldmatrix at
 // every query tile, and queries stream in tiles of 32
 template <int HD>
 struct Dkv {
-  static constexpr int QT = HD == 64 ? 64 : 32;
-  static constexpr bool KV_IN_REGS = HD == 64;
+  static_assert(HD == 32 || HD == 64 || HD == 128, "head_dim 32, 64, 128");
+  static constexpr int QT = HD == 128 ? 32 : 64;
+  static constexpr bool KV_IN_REGS = HD != 128;
   static constexpr int KV_TILE = kMmaKeys * HD * 2;
   static constexpr int Q_TILE = QT * HD * 2;
   // K, V; 2 stages of (Q, dO); 2 stages of (lse, delta)
@@ -578,14 +582,15 @@ int launch_dkv_mma(const Args& a) {
 
 constexpr int kMmaRows = 64;            // query rows per block, 16 a warp
 
-// hd 64: Q and dO live in registers as A fragments and keys stream in
-// tiles of 64; at hd 128 (dQ alone takes 64 registers) Q and dO stay in
-// shared memory, re-read by ldmatrix at every key tile, and keys stream
-// in tiles of 32
+// hd 32 and 64: Q and dO live in registers as A fragments and keys
+// stream in tiles of 64; at hd 128 (dQ alone takes 64 registers) Q and
+// dO stay in shared memory, re-read by ldmatrix at every key tile, and
+// keys stream in tiles of 32
 template <int HD>
 struct Dq {
-  static constexpr int KT = HD == 64 ? 64 : 32;
-  static constexpr bool Q_IN_REGS = HD == 64;
+  static_assert(HD == 32 || HD == 64 || HD == 128, "head_dim 32, 64, 128");
+  static constexpr int KT = HD == 128 ? 32 : 64;
+  static constexpr bool Q_IN_REGS = HD != 128;
   static constexpr int Q_TILE = kMmaRows * HD * 2;
   static constexpr int K_TILE = KT * HD * 2;
   // Q, dO; 2 stages of (K, V)
@@ -781,10 +786,14 @@ int dispatch(const Args& a, int hd, int dtype) {
   if (a.B < 1 || a.S < 1 || a.Hkv < 1 || a.H % a.Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   int err = 0;
-  if (dtype == rt::DTYPE_BF16 && hd == 64) {
+  if (dtype == rt::DTYPE_BF16 && hd == 32) {
+    err = DQ ? launch_dq_mma<32>(a) : launch_dkv_mma<32>(a);
+  } else if (dtype == rt::DTYPE_BF16 && hd == 64) {
     err = DQ ? launch_dq_mma<64>(a) : launch_dkv_mma<64>(a);
   } else if (dtype == rt::DTYPE_BF16 && hd == 128) {
     err = DQ ? launch_dq_mma<128>(a) : launch_dkv_mma<128>(a);
+  } else if (dtype == rt::DTYPE_F32 && hd == 32) {
+    DQ ? launch_dq<32>(a) : launch_dkv<32>(a);
   } else if (dtype == rt::DTYPE_F32 && hd == 64) {
     DQ ? launch_dq<64>(a) : launch_dkv<64>(a);
   } else if (dtype == rt::DTYPE_F32 && hd == 128) {
@@ -799,7 +808,7 @@ int dispatch(const Args& a, int hd, int dtype) {
 }  // namespace
 
 // Every (B, S, heads, hd) tensor is given by its (b, s, h) element
-// strides with head_dim contiguous, 64 or 128, rows 16-byte aligned: q,
+// strides with head_dim contiguous, 32, 64 or 128, rows 16-byte aligned: q,
 // do and dq have H heads, k, v, dk and dv Hkv.  lse and delta: (B*H, S)
 // float32 contiguous.  Each returns the CUDA error of its launch.
 extern "C" int flash_bwd_dq(

@@ -35,8 +35,11 @@
 //   reference's p @ v in one bf16 pass as well).
 // - Epilogue: O / l is staged through the warp's rows of the Q tile and
 //   stored as 16-byte rows into the strided (B, S, H, hd) view.
-// - Shared memory: Q + 2 stages of K and V = 5 tiles of 64 rows, 40 KB at
-//   hd 64, 80 KB at hd 128 (dynamic, opted in before every launch).
+// - Shared memory: Q + 2 stages of K and V = 5 tiles of 64 rows, 20 KB at
+//   hd 32, 40 KB at hd 64, 80 KB at hd 128 (dynamic, opted in before
+//   every launch).  At hd 32 (the paper's figure LMs: 4 heads of 32) a
+//   row is 4 chunks of 16 bytes and takes mma.cuh's 64-byte swizzle;
+//   the body is the same, with 2 k-blocks of Q K^T and 4 n-blocks of P V.
 // - Rows past S are zero-filled by the copies (src-size 0) and never
 //   stored, so the caller pads nothing.
 //
@@ -47,6 +50,7 @@
 // threads share a row, each holding a quarter of head_dim of q and of
 // the accumulator, the partial dot products meeting by two warp
 // shuffles, while 32-key tiles of K and V pass through shared memory.
+// At hd 32 each thread holds 8 dims (two 4-element chunks).
 //
 // The entry dispatches by dtype: a bfloat16 tensor launches the tensor-
 // core kernel and nothing else.  Inputs are read through their strides,
@@ -385,7 +389,10 @@ int dispatch_f32(int hd, const void* q, const void* k, const void* v,
                  void* out, void* lse, int B, int H, int Hkv, int S,
                  rt::Strides qs, rt::Strides ks, rt::Strides vs,
                  rt::Strides os, float sm_scale, cudaStream_t stream) {
-  if (hd == 64) {
+  if (hd == 32) {
+    launch<32>(q, k, v, out, lse, B, H, Hkv, S, qs, ks, vs, os, sm_scale,
+               stream);
+  } else if (hd == 64) {
     launch<64>(q, k, v, out, lse, B, H, Hkv, S, qs, ks, vs, os, sm_scale,
                stream);
   } else if (hd == 128) {
@@ -401,6 +408,9 @@ int dispatch_bf16(int hd, const void* q, const void* k, const void* v,
                   void* out, void* lse, int B, int H, int Hkv, int S,
                   rt::Strides qs, rt::Strides ks, rt::Strides vs,
                   rt::Strides os, float sm_scale, cudaStream_t stream) {
+  if (hd == 32)
+    return launch_mma<32>(q, k, v, out, lse, B, H, Hkv, S, qs, ks, vs, os,
+                          sm_scale, stream);
   if (hd == 64)
     return launch_mma<64>(q, k, v, out, lse, B, H, Hkv, S, qs, ks, vs, os,
                           sm_scale, stream);
@@ -413,7 +423,7 @@ int dispatch_bf16(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, out: (B, S, H, hd) views given by their (b, s, h) element strides;
-// k, v: (B, S, Hkv, hd) likewise; head_dim contiguous, 64 or 128, rows
+// k, v: (B, S, Hkv, hd) likewise; head_dim contiguous, 32, 64 or 128, rows
 // 16-byte aligned.  lse: (B*H, S) float32 contiguous.  Returns the CUDA
 // error of the launch (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,

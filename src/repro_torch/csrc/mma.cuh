@@ -18,6 +18,10 @@
 // Shared-memory tiles hold rows of head_dim bf16 (128 or 256 bytes) as
 // 16-byte chunks, chunk c of row r stored at chunk c ^ (r % 8): the eight
 // rows one ldmatrix matrix reads then sit in eight different bank groups.
+// A 64-byte row (head_dim 32, 4 chunks) fills half of the 128 bytes the
+// 32 banks span, so two rows share them: chunk c of row r is stored at
+// c ^ ((r / 2) % 4), and row r's bank group is 4 (r % 2) + that, eight
+// distinct groups over any eight consecutive rows.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,8 +64,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // byte offset of chunk c of row r in a swizzled tile of CPR chunks a row
 template <int CPR>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  static_assert(CPR % 8 == 0, "rows of at least 8 chunks");
-  return static_cast<uint32_t>((r * CPR + (c ^ (r & 7))) * 16);
+  static_assert(CPR % 8 == 0 || CPR == 4, "rows of 4 or 8k chunks");
+  const int x = CPR == 4 ? (r >> 1) & 3 : r & 7;
+  return static_cast<uint32_t>((r * CPR + (c ^ x)) * 16);
 }
 
 // rows r0 .. r0 + ROWS - 1 of a (sequence, HD) bf16 view (row stride

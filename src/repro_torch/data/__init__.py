@@ -1,6 +1,6 @@
 """Synthetic data and the phase-aware loader (``repro.data`` in
 PyTorch)."""
 from repro_torch.data.pipeline import PhaseDataLoader
-from repro_torch.data.synthetic import MarkovLM
+from repro_torch.data.synthetic import LinearRegressionSampler, MarkovLM
 
-__all__ = ["MarkovLM", "PhaseDataLoader"]
+__all__ = ["LinearRegressionSampler", "MarkovLM", "PhaseDataLoader"]

@@ -1,16 +1,20 @@
-"""Deterministic synthetic data (``repro.data.synthetic.MarkovLM``,
-copied verbatim in numpy so that the two packages' streams are identical
-seed for seed).
+"""Deterministic synthetic data (``repro.data.synthetic``'s ``MarkovLM``
+and ``LinearRegressionSampler``, copied verbatim in numpy so that the two
+packages' streams are identical seed for seed).
 
 MarkovLM — a sparse bigram language with Zipf-weighted transitions: a
 model must learn the transition table, so the loss falls smoothly toward
 the chain's conditional entropy.  Sequence ``i`` of the stream depends
 only on (seed, i), so two schedulers see identical data at equal token
 counts (the paper's equal-FLOPs comparisons need this).
+
+LinearRegressionSampler — the Section-5 distribution
+x~N(0,H), y = ⟨w*,x⟩ + N(0,σ²), sampled in the eigenbasis; the batch of
+step t depends only on (seed, t).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -73,3 +77,27 @@ class MarkovLM:
             state = self.table[state, np.minimum(j, self.branching - 1)]
             toks[:, t + 1] = state
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+class LinearRegressionSampler:
+    def __init__(self, lam: np.ndarray, sigma2: float = 1.0,
+                 seed: int = 0, w_star: Optional[np.ndarray] = None):
+        self.lam = np.asarray(lam, np.float64)
+        self.sigma = float(np.sqrt(sigma2))
+        self.seed = seed
+        d = self.lam.shape[0]
+        self.w_star = (np.zeros(d) if w_star is None
+                       else np.asarray(w_star, np.float64))
+
+    def sample(self, step: int, batch: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng((self.seed, step))
+        x = rng.normal(size=(batch, self.lam.shape[0])) \
+            * np.sqrt(self.lam)[None, :]
+        y = x @ self.w_star + self.sigma * rng.normal(size=batch)
+        return x.astype(np.float32), y.astype(np.float32)
+
+    def risk(self, w: np.ndarray) -> float:
+        """Population risk ½E(⟨w,x⟩−y)² (excess + σ²/2)."""
+        d = w - self.w_star
+        return 0.5 * float(np.sum(self.lam * d * d) + self.sigma ** 2)

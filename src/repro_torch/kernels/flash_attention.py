@@ -28,7 +28,7 @@ launches = 0            # flash_fwd
 dq_launches = 0         # flash_bwd_dq
 dkv_launches = 0        # flash_bwd_dkv
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 128)
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_int64] * 12
@@ -76,7 +76,8 @@ def _like(t: torch.Tensor) -> torch.Tensor:
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """q: (B, H, S, hd); k, v: (B, Hkv, S, hd) with H % Hkv == 0, on one
-    CUDA device, float32 or bfloat16, head_dim 64 or 128 and contiguous.
+    CUDA device, float32 or bfloat16, head_dim 32, 64 or 128 and
+    contiguous.
     Any other strides are read as they are, so transposed views of the
     models' (B, S, H, hd) layout cost no copy.
 

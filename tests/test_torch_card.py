@@ -51,6 +51,11 @@ DTYPES = [torch.float32, torch.bfloat16]
 # (GQA groups of 3)
 FLASH_EDGES = ([(2, 4, 4, S, 64) for S in (1, 15, 16, 63, 64, 65, 129)]
                + [(1, 6, 2, S, 128) for S in (1, 15, 16, 63, 64, 65, 129)])
+# hd 32, the paper's figure LMs (4 heads of 32, S = 64, B up to 128): their
+# shapes, a ragged S, GQA, and the tile edges
+FLASH_HD32 = ([(8, 4, 4, 64, 32), (128, 4, 4, 64, 32), (2, 4, 4, 77, 32),
+               (2, 4, 2, 64, 32), (1, 4, 2, 77, 32)]
+              + [(2, 4, 2, S, 32) for S in (1, 15, 16, 63, 65, 129)])
 
 
 @pytest.fixture
@@ -190,7 +195,7 @@ def test_rmsnorm_fwd_same_bits_in_every_layout(cuda, monkeypatch, dtype, d):
     (1, 24, 8, 1000, 128),      # llama3.2-3b heads, ragged tail
     (2, 4, 2, 77, 64),
     (1, 2, 1, 1, 128),
-] + FLASH_EDGES)
+] + FLASH_EDGES + FLASH_HD32)
 def test_flash_fwd_kernel(cuda, B, H, Hkv, S, hd, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
     # the models' (B, S, H, hd) layout, read as transposed views
@@ -353,7 +358,7 @@ def test_rmsnorm_bwd_is_one_launch(cuda, shape):
     (1, 24, 8, 1000, 128),      # llama3.2-3b heads, ragged tail
     (2, 4, 2, 77, 64),
     (1, 4, 1, 33, 128),
-] + FLASH_EDGES)
+] + FLASH_EDGES + FLASH_HD32)
 def test_flash_bwd_kernels(cuda, B, H, Hkv, S, hd, dtype):
     g = torch.Generator(device=cuda).manual_seed(4)
     q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
@@ -383,13 +388,14 @@ def sass(cuda):
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq",
                                   "flash_bwd_dkv"])
 def test_bf16_flash_kernels_run_on_tensor_cores(sass, name):
-    """The bfloat16 instantiations (hd 64 and 128) hold mma.sync (HMMA in
-    the SASS), the float32 ones none; ptxas spills nothing at hd 64."""
+    """The bfloat16 instantiations (hd 32, 64 and 128) hold mma.sync
+    (HMMA in the SASS), the float32 ones none; ptxas spills nothing at hd
+    64.  (At hd 32 the dk/dv kernel spills 8 bytes at 168 registers.)"""
     lib = sass.build()
     hmma = sass.sass_counts(lib, "HMMA")
     bf16 = {n: c for n, c in hmma.items() if f"{name}_mma_kernel" in n}
     f32 = {n: c for n, c in hmma.items() if f"{name}_kernelILi" in n}
-    assert len(bf16) == 2 and len(f32) == 2, sorted(hmma)
+    assert len(bf16) == 3 and len(f32) == 3, sorted(hmma)
     assert all(c > 0 for c in bf16.values()), bf16
     assert all(c == 0 for c in f32.values()), f32
     report = sass.ptxas_report(lib)
@@ -480,7 +486,7 @@ def test_rmsnorm_zero_rows_launches_nothing(cuda):
 
 
 def test_wrappers_raise_on_unsupported(cuda):
-    q = torch.zeros(1, 2, 8, 32, device=cuda)
+    q = torch.zeros(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         FA.flash_fwd(q, q, q)
     x = torch.zeros(2, 64, device=cuda, dtype=torch.float16)

@@ -298,6 +298,8 @@ def test_rmsnorm_grads_match_jax_kernel(shape):
     (1, 4, 1, 32, 32, 16),      # MQA
     (1, 2, 2, 21, 8, 8),        # MHA, ragged causal S
     (1, 6, 2, 37, 16, 16),      # GQA, ragged causal S
+    (2, 4, 4, 64, 32, 16),      # the paper's figure LMs: 4 heads of 32
+    (1, 4, 2, 77, 32, 16),      # hd 32, GQA, ragged causal S
 ])
 def test_flash_grads_match_jax_kernels(B, H, Hkv, S, hd, blk):
     rng = np.random.default_rng(1)
@@ -417,8 +419,27 @@ def test_autograd_functions_match_plain_path(tiny, monkeypatch, remat):
     their plain versions) equal autograd through the plain path; under
     remat each layer's forward kernels run twice per micro-batch."""
     cfg = tiny[2]
+    _check_fake_card(cfg, _model(tiny), monkeypatch, remat)
+
+
+# the paper's figure LMs (benchmarks/bench_figure1.py): 4 heads of 32
+FIG_LM = dict(name="fig-lm", arch_type="dense", n_layers=2, d_model=128,
+              n_heads=4, n_kv_heads=4, head_dim=32, d_ff=256,
+              vocab_size=512, max_seq_len=64, rope_theta=1e4)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_autograd_functions_match_plain_path_at_hd32(monkeypatch, remat):
+    """The same at the figure LMs' shapes (hd 32), the path the paper's
+    benchmarks train on the card."""
+    cfg = ModelConfig(**FIG_LM)
+    model = R.init_model(cfg, seed=0, dtype=torch.float32, device="cpu",
+                         trainable=True)
+    _check_fake_card(cfg, model, monkeypatch, remat)
+
+
+def _check_fake_card(cfg, model, monkeypatch, remat):
     batch = _torch_batch(_tiny_batch(np.random.default_rng(2), cfg))
-    model = _model(tiny)
     params = list(model.parameters())
     loss, _ = R.loss_fn(model, cfg, batch, z_loss=1e-3,
                         dtype=torch.float32, remat=remat)
