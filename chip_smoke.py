@@ -5,8 +5,9 @@ under the adaptive ramp, train mamba2-2.7b with a Seesaw ramp and serve
 it from the recurrent state pool, serve seesaw-150m and starcoder2-3b
 through the blocking ``Server`` (starcoder2-3b from its sliding-window
 ring cache), run the paper's benchmarks and train seesaw-150m at its
-critical batch size, Seesaw against cosine, and run the kernel
-benchmark on one NVIDIA card.
+critical batch size, Seesaw against cosine, train and serve the MoE
+granite-moe-1b-a400m, run the reference's serving, engine and
+checkpoint benchmarks, and run the kernel benchmark on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -268,6 +269,44 @@ decode graph, each replayed once per step.
   nats; the loss at the token counts both reach, each run's first step
   and second within 0.05 nats of cosine's final loss, tok/s per batch
   size, captures and peak memory are reported (the ``paper`` line).
+- Phase 14, the MoE family and the reference's remaining benchmarks.
+  (a) The ragged decode at head_dim 32 against its plain versions, f32
+  (2e-5) and bf16 (2e-2): the gathered entry at (B, Skv, H, Hkv) = (4,
+  128, 4, 2) (bench.serve's LM), (8, 1024, 4, 4) and (8, 1024, 8, 1)
+  (two groups of 4 query heads), the paged entry at 8 slots of those
+  heads at pages of 1 and 16; timed in bf16 at the first two beside SDPA
+  with a length mask and the bytes bound (``ragged_decode/hd32`` in the
+  ``kernels`` line; its launches are 14d's bench.serve run's).  (b)
+  granite-moe-1b-a400m at full width and depth (24 layers, d 1024, GQA
+  16/8, 32 experts, top-8, d_expert 512, vocab 49,155; 1.33B
+  parameters), seeded weights, bf16 compute, float32 weights and AdamW,
+  remat: Seesaw α = 2, B0 = 8, one cut, seq 1024, 10·8·1024 tokens,
+  ``fuse_steps=4``, ``max_device_batch=8``, ``MarkovLM(2048, 0)``: 7
+  steps at B = 8 and 2 at B = 16 (micro 2).  Each step's LR, batch and
+  phase the plan's, the losses finite and falling, ``lb_loss``,
+  ``rz_loss`` and ``frac_dropped`` recorded every step, the launches per
+  micro-batch exactly remat's (RMSNorm forward 4L+1 = 97, backward 49,
+  flash 48, dq and dk/dv 24), one graph per (batch size, micro); tok/s
+  per batch size with captures apart, peak memory and a profile of one
+  replayed B = 8 step; then a step at B = 8 and one at B = 16, each
+  replayed and run eagerly on a clone of the state, bit for bit.  The
+  reduced granite in f32 on the card against the CPU (phase 5's gates
+  and three engine steps each), and one layer's MoE at full width (B =
+  8 x 1024, f32, capacity factor 0.5, which drops half the choices)
+  against the one-hot ``moe_forward_ref``: y within 1e-5, the kept sets
+  equal.  (c) granite-moe-1b served from the paged engine: phase 2's
+  cell and gates (bf16, 8 slots, page 16, max_len 1024, 16 requests,
+  graphs against an all-eager engine, token for token), a replayed
+  decode step with every slot live against its bytes bound (every weight
+  read once, each slot's K and V to its length) and under
+  torch.profiler; then the f32 engine against each request alone
+  through a Server (phase 12a's oracle).  (d) The reference's
+  ``engine`` and ``serve`` suites (``bench/engine.py``,
+  ``bench/serve.py``: every row, ``check_compiles`` with no error; the
+  adaptive compiles record too) and the checkpoint benchmark
+  (``bench/checkpoint.py``: ``check_stall``, ``check_schema``), in
+  process, and ``examples.serve_decode --arch granite-moe-1b-a400m``
+  (its reduced config, bf16).  The ``moe`` line holds it all.
 - Phase 8, the kernel benchmark: ``repro_torch.bench.kernels`` at full
   size through its ``main`` (the reference's attention, RMSNorm and SSD
   sweeps in float32, kernel and plain, forward and forward+backward; the
@@ -283,10 +322,12 @@ decode graph, each replayed once per step.
   chunk, the overlap normalize) must each be launched in the run.
 
 Prints the card's name and power limit, one ``kernels`` JSON line (the
-eight kernels), one ``engine`` and one ``train`` JSON line (phase 9's
+eight kernels, the flash kernels at hd 32 and the ragged decode at hd
+32), one ``engine`` and one ``train`` JSON line (phase 9's
 result in the latter), one ``mamba2`` JSON line, one ``mamba2_serve``
 line (phases 11 and 11b, with the card), one ``server`` line (phase
-12), one ``paper`` line (phase 13), one ``checkpoint`` line
+12), one ``paper`` line (phase 13), one ``moe`` line (phase 14), one
+``checkpoint`` line
 (phase 10: bytes written, write, restore and verify seconds and GB/s,
 the async save's stall beside a sync save's time, the adaptive run's
 cuts, the card's name and power limit), and last ``{"ok": true,
@@ -2517,7 +2558,16 @@ def phase12a(cfg, R, serving, Server, ctr, smi):
               "prefill_ms": prefill_ms, "decode_step": step}
     del srv, model
     torch.cuda.empty_cache()
+    return {**bf_rec, "oracle": engine_vs_solo_server(cfg, R, serving,
+                                                      Server)}
 
+
+def engine_vs_solo_server(cfg, R, serving, Server):
+    """float32: phase 2's first 8 requests through the engine at 8 slots
+    and each alone through a Server sized to the engine's page window
+    with its buckets (the reference's oracle test): first-token logits
+    within 1e-3 (the Server's prefill against the engine's prefill
+    entry's function), greedy tokens equal."""
     f32 = torch.float32
     model = R.init_model(cfg, seed=0, dtype=f32, device="cuda")
     eng = serving.ServingEngine(cfg, model, decode_slots=8, page_size=16,
@@ -2544,11 +2594,10 @@ def phase12a(cfg, R, serving, Server, ctr, smi):
         diff = max(diff, float((got - want).abs().max()))
     if diff > 1e-3:
         raise AssertionError(f"first-token logits differ by {diff:.3g}")
-    return {**bf_rec, "oracle": {
-        "requests": len(reqs), "dtype": "float32",
-        "tokens_equal": True, "first_token_logit_max_abs_diff": diff,
-        "oracle_max_len": oracle.max_len,
-        "oracle_captures": oracle.captures}}
+    return {"requests": len(reqs), "dtype": "float32",
+            "tokens_equal": True, "first_token_logit_max_abs_diff": diff,
+            "oracle_max_len": oracle.max_len,
+            "oracle_captures": oracle.captures}
 
 
 def phase12b(cfg, R, Server, ctr, smi):
@@ -2776,7 +2825,8 @@ def figure1_card_vs_cpu(steps=10):
 
 
 def phase13b(ctr):
-    """``repro_torch.bench.run``'s suites on the card, in process: every
+    """The paper's suites of ``repro_torch.bench.run`` on the card (its
+    ``engine`` and ``serve`` suites run in phase 14d), in process: every
     row (an ``ERROR`` row fails the phase), and each LM run's launches,
     set to 0 just before its ``Trainer.run`` and read just after, exactly
     ``per_micro_batch`` times its micro-batches.  Then the float32 gate
@@ -2819,6 +2869,8 @@ def phase13b(ctr):
     errors = []
     try:
         for name in BR.SUITES:
+            if name in ("engine", "serve"):
+                continue
             t = time.perf_counter()
             try:
                 got = BR.suite_rows(name, "cuda")
@@ -2924,6 +2976,333 @@ def phase13c(cfg, ctr):
                                                  plans["cosine"], 1024),
             "wall_ratio_seesaw_over_cosine": (see["wall_s_excl_captures"]
                                               / cos["wall_s_excl_captures"])}
+
+
+# --------------------------------------------------------------------- #
+# phase 14: the MoE family, the ragged decode at hd 32, the reference's
+# serving, engine and checkpoint benchmarks
+# --------------------------------------------------------------------- #
+
+MOE_ARCH = "granite-moe-1b-a400m"
+# (B, Skv, H, Hkv, tag): bench.serve's LM (4 slots over its max_len of
+# 128, 4 heads of 32 on 2 kv heads), the figure LMs' heads (MHA) over a
+# window of 8 splits, and two groups of 4 query heads a kv head
+DECODE_HD32 = ((4, 128, 4, 2, "serve-lm"), (8, 1024, 4, 4, "mha-1024"),
+               (8, 1024, 8, 1, "gqa8-1024"))
+
+
+def phase14a(PG, ref):
+    """The ragged decode at head_dim 32 against its plain versions, f32
+    (2e-5) and bf16 (2e-2): the gathered entry at ``DECODE_HD32`` (GQA
+    2, 1 and 8: two head groups a kv head), the paged entry at 8 slots
+    of the same heads at pages of 1 and 16 (page edges, an inactive
+    slot, shuffled ids).  Timed in bf16 at bench.serve's decode shape
+    and at the 1024 window beside SDPA with a length mask."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    rng = np.random.default_rng(14)
+    errors, inputs = [], {}
+    for dtype in DTYPES:
+        dn = str(dtype).replace("torch.", "")
+        for B, Skv, H, Hkv, tag in DECODE_HD32:
+            t, err = decode_case(PG, ref, B, Skv, H, Hkv, 32, dtype, g, rng)
+            errors.append(("ragged_decode", f"hd32-{tag}", dn, err))
+            inputs[(tag, dn)] = t
+            for ps in (1, 16):
+                err = paged_case(PG, ref, 8, Skv, H, Hkv, 32, ps, dtype, g,
+                                 rng)
+                errors.append(("paged_decode", f"hd32-{tag}-ps{ps}", dn,
+                               err))
+    for name, tag, dn, err in errors:
+        log(f"phase 14a: {name} {tag} {dn}: max |err| {err:.3g}")
+    timer, bf = Timer(iters=30), torch.bfloat16
+    times = {}
+    for tag in ("serve-lm", "mha-1024"):
+        q, k, v, lengths, lens, _ = inputs[(tag, "bfloat16")]
+        B, H, hd = q.shape
+        Hkv, Skv = k.shape[1], k.shape[2]
+        es = q.element_size()
+        keys = float(np.sum(lens.astype(np.int64) + 1))
+        mask = (torch.arange(Skv, device="cuda")[None, :]
+                <= lengths.long()[:, None])[:, None, None, :]
+        q4 = q[:, :, None]
+        times[tag] = dict(
+            ms=timer(lambda: PG.ragged_decode_attention(q, k, v, lengths)),
+            plain_ms=timer(lambda: ref.ragged_decode_ref(q, k, v,
+                                                         lengths)),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                q4, k, v, attn_mask=mask, enable_gqa=H != Hkv)),
+            shape=f"q (B={B}, H={H}, hd={hd}), Hkv={Hkv}, window "
+                  f"Skv={Skv}, lengths {lens.tolist()} bf16",
+            **bound(2 * q.numel() * es + 2 * keys * Hkv * hd * es + 4 * B,
+                    4 * keys * H * hd, bf))
+    log(f"phase 14a: {times}")
+    return errors, times
+
+
+def moe_vs_ref(cfg, M):
+    """One granite layer's MoE at full width (B = 8 x 1024 tokens, 4
+    groups of 2048), float32, TF32 off, at capacity factor 0.5 (drops):
+    ``moe_forward`` against the one-hot ``moe_forward_ref`` on the card:
+    y within 1e-5, the kept sets equal, the aux within 1e-6; both
+    timed."""
+    c = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    moe = M.MoE(c, dtype=torch.float32, device="cuda")
+    moe.init_weights(gen, c.n_layers)
+    x = torch.randn(8, 1024, c.d_model, generator=gen, device="cuda")
+    with torch.inference_mode():
+        y, aux = M.moe_forward(moe, x, c)
+        yr, auxr = M.moe_forward_ref(moe, x, c)
+        G, g, cap = M.groups(c, x.shape[0] * x.shape[1])
+        probs = torch.softmax((x.reshape(G, g, -1) @ moe.router).float(), -1)
+        keep = M._route(probs, c.moe.top_k, cap)[3]
+        keep_ref = M.route_ref(probs, c.moe.top_k, cap)[4]
+        torch.cuda.synchronize()
+        err = float((y - yr).abs().max())
+        torch.testing.assert_close(y, yr, atol=1e-5, rtol=1e-5)
+        if not torch.equal(keep, keep_ref):
+            raise AssertionError("the kept sets differ")
+        aux_err = max(abs(float(aux[k]) - float(auxr[k])) for k in aux)
+        if aux_err > 1e-6:
+            raise AssertionError(f"aux differs by {aux_err:.3g}")
+        ms = event_ms(lambda: M.moe_forward(moe, x, c), 5)
+        ref_ms = event_ms(lambda: M.moe_forward_ref(moe, x, c), 5)
+    return {"tokens": 8 * 1024, "groups": G, "capacity": cap,
+            "capacity_factor": 0.5,
+            "frac_dropped": float(aux["frac_dropped"]),
+            "y_max_abs_err": err, "aux_max_abs_err": aux_err,
+            "kept_equal": True, "ms": ms, "ref_ms": ref_ms}
+
+
+def phase14b(cfg, R, RN, FA, smi):
+    """granite-moe-1b-a400m at full width and depth (24 layers, d 1024,
+    GQA 16/8, 32 experts, top-8, d_expert 512, vocab 49,155; 1.33B
+    parameters), seeded weights, bf16 compute with float32 weights and
+    AdamW, remat: Seesaw α = 2 at B = 8 -> 16 of 1024, 10·8·1024 tokens,
+    ``MarkovLM(2048, 0)``: 7 steps at B = 8, 2 at B = 16 (micro 2).
+    Gates: each step's LR, batch and phase the plan's; the losses finite
+    and falling, the MoE metrics recorded every step; launches exactly
+    remat's per micro-batch; one graph per (batch size, micro); then a
+    step at B = 8 and one at B = 16, each replayed and run eagerly on a
+    clone of the state, bit for bit.  Then the reduced granite in f32 on
+    the card against the CPU (phase 5's gates, and three engine steps
+    each), and one layer's MoE against the one-hot formulation."""
+    from repro_torch.configs import (OptimizerConfig, RunConfig,
+                                     ScheduleConfig)
+    from repro_torch.data import MarkovLM
+    from repro_torch.models import moe as M
+    run = RunConfig(model=cfg,
+                    schedule=ScheduleConfig(kind="seesaw", alpha=2.0,
+                                            n_cuts=1),
+                    optimizer=OptimizerConfig(kind="adamw", beta1=0.9,
+                                              beta2=0.95, grad_clip=1.0),
+                    seq_len=1024, global_batch_size=8,
+                    total_tokens=10 * 8 * 1024, dtype="bfloat16")
+    tr, out = run_ramp(run, counters(RN, FA), fuse_steps=4,
+                       max_device_batch=8, want=([8, 16], [7, 2], [1, 2]))
+    hist = tr.history
+    if not out["loss_last"] < out["loss_first"]:
+        raise AssertionError(f"the loss did not fall: {out['losses']}")
+    for h in hist:
+        if not all(np.isfinite(h.get(k, np.nan))
+                   for k in ("lb_loss", "rz_loss", "frac_dropped")):
+            raise AssertionError(f"step {h['step']}: MoE metrics {h}")
+    out["moe_metrics"] = {k: [h[k] for h in hist]
+                          for k in ("lb_loss", "rz_loss", "frac_dropped")}
+    check_launches(out, per_micro_batch(cfg, run.remat))
+    out["params"] = cfg.param_count()
+    out["active_params"] = cfg.active_param_count()
+    out["card"] = smi
+    out["profile"] = profile_train(
+        tr, out["per_batch_size"]["8"]["wall_s_per_step"], 8,
+        "profile_granite_train.txt")
+    # replays against eager steps, bit for bit, at micro 1 and 2
+    eng, st = tr.engine, tr.state
+    src = MarkovLM(2048, seed=9)
+    tok, start = st.tokens_seen, 0
+    for b in (8, 16):
+        chunk = {k: torch.from_numpy(v.astype(np.int64))[None].cuda()
+                 for k, v in src.sample(start, b, 1024).items()}
+        twin = clone_state(st.model, st.opt_state)
+        _, _, m = eng.run_chunk(st.model, st.opt_state, tok, chunk,
+                                step=st.step)
+        _, _, want = eng.step_for(b).grad(
+            *twin, {k: v[0] for k, v in chunk.items()}, m["lr"][0].cuda())
+        torch.cuda.synchronize()
+        if not same_state((st.model, st.opt_state), twin) or not all(
+                torch.equal(m[k][0], v) for k, v in want.items()):
+            raise AssertionError(f"B={b}: the replay differs from the "
+                                 f"eager step")
+        del twin
+        st.step, tok, start = st.step + 1, tok + b * 1024, start + b
+    out["graphs_bitwise"] = {"micro1_steps": 1, "micro2_steps": 1,
+                             "captures": eng.captures}
+    del tr, eng, st
+    torch.cuda.empty_cache()
+
+    small = cfg.reduced()
+    cpu = R.init_model(small, seed=3, dtype=torch.float32, device="cpu",
+                       trainable=True)
+    card = R.init_model(small, seed=3, dtype=torch.float32, device="cpu",
+                        trainable=True).cuda()
+    raw = MarkovLM(small.vocab_size, seed=2).sample(0, 2, 256)
+    res = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        batch = {k: torch.from_numpy(v.astype(np.int64)).to(dev)
+                 for k, v in raw.items()}
+        loss, m = R.loss_fn(model, small, batch, dtype=torch.float32)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        res[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                    {k: float(v.detach()) for k, v in m.items()})
+    loss_diff = abs(res["cpu"][0] - res["cuda"][0])
+    if loss_diff > 1e-4:
+        raise AssertionError(f"reduced granite: loss differs by "
+                             f"{loss_diff:.3g}")
+    grad_rel = 0.0
+    for (name, _), a, b in zip(cpu.named_parameters(), res["cpu"][1],
+                               res["cuda"][1]):
+        rel = float((a - b).abs().max() / a.abs().max().clamp(min=1e-30))
+        if rel > 1e-3:
+            raise AssertionError(f"reduced granite: grad of {name}: "
+                                 f"{rel:.3g} of its max")
+        grad_rel = max(grad_rel, rel)
+    out["card_vs_cpu"] = {
+        "loss_cpu": res["cpu"][0], "loss_cuda": res["cuda"][0],
+        "loss_abs_diff": loss_diff, "grad_max_rel_diff": grad_rel,
+        "metrics_cuda": res["cuda"][2],
+        **replayed_card_vs_cpu(small, cpu, 256, 2, {
+            k: v.reshape(3, 2, 256) for k, v in
+            MarkovLM(small.vocab_size, seed=2).sample(2, 6, 256).items()})}
+    out["moe_vs_ref"] = moe_vs_ref(cfg, M)
+    log(f"phase 14b: card vs cpu {out['card_vs_cpu']}, moe vs ref "
+        f"{out['moe_vs_ref']}")
+    return out
+
+
+def engine_decode_step(eng, serving, reqs, cfg, smi):
+    """One replayed decode step of the engine with every slot live (8
+    requests of the mix admitted and prefilled, then one step): the mean
+    of 10 replays queued back to back between CUDA events (median of 3
+    runs), one replay on a drained queue (median of 10), and two more
+    under torch.profiler, beside the step's bytes bound: every weight
+    read once (of the tied embedding only the head's reads count once)
+    and each slot's K and V up to its length, every layer."""
+    for prompt, _ in reqs[:eng.decode_slots]:
+        eng.submit(serving.GenerationRequest(prompt=prompt,
+                                             max_new_tokens=24))
+    eng.step()
+    if eng.n_pending or eng.n_active != eng.decode_slots:
+        raise AssertionError("the timed step's slots are not all live")
+    ent = eng._decode_fns[eng.decode_slots]
+    lengths = [s.length for s in eng.slots]
+    model = eng.model
+    es = model.tok.element_size()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache = sum(lengths) * cfg.n_layers * 2 * cfg.kv_dim * es
+    replay = ent.graph.replay
+    one_ms = event_ms(replay, 10)
+    step_ms = event_ms(lambda: [replay() for _ in range(10)], 3) / 10
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        replay()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        replay()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    prof_rec = second_step_kernels(prof, wall_us, "profile_granite_decode.txt")
+    prof_rec["device_busy_share_of_step_ms"] = \
+        prof_rec["device_busy_us"] / (step_ms * 1e3)
+    eng.drain()
+    eng.reset()
+    return {"step_ms": step_ms, "one_replay_ms": one_ms,
+            **bound(weights + cache, 0, eng.dtype),
+            "weight_bytes": weights, "cache_bytes": cache,
+            "lengths": lengths, "profile": prof_rec, "card": smi}
+
+
+def phase14c(cfg, R, serving, Server, kernel_modules, smi):
+    """granite-moe-1b-a400m served from the paged engine at full width
+    and depth: phase 2's cell (bf16, 8 slots, page 16, max_len 1024, 16
+    requests, prompts 64-768, 32-128 new) through the graphs, its tokens
+    equal to an all-eager engine's; a replayed decode step against its
+    bytes bound; then float32, the engine against each request alone
+    through a Server (phase 12a's oracle)."""
+    torch.cuda.reset_peak_memory_stats()
+    eng, rec = phase2(cfg, R, serving, kernel_modules)
+    eng.reset()
+    rec["decode_step"] = engine_decode_step(eng, serving, requests(cfg), cfg,
+                                            smi)
+    rec["pool_bytes"] = eng.pool.kv.numel() * eng.pool.kv.element_size()
+    del eng
+    torch.cuda.empty_cache()
+    rec["oracle"] = engine_vs_solo_server(cfg, R, serving, Server)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase14d(PG, smi):
+    """The reference's serving, engine and checkpoint benchmarks on the
+    card, in process, at the sizes of ``bench.run``'s suites: the
+    ``engine`` suite's rows (with the adaptive record) and its
+    ``check_compiles``; the ``serve`` suite's rows (16 requests) and its
+    ``check_compiles``, the ragged decode's launches at hd 32 counted
+    over it; the checkpoint suite's rows, ``check_stall`` and
+    ``check_schema``.  Every row printed; a suite that raises or a check
+    that returns an error fails the phase.  Then ``examples.
+    serve_decode --arch granite-moe-1b-a400m`` (reduced, bf16)."""
+    from repro_torch.bench import checkpoint as BC
+    from repro_torch.bench import engine as BE
+    from repro_torch.bench import run as bench_run
+    from repro_torch.bench import serve as BS
+    from repro_torch.examples import serve_decode
+    if list(bench_run.SUITES)[-2:] != ["engine", "serve"]:
+        raise AssertionError(f"bench.run suites {list(bench_run.SUITES)}")
+    out, errors = {}, []
+    t = time.perf_counter()
+    rows, res = BE._measure(144, schedule="adaptive-seesaw", device="cuda")
+    errors += [f"engine: {e}" for e in BE.check_compiles(res)]
+    out["engine"] = {"rows": [bench_run.csv_row(*r) for r in rows],
+                     "result": res, "s": time.perf_counter() - t}
+    t = time.perf_counter()
+    PG.launches = 0
+    rows, res = BS._measure(n_requests=16, device="cuda")
+    launches = PG.launches
+    errors += [f"serve: {e}" for e in BS.check_compiles(res)]
+    out["serve"] = {"rows": [bench_run.csv_row(*r) for r in rows],
+                    "result": res, "ragged_decode_hd32_launches": launches,
+                    "s": time.perf_counter() - t}
+    if launches <= 0:
+        errors.append("serve: the ragged decode never launched at hd 32")
+    t = time.perf_counter()
+    rows, res = BC._measure(5, device="cuda")
+    errors += [f"checkpoint: {e}" for e in BC.check_stall(res)]
+    errors += [f"checkpoint schema: {e}" for e in BC.check_schema("cuda")]
+    out["checkpoint"] = {"rows": [bench_run.csv_row(*r) for r in rows],
+                         "result": res, "s": time.perf_counter() - t}
+    for suite in ("engine", "serve", "checkpoint"):
+        for r in out[suite]["rows"]:
+            log(f"phase 14d: {r}")
+    if errors:
+        raise AssertionError(f"phase 14d: {errors}")
+    t = time.perf_counter()
+    eng = serve_decode.main(["--arch", MOE_ARCH])
+    res = eng._results.values()
+    if not eng.done or len(res) != 4 or any(
+            r.tokens.min() < 0 or r.tokens.max() >= eng.cfg.padded_vocab
+            for r in res):
+        raise AssertionError("serve_decode: requests unfinished or tokens "
+                             "out of the vocab")
+    out["serve_decode"] = {"arch": eng.cfg.name, "requests": len(res),
+                           "tokens": int(sum(len(r.tokens) for r in res)),
+                           "executables": eng.executables,
+                           "captures": eng.captures,
+                           "s": time.perf_counter() - t}
+    out["card"] = smi
+    return out
 
 
 def main() -> int:
@@ -3098,6 +3477,32 @@ def main() -> int:
     record["paper"]["cbs"]["s"] = time.perf_counter() - t13
     record["paper"]["s"] = time.perf_counter() - t
     log(f"phase 13: {record['paper']['s']:.1f} s")
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    hd32_dec_errors, hd32_dec_times = phase14a(PG, ref)
+    record["moe"] = {"decode_hd32": {"errors": hd32_dec_errors,
+                                     "times": hd32_dec_times}}
+    log(f"phase 14a: {time.perf_counter() - t14:.1f} s")
+    gcfg = get_config(MOE_ARCH)
+    t = time.perf_counter()
+    record["moe"]["train"] = phase14b(gcfg, R, RN, FA, smi)
+    record["moe"]["train"]["s"] = time.perf_counter() - t
+    log(f"phase 14b: {record['moe']['train']['s']:.1f} s "
+        f"{record['moe']['train']['per_batch_size']}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    record["moe"]["serve"] = phase14c(gcfg, R, serving, Server,
+                                      (RN, FA, PG), smi)
+    record["moe"]["serve"]["s"] = time.perf_counter() - t
+    log(f"phase 14c: {record['moe']['serve']['s']:.1f} s "
+        f"{record['moe']['serve']}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    record["moe"]["benchmarks"] = phase14d(PG, smi)
+    record["moe"]["benchmarks"]["s"] = time.perf_counter() - t
+    record["moe"]["s"] = time.perf_counter() - t14
+    log(f"phase 14d: {record['moe']['benchmarks']['s']:.1f} s; phase 14: "
+        f"{record['moe']['s']:.1f} s")
     torch.cuda.empty_cache()
     t = time.perf_counter()
     bench_ctr = dict(counters(RN, FA), ssd_chunk=(SSD, "launches"),
@@ -3359,6 +3764,38 @@ def main() -> int:
             k["paper_cbs_launches"] = {
                 kind: r["launches"][k["name"]]
                 for kind, r in paper["cbs"]["runs"].items()}
+    # phase 14: granite's launches, and the ragged decode at hd 32
+    moe = record["moe"]
+    for k in kernels:
+        if k["name"] in moe["train"]["launches"]:
+            k["granite_train_launches"] = moe["train"]["launches"][k["name"]]
+        mod = {"rmsnorm_fwd": "rmsnorm", "flash_fwd": "flash_attention",
+               "ragged_decode": "paged"}.get(k["name"])
+        if mod:
+            k["granite_serve_launches"] = moe["serve"]["launches"][mod]
+    err14 = {(n, tag, dn): e for n, tag, dn, e in hd32_dec_errors}
+    tm, tm2 = hd32_dec_times["serve-lm"], hd32_dec_times["mha-1024"]
+    kernels.append({
+        "name": "ragged_decode/hd32", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_decode.cu",
+        "replaces": "src/repro/kernels/paged.py:32",
+        "launches": moe["benchmarks"]["serve"][
+            "ragged_decode_hd32_launches"],
+        "max_abs_err": err14[("ragged_decode", "hd32-serve-lm",
+                              "bfloat16")],
+        "max_abs_err_f32": err14[("ragged_decode", "hd32-serve-lm",
+                                  "float32")],
+        "max_abs_err_all_cases": {
+            dn: max(e for _, _, d, e in hd32_dec_errors if d == dn)
+            for dn in ("bfloat16", "float32")},
+        "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+        "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+        "library_ms": tm["library_ms"], "shape": tm["shape"],
+        "window1024": {f: tm2[f] for f in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms",
+                                           "shape")},
+        "launches_by": "bench.serve (phase 14d): its engine's decode "
+                       "steps and its Server baseline's"})
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -3388,6 +3825,16 @@ def main() -> int:
     print(json.dumps({"paper": {
         "benchmarks": paper["benchmarks"], "cbs": cbs,
         "flash_hd32_errors": hd32_errors, "s": paper["s"], "card": smi}}))
+    mtrain = {k: v for k, v in moe["train"].items()
+              if k not in ("losses", "lrs", "chunks", "grad_norms")}
+    mbench = {n: {"rows": b["rows"], "s": b["s"]}
+              for n, b in moe["benchmarks"].items()
+              if isinstance(b, dict) and "rows" in b}
+    print(json.dumps({"moe": {
+        "train": mtrain, "serve": moe["serve"], "benchmarks": mbench,
+        "serve_decode": moe["benchmarks"]["serve_decode"],
+        "hd32_decode_errors": hd32_dec_errors, "s": moe["s"],
+        "card": smi}}))
     print(json.dumps({"checkpoint": record["checkpoint"],
                       "adaptive": adaptive, "card": smi}))
     print(json.dumps({"ok": True, "device": {

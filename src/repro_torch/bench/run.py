@@ -7,11 +7,12 @@ Prints ``name,us_per_call,derived`` CSV, the reference's rows in the
 reference's order.  The theory suites (Table 1, Figures 2, 3 and 5,
 Lemma 1) are exact host recursions in numpy; Figures 1, 4 and 6 train
 their LMs through ``Trainer`` on ``--device`` (the card by default,
-where the LMs run the hand-written kernels at head_dim 32).  A suite
-that raises prints an ``ERROR`` row, and the run exits with code 1.
-The reference's ``engine`` and ``serve`` suites are not ported yet:
-``--only`` of either raises, and a full run says so on a line of its
-own.
+where the LMs run the hand-written kernels at head_dim 32); ``engine``
+(``bench/engine.py``) trains and ``serve`` (``bench/serve.py``) serves
+the reference's reduced LMs there.  A suite that raises prints an
+``ERROR`` row, and the run exits with code 1.  The checkpoint benchmark
+is not a suite of the reference's harness either: run it as
+``python -m repro_torch.bench.checkpoint``.
 """
 from __future__ import annotations
 
@@ -30,20 +31,15 @@ SUITES = {
     "figure5": ("figure5", False),
     "figure6": ("figure6_zloss", True),
     "lemma1": ("lemma1", False),
+    "engine": ("engine", True),
+    "serve": ("serve", True),
 }
-NOT_PORTED = ("engine", "serve")
-NEXT_SLICE = ("the next slice of the port (bench_engine, bench_checkpoint, "
-              "bench_serve and examples/serve_decode)")
 
 
 def suite_rows(name: str, device: str) -> List[Tuple[str, float, str]]:
     """The rows of one suite."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"suite {name!r} is not ported yet: it comes with {NEXT_SLICE}")
     if name not in SUITES:
-        raise KeyError(f"unknown suite {name!r}; known: "
-                       f"{list(SUITES) + list(NOT_PORTED)}")
+        raise KeyError(f"unknown suite {name!r}; known: {list(SUITES)}")
     module, trains = SUITES[name]
     mod = importlib.import_module(f"repro_torch.bench.{module}")
     return mod.run(device=device) if trains else mod.run()
@@ -73,8 +69,6 @@ def main(argv=None) -> int:
             failures += 1
             print(f"{name}/ERROR,0,{type(e).__name__}:{e}")
         sys.stdout.flush()
-    if args.only is None:
-        print(f"# not ported: {', '.join(NOT_PORTED)} — {NEXT_SLICE}")
     return 1 if failures else 0
 
 

@@ -131,6 +131,17 @@ class ModelConfig:
             total += self.n_encoder_layers * (attn + mlp + norms) + L * attn
         return emb + total
 
+    def active_param_count(self) -> int:
+        """Per-token active parameters (MoE: top_k experts only)."""
+        if self.arch_type != "moe":
+            return self.param_count()
+        m = self.moe
+        d, L = self.d_model, self.n_layers
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        ff = m.top_k * 3 * d * m.d_expert + d * m.num_experts
+        return emb + L * (attn + ff + 2 * d)
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family, tiny dims."""
         kw = dict(

@@ -31,7 +31,9 @@
 // - The block first stages the page id and row of each key of its split
 //   in shared memory.  K and V rows are then read straight into registers
 //   as 16-byte vectors, neighbouring lanes on neighbouring bytes of a row
-//   (8 lanes a row at hd 64 in bfloat16), 4 keys a lane group in flight
+//   (8 lanes a row at hd 64 in bfloat16; at hd 32, 4 lanes a row and 8
+//   rows a warp in bfloat16, 8 lanes and 4 rows in float32), 4 keys a
+//   lane group in flight
 //   (2 when a block serves several query heads).  A score is the lane
 //   group's partial dot products met by xor shuffles; each lane keeps its
 //   own slice of head_dim of the float32 softmax state over the keys its
@@ -298,7 +300,9 @@ void launch(const Args& a) {
 template <typename T>
 int dispatch_hd(const Args& a, int hd) {
   const bool one = heads_per_block(a.H / a.Hkv) == 1;
-  if (hd == 64) {
+  if (hd == 32) {
+    one ? launch<T, 32, 1>(a) : launch<T, 32, kGroupHeads>(a);
+  } else if (hd == 64) {
     one ? launch<T, 64, 1>(a) : launch<T, 64, kGroupHeads>(a);
   } else if (hd == 128) {
     one ? launch<T, 128, 1>(a) : launch<T, 128, kGroupHeads>(a);
@@ -319,7 +323,7 @@ extern "C" void paged_decode_layout(int* split, int* heads_per_group) {
 
 // q, out: (B, H, hd) views given by their (b, h) element strides; k, v:
 // (n_pages, page_size, Hkv, hd) views given by their (page, slot, head)
-// strides; head_dim contiguous, 64 or 128, rows 16-byte aligned; pages:
+// strides; head_dim contiguous, 32, 64 or 128, rows 16-byte aligned; pages:
 // (B, P) int64 with unit column stride, row stride pg_sb; lengths: (B,)
 // int32.  Scratch, allocated by the wrapper: part, B * H * n_split *
 // (hd + 2) float32 split states when the window P * page_size spans

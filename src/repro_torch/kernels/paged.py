@@ -32,7 +32,7 @@ from repro_torch.kernels import _build
 # launches of the kernel since the count was last set to 0
 launches = 0
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 128)
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
              + [ctypes.c_int64] * 11
@@ -122,7 +122,7 @@ def paged_decode_attention_pool(q: torch.Tensor, pool_layer: torch.Tensor,
     its V at 2j + 1); pages: (B, P) int64 page table, key s of request b
     at row s % page_size of page pages[b, s // page_size]; lengths: (B,)
     int32.  All on one CUDA device, q and the pool of one dtype (float32
-    or bfloat16), head_dim 64 or 128.  Returns (B, H, hd) in q's
+    or bfloat16), head_dim 32, 64 or 128.  Returns (B, H, hd) in q's
     dtype."""
     name = "paged_decode_attention_pool"
     _build.dtype_code(name, q, pool_layer)
@@ -139,7 +139,7 @@ def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor,
                             lengths: torch.Tensor) -> torch.Tensor:
     """q: (B, H, hd) single-token queries; k, v: (B, Hkv, Skv, hd) with
     H % Hkv == 0; lengths: (B,) int32 — all on one CUDA device, q/k/v
-    float32 or bfloat16 with head_dim 64 or 128 contiguous.  Other
+    float32 or bfloat16 with head_dim 32, 64 or 128 contiguous.  Other
     strides are read as they are (the transposed, head-interleaved views
     of a gathered page window cost no copy).  The kernel reads the
     window as one page a request.  Returns (B, H, hd) in q's dtype."""

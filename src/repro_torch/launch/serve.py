@@ -8,8 +8,9 @@ CLI (the counterpart of ``repro.launch.serve``).
 Builds the reduced config of the named architecture with seeded random
 weights, submits a seeded batch of ragged requests (prompts of 2 tokens
 and more), streams tokens as the engine emits them, and reports the
-drain throughput.  A dense architecture serves from the paged KV pool
-(``--page-size`` tokens a page); ``--arch mamba2-2.7b`` serves from the
+drain throughput.  A dense or MoE architecture (``--arch
+granite-moe-1b-a400m``) serves from the paged KV pool (``--page-size``
+tokens a page); ``--arch mamba2-2.7b`` serves from the
 recurrent state pool, one page of state per request, with one prefill
 entry per distinct prompt length.  ``--device``
 (default ``cuda``) picks where it runs: the hand-written kernels on the

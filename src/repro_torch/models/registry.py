@@ -2,12 +2,13 @@
 in PyTorch).
 
 ``supports_paged`` and ``serving_mode`` are the reference's rules,
-decided from the config alone.  The port trains the dense family (full
-attention) and the ssm family (Mamba-2), and serves both: the dense
-family from the paged KV pool or, with a sliding window, through the
-``Server``'s contiguous ring cache; Mamba-2 from the recurrent state
-pool.  The contiguous caches of ``prefill``, ``decode_step`` and
-``cache_struct`` (``serving.cache.DenseKVCache``) serve both families.
+decided from the config alone.  The port trains the dense and MoE
+families (full attention; both are ``models.transformer``) and the ssm
+family (Mamba-2), and serves them: the transformer families from the
+paged KV pool or, with a sliding window, through the ``Server``'s
+contiguous ring cache; Mamba-2 from the recurrent state pool.  The
+contiguous caches of ``prefill``, ``decode_step`` and ``cache_struct``
+(``serving.cache.DenseKVCache``) serve every ported family.
 Every other family raises ``NotImplementedError`` naming the slice
 that brings it.
 """
@@ -21,10 +22,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba2, transformer
 
 _TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
-_FAMILIES = {"dense": transformer, "ssm": mamba2}
+_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": mamba2}
 
 _LATER = {
-    "moe": "the other-families slice (MoE)",
     "vlm": "the other-families slice (VLM prefix)",
     "hybrid": "the other-families slice (RG-LRU hybrid)",
     "encdec": "the other-families slice (enc-dec)",

@@ -1,12 +1,15 @@
-"""Dense decoder-only transformer (``repro.models.transformer`` in
-PyTorch): the training forward and loss, and serving: the exact-length
-``prefill`` into a contiguous cache (full, or a ring for a sliding
-window), the ragged bucketed prefill, the one-token ``decode_step`` and
-the logits.
+"""Dense and MoE decoder-only transformer (``repro.models.transformer``
+in PyTorch): the training forward and loss, and serving: the
+exact-length ``prefill`` into a contiguous cache (full, or a ring for a
+sliding window), the ragged bucketed prefill, the one-token
+``decode_step`` and the logits.
 
 The reference stacks its layers along a leading L dim and scans them;
 here each layer is a module of a ``ModuleList`` and the loop is Python.
-MoE layers and the multimodal prefix come with the other families.
+An MoE layer (``arch_type == "moe"``) holds ``models.moe.MoE`` where a
+dense one holds its MLP; its aux losses are averaged over the layers in
+float32 and added to the training loss, as the reference's scan does.
+The multimodal prefix comes with the other families.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
 from repro_torch.models.attention import Attention, attn_forward
 from repro_torch.models.layers import (MLP, cross_entropy_chunked,
                                        lm_head_matrix, mlp, param, recompute,
@@ -30,12 +34,15 @@ class Layer(nn.Module):
         self.norm2 = param((cfg.d_model,), dtype=torch.float32, device=device)
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                               cfg.head_dim, dtype=dtype, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dtype,
-                       device=device)
+        if cfg.arch_type == "moe":
+            self.moe = M.MoE(cfg, dtype=dtype, device=device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dtype,
+                           device=device)
 
 
 class Transformer(nn.Module):
-    """The dense decoder's weights.  ``dtype`` is the dtype the matrices
+    """The dense or MoE decoder's weights.  ``dtype`` is the dtype the matrices
     and the embedding are held in: the compute dtype for serving,
     float32 (master weights) for training.  Norm scales are float32.
     Parameters start uninitialised and frozen; call ``init_weights`` or
@@ -45,10 +52,10 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, dtype=torch.bfloat16,
                  device="cuda"):
         super().__init__()
-        if cfg.arch_type != "dense":
+        if cfg.arch_type not in ("dense", "moe"):
             raise NotImplementedError(
-                f"Transformer ports the dense family; {cfg.arch_type!r} "
-                f"comes with the other-families slice")
+                f"Transformer ports the dense and MoE families; "
+                f"{cfg.arch_type!r} comes with the other-families slice")
         self.cfg = cfg
         d, V = cfg.d_model, cfg.padded_vocab
         self.tok = param((V, d), dtype=dtype, device=device)
@@ -79,7 +86,8 @@ class Transformer(nn.Module):
             layer.norm1.data.zero_()
             layer.norm2.data.zero_()
             layer.attn.init_weights(generator, L)
-            layer.mlp.init_weights(generator, L)
+            (layer.moe if self.cfg.arch_type == "moe"
+             else layer.mlp).init_weights(generator, L)
         return self
 
 
@@ -90,6 +98,14 @@ Model = Transformer
 # training forward and loss
 # --------------------------------------------------------------------- #
 
+def ffn(layer: Layer, h, cfg: ModelConfig):
+    """The layer's feed-forward block over h (B, S, d): (out, aux), aux
+    the MoE's losses ({} for a dense MLP)."""
+    if cfg.arch_type == "moe":
+        return M.moe_forward(layer.moe, h, cfg)
+    return mlp(layer.mlp, h, cfg.act), {}
+
+
 def _layer(layer: Layer, x, cfg: ModelConfig):
     h = rmsnorm(x, layer.norm1, cfg.norm_eps)
     a, _ = attn_forward(layer.attn, h, n_heads=cfg.n_heads,
@@ -97,32 +113,43 @@ def _layer(layer: Layer, x, cfg: ModelConfig):
                         rope_theta=cfg.rope_theta)
     x = x + a
     h = rmsnorm(x, layer.norm2, cfg.norm_eps)
-    # sub-layer remat, as the reference's: the backward recomputes the
-    # MLP apart from attention, so the peak holds one of their interiors
-    f = recompute(mlp, layer.mlp, h, cfg.act)
-    return x + f
+    if cfg.arch_type == "moe":
+        f, aux = M.moe_forward(layer.moe, h, cfg)
+    else:
+        # sub-layer remat, as the reference's: the backward recomputes
+        # the MLP apart from attention, so the peak holds one of their
+        # interiors (the reference remats no MoE apart)
+        f, aux = recompute(mlp, layer.mlp, h, cfg.act), {}
+    return x + f, aux
 
 
 def forward_hidden(model: Transformer, cfg: ModelConfig, tokens, *,
                    dtype=torch.bfloat16, remat: bool = True):
-    """tokens: (B, S) int -> final hidden states (B, S, d) in ``dtype``.
-    The embedding is cast to ``dtype`` before the gather, as the
-    reference does; ``F.embedding``'s backward sums each row's grads in
-    a fixed order (an indexing backward would add them with atomics on
-    the card).  ``remat`` recomputes each layer in the backward
+    """tokens: (B, S) int -> (final hidden states (B, S, d) in
+    ``dtype``, aux), aux each MoE loss averaged over the layers in
+    float32 ({} for the dense family).  The embedding is cast to
+    ``dtype`` before the gather, as the reference does;
+    ``F.embedding``'s backward sums each row's grads in a fixed order
+    (an indexing backward would add them with atomics on the card).
+    ``remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``); it changes memory, not the numbers."""
     if cfg.sliding_window is not None:
         raise NotImplementedError(
             "training a sliding-window arch comes with a later slice: "
             "windowed attention with a backward (serve it through "
             "train.serve.Server)")
+    M.check_tokens(cfg, tokens.numel())
     x = F.embedding(tokens, model.tok.to(dtype))
+    auxs = []
     for layer in model.layers:
         if remat:
-            x = recompute(_layer, layer, x, cfg)
+            x, aux = recompute(_layer, layer, x, cfg)
         else:
-            x = _layer(layer, x, cfg)
-    return rmsnorm(x, model.final_norm, cfg.norm_eps)
+            x, aux = _layer(layer, x, cfg)
+        auxs.append(aux)
+    aux = {k: torch.stack([a[k].float() for a in auxs]).mean()
+           for k in auxs[0]} if auxs else {}
+    return rmsnorm(x, model.final_norm, cfg.norm_eps), aux
 
 
 def loss_fn(model: Transformer, cfg: ModelConfig, batch, *,
@@ -130,9 +157,11 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch, *,
     """batch: ``tokens`` and ``labels`` (B, S) int64, optional ``mask``
     (B, S) float32.  Returns (loss, metrics) as the reference: the loss
     and ``ce_loss`` (both with the z-loss term) and ``z_sq``, float32
-    scalars."""
-    h = forward_hidden(model, cfg, batch["tokens"], dtype=dtype,
-                       remat=remat)
+    scalars; the MoE family adds ``moe_aux_total`` to the loss (not to
+    ``ce_loss``) and reports ``lb_loss``, ``rz_loss`` and
+    ``frac_dropped``."""
+    h, aux = forward_hidden(model, cfg, batch["tokens"], dtype=dtype,
+                            remat=remat)
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
@@ -140,7 +169,12 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch, *,
                           device=labels.device)
     loss, z_sq = cross_entropy_chunked(h, lm_head_matrix(model), labels,
                                        mask, cfg.vocab_size, z_loss=z_loss)
-    return loss, {"ce_loss": loss, "z_sq": z_sq, "loss": loss}
+    metrics = {"ce_loss": loss, "z_sq": z_sq}
+    if cfg.arch_type == "moe":
+        loss = loss + M.moe_aux_total(aux, cfg)
+        metrics.update(aux)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # --------------------------------------------------------------------- #
@@ -174,6 +208,7 @@ def _prefill_trunk(model: Transformer, cfg: ModelConfig, tokens,
                    window):
     """Every layer over the prompt: (final hidden (B, S, d) after the
     final norm, the layers' K/V lists, each (B, S, Hkv, hd))."""
+    M.check_tokens(cfg, tokens.numel())
     x = model.tok[tokens]
     ks, vs = [], []
     for layer in model.layers:
@@ -183,7 +218,7 @@ def _prefill_trunk(model: Transformer, cfg: ModelConfig, tokens,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, window=window)
         x = x + a
         h = rmsnorm(x, layer.norm2, cfg.norm_eps)
-        x = x + mlp(layer.mlp, h, cfg.act)
+        x = x + ffn(layer, h, cfg)[0]
         ks.append(k)
         vs.append(v)
     return rmsnorm(x, model.final_norm, cfg.norm_eps), ks, vs
@@ -254,6 +289,6 @@ def decode_step(model: Transformer, cfg: ModelConfig, data, cache_len,
             window=cfg.sliding_window)
         x = x + a
         h = rmsnorm(x, layer.norm2, cfg.norm_eps)
-        x = x + mlp(layer.mlp, h, cfg.act)
+        x = x + ffn(layer, h, cfg)[0]
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
     return logits_from_hidden(model, x), data

@@ -46,8 +46,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import backend as KB
-from repro_torch.models.layers import apply_rope, mlp, rmsnorm
-from repro_torch.models.transformer import logits_from_hidden
+from repro_torch.models.layers import apply_rope, rmsnorm
+from repro_torch.models.transformer import ffn, logits_from_hidden
 
 NULL_PAGE = 0
 
@@ -305,7 +305,7 @@ def _paged_attn_decode(model, cfg: ModelConfig, cache: PagedKVCache,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
             rope_theta=cfg.rope_theta)
         h = rmsnorm(x, layer.norm2, cfg.norm_eps)
-        x = x + mlp(layer.mlp, h, cfg.act)
+        x = x + ffn(layer, h, cfg)[0]
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
     logits = logits_from_hidden(model, x)
     return logits, dataclasses.replace(cache, lengths=cache.lengths + 1)

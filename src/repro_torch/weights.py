@@ -11,6 +11,9 @@ layout, by family (``arch_type``):
 - dense: ``layers.*`` stacked along a leading L dim:
   ``attn.w_q/w_k/w_v/w_o``, ``mlp.w_up/w_down[/w_gate]``,
   ``norm1``/``norm2`` (L, d);
+- moe: the dense layout with ``moe.router`` (L, d, E) and
+  ``moe.w_gate/w_up`` (L, E, d, d_expert), ``moe.w_down`` (L, E,
+  d_expert, d) in place of ``mlp``;
 - ssm (Mamba-2): ``layers.mixer.*`` (``w_z``, ``w_x``, ``w_B``, ``w_C``,
   ``w_dt``, ``dt_bias``, ``A_log``, ``D``, ``conv_w``, ``conv_b``,
   ``norm``, ``w_out``) and ``layers.norm`` (L, d), stacked along L.
@@ -74,6 +77,11 @@ def _dense(tree, cfg: ModelConfig, dtype, device) -> Transformer:
         for n in ("w_q", "w_k", "w_v", "w_o"):
             _copy(getattr(layer.attn, n), layers["attn"][n][i],
                   f"layers.attn.{n}[{i}]")
+        if cfg.arch_type == "moe":
+            for n in ("router", "w_gate", "w_up", "w_down"):
+                _copy(getattr(layer.moe, n), layers["moe"][n][i],
+                      f"layers.moe.{n}[{i}]")
+            continue
         for n in ("w_up", "w_down", "w_gate"):
             w = getattr(layer.mlp, n)
             if w is not None:
@@ -92,14 +100,14 @@ def _ssm(tree, cfg: ModelConfig, dtype, device) -> Mamba2:
     return model
 
 
-_FAMILIES = {"dense": _dense, "ssm": _ssm}
+_FAMILIES = {"dense": _dense, "moe": _dense, "ssm": _ssm}
 
 
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, *,
                     dtype=torch.bfloat16, device="cuda",
                     trainable: bool = False):
     """Build the port's model of ``cfg``'s family (``Transformer`` for
-    dense, ``Mamba2`` for ssm) from the reference's parameter pytree
+    dense and moe, ``Mamba2`` for ssm) from the reference's parameter pytree
     (numpy arrays); ``trainable`` turns on the parameters' gradients."""
     load = _FAMILIES.get(cfg.arch_type)
     if load is None:

@@ -68,6 +68,7 @@ def one_thread():
     yield
     torch.set_num_threads(n)
 
+
 def _phases(plan):
     return [dataclasses.astuple(p) for p in plan.phases]
 

@@ -16,6 +16,18 @@ import torch
 from repro.models import attention as JA
 from repro_torch.models import attention as A
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these small models run many small ops, which
+    the thread pools of several test workers on a shared CPU slow down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 B, H, HKV, HD, D = 2, 4, 2, 16, 32
 

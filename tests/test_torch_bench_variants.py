@@ -10,6 +10,17 @@ from repro_torch.bench import variants as V
 from repro_torch.kernels import _build
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these small models run many small ops, which
+    the thread pools of several test workers on a shared CPU slow down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name", sorted(V.VARIANTS))
 def test_variant_source_applies(name):
     src, subs = V.VARIANTS[name]

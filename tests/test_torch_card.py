@@ -216,6 +216,9 @@ def test_flash_fwd_kernel(cuda, B, H, Hkv, S, hd, dtype):
     (8, 16, 16, 1024, 64),      # seesaw-150m decode, 8 slots
     (8, 24, 8, 1000, 128),      # llama3.2-3b heads
     (3, 4, 1, 20, 64),
+    (4, 4, 2, 128, 32),         # bench.serve's LM: 4 heads of 32, GQA 2
+    (8, 4, 4, 1024, 32),        # the figure LMs' heads, MHA, 8 splits
+    (3, 16, 4, 300, 32),        # two groups of 4 query heads a kv head
 ])
 def test_ragged_decode_kernel(cuda, B, H, Hkv, Skv, hd, dtype):
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -264,6 +267,8 @@ def _page_table(cuda, B, H, Hkv, hd, ps, window, dtype, seed):
 @pytest.mark.parametrize("H,Hkv,hd,window", [
     (16, 16, 64, 1024),         # seesaw-150m decode
     (24, 8, 128, 1008),         # llama3.2-3b heads
+    (4, 2, 32, 128),            # bench.serve's LM (hd 32, GQA 2)
+    (4, 4, 32, 1024),           # hd 32, MHA
 ])
 def test_paged_decode_kernel(cuda, H, Hkv, hd, window, ps, dtype):
     """The kernel reading K and V through the page table, against the
@@ -489,6 +494,11 @@ def test_wrappers_raise_on_unsupported(cuda):
     q = torch.zeros(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         FA.flash_fwd(q, q, q)
+    kv = torch.zeros(1, 2, 8, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        PG.ragged_decode_attention(q[:, :, 0], kv, kv,
+                                   torch.zeros(1, dtype=torch.int32,
+                                               device=cuda))
     x = torch.zeros(2, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         RN.rmsnorm_fwd(x, torch.zeros(64, device=cuda))

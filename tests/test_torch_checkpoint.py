@@ -72,6 +72,7 @@ def one_thread():
     yield
     torch.set_num_threads(n)
 
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -175,16 +176,18 @@ def test_name_map_round_trips_params_and_optimizer_state(dense, name, ours,
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("family", ["dense", "ssm"])
+@pytest.mark.parametrize("family", ["dense", "ssm", "moe"])
 def test_same_bytes_as_reference(tmp_path, family):
     """The reference's ``save`` and the port's, on the same weights and
     AdamW state: equal manifests (the same bytes, with no time in them)
-    and every ``.npy`` byte for byte; each restores the other's."""
+    and every ``.npy`` byte for byte; each restores the other's.  The
+    moe case is the reduced granite-moe-1b (``layers/moe/*`` leaves)."""
     if family == "dense":
         jcfg, cfg = JModelConfig(**TINY), ModelConfig(**TINY)
     else:
-        jcfg = jget_config("mamba2-2.7b").reduced()
-        cfg = get_config("mamba2-2.7b").reduced()
+        arch = {"ssm": "mamba2-2.7b", "moe": "granite-moe-1b-a400m"}[family]
+        jcfg = jget_config(arch).reduced()
+        cfg = get_config(arch).reduced()
     p, o = _jax_state(jcfg)
     model = from_jax_params(_np(p), cfg, dtype=torch.float32, device="cpu",
                             trainable=True)

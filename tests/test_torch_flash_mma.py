@@ -28,6 +28,18 @@ from repro.kernels.flash_attention import _flash_bwd, _flash_fwd
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these small models run many small ops, which
+    the thread pools of several test workers on a shared CPU slow down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BF16 = dict(atol=2e-2, rtol=2e-2)
 KEYS = 64               # keys per tile of the forward kernel
 

@@ -25,6 +25,18 @@ from repro_torch.kernels import paged as PG
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as RN
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these small models run many small ops, which
+    the thread pools of several test workers on a shared CPU slow down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = dict(atol=2e-5, rtol=2e-5)
 
 

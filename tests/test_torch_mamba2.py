@@ -49,6 +49,18 @@ from repro_torch.serving import ServingEngine
 from repro_torch.train.trainer import Trainer
 from repro_torch.weights import from_jax_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these small models run many small ops, which
+    the thread pools of several test workers on a shared CPU slow down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KERNEL = dict(atol=2e-5, rtol=2e-5)
 SSD_SHAPES = [(2, 96, 4, 32, 16, 32), (1, 128, 2, 64, 32, 64),
               (2, 100, 3, 16, 8, 32)]       # tests/test_kernels.py::TestSSD

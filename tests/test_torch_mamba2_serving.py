@@ -52,6 +52,18 @@ from repro_torch.serving import (DenseKVCache, GenerationRequest, PagePool,
 from repro_torch.serving import cache as SC
 from repro_torch.weights import from_jax_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these small models run many small ops, which
+    the thread pools of several test workers on a shared CPU slow down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 SSM_SHAPE = dict(name="torch-serve-ssm", arch_type="ssm", n_layers=2,
                  d_model=32, n_heads=2, n_kv_heads=1, head_dim=8, d_ff=64,

@@ -23,6 +23,18 @@ from repro_torch.models.layers import MLP, apply_rope, mlp
 from repro_torch.serving import ServingEngine
 from repro_torch.weights import from_jax_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these small models run many small ops, which
+    the thread pools of several test workers on a shared CPU slow down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 TINY = dict(name="torch-tiny", arch_type="dense", n_layers=2, d_model=64,
@@ -191,9 +203,9 @@ def test_serving_mode_matches_reference(arch_type, window):
 
 
 @pytest.mark.parametrize("arch_type,slice_name", [
-    ("moe", "other-families"), ("ssm", "Mamba-2")])
+    ("hybrid", "other-families"), ("ssm", "Mamba-2")])
 def test_unported_families_name_their_slice(arch_type, slice_name):
-    """MoE is not ported at all.  Mamba-2 trains and serves from the
+    """The RG-LRU hybrid is not ported at all.  Mamba-2 trains and serves from the
     recurrent state pool; the one serving path closed to it, the
     bucketed ragged prefill, says that Mamba-2 keeps the exact-length
     path."""

@@ -22,6 +22,18 @@ from hypothesis import strategies as st
 from repro_torch.kernels import _build
 from repro_torch.kernels import rmsnorm as RN
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these small models run many small ops, which
+    the thread pools of several test workers on a shared CPU slow down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BF16, F32 = 1, 0
 ELEMS = {BF16: 8, F32: 4}           # elements of a 16-byte vector
 

@@ -45,6 +45,18 @@ from repro_torch.serving import DenseKVCache, GenerationRequest, \
 from repro_torch.train.serve import Server
 from repro_torch.weights import from_jax_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these small models run many small ops, which
+    the thread pools of several test workers on a shared CPU slow down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-5, rtol=1e-5)
 TINY = dict(name="serve-tiny", arch_type="dense", n_layers=2, d_model=32,

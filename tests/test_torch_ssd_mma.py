@@ -41,6 +41,18 @@ import torch
 from repro.kernels.ssd import ssd_chunk as j_ssd_chunk
 from repro_torch.kernels import ref
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these small models run many small ops, which
+    the thread pools of several test workers on a shared CPU slow down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TERMS = 3               # bf16 terms of M and of B·w in the kernel
 TILE = 64               # steps of a j tile: the float32 sums restart
 GATE = 1.5              # emulated error / plain float32 error, at most

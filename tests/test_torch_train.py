@@ -54,6 +54,18 @@ from repro_torch.train import engine as E
 from repro_torch.train.trainer import Trainer
 from repro_torch.weights import from_jax_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these small models run many small ops, which
+    the thread pools of several test workers on a shared CPU slow down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KERNEL = dict(atol=2e-5, rtol=2e-5)
 
 TINY = dict(name="train-tiny", arch_type="dense", n_layers=2, d_model=64,
