@@ -7,7 +7,8 @@ through the blocking ``Server`` (starcoder2-3b from its sliding-window
 ring cache), run the paper's benchmarks and train seesaw-150m at its
 critical batch size, Seesaw against cosine, train and serve the MoE
 granite-moe-1b-a400m, run the reference's serving, engine and
-checkpoint benchmarks, and run the kernel benchmark on one NVIDIA card.
+checkpoint benchmarks, train and serve the RG-LRU hybrid
+recurrentgemma-9b, and run the kernel benchmark on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -307,6 +308,40 @@ decode graph, each replayed once per step.
   (``bench/checkpoint.py``: ``check_stall``, ``check_schema``), in
   process, and ``examples.serve_decode --arch granite-moe-1b-a400m``
   (its reduced config, bf16).  The ``moe`` line holds it all.
+- Phase 15, the RG-LRU hybrid (recurrentgemma-9b, arXiv:2402.19427).
+  (a) The RG-LRU scan kernels (``csrc/rglru_scan.cu``: the recurrence
+  and its reverse sweep; the reference has no Pallas kernel here)
+  against their plain versions in float32, within 2e-5 of each output's
+  max, at 15b's micro-batch (4, 1024, 4096) and 15c's prefill (2, 2500,
+  4096, with h0); the ragged decode at head_dim 256 on recurrentgemma's
+  ring (B=2, Skv=2048, H=16 on one kv head) and paged (8 slots, pages of
+  16), f32 (2e-5) and bf16 (2e-2); RMSNorm forward and backward at d
+  4096 (4,096 rows and a decode step's 2).  Each timed as phase 1
+  times, beside its bound, its plain version and a library call (SDPA
+  with GQA and a mask for the decode, ``F.rms_norm`` for RMSNorm; none
+  computes a linear recurrence).  (b) recurrentgemma-9b at full width
+  cut to 5 layers (2.97B parameters, 47.5 GB of float32 weights, grads
+  and AdamW state), bf16 compute, remat: Seesaw alpha = 2, one cut, 6
+  steps at B = 4 and 2 at B = 8 (micro 2) of 1024, ``MarkovLM(2048,
+  0)``: each step's LR, batch and phase the plan's, the loss falling,
+  every kernel's launches exactly remat's per micro-batch (RMSNorm 21 /
+  11, the scan 8 and its backward 4, flash 0), one graph per (batch
+  size, micro); tok/s, peak and a profile of one replayed B = 4 step.
+  Then the same widths with the vocabulary cut to 2048: a replayed step
+  at B = 4 and one at B = 8 against eager steps on a clone of the state,
+  bit for bit; and the reduced hybrid in f32 on the card against the
+  CPU (loss 1e-4, grads 1e-3 of each tensor's max).  (c) recurrentgemma-
+  9b at full width and depth (38 layers, 17.1 GB in bf16) through the
+  ``Server`` (max_len 4096: a 2048-slot ring in each attention layer): 2
+  prompts of 2,500 with 64 new (the ring built from S >= W), and
+  batches of 1- and 2-token prompts, through one captured decode graph:
+  launches exact (the scan 26 a prefill, the ragged decode 12 and the
+  RMSNorm forward 77 a decode step), tokens equal to an all-eager
+  Server's; tok/s, the prefill's ms split into windowed attention, scan
+  and the rest, a replayed decode step beside its bytes bound and
+  under torch.profiler, peak memory; the reduced hybrid in f32 on the
+  card against the CPU through the Server (first-token logits 1e-3,
+  tokens equal).  The ``hybrid`` line holds it all.
 - Phase 8, the kernel benchmark: ``repro_torch.bench.kernels`` at full
   size through its ``main`` (the reference's attention, RMSNorm and SSD
   sweeps in float32, kernel and plain, forward and forward+backward; the
@@ -322,12 +357,13 @@ decode graph, each replayed once per step.
   chunk, the overlap normalize) must each be launched in the run.
 
 Prints the card's name and power limit, one ``kernels`` JSON line (the
-eight kernels, the flash kernels at hd 32 and the ragged decode at hd
-32), one ``engine`` and one ``train`` JSON line (phase 9's
-result in the latter), one ``mamba2`` JSON line, one ``mamba2_serve``
+eight kernels, the flash kernels at hd 32, the ragged decode at hd 32
+and 256, and the RG-LRU scan pair), one ``engine`` and one ``train``
+JSON line (phase 9's result in the latter), one ``mamba2`` JSON line,
+one ``mamba2_serve``
 line (phases 11 and 11b, with the card), one ``server`` line (phase
 12), one ``paper`` line (phase 13), one ``moe`` line (phase 14), one
-``checkpoint`` line
+``hybrid`` line (phase 15), one ``checkpoint`` line
 (phase 10: bytes written, write, restore and verify seconds and GB/s,
 the async save's stall beside a sync save's time, the adaptive run's
 cuts, the card's name and power limit), and last ``{"ok": true,
@@ -339,6 +375,7 @@ CUDA device it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -848,6 +885,15 @@ def compiled_report(_build, lib):
             dtype = "float32" if m.group(2) == "f" else "bfloat16"
             out[f"{m.group(1)}_kernel<{dtype}>"] = dict(hmma=hmma[mangled],
                                                         **r)
+        m = re.search(r"(rglru_scan_(?:fwd|bwd))_kernel", mangled)
+        if m:
+            out[f"{m.group(1)}_kernel"] = dict(hmma=hmma[mangled], **r)
+        m = re.search(r"paged_decode_kernelI(f|13__nv_bfloat16)Li(\d+)E"
+                      r"Li(\d+)E", mangled)
+        if m:
+            dtype = "float32" if m.group(1) == "f" else "bfloat16"
+            out[f"paged_decode_kernel<{dtype}, hd {m.group(2)}, "
+                f"{m.group(3)} heads>"] = dict(**r)
     tc, f32 = (out["ssd_chunk_mma_kernel<bfloat16>"],
                out["ssd_chunk_kernel<float32>"])
     if not tc["hmma"] > 0 or f32["hmma"] != 0 \
@@ -2457,7 +2503,8 @@ def event_ms(fn, reps: int) -> float:
     return float(np.median(ms))
 
 
-def server_step(srv, cfg, positions: int, smi, profile_name=None):
+def server_step(srv, cfg, positions: int, smi, profile_name=None,
+                n_bytes=None):
     """The Server's one captured decode graph, each replay continuing the
     last batch from where it stopped: ``step_ms``, the mean of 10
     replays queued back to back between CUDA events (as a generation
@@ -2466,8 +2513,9 @@ def server_step(srv, cfg, positions: int, smi, profile_name=None):
     latency), beside the step's bytes bound: every weight read once (of
     the embedding only the rows the batch looks up, when it is not the
     tied head) and the ``positions`` cache slots a row reads, K and V,
-    every layer.  With ``profile_name``, two more replays under
-    torch.profiler."""
+    every layer.  ``n_bytes`` replaces that count where the cache is
+    not a K/V cache in every layer (the hybrid's: ``hybrid_step_bytes``).
+    With ``profile_name``, two more replays under torch.profiler."""
     (ent,) = [e for e in srv._decode_fns.values() if e.graph is not None]
     model = srv.model
     B = ent.token.shape[0]
@@ -2476,11 +2524,14 @@ def server_step(srv, cfg, positions: int, smi, profile_name=None):
     if model.lm_head is not None:
         weights -= model.tok.numel() * es - B * cfg.d_model * es
     cache = B * cfg.n_layers * positions * 2 * cfg.kv_dim * es
+    if n_bytes is not None:
+        weights, cache = None, None
     replay = ent.graph.replay
     one_ms = event_ms(replay, 10)
     step_ms = event_ms(lambda: [replay() for _ in range(10)], 3) / 10
     out = {"step_ms": step_ms, "one_replay_ms": one_ms,
-           **bound(weights + cache, 0, srv.dtype),
+           **bound(n_bytes if n_bytes is not None else weights + cache, 0,
+                   srv.dtype),
            "weight_bytes": weights, "cache_bytes": cache,
            "batch": B, "card": smi}
     if profile_name:
@@ -2707,10 +2758,22 @@ def phase12c(cfg, R, Server):
     torch.cuda.empty_cache()
     from repro_torch.configs import get_config
     small = get_config("starcoder2-3b").reduced()
-    cpu = R.init_model(small, seed=5, dtype=f32, device="cpu")
-    card = R.init_model(small, seed=5, dtype=f32, device="cpu").cuda()
     batches = [(rng.integers(0, small.vocab_size, (2, 60)), 20),
                (rng.integers(0, small.vocab_size, (1, 100)), 30)]
+    diff, toks = server_card_vs_cpu(small, R, Server, batches, seed=5)
+    return {"prefill_plus_decode_vs_prefill_max_abs_diff": ring,
+            "reduced_first_token_logit_max_abs_diff": diff,
+            "reduced_tokens": toks}
+
+
+def server_card_vs_cpu(small, R, Server, batches, seed):
+    """``small`` in float32 through a Server on the card and on the CPU,
+    the same weights (``seed``): each batch's first-token logits within
+    1e-3, its greedy tokens equal.  Returns (the logits' largest
+    difference, the card's tokens)."""
+    f32 = torch.float32
+    cpu = R.init_model(small, seed=seed, dtype=f32, device="cpu")
+    card = R.init_model(small, seed=seed, dtype=f32, device="cpu").cuda()
     out = {}
     for dev, model in (("cpu", cpu), ("cuda", card)):
         srv = Server(small, model, max_len=256, dtype=f32)
@@ -2724,13 +2787,12 @@ def phase12c(cfg, R, Server):
     diff = max(float((a - b).abs().max())
                for a, b in zip(out["cuda"][0], out["cpu"][0]))
     if diff > 1e-3:
-        raise AssertionError(f"first-token logits differ by {diff:.3g}")
+        raise AssertionError(f"{small.name}: first-token logits differ by "
+                             f"{diff:.3g}")
     if out["cuda"][1] != out["cpu"][1]:
-        raise AssertionError(f"tokens differ: card {out['cuda'][1]}, cpu "
-                             f"{out['cpu'][1]}")
-    return {"prefill_plus_decode_vs_prefill_max_abs_diff": ring,
-            "reduced_first_token_logit_max_abs_diff": diff,
-            "reduced_tokens": out["cuda"][1]}
+        raise AssertionError(f"{small.name}: tokens differ: card "
+                             f"{out['cuda'][1]}, cpu {out['cpu'][1]}")
+    return diff, out["cuda"][1]
 
 
 
@@ -3075,6 +3137,42 @@ def moe_vs_ref(cfg, M):
             "kept_equal": True, "ms": ms, "ref_ms": ref_ms}
 
 
+def loss_card_vs_cpu(small, R):
+    """``small`` in float32 on the card and on the CPU from the same
+    weights (seed 3), one batch of 2 x 256 from ``MarkovLM``: the loss
+    within 1e-4 and every grad within 1e-3 of its tensor's largest
+    |grad|.  Returns (the record, the CPU model)."""
+    from repro_torch.data import MarkovLM
+    cpu = R.init_model(small, seed=3, dtype=torch.float32, device="cpu",
+                       trainable=True)
+    card = R.init_model(small, seed=3, dtype=torch.float32, device="cpu",
+                        trainable=True).cuda()
+    raw = MarkovLM(small.vocab_size, seed=2).sample(0, 2, 256)
+    res = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        batch = {k: torch.from_numpy(v.astype(np.int64)).to(dev)
+                 for k, v in raw.items()}
+        loss, m = R.loss_fn(model, small, batch, dtype=torch.float32)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        res[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                    {k: float(v.detach()) for k, v in m.items()})
+    loss_diff = abs(res["cpu"][0] - res["cuda"][0])
+    if loss_diff > 1e-4:
+        raise AssertionError(f"{small.name}: loss differs by "
+                             f"{loss_diff:.3g}")
+    grad_rel = 0.0
+    for (name, _), a, b in zip(cpu.named_parameters(), res["cpu"][1],
+                               res["cuda"][1]):
+        rel = float((a - b).abs().max() / a.abs().max().clamp(min=1e-30))
+        if rel > 1e-3:
+            raise AssertionError(f"{small.name}: grad of {name}: "
+                                 f"{rel:.3g} of its max")
+        grad_rel = max(grad_rel, rel)
+    return {"loss_cpu": res["cpu"][0], "loss_cuda": res["cuda"][0],
+            "loss_abs_diff": loss_diff, "grad_max_rel_diff": grad_rel,
+            "metrics_cuda": res["cuda"][2]}, cpu
+
+
 def phase14b(cfg, R, RN, FA, smi):
     """granite-moe-1b-a400m at full width and depth (24 layers, d 1024,
     GQA 16/8, 32 experts, top-8, d_expert 512, vocab 49,155; 1.33B
@@ -3142,35 +3240,9 @@ def phase14b(cfg, R, RN, FA, smi):
     torch.cuda.empty_cache()
 
     small = cfg.reduced()
-    cpu = R.init_model(small, seed=3, dtype=torch.float32, device="cpu",
-                       trainable=True)
-    card = R.init_model(small, seed=3, dtype=torch.float32, device="cpu",
-                        trainable=True).cuda()
-    raw = MarkovLM(small.vocab_size, seed=2).sample(0, 2, 256)
-    res = {}
-    for dev, model in (("cpu", cpu), ("cuda", card)):
-        batch = {k: torch.from_numpy(v.astype(np.int64)).to(dev)
-                 for k, v in raw.items()}
-        loss, m = R.loss_fn(model, small, batch, dtype=torch.float32)
-        grads = torch.autograd.grad(loss, list(model.parameters()))
-        res[dev] = (float(loss.detach()), [g.cpu() for g in grads],
-                    {k: float(v.detach()) for k, v in m.items()})
-    loss_diff = abs(res["cpu"][0] - res["cuda"][0])
-    if loss_diff > 1e-4:
-        raise AssertionError(f"reduced granite: loss differs by "
-                             f"{loss_diff:.3g}")
-    grad_rel = 0.0
-    for (name, _), a, b in zip(cpu.named_parameters(), res["cpu"][1],
-                               res["cuda"][1]):
-        rel = float((a - b).abs().max() / a.abs().max().clamp(min=1e-30))
-        if rel > 1e-3:
-            raise AssertionError(f"reduced granite: grad of {name}: "
-                                 f"{rel:.3g} of its max")
-        grad_rel = max(grad_rel, rel)
+    rec, cpu = loss_card_vs_cpu(small, R)
     out["card_vs_cpu"] = {
-        "loss_cpu": res["cpu"][0], "loss_cuda": res["cuda"][0],
-        "loss_abs_diff": loss_diff, "grad_max_rel_diff": grad_rel,
-        "metrics_cuda": res["cuda"][2],
+        **rec,
         **replayed_card_vs_cpu(small, cpu, 256, 2, {
             k: v.reshape(3, 2, 256) for k, v in
             MarkovLM(small.vocab_size, seed=2).sample(2, 6, 256).items()})}
@@ -3303,6 +3375,480 @@ def phase14d(PG, smi):
                            "s": time.perf_counter() - t}
     out["card"] = smi
     return out
+
+
+# --------------------------------------------------------------------- #
+# phase 15: the RG-LRU hybrid (recurrentgemma-9b)
+# --------------------------------------------------------------------- #
+
+HYBRID_ARCH = "recurrentgemma-9b"
+# (B, S, W, tag): the scan at 15b's micro-batch (4 x 1024) and at 15c's
+# prefill (2 prompts of 2,500), recurrentgemma's LRU width
+SCAN_SHAPES = ((4, 1024, 4096, "train"), (2, 2500, 4096, "prefill"))
+# 15b: Seesaw alpha = 2, one cut, B0 = 4 of 1024: 6 steps at B = 4 and 2
+# at B = 8 (micro 2)
+HYBRID_TOKENS = 9 * 4 * 1024
+
+
+def scan_case(B, S, W, g):
+    """Inputs as the RG-LRU makes them: a = exp(-8 softplus(lam) r) with
+    lam at the init's (softplus 0.1-0.5 across the width) and r a sigmoid,
+    so a lies in (0.018, 1); b, h0, dhs and dh_last normal."""
+    lam = torch.log(torch.expm1(torch.linspace(0.1, 0.5, W,
+                                               device="cuda")))
+    r = torch.sigmoid(torch.randn(B, S, W, generator=g, device="cuda"))
+    a = torch.exp(-8.0 * F.softplus(lam) * r)
+    b, dhs = (torch.randn(B, S, W, generator=g, device="cuda")
+              for _ in range(2))
+    h0, dhl = (torch.randn(B, W, generator=g, device="cuda")
+               for _ in range(2))
+    return a, b, h0, dhs, dhl
+
+
+def scan_err(got, want, rel=2e-5) -> float:
+    """max |got - want|, which must stay within ``rel`` of max |want| (the
+    scan's gate: 2e-5 of the output's largest magnitude)."""
+    err = float((got - want).abs().max())
+    if err > rel * float(want.abs().max()):
+        raise AssertionError(f"error {err:.3g} > {rel} x the output's max "
+                             f"{float(want.abs().max()):.3g}")
+    return err
+
+
+def phase15a(RG, PG, RN, ref):
+    """The RG-LRU scan forward and backward at ``SCAN_SHAPES`` against
+    their plain versions (the reference's chunked scan and its written-out
+    reverse sweep), float32, within 2e-5 of each output's max; the ragged
+    decode at head_dim 256 on recurrentgemma's ring (B=2, Skv=2048, H=16,
+    Hkv=1), gathered and paged (pages of 16), f32 (2e-5) and bf16 (2e-2);
+    RMSNorm forward and backward at d 4096 (15b's 4,096 rows and a decode
+    step's 2), f32 and bf16.  Each timed as phase 1 does, beside its
+    bound, its plain version and a library call where one computes the
+    same function (none for the scan)."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    rng = np.random.default_rng(15)
+    errors, times, inputs = [], {}, {}
+    timer, bf, f32 = Timer(iters=20), torch.bfloat16, torch.float32
+    for B, S, W, tag in SCAN_SHAPES:
+        a, b, h0, dhs, dhl = scan_case(B, S, W, g)
+        h = h0 if tag == "prefill" else None
+        hs, hl = RG.rglru_scan_fwd(a, b, h)
+        torch.cuda.synchronize()
+        whs, whl = ref.rglru_scan_ref(a, b, h)
+        errors.append(("rglru_scan_fwd", tag, "float32",
+                       max(scan_err(hs, whs), scan_err(hl, whl))))
+        da, db, dh0 = RG.rglru_scan_bwd(a, hs, h, dhs, dhl, h is not None)
+        torch.cuda.synchronize()
+        want = ref.rglru_scan_bwd_ref(a, whs, h, dhs, dhl)
+        errors.append(("rglru_scan_bwd", tag, "float32", max(
+            scan_err(x, y) for x, y in zip((da, db, dh0), want)
+            if x is not None)))
+        del whs, whl, want, da, db, dh0
+        n = B * S * W
+        times[f"rglru_scan_fwd/{tag}"] = dict(
+            ms=timer(lambda: RG.rglru_scan_fwd(a, b, h)),
+            plain_ms=timer(lambda: ref.rglru_scan_ref(a, b, h)),
+            library_ms=None,
+            shape=f"a, b ({B}, {S}, {W}) f32"
+                  f"{', h0' if h is not None else ''}",
+            **bound(12 * n + 4 * B * W * (2 if h is not None else 1),
+                    2 * n, f32))
+        times[f"rglru_scan_bwd/{tag}"] = dict(
+            ms=timer(lambda: RG.rglru_scan_bwd(a, hs, h, dhs, dhl,
+                                               h is not None)),
+            plain_ms=timer(lambda: ref.rglru_scan_bwd_ref(a, hs, h, dhs,
+                                                          dhl)),
+            library_ms=None,
+            shape=f"a, hs, dhs ({B}, {S}, {W}) f32 -> da, db",
+            **bound(20 * n + 4 * B * W * (3 if h is not None else 1),
+                    3 * n, f32))
+        del a, b, h0, dhs, dhl, hs, hl
+        torch.cuda.empty_cache()
+    note = "none: no single PyTorch call computes a linear recurrence"
+    for dtype in DTYPES:
+        dn = str(dtype).replace("torch.", "")
+        t, err = decode_case(PG, ref, 2, 2048, 16, 1, 256, dtype, g, rng)
+        errors.append(("ragged_decode", "hd256-ring", dn, err))
+        inputs[("decode", dn)] = t
+        err = paged_case(PG, ref, 8, 2048, 16, 1, 256, 16, dtype, g, rng)
+        errors.append(("paged_decode", "hd256-ps16", dn, err))
+        for rows, tag in ((4096, "train"), (2, "decode")):
+            x, s, err = rmsnorm_case(RN, ref, rows, 4096, dtype, g)
+            errors.append(("rmsnorm_fwd", f"d4096-{tag}", dn, err))
+            inputs[("rmsnorm", tag, dn)] = (x, s)
+        x, s = inputs[("rmsnorm", "train", dn)]
+        gy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+        dx, ds = RN.rmsnorm_bwd(x, s, gy, 1e-5)
+        torch.cuda.synchronize()
+        want_dx, want_ds = ref.rmsnorm_bwd_ref(x, s, gy, 1e-5)
+        errors.append(("rmsnorm_bwd", "d4096-train", dn,
+                       max_err(dx, want_dx, dtype)))
+        errors.append(("rmsnorm_bwd/dscale_rel", "d4096-train", dn,
+                       dscale_rel_err(x, gy, ds, want_ds)))
+        inputs[("rmsnorm_bwd", dn)] = gy
+    for name, tag, dn, err in errors:
+        log(f"phase 15a: {name} {tag} {dn}: max err {err:.3g}")
+
+    # the decode on a full ring (every slot valid: lengths W - 1), bf16
+    q, k, v, _, _, _ = inputs[("decode", "bfloat16")]
+    B, H, hd = q.shape
+    Hkv, W = k.shape[1], k.shape[2]
+    es = q.element_size()
+    ln = torch.full((B,), W - 1, dtype=torch.int32, device="cuda")
+    full = PG.ragged_decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    ring_err = max_err(full, ref.ragged_decode_ref(q, k, v, ln), bf)
+    mask = (torch.arange(W, device="cuda")[None, :]
+            <= ln.long()[:, None])[:, None, None, :]
+    nk = float(B * W)
+    times["ragged_decode/hd256"] = dict(
+        ms=timer(lambda: PG.ragged_decode_attention(q, k, v, ln)),
+        plain_ms=timer(lambda: ref.ragged_decode_ref(q, k, v, ln)),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)),
+        max_abs_err=ring_err,
+        shape=f"q (B={B}, H={H}, hd={hd}), ring Skv={W}, Hkv={Hkv}, every "
+              f"length {W - 1} bf16",
+        **bound(2 * q.numel() * es + 2 * nk * Hkv * hd * es + 4 * B,
+                4 * nk * H * hd, bf))
+    for rows, tag in ((4096, "train"), (2, "decode")):
+        x, s = inputs[("rmsnorm", tag, "bfloat16")]
+        d = x.shape[-1]
+        w = (1.0 + s).to(bf)
+        times[f"rmsnorm_fwd/d4096-{tag}"] = dict(
+            ms=timer(lambda: RN.rmsnorm_fwd(x, s, 1e-5)),
+            graph_us=GraphTimer()(lambda: RN.rmsnorm_fwd(x, s, 1e-5)),
+            plain_ms=timer(lambda: ref.rmsnorm_ref(x, s, 1e-5)),
+            library_ms=timer(lambda: F.rms_norm(x, (d,), w, 1e-5)),
+            library_graph_us=GraphTimer()(lambda: F.rms_norm(x, (d,), w,
+                                                             1e-5)),
+            shape=f"x ({rows}, {d}) bf16",
+            **bound(2 * x.numel() * es + 4 * d, 4 * x.numel(), bf))
+    x, s = inputs[("rmsnorm", "train", "bfloat16")]
+    gy = inputs[("rmsnorm_bwd", "bfloat16")]
+    n, d = x.shape
+    xr = x.detach().clone().requires_grad_()
+    w = (1.0 + s).to(bf).requires_grad_()
+    y = F.rms_norm(xr, (d,), w, 1e-5)
+    times["rmsnorm_bwd/d4096-train"] = dict(
+        ms=timer(lambda: RN.rmsnorm_bwd(x, s, gy, 1e-5)),
+        plain_ms=timer(lambda: ref.rmsnorm_bwd_ref(x, s, gy, 1e-5)),
+        library_ms=timer(lambda: torch.autograd.grad(
+            y, (xr, w), gy, retain_graph=True)),
+        shape=f"x, g ({n}, {d}) bf16; dx and dscale from one launch",
+        **bound(3 * n * d * es + 8 * d, 12 * n * d, bf))
+    for k_ in [k_ for k_ in times if k_.startswith("rglru")]:
+        times[k_]["library_note"] = note
+    log(f"phase 15a: {times}")
+    return errors, times
+
+
+def hybrid_step_bytes(model, cfg, batch: int, positions: int) -> int:
+    """Bytes a hybrid decode step must move at least: every weight once
+    (of the untied embedding only the ``batch`` rows looked up), each
+    ring's K and V over ``positions`` slots a row, each recurrent
+    layer's conv rows and float32 state read and written."""
+    from repro_torch.models import rglru as HY
+    w = cfg.hybrid.lru_width or cfg.d_model
+    es = model.tok.element_size()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    weights -= model.tok.numel() * es - batch * cfg.d_model * es
+    n_rec = sum(k == "recurrent" for k in HY.kinds(cfg))
+    rings = (cfg.n_layers - n_rec) * batch * positions * 2 * cfg.kv_dim * es
+    states = n_rec * 2 * batch * w * ((cfg.hybrid.conv1d_width - 1) * es
+                                      + 4)
+    return weights + rings + states
+
+
+def hybrid_counters(RN, FA, PG, SSD, OV, RG):
+    """Every kernel's launch counter, the scan pair's among them."""
+    return dict(serve_counters(RN, FA, PG, SSD, OV),
+                rglru_scan_fwd=(RG, "launches"),
+                rglru_scan_bwd=(RG, "bwd_launches"))
+
+
+def hybrid_run(cfg):
+    from repro_torch.configs import (OptimizerConfig, RunConfig,
+                                     ScheduleConfig)
+    return RunConfig(model=cfg,
+                     schedule=ScheduleConfig(kind="seesaw", alpha=2.0,
+                                             n_cuts=1),
+                     optimizer=OptimizerConfig(kind="adamw", beta1=0.9,
+                                               beta2=0.95, grad_clip=1.0),
+                     seq_len=1024, global_batch_size=4,
+                     total_tokens=HYBRID_TOKENS, dtype="bfloat16")
+
+
+def hybrid_launches(cfg, remat: bool) -> dict:
+    """Every kernel's launches a micro-batch of the hybrid: RMSNorm 4L+1
+    forward (2L+1 without remat) and 2L+1 backward, the scan once per
+    recurrent layer (twice under remat) and its backward once; the
+    windowed attention layers launch no kernel (``chunked_attention``)."""
+    from repro_torch.models import rglru as HY
+    L, r = cfg.n_layers, 2 if remat else 1
+    n_rec = sum(k == "recurrent" for k in HY.kinds(cfg))
+    return {"rmsnorm_fwd": 2 * L * r + 1, "rmsnorm_bwd": 2 * L + 1,
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "ragged_decode": 0, "ssd_chunk": 0, "overlap_norm": 0,
+            "rglru_scan_fwd": n_rec * r, "rglru_scan_bwd": n_rec}
+
+
+def phase15b(cfg, R, ctr, smi):
+    """recurrentgemma-9b at full width, cut to 5 layers (one (recurrent,
+    recurrent, attention) group and a remainder of two, 2,971,807,744
+    parameters, 47.5 GB of float32 weights, grads and AdamW state): bf16
+    compute, remat, Seesaw alpha = 2 with one cut, 6 steps at B = 4 and 2
+    at B = 8 (micro 2) of 1024, ``MarkovLM(2048, 0)``.  Gates: each step's
+    LR, batch and phase the plan's, losses finite and falling, every
+    kernel's launches exactly remat's per micro-batch, one graph per
+    (batch size, micro).  Then, at the same layer widths with the
+    vocabulary cut to the data's 2048 (a clone of the 47.5 GB state does
+    not fit beside it), a replayed step at B = 4 and one at B = 8, each
+    against the eager step on a clone of the state, bit for bit; and the
+    reduced hybrid in float32 on the card against the CPU: the loss
+    within 1e-4 and every grad within 1e-3 of its tensor's max.  (Phase
+    5's three SGD steps at LR 0.1 are not gated here: the three-step
+    update of ``w_r``, a sum of small gradients, lands past that gate's
+    1e-3 of its max from the CPU's while one step's grads agree far
+    inside theirs; the scan sums in another order on the card.)"""
+    from repro_torch.data import MarkovLM
+    five = dataclasses.replace(cfg, n_layers=5)
+    run = hybrid_run(five)
+    tr, out = run_ramp(run, ctr, fuse_steps=4, max_device_batch=4,
+                       want=([4, 8], [6, 2], [1, 2]))
+    if not out["loss_last"] < out["loss_first"]:
+        raise AssertionError(f"the loss did not fall: {out['losses']}")
+    check_launches(out, hybrid_launches(five, run.remat))
+    # the config's param_count is the reference's formula, which leaves
+    # out each recurrent layer's w_r and w_i (W x W)
+    out["params"] = sum(p.numel() for p in tr.state.model.parameters())
+    out["config_param_count"] = five.param_count()
+    out["state_gb"] = 16 * out["params"] / 1e9
+    out["card"] = smi
+    out["profile"] = profile_train(
+        tr, out["per_batch_size"]["4"]["wall_s_per_step"], 4,
+        "profile_hybrid_train.txt")
+    # the trainer's graphs hold its pool until the cycles through the
+    # engine are collected
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(five, vocab_size=2048)
+    tr, cut_out = run_ramp(hybrid_run(cut), ctr, fuse_steps=4,
+                           max_device_batch=4,
+                           want=([4, 8], [6, 2], [1, 2]))
+    eng, st = tr.engine, tr.state
+    src = MarkovLM(2048, seed=9)
+    tok, start = st.tokens_seen, 0
+    for b in (4, 8):
+        chunk = {k: torch.from_numpy(v.astype(np.int64))[None].cuda()
+                 for k, v in src.sample(start, b, 1024).items()}
+        twin = clone_state(st.model, st.opt_state)
+        _, _, m = eng.run_chunk(st.model, st.opt_state, tok, chunk,
+                                step=st.step)
+        _, _, want = eng.step_for(b).grad(
+            *twin, {k: v[0] for k, v in chunk.items()}, m["lr"][0].cuda())
+        torch.cuda.synchronize()
+        if not same_state((st.model, st.opt_state), twin) or not all(
+                torch.equal(m[k][0], v) for k, v in want.items()):
+            raise AssertionError(f"B={b}: the replay differs from the "
+                                 f"eager step")
+        del twin
+        st.step, tok, start = st.step + 1, tok + b * 1024, start + b
+    out["graphs_bitwise"] = {
+        "model": "recurrentgemma-9b widths, 5 layers, vocab 2048",
+        "params": sum(p.numel() for p in st.model.parameters()),
+        "micro1_steps": 1, "micro2_steps": 1,
+        "captures": eng.captures,
+        "tok_per_s": {b: r["tok_per_s"]
+                      for b, r in cut_out["per_batch_size"].items()},
+        "launches": cut_out["launches"]}
+    del tr, eng, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["card_vs_cpu"], _ = loss_card_vs_cpu(
+        dataclasses.replace(cfg.reduced(), n_layers=5), R)
+    log(f"phase 15b: card vs cpu {out['card_vs_cpu']}")
+    return out
+
+
+def phase15c(cfg, R, Server, ctr, smi):
+    """recurrentgemma-9b at full width and depth (38 layers: 26 recurrent,
+    12 attention; 8.53B parameters, 17.1 GB in bf16) through the
+    ``Server``, ``max_len`` 4096: a ring of 2048 slots in each attention
+    layer.  A warm-up runs the entry's first decode step eagerly and
+    captures its graph.  Then 2 prompts of 2,500 with 64 new (the ring
+    built from S >= W, and wrapped), and batches of 2 prompts of 1 and of
+    2 tokens (16 new), through the one graph: launches exactly the scan
+    26 a prefill and never in a decode step, its backward never, the
+    ragged decode 12 a decode step, the RMSNorm forward 77 a prefill and
+    a decode step, flash 0; tokens equal to an all-eager Server's.
+    Reports tok/s, the prefill's ms split into the windowed attention
+    (12 x one layer's ``chunked_attention`` at S = 2,500), the scan (26 x
+    one launch at (2, 2,500, 4,096)) and the rest, a replayed decode
+    step beside its bytes bound and under torch.profiler, and the peak.
+    Then the reduced hybrid (5 layers) in float32 on the card and on the
+    CPU through the Server: first-token logits within 1e-3, tokens equal,
+    prompts of 90 (past its window of 64), 1 and 2."""
+    from repro_torch.kernels import rglru as RG
+    from repro_torch.models import rglru as HY
+    from repro_torch.models.attention import chunked_attention
+    bf = torch.bfloat16
+    L = cfg.n_layers
+    n_rec = sum(k == "recurrent" for k in HY.kinds(cfg))
+    n_att = L - n_rec
+    torch.cuda.reset_peak_memory_stats()
+    model = R.init_model(cfg, seed=0, dtype=bf, device="cuda")
+    srv = Server(cfg, model, max_len=4096, dtype=bf)
+    eager = eager_server(Server, cfg, model, max_len=4096, dtype=bf)
+    rng = np.random.default_rng(15)
+    quiet_generate(srv, rng.integers(0, cfg.vocab_size, (2, 64)), 3)
+    if srv.captures != 1:
+        raise AssertionError(f"warm-up captured {srv.captures} graphs")
+    batches = {}
+    for tag, S, n_new in (("long", 2500, 64), ("one", 1, 16),
+                          ("two", 2, 16)):
+        toks = rng.integers(0, cfg.vocab_size, (2, S)).astype(np.int32)
+        for m, a in ctr.values():
+            setattr(m, a, 0)
+        out, wall = quiet_generate(srv, toks, n_new)
+        launches = {n: getattr(m, a) for n, (m, a) in ctr.items()}
+        want = dict({n: 0 for n in ctr}, rmsnorm_fwd=(2 * L + 1) * n_new,
+                    rglru_scan_fwd=n_rec, ragged_decode=n_att * (n_new - 1))
+        if launches != want or srv.captures != 1:
+            raise AssertionError(f"batch {tag}: launches {launches}, want "
+                                 f"{want}; {srv.captures} captures")
+        ref_out, eager_wall = quiet_generate(eager, toks, n_new)
+        if not np.array_equal(out, ref_out):
+            raise AssertionError(f"batch {tag}: replayed tokens differ "
+                                 f"from the eager ones")
+        if out.min() < 0 or out.max() >= cfg.padded_vocab:
+            raise AssertionError(f"batch {tag}: token out of the vocab")
+        batches[tag] = {"batch": 2, "prompt": S, "new": n_new,
+                        "wall_s": wall, "tok_per_s": 2 * n_new / wall,
+                        "eager_wall_s": eager_wall,
+                        "eager_tok_per_s": 2 * n_new / eager_wall,
+                        "tokens_equal_eager": True, "launches": launches}
+    long = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (2, 2500))).cuda()
+    prefill_ms = event_ms(lambda: srv.prefill(long), 3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_bytes = hybrid_step_bytes(model, cfg, 2, 2048)
+    step = server_step(srv, cfg, 2048, smi, "profile_hybrid_decode.txt",
+                       n_bytes=n_bytes)
+    del srv, eager
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(16)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn(2, 2500, H, hd, generator=g, device="cuda").to(bf)
+    k = torch.randn(2, 2500, Hkv, hd, generator=g, device="cuda").to(bf)
+    v = torch.randn(2, 2500, Hkv, hd, generator=g, device="cuda").to(bf)
+    a, b, _, _, _ = scan_case(2, 2500, 4096, g)
+    with torch.inference_mode():
+        attn_ms = event_ms(lambda: chunked_attention(
+            q, k, v, window=cfg.hybrid.local_window), 3)
+        scan_ms = event_ms(lambda: RG.rglru_scan_fwd(a, b), 5)
+    del q, k, v, a, b
+    split = {"prefill_ms": prefill_ms,
+             "windowed_attention_ms": n_att * attn_ms,
+             "scan_ms": n_rec * scan_ms,
+             "rest_ms": prefill_ms - n_att * attn_ms - n_rec * scan_ms,
+             "one_layer_attention_ms": attn_ms, "one_scan_ms": scan_ms}
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 1e9
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg.reduced(), n_layers=5)
+    diff, toks = server_card_vs_cpu(
+        small, R, Server, [(rng.integers(0, small.vocab_size, (2, S)), n)
+                           for S, n in ((90, 20), (1, 8), (2, 8))], seed=5)
+    return {"model": cfg.name, "params": n_params,
+            "config_param_count": cfg.param_count(),
+            "weight_gb": weight_gb, "max_len": 4096,
+            "ring_slots": min(cfg.hybrid.local_window, 4096),
+            "recurrent_layers": n_rec, "attention_layers": n_att,
+            "batches": batches, "captures": 1, "peak_mem_gb": peak,
+            "prefill": split, "decode_step": step,
+            "card_vs_cpu": {"first_token_logit_max_abs_diff": diff,
+                            "tokens": toks},
+            "card": smi}
+
+
+def hybrid_kernel_entries(kernels, record):
+    """Phase 15's part of the ``kernels`` line: the RG-LRU scan pair and
+    the ragged decode at hd 256 as entries of their own; RMSNorm at d
+    4096, and every kernel's launches in the hybrid's runs, on the
+    entries of earlier phases."""
+    hyb = record["hybrid"]
+    h_errors, h_times = hyb["kernels"]["errors"], hyb["kernels"]["times"]
+    err15 = {(n, tag, dn): e for n, tag, dn, e in h_errors}
+    for k in kernels:
+        if k["name"] in ("rmsnorm_fwd", "rmsnorm_bwd"):
+            k["hybrid_train_launches"] = hyb["train"]["launches"][k["name"]]
+            k["d4096"] = {
+                tag: {**tm,
+                      "max_abs_err": err15[(k["name"], f"d4096-{tag}",
+                                            "bfloat16")],
+                      "max_abs_err_f32": err15[(k["name"], f"d4096-{tag}",
+                                                "float32")]}
+                for tag in ("train", "decode")
+                for tm in [h_times.get(f"{k['name']}/d4096-{tag}")]
+                if tm is not None}
+        if k["name"] in ("rmsnorm_fwd", "ragged_decode"):
+            k["hybrid_serve_launches"] = {
+                t: b["launches"][k["name"]]
+                for t, b in hyb["serve"]["batches"].items()}
+    for name in ("rglru_scan_fwd", "rglru_scan_bwd"):
+        tm, tp = h_times[f"{name}/train"], h_times[f"{name}/prefill"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/rglru_scan.cu",
+            "replaces": "src/repro/models/rglru.py:41",
+            "replaces_note": "no Pallas kernel: the reference's chunked "
+                             "lax.associative_scan in XLA (rglru_scan)",
+            "launches": hyb["train"]["launches"][name],
+            "max_abs_err": err15[(name, "train", "float32")],
+            "max_abs_err_f32": err15[(name, "train", "float32")],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": None, "library_note": tm["library_note"],
+            "shape": tm["shape"],
+            "prefill_shape": {**{f: tp[f] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+                "max_abs_err": err15[(name, "prefill", "float32")]},
+            "serving_launches": {
+                t: b["launches"][name]
+                for t, b in hyb["serve"]["batches"].items()},
+            "bitwise_run_launches": hyb["train"]["graphs_bitwise"][
+                "launches"][name],
+            "compiled": {c: v for c, v in record["compiled"].items()
+                         if c.startswith(name)}})
+    tm = h_times["ragged_decode/hd256"]
+    kernels.append({
+        "name": "ragged_decode/hd256", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_decode.cu",
+        "replaces": "src/repro/kernels/paged.py:32",
+        "launches": sum(b["launches"]["ragged_decode"]
+                        for b in hyb["serve"]["batches"].values()),
+        "max_abs_err": err15[("ragged_decode", "hd256-ring", "bfloat16")],
+        "max_abs_err_f32": err15[("ragged_decode", "hd256-ring",
+                                  "float32")],
+        "full_ring_max_abs_err": tm["max_abs_err"],
+        "paged_max_abs_err": err15[("paged_decode", "hd256-ps16",
+                                    "bfloat16")],
+        "paged_max_abs_err_f32": err15[("paged_decode", "hd256-ps16",
+                                        "float32")],
+        "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+        "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+        "library_ms": tm["library_ms"], "shape": tm["shape"],
+        "compiled": {c: v for c, v in record["compiled"].items()
+                     if c.startswith("paged_decode") and "hd 256" in c},
+        "launches_by": "phase 15c: recurrentgemma-9b's 12 attention "
+                       "layers through the Server's decode graph"})
 
 
 def main() -> int:
@@ -3503,6 +4049,32 @@ def main() -> int:
     record["moe"]["s"] = time.perf_counter() - t14
     log(f"phase 14d: {record['moe']['benchmarks']['s']:.1f} s; phase 14: "
         f"{record['moe']['s']:.1f} s")
+    # phase 15 needs the card to itself: earlier trainers' graph pools go
+    # once the cycles through their engines are collected
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.kernels import rglru as RG
+    hctr = hybrid_counters(RN, FA, PG, SSD, OV, RG)
+    t15 = time.perf_counter()
+    h_errors, h_times = phase15a(RG, PG, RN, ref)
+    record["hybrid"] = {"kernels": {"errors": h_errors, "times": h_times,
+                                    "s": time.perf_counter() - t15}}
+    log(f"phase 15a: {record['hybrid']['kernels']['s']:.1f} s")
+    torch.cuda.empty_cache()
+    hcfg = get_config(HYBRID_ARCH)
+    t = time.perf_counter()
+    record["hybrid"]["train"] = phase15b(hcfg, R, hctr, smi)
+    record["hybrid"]["train"]["s"] = time.perf_counter() - t
+    log(f"phase 15b: {record['hybrid']['train']['s']:.1f} s "
+        f"{record['hybrid']['train']['per_batch_size']}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    record["hybrid"]["serve"] = phase15c(hcfg, R, Server, hctr, smi)
+    record["hybrid"]["serve"]["s"] = time.perf_counter() - t
+    record["hybrid"]["s"] = time.perf_counter() - t15
+    log(f"phase 15c: {record['hybrid']['serve']['s']:.1f} s "
+        f"{record['hybrid']['serve']}; phase 15: "
+        f"{record['hybrid']['s']:.1f} s")
     torch.cuda.empty_cache()
     t = time.perf_counter()
     bench_ctr = dict(counters(RN, FA), ssd_chunk=(SSD, "launches"),
@@ -3796,6 +4368,7 @@ def main() -> int:
                                            "shape")},
         "launches_by": "bench.serve (phase 14d): its engine's decode "
                        "steps and its Server baseline's"})
+    hybrid_kernel_entries(kernels, record)
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -3834,6 +4407,13 @@ def main() -> int:
         "train": mtrain, "serve": moe["serve"], "benchmarks": mbench,
         "serve_decode": moe["benchmarks"]["serve_decode"],
         "hd32_decode_errors": hd32_dec_errors, "s": moe["s"],
+        "card": smi}}))
+    hyb = record["hybrid"]
+    htrain = {k: v for k, v in hyb["train"].items()
+              if k not in ("losses", "lrs", "chunks", "grad_norms")}
+    print(json.dumps({"hybrid": {
+        "train": htrain, "losses": hyb["train"]["losses"],
+        "serve": hyb["serve"], "kernel_errors": h_errors, "s": hyb["s"],
         "card": smi}}))
     print(json.dumps({"checkpoint": record["checkpoint"],
                       "adaptive": adaptive, "card": smi}))

@@ -32,7 +32,9 @@
 //   in shared memory.  K and V rows are then read straight into registers
 //   as 16-byte vectors, neighbouring lanes on neighbouring bytes of a row
 //   (8 lanes a row at hd 64 in bfloat16; at hd 32, 4 lanes a row and 8
-//   rows a warp in bfloat16, 8 lanes and 4 rows in float32), 4 keys a
+//   rows a warp in bfloat16, 8 lanes and 4 rows in float32; at hd 256 a
+//   row fills the warp, and in float32, where a row is 64 vectors, each
+//   lane holds two of them, 128 bytes apart), 4 keys a
 //   lane group in flight
 //   (2 when a block serves several query heads).  A score is the lane
 //   group's partial dot products met by xor shuffles; each lane keeps its
@@ -62,6 +64,15 @@ struct Pool {
   int64_t p, s, h;
 };
 
+// the NV 16-byte vectors a lane holds of a row: vector j of lane c is
+// vector j * LPR + c of the row, so a warp's loads stay contiguous
+template <int NV, int LPR, typename T>
+__device__ __forceinline__ void load_slice(const T* p, float* o) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+    rt::load_vec(p + j * LPR * rt::Vec<T>::N, o + j * rt::Vec<T>::N);
+}
+
 // the softmax state (m, l, acc) of b merged into a's
 template <int V>
 __device__ __forceinline__ void merge_state(float& m, float& l, float* acc,
@@ -87,7 +98,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int64_t pg_sb, int64_t o_sb, int64_t o_sh,
                     float sm_scale) {
   constexpr int V = rt::Vec<T>::N;      // elements of a 16-byte vector
-  constexpr int LPR = HD / V;           // lanes a key row
+  // vectors a lane holds of a row: one, or more where a row has more
+  // vectors than a warp has lanes (float32 at hd 256)
+  constexpr int NV = HD / V > 32 ? HD / V / 32 : 1;
+  constexpr int E = NV * V;             // elements a lane holds of a row
+  constexpr int LPR = HD / E;           // lanes a key row
   constexpr int RPW = 32 / LPR;         // key rows a warp reads at once
   // keys a lane group has in flight: 4, or 2 beside 4 heads' state
   constexpr int kUnroll = GQ == 1 ? 4 : 2;
@@ -118,26 +133,26 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = lane / LPR, c = lane % LPR;
-  float qr[GQ][V], m[GQ], l[GQ], acc[GQ][V];
+  float qr[GQ][E], m[GQ], l[GQ], acc[GQ][E];
 #pragma unroll
   for (int gi = 0; gi < GQ; ++gi) {
     if (gi < gn) {
-      rt::load_vec(q + b * q_sb + (h0 + gi) * q_sh + c * V, qr[gi]);
+      load_slice<NV, LPR>(q + b * q_sb + (h0 + gi) * q_sh + c * V, qr[gi]);
     } else {
 #pragma unroll
-      for (int e = 0; e < V; ++e) qr[gi][e] = 0.f;
+      for (int e = 0; e < E; ++e) qr[gi][e] = 0.f;
     }
     m[gi] = rt::NEG_INF;
     l[gi] = 0.f;
 #pragma unroll
-    for (int e = 0; e < V; ++e) acc[gi][e] = 0.f;
+    for (int e = 0; e < E; ++e) acc[gi][e] = 0.f;
   }
   __syncthreads();
 
   const T* kb = k + hk * ks.h + c * V;
   const T* vb = v + hk * vs.h + c * V;
   for (int i0 = warp * RPW * kUnroll; i0 < cnt; i0 += KPI) {
-    float kf[kUnroll][V], vf[kUnroll][V];
+    float kf[kUnroll][E], vf[kUnroll][E];
     bool ok[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -145,11 +160,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ok[u] = i < cnt;
       if (ok[u]) {
         const int64_t pg = pg_s[i], row = row_s[i];
-        rt::load_vec(kb + pg * ks.p + row * ks.s, kf[u]);
-        rt::load_vec(vb + pg * vs.p + row * vs.s, vf[u]);
+        load_slice<NV, LPR>(kb + pg * ks.p + row * ks.s, kf[u]);
+        load_slice<NV, LPR>(vb + pg * vs.p + row * vs.s, vf[u]);
       } else {
 #pragma unroll
-        for (int e = 0; e < V; ++e) kf[u][e] = vf[u][e] = 0.f;
+        for (int e = 0; e < E; ++e) kf[u][e] = vf[u][e] = 0.f;
       }
     }
 #pragma unroll
@@ -161,7 +176,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < kUnroll; ++u) {
         float d = 0.f;
 #pragma unroll
-        for (int e = 0; e < V; ++e) d = fmaf(qr[gi][e], kf[u][e], d);
+        for (int e = 0; e < E; ++e) d = fmaf(qr[gi][e], kf[u][e], d);
 #pragma unroll
         for (int o = 1; o < LPR; o <<= 1)
           d += __shfl_xor_sync(rt::FULL_MASK, d, o);
@@ -171,13 +186,13 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float corr = expf(m[gi] - mx);
       l[gi] *= corr;
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc[gi][e] *= corr;
+      for (int e = 0; e < E; ++e) acc[gi][e] *= corr;
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const float p = ok[u] ? expf(s[u] - mx) : 0.f;
         l[gi] += p;
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[gi][e] = fmaf(p, vf[u][e], acc[gi][e]);
+        for (int e = 0; e < E; ++e) acc[gi][e] = fmaf(p, vf[u][e], acc[gi][e]);
       }
       m[gi] = mx;
     }
@@ -189,17 +204,20 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int gi = 0; gi < GQ; ++gi) {
 #pragma unroll
     for (int o = LPR; o < 32; o <<= 1) {
-      float ob[V];
+      float ob[E];
 #pragma unroll
-      for (int e = 0; e < V; ++e)
+      for (int e = 0; e < E; ++e)
         ob[e] = __shfl_xor_sync(rt::FULL_MASK, acc[gi][e], o);
       const float om = __shfl_xor_sync(rt::FULL_MASK, m[gi], o);
       const float ol = __shfl_xor_sync(rt::FULL_MASK, l[gi], o);
-      merge_state<V>(m[gi], l[gi], acc[gi], om, ol, ob);
+      merge_state<E>(m[gi], l[gi], acc[gi], om, ol, ob);
     }
     if (r == 0) {
 #pragma unroll
-      for (int e = 0; e < V; ++e) w_acc[warp][gi][c * V + e] = acc[gi][e];
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          w_acc[warp][gi][(j * LPR + c) * V + e] = acc[gi][j * V + e];
       if (c == 0) {
         w_m[warp][gi] = m[gi];
         w_l[warp][gi] = l[gi];
@@ -306,6 +324,8 @@ int dispatch_hd(const Args& a, int hd) {
     one ? launch<T, 64, 1>(a) : launch<T, 64, kGroupHeads>(a);
   } else if (hd == 128) {
     one ? launch<T, 128, 1>(a) : launch<T, 128, kGroupHeads>(a);
+  } else if (hd == 256) {
+    one ? launch<T, 256, 1>(a) : launch<T, 256, kGroupHeads>(a);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -323,9 +343,9 @@ extern "C" void paged_decode_layout(int* split, int* heads_per_group) {
 
 // q, out: (B, H, hd) views given by their (b, h) element strides; k, v:
 // (n_pages, page_size, Hkv, hd) views given by their (page, slot, head)
-// strides; head_dim contiguous, 32, 64 or 128, rows 16-byte aligned; pages:
-// (B, P) int64 with unit column stride, row stride pg_sb; lengths: (B,)
-// int32.  Scratch, allocated by the wrapper: part, B * H * n_split *
+// strides; head_dim contiguous, 32, 64, 128 or 256, rows 16-byte aligned;
+// pages: (B, P) int64 with unit column stride, row stride pg_sb; lengths:
+// (B,) int32.  Scratch, allocated by the wrapper: part, B * H * n_split *
 // (hd + 2) float32 split states when the window P * page_size spans
 // n_split > 1 splits of kSplit keys; counters, one int32 per (request, kv
 // head, group of query heads), zero before the first launch and left zero

@@ -6,10 +6,10 @@ continuous-batching ``ServingEngine`` and stream tokens as they land.
 
 The arch's reduced config with seeded random weights, in bfloat16, as
 the reference's example.  Families the engine cannot hold (a sliding
-window's ring cache: starcoder2-3b) go through the blocking ``Server``,
-the same typed caches underneath without continuous batching; families
-the port does not run yet (hybrid, enc-dec, VLM) raise, naming the
-slice that brings them.
+window's ring cache: starcoder2-3b, and the RG-LRU hybrid
+recurrentgemma-9b) go through the blocking ``Server``, the same typed
+caches underneath without continuous batching; families the port does
+not run yet (enc-dec, VLM) raise, naming the slice that brings them.
 """
 import argparse
 import time

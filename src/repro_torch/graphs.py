@@ -31,13 +31,15 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import overlap as _ov
 from repro_torch.kernels import paged as _pg
+from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd as _ssd
 
 # every kernel wrapper's launch counter: (module, attribute)
 COUNTERS = ((_rn, "launches"), (_rn, "bwd_launches"), (_fa, "launches"),
             (_fa, "dq_launches"), (_fa, "dkv_launches"), (_pg, "launches"),
-            (_ssd, "launches"), (_ov, "launches"))
+            (_ssd, "launches"), (_ov, "launches"), (_rg, "launches"),
+            (_rg, "bwd_launches"))
 
 
 def launch_counts() -> Tuple[int, ...]:

@@ -9,7 +9,8 @@ the device of the input picks the code.
 - A tensor on a CUDA device runs the hand-written kernel, or the call
   raises (no nvcc, a failed build, an unsupported shape).  ``rmsnorm``
   and ``attention`` are ``torch.autograd.Function``s there, whose
-  backward is the backward kernel; ``ssd``'s backward recomputes
+  backward is the backward kernel, and so is ``rglru_scan``'s;
+  ``ssd``'s backward recomputes
   through the plain chunked scan, as the reference's does (it has no
   backward kernel).  Nothing falls back to the plain version or to the
   CPU.
@@ -25,6 +26,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged as _paged
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd as _ssd
 
@@ -111,3 +113,14 @@ def ssd(xh, dt, A, Bm, Cm, D, *, chunk: int):
         return _ssd.ssd(xh, dt, A, Bm, Cm, D, chunk=chunk)
     from repro_torch.models.mamba2 import ssd_chunked    # import cycle
     return ssd_chunked(xh, dt, A, Bm, Cm, D, chunk=chunk)
+
+
+def rglru_scan(a, b, h0=None):
+    """The RG-LRU linear recurrence h_t = a_t·h_{t−1} + b_t: a, b (B, S,
+    W) float32, h0 (B, W) or None (zeros) -> (hs (B, S, W), h_last (B,
+    W)) float32.  On the card the scan kernel and its reverse-sweep
+    backward; on the CPU the reference's chunked scan, differentiated by
+    autograd."""
+    if _on_card(a, "rglru_scan"):
+        return _rglru.rglru_scan(a, b, h0)
+    return _ref.rglru_scan_ref(a, b, h0)

@@ -7,9 +7,11 @@ differentiates them; the backward ones (``*_bwd_ref``) write out the
 reference's backward kernels.  ``overlap_norm_ref`` is the kernel
 benchmark's overlap probe.  ``ssd_chunk_ref`` is the SSD chunk
 kernel's (the CPU runs the whole scan, ``models.mamba2.ssd_chunked``),
-and ``ssd_ref`` the SSD's sequential definition.  On the card they are what each kernel is
-held against.  They repeat the kernels' arithmetic and are no yardstick
-of speed.
+and ``ssd_ref`` the SSD's sequential definition.  ``rglru_scan_ref`` and
+``rglru_scan_bwd_ref`` are the RG-LRU scan kernels' (a kernel of the
+port with no Pallas counterpart: the reference scans in XLA).  On the
+card they are what each kernel is held against.  They repeat the
+kernels' arithmetic and are no yardstick of speed.
 """
 from __future__ import annotations
 
@@ -253,3 +255,70 @@ def ssd_chunk_ref(xh, dt, A, Bm, Cm, chunk: int):
     sdecay = torch.exp(T[:, :, None] - cum) * dtc              # (B,nc,Q,H)
     states = torch.einsum("bcjn,bcjhp->bchnp", Bc, xc * sdecay[..., None])
     return y, states, T
+
+
+# --------------------------------------------------------------------- #
+# the RG-LRU linear recurrence
+# --------------------------------------------------------------------- #
+
+def _scan_in_chunk(a, b):
+    """Inclusive scan of the pairs (a_t, b_t) along dim 1 under the
+    reference's ``_combine`` ((a1, b1), (a2, b2)) -> (a1·a2, b1·a2 + b2),
+    by doubling: log2(Q) passes, each combining step t with step t − k.
+    Returns (a_cum, b_loc): h_t = b_loc_t + a_cum_t·h_{-1}."""
+    k, Q = 1, a.shape[1]
+    while k < Q:
+        a, b = (torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1),
+                torch.cat([b[:, :k], b[:, :-k] * a[:, k:] + b[:, k:]], dim=1))
+        k *= 2
+    return a, b
+
+
+def rglru_scan_ref(a, b, h0=None, chunk: int = 512):
+    """The linear recurrence h_t = a_t·h_{t−1} + b_t as the reference
+    computes it (``repro.models.rglru.rglru_scan`` after its gates): the
+    sequence in chunks of ``chunk`` steps, a ragged tail padded with
+    a = 1, b = 0 steps (the state carried unchanged), an associative
+    scan within each chunk and the carry across chunks.  a, b: (B, S, W)
+    float32; h0: (B, W) or None (zeros).  Returns (hs (B, S, W), h_last
+    (B, W)) in float32 (float64 for float64 inputs); torch's autograd
+    differentiates it."""
+    B, S, W = a.shape
+    Q = min(chunk, S)
+    ct = _ssd_dtype(a)
+    a, b = a.to(ct), b.to(ct)
+    if S % Q:
+        pad = Q - S % Q
+        a = torch.nn.functional.pad(a, (0, 0, 0, pad), value=1.0)
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    h = (torch.zeros(B, W, dtype=ct, device=a.device) if h0 is None
+         else h0.to(ct))
+    outs = []
+    for c in range(0, a.shape[1], Q):
+        a_cum, b_loc = _scan_in_chunk(a[:, c:c + Q], b[:, c:c + Q])
+        hc = b_loc + a_cum * h[:, None, :]
+        outs.append(hc)
+        h = hc[:, -1]
+    return torch.cat(outs, dim=1)[:, :S], h
+
+
+def rglru_scan_bwd_ref(a, hs, h0, dhs, dh_last, chunk: int = 512):
+    """The VJP of ``rglru_scan_ref`` written out as the backward kernel
+    computes it: the reverse sweep g_t = dhs_t + a_{t+1}·g_{t+1}, seeded
+    with dh_last at t = S − 1, run as the same chunked scan over the
+    reversed sequence; db_t = g_t, da_t = g_t·h_{t−1} (h_{−1} = h0, or
+    0) and dh0 = a_0·g_0.  dhs, dh_last, h0 may be None (zeros).
+    Returns (da, db, dh0) in float32 (float64 for float64 inputs)."""
+    ct = _ssd_dtype(a)
+    a, hs = a.to(ct), hs.to(ct)
+    B, S, W = a.shape
+    zeros = torch.zeros(B, W, dtype=ct, device=a.device)
+    coef = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1)
+    u = torch.zeros_like(a) if dhs is None else dhs.to(ct)
+    g, _ = rglru_scan_ref(coef.flip(1), u.flip(1),
+                          None if dh_last is None else dh_last.to(ct),
+                          chunk=chunk)
+    g = g.flip(1)
+    h_prev = torch.cat([(zeros if h0 is None else h0.to(ct))[:, None],
+                        hs[:, :-1]], dim=1)
+    return g * h_prev, g, a[:, 0] * g[:, 0]

@@ -3,11 +3,13 @@ in PyTorch).
 
 ``supports_paged`` and ``serving_mode`` are the reference's rules,
 decided from the config alone.  The port trains the dense and MoE
-families (full attention; both are ``models.transformer``) and the ssm
-family (Mamba-2), and serves them: the transformer families from the
-paged KV pool or, with a sliding window, through the ``Server``'s
-contiguous ring cache; Mamba-2 from the recurrent state pool.  The
-contiguous caches of ``prefill``, ``decode_step`` and ``cache_struct``
+families (both are ``models.transformer``), the ssm family (Mamba-2)
+and the RG-LRU hybrid (``models.rglru``), and serves them: the
+transformer families from the paged KV pool or, with a sliding window,
+through the ``Server``'s contiguous ring cache; Mamba-2 from the
+recurrent state pool; the hybrid through the ``Server``, a list of
+per-layer caches (recurrent states and rings).  The contiguous caches of
+``prefill``, ``decode_step`` and ``cache_struct``
 (``serving.cache.DenseKVCache``) serve every ported family.
 Every other family raises ``NotImplementedError`` naming the slice
 that brings it.
@@ -19,14 +21,14 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import mamba2, rglru, transformer
 
 _TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
-_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": mamba2}
+_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
+             "hybrid": rglru}
 
 _LATER = {
     "vlm": "the other-families slice (VLM prefix)",
-    "hybrid": "the other-families slice (RG-LRU hybrid)",
     "encdec": "the other-families slice (enc-dec)",
     "audio": "the other-families slice (enc-dec audio)",
 }
@@ -71,9 +73,10 @@ def supports_paged(cfg: ModelConfig) -> bool:
 
 
 def serving_mode(cfg: ModelConfig):
-    """``"paged"``, ``"state"`` (recurrent families) or ``None``
+    """``"paged"``, ``"state"`` (Mamba-2) or ``None``
     (``train.serve.Server`` only: a ring cache's rows share one position
-    array, so they cannot step at their own depths)."""
+    array, so they cannot step at their own depths; that holds for the
+    hybrid's attention layers too)."""
     if supports_paged(cfg):
         return "paged"
     if cfg.arch_type == "ssm":
@@ -87,8 +90,9 @@ def prefill(model, cfg: ModelConfig, tokens, *,
     decode cache.  Returns (logits (B, 1, V) float32, a
     ``serving.cache.DenseKVCache`` whose ``lengths`` are all S).  The
     dense family needs ``cache_len_cap``: its full cache holds that many
-    positions, its ring min(window, cap) slots; the ssm family's state
-    is O(1) in the length and takes none."""
+    positions, its ring min(window, cap) slots, and so do the hybrid's
+    attention layers; the ssm family's state is O(1) in the length and
+    takes none."""
     from repro_torch.serving import cache as sc   # serving imports this
     fam = family(cfg)
     if cfg.arch_type == "ssm":
@@ -126,9 +130,9 @@ def decode_step(model, cfg: ModelConfig, cache, token):
     depths (``lengths``) when the config can serve from pages, and at
     one depth (``lengths[0]``) otherwise: a ring's rows share one
     ``pos``, and the recurrent step needs no position.  The dense
-    family's K/V are written in place; the ssm family's state is left
-    as it was.  Returns (logits (B, 1, V), the cache with lengths
-    advanced by one)."""
+    family's K/V and the hybrid's caches are written in place; the ssm
+    family's state is left as it was.  Returns (logits (B, 1, V), the
+    cache with lengths advanced by one)."""
     from repro_torch.serving import cache as sc   # serving imports this
     fam = family(cfg)
     if isinstance(cache, sc.PagedKVCache):
@@ -151,8 +155,9 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int = 0, *,
     """Zeroed contiguous decode cache for ``batch`` rows, leaves (L,
     batch, ...): the dense family's full KV cache of ``max_len``
     positions or its ring of min(window, max_len) slots (with ``pos``),
-    or the ssm family's recurrent state (O(1) in ``max_len``), from
-    which the state pool builds its buffer with the page id on axis 1."""
+    the ssm family's recurrent state (O(1) in ``max_len``), from which
+    the state pool builds its buffer with the page id on axis 1, or the
+    hybrid's list of per-layer caches."""
     fam = family(cfg)
     if cfg.arch_type == "ssm":
         return fam.state_struct(cfg, batch, dtype=dtype, device=device)

@@ -110,7 +110,7 @@ def _layer(layer: Layer, x, cfg: ModelConfig):
     h = rmsnorm(x, layer.norm1, cfg.norm_eps)
     a, _ = attn_forward(layer.attn, h, n_heads=cfg.n_heads,
                         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                        rope_theta=cfg.rope_theta)
+                        rope_theta=cfg.rope_theta, window=cfg.sliding_window)
     x = x + a
     h = rmsnorm(x, layer.norm2, cfg.norm_eps)
     if cfg.arch_type == "moe":
@@ -132,12 +132,9 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, tokens, *,
     ``F.embedding``'s backward sums each row's grads in a fixed order
     (an indexing backward would add them with atomics on the card).
     ``remat`` recomputes each layer in the backward
-    (``torch.utils.checkpoint``); it changes memory, not the numbers."""
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            "training a sliding-window arch comes with a later slice: "
-            "windowed attention with a backward (serve it through "
-            "train.serve.Server)")
+    (``torch.utils.checkpoint``); it changes memory, not the numbers.
+    A sliding-window config trains through ``chunked_attention``'s
+    autograd, as the reference trains it through XLA."""
     M.check_tokens(cfg, tokens.numel())
     x = F.embedding(tokens, model.tok.to(dtype))
     auxs = []

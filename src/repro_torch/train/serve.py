@@ -9,7 +9,9 @@ temperature decode loop against ``registry.decode_step``.
   ``max_len`` positions, so the prefills are keyed by (batch, bucket)
   and not by prompt length.  Every other family takes the exact-length
   path (``registry.prefill``): a sliding window builds its ring of
-  min(window, max_len) slots, the ssm family its recurrent state.
+  min(window, max_len) slots, the ssm family its recurrent state, the
+  RG-LRU hybrid a list of per-layer caches (recurrent states and
+  rings).
 - **The oracle.**  The continuous-batching ``serving.ServingEngine`` is
   held to this ``Server``: same weights, same prompts, same greedy
   tokens.  For new code ``generate`` is deprecated in the engine's
@@ -63,13 +65,13 @@ def _bucketed_prefill(model, cfg: ModelConfig, tokens, lengths, *,
 @torch.inference_mode()
 def _decode(model, cfg: ModelConfig, cache: DenseKVCache, token):
     """One decode step on the static ``cache`` and ``token``: the new
-    state and lengths land in ``cache``'s own tensors (the dense K/V are
-    written in place already; the ssm state is copied back).  Returns
-    the logits (B, 1, V)."""
+    state and lengths land in ``cache``'s own tensors (the dense K/V and
+    the hybrid's caches are written in place already; the ssm state is
+    copied back).  Returns the logits (B, 1, V)."""
     logits, new = R.decode_step(model, cfg, cache, token)
-    for name, t in new.data.items():
-        if t is not cache.data[name]:
-            cache.data[name].copy_(t)
+    for (_, t), (_, old) in zip(_leaves(new.data), _leaves(cache.data)):
+        if t is not old:
+            old.copy_(t)
     cache.lengths.copy_(new.lengths)
     return logits
 
@@ -86,9 +88,19 @@ class _Entry:
         self.graph: Optional[G.Graph] = None
 
 
+def _leaves(data):
+    """(name, tensor) of a cache's data in a fixed order: a dict of
+    layer-stacked tensors, or the hybrid's list of per-layer dicts
+    (named ``layer/leaf``)."""
+    if isinstance(data, dict):
+        return sorted(data.items())
+    return [(f"{i}/{n}", t) for i, d in enumerate(data)
+            for n, t in sorted(d.items())]
+
+
 def _layout(cache: DenseKVCache) -> Tuple:
     return tuple((n, tuple(t.shape), t.dtype)
-                 for n, t in sorted(cache.data.items()))
+                 for n, t in _leaves(cache.data))
 
 
 class Server:
@@ -206,8 +218,9 @@ class Server:
             token = torch.zeros(B, 1, dtype=torch.int64, device=self.device)
             ent = self._decode_fns[key] = _Entry(key, cache, token)
             return ent
-        for name, t in ent.cache.data.items():
-            t.copy_(cache.data[name])
+        for (_, t), (_, new) in zip(_leaves(ent.cache.data),
+                                    _leaves(cache.data)):
+            t.copy_(new)
         ent.cache.lengths.copy_(cache.lengths)
         return ent
 

@@ -16,7 +16,15 @@ layout, by family (``arch_type``):
   d_expert, d) in place of ``mlp``;
 - ssm (Mamba-2): ``layers.mixer.*`` (``w_z``, ``w_x``, ``w_B``, ``w_C``,
   ``w_dt``, ``dt_bias``, ``A_log``, ``D``, ``conv_w``, ``conv_b``,
-  ``norm``, ``w_out``) and ``layers.norm`` (L, d), stacked along L.
+  ``norm``, ``w_out``) and ``layers.norm`` (L, d), stacked along L;
+- hybrid (RG-LRU): the n_full = L // 3 groups of the pattern stacked
+  along a leading dim of n_full, ``groups.slot{j}.*`` for the group's
+  j-th layer, then the remainder unstacked, ``rem{r}.*``; each layer's
+  ``temporal.*`` (the recurrent block's ``w_gate``, ``w_x``, ``conv_w``,
+  ``conv_b``, ``w_r``, ``w_i``, ``lam``, ``w_out``, or the attention's
+  ``w_q/w_k/w_v/w_o``), ``mlp.*``, ``norm1``, ``norm2``.  Port layer i
+  is ``groups/slot{i mod 3}`` at group i // 3 while i < 3·n_full, else
+  ``rem{i − 3·n_full}``.
 
 The leading L dim is split into the ``ModuleList``; matrices keep their
 ``(d_in, d_out)`` layout (the port multiplies ``x @ W`` as the
@@ -45,6 +53,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.mamba2 import Mamba2
+from repro_torch.models.rglru import Hybrid
+from repro_torch.models.rglru import groups as hybrid_groups
 from repro_torch.models.transformer import Transformer
 from repro_torch.train.checkpoint import Stacked
 
@@ -100,15 +110,25 @@ def _ssm(tree, cfg: ModelConfig, dtype, device) -> Mamba2:
     return model
 
 
-_FAMILIES = {"dense": _dense, "moe": _dense, "ssm": _ssm}
+def _hybrid(tree, cfg: ModelConfig, dtype, device) -> Hybrid:
+    model = Hybrid(cfg, dtype=dtype, device=device)
+    _embed_and_final(model, tree)
+    for name, p in model.named_parameters():
+        if name.startswith("layers."):
+            _copy(p, _ref_leaf(tree, name, cfg), name)
+    return model
+
+
+_FAMILIES = {"dense": _dense, "moe": _dense, "ssm": _ssm, "hybrid": _hybrid}
 
 
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, *,
                     dtype=torch.bfloat16, device="cuda",
                     trainable: bool = False):
     """Build the port's model of ``cfg``'s family (``Transformer`` for
-    dense and moe, ``Mamba2`` for ssm) from the reference's parameter pytree
-    (numpy arrays); ``trainable`` turns on the parameters' gradients."""
+    dense and moe, ``Mamba2`` for ssm, ``Hybrid`` for hybrid) from the
+    reference's parameter pytree (numpy arrays); ``trainable`` turns on
+    the parameters' gradients."""
     load = _FAMILIES.get(cfg.arch_type)
     if load is None:
         raise NotImplementedError(
@@ -120,16 +140,26 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, *,
 # the port's tensors in the reference's layout
 # --------------------------------------------------------------------- #
 
-def _ref_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
-    """(reference path, layer index or None) of a port parameter name:
-    ``tok`` -> ``embed/tok``, ``layers.3.attn.w_q`` -> ``layers/attn/w_q``
-    at layer 3."""
+def _ref_path(name: str, cfg: Optional[ModelConfig] = None
+              ) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """(reference path, index along its stacked dim or None) of a port
+    parameter name: ``tok`` -> ``embed/tok``, ``layers.3.attn.w_q`` ->
+    ``layers/attn/w_q`` at layer 3; for the hybrid ``layers.4.mlp.w_up``
+    -> ``groups/slot1/mlp/w_up`` at group 1, and a layer past the full
+    groups -> ``rem{r}/...`` unstacked (``cfg`` names the family; None
+    is a layer-stacked one)."""
     parts = name.split(".")
     if parts[0] in ("tok", "lm_head"):
         return ("embed", parts[0]), None
-    if parts[0] == "layers":
-        return ("layers", *parts[2:]), int(parts[1])
-    return tuple(parts), None
+    if parts[0] != "layers":
+        return tuple(parts), None
+    i = int(parts[1])
+    if cfg is None or cfg.arch_type != "hybrid":
+        return ("layers", *parts[2:]), i
+    pat, n_full, _ = hybrid_groups(cfg)
+    if i < n_full * len(pat):
+        return ("groups", f"slot{i % len(pat)}", *parts[2:]), i // len(pat)
+    return (f"rem{i - n_full * len(pat)}", *parts[2:]), None
 
 
 def _put(tree: Dict, path: Tuple[str, ...], leaf) -> None:
@@ -147,7 +177,7 @@ def _tree_of(model, tensors: Dict[str, Any]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     stacks: Dict[Tuple[str, ...], List] = {}
     for name, _ in model.named_parameters():
-        path, layer = _ref_path(name)
+        path, layer = _ref_path(name, model.cfg)
         if layer is None:
             _put(tree, path, tensors[name])
         else:
@@ -195,8 +225,9 @@ def to_jax_opt_state(model, opt_state: Dict[str, Any]) -> Dict[str, Any]:
     return _to_numpy(opt_tree(model, opt_state))
 
 
-def _ref_leaf(tree, name: str) -> np.ndarray:
-    path, layer = _ref_path(name)
+def _ref_leaf(tree, name: str,
+              cfg: Optional[ModelConfig] = None) -> np.ndarray:
+    path, layer = _ref_path(name, cfg)
     node = tree
     for k in path:
         node = node[k]
@@ -212,7 +243,7 @@ def from_jax_opt_state(tree: Dict[str, Any], model) -> Dict[str, Any]:
         if isinstance(v, dict):
             out[slot] = {}
             for name, p in model.named_parameters():
-                a = _ref_leaf(v, name)
+                a = _ref_leaf(v, name, model.cfg)
                 if tuple(a.shape) != tuple(p.shape):
                     raise ValueError(f"{slot}/{name}: reference shape "
                                      f"{tuple(a.shape)} != port shape "

@@ -149,17 +149,13 @@ def test_checkpoint_schema_catches_a_bad_block(monkeypatch):
                                   "recurrentgemma-9b"])
 def test_serve_decode_example(arch, capsys):
     """The engine where ``serving_mode`` allows it (granite: paged), the
-    blocking ``Server`` for a sliding window, and a family the port does
-    not run yet raises naming its slice."""
+    blocking ``Server`` for a sliding window and for the RG-LRU hybrid
+    (its rings and recurrent states)."""
     argv = ["--arch", arch, "--device", "cpu", "--batch", "2",
             "--prompt-len", "12", "--new-tokens", "4"]
-    if arch == "recurrentgemma-9b":
-        with pytest.raises(NotImplementedError, match="RG-LRU hybrid"):
-            serve_decode.main(argv)
-        return
     out = serve_decode.main(argv)
     text = capsys.readouterr().out
-    if arch == "starcoder2-3b":
+    if arch in ("starcoder2-3b", "recurrentgemma-9b"):
         assert "blocking Server" in text and out.shape == (2, 4)
     else:
         assert "serving_mode=paged" in text and out.done

@@ -11,7 +11,10 @@ short chunk or after a reset, and read a pool defragmented between
 replays.  The blocking ``Server`` (full cache and sliding-window ring)
 on the card against the CPU and against its own eager steps, the ring's
 prefill plus decode against the prefill of the whole, and the engine
-against its solo Server oracle.
+against its solo Server oracle.  The RG-LRU scan kernels against their
+plain versions and under a captured graph, the ragged decode at head_dim
+256, and the RG-LRU hybrid trained and served on the card against the
+CPU.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no JAX, so it runs on the card's machine as it is:
@@ -34,6 +37,7 @@ from repro_torch.kernels import backend as KB
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import overlap as OV
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru as RG
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels import ssd as SSD
 from repro_torch.kernels import paged as PG
@@ -219,6 +223,9 @@ def test_flash_fwd_kernel(cuda, B, H, Hkv, S, hd, dtype):
     (4, 4, 2, 128, 32),         # bench.serve's LM: 4 heads of 32, GQA 2
     (8, 4, 4, 1024, 32),        # the figure LMs' heads, MHA, 8 splits
     (3, 16, 4, 300, 32),        # two groups of 4 query heads a kv head
+    (2, 16, 1, 2048, 256),      # recurrentgemma's ring: MQA, 4 groups
+    (3, 8, 2, 300, 256),        # hd 256, GQA 4
+    (2, 2, 2, 130, 256),        # hd 256, MHA
 ])
 def test_ragged_decode_kernel(cuda, B, H, Hkv, Skv, hd, dtype):
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -269,6 +276,7 @@ def _page_table(cuda, B, H, Hkv, hd, ps, window, dtype, seed):
     (24, 8, 128, 1008),         # llama3.2-3b heads
     (4, 2, 32, 128),            # bench.serve's LM (hd 32, GQA 2)
     (4, 4, 32, 1024),           # hd 32, MHA
+    (16, 1, 256, 512),          # hd 256, MQA (recurrentgemma's heads)
 ])
 def test_paged_decode_kernel(cuda, H, Hkv, hd, window, ps, dtype):
     """The kernel reading K and V through the page table, against the
@@ -1130,3 +1138,145 @@ def test_engine_on_card_matches_solo_server(cuda):
     for rid, (p, n) in enumerate(reqs):
         np.testing.assert_array_equal(done[rid], _generate(oracle, p[None],
                                                            n)[0])
+
+
+# --------------------------------------------------------------------- #
+# the RG-LRU scan kernels and the hybrid
+# --------------------------------------------------------------------- #
+
+def _scan_case(cuda, B, S, W, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.rand(B, S, W, generator=g, device=cuda) * 0.95 + 0.04
+    b = torch.randn(B, S, W, generator=g, device=cuda)
+    h0 = torch.randn(B, W, generator=g, device=cuda)
+    dhs = torch.randn(B, S, W, generator=g, device=cuda)
+    dhl = torch.randn(B, W, generator=g, device=cuda)
+    return a, b, h0, dhs, dhl
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 1, 32), (2, 77, 40), (1, 1030, 96),
+                                   (4, 1024, 4096), (2, 2500, 4096)])
+def test_rglru_scan_kernels(cuda, B, S, W):
+    """The forward and the reverse sweep against the plain chunked scan
+    and its written-out backward, with and without h0, dhs and dh_last:
+    within 2e-5 of each output's max (float32, sums in another order:
+    sequential FMAs against an associative scan)."""
+    a, b, h0, dhs, dhl = _scan_case(cuda, B, S, W, S)
+    for h in (None, h0):
+        before = (RG.launches, RG.bwd_launches)
+        hs, hl = RG.rglru_scan_fwd(a, b, h)
+        torch.cuda.synchronize()
+        whs, whl = ref.rglru_scan_ref(a, b, h)
+        tol = 2e-5 * float(whs.abs().max())
+        torch.testing.assert_close(hs, whs, atol=tol, rtol=0)
+        torch.testing.assert_close(hl, whl, atol=tol, rtol=0)
+        for d, dl in ((dhs, dhl), (dhs, None), (None, dhl)):
+            got = RG.rglru_scan_bwd(a, hs, h, d, dl, h is not None)
+            torch.cuda.synchronize()
+            want = ref.rglru_scan_bwd_ref(a, whs, h, d, dl)
+            for x, y in zip(got, want):
+                if x is None:
+                    assert h is None
+                    continue
+                torch.testing.assert_close(
+                    x, y, atol=2e-5 * float(y.abs().max()), rtol=0)
+        assert (RG.launches, RG.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 3)
+
+
+def test_rglru_scan_raises_on_unsupported(cuda):
+    a = torch.rand(2, 8, 4, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        RG.rglru_scan_fwd(a.double(), a.double())
+    with pytest.raises(ValueError, match=r"\(2, 8, 4\)"):
+        RG.rglru_scan_fwd(a, a[:, :4].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        RG.rglru_scan_fwd(a.transpose(0, 1), a.transpose(0, 1))
+
+
+def test_rglru_scan_function_replays_in_a_graph(cuda):
+    """``_RGLRUScan``'s forward and backward captured in one CUDA graph
+    (graphs.Graph): a replay equals the eager call bit for bit, and the
+    launch counters count through the replay."""
+    from repro_torch import graphs as G
+    a, b, h0, dhs, _ = _scan_case(cuda, 2, 300, 256, 5)
+    leaves = [t.clone().requires_grad_() for t in (a, b, h0)]
+
+    def step():
+        hs, hl = RG.rglru_scan(*leaves)
+        return torch.autograd.grad((hs * dhs).sum() + hl.sum(), leaves)
+
+    want = [t.clone() for t in step()]
+    graph = G.Graph(step, torch.cuda.graph_pool_handle())
+    before = (RG.launches, RG.bwd_launches)
+    got = graph.replay()
+    torch.cuda.synchronize()
+    assert (RG.launches, RG.bwd_launches) == (before[0] + 1, before[1] + 1)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def _hybrid_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                               n_layers=5)
+
+
+def test_hybrid_train_step_on_card_matches_cpu(cuda):
+    """The reduced recurrentgemma at 5 layers, float32: the loss within
+    1e-4 of the CPU's and every grad within 1e-3 of its tensor's max;
+    the scan kernel launched twice per recurrent layer (remat) and its
+    backward once."""
+    cfg = _hybrid_cfg()
+    cpu = R.init_model(cfg, seed=4, dtype=torch.float32, device="cpu",
+                       trainable=True)
+    card = R.init_model(cfg, seed=4, dtype=torch.float32, device="cpu",
+                        trainable=True).to(cuda)
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 97))).long()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    before = (RG.launches, RG.bwd_launches)
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        b = {n: t.to(dev) for n, t in batch.items()}
+        loss, _ = R.loss_fn(model, cfg, b, z_loss=1e-4, dtype=torch.float32)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+    assert (RG.launches, RG.bwd_launches) == (before[0] + 8, before[1] + 4)
+    assert abs(out["cpu"][0] - out["cuda"][0]) < 1e-4
+    for a, b in zip(out["cpu"][1], out["cuda"][1]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max())
+
+
+def test_hybrid_server_on_card_matches_cpu(cuda):
+    """The reduced recurrentgemma at 5 layers through the Server, float32:
+    first-token logits within 1e-3 of the CPU's, tokens equal, for
+    prompts of 1, 2 and 90 tokens (past the window of 64); then a second
+    batch through the captured decode graph equals an all-eager
+    Server's."""
+    from repro_torch.train.serve import Server
+    cfg = _hybrid_cfg()
+    cpu = R.init_model(cfg, seed=6, dtype=torch.float32, device="cpu")
+    card = R.init_model(cfg, seed=6, dtype=torch.float32,
+                        device="cpu").to(cuda)
+    rng = np.random.default_rng(24)
+    batches = [(rng.integers(0, cfg.vocab_size, (2, S)), n)
+               for S, n in ((90, 20), (1, 8), (2, 8))]
+    got = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        srv = Server(cfg, model, max_len=128, dtype=torch.float32)
+        with torch.inference_mode():
+            logits, _ = srv.prefill(torch.from_numpy(batches[0][0]).to(dev))
+        got[dev] = (logits.cpu(), [_generate(srv, t, n) for t, n in batches])
+    torch.testing.assert_close(got["cuda"][0], got["cpu"][0], atol=1e-3,
+                               rtol=0)
+    for a, b in zip(got["cuda"][1], got["cpu"][1]):
+        np.testing.assert_array_equal(a, b)
+    srv = Server(cfg, card, max_len=128, dtype=torch.float32)
+    eager = Server(cfg, card, max_len=128, dtype=torch.float32)
+    eager._warm = type("Never", (set,), {"add": lambda self, k: None})()
+    for t, n in batches[:1] * 2:
+        np.testing.assert_array_equal(_generate(srv, t, n),
+                                      _generate(eager, t, n))
+    assert srv.captures == 1 and eager.captures == 0

@@ -205,11 +205,18 @@ def test_serving_mode_matches_reference(arch_type, window):
 @pytest.mark.parametrize("arch_type,slice_name", [
     ("hybrid", "other-families"), ("ssm", "Mamba-2")])
 def test_unported_families_name_their_slice(arch_type, slice_name):
-    """The RG-LRU hybrid is not ported at all.  Mamba-2 trains and serves from the
+    """The RG-LRU hybrid is ported and served by the blocking Server
+    alone, so the engine names the Server; the enc-dec family, not
+    ported yet, names its slice.  Mamba-2 trains and serves from the
     recurrent state pool; the one serving path closed to it, the
     bucketed ragged prefill, says that Mamba-2 keeps the exact-length
     path."""
     cfg = ModelConfig(**dict(TINY, arch_type=arch_type))
+    if arch_type == "hybrid":
+        model = R.init_model(cfg, dtype=torch.float32, device="cpu")
+        with pytest.raises(NotImplementedError, match="train.serve.Server"):
+            ServingEngine(cfg, model, dtype=torch.float32)
+        cfg = ModelConfig(**dict(TINY, arch_type="encdec"))
     if arch_type == "ssm":
         model = R.init_model(cfg, dtype=torch.float32, device="cpu")
         assert ServingEngine(cfg, model, dtype=torch.float32).mode == \
