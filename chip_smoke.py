@@ -8,7 +8,9 @@ ring cache), run the paper's benchmarks and train seesaw-150m at its
 critical batch size, Seesaw against cosine, train and serve the MoE
 granite-moe-1b-a400m, run the reference's serving, engine and
 checkpoint benchmarks, train and serve the RG-LRU hybrid
-recurrentgemma-9b, and run the kernel benchmark on one NVIDIA card.
+recurrentgemma-9b, train and serve the encoder-decoder
+seamless-m4t-medium, serve internvl2-76b with its image prefix and
+mistral-nemo-12b, and run the kernel benchmark on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -330,7 +332,12 @@ decode graph, each replayed once per step.
   Then the same widths with the vocabulary cut to 2048: a replayed step
   at B = 4 and one at B = 8 against eager steps on a clone of the state,
   bit for bit; and the reduced hybrid in f32 on the card against the
-  CPU (loss 1e-4, grads 1e-3 of each tensor's max).  (c) recurrentgemma-
+  CPU (loss 1e-4, grads 1e-3 of each tensor's max), and its three SGD
+  steps at LR 0.1 split four ways (the card with the scan kernel and
+  with the plain chunked scan, the CPU with the plain chunked scan and
+  with a sequential loop, the kernel's order): per tensor, the card's
+  kernel run within twice the CPU's order spread (or 1e-4) of the card's
+  plain run, and that within 1e-3 of the CPU's.  (c) recurrentgemma-
   9b at full width and depth (38 layers, 17.1 GB in bf16) through the
   ``Server`` (max_len 4096: a 2048-slot ring in each attention layer): 2
   prompts of 2,500 with 64 new (the ring built from S >= W), and
@@ -342,6 +349,33 @@ decode graph, each replayed once per step.
   under torch.profiler, peak memory; the reduced hybrid in f32 on the
   card against the CPU through the Server (first-token logits 1e-3,
   tokens equal).  The ``hybrid`` line holds it all.
+- Phase 16, the last families.  (a) The flash forward, dq and dk/dv
+  and the ragged decode (gathered and paged) at hd 128 with GQA groups
+  of 8 (internvl2-76b's 64/8) and 7 (yi-34b's 56/8: the decode serves a
+  group in blocks of 4 heads, so a tail of 3), the RMSNorm forward at d
+  8192; f32 (2e-5) and bf16 (2e-2), then timed beside their bounds,
+  plain versions and SDPA / ``F.rms_norm``.  (b) seamless-m4t-medium
+  (the enc-dec) trained at full width and depth through the engine's
+  grad step: bf16 compute, float32 weights and AdamW, remat, Seesaw
+  alpha = 2 with one cut (B = 4, then 8 at micro 2), each example 1,024
+  seeded normal frames and 1,024 ``MarkovLM(2048, 0)`` tokens: LR and
+  batch the plan's, the loss falling, launches exactly remat's, replays
+  equal to eager steps bit for bit, the reduced seamless card against
+  CPU (loss 1e-4, grads 1e-3); tok/s, step ms, peak, the held and the
+  counted parameters.  (c) seamless-m4t-medium through the ``Server``:
+  2 sources of 1,024 frames, prompts of 16, 64 new, one decode graph
+  (its cross-attention through the ragged decode over the frames),
+  launches exact, tokens equal to an all-eager Server's; tok/s, the
+  prefill split into encoder, decoder and head, a replayed decode step
+  against its bytes bound, the peak; the reduced seamless card against
+  CPU (logits 1e-3, tokens equal).  (d) internvl2-76b at full width cut
+  to 16 layers through the bucketed ``Server``: 2 prompts of a 1,024-
+  patch prefix and 64 text tokens, 32 new, the same gates and reports,
+  and the reduced internvl card against CPU.  (e) mistral-nemo-12b at
+  full width and depth through the paged engine on phase 2's mix:
+  tokens equal to an all-eager engine's, tok/s beside eager tok/s, a
+  replayed decode step against its bound.  The ``families`` line holds
+  it all.
 - Phase 8, the kernel benchmark: ``repro_torch.bench.kernels`` at full
   size through its ``main`` (the reference's attention, RMSNorm and SSD
   sweeps in float32, kernel and plain, forward and forward+backward; the
@@ -358,12 +392,14 @@ decode graph, each replayed once per step.
 
 Prints the card's name and power limit, one ``kernels`` JSON line (the
 eight kernels, the flash kernels at hd 32, the ragged decode at hd 32
-and 256, and the RG-LRU scan pair), one ``engine`` and one ``train``
+and 256, the RG-LRU scan pair, and on the flash, decode and RMSNorm
+entries the shapes of phase 16), one ``engine`` and one ``train``
 JSON line (phase 9's result in the latter), one ``mamba2`` JSON line,
 one ``mamba2_serve``
 line (phases 11 and 11b, with the card), one ``server`` line (phase
 12), one ``paper`` line (phase 13), one ``moe`` line (phase 14), one
-``hybrid`` line (phase 15), one ``checkpoint`` line
+``hybrid`` line (phase 15), one ``families`` line (phase 16), one
+``checkpoint`` line
 (phase 10: bytes written, write, restore and verify seconds and GB/s,
 the async save's stall beside a sync save's time, the adaptive run's
 cuts, the card's name and power limit), and last ``{"ok": true,
@@ -806,8 +842,8 @@ def measure_bwd(RN, FA, ref, inputs):
 
 
 def flash_rows(FA, ref, t, timer):
-    """The flash forward, dq and dk/dv timed on one MHA (q, k, v, out,
-    lse, do) in bfloat16, each beside its plain version, one PyTorch call and
+    """The flash forward, dq and dk/dv timed on one (q, k, v, out, lse,
+    do) in bfloat16 (MHA or GQA), each beside its plain version, one PyTorch call and
     its bound: ``fwd``, ``dq``, ``dkv`` and ``bwd`` (delta, dq and dk/dv
     through ``flash_bwd``).  The plain version and the library call
     compute dq, dk and dv together, so the two backward rows share
@@ -822,11 +858,13 @@ def flash_rows(FA, ref, t, timer):
     pairs = B * H * S * (S + 1) / 2
     reads = (2 * B * H + 2 * B * Hkv) * S * hd * es + 8 * B * H * S
     qa, ka, va = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
-    o = F.scaled_dot_product_attention(qa, ka, va, is_causal=True)
+    gqa = H != Hkv
+    o = F.scaled_dot_product_attention(qa, ka, va, is_causal=True,
+                                       enable_gqa=gqa)
     plain_ms = timer(lambda: ref.flash_bwd_ref(qt, kt, vt, out, lse, dot))
     library_ms = timer(lambda: torch.autograd.grad(
         o, (qa, ka, va), dot, retain_graph=True))
-    shape = f"q (B={B}, S={S}, H={H}, hd={hd}) bf16, causal"
+    shape = f"q (B={B}, S={S}, H={H}, hd={hd}), Hkv={Hkv} bf16, causal"
     rows = {}
     rows["dq"] = dict(
         ms=timer(lambda: FA.flash_bwd_dq(qt, kt, vt, dot, lse, delta)),
@@ -850,7 +888,7 @@ def flash_rows(FA, ref, t, timer):
         ms=timer(lambda: FA.flash_fwd(qt, kt, vt)),
         plain_ms=timer(lambda: ref.attention_ref(qt, kt, vt)),
         library_ms=timer(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
+            qt, kt, vt, is_causal=True, enable_gqa=gqa)),
         shape=shape,
         **bound((2 * B * H + 2 * B * Hkv) * S * hd * es + 4 * B * H * S,
                 4 * hd * pairs, bf))
@@ -1629,7 +1667,44 @@ def profile_train(tr, step_s: float, batch: int, name: str):
     return out
 
 
-def replayed_card_vs_cpu(small, cpu_model, seq, batch_size, raw):
+def sgd_updates(small, cpu_model, dev, scan, raw):
+    """Steps of SGD at LR 0.1 (no clipping) of ``cpu_model``'s weights on
+    ``dev``, one a batch of ``raw`` (stacked (steps, B, S)), with ``scan``
+    as ``kernels.backend.rglru_scan`` (None: the backend's own), through
+    the engine (on the card the first step eager, then one graph
+    replayed).  Returns (losses, each tensor's change, captures)."""
+    import copy
+    from repro_torch.configs import (OptimizerConfig, RunConfig,
+                                     ScheduleConfig)
+    from repro_torch.core.seesaw import build_plan
+    from repro_torch.kernels import backend as KB
+    from repro_torch.optim import optimizers as O
+    from repro_torch.train import engine as E
+    run = RunConfig(model=small, schedule=ScheduleConfig(),
+                    optimizer=OptimizerConfig(kind="sgd", grad_clip=0.0),
+                    seq_len=raw["tokens"].shape[-1],
+                    global_batch_size=raw["tokens"].shape[1],
+                    dtype="float32")
+    plan = build_plan(kind="constant", base_lr=0.1, total_tokens=1e9,
+                      warmup_frac=0.0, b0=run.global_batch_size)
+    own = KB.rglru_scan
+    KB.rglru_scan = scan or own
+    try:
+        model = copy.deepcopy(cpu_model).to(dev)
+        before = [p.detach().clone() for p in model.parameters()]
+        eng = E.PhaseEngine(run, O.sgd(), plan)
+        _, _, m = eng.run_chunk(
+            model, O.sgd().init(dict(model.named_parameters())), 0,
+            {k: torch.from_numpy(v.astype(np.int64)).to(dev)
+             for k, v in raw.items()}, step=0)
+        return ([float(x) for x in m["loss"].cpu()],
+                [(p.detach() - b).cpu()
+                 for p, b in zip(model.parameters(), before)], eng.captures)
+    finally:
+        KB.rglru_scan = own
+
+
+def replayed_card_vs_cpu(small, cpu_model, raw):
     """Three engine steps on the CPU and on the card from ``cpu_model``'s
     weights, on the same batches: on the card the first runs eagerly,
     the second is captured and replayed, the third replayed.  Float32,
@@ -1637,34 +1712,11 @@ def replayed_card_vs_cpu(small, cpu_model, seq, batch_size, raw):
     -0.1 × the sum of the grads.  Every step's loss must agree within
     1e-4 and each tensor's change within 1e-3 of its largest |change|:
     phase 5's gates for the loss and the grads, on replayed steps."""
-    import copy
-    from repro_torch.configs import (OptimizerConfig, RunConfig,
-                                     ScheduleConfig)
-    from repro_torch.core.seesaw import build_plan
-    from repro_torch.optim import optimizers as O
-    from repro_torch.train import engine as E
-    run = RunConfig(model=small, schedule=ScheduleConfig(),
-                    optimizer=OptimizerConfig(kind="sgd", grad_clip=0.0),
-                    seq_len=seq, global_batch_size=batch_size,
-                    dtype="float32")
-    plan = build_plan(kind="constant", base_lr=0.1, total_tokens=1e9,
-                      warmup_frac=0.0, b0=batch_size)
-    stacked = {k: torch.from_numpy(v.astype(np.int64))
-               for k, v in raw.items()}
     out = {}
     for dev in ("cpu", "cuda"):
-        model = copy.deepcopy(cpu_model).to(dev)
-        before = [p.detach().clone() for p in model.parameters()]
-        eng = E.PhaseEngine(run, O.sgd(), plan)
-        opt_state = O.sgd().init(dict(model.named_parameters()))
-        _, _, m = eng.run_chunk(model, opt_state, 0,
-                                {k: v.to(dev) for k, v in stacked.items()},
-                                step=0)
-        if dev == "cuda" and eng.captures != 1:
-            raise AssertionError(f"{eng.captures} captures, want 1")
-        out[dev] = ([float(x) for x in m["loss"].cpu()],
-                    [(p.detach() - b).cpu()
-                     for p, b in zip(model.parameters(), before)])
+        *out[dev], captures = sgd_updates(small, cpu_model, dev, None, raw)
+        if dev == "cuda" and captures != 1:
+            raise AssertionError(f"{captures} captures, want 1")
     loss_diff = max(abs(a - b) for a, b in zip(out["cpu"][0],
                                                out["cuda"][0]))
     if loss_diff > 1e-4:
@@ -1725,7 +1777,7 @@ def phase5(cfg, R, O):
     return {"loss_cpu": out["cpu"][0], "loss_cuda": out["cuda"][0],
             "loss_abs_diff": loss_diff, "grad_max_rel_diff": grad_rel,
             "adamw_param_max_abs_diff": upd,
-            **replayed_card_vs_cpu(small, cpu, 256, 2, {
+            **replayed_card_vs_cpu(small, cpu, {
                 k: v.reshape(3, 2, 256) for k, v in
                 MarkovLM(2048, seed=2).sample(2, 6, 256).items()})}
 
@@ -2222,7 +2274,7 @@ def phase7(R):
     raw3 = {k: v.reshape(3, 2, 200) for k, v in raw3.items()}
     return {"loss_cpu": out["cpu"][0], "loss_cuda": out["cuda"][0],
             "loss_abs_diff": loss_diff, "grad_max_rel_diff": grad_rel,
-            **replayed_card_vs_cpu(small, cpu, 200, 2, raw3)}
+            **replayed_card_vs_cpu(small, cpu, raw3)}
 
 
 # --------------------------------------------------------------------- #
@@ -2477,14 +2529,14 @@ def phase11b(R, serving):
 # phase 12: the blocking Server over the contiguous caches
 # --------------------------------------------------------------------- #
 
-def quiet_generate(srv, toks, n_new):
+def quiet_generate(srv, toks, n_new, prefix_emb=None):
     """``srv.generate`` without its DeprecationWarning, timed to its end
     (it returns after reading the tokens back): (tokens, seconds)."""
     torch.cuda.synchronize()
     t = time.perf_counter()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        out = srv.generate(toks, n_new)
+        out = srv.generate(toks, n_new, prefix_emb=prefix_emb)
     return out, time.perf_counter() - t
 
 
@@ -2769,7 +2821,8 @@ def phase12c(cfg, R, Server):
 def server_card_vs_cpu(small, R, Server, batches, seed):
     """``small`` in float32 through a Server on the card and on the CPU,
     the same weights (``seed``): each batch's first-token logits within
-    1e-3, its greedy tokens equal.  Returns (the logits' largest
+    1e-3, its greedy tokens equal.  A batch is (tokens, n_new) or
+    (tokens, n_new, prefix_emb).  Returns (the logits' largest
     difference, the card's tokens)."""
     f32 = torch.float32
     cpu = R.init_model(small, seed=seed, dtype=f32, device="cpu")
@@ -2778,11 +2831,13 @@ def server_card_vs_cpu(small, R, Server, batches, seed):
     for dev, model in (("cpu", cpu), ("cuda", card)):
         srv = Server(small, model, max_len=256, dtype=f32)
         logits, toks = [], []
-        for t, n in batches:
+        for t, n, *pre in batches:
+            pre = pre[0] if pre else None
             with torch.inference_mode():
-                lg, _ = srv.prefill(torch.from_numpy(t).to(dev))
+                lg, _ = srv.prefill(torch.from_numpy(t).to(dev), pre)
             logits.append(lg.cpu())
-            toks.append(quiet_generate(srv, t, n)[0].tolist())
+            toks.append(quiet_generate(srv, t, n, prefix_emb=pre)[0]
+                        .tolist())
         out[dev] = (logits, toks)
     diff = max(float((a - b).abs().max())
                for a, b in zip(out["cuda"][0], out["cpu"][0]))
@@ -3139,18 +3194,24 @@ def moe_vs_ref(cfg, M):
 
 def loss_card_vs_cpu(small, R):
     """``small`` in float32 on the card and on the CPU from the same
-    weights (seed 3), one batch of 2 x 256 from ``MarkovLM``: the loss
-    within 1e-4 and every grad within 1e-3 of its tensor's largest
-    |grad|.  Returns (the record, the CPU model)."""
+    weights (seed 3), one batch of 2 x 256 from ``MarkovLM`` (and for the
+    enc-dec 2 sources of seeded normal frames): the loss within 1e-4 and
+    every grad within 1e-3 of its tensor's largest |grad|.  Returns (the
+    record, the CPU model)."""
     from repro_torch.data import MarkovLM
     cpu = R.init_model(small, seed=3, dtype=torch.float32, device="cpu",
                        trainable=True)
     card = R.init_model(small, seed=3, dtype=torch.float32, device="cpu",
                         trainable=True).cuda()
     raw = MarkovLM(small.vocab_size, seed=2).sample(0, 2, 256)
+    if small.arch_type in ("encdec", "audio"):
+        raw["src_emb"] = np.random.default_rng(2).standard_normal(
+            (2, small.frontend_tokens, small.frontend_dim),
+            dtype=np.float32)
     res = {}
     for dev, model in (("cpu", cpu), ("cuda", card)):
-        batch = {k: torch.from_numpy(v.astype(np.int64)).to(dev)
+        batch = {k: torch.from_numpy(v if v.dtype == np.float32
+                                     else v.astype(np.int64)).to(dev)
                  for k, v in raw.items()}
         loss, m = R.loss_fn(model, small, batch, dtype=torch.float32)
         grads = torch.autograd.grad(loss, list(model.parameters()))
@@ -3243,7 +3304,7 @@ def phase14b(cfg, R, RN, FA, smi):
     rec, cpu = loss_card_vs_cpu(small, R)
     out["card_vs_cpu"] = {
         **rec,
-        **replayed_card_vs_cpu(small, cpu, 256, 2, {
+        **replayed_card_vs_cpu(small, cpu, {
             k: v.reshape(3, 2, 256) for k, v in
             MarkovLM(small.vocab_size, seed=2).sample(2, 6, 256).items()})}
     out["moe_vs_ref"] = moe_vs_ref(cfg, M)
@@ -3252,14 +3313,16 @@ def phase14b(cfg, R, RN, FA, smi):
     return out
 
 
-def engine_decode_step(eng, serving, reqs, cfg, smi):
+def engine_decode_step(eng, serving, reqs, cfg, smi,
+                       profile_name="profile_granite_decode.txt"):
     """One replayed decode step of the engine with every slot live (8
     requests of the mix admitted and prefilled, then one step): the mean
     of 10 replays queued back to back between CUDA events (median of 3
     runs), one replay on a drained queue (median of 10), and two more
     under torch.profiler, beside the step's bytes bound: every weight
-    read once (of the tied embedding only the head's reads count once)
-    and each slot's K and V up to its length, every layer."""
+    read once (of the tied embedding only the head's reads count once;
+    of an untied one only the rows the slots look up) and each slot's K
+    and V up to its length, every layer."""
     for prompt, _ in reqs[:eng.decode_slots]:
         eng.submit(serving.GenerationRequest(prompt=prompt,
                                              max_new_tokens=24))
@@ -3271,6 +3334,8 @@ def engine_decode_step(eng, serving, reqs, cfg, smi):
     model = eng.model
     es = model.tok.element_size()
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    if model.lm_head is not None:
+        weights -= model.tok.numel() * es - len(lengths) * cfg.d_model * es
     cache = sum(lengths) * cfg.n_layers * 2 * cfg.kv_dim * es
     replay = ent.graph.replay
     one_ms = event_ms(replay, 10)
@@ -3285,7 +3350,7 @@ def engine_decode_step(eng, serving, reqs, cfg, smi):
         replay()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    prof_rec = second_step_kernels(prof, wall_us, "profile_granite_decode.txt")
+    prof_rec = second_step_kernels(prof, wall_us, profile_name)
     prof_rec["device_busy_share_of_step_ms"] = \
         prof_rec["device_busy_us"] / (step_ms * 1e3)
     eng.drain()
@@ -3593,6 +3658,85 @@ def hybrid_launches(cfg, remat: bool) -> dict:
             "rglru_scan_fwd": n_rec * r, "rglru_scan_bwd": n_rec}
 
 
+def sequential_scan(a, b, h0=None):
+    """h_t = a_t·h_{t−1} + b_t one step after another, the scan kernel's
+    order of sums (forward, and the reverse sweep under autograd)."""
+    h = torch.zeros_like(a[:, 0]) if h0 is None else h0
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def hybrid_update_split(small, R, ref):
+    """Where the card's three-step update of the reduced hybrid parts from
+    the CPU's, in float32: on the card with the scan kernel and with
+    ``rglru_scan_ref`` in its place (the same GEMMs, the reference's
+    chunked order), on the CPU with ``rglru_scan_ref`` and with a
+    sequential loop (the kernel's order), from the same weights on the
+    same three batches.  Per tensor, relative to its largest |change|:
+    the card's kernel run must lie within twice the CPU's order spread
+    (sequential against chunked) or 1e-4 of the card's plain run, and
+    the card's plain run within phase 5's 1e-3 of the CPU's.  A change
+    is read as the difference of two float32 weights, so it is resolved
+    to one spacing of the weight: both gates have a floor of two float32
+    spacings of the tensor's largest |weight| (a w_r update of ~3e-6
+    spans ~800 spacings of its weights, so one flipped last bit is
+    ~1.2e-3 of it; on the CPU the two orders of the scan alone flip
+    it)."""
+    from repro_torch.data import MarkovLM
+    cpu = R.init_model(small, seed=3, dtype=torch.float32, device="cpu",
+                       trainable=True)
+    raw = {k: v.reshape(3, 2, 256) for k, v in
+           MarkovLM(small.vocab_size, seed=2).sample(2, 6, 256).items()}
+    runs = {(dev, name): sgd_updates(small, cpu, dev, scan, raw)
+            for dev, name, scan in (
+                ("cuda", "kernel", None),
+                ("cuda", "plain", ref.rglru_scan_ref),
+                ("cpu", "plain", ref.rglru_scan_ref),
+                ("cpu", "sequential", sequential_scan))}
+
+    def diff(x, y):
+        return [float((a - b).abs().max())
+                for a, b in zip(runs[x][1], runs[y][1])]
+
+    scale = [float(u.abs().max().clamp(min=1e-30))
+             for u in runs[("cpu", "plain")][1]]
+    # two float32 spacings of each tensor's largest |weight| after the run
+    floor = []
+    for p, u in zip(cpu.parameters(), runs[("cpu", "plain")][1]):
+        w = (p.detach() + u).abs().max()
+        floor.append(2 * float(torch.nextafter(w, w + 1) - w))
+    spread = diff(("cpu", "sequential"), ("cpu", "plain"))
+    kernel = diff(("cuda", "kernel"), ("cuda", "plain"))
+    plain = diff(("cuda", "plain"), ("cpu", "plain"))
+    worst = {}
+    for (n, _), sc, fl, s_, k_, p_ in zip(cpu.named_parameters(), scale,
+                                          floor, spread, kernel, plain):
+        if k_ > max(2 * s_, 1e-4 * sc, fl):
+            raise AssertionError(f"hybrid update of {n}: the scan kernel "
+                                 f"{k_ / sc:.3g} of its max from the plain "
+                                 f"scan on the card, the CPU's order "
+                                 f"spread {s_ / sc:.3g}, floor "
+                                 f"{fl / sc:.3g}")
+        if p_ > max(1e-3 * sc, fl):
+            raise AssertionError(f"hybrid update of {n}: the card's plain "
+                                 f"run {p_ / sc:.3g} of its max from the "
+                                 f"CPU's, floor {fl / sc:.3g}")
+        worst[n] = {"order_spread_cpu": s_ / sc,
+                    "kernel_vs_plain_card": k_ / sc,
+                    "plain_card_vs_cpu": p_ / sc,
+                    "floor_two_spacings": fl / sc,
+                    "plain_card_vs_cpu_in_spacings": 2 * p_ / fl}
+    keys = ("order_spread_cpu", "kernel_vs_plain_card", "plain_card_vs_cpu",
+            "plain_card_vs_cpu_in_spacings")
+    return {"losses": {f"{d}/{n}": v[0] for (d, n), v in runs.items()},
+            "max": {k: max(w[k] for w in worst.values()) for k in keys},
+            "top_tensors": {n: worst[n] for n in sorted(
+                worst, key=lambda n: -worst[n]["plain_card_vs_cpu"])[:4]}}
+
+
 def phase15b(cfg, R, ctr, smi):
     """recurrentgemma-9b at full width, cut to 5 layers (one (recurrent,
     recurrent, attention) group and a remainder of two, 2,971,807,744
@@ -3610,8 +3754,16 @@ def phase15b(cfg, R, ctr, smi):
     5's three SGD steps at LR 0.1 are not gated here: the three-step
     update of ``w_r``, a sum of small gradients, lands past that gate's
     1e-3 of its max from the CPU's while one step's grads agree far
-    inside theirs; the scan sums in another order on the card.)"""
+    inside theirs.)  That gap is split instead
+    (``hybrid_update_split``): the card's kernel run against the card's
+    run with the plain scan, gated at twice the CPU's spread between the
+    scan's two orders of sums, and the card's plain run against the
+    CPU's at phase 5's 1e-3, both floored at two float32 spacings of
+    the weights.  The gap is no fault of the kernel or of the layers
+    around it: it is the last bit of w_r's float32 weights, which the
+    CPU's two orders of the scan flip too."""
     from repro_torch.data import MarkovLM
+    from repro_torch.kernels import ref
     five = dataclasses.replace(cfg, n_layers=5)
     run = hybrid_run(five)
     tr, out = run_ramp(run, ctr, fuse_steps=4, max_device_batch=4,
@@ -3668,9 +3820,11 @@ def phase15b(cfg, R, ctr, smi):
     gc.collect()
     torch.cuda.empty_cache()
 
-    out["card_vs_cpu"], _ = loss_card_vs_cpu(
-        dataclasses.replace(cfg.reduced(), n_layers=5), R)
-    log(f"phase 15b: card vs cpu {out['card_vs_cpu']}")
+    small = dataclasses.replace(cfg.reduced(), n_layers=5)
+    out["card_vs_cpu"], _ = loss_card_vs_cpu(small, R)
+    out["update_split"] = hybrid_update_split(small, R, ref)
+    log(f"phase 15b: card vs cpu {out['card_vs_cpu']}, three-step update "
+        f"{out['update_split']}")
     return out
 
 
@@ -3849,6 +4003,575 @@ def hybrid_kernel_entries(kernels, record):
                      if c.startswith("paged_decode") and "hd 256" in c},
         "launches_by": "phase 15c: recurrentgemma-9b's 12 attention "
                        "layers through the Server's decode graph"})
+
+
+# --------------------------------------------------------------------- #
+# phase 16: the last families — the enc-dec, the VLM prefix, mistral-nemo
+# --------------------------------------------------------------------- #
+
+ENCDEC_ARCH, VLM_ARCH = "seamless-m4t-medium", "internvl2-76b"
+NEMO_ARCH, YI_ARCH = "mistral-nemo-12b", "yi-34b"
+VLM_LAYERS = 16
+# 16b's plan: 6 steps at B = 4 and 2 at B = 8 of 1,024 text tokens (as 15b)
+ENCDEC_TOKENS = 9 * 4 * 1024
+# (B, S, H, Hkv, tag), hd 128: internvl's GQA 64/8 at its prefill of a
+# 1,024-patch prefix and 64 text tokens, yi-34b's 56/8 (a group of 7),
+# and ragged lengths at the tiles' edges
+FLASH_GQA = ((2, 1088, 64, 8, "internvl-prefill"), (1, 1024, 56, 8, "yi"),
+             (1, 77, 56, 8, "yi-S77"), (1, 65, 64, 8, "internvl-S65"))
+# (B, Skv, H, Hkv, tag), hd 128: the decode kernel serves a kv head's
+# group in blocks of 4 heads, so yi's group of 7 leaves a tail of 3
+DECODE_GQA = ((2, 2048, 64, 8, "internvl"), (8, 2048, 56, 8, "yi"))
+
+
+def phase16a(RN, FA, PG, ref):
+    """The kernels at the new families' head shapes against their plain
+    versions, float32 (2e-5) and bfloat16 (2e-2): the flash forward, dq
+    and dk/dv at hd 128 with GQA groups of 8 and 7 (``FLASH_GQA``), the
+    ragged decode's gathered and paged entries at the same groups
+    (``DECODE_GQA``), the RMSNorm forward at d 8192 (internvl's) at 2
+    and 2 x 1,088 rows.  Then each timed in bfloat16 beside its plain
+    version, its bound and SDPA or ``F.rms_norm``."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    rng = np.random.default_rng(16)
+    bf = torch.bfloat16
+    errors, inputs = [], {}
+    for dtype in DTYPES:
+        dn = str(dtype).replace("torch.", "")
+        for B, S, H, Hkv, tag in FLASH_GQA:
+            q, k, v, do = (torch.randn(B, S, n, 128, generator=g,
+                                       device="cuda").to(dtype)
+                           for n in (H, Hkv, Hkv, H))
+            qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+            out, lse = FA.flash_fwd(qt, kt, vt)
+            torch.cuda.synchronize()
+            want, want_lse = ref.attention_ref(qt, kt, vt)
+            errors.append(("flash_fwd", f"hd128-{tag}", dn,
+                           max(max_err(out, want, dtype),
+                               max_err(lse, want_lse, dtype))))
+            del want, want_lse
+            dq, dk, dv = FA.flash_bwd(qt, kt, vt, out, lse, dot)
+            torch.cuda.synchronize()
+            wq, wk, wv = ref.flash_bwd_ref(qt, kt, vt, out, lse, dot)
+            errors.append(("flash_bwd_dq", f"hd128-{tag}", dn,
+                           max_err(dq, wq, dtype)))
+            errors.append(("flash_bwd_dkv", f"hd128-{tag}", dn,
+                           max(max_err(dk, wk, dtype),
+                               max_err(dv, wv, dtype))))
+            del dq, dk, dv, wq, wk, wv
+            if dtype is bf and tag in ("internvl-prefill", "yi"):
+                inputs[tag] = (qt, kt, vt, out, lse, dot)
+        for B, Skv, H, Hkv, tag in DECODE_GQA:
+            t, err = decode_case(PG, ref, B, Skv, H, Hkv, 128, dtype, g, rng)
+            errors.append(("ragged_decode", f"hd128-{tag}", dn, err))
+            if dtype is bf:
+                inputs[("decode", tag)] = t
+            errors.append(("paged_decode", f"hd128-{tag}-ps16", dn,
+                           paged_case(PG, ref, 8, Skv, H, Hkv, 128, 16,
+                                      dtype, g, rng)))
+        for rows, tag in ((2, "decode"), (2 * 1088, "prefill")):
+            x, s, err = rmsnorm_case(RN, ref, rows, 8192, dtype, g)
+            errors.append(("rmsnorm_fwd", f"d8192-{tag}", dn, err))
+            if dtype is bf:
+                inputs[("rmsnorm", tag)] = (x, s)
+        torch.cuda.empty_cache()
+    for name, tag, dn, err in errors:
+        log(f"phase 16a: {name} {tag} {dn}: max |err| {err:.3g}")
+    timer = Timer(iters=30)
+    times = {f"flash/{tag}": flash_rows(FA, ref, inputs[tag], timer)
+             for tag in ("internvl-prefill", "yi")}
+    for tag in ("internvl", "yi"):
+        q, k, v, lengths, lens, _ = inputs[("decode", tag)]
+        B, H, hd = q.shape
+        Hkv, Skv = k.shape[1], k.shape[2]
+        es = q.element_size()
+        keys = float(np.sum(lens.astype(np.int64) + 1))
+        mask = (torch.arange(Skv, device="cuda")[None, :]
+                <= lengths.long()[:, None])[:, None, None, :]
+        times[f"ragged_decode/{tag}"] = dict(
+            ms=timer(lambda: PG.ragged_decode_attention(q, k, v, lengths)),
+            plain_ms=timer(lambda: ref.ragged_decode_ref(q, k, v,
+                                                         lengths)),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)),
+            shape=f"q (B={B}, H={H}, hd={hd}), Hkv={Hkv}, window "
+                  f"Skv={Skv}, lengths {lens.tolist()} bf16",
+            **bound(2 * q.numel() * es + 2 * keys * Hkv * hd * es + 4 * B,
+                    4 * keys * H * hd, bf))
+    for tag in ("decode", "prefill"):
+        x, s = inputs[("rmsnorm", tag)]
+        d, w = x.shape[-1], (1.0 + s).to(bf)
+        times[f"rmsnorm_fwd/d8192-{tag}"] = dict(
+            ms=timer(lambda: RN.rmsnorm_fwd(x, s, 1e-5)),
+            graph_us=GraphTimer()(lambda: RN.rmsnorm_fwd(x, s, 1e-5)),
+            plain_ms=timer(lambda: ref.rmsnorm_ref(x, s, 1e-5)),
+            library_ms=timer(lambda: F.rms_norm(x, (d,), w, 1e-5)),
+            library_graph_us=GraphTimer()(lambda: F.rms_norm(x, (d,), w,
+                                                             1e-5)),
+            shape=f"x ({x.shape[0]}, {d}) bf16",
+            **bound(2 * x.numel() * x.element_size() + 4 * d,
+                    4 * x.numel(), bf))
+    log(f"phase 16a: {times}")
+    return errors, times
+
+
+def encdec_launches(cfg, remat: bool) -> dict:
+    """The enc-dec's kernel launches a micro-batch: RMSNorm 2 a layer of
+    the encoder and 3 of the decoder, plus ``enc_norm`` and
+    ``final_norm``, forward (twice under remat) and backward; flash
+    forward once a decoder layer (twice under remat), dq and dk/dv once;
+    the bidirectional attention (the encoder's, the cross-attention)
+    launches none (``chunked_attention``)."""
+    Le, Ld, r = cfg.n_encoder_layers, cfg.n_layers, 2 if remat else 1
+    norms = 2 * Le + 3 * Ld
+    return {"rmsnorm_fwd": norms * r + 2, "rmsnorm_bwd": norms + 2,
+            "flash_fwd": Ld * r, "flash_bwd_dq": Ld, "flash_bwd_dkv": Ld}
+
+
+def encdec_run(cfg):
+    from repro_torch.configs import (OptimizerConfig, RunConfig,
+                                     ScheduleConfig)
+    return RunConfig(model=cfg,
+                     schedule=ScheduleConfig(kind="seesaw", alpha=2.0,
+                                             n_cuts=1),
+                     optimizer=OptimizerConfig(kind="adamw", beta1=0.9,
+                                               beta2=0.95, grad_clip=1.0),
+                     seq_len=1024, global_batch_size=4,
+                     total_tokens=ENCDEC_TOKENS, dtype="bfloat16")
+
+
+def encdec_chunk(src, rng, start, k, B, cfg, seq):
+    """k steps of B examples, stacked (k, B, ...) on the card: text from
+    ``MarkovLM`` sequences start.., frames seeded numpy normals (B,
+    frontend_tokens, frontend_dim) float32."""
+    raw = src.sample(start, k * B, seq)
+    out = {n: torch.from_numpy(v.astype(np.int64).reshape(k, B, seq)).cuda()
+           for n, v in raw.items()}
+    out["src_emb"] = torch.from_numpy(rng.standard_normal(
+        (k, B, cfg.frontend_tokens, cfg.frontend_dim),
+        dtype=np.float32)).cuda()
+    return out
+
+
+def bidirectional_attention_ms(cfg, B: int, S: int) -> dict:
+    """One layer's bidirectional ``chunked_attention`` (the enc-dec's
+    encoder and cross-attention; plain PyTorch in float32, as the
+    reference's XLA path) at (B, S, H, hd) bf16: the forward, and the
+    forward with its backward, in device ms; ``step_ms`` what a B-row
+    micro-batch spends in them under remat (2·12 layers, each forward
+    twice and backward once)."""
+    from repro_torch.models.attention import chunked_attention
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v = (torch.randn(B, S, cfg.n_heads, cfg.head_dim, generator=g,
+                           device="cuda").to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+    with torch.no_grad():
+        fwd = event_ms(lambda: chunked_attention(q, k, v, causal=False), 3)
+    both = event_ms(lambda: torch.autograd.grad(
+        chunked_attention(q, k, v, causal=False).float().sum(), (q, k, v)),
+        3)
+    layers = cfg.n_encoder_layers + cfg.n_layers
+    return {"shape": f"q, k, v ({B}, {S}, {cfg.n_heads}, {cfg.head_dim}) "
+                     f"bf16, float32 scores", "fwd_ms": fwd,
+            "fwd_bwd_ms": both, "step_ms": layers * (fwd + both)}
+
+
+def phase16b(cfg, R, ctr, smi):
+    """seamless-m4t-medium at full width and depth (12 + 12 layers, 877.2M
+    parameters held, 675.7M counted by the reference's formula; 14.0 GB
+    of float32 weights, grads and AdamW state), bf16 compute, remat,
+    through the engine's grad step (``train.engine.PhaseEngine``; the
+    reference's ``Trainer`` cannot feed frames either): Seesaw α = 2 with
+    one cut, 6 steps at B = 4 and 2 at B = 8 (micro 2), each example
+    1,024 frames and 1,024 text tokens of ``MarkovLM(2048, 0)``.  Gates:
+    each step's LR, batch and phase the plan's; losses finite and
+    falling; launches exactly remat's per micro-batch; one graph per
+    (batch size, micro); a step at B = 4 and one at B = 8 replayed and
+    run eagerly on a clone of the state, bit for bit; the reduced
+    seamless in float32 on the card against the CPU (loss 1e-4, grads
+    1e-3 of each tensor's max)."""
+    from repro_torch.core.seesaw import build_plan
+    from repro_torch.data import MarkovLM
+    from repro_torch.optim import optimizers as O
+    from repro_torch.train import engine as E
+    run = encdec_run(cfg)
+    sch, seq = run.schedule, run.seq_len
+    plan = build_plan(kind=sch.kind, base_lr=sch.base_lr,
+                      total_tokens=run.total_tokens,
+                      warmup_frac=sch.warmup_frac, b0=run.global_batch_size,
+                      alpha=sch.alpha, n_cuts=sch.n_cuts)
+    opt = O.from_config(run.optimizer)
+    eng = E.PhaseEngine(run, opt, plan, max_device_batch=4)
+    steps = plan.steps_per_phase(seq)
+    micro = [eng.micro_batches(b) for b in plan.batch_sizes()]
+    if (plan.batch_sizes(), steps, micro) != ([4, 8], [6, 2], [1, 2]):
+        raise AssertionError(f"plan: {plan.batch_sizes()} {steps} {micro}")
+    torch.cuda.reset_peak_memory_stats()
+    model = R.init_model(cfg, seed=0, dtype=torch.float32, device="cuda",
+                         trainable=True)
+    opt_state = opt.init(dict(model.named_parameters()))
+    src, rng = MarkovLM(2048, seed=0), np.random.default_rng(16)
+    for m, a in ctr.values():
+        setattr(m, a, 0)
+    chunks, hist = [], []
+    tok = step = start = 0
+    t0 = time.perf_counter()
+    for ph, n_steps in zip(plan.phases, steps):
+        B = ph.batch_size
+        for c in range(0, n_steps, 4):
+            k = min(4, n_steps - c)
+            stacked = encdec_chunk(src, rng, start, k, B, cfg, seq)
+            torch.cuda.synchronize()
+            t, cap = time.perf_counter(), eng.capture_s
+            model, opt_state, m = eng.run_chunk(model, opt_state, tok,
+                                                stacked, step=step)
+            torch.cuda.synchronize()
+            chunks.append((B, k, time.perf_counter() - t,
+                           eng.capture_s - cap))
+            for i in range(k):
+                want_lr = float(eng.lr_fn(float(tok + i * B * seq),
+                                          step + i))
+                if float(m["lr"][i]) != want_lr:
+                    raise AssertionError(f"step {step + i + 1}: lr "
+                                         f"{float(m['lr'][i])}, plan "
+                                         f"{want_lr}")
+                hist.append({"step": step + i + 1, "batch_size": B,
+                             "phase": ph.index, "lr": want_lr,
+                             "loss": float(m["loss"][i]),
+                             "grad_norm": float(m["grad_norm"][i])})
+            tok, step, start = tok + k * B * seq, step + k, start + k * B
+    wall = time.perf_counter() - t0
+    launches = {n: getattr(mod, a) for n, (mod, a) in ctr.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"losses {losses}, grad norms {norms}")
+    if not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    mb = sum(n * mi for n, mi in zip(steps, micro))
+    per = encdec_launches(cfg, run.remat)
+    want = dict({n: 0 for n in ctr}, **{n: v * mb for n, v in per.items()})
+    if launches != want:
+        raise AssertionError(f"launches {launches}, remat gives {want}")
+    if eng.captures != 2:
+        raise AssertionError(f"{eng.captures} captures, want 2")
+    stats = {}
+    for b in plan.batch_sizes():
+        timed = [(n, dt - cap) for i, (bb, n, dt, cap) in enumerate(chunks)
+                 if bb == b and i > 0]
+        n, sec = sum(c[0] for c in timed), sum(c[1] for c in timed)
+        stats[str(b)] = {"step_ms": 1e3 * sec / n,
+                         "tok_per_s": b * seq * n / sec,
+                         "frames_and_tok_per_s": 2 * b * seq * n / sec,
+                         "steps_timed": n}
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {"model": cfg.name, "params": n_params,
+           "config_param_count": cfg.param_count(),
+           "state_gb": 16 * n_params / 1e9, "steps": len(hist),
+           "plan_steps": steps, "batch_sizes": plan.batch_sizes(),
+           "micro_batches": micro, "wall_s": wall,
+           "captures": eng.captures, "captures_s": eng.capture_s,
+           "per_batch_size": stats, "peak_mem_gb": peak,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "grad_norms": norms,
+           "lrs": [h["lr"] for h in hist], "launches": launches,
+           "launches_per_micro_batch": per, "micro_batches_run": mb,
+           "card": smi}
+    # replays against eager steps, bit for bit, at micro 1 and 2
+    for b in (4, 8):
+        chunk = encdec_chunk(MarkovLM(2048, seed=9), rng, start, 1, b, cfg,
+                             seq)
+        twin = clone_state(model, opt_state)
+        _, _, m = eng.run_chunk(model, opt_state, tok, chunk, step=step)
+        _, _, want_m = eng.step_for(b).grad(
+            *twin, {k: v[0] for k, v in chunk.items()}, m["lr"][0].cuda())
+        torch.cuda.synchronize()
+        if not same_state((model, opt_state), twin) or not all(
+                torch.equal(m[k][0], v) for k, v in want_m.items()):
+            raise AssertionError(f"B={b}: the replay differs from the "
+                                 f"eager step")
+        del twin
+        step, tok, start = step + 1, tok + b * seq, start + b
+    out["graphs_bitwise"] = {"micro1_steps": 1, "micro2_steps": 1,
+                             "captures": eng.captures}
+    del model, opt_state, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["bidirectional_attention"] = bidirectional_attention_ms(cfg, 4, seq)
+    out["card_vs_cpu"], _ = loss_card_vs_cpu(cfg.reduced(), R)
+    log(f"phase 16b: {stats}, card vs cpu {out['card_vs_cpu']}")
+    return out
+
+
+def encdec_step_bytes(model, cfg, batch: int, positions: int) -> int:
+    """Bytes an enc-dec decode step must move at least: the decoder's
+    weights once (not the encoder's, nor the cross-attention's w_k and
+    w_v, which the prefill used), of the untied embedding only the
+    ``batch`` rows looked up, the head; each layer's self-attention K/V
+    over ``positions`` slots and its cross-attention ek/ev over the
+    frames, a row."""
+    es = model.tok.element_size()
+    dec = sum(p.numel() * p.element_size()
+              for n, p in model.named_parameters()
+              if n.startswith("decoder.") and not n.endswith(
+                  ("cross_attn.w_k", "cross_attn.w_v")))
+    head = model.lm_head.numel() * es + batch * cfg.d_model * es
+    kv = batch * cfg.n_layers * (positions + cfg.frontend_tokens) * 2 \
+        * cfg.kv_dim * es
+    return dec + head + model.final_norm.numel() * 4 + kv
+
+
+def served_generate(srv, eager, ctr, toks, prefix, n_new, want):
+    """``toks`` through the replayed Server and through the all-eager one,
+    the source frames or patches as ``prefix``: launches (counted on the
+    replayed one) exactly ``want``, tokens equal and in the vocab."""
+    for m, a in ctr.values():
+        setattr(m, a, 0)
+    out, wall = quiet_generate(srv, toks, n_new, prefix_emb=prefix)
+    launches = {n: getattr(m, a) for n, (m, a) in ctr.items()}
+    if launches != dict({n: 0 for n in ctr}, **want):
+        raise AssertionError(f"launches {launches}, want {want}")
+    ref_out, eager_wall = quiet_generate(eager, toks, n_new,
+                                         prefix_emb=prefix)
+    if not np.array_equal(out, ref_out):
+        raise AssertionError("replayed tokens differ from the eager ones")
+    if out.min() < 0 or out.max() >= srv.cfg.padded_vocab:
+        raise AssertionError("token out of the vocab")
+    B = toks.shape[0]
+    return {"batch": B, "prompt": toks.shape[1], "prefix": prefix.shape[1],
+            "new": n_new, "wall_s": wall, "tok_per_s": B * n_new / wall,
+            "eager_wall_s": eager_wall,
+            "eager_tok_per_s": B * n_new / eager_wall,
+            "tokens_equal_eager": True, "launches": launches}
+
+
+def phase16c(cfg, R, Server, ctr, smi):
+    """seamless-m4t-medium at full width and depth through the ``Server``
+    (bf16, ``max_len`` 128): 2 sources of 1,024 frames, prompts of 16
+    tokens, 64 new, after a warm-up that runs the entry's first decode
+    step eagerly and captures its graph.  Launches exactly: a prefill
+    RMSNorm 2·12 + 1 (encoder) + 3·12 + 1 (decoder), flash 12; a decode
+    step RMSNorm 3·12 + 1 and the ragged decode 24 (self- and
+    cross-attention); tokens equal an all-eager Server's.  Reports
+    tok/s, the prefill's ms split into the encoder (and of it 12 layers'
+    bidirectional ``chunked_attention``, timed alone at (2, 1,024, 16,
+    64)), the decoder and the head, a replayed decode step against its
+    bytes bound, the peak; then
+    the reduced seamless in float32 on the card and the CPU: first-token
+    logits within 1e-3, tokens equal."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.models.transformer import logits_from_hidden
+    bf = torch.bfloat16
+    Le, Ld = cfg.n_encoder_layers, cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = R.init_model(cfg, seed=0, dtype=bf, device="cuda")
+    srv = Server(cfg, model, max_len=128, dtype=bf)
+    eager = eager_server(Server, cfg, model, max_len=128, dtype=bf)
+    rng = np.random.default_rng(16)
+
+    def frames():
+        return rng.standard_normal((2, cfg.frontend_tokens,
+                                    cfg.frontend_dim)).astype(np.float32)
+
+    quiet_generate(srv, rng.integers(0, cfg.vocab_size, (2, 16)), 3,
+                   prefix_emb=frames())
+    if srv.captures != 1:
+        raise AssertionError(f"warm-up captured {srv.captures} graphs")
+    n_new = 64
+    toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    src = frames()
+    rec = served_generate(srv, eager, ctr, toks, src, n_new, {
+        "rmsnorm_fwd": 2 * Le + 3 * Ld + 2 + (3 * Ld + 1) * (n_new - 1),
+        "flash_fwd": Ld, "ragged_decode": 2 * Ld * (n_new - 1)})
+    if srv.captures != 1:
+        raise AssertionError(f"{srv.captures} captures, want 1")
+    t = torch.from_numpy(toks).long().cuda()
+    s = torch.from_numpy(src).to(device="cuda", dtype=bf)
+    attn_ms = bidirectional_attention_ms(cfg, 2, cfg.frontend_tokens)[
+        "fwd_ms"]
+    with torch.inference_mode():
+        prefill_ms = event_ms(lambda: srv.prefill(t, s), 5)
+        enc_ms = event_ms(lambda: ED.encode(model, cfg, s, remat=False), 5)
+        h = torch.randn(2, 1, cfg.d_model, device="cuda").to(bf)
+        head_ms = event_ms(lambda: logits_from_hidden(model, h), 5)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step = server_step(srv, cfg, 128, smi, "profile_encdec_decode.txt",
+                       n_bytes=encdec_step_bytes(model, cfg, 2, 128))
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 1e9
+    del srv, eager, model
+    torch.cuda.empty_cache()
+    small = cfg.reduced()
+    r = np.random.default_rng(5)
+    diff, small_toks = server_card_vs_cpu(small, R, Server, [
+        (r.integers(0, small.vocab_size, (2, S)), n,
+         r.standard_normal((2, small.frontend_tokens,
+                            small.frontend_dim)).astype(np.float32))
+        for S, n in ((9, 12), (1, 6))], seed=5)
+    return {"model": cfg.name, "params": n_params,
+            "config_param_count": cfg.param_count(), "weight_gb": weight_gb,
+            "max_len": 128, "generate": rec, "captures": 1,
+            "peak_mem_gb": peak,
+            "prefill": {"prefill_ms": prefill_ms, "encoder_ms": enc_ms,
+                        "encoder_attention_ms": Le * attn_ms,
+                        "one_layer_bidirectional_attention_ms": attn_ms,
+                        "head_ms": head_ms,
+                        "decoder_ms": prefill_ms - enc_ms - head_ms},
+            "decode_step": step,
+            "card_vs_cpu": {"first_token_logit_max_abs_diff": diff,
+                            "tokens": small_toks},
+            "card": smi}
+
+
+def phase16d(cfg, R, Server, ctr, smi):
+    """internvl2-76b at full width cut to 16 of its 80 layers (15.8B
+    parameters, 31.6 GB in bf16) through the bucketed ``Server``
+    (``max_len`` 2048): 2 prompts of a 1,024-patch prefix and 64 text
+    tokens, 32 new, after a warm-up that captures the decode graph.
+    Launches exactly: a prefill RMSNorm 2·16 + 1, flash 16; a decode step
+    RMSNorm 2·16 + 1, the ragged decode 16; tokens equal an all-eager
+    Server's.  Reports tok/s, the prefill's ms split into the trunk and
+    the head, a replayed decode step against its bytes bound, the peak;
+    then the reduced internvl in float32 on the card and the CPU with a
+    prefix: first-token logits within 1e-3, tokens equal."""
+    from repro_torch.models.transformer import logits_from_hidden
+    bf = torch.bfloat16
+    cut = dataclasses.replace(cfg, n_layers=VLM_LAYERS)
+    L = cut.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = R.init_model(cut, seed=0, dtype=bf, device="cuda")
+    srv = Server(cut, model, max_len=2048, dtype=bf)
+    eager = eager_server(Server, cut, model, max_len=2048, dtype=bf)
+    rng = np.random.default_rng(17)
+
+    def patches():
+        return rng.standard_normal((2, cut.frontend_tokens,
+                                    cut.frontend_dim)).astype(np.float32)
+
+    quiet_generate(srv, rng.integers(0, cut.vocab_size, (2, 64)), 3,
+                   prefix_emb=patches())
+    if srv.captures != 1:
+        raise AssertionError(f"warm-up captured {srv.captures} graphs")
+    n_new = 32
+    toks = rng.integers(0, cut.vocab_size, (2, 64)).astype(np.int32)
+    pre = patches()
+    rec = served_generate(srv, eager, ctr, toks, pre, n_new, {
+        "rmsnorm_fwd": (2 * L + 1) * n_new, "flash_fwd": L,
+        "ragged_decode": L * (n_new - 1)})
+    if srv.captures != 1 or srv.n_prefill_executables != 1:
+        raise AssertionError(f"{srv.captures} captures, "
+                             f"{srv.n_prefill_executables} prefill keys")
+    t = torch.from_numpy(toks).long().cuda()
+    p = torch.from_numpy(pre).to(device="cuda", dtype=bf)
+    with torch.inference_mode():
+        prefill_ms = event_ms(lambda: srv.prefill(t, p), 3)
+        h = torch.randn(2, 1, cut.d_model, device="cuda").to(bf)
+        head_ms = event_ms(lambda: logits_from_hidden(model, h), 5)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    positions = cut.frontend_tokens + 64 + n_new
+    step = server_step(srv, cut, positions, smi, "profile_vlm_decode.txt")
+    n_params = sum(p_.numel() for p_ in model.parameters())
+    weight_gb = sum(p_.numel() * p_.element_size()
+                    for p_ in model.parameters()) / 1e9
+    del srv, eager, model
+    torch.cuda.empty_cache()
+    small = cfg.reduced()
+    r = np.random.default_rng(6)
+    diff, small_toks = server_card_vs_cpu(small, R, Server, [
+        (r.integers(0, small.vocab_size, (2, S)), n,
+         r.standard_normal((2, small.frontend_tokens,
+                            small.frontend_dim)).astype(np.float32))
+        for S, n in ((20, 12), (1, 6))], seed=6)
+    return {"model": f"{cfg.name} cut to {L} layers", "params": n_params,
+            "full_depth_params": cfg.param_count(), "weight_gb": weight_gb,
+            "max_len": 2048, "generate": rec, "captures": 1,
+            "peak_mem_gb": peak,
+            "prefill": {"prefill_ms": prefill_ms, "head_ms": head_ms,
+                        "trunk_ms": prefill_ms - head_ms,
+                        "positions": cut.frontend_tokens + 64},
+            "decode_step": step,
+            "card_vs_cpu": {"first_token_logit_max_abs_diff": diff,
+                            "tokens": small_toks},
+            "card": smi}
+
+
+def phase16e(cfg, R, serving, kernel_modules, smi):
+    """mistral-nemo-12b at full width and depth (40 layers, 12.25B
+    parameters, 24.5 GB in bf16) from the paged engine on phase 2's mix
+    (8 slots, page 16, max_len 1024, 16 requests): tokens equal an
+    all-eager engine's, tok/s beside the eager tok/s, and a replayed
+    decode step with every slot live against its bytes bound."""
+    torch.cuda.reset_peak_memory_stats()
+    eng, rec = phase2(cfg, R, serving, kernel_modules)
+    eng.reset()
+    rec["decode_step"] = engine_decode_step(
+        eng, serving, requests(cfg), cfg, smi, "profile_nemo_decode.txt")
+    rec["params"] = sum(p.numel() for p in eng.model.parameters())
+    rec["config_param_count"] = cfg.param_count()
+    rec["card"] = smi
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase16_kernel_entries(kernels, record):
+    """Phase 16's part of the ``kernels`` line: on the flash, ragged
+    decode and RMSNorm forward entries, the new head shapes (hd 128, GQA
+    groups of 8 and 7; d 8192) with their errors, ms, bound, plain and
+    library ms, and each kernel's launches in 16b-16e."""
+    fam = record["families"]
+    err = {(n, tag, dn): e for n, tag, dn, e in fam["kernels"]["errors"]}
+    times = fam["kernels"]["times"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    for k in kernels:
+        name = k["name"]
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            row = {"flash_fwd": "fwd", "flash_bwd_dq": "dq",
+                   "flash_bwd_dkv": "dkv"}[name]
+            k["hd128_gqa"] = {
+                tag: {**{f: times[f"flash/{tag}"][row][f] for f in keys},
+                      "max_abs_err": err[(name, f"hd128-{tag}",
+                                          "bfloat16")],
+                      "max_abs_err_f32": err[(name, f"hd128-{tag}",
+                                              "float32")]}
+                for tag in ("internvl-prefill", "yi")}
+            k["hd128_gqa_max_abs_err_all_shapes"] = {
+                dn: max(e for (n, _, d), e in err.items()
+                        if n == name and d == dn)
+                for dn in ("bfloat16", "float32")}
+        if name == "ragged_decode":
+            k["hd128_gqa"] = {
+                tag: {**{f: times[f"ragged_decode/{tag}"][f] for f in keys},
+                      "max_abs_err": err[(name, f"hd128-{tag}",
+                                          "bfloat16")],
+                      "max_abs_err_f32": err[(name, f"hd128-{tag}",
+                                              "float32")],
+                      "paged_max_abs_err": err[("paged_decode",
+                                                f"hd128-{tag}-ps16",
+                                                "bfloat16")]}
+                for tag in ("internvl", "yi")}
+        if name == "rmsnorm_fwd":
+            k["d8192"] = {
+                tag: {**{f: times[f"rmsnorm_fwd/d8192-{tag}"][f]
+                         for f in keys + ("graph_us", "library_graph_us")},
+                      "max_abs_err": err[(name, f"d8192-{tag}",
+                                          "bfloat16")],
+                      "max_abs_err_f32": err[(name, f"d8192-{tag}",
+                                              "float32")]}
+                for tag in ("decode", "prefill")}
+        if name in fam["encdec_train"]["launches"]:
+            k["encdec_train_launches"] = fam["encdec_train"]["launches"][
+                name]
+        for cell in ("encdec_serve", "vlm_serve"):
+            got = fam[cell]["generate"]["launches"]
+            if name in got:
+                k[f"{cell}_launches"] = got[name]
+        mod = {"rmsnorm_fwd": "rmsnorm", "flash_fwd": "flash_attention",
+               "ragged_decode": "paged"}.get(name)
+        if mod:
+            k["nemo_serve_launches"] = fam["nemo_serve"]["launches"][mod]
 
 
 def main() -> int:
@@ -4075,7 +4798,31 @@ def main() -> int:
     log(f"phase 15c: {record['hybrid']['serve']['s']:.1f} s "
         f"{record['hybrid']['serve']}; phase 15: "
         f"{record['hybrid']['s']:.1f} s")
+    gc.collect()
     torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    f_errors, f_times = phase16a(RN, FA, PG, ref)
+    fam = record["families"] = {"kernels": {
+        "errors": f_errors, "times": f_times,
+        "s": time.perf_counter() - t16}}
+    log(f"phase 16a: {fam['kernels']['s']:.1f} s")
+    torch.cuda.empty_cache()
+    for key, fn in (
+            ("encdec_train", lambda: phase16b(get_config(ENCDEC_ARCH), R,
+                                              counters(RN, FA), smi)),
+            ("encdec_serve", lambda: phase16c(get_config(ENCDEC_ARCH), R,
+                                              Server, hctr, smi)),
+            ("vlm_serve", lambda: phase16d(get_config(VLM_ARCH), R, Server,
+                                           hctr, smi)),
+            ("nemo_serve", lambda: phase16e(get_config(NEMO_ARCH), R,
+                                            serving, (RN, FA, PG), smi))):
+        t = time.perf_counter()
+        fam[key] = fn()
+        fam[key]["s"] = time.perf_counter() - t
+        log(f"phase 16 {key}: {fam[key]['s']:.1f} s {fam[key]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    fam["s"] = time.perf_counter() - t16
     t = time.perf_counter()
     bench_ctr = dict(counters(RN, FA), ssd_chunk=(SSD, "launches"),
                      overlap_norm=(OV, "launches"))
@@ -4369,6 +5116,7 @@ def main() -> int:
         "launches_by": "bench.serve (phase 14d): its engine's decode "
                        "steps and its Server baseline's"})
     hybrid_kernel_entries(kernels, record)
+    phase16_kernel_entries(kernels, record)
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -4415,6 +5163,12 @@ def main() -> int:
         "train": htrain, "losses": hyb["train"]["losses"],
         "serve": hyb["serve"], "kernel_errors": h_errors, "s": hyb["s"],
         "card": smi}}))
+    etrain = {k: v for k, v in fam["encdec_train"].items()
+              if k not in ("grad_norms", "lrs")}
+    print(json.dumps({"families": {
+        "encdec_train": etrain, "encdec_serve": fam["encdec_serve"],
+        "vlm_serve": fam["vlm_serve"], "nemo_serve": fam["nemo_serve"],
+        "kernel_errors": f_errors, "s": fam["s"], "card": smi}}))
     print(json.dumps({"checkpoint": record["checkpoint"],
                       "adaptive": adaptive, "card": smi}))
     print(json.dumps({"ok": True, "device": {

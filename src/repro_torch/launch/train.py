@@ -26,7 +26,10 @@ boundary and the final save runs if ``--grace`` seconds have not passed
 since the signal.  ``--schedule adaptive-seesaw`` cuts on loss plateaus
 (``--ema-decay``, ``--plateau-window``, ``--plateau-threshold``,
 ``--plateau-min-steps``; ``--max-cuts`` is the most cuts).  Multi-process
-launch is not ported.
+launch is not ported.  The frontend archs (``internvl2-76b``,
+``seamless-m4t-medium``) are refused: their batches need the stub
+frontend's embeddings, which the loader does not make (the reference's
+neither).
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import time
 from repro_torch.configs import (OptimizerConfig, RunConfig, ScheduleConfig,
                                  get_config)
 from repro_torch.data import MarkovLM, PhaseDataLoader
+from repro_torch.models import registry as R
 from repro_torch.train.trainer import Trainer
 
 SCHEDULES = ("seesaw", "cosine", "step", "constant", "seesaw-general",
@@ -139,6 +143,11 @@ def main(argv=None):
     model = get_config(args.arch)
     if args.reduced:
         model = model.reduced()
+    if R.has_frontend(model):
+        ap.error(f"arch {args.arch} (arch_type={model.arch_type}) takes a "
+                 f"stub frontend's embeddings, which the token loader does "
+                 f"not make; train it through train.engine's grad step on "
+                 f"batches with src_emb (enc-dec) or prefix_emb (VLM)")
     seq_len = args.seq_len or min(model.max_seq_len, 1024)
     b0 = args.batch_size or 32
     total = args.total_tokens or (

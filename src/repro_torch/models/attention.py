@@ -8,11 +8,13 @@ Where each attention goes:
 - A full causal layer (``window=None``) goes through
   ``kernels.backend.attention``: the flash kernels on the card, the
   plain version on the CPU.
-- A windowed layer goes through ``chunked_attention`` on both devices,
-  as the reference's does (its windowed layers stay on the XLA chunked
-  scan: there is no Pallas kernel for a window).  This is attention the
-  reference computes outside any kernel, in plain array ops, not a plain
-  version standing in for a kernel.
+- A windowed layer, and a bidirectional one (the enc-dec encoder, and
+  its cross-attention in training and prefill), goes through
+  ``chunked_attention`` on both devices, as the reference's does (its
+  windowed and bidirectional layers stay on the XLA chunked scan: there
+  is no Pallas kernel for either).  This is attention the reference
+  computes outside any kernel, in plain array ops, not a plain version
+  standing in for a kernel.
 - Every form of ``decode_attn`` goes through
   ``kernels.backend.paged_decode_attention``: the ragged decode kernel's
   gathered-window entry on the card, ``ragged_decode_ref`` on the CPU.
@@ -133,11 +135,14 @@ def chunked_attention(q, k, v, *, causal: bool = True,
 
 def attn_forward(p: Attention, x, *, n_heads: int, n_kv_heads: int,
                  head_dim: int, rope_theta: float,
-                 window: Optional[int] = None, positions=None):
-    """Causal self-attention over x: (B, S, d), full (the flash kernels on
-    the card) or within a sliding ``window`` (``chunked_attention``).
-    Returns (out (B, S, d), (k, v) each (B, S, Hkv, hd) after RoPE) —
-    the K/V a cache stores."""
+                 window: Optional[int] = None, positions=None,
+                 causal: bool = True):
+    """Self-attention over x: (B, S, d).  Causal and full: the flash
+    kernels on the card.  Causal within a sliding ``window``, or
+    bidirectional (``causal=False``, the enc-dec encoder):
+    ``chunked_attention``, as the reference's XLA path (it has no Pallas
+    kernel for either).  Returns (out (B, S, d), (k, v) each (B, S, Hkv,
+    hd) after RoPE) — the K/V a cache stores."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -147,10 +152,10 @@ def attn_forward(p: Attention, x, *, n_heads: int, n_kv_heads: int,
     if rope_theta:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    if window is None:
+    if causal and window is None:
         o = KB.attention(q, k, v)
     else:
-        o = chunked_attention(q, k, v, causal=True, window=window)
+        o = chunked_attention(q, k, v, causal=causal, window=window)
     o = o.reshape(B, S, n_heads * head_dim)
     return o @ p.w_o.to(x.dtype), (k, v)
 

@@ -2,45 +2,47 @@
 in PyTorch).
 
 ``supports_paged`` and ``serving_mode`` are the reference's rules,
-decided from the config alone.  The port trains the dense and MoE
-families (both are ``models.transformer``), the ssm family (Mamba-2)
-and the RG-LRU hybrid (``models.rglru``), and serves them: the
-transformer families from the paged KV pool or, with a sliding window,
-through the ``Server``'s contiguous ring cache; Mamba-2 from the
-recurrent state pool; the hybrid through the ``Server``, a list of
-per-layer caches (recurrent states and rings).  The contiguous caches of
-``prefill``, ``decode_step`` and ``cache_struct``
-(``serving.cache.DenseKVCache``) serve every ported family.
-Every other family raises ``NotImplementedError`` naming the slice
-that brings it.
+decided from the config alone.  The port trains and serves every family
+of the reference: the dense, MoE and VLM families (all
+``models.transformer``) from the paged KV pool or, with a sliding
+window, through the ``Server``'s contiguous ring cache; the ssm family
+(Mamba-2) from the recurrent state pool; the RG-LRU hybrid
+(``models.rglru``) through the ``Server``, a list of per-layer caches
+(recurrent states and rings); the enc-dec (``models.encdec``, arch
+types "encdec" and "audio") through the ``Server``, its cache holding
+the cross-attention's K/V beside the self-attention's.  The contiguous
+caches of ``prefill``, ``decode_step`` and ``cache_struct``
+(``serving.cache.DenseKVCache``) serve every family.
+
+The frontend families (vlm, audio, encdec) take a stub frontend's
+embeddings: the VLM's ``prefix_emb`` ahead of its text, the enc-dec's
+source frames (``src_emb`` in training, ``prefix_emb`` in serving).
+``text_len`` and ``concrete_inputs`` are the reference's helpers for
+their inputs.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mamba2, rglru, transformer
+from repro_torch.models import encdec, mamba2, rglru, transformer
 
 _TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
-_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
-             "hybrid": rglru}
-
-_LATER = {
-    "vlm": "the other-families slice (VLM prefix)",
-    "encdec": "the other-families slice (enc-dec)",
-    "audio": "the other-families slice (enc-dec audio)",
-}
+ENCDEC_FAMILIES = ("encdec", "audio")
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+             "ssm": mamba2, "hybrid": rglru, "encdec": encdec,
+             "audio": encdec}
 
 
 def family(cfg: ModelConfig):
     fam = _FAMILIES.get(cfg.arch_type)
-    if fam is not None:
-        return fam
-    raise NotImplementedError(
-        f"arch_type {cfg.arch_type!r} is not ported yet; it comes with "
-        f"{_LATER.get(cfg.arch_type, 'a later slice')}")
+    if fam is None:
+        raise ValueError(f"unknown arch_type {cfg.arch_type!r}; known: "
+                         f"{sorted(_FAMILIES)}")
+    return fam
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, dtype=torch.bfloat16,
@@ -75,8 +77,9 @@ def supports_paged(cfg: ModelConfig) -> bool:
 def serving_mode(cfg: ModelConfig):
     """``"paged"``, ``"state"`` (Mamba-2) or ``None``
     (``train.serve.Server`` only: a ring cache's rows share one position
-    array, so they cannot step at their own depths; that holds for the
-    hybrid's attention layers too)."""
+    array, so they cannot step at their own depths, which holds for the
+    hybrid's attention layers too; the enc-dec needs each request's
+    source frames)."""
     if supports_paged(cfg):
         return "paged"
     if cfg.arch_type == "ssm":
@@ -85,16 +88,27 @@ def serving_mode(cfg: ModelConfig):
 
 
 def prefill(model, cfg: ModelConfig, tokens, *,
-            cache_len_cap: Optional[int] = None):
+            cache_len_cap: Optional[int] = None, prefix_emb=None):
     """Run the prompt, tokens (B, S), at its exact length and build the
     decode cache.  Returns (logits (B, 1, V) float32, a
-    ``serving.cache.DenseKVCache`` whose ``lengths`` are all S).  The
-    dense family needs ``cache_len_cap``: its full cache holds that many
-    positions, its ring min(window, cap) slots, and so do the hybrid's
-    attention layers; the ssm family's state is O(1) in the length and
-    takes none."""
+    ``serving.cache.DenseKVCache`` whose ``lengths`` are all S, the
+    VLM's prefix counted).  The dense family needs ``cache_len_cap``:
+    its full cache holds that many positions, its ring min(window, cap)
+    slots, and so do the hybrid's attention layers and the enc-dec's
+    self-attention; the ssm family's state is O(1) in the length and
+    takes none.  ``prefix_emb`` (B, P, d) is the VLM's patches or the
+    enc-dec's source frames (which it needs)."""
     from repro_torch.serving import cache as sc   # serving imports this
     fam = family(cfg)
+    kw = {}
+    if prefix_emb is not None:
+        if not has_frontend(cfg):
+            raise ValueError(f"arch_type {cfg.arch_type!r} takes no "
+                             f"prefix_emb")
+        kw["prefix_emb"] = prefix_emb
+    elif cfg.arch_type in ENCDEC_FAMILIES:
+        raise ValueError("the enc-dec's prefill needs the source "
+                         "embeddings (prefix_emb)")
     if cfg.arch_type == "ssm":
         logits, data = fam.prefill(model, cfg, tokens)
     elif cache_len_cap is None:
@@ -102,14 +116,18 @@ def prefill(model, cfg: ModelConfig, tokens, *,
                          f"cache_len_cap")
     else:
         logits, data = fam.prefill(model, cfg, tokens,
-                                   cache_len_cap=cache_len_cap)
+                                   cache_len_cap=cache_len_cap, **kw)
     B, S = tokens.shape
+    if prefix_emb is not None and cfg.arch_type == "vlm":
+        S += prefix_emb.shape[1]
     lengths = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
     return logits, sc.DenseKVCache(data=data, lengths=lengths)
 
 
-def prefill_ragged(model, cfg: ModelConfig, tokens, lengths):
-    """Bucketed prefill (full-attention transformer families only).
+def prefill_ragged(model, cfg: ModelConfig, tokens, lengths, *,
+                   prefix_emb=None):
+    """Bucketed prefill (full-attention transformer families only), the
+    VLM's ``prefix_emb`` ahead of the tokens (``lengths`` count it).
     Returns (logits at each request's last real token, per-layer k, v
     (L, B, S, Hkv, hd)) for the page pool to scatter."""
     if not supports_paged(cfg):
@@ -119,7 +137,8 @@ def prefill_ragged(model, cfg: ModelConfig, tokens, lengths):
         raise NotImplementedError(
             f"ragged prefill needs full attention; {cfg.arch_type} with "
             f"window={cfg.sliding_window} keeps the exact-length path{why}")
-    return family(cfg).prefill_ragged(model, cfg, tokens, lengths)
+    return family(cfg).prefill_ragged(model, cfg, tokens, lengths,
+                                      prefix_emb=prefix_emb)
 
 
 def decode_step(model, cfg: ModelConfig, cache, token):
@@ -129,7 +148,8 @@ def decode_step(model, cfg: ModelConfig, cache, token):
     ``prefill`` or ``cache_struct``.  A dense cache steps at per-request
     depths (``lengths``) when the config can serve from pages, and at
     one depth (``lengths[0]``) otherwise: a ring's rows share one
-    ``pos``, and the recurrent step needs no position.  The dense
+    ``pos``, the recurrent step needs no position, and the enc-dec
+    steps at one depth as the reference's does.  The dense
     family's K/V and the hybrid's caches are written in place; the ssm
     family's state is left as it was.  Returns (logits (B, 1, V), the
     cache with lengths advanced by one)."""
@@ -156,8 +176,9 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int = 0, *,
     batch, ...): the dense family's full KV cache of ``max_len``
     positions or its ring of min(window, max_len) slots (with ``pos``),
     the ssm family's recurrent state (O(1) in ``max_len``), from which
-    the state pool builds its buffer with the page id on axis 1, or the
-    hybrid's list of per-layer caches."""
+    the state pool builds its buffer with the page id on axis 1, the
+    hybrid's list of per-layer caches, or the enc-dec's full cache with
+    its cross-attention K/V."""
     fam = family(cfg)
     if cfg.arch_type == "ssm":
         return fam.state_struct(cfg, batch, dtype=dtype, device=device)
@@ -165,3 +186,49 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int = 0, *,
         raise ValueError(f"the {cfg.arch_type} family's cache needs "
                          f"max_len >= 1, got {max_len}")
     return fam.cache_struct(cfg, batch, max_len, dtype=dtype, device=device)
+
+
+# --------------------------------------------------------------------- #
+# the frontend families' inputs
+# --------------------------------------------------------------------- #
+
+def has_frontend(cfg: ModelConfig) -> bool:
+    return cfg.arch_type in ("vlm",) + ENCDEC_FAMILIES
+
+
+def text_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Text tokens after the frontend stub's share of the sequence."""
+    if has_frontend(cfg):
+        return max(seq_len - cfg.frontend_tokens, 1)
+    return seq_len
+
+
+def concrete_inputs(cfg: ModelConfig, mode: str, batch: int, seq_len: int,
+                    seed: int = 0, *, dtype=torch.bfloat16, device="cuda"):
+    """Small real inputs of a ``"train"`` or ``"prefill"`` step, as the
+    reference's: ``text_len`` tokens (int64) drawn by numpy from
+    ``seed``, ``labels`` the tokens rolled by one, and the stub
+    frontend's normals (B, frontend_tokens, frontend_dim) in ``dtype``:
+    ``prefix_emb`` for the VLM (and for the enc-dec's prefill),
+    ``src_emb`` for the enc-dec's training batch."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"concrete_inputs: mode {mode!r} is not 'train' "
+                         f"or 'prefill' (build a decode cache with "
+                         f"cache_struct)")
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (batch, text_len(cfg, seq_len))).astype(np.int64)
+
+    def t(a, dt):
+        return torch.from_numpy(a).to(device=device, dtype=dt)
+
+    out = {"tokens": t(toks, torch.int64)}
+    if mode == "train":
+        out["labels"] = t(np.roll(toks, -1, axis=1), torch.int64)
+    if has_frontend(cfg):
+        emb = rng.normal(0, 1, (batch, cfg.frontend_tokens,
+                                cfg.frontend_dim))
+        key = ("src_emb" if mode == "train"
+               and cfg.arch_type in ENCDEC_FAMILIES else "prefix_emb")
+        out[key] = t(emb, dtype)
+    return out

@@ -1,15 +1,19 @@
-"""Dense and MoE decoder-only transformer (``repro.models.transformer``
-in PyTorch): the training forward and loss, and serving: the
-exact-length ``prefill`` into a contiguous cache (full, or a ring for a
-sliding window), the ragged bucketed prefill, the one-token
-``decode_step`` and the logits.
+"""Dense, MoE and VLM decoder-only transformer
+(``repro.models.transformer`` in PyTorch): the training forward and
+loss, and serving: the exact-length ``prefill`` into a contiguous cache
+(full, or a ring for a sliding window), the ragged bucketed prefill, the
+one-token ``decode_step`` and the logits.
 
 The reference stacks its layers along a leading L dim and scans them;
 here each layer is a module of a ``ModuleList`` and the loop is Python.
 An MoE layer (``arch_type == "moe"``) holds ``models.moe.MoE`` where a
 dense one holds its MLP; its aux losses are averaged over the layers in
 float32 and added to the training loss, as the reference's scan does.
-The multimodal prefix comes with the other families.
+The VLM (``arch_type == "vlm"``) is the dense decoder behind a
+multimodal prefix: ``prefix_emb`` (B, P, d), the stub frontend's
+projected patches, goes ahead of the token embeddings in the training
+forward (whose loss is taken on the text only) and in both prefills
+(whose lengths count the prefix).  The decode steps see text only.
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ class Layer(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The dense or MoE decoder's weights.  ``dtype`` is the dtype the matrices
+    """The dense, MoE or VLM decoder's weights.  ``dtype`` is the dtype the matrices
     and the embedding are held in: the compute dtype for serving,
     float32 (master weights) for training.  Norm scales are float32.
     Parameters start uninitialised and frozen; call ``init_weights`` or
@@ -52,10 +56,10 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, dtype=torch.bfloat16,
                  device="cuda"):
         super().__init__()
-        if cfg.arch_type not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"Transformer ports the dense and MoE families; "
-                f"{cfg.arch_type!r} comes with the other-families slice")
+        if cfg.arch_type not in ("dense", "moe", "vlm"):
+            raise ValueError(
+                f"Transformer takes the dense, MoE and VLM families, not "
+                f"{cfg.arch_type!r}")
         self.cfg = cfg
         d, V = cfg.d_model, cfg.padded_vocab
         self.tok = param((V, d), dtype=dtype, device=device)
@@ -123,11 +127,21 @@ def _layer(layer: Layer, x, cfg: ModelConfig):
     return x + f, aux
 
 
+def _embed(model: Transformer, tokens, prefix_emb, dtype):
+    """The token embeddings in ``dtype`` (the embedding cast before the
+    gather, as the reference's), behind ``prefix_emb`` when given."""
+    x = F.embedding(tokens, model.tok.to(dtype))
+    if prefix_emb is None:
+        return x
+    return torch.cat([prefix_emb.to(dtype), x], dim=1)
+
+
 def forward_hidden(model: Transformer, cfg: ModelConfig, tokens, *,
-                   dtype=torch.bfloat16, remat: bool = True):
-    """tokens: (B, S) int -> (final hidden states (B, S, d) in
-    ``dtype``, aux), aux each MoE loss averaged over the layers in
-    float32 ({} for the dense family).  The embedding is cast to
+                   prefix_emb=None, dtype=torch.bfloat16,
+                   remat: bool = True):
+    """tokens: (B, S) int, prefix_emb: None or (B, P, d) -> (final hidden
+    states (B, P + S, d) in ``dtype``, aux), aux each MoE loss averaged
+    over the layers in float32 ({} for the dense family).  The embedding is cast to
     ``dtype`` before the gather, as the reference does;
     ``F.embedding``'s backward sums each row's grads in a fixed order
     (an indexing backward would add them with atomics on the card).
@@ -136,7 +150,7 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, tokens, *,
     A sliding-window config trains through ``chunked_attention``'s
     autograd, as the reference trains it through XLA."""
     M.check_tokens(cfg, tokens.numel())
-    x = F.embedding(tokens, model.tok.to(dtype))
+    x = _embed(model, tokens, prefix_emb, dtype)
     auxs = []
     for layer in model.layers:
         if remat:
@@ -152,13 +166,17 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, tokens, *,
 def loss_fn(model: Transformer, cfg: ModelConfig, batch, *,
             z_loss: float = 0.0, dtype=torch.bfloat16, remat: bool = True):
     """batch: ``tokens`` and ``labels`` (B, S) int64, optional ``mask``
-    (B, S) float32.  Returns (loss, metrics) as the reference: the loss
+    (B, S) float32 and ``prefix_emb`` (B, P, d) (the VLM's patches; the
+    loss is taken on the text only).  Returns (loss, metrics) as the reference: the loss
     and ``ce_loss`` (both with the z-loss term) and ``z_sq``, float32
     scalars; the MoE family adds ``moe_aux_total`` to the loss (not to
     ``ce_loss``) and reports ``lb_loss``, ``rz_loss`` and
     ``frac_dropped``."""
-    h, aux = forward_hidden(model, cfg, batch["tokens"], dtype=dtype,
-                            remat=remat)
+    prefix = batch.get("prefix_emb")
+    h, aux = forward_hidden(model, cfg, batch["tokens"], prefix_emb=prefix,
+                            dtype=dtype, remat=remat)
+    if prefix is not None:
+        h = h[:, prefix.shape[1]:]
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
@@ -202,11 +220,14 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _prefill_trunk(model: Transformer, cfg: ModelConfig, tokens,
-                   window):
-    """Every layer over the prompt: (final hidden (B, S, d) after the
-    final norm, the layers' K/V lists, each (B, S, Hkv, hd))."""
+                   window, prefix_emb=None):
+    """Every layer over the prompt, behind ``prefix_emb`` when given:
+    (final hidden (B, S, d) after the final norm, the layers' K/V lists,
+    each (B, S, Hkv, hd)), S counting the prefix."""
     M.check_tokens(cfg, tokens.numel())
     x = model.tok[tokens]
+    if prefix_emb is not None:
+        x = torch.cat([prefix_emb.to(x.dtype), x], dim=1)
     ks, vs = [], []
     for layer in model.layers:
         h = rmsnorm(x, layer.norm1, cfg.norm_eps)
@@ -222,19 +243,22 @@ def _prefill_trunk(model: Transformer, cfg: ModelConfig, tokens,
 
 
 def prefill(model: Transformer, cfg: ModelConfig, tokens, *,
-            cache_len_cap: int):
-    """Run the prompt, tokens (B, S), at its exact length and build the
-    decode cache.  Returns (logits (B, 1, V) float32 at the last
+            cache_len_cap: int, prefix_emb=None):
+    """Run the prompt, tokens (B, S) behind ``prefix_emb`` (B, P, d) when
+    given, at its exact length and build the decode cache (S counts the
+    prefix from here on).  Returns (logits (B, 1, V) float32 at the last
     position, the cache): a full cache of ``cache_len_cap`` rows whose
     first S hold the prompt's K/V (the rest zeros), or for a sliding
     window a ring of min(window, cache_len_cap) slots
     (``attention.ring_from_prefill``)."""
     B, S = tokens.shape
+    if prefix_emb is not None:
+        S += prefix_emb.shape[1]
     window = cfg.sliding_window
     if window is None and S > cache_len_cap:
         raise ValueError(f"prompt of {S} tokens exceeds cache_len_cap "
                          f"{cache_len_cap}")
-    x, ks, vs = _prefill_trunk(model, cfg, tokens, window)
+    x, ks, vs = _prefill_trunk(model, cfg, tokens, window, prefix_emb)
     if window is not None:
         W = min(window, cache_len_cap)
         rings = [A.ring_from_prefill(k, v, S, W) for k, v in zip(ks, vs)]
@@ -247,10 +271,12 @@ def prefill(model: Transformer, cfg: ModelConfig, tokens, *,
     return logits_from_hidden(model, x[:, -1:]), data
 
 
-def prefill_ragged(model: Transformer, cfg: ModelConfig, tokens, lengths):
+def prefill_ragged(model: Transformer, cfg: ModelConfig, tokens, lengths, *,
+                   prefix_emb=None):
     """Bucketed prefill: tokens (B, S_bucket) right-padded to a shared
-    bucket length, lengths (B,) true lengths.  Causality keeps every real
-    position independent of the padding.
+    bucket length behind ``prefix_emb`` (B, P, d) when given, lengths
+    (B,) true lengths, the prefix included (as the reference's).
+    Causality keeps every real position independent of the padding.
 
     Returns (logits (B, 1, V) float32 at each request's last real token,
     k, v (L, B, S, Hkv, hd)); rows at positions >= lengths[b] hold
@@ -261,8 +287,8 @@ def prefill_ragged(model: Transformer, cfg: ModelConfig, tokens, lengths):
             "ragged bucketed prefill supports full attention only; "
             "sliding-window (ring-cache) archs keep the exact-length "
             "prefill path")
-    B, S = tokens.shape
-    x, ks, vs = _prefill_trunk(model, cfg, tokens, None)
+    x, ks, vs = _prefill_trunk(model, cfg, tokens, None, prefix_emb)
+    B, S = x.shape[:2]
     idx = (lengths.long() - 1).clamp(0, S - 1)
     h_last = x[torch.arange(B, device=x.device), idx][:, None]   # (B, 1, d)
     return logits_from_hidden(model, h_last), torch.stack(ks), \

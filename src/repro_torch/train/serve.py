@@ -11,7 +11,14 @@ temperature decode loop against ``registry.decode_step``.
   path (``registry.prefill``): a sliding window builds its ring of
   min(window, max_len) slots, the ssm family its recurrent state, the
   RG-LRU hybrid a list of per-layer caches (recurrent states and
-  rings).
+  rings), the enc-dec its full self-attention cache and each layer's
+  cross-attention K/V.
+- **Prefix embeddings.**  ``generate(prefix_emb=...)`` takes the stub
+  frontend's output, as the reference's ``Server`` does: the VLM's
+  patches go ahead of the prompt on the bucketed path (the bucket plus
+  the prefix must fit ``max_len``; ``lengths`` count the prefix), the
+  enc-dec's source frames go to its encoder (the exact-length path;
+  it needs them).
 - **The oracle.**  The continuous-batching ``serving.ServingEngine`` is
   held to this ``Server``: same weights, same prompts, same greedy
   tokens.  For new code ``generate`` is deprecated in the engine's
@@ -23,7 +30,8 @@ temperature decode loop against ``registry.decode_step``.
   at a position >= ``max_len`` (the reference's decode drops that
   write while its length mask still admits the slot, so it returns
   wrong tokens without an error); a ring or a recurrent state has no
-  such limit.  It raises when ``n_new < 1`` (the reference returns one
+  such limit (the enc-dec's self-attention cache is full too).  It
+  raises when ``n_new < 1`` (the reference returns one
   token a row for 0).
 - **The compile cache.**  On the card the decode step replays one
   captured CUDA graph (``graphs.Graph``) per (batch, cache layout),
@@ -50,12 +58,13 @@ from repro_torch.serving import DenseKVCache, pow2_buckets
 
 
 @torch.inference_mode()
-def _bucketed_prefill(model, cfg: ModelConfig, tokens, lengths, *,
-                      cache_len_cap: int):
+def _bucketed_prefill(model, cfg: ModelConfig, tokens, lengths, prefix_emb,
+                      *, cache_len_cap: int):
     """Ragged prefill and the full cache around it: the raw per-layer K/V
     padded out to ``cache_len_cap`` rows.  Rows past ``lengths`` hold
     padding junk that the decode attention never reads."""
-    logits, k, v = R.prefill_ragged(model, cfg, tokens, lengths)
+    logits, k, v = R.prefill_ragged(model, cfg, tokens, lengths,
+                                    prefix_emb=prefix_emb)
     pad = (0, 0, 0, 0, 0, cache_len_cap - k.shape[2])
     return logits, DenseKVCache(data={"k": F.pad(k, pad),
                                       "v": F.pad(v, pad)},
@@ -118,6 +127,9 @@ class Server:
         self.dtype = dtype
         self.device = model.device
         self.bucketed = R.supports_paged(cfg)
+        # a full self-attention cache, which a decode must not run past
+        self.full_cache = self.bucketed or \
+            cfg.arch_type in R.ENCDEC_FAMILIES
         self.buckets = tuple(sorted(buckets)) if buckets else \
             pow2_buckets(max_len)
         self._prefill_keys: set = set()            # (batch, bucket)
@@ -141,27 +153,47 @@ class Server:
         raise ValueError(f"prompt length {s} exceeds largest bucket "
                          f"{self.buckets[-1]}")
 
-    def prefill(self, tokens: torch.Tensor):
-        """tokens (B, S) int64 on the model's device -> (logits (B, 1, V)
-        float32 at each row's last token, the ``DenseKVCache``)."""
+    def _prefix(self, prefix_emb) -> Optional[torch.Tensor]:
+        """The stub frontend's embeddings on the model's device, in the
+        serving dtype."""
+        if prefix_emb is None:
+            return None
+        if not R.has_frontend(self.cfg):
+            raise ValueError(f"arch_type {self.cfg.arch_type!r} has no "
+                             f"frontend to take a prefix_emb")
+        if not isinstance(prefix_emb, torch.Tensor):
+            prefix_emb = torch.from_numpy(np.asarray(prefix_emb,
+                                                     np.float32))
+        return prefix_emb.to(device=self.device, dtype=self.dtype)
+
+    def prefill(self, tokens: torch.Tensor, prefix_emb=None):
+        """tokens (B, S) int64 on the model's device, ``prefix_emb`` (B, P,
+        d) or None -> (logits (B, 1, V) float32 at each row's last token,
+        the ``DenseKVCache``)."""
         B, S = tokens.shape
+        prefix_emb = self._prefix(prefix_emb)
         if not self.bucketed:
             with torch.inference_mode():
                 return R.prefill(self.model, self.cfg, tokens,
-                                 cache_len_cap=self.max_len)
+                                 cache_len_cap=self.max_len,
+                                 prefix_emb=prefix_emb)
+        n_prefix = 0 if prefix_emb is None else prefix_emb.shape[1]
         bucket = self._bucket_for(S)
-        if bucket > self.max_len:
-            raise ValueError(f"prompt bucket {bucket} exceeds max_len "
-                             f"{self.max_len}")
+        if n_prefix + bucket > self.max_len:
+            raise ValueError(f"prompt bucket {bucket} (+{n_prefix} prefix) "
+                             f"exceeds max_len {self.max_len}")
         self._prefill_keys.add((B, bucket))
-        lengths = torch.full((B,), S, dtype=torch.int32, device=self.device)
+        lengths = torch.full((B,), n_prefix + S, dtype=torch.int32,
+                             device=self.device)
         return _bucketed_prefill(self.model, self.cfg,
                                  F.pad(tokens, (0, bucket - S)), lengths,
-                                 cache_len_cap=self.max_len)
+                                 prefix_emb, cache_len_cap=self.max_len)
 
     def generate(self, tokens, n_new: int, *, prefix_emb=None,
                  temperature: float = 0.0, seed: int = 0) -> np.ndarray:
-        """tokens: (B, S) prompt.  Returns (B, n_new) int32 generated ids.
+        """tokens: (B, S) prompt; ``prefix_emb`` (B, P, d) the stub
+        frontend's output (the VLM's patches, the enc-dec's source
+        frames).  Returns (B, n_new) int32 generated ids.
 
         ``temperature > 0`` samples from softmax(logits / temperature)
         with a ``torch.Generator`` seeded by ``seed`` on the model's
@@ -178,17 +210,17 @@ class Server:
             "(Server remains the dense parity oracle and the path for "
             "families without a paged/state serving mode)",
             DeprecationWarning, stacklevel=2)
-        if prefix_emb is not None:
-            raise NotImplementedError(
-                "prefix embeddings come with the other-families slice "
-                "(VLM prefix)")
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64)
         B, S = tokens.shape
         if n_new < 1:
             raise ValueError(f"n_new must be >= 1, got {n_new}")
+        # the VLM's prefix takes cache rows ahead of the prompt; the
+        # enc-dec's source frames have a cache of their own
+        if prefix_emb is not None and self.bucketed:
+            S += np.shape(prefix_emb)[1]
         # the last sampled token is never written back: the cache takes
         # positions 0..S + n_new - 2
-        if self.bucketed and S + n_new - 1 > self.max_len:
+        if self.full_cache and S + n_new - 1 > self.max_len:
             raise ValueError(
                 f"prompt {S} + n_new {n_new} writes position "
                 f"{S + n_new - 2} of a full cache of max_len "
@@ -196,7 +228,7 @@ class Server:
         gen = None
         if temperature > 0.0:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-        logits, cache = self.prefill(tokens.to(self.device))
+        logits, cache = self.prefill(tokens.to(self.device), prefix_emb)
         with torch.inference_mode():
             ent = self._entry(cache)
             tok = _sample(logits, temperature, gen)

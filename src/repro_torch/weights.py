@@ -24,7 +24,13 @@ layout, by family (``arch_type``):
   ``conv_b``, ``w_r``, ``w_i``, ``lam``, ``w_out``, or the attention's
   ``w_q/w_k/w_v/w_o``), ``mlp.*``, ``norm1``, ``norm2``.  Port layer i
   is ``groups/slot{i mod 3}`` at group i // 3 while i < 3·n_full, else
-  ``rem{i − 3·n_full}``.
+  ``rem{i − 3·n_full}``;
+- vlm: the dense layout;
+- encdec and audio: ``encoder.*`` (``attn.w_q/w_k/w_v/w_o``, ``mlp.*``,
+  ``norm1``, ``norm2``) stacked along the encoder's depth,
+  ``decoder.*`` (``self_attn.*``, ``cross_attn.*``, ``mlp.*``,
+  ``norm1``, ``norm2``, ``norm3``) along the decoder's, and
+  ``enc_norm`` (d,).
 
 The leading L dim is split into the ``ModuleList``; matrices keep their
 ``(d_in, d_out)`` layout (the port multiplies ``x @ W`` as the
@@ -52,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.rglru import Hybrid
 from repro_torch.models.rglru import groups as hybrid_groups
@@ -110,23 +117,32 @@ def _ssm(tree, cfg: ModelConfig, dtype, device) -> Mamba2:
     return model
 
 
-def _hybrid(tree, cfg: ModelConfig, dtype, device) -> Hybrid:
-    model = Hybrid(cfg, dtype=dtype, device=device)
-    _embed_and_final(model, tree)
-    for name, p in model.named_parameters():
-        if name.startswith("layers."):
-            _copy(p, _ref_leaf(tree, name, cfg), name)
-    return model
+def _by_name(cls):
+    """A loader that builds ``cls`` and copies every parameter past the
+    embedding and the final norm from its reference path."""
+
+    def load(tree, cfg: ModelConfig, dtype, device):
+        model = cls(cfg, dtype=dtype, device=device)
+        _embed_and_final(model, tree)
+        for name, p in model.named_parameters():
+            if name not in ("tok", "lm_head", "final_norm"):
+                _copy(p, _ref_leaf(tree, name, cfg), name)
+        return model
+
+    return load
 
 
-_FAMILIES = {"dense": _dense, "moe": _dense, "ssm": _ssm, "hybrid": _hybrid}
+_FAMILIES = {"dense": _dense, "moe": _dense, "vlm": _dense, "ssm": _ssm,
+             "hybrid": _by_name(Hybrid), "encdec": _by_name(EncDec),
+             "audio": _by_name(EncDec)}
 
 
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, *,
                     dtype=torch.bfloat16, device="cuda",
                     trainable: bool = False):
     """Build the port's model of ``cfg``'s family (``Transformer`` for
-    dense and moe, ``Mamba2`` for ssm, ``Hybrid`` for hybrid) from the
+    dense, moe and vlm, ``Mamba2`` for ssm, ``Hybrid`` for hybrid,
+    ``EncDec`` for encdec and audio) from the
     reference's parameter pytree (numpy arrays); ``trainable`` turns on
     the parameters' gradients."""
     load = _FAMILIES.get(cfg.arch_type)
@@ -144,18 +160,19 @@ def _ref_path(name: str, cfg: Optional[ModelConfig] = None
               ) -> Tuple[Tuple[str, ...], Optional[int]]:
     """(reference path, index along its stacked dim or None) of a port
     parameter name: ``tok`` -> ``embed/tok``, ``layers.3.attn.w_q`` ->
-    ``layers/attn/w_q`` at layer 3; for the hybrid ``layers.4.mlp.w_up``
+    ``layers/attn/w_q`` at layer 3 (``encoder.3.…`` and ``decoder.3.…``
+    likewise); for the hybrid ``layers.4.mlp.w_up``
     -> ``groups/slot1/mlp/w_up`` at group 1, and a layer past the full
     groups -> ``rem{r}/...`` unstacked (``cfg`` names the family; None
     is a layer-stacked one)."""
     parts = name.split(".")
     if parts[0] in ("tok", "lm_head"):
         return ("embed", parts[0]), None
-    if parts[0] != "layers":
+    if parts[0] not in ("layers", "encoder", "decoder"):
         return tuple(parts), None
     i = int(parts[1])
     if cfg is None or cfg.arch_type != "hybrid":
-        return ("layers", *parts[2:]), i
+        return (parts[0], *parts[2:]), i
     pat, n_full, _ = hybrid_groups(cfg)
     if i < n_full * len(pat):
         return ("groups", f"slot{i % len(pat)}", *parts[2:]), i // len(pat)

@@ -14,7 +14,9 @@ prefill plus decode against the prefill of the whole, and the engine
 against its solo Server oracle.  The RG-LRU scan kernels against their
 plain versions and under a captured graph, the ragged decode at head_dim
 256, and the RG-LRU hybrid trained and served on the card against the
-CPU.
+CPU.  The enc-dec (seamless-m4t-medium) trained and served and the
+VLM (internvl2-76b) served with its prefix, on the card against the
+CPU; the kernels at their GQA groups of 8 and 7 and at d 8192.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no JAX, so it runs on the card's machine as it is:
@@ -60,6 +62,10 @@ FLASH_EDGES = ([(2, 4, 4, S, 64) for S in (1, 15, 16, 63, 64, 65, 129)]
 FLASH_HD32 = ([(8, 4, 4, 64, 32), (128, 4, 4, 64, 32), (2, 4, 4, 77, 32),
                (2, 4, 2, 64, 32), (1, 4, 2, 77, 32)]
               + [(2, 4, 2, S, 32) for S in (1, 15, 16, 63, 65, 129)])
+# hd 128 at the last families' GQA groups: internvl2-76b's 64/8 and
+# yi-34b's 56/8 (a group of 7), ragged lengths and the VLM's prefill
+FLASH_GQA = [(1, 64, 8, 77, 128), (1, 56, 8, 65, 128), (1, 56, 8, 1024, 128),
+             (1, 64, 8, 1088, 128)]
 
 
 @pytest.fixture
@@ -79,7 +85,8 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8, 1024), (1, 1000, 1024), (37, 64),
                                    (3, 3072), (2, 512, 2560),
-                                   (2, 512, 5120)])
+                                   (2, 512, 5120), (2, 8192),
+                                   (2, 1088, 8192)])
 def test_rmsnorm_kernel(cuda, shape, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
@@ -199,7 +206,7 @@ def test_rmsnorm_fwd_same_bits_in_every_layout(cuda, monkeypatch, dtype, d):
     (1, 24, 8, 1000, 128),      # llama3.2-3b heads, ragged tail
     (2, 4, 2, 77, 64),
     (1, 2, 1, 1, 128),
-] + FLASH_EDGES + FLASH_HD32)
+] + FLASH_EDGES + FLASH_HD32 + FLASH_GQA)
 def test_flash_fwd_kernel(cuda, B, H, Hkv, S, hd, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
     # the models' (B, S, H, hd) layout, read as transposed views
@@ -226,6 +233,9 @@ def test_flash_fwd_kernel(cuda, B, H, Hkv, S, hd, dtype):
     (2, 16, 1, 2048, 256),      # recurrentgemma's ring: MQA, 4 groups
     (3, 8, 2, 300, 256),        # hd 256, GQA 4
     (2, 2, 2, 130, 256),        # hd 256, MHA
+    (2, 64, 8, 2048, 128),      # internvl2-76b: GQA 8, two blocks of 4
+    (8, 56, 8, 300, 128),       # yi-34b: GQA 7, a block of 4 and a tail of 3
+    (2, 16, 16, 1024, 64),      # seamless's cross-attention over its frames
 ])
 def test_ragged_decode_kernel(cuda, B, H, Hkv, Skv, hd, dtype):
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -277,6 +287,7 @@ def _page_table(cuda, B, H, Hkv, hd, ps, window, dtype, seed):
     (4, 2, 32, 128),            # bench.serve's LM (hd 32, GQA 2)
     (4, 4, 32, 1024),           # hd 32, MHA
     (16, 1, 256, 512),          # hd 256, MQA (recurrentgemma's heads)
+    (56, 8, 128, 256),          # yi-34b's GQA 7
 ])
 def test_paged_decode_kernel(cuda, H, Hkv, hd, window, ps, dtype):
     """The kernel reading K and V through the page table, against the
@@ -371,7 +382,7 @@ def test_rmsnorm_bwd_is_one_launch(cuda, shape):
     (1, 24, 8, 1000, 128),      # llama3.2-3b heads, ragged tail
     (2, 4, 2, 77, 64),
     (1, 4, 1, 33, 128),
-] + FLASH_EDGES + FLASH_HD32)
+] + FLASH_EDGES + FLASH_HD32 + FLASH_GQA)
 def test_flash_bwd_kernels(cuda, B, H, Hkv, S, hd, dtype):
     g = torch.Generator(device=cuda).manual_seed(4)
     q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
@@ -1279,4 +1290,79 @@ def test_hybrid_server_on_card_matches_cpu(cuda):
     for t, n in batches[:1] * 2:
         np.testing.assert_array_equal(_generate(srv, t, n),
                                       _generate(eager, t, n))
+    assert srv.captures == 1 and eager.captures == 0
+
+
+# --------------------------------------------------------------------- #
+# the enc-dec and the VLM prefix
+# --------------------------------------------------------------------- #
+
+def _frontend(cfg, B, seed):
+    return np.random.default_rng(seed).standard_normal(
+        (B, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+
+
+def test_encdec_train_step_on_card_matches_cpu(cuda):
+    """The reduced seamless-m4t-medium (12 encoder layers), float32: the
+    loss within 1e-4 of the CPU's and every grad within 1e-3 of its
+    tensor's max; flash twice per decoder layer (remat), the encoder's
+    and the cross-attention's bidirectional attention launching none."""
+    from repro_torch.configs import get_config
+    cfg = get_config("seamless-m4t-medium").reduced()
+    cpu = R.init_model(cfg, seed=4, dtype=torch.float32, device="cpu",
+                       trainable=True)
+    card = R.init_model(cfg, seed=4, dtype=torch.float32, device="cpu",
+                        trainable=True).to(cuda)
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 41))).long()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "src_emb": torch.from_numpy(_frontend(cfg, 2, 10))}
+    out = {}
+    before = FA.launches
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        b = {n: t.to(dev) for n, t in batch.items()}
+        loss, _ = R.loss_fn(model, cfg, b, dtype=torch.float32)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+    assert FA.launches == before + 2 * cfg.n_layers
+    assert abs(out["cpu"][0] - out["cuda"][0]) < 1e-4
+    for a, b in zip(out["cpu"][1], out["cuda"][1]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-76b"])
+def test_frontend_server_on_card_matches_cpu(cuda, arch):
+    """The reduced seamless (source frames) and internvl (a patch prefix)
+    through the Server, float32: first-token logits within 1e-3 of the
+    CPU's, tokens equal; a second batch through the captured decode graph
+    equals an all-eager Server's."""
+    import warnings
+    from repro_torch.configs import get_config
+    from repro_torch.train.serve import Server
+    cfg = get_config(arch).reduced()
+    cpu = R.init_model(cfg, seed=6, dtype=torch.float32, device="cpu")
+    card = R.init_model(cfg, seed=6, dtype=torch.float32,
+                        device="cpu").to(cuda)
+    rng = np.random.default_rng(25)
+    toks, pre = rng.integers(0, cfg.vocab_size, (2, 11)), _frontend(cfg, 2, 26)
+
+    def gen(srv):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            return srv.generate(toks, 12, prefix_emb=pre)
+
+    got = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        srv = Server(cfg, model, max_len=64, dtype=torch.float32)
+        with torch.inference_mode():
+            logits, _ = srv.prefill(torch.from_numpy(toks).to(dev), pre)
+        got[dev] = (logits.cpu(), gen(srv))
+    torch.testing.assert_close(got["cuda"][0], got["cpu"][0], atol=1e-3,
+                               rtol=0)
+    np.testing.assert_array_equal(got["cuda"][1], got["cpu"][1])
+    srv = Server(cfg, card, max_len=64, dtype=torch.float32)
+    eager = Server(cfg, card, max_len=64, dtype=torch.float32)
+    eager._warm = type("Never", (set,), {"add": lambda self, k: None})()
+    for _ in range(2):
+        np.testing.assert_array_equal(gen(srv), gen(eager))
     assert srv.captures == 1 and eager.captures == 0

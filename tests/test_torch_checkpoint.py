@@ -176,19 +176,23 @@ def test_name_map_round_trips_params_and_optimizer_state(dense, name, ours,
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("family", ["dense", "ssm", "moe", "hybrid"])
+@pytest.mark.parametrize("family", ["dense", "ssm", "moe", "hybrid",
+                                    "encdec"])
 def test_same_bytes_as_reference(tmp_path, family):
     """The reference's ``save`` and the port's, on the same weights and
     AdamW state: equal manifests (the same bytes, with no time in them)
     and every ``.npy`` byte for byte; each restores the other's.  The
     moe case is the reduced granite-moe-1b (``layers/moe/*`` leaves),
     the hybrid the reduced recurrentgemma at 5 layers (``groups/slot*``
-    leaves stacked over one group, ``rem0``/``rem1`` unstacked)."""
+    leaves stacked over one group, ``rem0``/``rem1`` unstacked), the
+    encdec the reduced seamless-m4t-medium (``encoder/*`` stacked over
+    its 12 layers, ``decoder/*`` over 2, ``enc_norm``)."""
     if family == "dense":
         jcfg, cfg = JModelConfig(**TINY), ModelConfig(**TINY)
     else:
         arch = {"ssm": "mamba2-2.7b", "moe": "granite-moe-1b-a400m",
-                "hybrid": "recurrentgemma-9b"}[family]
+                "hybrid": "recurrentgemma-9b",
+                "encdec": "seamless-m4t-medium"}[family]
         jcfg = jget_config(arch).reduced()
         cfg = get_config(arch).reduced()
         if family == "hybrid":

@@ -203,31 +203,31 @@ def test_serving_mode_matches_reference(arch_type, window):
 
 
 @pytest.mark.parametrize("arch_type,slice_name", [
-    ("hybrid", "other-families"), ("ssm", "Mamba-2")])
+    # the id the case had while the enc-dec was still to be ported
+    pytest.param("hybrid", "train.serve.Server", id="hybrid-other-families"),
+    ("ssm", "Mamba-2")])
 def test_unported_families_name_their_slice(arch_type, slice_name):
-    """The RG-LRU hybrid is ported and served by the blocking Server
-    alone, so the engine names the Server; the enc-dec family, not
-    ported yet, names its slice.  Mamba-2 trains and serves from the
-    recurrent state pool; the one serving path closed to it, the
-    bucketed ragged prefill, says that Mamba-2 keeps the exact-length
-    path."""
+    """Every family resolves now; the engine refuses the two that the
+    blocking Server alone serves, the RG-LRU hybrid and the enc-dec,
+    naming the Server.  Mamba-2 trains and serves from the recurrent
+    state pool; the one serving path closed to it, the bucketed ragged
+    prefill, says that Mamba-2 keeps the exact-length path."""
     cfg = ModelConfig(**dict(TINY, arch_type=arch_type))
     if arch_type == "hybrid":
-        model = R.init_model(cfg, dtype=torch.float32, device="cpu")
-        with pytest.raises(NotImplementedError, match="train.serve.Server"):
-            ServingEngine(cfg, model, dtype=torch.float32)
-        cfg = ModelConfig(**dict(TINY, arch_type="encdec"))
-    if arch_type == "ssm":
-        model = R.init_model(cfg, dtype=torch.float32, device="cpu")
-        assert ServingEngine(cfg, model, dtype=torch.float32).mode == \
-            "state"
-        with pytest.raises(NotImplementedError, match=slice_name):
-            R.prefill_ragged(model, cfg, torch.zeros(1, 4).long(),
-                             torch.tensor([4]))
+        for arch_type in ("hybrid", "encdec"):
+            cfg = ModelConfig(**dict(TINY, arch_type=arch_type,
+                                     n_encoder_layers=2,
+                                     frontend_tokens=8))
+            model = R.init_model(cfg, dtype=torch.float32, device="cpu")
+            assert R.serving_mode(cfg) is None
+            with pytest.raises(NotImplementedError, match=slice_name):
+                ServingEngine(cfg, model, dtype=torch.float32)
         return
+    model = R.init_model(cfg, dtype=torch.float32, device="cpu")
+    assert ServingEngine(cfg, model, dtype=torch.float32).mode == "state"
     with pytest.raises(NotImplementedError, match=slice_name):
-        model = R.init_model(cfg, dtype=torch.float32, device="cpu")
-        ServingEngine(cfg, model, dtype=torch.float32)
+        R.prefill_ragged(model, cfg, torch.zeros(1, 4).long(),
+                         torch.tensor([4]))
 
 
 def test_init_model_follows_reference_rules():

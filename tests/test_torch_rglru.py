@@ -497,10 +497,18 @@ def test_windowed_dense_arch_trains_like_jax(remat):
 
 def test_registry_serves_the_hybrid_and_names_the_later_slices():
     """recurrentgemma-9b is registered and its family is ``models.rglru``;
-    the two families still to come raise, each naming its slice."""
+    no family is left for a later slice: the enc-dec and the VLM
+    resolve, the enc-dec served through the ``Server`` only (as the
+    hybrid), the VLM from pages."""
+    from repro_torch.models import encdec, transformer
     cfg = get_config(ARCH)
     assert cfg.arch_type == "hybrid" and R.family(cfg) is H
-    for arch, what in (("seamless-m4t-medium", "enc-dec"),
-                       ("internvl2-76b", "VLM prefix")):
-        with pytest.raises(NotImplementedError, match=what):
-            get_config(arch)
+    assert R.serving_mode(cfg) is None
+    for arch, fam, mode in (("seamless-m4t-medium", encdec, None),
+                            ("internvl2-76b", transformer, "paged")):
+        c = get_config(arch)
+        assert R.family(c) is fam and R.serving_mode(c) == mode
+    for arch in ("seamless-m4t-medium", "internvl2-76b", "mistral-nemo-12b",
+                 "yi-34b"):
+        assert get_config(arch).name == arch
+        assert R.family(get_config(arch)) is not None

@@ -220,8 +220,8 @@ def test_server_generate_deprecated():
 
 def test_server_sampling_and_argument_checks():
     """Temperature sampling draws from the seeded generator (repeatable,
-    in the vocab); a model in another dtype, a prefix embedding and a
-    prompt past the largest bucket raise."""
+    in the vocab); a model in another dtype, a prefix embedding for a
+    family with no frontend and a prompt past the largest bucket raise."""
     _, _, cfg, model = _pair("tiny")
     srv = Server(cfg, model, max_len=32, dtype=torch.float32)
     toks = np.stack(_prompts(3, [6, 6], cfg.vocab_size))
@@ -231,7 +231,7 @@ def test_server_sampling_and_argument_checks():
     assert a.shape == (2, 5) and 0 <= a.min() and a.max() < cfg.padded_vocab
     with pytest.raises(ValueError, match="dtype"):
         Server(cfg, model, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="VLM"):
+    with pytest.raises(ValueError, match="prefix_emb"):
         _quiet(srv.generate, toks, 2, prefix_emb=np.zeros((2, 1, 32)))
     small = Server(cfg, model, max_len=64, buckets=(16,),
                    dtype=torch.float32)
