@@ -10,7 +10,9 @@ granite-moe-1b-a400m, run the reference's serving, engine and
 checkpoint benchmarks, train and serve the RG-LRU hybrid
 recurrentgemma-9b, train and serve the encoder-decoder
 seamless-m4t-medium, serve internvl2-76b with its image prefix and
-mistral-nemo-12b, and run the kernel benchmark on one NVIDIA card.
+mistral-nemo-12b, train seesaw-150m data-parallel as two launcher
+processes sharing the card, and run the kernel benchmark on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -154,7 +156,12 @@ decode graph, each replayed once per step.
   with the same cut steps. The controller replayed on the host over the
   run's own losses must give the same cuts; the band of thresholds that
   make them, and the run's margin in it, go into the ``adaptive`` record.
-  The checkpoints go to a temporary directory the phase deletes.
+  Each cut's new graph is captured in the background
+  (``PhaseEngine.prewarm_async``): the record's ``cuts`` give its
+  ``capture_s``, the wait for it at its key's first chunk, that chunk's
+  wall and the stall beside the key's steady steps (every chunk timed to
+  a sync).  The checkpoints go to a temporary directory the phase
+  deletes.
 - Phase 1c, the SSD chunk kernel against its plain version, and RMSNorm
   forward and backward at Mamba-2's widths (8192 rows of d = 2560 and
   5120, float32 2e-5 and bfloat16 2e-2, timed in bfloat16).  The kernel: at
@@ -376,6 +383,23 @@ decode graph, each replayed once per step.
   tokens equal to an all-eager engine's, tok/s beside eager tok/s, a
   replayed decode step against its bound.  The ``families`` line holds
   it all.
+- Phase 17, data parallelism (``phase17``): ``python -m
+  repro_torch.launch.train``'s ``main`` as two processes on the one card
+  (``--coordinator 127.0.0.1:<free port> --num-processes 2 --process-id
+  r --per-host``: a gloo group, since the ranks share the card) and as
+  one, seesaw-150m at full width and depth (``DP_ARGS``: bf16, AdamW,
+  Seesaw alpha = 2 from B = 8 to 16, at most 8 rows a micro-batch, 8
+  steps, ``MarkovLM(2048)``).  Two ranks train steps 1-4 alone and
+  save; then side by side two ranks resume for 5-8, one process resumes
+  the same save, and one process trains the whole plan.  The
+  ranks must log one run, the runs must match the one process's (steps,
+  LR, batch and phase equal, loss and grad norm within 2e-2, each
+  leaf's weights apart by at most a quarter of its update), the save's
+  writers must rotate over
+  the ranks, and each process must launch the training kernels exactly
+  remat's counts times its micro-batches.  The ``data_parallel`` line
+  gives the walls, the all-reduce's ms a step, each rank's peak memory
+  and the largest differences.
 - Phase 8, the kernel benchmark: ``repro_torch.bench.kernels`` at full
   size through its ``main`` (the reference's attention, RMSNorm and SSD
   sweeps in float32, kernel and plain, forward and forward+backward; the
@@ -399,7 +423,7 @@ one ``mamba2_serve``
 line (phases 11 and 11b, with the card), one ``server`` line (phase
 12), one ``paper`` line (phase 13), one ``moe`` line (phase 14), one
 ``hybrid`` line (phase 15), one ``families`` line (phase 16), one
-``checkpoint`` line
+``data_parallel`` line (phase 17), one ``checkpoint`` line
 (phase 10: bytes written, write, restore and verify seconds and GB/s,
 the async save's stall beside a sync save's time, the adaptive run's
 cuts, the card's name and power limit), and last ``{"ok": true,
@@ -1908,7 +1932,9 @@ ADAPTIVE = dict(kind="adaptive-seesaw", alpha=2.0, n_cuts=2, base_lr=3e-3,
                 warmup_frac=0.02, ema_decay=0.5, plateau_window=4,
                 plateau_threshold=2.25e-3, plateau_min_steps=4)
 ADAPTIVE_TOKENS = 40 * 32 * 1024
-ADAPTIVE_STEPS = 40
+# past the second cut (step 36) by two chunks: the new key's first and a
+# steady one
+ADAPTIVE_STEPS = 44
 HIST_KEYS = ("step", "tokens", "lr", "batch_size", "phase", "loss",
              "grad_norm")
 
@@ -2124,6 +2150,19 @@ def phase10b(cfg, RN, FA, tmp, knobs=None, steps=ADAPTIVE_STEPS):
     run = phase4_run(cfg, total_tokens=ADAPTIVE_TOKENS, **sch)
     path = os.path.join(tmp, "adaptive")
     tr = Trainer(run, device="cuda", fuse_steps=4, max_device_batch=8)
+    eng = tr.engine
+    # each engine call timed to a sync (the controller reads each chunk's
+    # EMA, a sync, anyway): (step before, batch size, n, seconds)
+    chunks, run_chunk = [], eng.run_chunk
+
+    def timed(model, opt_state, tokens_seen, stacked, n_valid=None, **kw):
+        t = time.perf_counter()
+        out = run_chunk(model, opt_state, tokens_seen, stacked,
+                        n_valid=n_valid, **kw)
+        torch.cuda.synchronize()
+        chunks.append((tr.state.step, next(iter(stacked.values())).shape[1],
+                       n_valid, time.perf_counter() - t))
+        return out
 
     def save_between_cuts():
         cuts = tr.controller.cut_steps
@@ -2131,7 +2170,9 @@ def phase10b(cfg, RN, FA, tmp, knobs=None, steps=ADAPTIVE_STEPS):
             tr.save_checkpoint(path, block=False)
         return False
 
+    eng.run_chunk = timed
     tr.run(resumed_loader(tr), max_steps=steps, stop_fn=save_between_cuts)
+    eng.run_chunk = run_chunk
     tr.close()
     cuts, hist = tr.controller.cut_steps, tr.history
     out = {"knobs": sch, "steps": len(hist), "cut_steps": cuts,
@@ -2163,13 +2204,13 @@ def phase10b(cfg, RN, FA, tmp, knobs=None, steps=ADAPTIVE_STEPS):
         if b["batch_size"] != 2 * a["batch_size"] or \
                 abs(b["lr"] * 2 ** 0.5 / a["lr"] - 1) > 1e-6:
             raise AssertionError(f"cut at step {c}: {a} -> {b}")
-    eng = tr.engine
     keys = sorted({(h["batch_size"], eng.micro_batches(h["batch_size"]))
                    for h in hist})
     if sorted(tr._step_cache) != keys or eng.captures != len(keys):
         raise AssertionError(f"step cache {sorted(tr._step_cache)}, "
                              f"{eng.captures} captures; want {keys}")
     out["graphs"] = [list(k) for k in keys]
+    out["cuts"] = background_captures(eng, cuts, chunks)
 
     tr2 = Trainer(run, device="cuda", fuse_steps=4, max_device_batch=8)
     meta = tr2.restore_checkpoint(path, verify=True)
@@ -2184,6 +2225,36 @@ def phase10b(cfg, RN, FA, tmp, knobs=None, steps=ADAPTIVE_STEPS):
     out.update(resume_step=meta["step"], resumed_cut_steps=cuts,
                bitwise=True)
     return out
+
+
+def background_captures(eng, cuts, chunks) -> list:
+    """At each cut: the new key's graph, captured in the background from
+    the cut's boundary (``capture_s``), the main thread's wait for it at
+    the key's first chunk (``join_wait_s``), that chunk's wall, and the
+    median wall a step of the key's later chunks; ``stall_s``, the first
+    less as many steady steps, is what the background capture did not
+    hide."""
+    rows = []
+    for c in cuts:
+        after = [ch for ch in chunks if ch[0] >= c]
+        b = after[0][1]
+        key = (b, eng.micro_batches(b))
+        ent = eng._cache[key]
+        steady = [dt / n for _, bb, n, dt in after[1:] if bb == b]
+        first, n_first = after[0][3], after[0][2]
+        if key not in eng.prewarm_wait_s or not steady:
+            raise AssertionError(f"cut at step {c}: key {key} was not "
+                                 f"captured in the background, or no "
+                                 f"steady chunk followed")
+        row = {"step": c, "batch_size": b, "key": list(key),
+               "capture_s": ent.graph.capture_s,
+               "join_wait_s": eng.prewarm_wait_s[key],
+               "first_chunk_s": first, "first_chunk_steps": n_first,
+               "steady_step_s": float(np.median(steady)),
+               "steady_chunks": len(steady)}
+        row["stall_s"] = first - n_first * row["steady_step_s"]
+        rows.append(row)
+    return rows
 
 
 def phase10(cfg, RN, FA, tr4, hist4, final4, per_micro):
@@ -4019,6 +4090,7 @@ ENCDEC_TOKENS = 9 * 4 * 1024
 # and ragged lengths at the tiles' edges
 FLASH_GQA = ((2, 1088, 64, 8, "internvl-prefill"), (1, 1024, 56, 8, "yi"),
              (1, 77, 56, 8, "yi-S77"), (1, 65, 64, 8, "internvl-S65"))
+FLASH_GQA_TIMED = ("internvl-prefill", "yi")
 # (B, Skv, H, Hkv, tag), hd 128: the decode kernel serves a kv head's
 # group in blocks of 4 heads, so yi's group of 7 leaves a tail of 3
 DECODE_GQA = ((2, 2048, 64, 8, "internvl"), (8, 2048, 56, 8, "yi"))
@@ -4059,7 +4131,7 @@ def phase16a(RN, FA, PG, ref):
                            max(max_err(dk, wk, dtype),
                                max_err(dv, wv, dtype))))
             del dq, dk, dv, wq, wk, wv
-            if dtype is bf and tag in ("internvl-prefill", "yi"):
+            if dtype is bf and tag in FLASH_GQA_TIMED:
                 inputs[tag] = (qt, kt, vt, out, lse, dot)
         for B, Skv, H, Hkv, tag in DECODE_GQA:
             t, err = decode_case(PG, ref, B, Skv, H, Hkv, 128, dtype, g, rng)
@@ -4079,7 +4151,7 @@ def phase16a(RN, FA, PG, ref):
         log(f"phase 16a: {name} {tag} {dn}: max |err| {err:.3g}")
     timer = Timer(iters=30)
     times = {f"flash/{tag}": flash_rows(FA, ref, inputs[tag], timer)
-             for tag in ("internvl-prefill", "yi")}
+             for tag in FLASH_GQA_TIMED}
     for tag in ("internvl", "yi"):
         q, k, v, lengths, lens, _ = inputs[("decode", tag)]
         B, H, hd = q.shape
@@ -4111,8 +4183,37 @@ def phase16a(RN, FA, PG, ref):
             shape=f"x ({x.shape[0]}, {d}) bf16",
             **bound(2 * x.numel() * x.element_size() + 4 * d,
                     4 * x.numel(), bf))
+    times["flash/starcoder2"], err = starcoder2_flash_fwd(FA, ref, timer, g)
+    errors.append(("flash_fwd", "hd128-starcoder2", "bfloat16", err))
     log(f"phase 16a: {times}")
     return errors, times
+
+
+def starcoder2_flash_fwd(FA, ref, timer, g):
+    """Phase 12b's starcoder2-3b prompt through the flash forward (B=2,
+    S = 4,500, GQA 24/2, hd 128, no window), in bfloat16 as the Server
+    runs it: checked against ``attention_ref`` (2e-2) and timed beside
+    its plain version, its bound and SDPA.  No path runs the backward at
+    this shape (starcoder2 trains through its windowed layers)."""
+    bf = torch.bfloat16
+    B, S, H, Hkv, hd = 2, 4500, 24, 2, 128
+    q, k, v = (torch.randn(B, n, S, hd, generator=g, device="cuda").to(bf)
+               for n in (H, Hkv, Hkv))
+    out, lse = FA.flash_fwd(q, k, v)
+    want, want_lse = ref.attention_ref(q, k, v)
+    err = max(max_err(out, want, bf), max_err(lse, want_lse, bf))
+    del want, want_lse
+    pairs = B * H * S * (S + 1) / 2
+    row = dict(
+        ms=timer(lambda: FA.flash_fwd(q, k, v)),
+        plain_ms=timer(lambda: ref.attention_ref(q, k, v)),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        shape=f"q (B={B}, S={S}, H={H}, hd={hd}), Hkv={Hkv} bf16, causal",
+        **bound((2 * B * H + 2 * B * Hkv) * S * hd * 2 + 4 * B * H * S,
+                4 * hd * pairs, bf))
+    torch.cuda.empty_cache()
+    return row, err
 
 
 def encdec_launches(cfg, remat: bool) -> dict:
@@ -4541,6 +4642,11 @@ def phase16_kernel_entries(kernels, record):
                 dn: max(e for (n, _, d), e in err.items()
                         if n == name and d == dn)
                 for dn in ("bfloat16", "float32")}
+            if name == "flash_fwd":
+                k["starcoder2_prompt"] = {
+                    **{f: times["flash/starcoder2"][f] for f in keys},
+                    "max_abs_err": err[(name, "hd128-starcoder2",
+                                        "bfloat16")]}
         if name == "ragged_decode":
             k["hd128_gqa"] = {
                 tag: {**{f: times[f"ragged_decode/{tag}"][f] for f in keys},
@@ -4572,6 +4678,284 @@ def phase16_kernel_entries(kernels, record):
                "ragged_decode": "paged"}.get(name)
         if mod:
             k["nemo_serve_launches"] = fam["nemo_serve"]["launches"][mod]
+
+
+# --------------------------------------------------------------------- #
+# phase 17: data parallelism, two launcher processes on the one card
+# --------------------------------------------------------------------- #
+
+# seesaw-150m at full width and depth, bf16 compute, float32 AdamW,
+# phase 4's MarkovLM(2048) data, Seesaw alpha = 2 from B = 8 to B = 16
+# (6 + 2 steps), micro-batches of at most 8 rows
+DP_ARGS = ["--arch", "seesaw-150m", "--schedule", "seesaw", "--alpha", "2",
+           "--max-cuts", "1", "--batch-size", "8", "--seq-len", "1024",
+           "--total-tokens", str(8 * 1024 * 9), "--max-device-batch", "8",
+           "--fuse-steps", "1"]
+DP_SAVE_STEP = 4
+# each process: the launcher's main with the flags given, then its
+# history, wall, launch counts and peak memory into a JSON file
+DP_RANK = r"""
+import json, sys, time
+import torch
+from repro_torch import graphs
+from repro_torch.launch import train
+t = time.perf_counter()
+hist = train.main(sys.argv[2:])
+torch.cuda.synchronize()
+with open(sys.argv[1], "w") as f:
+    json.dump({"history": hist, "wall_s": time.perf_counter() - t,
+               "launches": list(graphs.launch_counts()),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9},
+              f)
+"""
+DP_HIST_KEYS = ("step", "tokens", "lr", "batch_size", "phase")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(tmp, tag, n, extra):
+    """Start the launcher as ``n`` processes (n = 1: no group) with
+    ``DP_ARGS + extra``; returns the processes and their JSON paths."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    port = str(free_port())
+    procs = []
+    for r in range(n):
+        group = (["--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                  str(n), "--process-id", str(r), "--per-host"]
+                 if n > 1 else [])
+        out = os.path.join(tmp, f"{tag}{r}.json")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", DP_RANK, out, *DP_ARGS, *extra, *group],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), out))
+    return procs
+
+
+def wait_ranks(procs, timeout=300):
+    """Each process's (JSON record, stdout); raises if one failed."""
+    res = []
+    try:
+        for p, out in procs:
+            text, _ = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"launcher process exited "
+                                     f"{p.returncode}: {text[-4000:]}")
+            with open(out) as f:
+                rec = json.load(f)
+            rec["stdout"] = text
+            res.append(rec)
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return res
+
+
+def dp_initial_params(cfg) -> dict:
+    """The launcher's initial parameters (``Trainer``'s seed 0 on the
+    card), by checkpoint leaf."""
+    from repro_torch.models import registry as R
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.weights import param_tree
+    model = R.init_model(cfg, seed=0, dtype=torch.float32, device="cuda",
+                         trainable=True)
+    return {f"p:{k}": (torch.stack(list(v)) if isinstance(v, CKPT.Stacked)
+                       else v).detach()
+            for k, v in CKPT._flatten(param_tree(model)).items()}
+
+
+def dp_weights_diff(a: str, b: str, w0: dict) -> dict:
+    """Two runs' parameters from one start ``w0``, checkpoint leaf by
+    leaf: ||a - b|| over ||a - w0||, the runs' difference against the
+    update (the gate's measure: a leaf that starts at zero, as the norm
+    scales do, has a norm of its update's size), the worst leaf and the
+    median; and the largest |a - b| over the leaf's largest |a - w0|.
+    AdamW moves an element whose grad sits near zero by up to the LR a
+    step on a rounding change, so single elements drift far more than
+    the leaf."""
+    with open(os.path.join(a, "manifest.json")) as f:
+        ma = json.load(f)
+    with open(os.path.join(b, "manifest.json")) as f:
+        mb = json.load(f)
+    if ma["arrays"].keys() != mb["arrays"].keys() or \
+            not set(w0) <= ma["arrays"].keys():
+        raise AssertionError("the checkpoints hold other leaves")
+    norm, elem = {}, {}
+    for key, w in w0.items():
+        x, y = (torch.from_numpy(np.load(os.path.join(
+            d, m["arrays"][key]["shards"][0]["file"]))).cuda().double()
+            for d, m in ((a, ma), (b, mb)))
+        up, d = x - w.double(), x - y
+        norm[key] = float(d.norm() / up.norm())
+        elem[key] = float(d.abs().max() / up.abs().max())
+    k, j = max(norm, key=norm.get), max(elem, key=elem.get)
+    return {"update_rel": norm[k], "leaf": k,
+            "median_update_rel": float(np.median(list(norm.values()))),
+            "max_elem_update_rel": elem[j], "elem_leaf": j}
+
+
+def dp_check_run(got, want, tol, what):
+    """LR, batch, phase and tokens equal step for step; loss and grad norm
+    within ``tol`` relative: the largest differences found."""
+    if [[h[k] for k in DP_HIST_KEYS] for h in got] != \
+            [[h[k] for k in DP_HIST_KEYS] for h in want]:
+        raise AssertionError(f"{what}: steps, LR, batch or phase differ: "
+                             f"{[[h[k] for k in DP_HIST_KEYS] for h in got]}")
+    worst = {}
+    for name in ("loss", "grad_norm"):
+        rel = [abs(a[name] - b[name]) / abs(b[name])
+               for a, b in zip(got, want)]
+        worst[name] = max(rel)
+        if worst[name] > tol or not all(np.isfinite([a[name] for a in got])):
+            raise AssertionError(f"{what}: {name} {rel} beyond {tol}")
+    return worst
+
+
+def phase17(cfg, ctr, smi):
+    """Data parallelism on the card: the training launcher as two
+    processes on the one H100 (``--coordinator 127.0.0.1:<port>
+    --num-processes 2 --process-id r --per-host``; the ranks share the
+    card, so the group is gloo), against one process of the same plan
+    (``DP_ARGS``).  The two ranks train steps 1-4 alone on the card and
+    save (a two-rank checkpoint); then, side by side, two ranks resume it
+    for steps 5-8, one process resumes it too, and one process trains
+    the whole plan.  The processes side by side share the card and the
+    host: their walls are not one run's alone.  Gates: every process exits 0; the two ranks
+    log one run (bitwise the same history); steps, tokens, LR, batch and
+    phase equal the one process's; loss and grad norm within 2e-2 of its
+    (bf16: another row split, other GEMM shapes); each leaf's final
+    parameters apart by at most a quarter of its update from the initial
+    ones (``dp_weights_diff``); the checkpoint's writers rotate over
+    the two ranks and ``save_process_count`` is 2; each process launches
+    the five training kernels exactly remat's counts times its
+    micro-batches.  Reports the wall a step, the all-reduce's ms a step,
+    each rank's peak memory and the differences."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    t0 = time.perf_counter()
+    try:
+        ck1, ck2 = os.path.join(tmp, "one"), os.path.join(tmp, "two")
+        # alone on the card: the walls and the all-reduce's time are the
+        # two ranks' own
+        two_a = wait_ranks(launch_ranks(
+            tmp, "two_a", 2, ["--steps", str(DP_SAVE_STEP),
+                              "--checkpoint", ck2]))
+        t_two_a = time.perf_counter()
+        with open(os.path.join(ck2, "manifest.json")) as f:
+            man = json.load(f)
+        ck21 = os.path.join(tmp, "two_to_one")
+        # the blocks linked, not copied: a save writes new files only
+        shutil.copytree(ck2, ck21, copy_function=lambda a, b: (
+            os.link(a, b) if a.endswith(".npy") else shutil.copy2(a, b)))
+        procs = launch_ranks(tmp, "two_b", 2, ["--resume", "--checkpoint",
+                                               ck2])
+        procs += launch_ranks(tmp, "one_b", 1, ["--resume", "--checkpoint",
+                                                ck21])
+        procs += launch_ranks(tmp, "one", 1, ["--checkpoint", ck1])
+        res = wait_ranks(procs)
+        two_b, one_b, one = res[:2], res[2], res[3]
+        t_end = time.perf_counter()
+        want = one["history"]
+        if len(want) != 8 or {h["batch_size"] for h in want} != {8, 16}:
+            raise AssertionError(f"one process: {len(want)} steps")
+        rows = [[{k: v for k, v in h.items() if k != "wall"}
+                 for h in r["history"]] for r in two_a + two_b]
+        if rows[0] != rows[1] or rows[2] != rows[3]:
+            raise AssertionError("the two ranks logged different runs")
+        diffs = {
+            "two_ranks": dp_check_run(two_a[0]["history"]
+                                      + two_b[0]["history"], want, 2e-2,
+                                      "two ranks"),
+            "two_to_one": dp_check_run(one_b["history"],
+                                       want[DP_SAVE_STEP:], 2e-2,
+                                       "2 -> 1 resume")}
+        meta = man["meta"]
+        writers = [e["shards"][0]["writer"] for _, e in
+                   sorted(man["arrays"].items())]
+        if meta["save_process_count"] != 2 or meta["step"] != \
+                DP_SAVE_STEP or writers != [i % 2 for i in
+                                            range(len(writers))]:
+            raise AssertionError(f"two-rank save: meta {meta}, writers "
+                                 f"{writers[:6]}...")
+        t_w = time.perf_counter()
+        w0 = dp_initial_params(cfg)
+        diffs["weights_two_ranks"] = dp_weights_diff(ck1, ck2, w0)
+        diffs["weights_two_to_one"] = dp_weights_diff(ck1, ck21, w0)
+        del w0
+        torch.cuda.empty_cache()
+        for k in ("weights_two_ranks", "weights_two_to_one"):
+            if diffs[k]["update_rel"] > 0.25:
+                raise AssertionError(f"{k}: {diffs[k]}")
+        from repro_torch import graphs as G
+        per_micro = per_micro_batch(cfg, True)
+        names = {n: G.COUNTERS.index(c) for n, c in ctr.items()}
+        launches = {}
+        for tag, recs, micro in (("one", [one], 6 + 2 * 2),
+                                 ("two_ranks_steps_1_4", two_a, 4),
+                                 ("two_ranks_steps_5_8", two_b, 2 + 2),
+                                 ("two_to_one_steps_5_8", [one_b],
+                                  2 + 2 * 2)):
+            for r, rec in enumerate(recs):
+                got = {n: rec["launches"][i] for n, i in names.items()}
+                wantl = {n: v * micro for n, v in per_micro.items()}
+                if got != wantl:
+                    raise AssertionError(f"{tag} rank {r}: launches {got}, "
+                                         f"remat gives {wantl}")
+                launches[f"{tag}/rank{r}"] = got
+        allreduce = []
+        for rec in two_a + two_b:
+            m = re.search(r"all-reduce: (\d+) steps, ([\d.]+) ms a step",
+                          rec["stdout"])
+            if not m:
+                raise AssertionError("no all-reduce line: "
+                                     + rec["stdout"][-2000:])
+            allreduce.append(float(m.group(2)))
+
+        def step_walls(hist):
+            return [b["wall"] - a["wall"] for a, b in zip(hist, hist[1:])]
+
+        out = {
+            "plan": {"batch_sizes": [8, 16], "steps": [6, 2],
+                     "micro_batches_one": [1, 2],
+                     "micro_batches_per_rank": [1, 1],
+                     "save_step": DP_SAVE_STEP},
+            "wall_s": {"one": one["wall_s"],
+                       "two_ranks_steps_1_4": [r["wall_s"] for r in two_a],
+                       "two_ranks_steps_5_8": [r["wall_s"] for r in two_b],
+                       "two_to_one_steps_5_8": one_b["wall_s"]},
+            "phase_s": {"two_ranks_steps_1_4": t_two_a - t0,
+                        "resumes_beside_one": t_end - t_two_a,
+                        "weights_check": time.perf_counter() - t_w},
+            # wall between a rank's consecutive logged steps (gloo makes
+            # every step of the group wait for its all-reduce)
+            "two_rank_step_walls_s": {
+                "steps_1_4": step_walls(two_a[0]["history"]),
+                "steps_5_8": step_walls(two_b[0]["history"])},
+            "allreduce_ms_per_step": allreduce,
+            "peak_gb": {"one": one["peak_gb"],
+                        "two_ranks": [r["peak_gb"] for r in two_a + two_b],
+                        "two_to_one": one_b["peak_gb"]},
+            "peak_reserved_gb": [r["peak_reserved_gb"]
+                                 for r in two_a + two_b],
+            "largest_differences": diffs, "launches": launches,
+            "losses": {"one": [h["loss"] for h in want],
+                       "two_ranks": [h["loss"] for h in two_a[0]["history"]
+                                     + two_b[0]["history"]]},
+            "card": smi}
+        m = re.search(r"all-reduce: \d+ steps, [\d.]+ ms a step \(([\d.]+) MB",
+                      two_a[0]["stdout"])
+        out["allreduce_mb"] = float(m.group(1))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -4823,6 +5207,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     fam["s"] = time.perf_counter() - t16
+    t = time.perf_counter()
+    record["data_parallel"] = phase17(cfg, counters(RN, FA), smi)
+    record["data_parallel"]["s"] = time.perf_counter() - t
+    log(f"phase 17: {record['data_parallel']['s']:.1f} s "
+        f"{record['data_parallel']}")
     t = time.perf_counter()
     bench_ctr = dict(counters(RN, FA), ssd_chunk=(SSD, "launches"),
                      overlap_norm=(OV, "launches"))
@@ -5117,6 +5506,12 @@ def main() -> int:
                        "steps and its Server baseline's"})
     hybrid_kernel_entries(kernels, record)
     phase16_kernel_entries(kernels, record)
+    # phase 17: each launcher process's launches of the training kernels
+    for k in kernels:
+        if k["name"] in counters(RN, FA):
+            k["data_parallel_launches"] = {
+                tag: c[k["name"]] for tag, c in
+                record["data_parallel"]["launches"].items()}
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -5169,6 +5564,9 @@ def main() -> int:
         "encdec_train": etrain, "encdec_serve": fam["encdec_serve"],
         "vlm_serve": fam["vlm_serve"], "nemo_serve": fam["nemo_serve"],
         "kernel_errors": f_errors, "s": fam["s"], "card": smi}}))
+    print(json.dumps({"data_parallel": {
+        k: v for k, v in record["data_parallel"].items()
+        if k not in ("losses", "launches")}}))
     print(json.dumps({"checkpoint": record["checkpoint"],
                       "adaptive": adaptive, "card": smi}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,4 @@
-"""Phase-aware data loading (``repro.data.pipeline`` in PyTorch, single
-process).
+"""Phase-aware data loading (``repro.data.pipeline`` in PyTorch).
 
 Follows a SeesawPlan's batch ramp and keeps equal-token data order
 across schedulers: one stream indexed by absolute sequence number,
@@ -19,35 +18,99 @@ repositions the stream on the exact step boundary a run stopped at, and
 ``rechunk(plan, tokens_seen)`` swaps in an extended plan there (an
 adaptive cut); the caller closes the streams it superseded.
 
-Feeding per host (``per_host``, a mesh) comes with the multi-process
-slice.
+Two feeding modes:
+
+- default: this process samples the whole global batch;
+- ``per_host=True``: each process of a multi-process run samples only
+  its rank's contiguous block of ``B / process_count`` rows a step, the
+  block the data-parallel engine trains on that rank
+  (``launch.mesh.assert_per_host_row_blocks``).  ``process_index`` and
+  ``process_count`` default to the process group's rank and size; given
+  explicitly they simulate N-process feeding in one process (the
+  equivalence tests concatenate the shards and compare them with the
+  single-process stream).  ``validate_per_host_plan`` checks up front
+  that every phase still ahead divides across the processes.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.seesaw import SeesawPlan
 from repro_torch.data.synthetic import MarkovLM
+from repro_torch.launch import mesh
 from repro_torch.train.checkpoint import exact_tokens
 
 _DONE = object()
 
 
+def validate_per_host_plan(plan: SeesawPlan, process_count: int,
+                           n_data_devices: int = 1, *,
+                           start_phase: int = 0) -> SeesawPlan:
+    """Check that the per-host shard divides evenly across the ramp.
+
+    Every phase's global batch must split into ``process_count`` equal
+    per-process blocks and still shard over all ``n_data_devices``
+    data-parallel devices: a ramp that divides only in its early phases
+    would fail mid-run, so the launcher checks it up front and an
+    adaptive cut checks its new stage.  An elastic resume passes
+    ``start_phase``: the phases the checkpoint consumed are skipped, and
+    a stage the new topology cannot feed is reported against the resume
+    point."""
+    suffix = (f" (resuming at phase {start_phase})"
+              if start_phase > 0 else "")
+    for p in plan.phases:
+        if p.index < start_phase:
+            continue
+        if p.batch_size % max(process_count, 1):
+            raise ValueError(
+                f"phase {p.index}: global batch {p.batch_size} does "
+                f"not divide across {process_count} host "
+                f"processes{suffix}")
+        if n_data_devices and p.batch_size % n_data_devices:
+            raise ValueError(
+                f"phase {p.index}: global batch {p.batch_size} does "
+                f"not divide across {n_data_devices} data "
+                f"devices{suffix}")
+    return plan
+
+
 class PhaseDataLoader:
-    """Iterates a plan's (phase, step, batch) stream on ``device``."""
+    """Iterates a plan's (phase, step, batch) stream on ``device``.  In
+    per-host mode process p yields rows ``[p·B/N, (p+1)·B/N)`` of every
+    step's global batch, so the concatenation over the processes is the
+    single-process stream row for row."""
 
     def __init__(self, source: MarkovLM, plan: SeesawPlan, seq_len: int, *,
-                 device="cuda", prefetch: int = 2):
+                 device="cuda", prefetch: int = 2, per_host: bool = False,
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None,
+                 validate: bool = True):
         self.source = source
         self.plan = plan
         self.seq_len = seq_len
         self.device = torch.device(device)
         self.prefetch = prefetch
+        self.per_host = per_host
+        if per_host:
+            self._pcount = process_count or mesh.world_size()
+            self._pidx = (mesh.rank() if process_index is None
+                          else process_index)
+            # validate=False leaves the whole-ramp check to resume(): an
+            # elastic resume onto a new topology must not fail on a phase
+            # the checkpoint already consumed
+            if validate:
+                validate_per_host_plan(plan, self._pcount)
+            if not 0 <= self._pidx < self._pcount:
+                raise ValueError(
+                    f"process_index {self._pidx} outside "
+                    f"[0, {self._pcount})")
+        else:
+            self._pcount, self._pidx = 1, 0
         # (phase_idx, steps_done_in_phase, absolute seq cursor)
         self._start: Tuple[int, int, int] = (0, 0, 0)
 
@@ -72,8 +135,15 @@ class PhaseDataLoader:
         return len(steps), 0, cursor
 
     def resume(self, tokens_seen) -> "PhaseDataLoader":
-        """Reposition the stream to continue a run at ``tokens_seen``."""
+        """Reposition the stream to continue a run at ``tokens_seen``.  In
+        per-host mode the rest of the ramp is checked against this
+        loader's process count from the resumed phase on: an elastic
+        resume need not have the saving run's count, but it must feed
+        every phase still ahead."""
         self._start = self.position_at(tokens_seen)
+        if self.per_host:
+            validate_per_host_plan(self.plan, self._pcount,
+                                   start_phase=self._start[0])
         return self
 
     def rechunk(self, plan, tokens_seen) -> "PhaseDataLoader":
@@ -85,7 +155,9 @@ class PhaseDataLoader:
         ``iter_chunks`` / ``__iter__`` generators) are superseded: the
         caller must ``close()`` them, which stops and joins their
         sampling threads and drops the batches they hold.  Make a fresh
-        one after rechunking."""
+        one after rechunking.  In per-host mode the phases from the cut on
+        are checked, so a cut to a stage the processes cannot feed fails
+        at the cut."""
         self.plan = plan
         return self.resume(tokens_seen)
 
@@ -103,14 +175,20 @@ class PhaseDataLoader:
         return out
 
     # -- host-side production ------------------------------------------- #
+    def _local_rows(self, batch_size: int) -> Tuple[int, int]:
+        """(row offset within the step's global batch, rows to sample)
+        for this process: the whole batch outside per-host mode."""
+        bl = batch_size // self._pcount
+        return self._pidx * bl, bl
+
     def _host_steps(self) -> Iterator[Tuple[Any, int, Dict]]:
         steps = self.plan.steps_per_phase(self.seq_len)
         p0, s0, cursor = self._start
         for pi in range(p0, len(self.plan.phases)):
             phase, n = self.plan.phases[pi], steps[pi]
             for s in range(s0 if pi == p0 else 0, n):
-                batch = self.source.sample(cursor, phase.batch_size,
-                                           self.seq_len)
+                off, bl = self._local_rows(phase.batch_size)
+                batch = self.source.sample(cursor + off, bl, self.seq_len)
                 cursor += phase.batch_size
                 yield phase, s, batch
 
@@ -132,6 +210,18 @@ class PhaseDataLoader:
                 segs.append((b, cur))
         return segs
 
+    def _sample_chunk(self, cursor: int, m: int, b: int) -> Dict:
+        """m steps of (this process's rows of) the global batch b,
+        stacked to (m, local b, ...)."""
+        if self._pcount == 1:
+            raw = self.source.sample(cursor, m * b, self.seq_len)
+            return {key: v.reshape(m, b, *v.shape[1:])
+                    for key, v in raw.items()}
+        off, bl = self._local_rows(b)
+        parts = [self.source.sample(cursor + s * b + off, bl, self.seq_len)
+                 for s in range(m)]
+        return {key: np.stack([p[key] for p in parts]) for key in parts[0]}
+
     def _host_chunks(self, k: int) -> Iterator[Tuple[Any, Dict, int]]:
         """k steps at a time across each same-batch-size segment, the
         segment's tail chunk padded up to k by repeating its last step
@@ -142,9 +232,7 @@ class PhaseDataLoader:
             remaining = sum(n for _, n in entries)
             while remaining:
                 m = min(k, remaining)
-                raw = self.source.sample(cursor, m * b, self.seq_len)
-                chunk = {key: v.reshape(m, b, *v.shape[1:])
-                         for key, v in raw.items()}
+                chunk = self._sample_chunk(cursor, m, b)
                 if m < k:
                     chunk = {key: np.concatenate(
                         [v, np.repeat(v[-1:], k - m, axis=0)])

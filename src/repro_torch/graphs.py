@@ -11,10 +11,14 @@ what they share.
 
 - ``Graph`` captures one call of a function and replays it.  A capture
   runs nothing on the card, so it leaves the kernels' launch counters
-  where they were; every replay adds what the capture counted, so the
-  counters go on counting launches through replays.  It captures in
-  thread-local mode: an async checkpoint's writer thread may be copying
-  on its own stream meanwhile.
+  where they were: the launches made on the capture stream go to the
+  capture's own tally (``kernels._build.capture_tally``), whichever
+  thread makes them, and every replay adds that tally to the counters,
+  so they go on counting launches through replays.  It captures in
+  thread-local mode: another thread may meanwhile copy on its own stream
+  (an async checkpoint's writer) or launch and replay (the training loop,
+  while the engine captures the next batch size's graph in the
+  background).  Captures take turns, on one capture stream a device.
 - ``PinnedStage`` carries host values to the card without a sync: a
   ``copy_`` from pageable memory would synchronise the stream.
 
@@ -23,11 +27,13 @@ A failed capture raises: nothing falls back to the eager step.
 from __future__ import annotations
 
 import gc
+import threading
 import time
 from typing import Callable, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import overlap as _ov
 from repro_torch.kernels import paged as _pg
@@ -47,10 +53,30 @@ def launch_counts() -> Tuple[int, ...]:
     return tuple(getattr(m, a) for m, a in COUNTERS)
 
 
+def tally_counts(tally) -> Tuple[int, ...]:
+    """A capture's tally (``kernels._build.capture_tally``) as launch
+    counts in the order of ``COUNTERS``."""
+    return tuple(tally.get((m.__name__, a), 0) for m, a in COUNTERS)
+
+
 def add_launch_counts(delta: Sequence[int]) -> None:
     for (m, a), d in zip(COUNTERS, delta):
         if d:
             setattr(m, a, getattr(m, a) + d)
+
+
+_capture_lock = threading.Lock()
+
+
+def _warm_blas(stream: torch.cuda.Stream) -> None:
+    """Make this thread's cuBLAS and cuBLASLt handles, and their
+    workspaces on ``stream``, by running small products there: a thread
+    that first multiplies inside a capture would make them mid-capture."""
+    with torch.cuda.stream(stream):
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.ones(16, 16, dtype=dtype, device="cuda")
+            torch.nn.functional.linear(a, a, a[0])
+            a @ a
 
 
 class Graph:
@@ -59,33 +85,37 @@ class Graph:
     graph is replayed; ``out`` is what the captured call returned, which
     every replay overwrites in place.  ``pool`` is the memory pool the
     capture allocates from (``torch.cuda.graph_pool_handle()``), shared
-    by graphs that are never replayed concurrently."""
+    by graphs that are never replayed concurrently.  Any thread may
+    capture; captures take turns on torch's capture stream."""
 
     def __init__(self, fn: Callable, pool=None):
-        before = launch_counts()
         t = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
-        # Python's collector stays off while capturing: a dead cycle that
-        # holds another graph, an event or pinned memory would free them
-        # mid-capture, and those CUDA calls end the capture.  Collected
-        # first, the cycles also give back the card memory they hold.
-        gc.collect()
-        was_enabled = gc.isenabled()
-        gc.disable()
-        try:
-            # thread-local: another thread's CUDA calls (the checkpoint
-            # writer's copies on its own stream) leave this capture alone
-            with torch.cuda.graph(self.graph, pool=pool,
-                                  capture_error_mode="thread_local"):
-                self.out = fn()
-        finally:
-            if was_enabled:
-                gc.enable()
-            # the capture counted launches it did not run: take them back
-            moved = tuple(a - b for a, b in zip(launch_counts(), before))
-            add_launch_counts(tuple(-d for d in moved))
+        with _capture_lock:
+            # thread-local: other threads' CUDA calls leave this capture
+            # alone
+            ctx = torch.cuda.graph(self.graph, pool=pool,
+                                   capture_error_mode="thread_local")
+            stream = ctx.capture_stream
+            _warm_blas(stream)
+            # Python's collector stays off while capturing: a dead cycle
+            # that holds another graph, an event or pinned memory would
+            # free them mid-capture, on this thread, and those CUDA calls
+            # end the capture.  Collected first, the cycles also give back
+            # the card memory they hold.  Captures take turns, so the
+            # collector's state is saved and restored by one at a time.
+            gc.collect()
+            was_enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with _build.capture_tally(stream.cuda_stream) as tally:
+                    with ctx:
+                        self.out = fn()
+            finally:
+                if was_enabled:
+                    gc.enable()
         self.capture_s = time.perf_counter() - t
-        self.launches = moved          # kernel launches a replay makes
+        self.launches = tally_counts(tally)     # launches a replay makes
 
     def replay(self):
         self.graph.replay()

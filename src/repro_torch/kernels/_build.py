@@ -240,6 +240,48 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# the launch tallies of the CUDA graph captures under way, by the handle
+# of the stream each captures
+_tallies: Dict[int, Dict[tuple, int]] = {}
+
+
+def count(namespace: dict, attr: str, t) -> None:
+    """Count one launch of a wrapper's kernel, made on ``t``'s current
+    stream: into the wrapper module's counter ``attr`` (``namespace`` is
+    the module's ``globals()``), or, when that stream is being captured,
+    into the capture's tally and not the counter, since a capture runs
+    nothing.  A launch lands where its stream says, whichever thread
+    makes it: a capture's backward runs on autograd's thread, and
+    another thread may be launching meanwhile."""
+    if _tallies:
+        tally = _tallies.get(stream_of(t))
+        if tally is not None:
+            key = (namespace["__name__"], attr)
+            tally[key] = tally.get(key, 0) + 1
+            return
+    namespace[attr] += 1
+
+
+class capture_tally:
+    """``with capture_tally(stream) as tally``: the launches made on the
+    stream whose handle is ``stream`` go to ``tally``, a dict keyed by
+    (module name, counter name), until the block ends."""
+
+    def __init__(self, stream: int):
+        self.stream = stream
+        self.tally: Dict[tuple, int] = {}
+
+    def __enter__(self) -> Dict[tuple, int]:
+        if self.stream in _tallies:
+            raise RuntimeError(f"stream {self.stream:#x} is already "
+                               f"counted for a capture")
+        _tallies[self.stream] = self.tally
+        return self.tally
+
+    def __exit__(self, *exc) -> None:
+        del _tallies[self.stream]
+
+
 _counters: Dict[tuple, torch.Tensor] = {}
 
 

@@ -83,7 +83,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
     Returns (out (B, H, S, hd) in q's dtype — a view of a (B, S, H, hd)
     buffer — and lse (B·H, S) float32)."""
-    global launches
     name = "flash_fwd"
     code = _check(name, q, k, v)
     B, H, S, hd = q.shape
@@ -96,7 +95,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
                  *_bsh(q, k, v, out), 1.0 / math.sqrt(hd), code,
                  _build.stream_of(q))
     _build.check(err, name)
-    launches += 1
+    _build.count(globals(), "launches", q)
     return out, lse
 
 
@@ -116,7 +115,6 @@ def flash_bwd_dq(q, k, v, do, lse, delta):
     forward, ``do`` (B, H, S, hd) in q's dtype, ``lse`` and ``delta``
     (B·H, S) float32.  Returns dq, a (B, H, S, hd) view of a fresh
     buffer in the models' layout."""
-    global dq_launches
     name = "flash_bwd_dq"
     code = _check(name, q, k, v)
     _build.dtype_code(name, q, do)
@@ -130,7 +128,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta):
                  k.shape[1], S, hd, *_bsh(q, k, v, do, dq),
                  1.0 / math.sqrt(hd), code, _build.stream_of(q))
     _build.check(err, name)
-    dq_launches += 1
+    _build.count(globals(), "dq_launches", q)
     return dq
 
 
@@ -139,7 +137,6 @@ def flash_bwd_dkv(q, k, v, do, lse, delta):
     each GQA group inside the kernel; arguments as for
     ``flash_bwd_dq``.  Returns (dk, dv), (B, Hkv, S, hd) views of fresh
     buffers in the models' layout."""
-    global dkv_launches
     name = "flash_bwd_dkv"
     code = _check(name, q, k, v)
     _build.dtype_code(name, q, do)
@@ -154,7 +151,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta):
                  *_bsh(q, k, v, do, dk, dv), 1.0 / math.sqrt(hd), code,
                  _build.stream_of(q))
     _build.check(err, name)
-    dkv_launches += 1
+    _build.count(globals(), "dkv_launches", q)
     return dk, dv
 
 

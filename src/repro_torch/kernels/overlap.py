@@ -51,7 +51,6 @@ def overlap_norm(x: torch.Tensor, *, block_rows: int,
     ``block_rows``.  Returns x·rsqrt(mean(x²)+1e-5) (float32), streamed
     through ``depth`` stages of ``block_rows`` rows.  Raises on anything
     else, and when the stages do not fit the card's shared memory."""
-    global launches
     name = "overlap_norm"
     if x.device.type != "cuda":
         raise ValueError(f"{name}: needs a CUDA tensor, got {x.device}")
@@ -85,5 +84,5 @@ def overlap_norm(x: torch.Tensor, *, block_rows: int,
         err = fn(x.data_ptr(), out.data_ptr(), n_blocks, block_rows, d,
                  depth, grid_of(n_blocks, x.device), _build.stream_of(x))
     _build.check(err, name)
-    launches += 1
+    _build.count(globals(), "launches", x)
     return out

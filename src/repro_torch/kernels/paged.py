@@ -61,7 +61,6 @@ def _launch(name, q, k, v, pages, lengths, page_size: int):
     """q (B, H, hd); k, v (n_pages, page_size, Hkv, hd) views; pages (B,
     P) int64; lengths (B,) int32, all checked for one CUDA device and
     q's dtype by the caller.  Returns out (B, H, hd)."""
-    global launches
     B, H, hd = q.shape
     Hkv = k.shape[2]
     P = pages.shape[1]
@@ -110,7 +109,7 @@ def _launch(name, q, k, v, pages, lengths, page_size: int):
                  pages.stride(0), out.stride(0), out.stride(1),
                  1.0 / math.sqrt(hd), code, _build.stream_of(q))
     _build.check(err, name)
-    launches += 1
+    _build.count(globals(), "launches", q)
     return out
 
 

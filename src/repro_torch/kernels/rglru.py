@@ -62,7 +62,6 @@ def rglru_scan_fwd(a: torch.Tensor, b: torch.Tensor,
     """h_t = a_t·h_{t−1} + b_t from h0 (zeros when None).  a, b: (B, S,
     W) float32 contiguous on one CUDA device; h0: (B, W).  Returns
     float32 (hs (B, S, W), h_last (B, W))."""
-    global launches
     name = "rglru_scan_fwd"
     B, S, W = _check(name, a, b, h0)
     if b.shape != a.shape or (h0 is not None
@@ -77,7 +76,7 @@ def rglru_scan_fwd(a: torch.Tensor, b: torch.Tensor,
         err = fn(a.data_ptr(), b.data_ptr(), _ptr(h0), hs.data_ptr(),
                  h_last.data_ptr(), B, S, W, _build.stream_of(a))
     _build.check(err, name)
-    launches += 1
+    _build.count(globals(), "launches", a)
     return hs, h_last
 
 
@@ -88,7 +87,6 @@ def rglru_scan_bwd(a: torch.Tensor, hs: torch.Tensor, h0, dhs, dh_last,
     dh0 = a_0·g_0.  a, hs, dhs: (B, S, W); h0, dh_last: (B, W); h0, dhs
     and dh_last may be None (zeros).  Returns float32 (da, db, dh0),
     dh0 None unless ``want_dh0``."""
-    global bwd_launches
     name = "rglru_scan_bwd"
     B, S, W = _check(name, a, hs, h0, dhs, dh_last)
     if hs.shape != a.shape or (dhs is not None and dhs.shape != a.shape) \
@@ -105,7 +103,7 @@ def rglru_scan_bwd(a: torch.Tensor, hs: torch.Tensor, h0, dhs, dh_last,
                  _ptr(dh_last), da.data_ptr(), db.data_ptr(), _ptr(dh0),
                  B, S, W, _build.stream_of(a))
     _build.check(err, name)
-    bwd_launches += 1
+    _build.count(globals(), "bwd_launches", a)
     return da, db, dh0
 
 

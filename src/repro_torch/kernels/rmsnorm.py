@@ -98,7 +98,6 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
     x·rsqrt(mean(x²)+eps)·(1+scale) in x's dtype, from one launch laid
     out by ``fwd_layout``: a row's bits depend on that row, scale, eps, d
     and the dtype alone, not on the rows around it."""
-    global launches
     name = "rmsnorm_fwd"
     code = _build.dtype_code(name, x)
     _check_scale(name, x, scale)
@@ -113,7 +112,7 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
         err = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d,
                  eps, code, *layout, _build.stream_of(x))
     _build.check(err, name)
-    launches += 1
+    _build.count(globals(), "launches", x)
     return out
 
 
@@ -125,7 +124,6 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     (bfloat16) or 8192 (float32).  Returns (dx in x's dtype, dscale (d,)
     float32), both from one launch: the kernel sums dscale over the rows
     itself, in a fixed order."""
-    global bwd_launches
     name = "rmsnorm_bwd"
     if g.shape != x.shape:
         raise ValueError(f"{name}: g {tuple(g.shape)} != x "
@@ -152,7 +150,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
                  dscale.data_ptr(), part.data_ptr(), ctrs.data_ptr(), rows,
                  d, eps, code, _build.stream_of(x))
     _build.check(err, name)
-    bwd_launches += 1
+    _build.count(globals(), "bwd_launches", x)
     return dx, dscale
 
 

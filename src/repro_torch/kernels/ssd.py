@@ -50,7 +50,6 @@ def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ssd_chunk_ref``'s outputs.  bfloat16 with chunk <= 256 runs on the
     tensor cores, float32 and longer chunks on the CUDA cores; one launch
     either way."""
-    global launches
     name = "ssd_chunk"
     code = _build.dtype_code(name, xh, Bm, Cm)
     B, S, H, P = xh.shape
@@ -88,7 +87,7 @@ def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  dt.stride(2), Bm.stride(0), Bm.stride(1), Cm.stride(0),
                  Cm.stride(1), code, _build.stream_of(xh))
     _build.check(err, name)
-    launches += 1
+    _build.count(globals(), "launches", xh)
     return y, states, T
 
 

@@ -1,11 +1,13 @@
-"""Training launcher (``repro.launch.train`` in PyTorch, single process).
+"""Training launcher (``repro.launch.train`` in PyTorch).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch seesaw-150m \\
         --schedule seesaw [--reduced] [--batch-size 32] [--seq-len 1024] \\
         [--steps N | --total-tokens T] [--fuse-steps 4] \\
         [--max-device-batch 8] [--device cuda|cpu] \\
         [--checkpoint ck [--save-every N] [--sync-save] [--resume] \\
-         [--verify-restore] [--grace S]]
+         [--verify-restore] [--grace S]] \\
+        [--per-host] [--coordinator HOST:PORT --num-processes N \\
+         --process-id I]
 
 Builds the run config, the ``Trainer`` and a ``PhaseDataLoader`` over
 ``MarkovLM(min(vocab, 2048), seed)``, prints the plan line, one line per
@@ -25,21 +27,48 @@ must stay the same too).  SIGTERM/SIGINT stop the run at the next chunk
 boundary and the final save runs if ``--grace`` seconds have not passed
 since the signal.  ``--schedule adaptive-seesaw`` cuts on loss plateaus
 (``--ema-decay``, ``--plateau-window``, ``--plateau-threshold``,
-``--plateau-min-steps``; ``--max-cuts`` is the most cuts).  Multi-process
-launch is not ported.  The frontend archs (``internvl2-76b``,
+``--plateau-min-steps``; ``--max-cuts`` is the most cuts).  The frontend archs (``internvl2-76b``,
 ``seamless-m4t-medium``) are refused: their batches need the stub
 frontend's embeddings, which the loader does not make (the reference's
 neither).
+
+Multi-process data parallelism: run the same command once a process
+with ``--coordinator`` (rank 0's ``host:port``), ``--num-processes`` and
+a distinct ``--process-id``, or under ``torchrun``, whose
+``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK`` stand for them
+(the flags win)::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --device cpu --reduced --batch-size 4 --steps 20
+
+:func:`maybe_init_distributed` joins the ``torch.distributed`` group
+(retrying with backoff, ``--connect-attempts``/``--connect-backoff``;
+a failure after the retries raises, nothing falls back to one process).
+The backend follows the devices: ``gloo`` on the CPU and when ranks
+share a card, ``nccl`` when each has one of its own; rank r runs on
+``cuda:(LOCAL_RANK mod device count)`` (``LOCAL_RANK`` from torchrun,
+else the process id).  Every rank holds the model and trains on its own
+rows of each global batch; per-host feeding (``--per-host``) is forced
+on, each process sampling rows ``[r·B/N, (r+1)·B/N)``, and the ramp is
+checked up front to divide across the processes (from the resume point
+on a resume, which may have another process count: a checkpoint
+restores on any number).  The stop poll is collective: a signal to one
+rank stops every rank at the same chunk boundary, and they save.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import time
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import (OptimizerConfig, RunConfig, ScheduleConfig,
                                  get_config)
 from repro_torch.data import MarkovLM, PhaseDataLoader
+from repro_torch.launch import mesh
 from repro_torch.models import registry as R
 from repro_torch.train.trainer import Trainer
 
@@ -51,13 +80,18 @@ class PreemptionGuard:
     """SIGTERM/SIGINT as a stop request: ``install()`` replaces the
     handlers, the trainer polls :meth:`should_stop` at each chunk
     boundary, so the run stops on an exact boundary and a final save
-    resumes bit for bit.  :meth:`grace_remaining` counts the save's
-    budget down from the first signal."""
+    resumes bit for bit.  In a multi-process run the poll is collective
+    (the ranks all-reduce their flags, max): one rank's signal stops
+    every rank at the same boundary, since a rank leaving the loop alone
+    would strand its peers in the next step's all-reduce.
+    :meth:`grace_remaining` counts the save's budget down from the first
+    signal."""
 
     def __init__(self, grace: float = 60.0):
         self.grace = float(grace)
         self._signaled_at: float | None = None
         self._prev: dict = {}
+        self.stopped = False            # the (collective) poll said stop
 
     def install(self, signals=(signal.SIGTERM, signal.SIGINT)):
         for s in signals:
@@ -74,6 +108,7 @@ class PreemptionGuard:
             self._signaled_at = time.monotonic()
 
     def requested(self) -> bool:
+        """This process received a signal (local, no collective)."""
         return self._signaled_at is not None
 
     def grace_remaining(self) -> float:
@@ -83,8 +118,99 @@ class PreemptionGuard:
                    0.0)
 
     def should_stop(self) -> bool:
-        """The chunk loop's stop poll (one process: the local flag)."""
-        return self.requested()
+        """The chunk loop's stop poll: every process returns the same
+        answer at the same boundary."""
+        self.stopped = _any_rank(self.requested())
+        return self.stopped
+
+    def save_allowed(self) -> bool:
+        """Whether the final save runs: while every rank is inside its
+        grace period (collective, so the ranks save together or not)."""
+        return not _any_rank(self.requested()
+                             and self.grace_remaining() <= 0)
+
+
+def _any_rank(flag: bool) -> bool:
+    """``flag`` of any rank (an all-reduce, max; the local flag in one
+    process)."""
+    if mesh.world_size() <= 1:
+        return bool(flag)
+    dev = (torch.device("cpu") if dist.get_backend() == "gloo"
+           else torch.device("cuda", torch.cuda.current_device()))
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def init_distributed_with_retry(init_fn, *, attempts: int = 4,
+                                backoff: float = 1.0,
+                                sleep=time.sleep, log=print):
+    """Run ``init_fn`` (a zero-argument ``init_process_group`` closure)
+    with exponential backoff: a restarted job whose coordinator is still
+    coming back up retries instead of failing the relaunch.  Delays are
+    ``backoff * 2**i``; the last failure propagates."""
+    for i in range(max(int(attempts), 1)):
+        try:
+            return init_fn()
+        except Exception as e:                 # noqa: BLE001
+            if i + 1 >= attempts:
+                raise
+            delay = backoff * (2 ** i)
+            log(f"torch.distributed.init_process_group failed "
+                f"(attempt {i + 1}/{attempts}): {e}; retrying in "
+                f"{delay:.1f}s")
+            sleep(delay)
+
+
+def backend_for(device: str, local_world: int) -> str:
+    """``gloo`` on the CPU and when the local ranks share cards (gloo
+    copies a card's tensors through the host); ``nccl`` when each local
+    rank has a card of its own."""
+    if device == "cpu" or local_world > torch.cuda.device_count():
+        return "gloo"
+    return "nccl"
+
+
+def maybe_init_distributed(coordinator=None, num_processes=None,
+                           process_id=None, *, connect_attempts: int = 1,
+                           connect_backoff: float = 1.0,
+                           device: str = "cuda") -> bool:
+    """Join the ``torch.distributed`` group from the flags or torchrun's
+    environment (``MASTER_ADDR``:``MASTER_PORT``, ``WORLD_SIZE``,
+    ``RANK``; the flags win); returns True when a multi-process group was
+    initialized.  A single-process run (no coordinator, and
+    ``num_processes`` absent or 1) initializes nothing.  Otherwise all
+    three are needed; the backend is :func:`backend_for`'s, printed."""
+    env = os.environ
+    if not coordinator and env.get("MASTER_ADDR") and env.get("MASTER_PORT"):
+        coordinator = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+    if num_processes is None and env.get("WORLD_SIZE"):
+        num_processes = int(env["WORLD_SIZE"])
+    if process_id is None and env.get("RANK"):
+        process_id = int(env["RANK"])
+    if not coordinator and not num_processes:
+        return False
+    if num_processes is not None and num_processes <= 1 \
+            and not coordinator:
+        return False
+    if not (coordinator and num_processes and process_id is not None):
+        raise ValueError(
+            "multi-process launch needs all three of coordinator "
+            "address, num_processes and process_id (flags or "
+            "MASTER_ADDR/MASTER_PORT, WORLD_SIZE and RANK); got "
+            f"coordinator={coordinator!r}, "
+            f"num_processes={num_processes!r}, "
+            f"process_id={process_id!r}")
+    local_world = int(env.get("LOCAL_WORLD_SIZE", num_processes))
+    backend = backend_for(device, local_world)
+    print(f"torch.distributed: process {process_id}/{num_processes}, "
+          f"backend {backend}", flush=True)
+    init_distributed_with_retry(
+        lambda: dist.init_process_group(
+            backend, init_method=f"tcp://{coordinator}",
+            world_size=int(num_processes), rank=int(process_id)),
+        attempts=connect_attempts, backoff=connect_backoff)
+    return True
 
 
 def main(argv=None):
@@ -136,6 +262,23 @@ def main(argv=None):
     ap.add_argument("--grace", type=float, default=60.0,
                     help="seconds allowed for the final save after "
                          "SIGTERM/SIGINT")
+    ap.add_argument("--connect-attempts", type=int, default=4,
+                    help="init_process_group attempts (a slow "
+                         "coordinator restart)")
+    ap.add_argument("--connect-backoff", type=float, default=1.0,
+                    help="initial retry delay, doubled per attempt")
+    ap.add_argument("--per-host", action="store_true",
+                    help="each process feeds only its rank's shard of "
+                         "the global batch (forced on in multi-process "
+                         "runs)")
+    ap.add_argument("--coordinator", default=None,
+                    help="rank 0's host:port (or MASTER_ADDR and "
+                         "MASTER_PORT)")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="process count of the multi-process run (or "
+                         "WORLD_SIZE)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank (or RANK)")
     args = ap.parse_args(argv)
     if args.resume and not args.checkpoint:
         ap.error("--resume needs --checkpoint")
@@ -148,6 +291,34 @@ def main(argv=None):
                  f"stub frontend's embeddings, which the token loader does "
                  f"not make; train it through train.engine's grad step on "
                  f"batches with src_emb (enc-dec) or prefix_emb (VLM)")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "launch.train: --device cuda but no CUDA device is present; "
+            "pass --device cpu to train with the plain versions")
+    distributed = maybe_init_distributed(
+        args.coordinator, args.num_processes, args.process_id,
+        connect_attempts=args.connect_attempts,
+        connect_backoff=args.connect_backoff, device=args.device)
+    try:
+        return _run(args, model, distributed)
+    finally:
+        if distributed:
+            dist.destroy_process_group()
+
+
+def _run(args, model, distributed: bool):
+    device = args.device
+    if distributed:
+        rank, world = dist.get_rank(), dist.get_world_size()
+        if device == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", rank))
+            device = f"cuda:{local % torch.cuda.device_count()}"
+            torch.cuda.set_device(device)
+        print(f"process {rank}/{world} on {device}", flush=True)
+        if not args.per_host:
+            # one process cannot feed (or even hold) every rank's rows
+            args.per_host = True
+            print("per-host data feeding forced on (multi-process)")
     seq_len = args.seq_len or min(model.max_seq_len, 1024)
     b0 = args.batch_size or 32
     total = args.total_tokens or (
@@ -167,7 +338,7 @@ def main(argv=None):
         seq_len=seq_len, global_batch_size=b0, total_tokens=total,
         z_loss=args.z_loss, seed=args.seed)
 
-    trainer = Trainer(cfg, device=args.device, fuse_steps=args.fuse_steps,
+    trainer = Trainer(cfg, device=device, fuse_steps=args.fuse_steps,
                       max_device_batch=args.max_device_batch)
     print(f"arch={model.name} N={model.param_count()/1e6:.0f}M "
           f"schedule={args.schedule} phases={len(trainer.plan.phases)} "
@@ -175,15 +346,25 @@ def main(argv=None):
           f"batches={trainer.plan.batch_sizes()} "
           f"fuse_steps={trainer.fuse_steps}")
     if args.resume:
+        # restored before the ramp is checked: an elastic resume feeds
+        # the ramp from the restored position on
         meta = trainer.restore_checkpoint(args.checkpoint,
                                           verify=args.verify_restore)
         print(f"resumed step {trainer.state.step} "
               f"(phase {meta.get('phase')}, B={meta.get('batch_size')}, "
-              f"tokens {trainer.state.tokens_seen})")
+              f"tokens {trainer.state.tokens_seen}, saved from "
+              f"{meta.get('save_process_count', '?')} processes)")
     src = MarkovLM(vocab_size=min(model.vocab_size, 2048), seed=args.seed)
-    loader = PhaseDataLoader(src, trainer.plan, seq_len, device=args.device)
+    loader = PhaseDataLoader(src, trainer.plan, seq_len, device=device,
+                             per_host=args.per_host,
+                             validate=not args.resume)
     if args.resume:
         loader.resume(trainer.state.tokens_seen)
+    if args.per_host:
+        mesh.assert_per_host_row_blocks()
+        n = mesh.world_size()
+        print(f"per-host feeding: process {mesh.rank()}/{n}, local batch "
+              f"shards {[b // n for b in trainer.plan.batch_sizes()]}")
 
     def log(rec):
         print(f"step {rec['step']:5d} phase {rec['phase']} "
@@ -199,7 +380,7 @@ def main(argv=None):
                            stop_fn=guard.should_stop)
     finally:
         guard.uninstall()
-    if guard.requested():
+    if guard.stopped or guard.requested():
         print(f"preemption signal: stopped at step {trainer.state.step} "
               f"(chunk boundary)")
     if hist:
@@ -208,8 +389,13 @@ def main(argv=None):
         print("done: nothing to run")
     if trainer.controller is not None:
         print(f"adaptive cuts at steps {trainer.controller.cut_steps}")
+    red = trainer.engine.reduce
+    if red is not None and red.calls:
+        print(f"all-reduce: {red.calls} steps, {red.ms() / red.calls:.3f} "
+              f"ms a step ({red.flat.numel() * 4 / 1e6:.1f} MB, "
+              f"{dist.get_backend()})")
     if args.checkpoint:
-        if guard.requested() and guard.grace_remaining() <= 0:
+        if not guard.save_allowed():
             print("grace deadline exceeded — skipping the final save "
                   "(the last periodic checkpoint is the resume point)")
         else:

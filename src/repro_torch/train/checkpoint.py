@@ -1,7 +1,7 @@
 """Streaming, async-capable checkpoints (``repro.train.checkpoint`` in
-PyTorch, single process), in the reference's on-disk format v2 byte for
-byte: a checkpoint the port writes is the one the reference writes for
-the same weights and optimizer state, and each restores the other's.
+PyTorch), in the reference's on-disk format v2 byte for byte: a
+checkpoint the port writes is the one the reference writes for the same
+weights and optimizer state, and each restores the other's.
 
 A checkpoint is a **directory** (``path`` with any trailing ``.npz``
 stripped)::
@@ -11,7 +11,7 @@ stripped)::
                         # array index (key -> shape/dtype/block files,
                         # writer, crc32) + the save's generation + meta
       meta.json         # informational copy of the meta
-      arrays/<gen>/     # one .npy per leaf (one block: one process)
+      arrays/<gen>/     # one .npy per leaf (one block, one writer)
         00042.0.npy     # <leaf index in sorted key order>.<block>
 
 The leaves are the reference's pytree leaves, ``p:<path>`` for the
@@ -36,8 +36,22 @@ in place, so a trainer whose CUDA graphs were captured over them keeps
 replaying the same graphs.  Legacy single-file ``<base>.npz``
 checkpoints (:func:`save_npz`) restore through the same code.
 
-Single process: the manifest's ``writer`` is always 0; the reference's
-multi-process markers and barriers are not ported.
+Multi-process runs (a ``torch.distributed`` group) save collectively,
+as the reference's processes do.  The state is replicated data-parallel,
+so every rank holds every leaf and is a candidate writer: leaf j in save
+order goes to rank ``j mod N`` (the manifest's ``writer``), whose bytes
+are the same whoever writes them.  A save agrees on the generation (the
+committed manifest, read by all after a barrier); rank 0 clears the
+leftovers and makes the directory; every rank streams its leaves and
+drops its completion marker ``.save-<gen>.<rank>.json`` with their
+crc32s; rank 0 waits for every marker, merges the crc32s, commits the
+manifest and clears the markers.  The sync path puts barriers around
+the commit (``torch.distributed.barrier``); the async writer thread
+issues no collective and commits through the markers alone (the other
+ranks wait for the committed generation), so a dead peer surfaces as a
+:class:`CheckpointTimeoutError` after ``commit_timeout`` and the
+previous generation stays restorable.  The metadata records
+``save_process_count``; a checkpoint of N ranks restores on any number.
 """
 from __future__ import annotations
 
@@ -53,9 +67,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.launch import mesh
 
 FORMAT_VERSION = 2                     # v2 adds writer + crc32 per block
 DEFAULT_CHUNK_BYTES = 1 << 24          # 16 MiB per device->host slice
+DEFAULT_COMMIT_TIMEOUT = 600.0         # s to wait on peers before failing
 
 Block = Tuple[Tuple[int, int], ...]    # ((start, stop), ...) per dim
 
@@ -72,6 +90,11 @@ class CheckpointError(RuntimeError):
 
 class CheckpointCorruptionError(CheckpointError):
     """A block file's content does not match its manifest checksum."""
+
+
+class CheckpointTimeoutError(CheckpointError):
+    """A peer process never finished its part of a save: it likely died
+    mid-save.  The previously committed generation is intact."""
 
 
 class Stacked(tuple):
@@ -94,6 +117,13 @@ def _np_dtype(dtype) -> np.dtype:
                              f"save the float32 master weights")
         return np.dtype(_NP_DTYPES[dtype])
     return np.dtype(dtype)
+
+
+def _barrier(name: str):
+    """Every rank of a multi-process run reaches ``name`` (a no-op for one
+    process)."""
+    if mesh.world_size() > 1:
+        dist.barrier()
 
 
 def _to_host(x) -> np.ndarray:
@@ -232,9 +262,27 @@ def _committed_generation(base: str) -> int:
         return -1
 
 
+# --------------------------------------------------------------------- #
+# commit coordination (marker files)
+# --------------------------------------------------------------------- #
+
+def _marker_path(base: str, gen: int, pid: int) -> str:
+    return os.path.join(base, f".save-{gen}.{pid}.json")
+
+
+def _write_marker(base: str, gen: int, pid: int, crcs: Dict[str, int]):
+    """Drop this rank's completion marker in one rename: its blocks are
+    on disk, with these checksums."""
+    path = _marker_path(base, gen, pid)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"process": pid, "crc32": crcs}, f)
+    os.replace(tmp, path)
+
+
 def _clear_markers(base: str):
-    """Remove the reference's per-process save markers (``.save-*``)
-    that an interrupted multi-process save may have left."""
+    """Remove the per-process save markers (``.save-*``) of a save, or
+    those an interrupted save left."""
     try:
         entries = os.listdir(base)
     except FileNotFoundError:
@@ -247,37 +295,105 @@ def _clear_markers(base: str):
                 pass
 
 
-def _prepare(base: str) -> Tuple[int, int]:
-    """The new generation, with the leftovers of interrupted saves
-    cleared and its directory made; the committed generation stays
-    restorable until the new one commits."""
+def _apply_crcs(manifest: Dict, crcs: Dict[str, int]):
+    for entry in manifest["arrays"].values():
+        for sh in entry["shards"]:
+            if sh["file"] in crcs:
+                sh["crc32"] = crcs[sh["file"]]
+
+
+def _merge_markers(base: str, gen: int, nproc: int, manifest: Dict, *,
+                   timeout: float, poll: float = 0.05):
+    """Rank 0: wait until every rank's completion marker exists and merge
+    their checksums into the manifest.  A marker that never comes means
+    a peer died mid-save: fail with a clear error, the previous committed
+    generation untouched."""
+    deadline = time.monotonic() + timeout
+    seen: set = set()
+    while True:
+        for pid in range(nproc):
+            if pid in seen:
+                continue
+            p = _marker_path(base, gen, pid)
+            if os.path.exists(p):
+                try:
+                    with open(p) as f:
+                        m = json.load(f)
+                except (json.JSONDecodeError, OSError):
+                    continue               # racing replace; retry
+                _apply_crcs(manifest, m.get("crc32", {}))
+                seen.add(pid)
+        if len(seen) >= nproc:
+            return
+        if time.monotonic() > deadline:
+            raise CheckpointTimeoutError(
+                f"timed out after {timeout:.0f}s waiting for save "
+                f"markers from processes "
+                f"{sorted(set(range(nproc)) - seen)} of generation "
+                f"{gen} — a peer likely died mid-save; the previous "
+                f"committed checkpoint is still restorable")
+        time.sleep(poll)
+
+
+def _await_commit(base: str, gen: int, timeout: float,
+                  poll: float = 0.05):
+    """Ranks other than 0 of an async save: wait for rank 0's commit, so
+    the next save's generation agrees across ranks."""
+    deadline = time.monotonic() + timeout
+    while _committed_generation(base) < gen:
+        if time.monotonic() > deadline:
+            raise CheckpointTimeoutError(
+                f"timed out after {timeout:.0f}s waiting for process 0 "
+                f"to commit generation {gen} — it likely died "
+                f"mid-save; the previous committed checkpoint is "
+                f"still restorable")
+        time.sleep(poll)
+
+
+def _prepare(base: str, *, collective: bool = True) -> Tuple[int, int]:
+    """Agree on the new generation and (rank 0) clear the leftovers of
+    interrupted saves and make its directory; the committed generation
+    stays restorable until the new one commits.  ``collective``: every
+    rank first enters the save (so none still reads the directory, e.g.
+    a slower peer's restore), and none streams before the directory
+    exists."""
     committed = _committed_generation(base)
     gen = committed + 1
     arrays_root = os.path.join(base, "arrays")
-    os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
-    if os.path.isdir(arrays_root):
-        for entry in os.listdir(arrays_root):
-            if entry != str(committed):
-                shutil.rmtree(os.path.join(arrays_root, entry))
-    _clear_markers(base)
-    os.makedirs(os.path.join(arrays_root, str(gen)), exist_ok=True)
+    if collective:
+        _barrier("ckpt-enter")
+    if mesh.rank() == 0:
+        os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
+        if os.path.isdir(arrays_root):
+            for entry in os.listdir(arrays_root):
+                if entry != str(committed):
+                    shutil.rmtree(os.path.join(arrays_root, entry))
+        _clear_markers(base)
+        os.makedirs(os.path.join(arrays_root, str(gen)), exist_ok=True)
+    if collective:
+        _barrier("ckpt-prepare")
     return committed, gen
 
 
 def _plan_writes(flat: Dict[str, Any], gen: int):
-    """(manifest ``arrays`` dict, [(block entry, leaf), ...]): one block
-    per leaf, written by process 0."""
+    """(manifest ``arrays`` dict, [(block entry, leaf), ...] of the
+    blocks THIS rank writes): one block per leaf, its writer rotating
+    round-robin over the ranks in save order (every rank holds every
+    leaf), as the reference rotates over the processes holding a
+    copy."""
     arrays: Dict[str, Any] = {}
     mine: List[Tuple[Dict, Any]] = []
+    nproc, me = mesh.world_size(), mesh.rank()
     for li, (key, leaf) in enumerate(sorted(flat.items())):
         shape, dtype = _leaf_meta(leaf)
         ent = {"file": _shard_file(gen, li, 0),
                "start": [0] * len(shape),
                "stop": list(shape),
-               "writer": 0}
+               "writer": li % nproc}
         arrays[key] = {"shape": list(shape), "dtype": dtype.name,
                        "shards": [ent]}
-        mine.append((ent, leaf))
+        if ent["writer"] == me:
+            mine.append((ent, leaf))
     return arrays, mine
 
 
@@ -300,30 +416,53 @@ def _commit(base: str, manifest: Dict, committed: int):
 
 
 def _run_save(base: str, flat: Dict[str, Any], meta: Dict,
-              committed: int, gen: int, *, chunk_bytes: int):
-    meta.setdefault("save_process_count", 1)
+              committed: int, gen: int, *, chunk_bytes: int,
+              commit_timeout: float, barriers: bool):
+    """Stream this rank's blocks and run the commit.  ``barriers=True``
+    is the sync path (barriers around the commit); ``barriers=False``
+    the async writer thread's, which issues no collective and commits
+    through the marker files alone."""
+    nproc, me = mesh.world_size(), mesh.rank()
+    meta.setdefault("save_process_count", nproc)
     arrays, mine = _plan_writes(flat, gen)
     manifest = {"format": FORMAT_VERSION, "generation": gen,
                 "meta": meta, "arrays": arrays}
-    for ent, leaf in mine:
-        ent["crc32"] = _stream_write(os.path.join(base, ent["file"]), leaf,
-                                     chunk_bytes)
-    _commit(base, manifest, committed)
+    crcs = {ent["file"]: _stream_write(os.path.join(base, ent["file"]),
+                                       leaf, chunk_bytes)
+            for ent, leaf in mine}
+    if nproc > 1:
+        _write_marker(base, gen, me, crcs)
+        if barriers:
+            _barrier("ckpt-shards")
+        if me == 0:
+            _merge_markers(base, gen, nproc, manifest,
+                           timeout=commit_timeout)
+            _commit(base, manifest, committed)
+        elif not barriers:
+            _await_commit(base, gen, commit_timeout)
+        if barriers:
+            _barrier("ckpt-commit")
+    else:
+        _apply_crcs(manifest, crcs)
+        _commit(base, manifest, committed)
 
 
 def save(path: str, params, opt_state, step: int, tokens_seen: int,
          extra: Optional[Dict[str, Any]] = None, *,
-         chunk_bytes: int = DEFAULT_CHUNK_BYTES):
+         chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+         commit_timeout: float = DEFAULT_COMMIT_TIMEOUT):
     """Write a checkpoint directory at ``path`` (a trailing ``.npz`` is
     stripped) from the trees ``params`` and ``opt_state`` (tensors on any
-    device, numpy arrays, :class:`Stacked`); blocks until committed.  For
-    saves that overlap training, use :class:`CheckpointManager`."""
+    device, numpy arrays, :class:`Stacked`); blocks until committed.
+    Collective in a multi-process run: every rank calls it.  For saves
+    that overlap training, use :class:`CheckpointManager`."""
     base = _base(path)
     flat = _flat_state(params, opt_state)
     committed, gen = _prepare(base)
     meta = {"step": int(step), "tokens_seen": tokens_seen,
             **(extra or {})}
-    _run_save(base, flat, meta, committed, gen, chunk_bytes=chunk_bytes)
+    _run_save(base, flat, meta, committed, gen, chunk_bytes=chunk_bytes,
+              commit_timeout=commit_timeout, barriers=True)
 
 
 def _materialize(leaf) -> np.ndarray:
@@ -384,6 +523,10 @@ class _SaveJob:
     # recorded on the caller's stream behind the snapshot's copies
     ready: Optional[Any] = None
     device: Optional[torch.device] = None
+    # the generation agreed at request time (multi-process); None: the
+    # writer thread reads it (one process)
+    committed: Optional[int] = None
+    gen: Optional[int] = None
 
 
 class CheckpointManager:
@@ -394,17 +537,24 @@ class CheckpointManager:
     commits.  On the card the snapshot's copies are queued on the
     caller's stream ahead of the next step, and the writer reads them on
     a stream of its own once an event behind them has fired, so the
-    step loop waits only for the copies' dispatch.  While one save
-    streams, only the newest pending request survives (requests
-    coalesce to first + newest).  A writer exception is re-raised at the
-    next ``check()`` / ``request_save`` / ``finalize`` and then cleared;
-    ``finalize`` joins at exit."""
+    step loop waits only for the copies' dispatch.  In one process,
+    while a save streams only the newest pending request survives
+    (requests coalesce to first + newest).  In a multi-process run
+    ``request_save`` is collective (every rank calls it at the same
+    boundary): each request first joins the one in flight, then agrees
+    on the generation on the calling thread, so the writer threads
+    issue no collective and every rank saves the same sequence.  A
+    writer exception (a :class:`CheckpointTimeoutError` when a peer
+    died) is re-raised at the next ``check()`` / ``request_save`` /
+    ``finalize`` and then cleared; ``finalize`` joins at exit."""
 
     def __init__(self, *, plan=None, seq_len: Optional[int] = None,
-                 chunk_bytes: int = DEFAULT_CHUNK_BYTES):
+                 chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                 commit_timeout: float = DEFAULT_COMMIT_TIMEOUT):
         self.plan = plan
         self.seq_len = seq_len
         self.chunk_bytes = chunk_bytes
+        self.commit_timeout = commit_timeout
         self._lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._pending: Optional[_SaveJob] = None
@@ -447,6 +597,12 @@ class CheckpointManager:
                          "schedule_kind": self.plan.kind,
                          "total_tokens": self.plan.total_tokens})
         meta.update(extra or {})
+        multiproc = mesh.world_size() > 1
+        if multiproc:
+            # every rank's save sequence stays the same whatever its
+            # writer's speed: requests run one after another
+            self.wait()
+            self.check()
         job = _SaveJob(base=_base(path), params=snapshot_tree(params),
                        opt_state=snapshot_tree(opt_state), meta=meta,
                        chunk_bytes=self.chunk_bytes)
@@ -454,11 +610,16 @@ class CheckpointManager:
         if job.device is not None:
             job.ready = torch.cuda.Event()
             job.ready.record(torch.cuda.current_stream(job.device))
-        with self._lock:
-            if self._thread is not None and self._thread.is_alive():
-                self._pending = job          # coalesce: newest wins
-            else:
+        if multiproc:
+            job.committed, job.gen = _prepare(job.base)
+            with self._lock:
                 self._start_locked(job)
+        else:
+            with self._lock:
+                if self._thread is not None and self._thread.is_alive():
+                    self._pending = job      # coalesce: newest wins
+                else:
+                    self._start_locked(job)
         self.last_stall_s = time.monotonic() - t0
         if block:
             self.wait()
@@ -493,17 +654,21 @@ class CheckpointManager:
 
     def _execute(self, job: _SaveJob):
         t0 = time.monotonic()
-        committed, gen = _prepare(job.base)
+        if job.gen is None:                  # one process
+            committed, gen = _prepare(job.base, collective=False)
+        else:
+            committed, gen = job.committed, job.gen
         flat = _flat_state(job.params, job.opt_state)
+        kw = dict(chunk_bytes=job.chunk_bytes,
+                  commit_timeout=self.commit_timeout, barriers=False)
         if job.device is None:
-            _run_save(job.base, flat, dict(job.meta), committed, gen,
-                      chunk_bytes=job.chunk_bytes)
+            _run_save(job.base, flat, dict(job.meta), committed, gen, **kw)
         else:
             stream = torch.cuda.Stream(device=job.device)
             stream.wait_event(job.ready)
             with torch.cuda.stream(stream):
                 _run_save(job.base, flat, dict(job.meta), committed, gen,
-                          chunk_bytes=job.chunk_bytes)
+                          **kw)
             stream.synchronize()
         self.last_write_s = time.monotonic() - t0
 
@@ -520,7 +685,7 @@ class CheckpointManager:
             t.join(0.05 if deadline is None
                    else max(min(deadline - time.monotonic(), 0.05), 0))
             if deadline is not None and time.monotonic() > deadline:
-                raise CheckpointError(
+                raise CheckpointTimeoutError(
                     f"async checkpoint writer did not finish within "
                     f"{timeout:.0f}s")
 
@@ -779,7 +944,8 @@ def save_phase_checkpoint(path: str, params, opt_state, step: int,
                           tokens_seen: int, *, plan,
                           seq_len: Optional[int] = None,
                           extra: Optional[Dict[str, Any]] = None,
-                          chunk_bytes: int = DEFAULT_CHUNK_BYTES):
+                          chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                          commit_timeout: float = DEFAULT_COMMIT_TIMEOUT):
     """:func:`save` plus the plan position at ``tokens_seen``: the phase
     of the next step and its batch size."""
     ph = _plan_phase(plan, tokens_seen, seq_len)
@@ -787,7 +953,7 @@ def save_phase_checkpoint(path: str, params, opt_state, step: int,
             "schedule_kind": plan.kind,
             "total_tokens": plan.total_tokens, **(extra or {})}
     save(path, params, opt_state, step, tokens_seen, extra=meta,
-         chunk_bytes=chunk_bytes)
+         chunk_bytes=chunk_bytes, commit_timeout=commit_timeout)
 
 
 def restore_phase_checkpoint(path: str, params_template, opt_template,

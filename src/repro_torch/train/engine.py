@@ -1,6 +1,5 @@
-"""The phase execution engine (``repro.train.engine`` in PyTorch, single
-process) — the one train-step stack under ``Trainer`` and
-``launch.train``.
+"""The phase execution engine (``repro.train.engine`` in PyTorch) — the
+one train-step stack under ``Trainer`` and ``launch.train``.
 
 1. ``make_grad_step`` — one optimizer step ``(model, opt_state, batch,
    lr) → (model, opt_state, metrics)``: micro-batch accumulation that
@@ -48,18 +47,33 @@ graph.  (The reference passes the phase table as runtime arguments,
 padded to a fixed width, only because its step is compiled.)
 ``run_chunk`` then also carries the loss EMA the plateau controller
 reads, one float32 scalar a chunk (``make_fused_step(ema_decay=...)`` in
-the reference).
+the reference).  At a cut to a new batch size ``prewarm_async`` captures
+its graph in a thread while the loop goes on (the reference compiles it
+in one); the key's first chunk joins it.
+
+In a multi-process run (a ``torch.distributed`` group) every rank holds
+the model and trains on its own rows of each global batch; a step
+averages the ranks' grads and metrics with one all-reduce of a flat
+float32 buffer before the norm, the clip and the optimizer
+(``SplitStep``, ``FlatReduce``).  A gloo collective is host work that no
+CUDA graph holds, so on the card a key holds two graphs, the grad half
+and the update half, and the all-reduce runs between their replays.
+With one process nothing of this runs: one graph a key, as before.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import graphs as G
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import schedules as S
 from repro_torch.core.seesaw import SeesawPlan
+from repro_torch.launch import mesh
 from repro_torch.models import registry as R
 from repro_torch.optim import optimizers as O
 
@@ -70,49 +84,182 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # 1. the single grad step
 # --------------------------------------------------------------------- #
 
+def _local_grads(model, cfg, batch, names, params, micro_batches, z_loss,
+                 dtype, remat):
+    """(grads in ``names``' order, float32 metrics) of ``batch`` on this
+    process: with ``micro_batches`` > 1 the batch splits along its first
+    dim, the grads are summed and divided by the count, the metrics
+    averaged."""
+    if micro_batches > 1:
+        b = next(iter(batch.values())).shape[0] // micro_batches
+        gacc, rows = None, []
+        for i in range(micro_batches):
+            mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+            loss, aux = R.loss_fn(model, cfg, mb, z_loss=z_loss,
+                                  dtype=dtype, remat=remat)
+            g = torch.autograd.grad(loss, [params[n] for n in names])
+            if gacc is None:
+                gacc = list(g)
+            else:                   # in place: one set of grads held
+                for a, gi in zip(gacc, g):
+                    a.add_(gi)
+            # freed before the next backward, which would otherwise
+            # hold a third set of grads from the third micro-batch on
+            g = gi = None
+            rows.append(dict(aux, loss=loss))
+        grads = [a.div_(micro_batches) for a in gacc]
+        metrics = {k: torch.stack([r[k].detach() for r in rows]).mean()
+                   for k in rows[0]}
+    else:
+        loss, metrics = R.loss_fn(model, cfg, batch, z_loss=z_loss,
+                                  dtype=dtype, remat=remat)
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+    return grads, {k: v.detach().float() for k, v in metrics.items()}
+
+
 def make_grad_step(cfg: ModelConfig, optimizer: O.Optimizer, *,
                    micro_batches: int = 1, z_loss: float = 0.0,
-                   dtype=torch.bfloat16, remat: bool = True) -> Callable:
+                   dtype=torch.bfloat16, remat: bool = True,
+                   reduce: Optional["FlatReduce"] = None) -> Callable:
     """The one training step builder: ``step(model, opt_state, batch,
     lr) → (model, opt_state, metrics)``.  With ``micro_batches`` > 1 the
     batch splits along its first dim; the grads are summed and divided
     by the count, the metrics averaged.  ``metrics["grad_norm"]`` is the
-    global norm of the averaged grads before clipping."""
+    global norm of the averaged grads before clipping.  With ``reduce``
+    (more than one rank) the step is a :class:`SplitStep`: this rank's
+    grads and metrics are averaged over the ranks before the norm, the
+    clip and the optimizer."""
+    if reduce is not None:
+        return SplitStep(cfg, optimizer, micro_batches=micro_batches,
+                         z_loss=z_loss, dtype=dtype, remat=remat,
+                         reduce=reduce)
 
     def step(model, opt_state, batch, lr):
         params = dict(model.named_parameters())
         names = list(params)
-        if micro_batches > 1:
-            b = next(iter(batch.values())).shape[0] // micro_batches
-            gacc, rows = None, []
-            for i in range(micro_batches):
-                mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
-                loss, aux = R.loss_fn(model, cfg, mb, z_loss=z_loss,
-                                      dtype=dtype, remat=remat)
-                g = torch.autograd.grad(loss, [params[n] for n in names])
-                if gacc is None:
-                    gacc = list(g)
-                else:                   # in place: one set of grads held
-                    for a, gi in zip(gacc, g):
-                        a.add_(gi)
-                # freed before the next backward, which would otherwise
-                # hold a third set of grads from the third micro-batch on
-                g = gi = None
-                rows.append(dict(aux, loss=loss))
-            grads = [a.div_(micro_batches) for a in gacc]
-            metrics = {k: torch.stack([r[k].detach() for r in rows]).mean()
-                       for k in rows[0]}
-        else:
-            loss, metrics = R.loss_fn(model, cfg, batch, z_loss=z_loss,
-                                      dtype=dtype, remat=remat)
-            grads = torch.autograd.grad(loss, [params[n] for n in names])
-        metrics = {k: v.detach().float() for k, v in metrics.items()}
+        grads, metrics = _local_grads(model, cfg, batch, names, params,
+                                      micro_batches, z_loss, dtype, remat)
         metrics["grad_norm"] = O.global_norm(grads)
         _, opt_state = optimizer.update(dict(zip(names, grads)), opt_state,
                                         params, lr)
         return model, opt_state, metrics
 
     return step
+
+
+class FlatReduce:
+    """The one float32 buffer a multi-rank step all-reduces: every
+    parameter's grad in ``named_parameters`` order, then the metrics in
+    a fixed order.  Made at the first step, which runs eagerly before
+    any capture, and shared by every batch size's step (and graphs): its
+    address is what the graphs read and write.  ``all_reduce`` sums it
+    over the process group; the update half divides by the world size.
+    The collective runs between the two halves' graphs, since a gloo
+    collective is host work that no CUDA graph holds.  Its time is kept:
+    CUDA events around it on the card (read at the end, no sync), the
+    host clock on the CPU."""
+
+    def __init__(self, world: int):
+        self.world = world
+        self.flat: Optional[torch.Tensor] = None
+        self.views: List[torch.Tensor] = []
+        self.metric_names: List[str] = []
+        self.calls = 0
+        self._events: List[Tuple] = []
+        self._host_s = 0.0
+
+    def buffers(self, params: List[torch.Tensor], metrics: Dict):
+        """(grad views, metric view) of the buffer, made at first use
+        (the metrics' names fix their order)."""
+        if self.flat is None:
+            if params[0].is_cuda and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the all-reduce buffer would be made "
+                                   "during a capture; run a step first")
+            self.metric_names = sorted(metrics)
+            n = sum(p.numel() for p in params)
+            self.flat = torch.zeros(n + len(self.metric_names),
+                                    dtype=torch.float32,
+                                    device=params[0].device)
+            off = 0
+            for p in params:
+                self.views.append(self.flat[off:off + p.numel()]
+                                  .view(p.shape))
+                off += p.numel()
+        return self.views, self.flat[-len(self.metric_names):]
+
+    def all_reduce(self) -> None:
+        if self.flat.is_cuda:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            dist.all_reduce(self.flat)
+            ev[1].record()
+            self._events.append(ev)
+        else:
+            t = time.perf_counter()
+            dist.all_reduce(self.flat)
+            self._host_s += time.perf_counter() - t
+        self.calls += 1
+
+    def ms(self) -> float:
+        """Milliseconds spent in the all-reduces so far."""
+        for a, b in self._events:
+            b.synchronize()
+            self._host_s += a.elapsed_time(b) / 1e3
+        self._events.clear()
+        return self._host_s * 1e3
+
+
+class SplitStep:
+    """A multi-rank optimizer step in two halves around the all-reduce.
+    ``grad_half(model, batch)`` writes this rank's grads (averaged over
+    its micro-batches, as the one-rank step) and metrics into the
+    :class:`FlatReduce` buffer; ``update_half(model, opt_state, lr)``
+    divides the summed buffer by the world size, takes the global norm
+    and runs the optimizer (its clip too) on the averaged grads, and
+    returns the metrics.  Calling the step runs both with the
+    all-reduce between them; on the card the engine captures each half
+    in a graph of its own and runs the all-reduce between their
+    replays."""
+
+    def __init__(self, cfg, optimizer, *, micro_batches, z_loss, dtype,
+                 remat, reduce: FlatReduce):
+        self.cfg, self.optimizer = cfg, optimizer
+        self.micro_batches, self.z_loss = micro_batches, z_loss
+        self.dtype, self.remat = dtype, remat
+        self.reduce = reduce
+
+    def grad_half(self, model, batch) -> None:
+        params = dict(model.named_parameters())
+        names = list(params)
+        grads, metrics = _local_grads(model, self.cfg, batch, names, params,
+                                      self.micro_batches, self.z_loss,
+                                      self.dtype, self.remat)
+        views, mvec = self.reduce.buffers([params[n] for n in names],
+                                          metrics)
+        for v, g in zip(views, grads):
+            v.copy_(g)
+        mvec.copy_(torch.stack([metrics[k]
+                                for k in self.reduce.metric_names]))
+
+    def update_half(self, model, opt_state, lr) -> Dict[str, torch.Tensor]:
+        params = dict(model.named_parameters())
+        red = self.reduce
+        red.flat.div_(red.world)
+        grads = red.views
+        mvec = red.flat[-len(red.metric_names):]
+        metrics = {k: mvec[i].clone()
+                   for i, k in enumerate(red.metric_names)}
+        metrics["grad_norm"] = O.global_norm(grads)
+        self.optimizer.update(dict(zip(params, grads)), opt_state, params,
+                              lr)
+        return metrics
+
+    def __call__(self, model, opt_state, batch, lr):
+        self.grad_half(model, batch)
+        self.reduce.all_reduce()
+        return model, opt_state, self.update_half(model, opt_state, lr)
 
 
 # --------------------------------------------------------------------- #
@@ -171,12 +318,14 @@ def chunk_lrs(lr_fn: Callable, tokens_seen, step0: int, n: int,
 
 class _Step:
     """One cache entry: the grad step of a ``(batch_size, micro)`` key
-    and, on the card once captured, its graph, the static batch it reads
-    and the (model, optimizer state) it updates."""
+    and, on the card once captured, its graph (with more than one rank
+    two: ``graph`` the grad half, ``update`` the update half), the static
+    batch it reads and the (model, optimizer state) it updates."""
 
     def __init__(self, grad: Callable):
         self.grad = grad
         self.graph: Optional[G.Graph] = None
+        self.update: Optional[G.Graph] = None
         self.batch: Optional[Dict[str, torch.Tensor]] = None
         self.state: Optional[Tuple] = None
 
@@ -200,7 +349,10 @@ class PhaseEngine:
     """Dispatcher for one run: the accumulation count per batch size, the
     step cache and the K-step chunk call.  An ``adaptive-seesaw`` plan
     adds the live plan (``update_plan``) and the loss EMA
-    (``run_chunk(loss_ema=)``)."""
+    (``run_chunk(loss_ema=)``).  In a multi-process run (a
+    ``torch.distributed`` group of more than one rank) each rank trains
+    on its own rows of every global batch and the steps average grads
+    and metrics over the ranks (:class:`SplitStep`)."""
 
     def __init__(self, cfg: RunConfig, optimizer: O.Optimizer,
                  plan: SeesawPlan, *, max_device_batch: Optional[int] = None):
@@ -214,6 +366,8 @@ class PhaseEngine:
             self.ema_decay = float(cfg.schedule.ema_decay or 0.98)
         self.lr_fn = plan_lr_fn(plan, cfg.seq_len)
         self.dtype = DTYPES[cfg.dtype]
+        self.world = mesh.world_size()
+        self.reduce = FlatReduce(self.world) if self.world > 1 else None
         self._cache: Dict[Tuple[int, int], _Step] = {}
         self.captures = 0                 # graphs captured
         self.capture_s = 0.0              # seconds spent capturing them
@@ -221,17 +375,42 @@ class PhaseEngine:
         self._warm = False                # the first (eager) step has run
         self._pool = None
         self._stage: Optional[G.PinnedStage] = None
+        # the (model, optimizer state) of the last chunk, which a
+        # background capture is made over
+        self._live: Optional[Tuple] = None
+        # background captures: key -> [thread, error]; join wait by key
+        self._prewarm: Dict[Tuple[int, int], list] = {}
+        self.prewarm_wait_s: Dict[Tuple[int, int], float] = {}
+
+    def n_data_devices(self) -> int:
+        """The data-parallel width: the process group's size (1 in a
+        single-process run)."""
+        return self.world
 
     def micro_batches(self, batch_size: int) -> int:
-        """Accumulation count for a global batch: the least count whose
-        micro-batch holds at most ``max_device_batch`` rows and divides
-        the batch (one device)."""
+        """Accumulation count for a global batch.  The micro-batch is a
+        slice of the global batch, so it must divide the global batch and
+        still split evenly across the data ranks; the least such count
+        whose per-rank share holds at most ``max_device_batch`` rows.
+        When no count satisfies both, raise (a fractional per-rank share
+        is what the check rules out)."""
         if not self.max_device_batch:
             return 1
-        micro = max(-(-batch_size // self.max_device_batch), 1)
-        while batch_size % micro:
+        n_dev = max(self.n_data_devices(), 1)
+        per_dev = batch_size // n_dev
+        micro = max(-(-per_dev // self.max_device_batch), 1)
+        while micro <= batch_size:
+            if (batch_size % micro == 0
+                    and (batch_size // micro) % n_dev == 0):
+                return micro
             micro += 1
-        return micro
+        raise ValueError(
+            f"no gradient-accumulation count splits global batch "
+            f"{batch_size} into microbatches of <= "
+            f"{self.max_device_batch} rows per device across {n_dev} "
+            f"data devices: every divisor of {batch_size} leaves a "
+            f"per-device share that is fractional — use a batch size "
+            f"divisible by {n_dev}")
 
     def update_plan(self, plan: SeesawPlan) -> None:
         """Swap in an extended plan after an adaptive cut.  Only for the
@@ -256,15 +435,18 @@ class PhaseEngine:
                                  **kw)
 
     def step_for(self, batch_size: int) -> _Step:
-        """The cache entry of a global batch size (made on first use)."""
+        """The cache entry of a global batch size (made on first use).  A
+        background capture of its key still under way is joined first,
+        and its error raised here."""
         micro = self.micro_batches(batch_size)
         key = (batch_size, micro)
+        self._join(key)
         ent = self._cache.get(key)
         if ent is None:
             ent = self._cache[key] = _Step(make_grad_step(
                 self.model, self.optimizer, micro_batches=micro,
                 z_loss=self.cfg.z_loss, dtype=self.dtype,
-                remat=self.cfg.remat))
+                remat=self.cfg.remat, reduce=self.reduce))
         return ent
 
     def run_chunk(self, model, opt_state, tokens_seen, stacked_batch,
@@ -278,9 +460,11 @@ class PhaseEngine:
         (K,): the LR on the host, the rest on the batch's device.  An
         adaptive engine returns a fourth element, the loss EMA after the
         chunk (a float32 0-d tensor on the batch's device), carried from
-        ``loss_ema`` (None: unseeded, the first loss seeds it)."""
+        ``loss_ema`` (None: unseeded, the first loss seeds it).  In a
+        multi-process run ``stacked_batch`` holds this rank's rows, and
+        the metrics are the global batch's."""
         first = next(iter(stacked_batch.values()))
-        k, batch_size = first.shape[0], first.shape[1]
+        k, batch_size = first.shape[0], first.shape[1] * self.world
         n = k if n_valid is None else min(int(n_valid), k)
         if k * batch_size * self.cfg.seq_len >= 2 ** 31:
             raise ValueError(
@@ -290,6 +474,7 @@ class PhaseEngine:
         lrs = chunk_lrs(self.lr_fn, tokens_seen,
                         -1 if step is None else int(step), n,
                         batch_size * self.cfg.seq_len)
+        self._live = (model, opt_state)
         if first.device.type == "cuda":
             metrics = self._run_card(ent, model, opt_state, stacked_batch,
                                      lrs, k)
@@ -346,6 +531,9 @@ class PhaseEngine:
                 for name, buf in ent.batch.items():
                     buf.copy_(batch[name])
                 m = ent.graph.replay()
+                if ent.update is not None:
+                    self.reduce.all_reduce()
+                    m = ent.update.replay()
             if not out:
                 rows = torch.zeros(len(m), k, dtype=torch.float32,
                                    device=device)
@@ -357,11 +545,92 @@ class PhaseEngine:
 
     def _capture(self, ent: _Step, model, opt_state, batch) -> None:
         """Capture ``ent``'s step over a static copy of ``batch``, the
-        engine's LR and the given model and state."""
+        engine's LR and the given model and state: one graph, or with
+        more than one rank the grad half's and the update half's."""
         ent.batch = {name: v.clone() for name, v in batch.items()}
         ent.state = (model, opt_state)
-        ent.graph = G.Graph(
-            lambda: ent.grad(model, opt_state, ent.batch, self.lr)[2],
-            self._pool)
-        self.captures += 1
-        self.capture_s += ent.graph.capture_s
+        if isinstance(ent.grad, SplitStep):
+            ent.graph = G.Graph(lambda: ent.grad.grad_half(model, ent.batch)
+                                or {}, self._pool)
+            ent.update = G.Graph(
+                lambda: ent.grad.update_half(model, opt_state, self.lr),
+                self._pool)
+            graphs = (ent.graph, ent.update)
+        else:
+            ent.graph = G.Graph(
+                lambda: ent.grad(model, opt_state, ent.batch, self.lr)[2],
+                self._pool)
+            graphs = (ent.graph,)
+        self.captures += len(graphs)
+        self.capture_s += sum(g.capture_s for g in graphs)
+
+    # -- the next batch size's graph, captured in the background --------- #
+    def prewarm_async(self, batch_size: int, k: int, stacked_batch):
+        """Capture the step of a future batch size in a daemon thread (the
+        reference's background compile at an adaptive cut), so its first
+        chunk replays a graph instead of capturing one.  ``stacked_batch``
+        is the current chunk, read for its per-row shapes and dtypes only:
+        the capture reads a static batch of the new shape, which each
+        replay fills.  ``k`` (the chunk length) keys nothing here: one
+        graph holds one step.
+
+        Returns the started thread, or ``None`` when the key is captured
+        or warming already, when the batch lies on the CPU (nothing to
+        capture) or before the engine's first, eager, step.
+        :meth:`step_for` joins a thread in flight for its key before
+        using the entry, so a key is never captured twice.  Where the
+        reference lets a failed background compile fall back to a lazy
+        compile, a failed capture here raises, in the main thread, at
+        that join: nothing falls back to the eager step.  While the
+        capture runs, the other threads may launch, replay, copy and sync
+        their own streams, but not the whole device: CUDA refuses a
+        ``torch.cuda.synchronize()`` while a stream captures.  The
+        trainer's loop syncs its own stream only, and joins the capture
+        (at the new key's first chunk, or at the end of the run) before
+        anything else could."""
+        first = next(iter(stacked_batch.values()))
+        micro = self.micro_batches(batch_size)
+        key = (batch_size, micro)
+        if first.device.type != "cuda" or not self._warm or \
+                self._live is None or key in self._prewarm:
+            return None
+        ent = self.step_for(batch_size)
+        if ent.graph is not None:
+            return None
+        model, opt_state = self._live
+        rows = batch_size // self.world
+        batch = {name: torch.zeros((rows,) + tuple(v.shape[2:]),
+                                   dtype=v.dtype, device=v.device)
+                 for name, v in stacked_batch.items()}
+        slot = [None, None]
+        device = first.device
+
+        def work():
+            try:
+                torch.cuda.set_device(device)
+                self._capture(ent, model, opt_state, batch)
+            except Exception as e:                # raised at the join
+                slot[1] = e
+
+        t = threading.Thread(target=work, daemon=True,
+                             name=f"prewarm-b{batch_size}")
+        slot[0] = t
+        self._prewarm[key] = slot
+        t.start()
+        return t
+
+    def _join(self, key) -> None:
+        slot = self._prewarm.pop(key, None)
+        if slot is None:
+            return
+        t = time.perf_counter()
+        slot[0].join()
+        self.prewarm_wait_s[key] = time.perf_counter() - t
+        if slot[1] is not None:
+            raise slot[1]
+
+    def join_prewarm(self) -> None:
+        """Join every background capture still under way, raising the
+        first failure."""
+        for key in list(self._prewarm):
+            self._join(key)

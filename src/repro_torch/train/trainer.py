@@ -1,5 +1,5 @@
-"""The Seesaw training runtime (``repro.train.trainer`` in PyTorch,
-single process), driving the phase execution engine.
+"""The Seesaw training runtime (``repro.train.trainer`` in PyTorch),
+driving the phase execution engine.
 
 The trainer walks the plan's phases through the loader's merged,
 tail-padded chunk stream (``PhaseDataLoader.iter_chunks``): up to
@@ -17,8 +17,15 @@ polled at each boundary.  A restore copies into the live parameters and
 optimizer state in place, so a trainer keeps replaying the CUDA graphs
 it captured.  An ``adaptive-seesaw`` run feeds the engine's loss EMA to
 the plateau controller at each chunk boundary; a cut extends the plan,
-re-chunks the loader there and restarts the chunk stream, and the
+checks that the processes can feed its new stage, re-chunks the loader
+there, starts capturing the new batch size's graph in the background
+(``PhaseEngine.prewarm_async``) and restarts the chunk stream; the
 controller's state rides in every checkpoint.
+
+In a multi-process run every rank runs this loop over its per-host
+loader: the engine averages grads and metrics over the ranks, so every
+rank logs the global batch's loss, feeds the controller the same EMA
+and cuts at the same boundary; saves and the stop poll are collective.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import torch
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.adaptive import AdaptiveSeesaw
 from repro_torch.core.seesaw import build_plan
+from repro_torch.data.pipeline import validate_per_host_plan
 from repro_torch.models import registry as R
 from repro_torch.optim import optimizers as O
 from repro_torch.train import checkpoint as CKPT
@@ -305,7 +313,7 @@ class Trainer:
                     if (self.controller is not None
                             and self.controller.observe_smoothed(
                                 st.loss_ema, n)):
-                        self._fire_cut(loader)
+                        self._fire_cut(loader, stacked)
                         rechunk = True
                     if st.step // le > base_step // le:
                         self._flush(pending, log_cb)
@@ -319,18 +327,27 @@ class Trainer:
                         break
             finally:
                 chunks.close()
+        # a background capture outlives no run: its key may never come
+        self.engine.join_prewarm()
         self._flush(pending, log_cb)
         return self.history
 
-    def _fire_cut(self, loader) -> None:
+    def _fire_cut(self, loader, stacked) -> None:
         """One adaptive cut at this chunk boundary: extend the plan with
-        a (÷√α LR, ×α batch) phase from ``tokens_seen`` and swap it into
-        the engine, the checkpoint writer and the loader; the run loop
-        then closes the superseded stream."""
+        a (÷√α LR, ×α batch) phase from ``tokens_seen``, check that this
+        run's processes can feed the new stage (at the cut, not mid-ramp),
+        swap the plan into the engine, the checkpoint writer and the
+        loader, and start capturing the new batch size's step in the
+        background; the run loop then closes the superseded stream."""
         st = self.state
+        old_b = self.plan.phases[-1].batch_size
         new_plan = self.plan.extend_at(
             st.tokens_seen, seq_len=self.cfg.seq_len,
             max_batch_size=self.cfg.schedule.max_batch_size)
+        new_b = new_plan.phases[-1].batch_size
+        validate_per_host_plan(new_plan, getattr(loader, "_pcount", 1) or 1,
+                               self.engine.n_data_devices(),
+                               start_phase=len(new_plan.phases) - 1)
         self._set_plan(new_plan)
         self.cut_tokens.append(int(st.tokens_seen))
         if not hasattr(loader, "rechunk"):
@@ -339,3 +356,5 @@ class Trainer:
                 "re-chunk mid-stream — use PhaseDataLoader (or any "
                 "loader with rechunk(plan, tokens_seen))")
         loader.rechunk(new_plan, st.tokens_seen)
+        if new_b != old_b:
+            self.engine.prewarm_async(new_b, self.fuse_steps, stacked)

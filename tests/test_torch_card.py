@@ -1060,6 +1060,102 @@ def test_capture_while_an_async_save_streams(cuda, tmp_path):
     assert CKPT.read_meta(path)["step"] == 1
 
 
+def test_background_capture_while_another_key_replays(cuda):
+    """The next batch size's graph captured in a thread (the adaptive
+    cut's prewarm) while the loop replays another key's: every replay
+    equals the eager step bit for bit and adds exactly the eager step's
+    launches, the capture adds none, and the prewarmed key's first chunk
+    replays its graph (no capture of its own) equal to its eager step,
+    with twice the launches (two micro-batches)."""
+    import gc
+
+    from repro_torch import graphs as G
+    from repro_torch.kernels import _build
+    tr = _graph_trainer(max_device_batch=4)
+    eng, st = tr.engine, tr.state
+    c0 = G.launch_counts()
+    eng.run_chunk(st.model, st.opt_state, 0, _stacked(cuda, 1, 4, 0),
+                  step=0)                           # the eager first step
+    eager = tuple(b - a for a, b in zip(c0, G.launch_counts()))
+    eng.run_chunk(st.model, st.opt_state, 0, _stacked(cuda, 1, 4, 1),
+                  step=1)                           # B=4 captured inline
+    assert eng.captures == 1
+    t = eng.prewarm_async(8, 1, _stacked(cuda, 1, 4, 2))
+    assert t is not None and eng.prewarm_async(8, 1, _stacked(
+        cuda, 1, 4, 2)) is None                     # already warming
+    # while a stream captures, CUDA refuses a device-wide sync
+    # (torch.cuda.synchronize); the loop syncs its own stream only
+    sync = torch.cuda.current_stream().synchronize
+    during, step = 0, 2
+    for seed in range(3, 40):
+        alive = t.is_alive()
+        batch = _stacked(cuda, 1, 4, seed)
+        twin = _clone_state(st.model, st.opt_state)
+        c = G.launch_counts()
+        _, _, m = eng.run_chunk(st.model, st.opt_state, 0, batch,
+                                step=step)
+        sync()
+        assert tuple(b - a for a, b in zip(c, G.launch_counts())) == eager
+        _, _, want = eng._cache[(4, 1)].grad(
+            *twin, {k: v[0] for k, v in batch.items()}, m["lr"][0].to(cuda))
+        sync()
+        _assert_same_state((st.model, st.opt_state), twin)
+        for name, v in want.items():
+            assert torch.equal(m[name][0], v), name
+        during += alive and t.is_alive()
+        step += 1
+        if not t.is_alive() and during:
+            break
+    assert during > 0, "the capture ended before a replay overlapped it"
+    batch = _stacked(cuda, 1, 8, 99)
+    twin = _clone_state(st.model, st.opt_state)
+    c = G.launch_counts()
+    _, _, m = eng.run_chunk(st.model, st.opt_state, 0, batch, step=step)
+    torch.cuda.synchronize()
+    assert eng.captures == 2 and (8, 2) in eng.prewarm_wait_s
+    ent = eng.step_for(8)
+    assert ent.graph.launches == tuple(2 * x for x in eager)
+    assert tuple(b - a for a, b in zip(c, G.launch_counts())) == \
+        ent.graph.launches
+    _, _, want = ent.grad(*twin, {k: v[0] for k, v in batch.items()},
+                          m["lr"][0].to(cuda))
+    torch.cuda.synchronize()
+    _assert_same_state((st.model, st.opt_state), twin)
+    for name, v in want.items():
+        assert torch.equal(m[name][0], v), name
+    assert gc.isenabled() and not _build._tallies
+
+
+def test_failed_background_capture_raises_at_the_join(cuda):
+    """A background capture that fails raises its error in the main
+    thread where the key is next used; nothing falls back to the eager
+    step, and the other key's graph goes on replaying."""
+    import gc
+
+    from repro_torch.kernels import _build
+    tr = _graph_trainer(max_device_batch=4)
+    eng, st = tr.engine, tr.state
+    for i in range(2):
+        eng.run_chunk(st.model, st.opt_state, 0, _stacked(cuda, 1, 4, i),
+                      step=i)
+
+    def broken(*a, **k):
+        raise RuntimeError("capture failed: boom")
+
+    eng.step_for(8).grad = broken
+    t = eng.prewarm_async(8, 1, _stacked(cuda, 1, 4, 2))
+    t.join(120)
+    assert not t.is_alive()
+    with pytest.raises(RuntimeError, match="boom"):
+        eng.run_chunk(st.model, st.opt_state, 0, _stacked(cuda, 1, 8, 3),
+                      step=2)
+    assert eng.step_for(8).graph is None and eng.captures == 1
+    _, _, m = eng.run_chunk(st.model, st.opt_state, 0,
+                            _stacked(cuda, 1, 4, 4), step=2)
+    assert bool(torch.isfinite(m["loss"]).all())
+    assert gc.isenabled() and not _build._tallies
+
+
 # --------------------------------------------------------------------- #
 # the blocking Server over the full and ring caches
 # --------------------------------------------------------------------- #

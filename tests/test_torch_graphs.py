@@ -270,3 +270,117 @@ def test_serving_executables_match_jax_engine(serve_pair):
     for eng in engs:
         assert eng.done and eng.pool.n_used == 0
         assert eng.executables <= eng.executable_budget
+
+
+# --------------------------------------------------------------------- #
+# the background capture: launch counting and the trainer's prewarm
+# --------------------------------------------------------------------- #
+
+def test_capture_tally_is_exact_while_another_thread_launches(monkeypatch):
+    """A capture counts the launches made on its stream into its own
+    tally, whichever thread makes them, and leaves the counters alone;
+    launches on other streams (the training loop, replaying and
+    launching while the next graph is captured in the background) go to
+    the counters as they happen.  Fake launches: ``_build.count`` on CPU
+    tensors, each thread's "current stream" faked by its name."""
+    import sys
+    import threading
+
+    from repro_torch import graphs as G
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    streams = {"capture": 7, "autograd": 7}
+    monkeypatch.setattr(_build, "stream_of", lambda t: streams.get(
+        threading.current_thread().name, 0))
+    monkeypatch.setattr(RN, "launches", 5)
+    monkeypatch.setattr(FA, "dq_launches", 0)
+    x = torch.zeros(1)
+    started, go = threading.Event(), threading.Event()
+    tallies = {}
+
+    def autograd_thread():          # a capture's backward, on its stream
+        for _ in range(3):
+            _build.count(vars(FA), "dq_launches", x)
+
+    def capture():
+        with _build.capture_tally(7) as tally:
+            started.set()
+            for _ in range(40):
+                _build.count(vars(RN), "launches", x)
+                go.wait(10)
+            t = threading.Thread(target=autograd_thread, name="autograd")
+            t.start()
+            t.join(10)
+        tallies["capture"] = G.tally_counts(tally)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)         # interleave the threads finely
+    try:
+        t = threading.Thread(target=capture, name="capture")
+        t.start()
+        assert started.wait(10)
+        replay = tuple(2 if (m, a) == (RN, "launches") else 0
+                       for m, a in G.COUNTERS)
+        for _ in range(2000):           # the loop, meanwhile
+            _build.count(vars(RN), "launches", x)
+            G.add_launch_counts(replay)
+            go.set()
+        t.join(10)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not t.is_alive()
+    assert RN.launches == 5 + 2000 + 2000 * 2
+    assert FA.dq_launches == 0
+    want = {(RN, "launches"): 40, (FA, "dq_launches"): 3}
+    assert tallies["capture"] == tuple(want.get(c, 0) for c in G.COUNTERS)
+    assert not _build._tallies
+    with _build.capture_tally(7):
+        with pytest.raises(RuntimeError, match="already counted"):
+            _build.capture_tally(7).__enter__()
+
+
+def _adaptive_cfg(max_b=None):
+    return RunConfig(
+        model=ModelConfig(**TINY),
+        schedule=ScheduleConfig(kind="adaptive-seesaw", base_lr=1e-2,
+                                warmup_frac=0.02, alpha=2.0, n_cuts=2,
+                                plateau_window=8, plateau_threshold=2e-2,
+                                ema_decay=0.9, max_batch_size=max_b),
+        optimizer=OptimizerConfig(), seq_len=SEQ, global_batch_size=B0,
+        total_tokens=SEQ * B0 * 360, dtype="float32", remat=False,
+        log_every=1000)
+
+
+@pytest.mark.parametrize("max_b", [None, 2 * B0])
+def test_trainer_prewarms_the_new_key_once_at_a_cut(max_b):
+    """At each cut that changes the batch size the trainer asks the
+    engine to capture the new key's graph in the background, once, with
+    the chunk length and the current chunk; a cut the ramp's cap keeps
+    at its batch size (only the LR is cut) asks for nothing.  On CPU
+    tensors there is nothing to capture: the call returns None."""
+    tr = Trainer(_adaptive_cfg(max_b), device="cpu", fuse_steps=4,
+                 max_device_batch=MAX_DEVICE_BATCH)
+    calls, real = [], tr.engine.prewarm_async
+
+    def spy(batch_size, k, stacked):
+        calls.append((batch_size, k, tr.state.step,
+                      {n: tuple(v.shape) for n, v in stacked.items()}))
+        out = real(batch_size, k, stacked)
+        assert out is None
+        return out
+
+    tr.engine.prewarm_async = spy
+    tr.run(PhaseDataLoader(MarkovLM(128, seed=0), tr.plan, SEQ,
+                           device="cpu"), max_steps=200)
+    cuts = tr.controller.cut_steps
+    assert len(cuts) == 2, cuts
+    sizes = tr.plan.batch_sizes()
+    changed = [c for c, a, b in zip(cuts, sizes, sizes[1:]) if b != a]
+    assert [(b, s) for b, _, s, _ in calls] == \
+        [(sizes[i + 1], c) for i, c in enumerate(cuts) if c in changed]
+    for b, k, _, shapes in calls:
+        assert k == 4
+        assert shapes["tokens"][:2] == (4, b // 2)
+    assert len(changed) == (2 if max_b is None else 1)
+    assert not tr.engine._prewarm
