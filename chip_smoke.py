@@ -11,8 +11,9 @@ checkpoint benchmarks, train and serve the RG-LRU hybrid
 recurrentgemma-9b, train and serve the encoder-decoder
 seamless-m4t-medium, serve internvl2-76b with its image prefix and
 mistral-nemo-12b, train seesaw-150m data-parallel as two launcher
-processes sharing the card, and run the kernel benchmark on one NVIDIA
-card.
+processes sharing the card, train seesaw-150m and llama3.2-3b sharded
+over a data x model mesh of launcher processes sharing the card, and
+run the kernel benchmark on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -361,7 +362,10 @@ decode graph, each replayed once per step.
   of 8 (internvl2-76b's 64/8) and 7 (yi-34b's 56/8: the decode serves a
   group in blocks of 4 heads, so a tail of 3), the RMSNorm forward at d
   8192; f32 (2e-5) and bf16 (2e-2), then timed beside their bounds,
-  plain versions and SDPA / ``F.rms_norm``.  (b) seamless-m4t-medium
+  plain versions and SDPA / ``F.rms_norm``; the float32 dk/dv at
+  starcoder2-3b's prompt (S = 4,500, GQA 24/2) and its plain version,
+  each against float64: the kernel no further off than the plain
+  version, or within 2e-5.  (b) seamless-m4t-medium
   (the enc-dec) trained at full width and depth through the engine's
   grad step: bf16 compute, float32 weights and AdamW, remat, Seesaw
   alpha = 2 with one cut (B = 4, then 8 at micro 2), each example 1,024
@@ -400,6 +404,29 @@ decode graph, each replayed once per step.
   remat's counts times its micro-batches.  The ``data_parallel`` line
   gives the walls, the all-reduce's ms a step, each rank's peak memory
   and the largest differences.
+- Phase 18, the model axis (``phase18``): processes on the one card as a
+  data x model mesh (gloo; FSDP over data, tensor-parallel over model,
+  ``repro_torch.parallel``), each step eager.  (a) float32, the same
+  weights (the trainer's seed) and rows, 2 steps at B = 8: seesaw-150m
+  at full width and depth on a 2x2 mesh and llama3.2-3b at full width
+  cut to 2 layers on a 1x2 mesh (``MESH_RANK``), each against one
+  process: the first batch's loss within 1e-4 and every gathered grad
+  within 1e-3 of its leaf's max, grad norm within 1e-3 relative, then
+  the two steps' loss (1e-4) and grad norm (1e-3).  (b) bf16,
+  seesaw-150m through the launcher (``MESH_ARGS`` + ``--mesh 2x2``): a
+  Seesaw alpha = 2 ramp from B = 8 to 16 (4 + 2 steps) at lr 1e-4 (at
+  phase 17's 3e-3 the run spikes and parts two float32 runs by 29% in
+  grad norm within 6 steps; ``MESH_LR``), four ranks
+  alone for steps 1-4 and a 2x2 save; then side by side the four ranks
+  resume for 5-6, one process resumes the save and one trains the whole
+  plan.  The one-process restore of the 2x2 save equals its blocks bit
+  for bit; the history equals the one process's (steps, tokens, LR,
+  batch, phase; loss and grad norm within 2e-2); the save's leaves have
+  several blocks and their writers rotate over the four ranks.  Every
+  process launches the five training kernels exactly remat's counts
+  times its micro-batches.  The ``mesh`` line gives a step's wall, each
+  kind of collective's ms and MB a step, each rank's peak memory and
+  the differences.  No speed is claimed: the ranks share one card.
 - Phase 8, the kernel benchmark: ``repro_torch.bench.kernels`` at full
   size through its ``main`` (the reference's attention, RMSNorm and SSD
   sweeps in float32, kernel and plain, forward and forward+backward; the
@@ -423,7 +450,8 @@ one ``mamba2_serve``
 line (phases 11 and 11b, with the card), one ``server`` line (phase
 12), one ``paper`` line (phase 13), one ``moe`` line (phase 14), one
 ``hybrid`` line (phase 15), one ``families`` line (phase 16), one
-``data_parallel`` line (phase 17), one ``checkpoint`` line
+``data_parallel`` line (phase 17), one ``mesh`` line (phase 18), one
+``checkpoint`` line
 (phase 10: bytes written, write, restore and verify seconds and GB/s,
 the async save's stall beside a sync save's time, the adaptive run's
 cuts, the card's name and power limit), and last ``{"ok": true,
@@ -4103,7 +4131,8 @@ def phase16a(RN, FA, PG, ref):
     ragged decode's gathered and paged entries at the same groups
     (``DECODE_GQA``), the RMSNorm forward at d 8192 (internvl's) at 2
     and 2 x 1,088 rows.  Then each timed in bfloat16 beside its plain
-    version, its bound and SDPA or ``F.rms_norm``."""
+    version, its bound and SDPA or ``F.rms_norm``; and the float32 dk/dv
+    at starcoder2's prompt held to float64 (``starcoder2_dkv_f64``)."""
     g = torch.Generator(device="cuda").manual_seed(16)
     rng = np.random.default_rng(16)
     bf = torch.bfloat16
@@ -4185,6 +4214,7 @@ def phase16a(RN, FA, PG, ref):
                     4 * x.numel(), bf))
     times["flash/starcoder2"], err = starcoder2_flash_fwd(FA, ref, timer, g)
     errors.append(("flash_fwd", "hd128-starcoder2", "bfloat16", err))
+    times["flash_bwd_dkv/starcoder2_f64"] = starcoder2_dkv_f64(FA, ref, g)
     log(f"phase 16a: {times}")
     return errors, times
 
@@ -4214,6 +4244,66 @@ def starcoder2_flash_fwd(FA, ref, timer, g):
                 4 * hd * pairs, bf))
     torch.cuda.empty_cache()
     return row, err
+
+
+def starcoder2_dkv_f64(FA, ref, g) -> dict:
+    """The float32 flash dk/dv at starcoder2-3b's prompt shape (B=2,
+    S = 4,500, GQA 24/2, hd 128), where the kernel once missed the 2e-5
+    gate against ``flash_bwd_ref`` (ROADMAP Queue 3): the kernel and the
+    plain version each held to a float64 dk/dv of the same inputs (q, k,
+    v, do, and the kernel forward's out and lse), computed a head at a
+    time.  Gate: the kernel no further from float64 than the plain
+    version, or within 2e-5 of it."""
+    B, S, H, Hkv, hd = 2, 4500, 24, 2, 128
+    G = H // Hkv
+    q, k, v, do = (torch.randn(B, n, S, hd, generator=g, device="cuda")
+                   for n in (H, Hkv, Hkv, H))
+    out, lse = FA.flash_fwd(q, k, v)
+    _, dk, dv = FA.flash_bwd(q, k, v, out, lse, do)
+    _, wk, wv = ref.flash_bwd_ref(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    dk64 = torch.zeros(B, Hkv, S, hd, dtype=torch.float64, device="cuda")
+    dv64 = torch.zeros_like(dk64)
+    keep = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    lse4 = lse.reshape(B, H, S).double()
+    for b in range(B):
+        for h in range(H):
+            j = h // G
+            q64, k64, v64 = q[b, h].double(), k[b, j].double(), \
+                v[b, j].double()
+            do64, o64 = do[b, h].double(), out[b, h].double()
+            s = (q64 @ k64.T) / math.sqrt(hd)
+            p = torch.exp(s.masked_fill(~keep, -math.inf)
+                          - lse4[b, h, :, None])
+            delta = (do64 * o64).sum(dim=-1, keepdim=True)
+            ds = p * (do64 @ v64.T - delta) / math.sqrt(hd)
+            dk64[b, j] += ds.T @ q64
+            dv64[b, j] += p.T @ do64
+    del p, ds, s
+
+    def gap(xk, xv, yk, yv):
+        d = torch.maximum((xk.double() - yk.double()).abs().amax(),
+                          (xv.double() - yv.double()).abs().amax())
+        return float(d)
+
+    row = {"kernel_vs_f64": gap(dk, dv, dk64, dv64),
+           "plain_vs_f64": gap(wk, wv, dk64, dv64),
+           "kernel_vs_plain": gap(dk, dv, wk, wv),
+           "kernel_over_2e-5_vs_f64": int(
+               ((dk.double() - dk64).abs() > 2e-5).sum()
+               + ((dv.double() - dv64).abs() > 2e-5).sum()),
+           "plain_over_2e-5_vs_f64": int(
+               ((wk.double() - dk64).abs() > 2e-5).sum()
+               + ((wv.double() - dv64).abs() > 2e-5).sum()),
+           "elements": 2 * dk.numel(), "max_abs_dk_dv": float(torch.maximum(
+               dk64.abs().amax(), dv64.abs().amax())),
+           "shape": f"q (B={B}, S={S}, H={H}, hd={hd}), Hkv={Hkv} float32, "
+                    f"causal"}
+    del q, k, v, do, out, lse, dk, dv, wk, wv, dk64, dv64
+    torch.cuda.empty_cache()
+    if row["kernel_vs_f64"] > max(row["plain_vs_f64"], 2e-5):
+        raise AssertionError(f"flash dk/dv at starcoder2's shape: {row}")
+    return row
 
 
 def encdec_launches(cfg, remat: bool) -> dict:
@@ -4621,7 +4711,8 @@ def phase16_kernel_entries(kernels, record):
     """Phase 16's part of the ``kernels`` line: on the flash, ragged
     decode and RMSNorm forward entries, the new head shapes (hd 128, GQA
     groups of 8 and 7; d 8192) with their errors, ms, bound, plain and
-    library ms, and each kernel's launches in 16b-16e."""
+    library ms, each kernel's launches in 16b-16e, and the float32 dk/dv
+    at starcoder2's prompt against float64."""
     fam = record["families"]
     err = {(n, tag, dn): e for n, tag, dn, e in fam["kernels"]["errors"]}
     times = fam["kernels"]["times"]
@@ -4647,6 +4738,9 @@ def phase16_kernel_entries(kernels, record):
                     **{f: times["flash/starcoder2"][f] for f in keys},
                     "max_abs_err": err[(name, "hd128-starcoder2",
                                         "bfloat16")]}
+            if name == "flash_bwd_dkv":
+                k["starcoder2_f32_vs_float64"] = times[
+                    "flash_bwd_dkv/starcoder2_f64"]
         if name == "ragged_decode":
             k["hd128_gqa"] = {
                 tag: {**{f: times[f"ragged_decode/{tag}"][f] for f in keys},
@@ -4719,9 +4813,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch_ranks(tmp, tag, n, extra):
+def launch_ranks(tmp, tag, n, extra, args=None):
     """Start the launcher as ``n`` processes (n = 1: no group) with
-    ``DP_ARGS + extra``; returns the processes and their JSON paths."""
+    ``args`` (``DP_ARGS`` by default) ``+ extra``; returns the processes
+    and their JSON paths."""
+    args = DP_ARGS if args is None else args
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     port = str(free_port())
     procs = []
@@ -4731,7 +4827,7 @@ def launch_ranks(tmp, tag, n, extra):
                  if n > 1 else [])
         out = os.path.join(tmp, f"{tag}{r}.json")
         procs.append((subprocess.Popen(
-            [sys.executable, "-c", DP_RANK, out, *DP_ARGS, *extra, *group],
+            [sys.executable, "-c", DP_RANK, out, *args, *extra, *group],
             cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), out))
     return procs
@@ -4954,6 +5050,384 @@ def phase17(cfg, ctr, smi):
                       two_a[0]["stdout"])
         out["allreduce_mb"] = float(m.group(1))
         return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
+# phase 18: the model axis, a data x model mesh of processes
+# --------------------------------------------------------------------- #
+
+# 18a: float32, B = 8 of 1,024 tokens, 2 steps of a constant LR
+MESH_SEQ, MESH_B, MESH_STEPS = 1024, 8, 2
+MESH_18A = (("seesaw-150m", 0, "2x2"), ("llama3.2-3b", 2, "1x2"))
+# 18b: phase 17's run on a 2x2 mesh, 4 + 2 steps (B = 8 then 16), at
+# lr 1e-4: at phase 17's 3e-3 the run spikes (loss 10.1 -> 13.4 at step
+# 4) and turns any rounding difference into a different run (one process
+# in float32 against itself on the mesh: loss 1e-6 apart at step 5, grad
+# norm 29% at step 6), which no sharded arithmetic could meet 2e-2 on
+MESH_LR = 1e-4
+MESH_ARGS = DP_ARGS[:DP_ARGS.index("--total-tokens")] + [
+    "--total-tokens", str(8 * 1024 * 7), "--max-device-batch", "8",
+    "--fuse-steps", "1", "--lr", str(MESH_LR)]
+MESH_SAVE_STEP = 4
+# one rank of 18a: the trainer's seed-0 weights cut to the mesh (none
+# for "1x1": one process), the first batch's loss and grads (gathered
+# whole on the mesh; rank 0 saves them), then MESH_STEPS steps
+MESH_RANK = r"""
+import json, math, sys, time
+from dataclasses import replace
+import torch
+from repro_torch import graphs, parallel
+from repro_torch.configs import (OptimizerConfig, RunConfig,
+                                 ScheduleConfig, get_config)
+from repro_torch.data import MarkovLM, PhaseDataLoader
+from repro_torch.launch import mesh as M
+from repro_torch.launch.train import maybe_init_distributed
+from repro_torch.optim import optimizers as O
+from repro_torch.train import engine as E
+from repro_torch.train.trainer import Trainer
+out, arch, layers, spec, port, rank, seq, b, steps = sys.argv[1:10]
+layers, rank, seq, b, steps = map(int, (layers, rank, seq, b, steps))
+dev = "cuda:0"
+world = math.prod(M.parse_mesh(spec).values())
+mesh = None
+if world > 1:
+    assert maybe_init_distributed(f"127.0.0.1:{port}", world, rank,
+                                  device="cuda")
+    mesh = M.make_launch_mesh(spec, distributed=True)
+torch.cuda.set_device(dev)
+cfg = get_config(arch)
+if layers:
+    cfg = replace(cfg, n_layers=layers)
+run = RunConfig(model=cfg, schedule=ScheduleConfig(kind="constant",
+                                                   base_lr=3e-3),
+                optimizer=OptimizerConfig(kind="adamw"), seq_len=seq,
+                global_batch_size=b, total_tokens=b * seq * steps,
+                dtype="float32")
+tr = Trainer(run, device=dev, mesh=mesh, max_device_batch=b)
+slot = (dict(per_host=True, process_index=mesh.fsdp_index(rank),
+             process_count=mesh.n_fsdp) if mesh else {})
+
+
+def loader():
+    return PhaseDataLoader(MarkovLM(2048, seed=0), tr.plan, seq,
+                           device=dev, **slot)
+
+
+it = iter(loader())
+_, _, batch = next(it)
+it.close()
+model = tr.state.model
+params = dict(model.named_parameters())
+names, plist = list(params), list(params.values())
+grads, metrics = E._local_grads(model, cfg, batch, names, params, 1, 0.0,
+                                torch.float32, run.remat)
+if mesh is None:
+    norm, full = O.global_norm(grads), dict(zip(names, grads))
+else:
+    grads, metrics = parallel.reduce_grads(model.tp, plist, grads, metrics)
+    norm = parallel.global_norm(model.tp, plist, grads)
+    full = {}
+    for n, g in zip(names, grads):
+        shape, sp = model.full_shapes[n], model.specs[n]
+        full[n] = parallel.gather_full(g, shape, [
+            M.shard_box(shape, sp, mesh, r) for r in range(mesh.size)])
+if rank == 0:
+    torch.save({n: g.cpu() for n, g in full.items()}, out + ".grads.pt")
+first = {"loss": float(metrics["loss"]), "grad_norm": float(norm)}
+del grads, full, metrics
+if mesh is not None:
+    model.tp.comms.reset()
+torch.cuda.synchronize()
+t = time.perf_counter()
+hist = tr.run(loader(), max_steps=steps)
+torch.cuda.synchronize()
+with open(out, "w") as f:
+    json.dump({"first": first, "history": hist,
+               "wall_s": time.perf_counter() - t,
+               "launches": list(graphs.launch_counts()),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "comms": (model.tp.comms.summary() if mesh is not None
+                         else None)}, f)
+if mesh is not None:
+    torch.distributed.destroy_process_group()
+"""
+
+
+def mesh_ranks(tmp, tag, arch, layers, spec):
+    """Start ``MESH_RANK`` as one process a slot of ``spec`` ("1x1": one
+    process, no group); returns the processes and their JSON paths."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    port = str(free_port())
+    n = math.prod(int(x) for x in spec.split("x"))
+    procs = []
+    for r in range(n):
+        out = os.path.join(tmp, f"{tag}{r}.json")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", MESH_RANK, out, arch, str(layers), spec,
+             port, str(r), str(MESH_SEQ), str(MESH_B), str(MESH_STEPS)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), out))
+    return procs
+
+
+def mesh_grads_diff(a: str, b: str) -> dict:
+    """The largest |a - b| of two saved grad sets over each leaf's
+    largest |b|, on the card, and its leaf."""
+    ga = torch.load(a, weights_only=True)
+    gb = torch.load(b, weights_only=True)
+    if ga.keys() != gb.keys():
+        raise AssertionError("the grad sets hold other leaves")
+    rel = {}
+    for n, want in gb.items():
+        x, y = ga[n].cuda(), want.cuda()
+        if x.shape != y.shape:
+            raise AssertionError(f"{n}: {tuple(x.shape)} != "
+                                 f"{tuple(y.shape)}")
+        rel[n] = float((x - y).abs().max() / y.abs().max())
+    k = max(rel, key=rel.get)
+    return {"max_rel": rel[k], "leaf": k, "leaves": len(rel)}
+
+
+def check_rank_launches(recs, ctr, per_micro, micro, what):
+    """Each process's launches of the training kernels: remat's counts
+    a micro-batch times its ``micro`` micro-batches."""
+    from repro_torch import graphs as G
+    names = {n: G.COUNTERS.index(c) for n, c in ctr.items()}
+    want = {n: v * micro for n, v in per_micro.items()}
+    out = {}
+    for r, rec in enumerate(recs):
+        got = {n: rec["launches"][i] for n, i in names.items()}
+        if got != want:
+            raise AssertionError(f"{what} rank {r}: launches {got}, remat "
+                                 f"gives {want}")
+        out[f"{what}/rank{r}"] = got
+    return out
+
+
+def phase18a(tmp, ctr):
+    """Float32, the same weights and rows: each ``MESH_18A`` config on its
+    mesh against one process (all four runs side by side)."""
+    from repro_torch.configs import get_config
+    procs = {}
+    for arch, layers, spec in MESH_18A:
+        procs[(arch, spec)] = mesh_ranks(tmp, f"{arch}-{spec}-", arch,
+                                         layers, spec)
+        procs[(arch, "1x1")] = mesh_ranks(tmp, f"{arch}-1x1-", arch, layers,
+                                          "1x1")
+    flat = wait_ranks([p for ps in procs.values() for p in ps], timeout=600)
+    res, i = {}, 0
+    for k, ps in procs.items():
+        res[k], i = flat[i:i + len(ps)], i + len(ps)
+    out, launches = {}, {}
+    for arch, layers, spec in MESH_18A:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        ranks, one = res[(arch, spec)], res[(arch, "1x1")][0]
+        rows = [[{k: v for k, v in h.items() if k != "wall"}
+                 for h in r["history"]] for r in ranks]
+        if any(r != rows[0] for r in rows):
+            raise AssertionError(f"{arch}: the ranks logged other runs")
+        first, want = ranks[0]["first"], one["first"]
+        d_loss = abs(first["loss"] - want["loss"])
+        d_norm = abs(first["grad_norm"] - want["grad_norm"]) / \
+            want["grad_norm"]
+        grads = mesh_grads_diff(
+            os.path.join(tmp, f"{arch}-{spec}-0.json.grads.pt"),
+            os.path.join(tmp, f"{arch}-1x1-0.json.grads.pt"))
+        steps = []
+        for a, b in zip(ranks[0]["history"], one["history"]):
+            if [a[k] for k in DP_HIST_KEYS] != [b[k] for k in DP_HIST_KEYS]:
+                raise AssertionError(f"{arch}: step {a} against {b}")
+            steps.append({"loss": abs(a["loss"] - b["loss"]),
+                          "grad_norm": abs(a["grad_norm"] - b["grad_norm"])
+                          / b["grad_norm"]})
+        if len(steps) != MESH_STEPS or d_loss > 1e-4 or d_norm > 1e-3 or \
+                grads["max_rel"] > 1e-3 or any(
+                    s["loss"] > 1e-4 or s["grad_norm"] > 1e-3
+                    for s in steps):
+            raise AssertionError(f"{arch} on {spec}: loss {d_loss}, grad "
+                                 f"norm {d_norm}, grads {grads}, steps "
+                                 f"{steps}")
+        per_micro = per_micro_batch(cfg, True)
+        launches.update(check_rank_launches(ranks, ctr, per_micro,
+                                            1 + MESH_STEPS, f"{arch}/{spec}"))
+        launches.update(check_rank_launches([one], ctr, per_micro,
+                                            1 + MESH_STEPS, f"{arch}/one"))
+        out[f"{arch}/{spec}"] = {
+            "layers": cfg.n_layers, "first_loss": first["loss"],
+            "first_loss_diff": d_loss, "first_grad_norm_rel": d_norm,
+            "grads": grads, "steps": steps,
+            "wall_s_per_step": ranks[0]["wall_s"] / MESH_STEPS,
+            "one_wall_s_per_step": one["wall_s"] / MESH_STEPS,
+            "comms_per_step": {k: {f: v / MESH_STEPS for f, v in c.items()}
+                               for k, c in ranks[0]["comms"].items()},
+            "peak_gb": [r["peak_gb"] for r in ranks],
+            "one_peak_gb": one["peak_gb"]}
+    return out, launches
+
+
+def ckpt_blocks(path: str) -> dict:
+    """A checkpoint's leaves reassembled from their blocks (numpy)."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        man = json.load(f)
+    out = {}
+    for key, e in man["arrays"].items():
+        a = np.empty(e["shape"], e["dtype"])
+        for s in e["shards"]:
+            a[tuple(slice(x, y) for x, y in zip(s["start"], s["stop"]))] = \
+                np.load(os.path.join(path, s["file"]))
+        out[key] = a
+    return out
+
+
+def restore_one_process_bitwise(cfg, path: str) -> int:
+    """The 2x2 save restored into one process's trainer on the card (the
+    launcher's run config) equals its blocks bit for bit; returns the
+    leaves compared."""
+    from repro_torch.configs import (OptimizerConfig, RunConfig,
+                                     ScheduleConfig)
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.weights import to_jax_opt_state, to_jax_params
+    run = RunConfig(model=cfg, schedule=ScheduleConfig(
+        kind="seesaw", base_lr=MESH_LR, alpha=2.0, beta=2.0, n_cuts=1),
+        optimizer=OptimizerConfig(kind="adamw"), seq_len=1024,
+        global_batch_size=8, total_tokens=8 * 1024 * 7)
+    tr = Trainer(run, device="cuda")
+    tr.restore_checkpoint(path, verify=True)
+    got = CKPT._flat_state(to_jax_params(tr.state.model),
+                           to_jax_opt_state(tr.state.model,
+                                            tr.state.opt_state))
+    want = ckpt_blocks(path)
+    if got.keys() != want.keys():
+        raise AssertionError("the restore holds other leaves")
+    for k, w in want.items():
+        if not np.array_equal(np.asarray(got[k]), w):
+            raise AssertionError(f"{k}: the one-process restore is not the "
+                                 f"2x2 save's blocks")
+    del tr
+    torch.cuda.empty_cache()
+    return len(want)
+
+
+def phase18b(tmp, cfg, ctr):
+    """bf16 through the launcher: a 2x2 mesh alone for steps 1-4 and its
+    save; then side by side the mesh resuming for 5-6, one process
+    resuming the save and one process for the whole plan."""
+    import shutil
+    t0 = time.perf_counter()
+    mesh = ["--mesh", "2x2"]
+    ck22, ck1 = os.path.join(tmp, "mesh22"), os.path.join(tmp, "mesh_one")
+    a = wait_ranks(launch_ranks(tmp, "mesh_a", 4, mesh + [
+        "--steps", str(MESH_SAVE_STEP), "--checkpoint", ck22],
+        args=MESH_ARGS))
+    t_a = time.perf_counter()
+    with open(os.path.join(ck22, "manifest.json")) as f:
+        man = json.load(f)
+    ck21 = os.path.join(tmp, "mesh22_to_one")
+    shutil.copytree(ck22, ck21, copy_function=lambda x, y: (
+        os.link(x, y) if x.endswith(".npy") else shutil.copy2(x, y)))
+    procs = launch_ranks(tmp, "mesh_b", 4, mesh + [
+        "--resume", "--checkpoint", ck22], args=MESH_ARGS)
+    procs += launch_ranks(tmp, "mesh_one_b", 1, ["--resume", "--checkpoint",
+                                                 ck21], args=MESH_ARGS)
+    procs += launch_ranks(tmp, "mesh_one", 1, ["--checkpoint", ck1],
+                          args=MESH_ARGS)
+    res = wait_ranks(procs, timeout=600)
+    b, one_b, one = res[:4], res[4], res[5]
+    t_b = time.perf_counter()
+    # the mesh's final save (step 6, 2x2) into one process
+    leaves = restore_one_process_bitwise(cfg, ck22)
+    want = one["history"]
+    if len(want) != 6 or [h["batch_size"] for h in want] != [8] * 4 + \
+            [16] * 2:
+        raise AssertionError(f"one process: {[h['batch_size'] for h in want]}")
+    rows = [[{k: v for k, v in h.items() if k != "wall"}
+             for h in r["history"]] for r in a + b]
+    if any(r != rows[0] for r in rows[:4]) or \
+            any(r != rows[4] for r in rows[4:]):
+        raise AssertionError("the ranks logged other runs")
+    diffs = {"mesh": dp_check_run(a[0]["history"] + b[0]["history"], want,
+                                  2e-2, "2x2 mesh"),
+             "mesh_to_one": dp_check_run(one_b["history"],
+                                         want[MESH_SAVE_STEP:], 2e-2,
+                                         "2x2 -> 1 resume")}
+    meta = man["meta"]
+    blocks = [len(e["shards"]) for e in man["arrays"].values()]
+    writers = sorted({s["writer"] for e in man["arrays"].values()
+                      for s in e["shards"]})
+    if meta["save_process_count"] != 4 or meta["step"] != MESH_SAVE_STEP \
+            or max(blocks) != 4 or writers != [0, 1, 2, 3]:
+        raise AssertionError(f"2x2 save: meta {meta}, blocks {blocks}, "
+                             f"writers {writers}")
+    per_micro = per_micro_batch(cfg, True)
+    launches = {}
+    for tag, recs, micro in (("mesh_steps_1_4", a, 4),
+                             ("mesh_steps_5_6", b, 2),
+                             ("one", [one], 4 + 2 * 2),
+                             ("mesh_to_one_steps_5_6", [one_b], 2 * 2)):
+        launches.update(check_rank_launches(recs, ctr, per_micro, micro,
+                                            tag))
+    comms = {}
+    for kind in ("fsdp_gather", "grad_reduce", "model_all_reduce"):
+        got = [re.search(kind + r": (\d+) calls, ([\d.]+) ms, ([\d.]+) MB",
+                         r["stdout"]) for r in a]
+        if not all(got):
+            raise AssertionError(f"no {kind} line: "
+                                 + a[0]["stdout"][-2000:])
+        comms[kind] = {"calls": int(got[0].group(1)),
+                       "ms": [float(m.group(2)) for m in got],
+                       "MB": float(got[0].group(3))}
+
+    def step_walls(hist):
+        return [y["wall"] - x["wall"] for x, y in zip(hist, hist[1:])]
+
+    return {
+        "plan": {"batch_sizes": [8, 16], "steps": [4, 2],
+                 "micro_batches_one": [1, 2],
+                 "micro_batches_per_rank": [1, 1],
+                 "save_step": MESH_SAVE_STEP},
+        "step_walls_s": {"mesh_steps_1_4": step_walls(a[0]["history"]),
+                         "mesh_steps_5_6": step_walls(b[0]["history"])},
+        "wall_s": {"mesh_steps_1_4": [r["wall_s"] for r in a],
+                   "mesh_steps_5_6": [r["wall_s"] for r in b],
+                   "one": one["wall_s"], "mesh_to_one": one_b["wall_s"]},
+        "phase_s": {"mesh_alone": t_a - t0, "side_by_side": t_b - t_a,
+                    "restore_check": time.perf_counter() - t_b},
+        "collectives_per_step_steps_1_4": comms,
+        "peak_gb": {"mesh": [r["peak_gb"] for r in a + b],
+                    "one": one["peak_gb"], "mesh_to_one": one_b["peak_gb"]},
+        "checkpoint": {"leaves": len(blocks), "max_blocks": max(blocks),
+                       "writers": writers, "restored_bitwise": leaves},
+        "largest_differences": diffs, "launches": launches,
+        "losses": {"one": [h["loss"] for h in want],
+                   "mesh": [h["loss"] for h in a[0]["history"]
+                            + b[0]["history"]]}}
+
+
+def phase18(cfg, ctr, smi):
+    """The model axis on the card: 18a and 18b (see the module doc).  The
+    steps run eagerly: a gloo collective is host work no CUDA graph
+    holds."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t = time.perf_counter()
+        f32, launches = phase18a(tmp, ctr)
+        t_a = time.perf_counter() - t
+        bf16 = phase18b(tmp, cfg, ctr)
+        launches.update(bf16.pop("launches"))
+        return {"float32": f32, "bf16": bf16, "launches": launches,
+                "phase_s": {"18a": t_a, "18b": time.perf_counter() - t -
+                            t_a},
+                "steps": "eager: a gloo collective is host work that no "
+                         "CUDA graph holds; the four ranks share one card, "
+                         "so no speed is claimed",
+                "card": smi}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5212,6 +5686,10 @@ def main() -> int:
     record["data_parallel"]["s"] = time.perf_counter() - t
     log(f"phase 17: {record['data_parallel']['s']:.1f} s "
         f"{record['data_parallel']}")
+    t = time.perf_counter()
+    record["mesh"] = phase18(cfg, counters(RN, FA), smi)
+    record["mesh"]["s"] = time.perf_counter() - t
+    log(f"phase 18: {record['mesh']['s']:.1f} s {record['mesh']}")
     t = time.perf_counter()
     bench_ctr = dict(counters(RN, FA), ssd_chunk=(SSD, "launches"),
                      overlap_norm=(OV, "launches"))
@@ -5512,6 +5990,9 @@ def main() -> int:
             k["data_parallel_launches"] = {
                 tag: c[k["name"]] for tag, c in
                 record["data_parallel"]["launches"].items()}
+            k["mesh_launches"] = {
+                tag: c[k["name"]] for tag, c in
+                record["mesh"]["launches"].items()}
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -5525,7 +6006,8 @@ def main() -> int:
     train = {k: v for k, v in record["train"].items() if k not in long}
     print(json.dumps({"train": train, "profile": record["train_profile"],
                       "card_vs_cpu": record["train_card_vs_cpu"],
-                      "graphs_bitwise": record["graphs_bitwise"]}))
+                      "graphs_bitwise": record["graphs_bitwise"],
+                      "mesh_steps": record["mesh"]["steps"]}))
     mamba2 = {k: v for k, v in record["mamba2"].items() if k not in long}
     print(json.dumps({"mamba2": mamba2,
                       "profile": record["mamba2_profile"],
@@ -5567,6 +6049,8 @@ def main() -> int:
     print(json.dumps({"data_parallel": {
         k: v for k, v in record["data_parallel"].items()
         if k not in ("losses", "launches")}}))
+    print(json.dumps({"mesh": {
+        k: v for k, v in record["mesh"].items() if k != "launches"}}))
     print(json.dumps({"checkpoint": record["checkpoint"],
                       "adaptive": adaptive, "card": smi}))
     print(json.dumps({"ok": True, "device": {

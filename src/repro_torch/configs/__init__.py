@@ -19,7 +19,8 @@ from repro_torch.configs import (granite_moe_1b, internvl2_76b, llama3_2_3b,
                                  mamba2_2_7b, mistral_nemo_12b, phi3_5_moe,
                                  recurrentgemma_9b, seamless_m4t_medium,
                                  seesaw_paper, starcoder2_3b, yi_34b)
-from repro_torch.configs.base import (HybridConfig, ModelConfig, MoEConfig,
+from repro_torch.configs.base import (INPUT_SHAPES, HybridConfig,
+                                      InputShape, ModelConfig, MoEConfig,
                                       OptimizerConfig, RunConfig,
                                       ScheduleConfig, SSMConfig)
 
@@ -50,6 +51,6 @@ def list_archs() -> List[str]:
     return list(_CONFIGS)
 
 
-__all__ = ["HybridConfig", "ModelConfig", "MoEConfig", "OptimizerConfig",
-           "RunConfig", "SSMConfig", "ScheduleConfig", "get_config",
-           "list_archs"]
+__all__ = ["INPUT_SHAPES", "HybridConfig", "InputShape", "ModelConfig",
+           "MoEConfig", "OptimizerConfig", "RunConfig", "SSMConfig",
+           "ScheduleConfig", "get_config", "list_archs"]

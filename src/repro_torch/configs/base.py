@@ -234,3 +234,23 @@ class RunConfig:
         if self.total_tokens:
             return self.total_tokens
         return 20 * self.model.param_count()
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One workload shape of the reference's assignment."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                      # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    # Seesaw phase-k batch sizes (B0 = 256 doubled per phase)
+    "train_4k_b512":  InputShape("train_4k_b512",  4_096,  512, "train"),
+    "train_4k_b1024": InputShape("train_4k_b1024", 4_096, 1024, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,   32, "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",  524_288,    1, "decode"),
+}

@@ -86,6 +86,11 @@
 // The float32 forms keep their CUDA-core bodies: the tensor cores'
 // float32 (TF32) keeps about three digits, and the float32 gates (2e-5
 // of the plain version, the card against the CPU) need all of float32.
+// The float32 dk/dv sums each 32-query tile apart and adds the tiles'
+// sums with a compensated (Kahan) sum: one running float32 sum over every
+// query of the group (4,500 x 12 = 54,000 terms at starcoder2-3b's
+// prompt) ended 3.5x further from float64 than the plain version's
+// blocked products.
 // There a row is held by hd / 16 neighbouring threads (16 dims each; 2
 // threads a row at hd 32, 128 rows a block),
 // their partial dot products meeting by warp shuffles, while 32-row tiles
@@ -146,6 +151,20 @@ __device__ __forceinline__ void row_axpy(float a, const float* tile_row,
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       acc[4 * c + e] = fmaf(a, t[e], acc[4 * c + e]);
+  }
+}
+
+// acc += part on this thread's 16 dims, compensated: comp carries the
+// low bits each addition drops (Kahan), so the error does not grow with
+// the number of parts
+__device__ __forceinline__ void kahan_add16(float* acc, float* comp,
+                                            const float* part) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const float y = part[e] - comp[e];
+    const float t = acc[e] + y;
+    comp[e] = (t - acc[e]) - y;
+    acc[e] = t;
   }
 }
 
@@ -258,7 +277,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
   const int kpos = kt * ROWS + r;
   const bool row_ok = kpos < S;
 
-  float kr[16], vr[16], dka[16], dva[16];
+  // the group's sums (compensated) and one query tile's
+  float kr[16], vr[16], dka[16], dva[16], cka[16], cva[16], tka[16],
+      tva[16];
   if (row_ok) {
     load_part<TPR>(k + b * ks.b + static_cast<int64_t>(kpos) * ks.s
                    + hk * ks.h, g, kr);
@@ -268,7 +289,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     if (!row_ok) kr[i] = vr[i] = 0.f;
-    dka[i] = dva[i] = 0.f;
+    dka[i] = dva[i] = cka[i] = cva[i] = 0.f;
   }
 
   for (int gi = 0; gi < G; ++gi) {
@@ -287,6 +308,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
         delta_t[threadIdx.x] = qp < S ? delta[bh * S + qp] : 0.f;
       }
       __syncthreads();
+#pragma unroll
+      for (int e = 0; e < 16; ++e) tka[e] = tva[e] = 0.f;
 #pragma unroll 4
       for (int i = 0; i < kTile; ++i) {
         const float s = row_dot<TPR>(kr, q_tile[i], g);
@@ -297,9 +320,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
           p = expf(s * sm_scale - lse_t[i]);
           ds = p * (dp - delta_t[i]) * sm_scale;
         }
-        row_axpy<TPR>(p, do_tile[i], g, dva);
-        row_axpy<TPR>(ds, q_tile[i], g, dka);
+        row_axpy<TPR>(p, do_tile[i], g, tva);
+        row_axpy<TPR>(ds, q_tile[i], g, tka);
       }
+      kahan_add16(dva, cva, tva);
+      kahan_add16(dka, cka, tka);
     }
   }
   if (row_ok) {

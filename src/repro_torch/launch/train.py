@@ -3,11 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch seesaw-150m \\
         --schedule seesaw [--reduced] [--batch-size 32] [--seq-len 1024] \\
         [--steps N | --total-tokens T] [--fuse-steps 4] \\
-        [--max-device-batch 8] [--device cuda|cpu] \\
+        [--max-device-batch 8] [--device cuda|cpu] [--dtype float32] \\
         [--checkpoint ck [--save-every N] [--sync-save] [--resume] \\
          [--verify-restore] [--grace S]] \\
         [--per-host] [--coordinator HOST:PORT --num-processes N \\
-         --process-id I]
+         --process-id I] [--mesh DxM | PxDxM]
 
 Builds the run config, the ``Trainer`` and a ``PhaseDataLoader`` over
 ``MarkovLM(min(vocab, 2048), seed)``, prints the plan line, one line per
@@ -54,17 +54,34 @@ checked up front to divide across the processes (from the resume point
 on a resume, which may have another process count: a checkpoint
 restores on any number).  The stop poll is collective: a signal to one
 rank stops every rank at the same chunk boundary, and they save.
+
+``--mesh DxM`` (or ``PxDxM``) shards the dense family over a data ×
+model mesh of the processes (one process a slot; the reference's
+``--mesh``): FSDP over the data axes, tensor-parallel over model
+(``repro_torch.parallel``).  Each rank feeds its data slot's rows
+(``process_index`` = the slot, ``process_count`` = P·D; the ranks of a
+slot load the same rows), ``--max-device-batch`` counts rows a data
+slot, and a checkpoint holds each distinct block once.  The steps run
+eagerly (a gloo collective is host work no CUDA graph holds).  Another
+family, a head count or dim the mesh does not divide, or a mesh whose
+size is not the process count raises ``ValueError`` before any
+collective.  Without ``--mesh`` the ranks replicate the model, as above::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --device cpu --reduced --mesh 2x2 --batch-size 4 --steps 20
 """
 from __future__ import annotations
 
 import argparse
 import os
 import signal
+import sys
 import time
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import parallel
 from repro_torch.configs import (OptimizerConfig, RunConfig, ScheduleConfig,
                                  get_config)
 from repro_torch.data import MarkovLM, PhaseDataLoader
@@ -128,6 +145,15 @@ class PreemptionGuard:
         grace period (collective, so the ranks save together or not)."""
         return not _any_rank(self.requested()
                              and self.grace_remaining() <= 0)
+
+
+def say(msg: str) -> None:
+    """``msg`` as one line on stdout in one write, flushed: the ranks of
+    a run often share one terminal or pipe (torchrun's), and a line
+    printed as two writes (the text, then the newline) can be cut by
+    another rank's."""
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
 
 
 def _any_rank(flag: bool) -> bool:
@@ -203,8 +229,8 @@ def maybe_init_distributed(coordinator=None, num_processes=None,
             f"process_id={process_id!r}")
     local_world = int(env.get("LOCAL_WORLD_SIZE", num_processes))
     backend = backend_for(device, local_world)
-    print(f"torch.distributed: process {process_id}/{num_processes}, "
-          f"backend {backend}", flush=True)
+    say(f"torch.distributed: process {process_id}/{num_processes}, "
+        f"backend {backend}")
     init_distributed_with_retry(
         lambda: dist.init_process_group(
             backend, init_method=f"tcp://{coordinator}",
@@ -243,6 +269,10 @@ def main(argv=None):
     ap.add_argument("--total-tokens", type=int, default=None)
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--z-loss", type=float, default=0.0)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"),
+                    help="compute dtype (weights and optimizer state stay "
+                         "float32)")
     ap.add_argument("--fuse-steps", type=int, default=1,
                     help="optimizer steps per engine call")
     ap.add_argument("--max-device-batch", type=int, default=None)
@@ -279,6 +309,9 @@ def main(argv=None):
                          "WORLD_SIZE)")
     ap.add_argument("--process-id", type=int, default=None,
                     help="this process's rank (or RANK)")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM (data x model) or PxDxM: shard the model "
+                         "over the processes (dense family)")
     args = ap.parse_args(argv)
     if args.resume and not args.checkpoint:
         ap.error("--resume needs --checkpoint")
@@ -295,6 +328,8 @@ def main(argv=None):
         raise RuntimeError(
             "launch.train: --device cuda but no CUDA device is present; "
             "pass --device cpu to train with the plain versions")
+    if args.mesh:             # refused before the group and any collective
+        parallel.check_model(model, mesh.Mesh(mesh.parse_mesh(args.mesh)))
     distributed = maybe_init_distributed(
         args.coordinator, args.num_processes, args.process_id,
         connect_attempts=args.connect_attempts,
@@ -314,11 +349,12 @@ def _run(args, model, distributed: bool):
             local = int(os.environ.get("LOCAL_RANK", rank))
             device = f"cuda:{local % torch.cuda.device_count()}"
             torch.cuda.set_device(device)
-        print(f"process {rank}/{world} on {device}", flush=True)
+        say(f"process {rank}/{world} on {device}")
         if not args.per_host:
             # one process cannot feed (or even hold) every rank's rows
             args.per_host = True
-            print("per-host data feeding forced on (multi-process)")
+            say("per-host data feeding forced on (multi-process)")
+    grid = mesh.make_launch_mesh(args.mesh, distributed=distributed)
     seq_len = args.seq_len or min(model.max_seq_len, 1024)
     b0 = args.batch_size or 32
     total = args.total_tokens or (
@@ -336,40 +372,48 @@ def _run(args, model, distributed: bool):
                                 plateau_min_steps=args.plateau_min_steps),
         optimizer=OptimizerConfig(kind=args.optimizer),
         seq_len=seq_len, global_batch_size=b0, total_tokens=total,
-        z_loss=args.z_loss, seed=args.seed)
+        z_loss=args.z_loss, seed=args.seed, dtype=args.dtype)
 
     trainer = Trainer(cfg, device=device, fuse_steps=args.fuse_steps,
-                      max_device_batch=args.max_device_batch)
-    print(f"arch={model.name} N={model.param_count()/1e6:.0f}M "
-          f"schedule={args.schedule} phases={len(trainer.plan.phases)} "
-          f"steps={trainer.plan.total_steps(seq_len)} "
-          f"batches={trainer.plan.batch_sizes()} "
-          f"fuse_steps={trainer.fuse_steps}")
+                      max_device_batch=args.max_device_batch, mesh=grid)
+    say(f"arch={model.name} N={model.param_count()/1e6:.0f}M "
+        f"schedule={args.schedule} phases={len(trainer.plan.phases)} "
+        f"steps={trainer.plan.total_steps(seq_len)} "
+        f"batches={trainer.plan.batch_sizes()} "
+        f"fuse_steps={trainer.fuse_steps}")
     if args.resume:
         # restored before the ramp is checked: an elastic resume feeds
         # the ramp from the restored position on
         meta = trainer.restore_checkpoint(args.checkpoint,
                                           verify=args.verify_restore)
-        print(f"resumed step {trainer.state.step} "
-              f"(phase {meta.get('phase')}, B={meta.get('batch_size')}, "
-              f"tokens {trainer.state.tokens_seen}, saved from "
-              f"{meta.get('save_process_count', '?')} processes)")
+        say(f"resumed step {trainer.state.step} "
+            f"(phase {meta.get('phase')}, B={meta.get('batch_size')}, "
+            f"tokens {trainer.state.tokens_seen}, saved from "
+            f"{meta.get('save_process_count', '?')} processes)")
     src = MarkovLM(vocab_size=min(model.vocab_size, 2048), seed=args.seed)
+    slot = {}
+    if grid is not None:       # the rank's data slot feeds it
+        slot = dict(process_index=grid.fsdp_index(mesh.rank()),
+                    process_count=grid.n_fsdp)
+        say(f"mesh {grid.shape}: process {mesh.rank()} at "
+            f"{grid.coords(mesh.rank())}, data slot "
+            f"{slot['process_index']}/{grid.n_fsdp}, local batch shards "
+            f"{[b // grid.n_fsdp for b in trainer.plan.batch_sizes()]}")
     loader = PhaseDataLoader(src, trainer.plan, seq_len, device=device,
                              per_host=args.per_host,
-                             validate=not args.resume)
+                             validate=not args.resume, **slot)
     if args.resume:
         loader.resume(trainer.state.tokens_seen)
-    if args.per_host:
+    if args.per_host and grid is None:
         mesh.assert_per_host_row_blocks()
         n = mesh.world_size()
-        print(f"per-host feeding: process {mesh.rank()}/{n}, local batch "
-              f"shards {[b // n for b in trainer.plan.batch_sizes()]}")
+        say(f"per-host feeding: process {mesh.rank()}/{n}, local batch "
+            f"shards {[b // n for b in trainer.plan.batch_sizes()]}")
 
     def log(rec):
-        print(f"step {rec['step']:5d} phase {rec['phase']} "
-              f"B={rec['batch_size']:4d} lr={rec['lr']:.2e} "
-              f"loss={rec['loss']:.4f} ({rec['wall']:.1f}s)", flush=True)
+        say(f"step {rec['step']:5d} phase {rec['phase']} "
+            f"B={rec['batch_size']:4d} lr={rec['lr']:.2e} "
+            f"loss={rec['loss']:.4f} ({rec['wall']:.1f}s)")
 
     guard = PreemptionGuard(grace=args.grace).install()
     try:
@@ -381,26 +425,32 @@ def _run(args, model, distributed: bool):
     finally:
         guard.uninstall()
     if guard.stopped or guard.requested():
-        print(f"preemption signal: stopped at step {trainer.state.step} "
-              f"(chunk boundary)")
+        say(f"preemption signal: stopped at step {trainer.state.step} "
+            f"(chunk boundary)")
     if hist:
-        print(f"done: {len(hist)} steps, final loss {hist[-1]['loss']:.4f}")
+        say(f"done: {len(hist)} steps, final loss {hist[-1]['loss']:.4f}")
     else:
-        print("done: nothing to run")
+        say("done: nothing to run")
     if trainer.controller is not None:
-        print(f"adaptive cuts at steps {trainer.controller.cut_steps}")
+        say(f"adaptive cuts at steps {trainer.controller.cut_steps}")
+    tp = parallel.tp_of(trainer.state.model)
+    if tp is not None and hist:
+        for kind, c in tp.comms.summary().items():
+            say(f"{kind}: {c['calls'] / len(hist):.0f} calls, "
+                f"{c['ms'] / len(hist):.3f} ms, {c['MB'] / len(hist):.1f} "
+                f"MB a step ({dist.get_backend()})")
     red = trainer.engine.reduce
     if red is not None and red.calls:
-        print(f"all-reduce: {red.calls} steps, {red.ms() / red.calls:.3f} "
-              f"ms a step ({red.flat.numel() * 4 / 1e6:.1f} MB, "
-              f"{dist.get_backend()})")
+        say(f"all-reduce: {red.calls} steps, {red.ms() / red.calls:.3f} "
+            f"ms a step ({red.flat.numel() * 4 / 1e6:.1f} MB, "
+            f"{dist.get_backend()})")
     if args.checkpoint:
         if not guard.save_allowed():
-            print("grace deadline exceeded — skipping the final save "
-                  "(the last periodic checkpoint is the resume point)")
+            say("grace deadline exceeded — skipping the final save "
+                "(the last periodic checkpoint is the resume point)")
         else:
             trainer.save_checkpoint(args.checkpoint)
-            print(f"checkpoint → {args.checkpoint}")
+            say(f"checkpoint → {args.checkpoint}")
     trainer.close()
     return hist
 

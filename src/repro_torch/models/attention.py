@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import backend as KB
-from repro_torch.models.layers import apply_rope, out_std, param, \
+from repro_torch.parallel import weight
+from repro_torch.models.layers import P, apply_rope, out_std, param, \
     trunc_normal_
 
 NEG_INF = -1e30
@@ -52,6 +53,14 @@ class Attention(nn.Module):
         for w in (self.w_q, self.w_k, self.w_v):
             trunc_normal_(w, 0.02, generator)
         trunc_normal_(self.w_o, out_std(n_layers), generator)
+
+
+def attention_specs(fsdp, lead: tuple = ()):
+    """Column-parallel q/k/v (heads over ``model``), row-parallel o."""
+    return {"w_q": P(*lead, fsdp, "model"),
+            "w_k": P(*lead, fsdp, "model"),
+            "w_v": P(*lead, fsdp, "model"),
+            "w_o": P(*lead, "model", fsdp)}
 
 
 # --------------------------------------------------------------------- #
@@ -136,19 +145,27 @@ def chunked_attention(q, k, v, *, causal: bool = True,
 def attn_forward(p: Attention, x, *, n_heads: int, n_kv_heads: int,
                  head_dim: int, rope_theta: float,
                  window: Optional[int] = None, positions=None,
-                 causal: bool = True):
+                 causal: bool = True, tp=None):
     """Self-attention over x: (B, S, d).  Causal and full: the flash
     kernels on the card.  Causal within a sliding ``window``, or
     bidirectional (``causal=False``, the enc-dec encoder):
     ``chunked_attention``, as the reference's XLA path (it has no Pallas
     kernel for either).  Returns (out (B, S, d), (k, v) each (B, S, Hkv,
-    hd) after RoPE) — the K/V a cache stores."""
+    hd) after RoPE) — the K/V a cache stores.  On a mesh (``tp``) the
+    projections are this rank's H/M query and Hkv/M KV heads (the GQA
+    ratio kept), ``w_o`` its rows, and the output is summed over the
+    model group."""
     B, S, _ = x.shape
+    dt = x.dtype
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q = (x @ p.w_q.to(x.dtype)).reshape(B, S, n_heads, head_dim)
-    k = (x @ p.w_k.to(x.dtype)).reshape(B, S, n_kv_heads, head_dim)
-    v = (x @ p.w_v.to(x.dtype)).reshape(B, S, n_kv_heads, head_dim)
+    if tp is not None:
+        n_heads //= tp.n_model
+        n_kv_heads //= tp.n_model
+        x = tp.to_model(x)
+    q = (x @ weight(p.w_q, dt, tp)).reshape(B, S, n_heads, head_dim)
+    k = (x @ weight(p.w_k, dt, tp)).reshape(B, S, n_kv_heads, head_dim)
+    v = (x @ weight(p.w_v, dt, tp)).reshape(B, S, n_kv_heads, head_dim)
     if rope_theta:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
@@ -156,8 +173,8 @@ def attn_forward(p: Attention, x, *, n_heads: int, n_kv_heads: int,
         o = KB.attention(q, k, v)
     else:
         o = chunked_attention(q, k, v, causal=causal, window=window)
-    o = o.reshape(B, S, n_heads * head_dim)
-    return o @ p.w_o.to(x.dtype), (k, v)
+    o = o.reshape(B, S, n_heads * head_dim) @ weight(p.w_o, dt, tp)
+    return (o if tp is None else tp.from_model(o)), (k, v)
 
 
 # --------------------------------------------------------------------- #

@@ -36,8 +36,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import backend as KB
 from repro_torch.models import attention as A
 from repro_torch.models.attention import Attention, attn_forward
-from repro_torch.models.layers import (MLP, cross_entropy_chunked,
-                                       lm_head_matrix, mlp, param, recompute,
+from repro_torch.models.layers import (MLP, P, cross_entropy_chunked,
+                                       embed_specs, fsdp_axis, lm_head_matrix,
+                                       mlp, mlp_specs, param, recompute,
                                        rmsnorm, trunc_normal_)
 from repro_torch.models.transformer import logits_from_hidden
 
@@ -132,6 +133,21 @@ class EncDec(nn.Module):
 
 
 Model = EncDec
+
+
+def param_specs(cfg: ModelConfig, multi_pod: bool = False):
+    f = fsdp_axis(multi_pod)
+    enc = {"attn": A.attention_specs(f, lead=(None,)),
+           "mlp": mlp_specs(cfg.act, f, lead=(None,)),
+           "norm1": P(None, None), "norm2": P(None, None)}
+    dec = {"self_attn": A.attention_specs(f, lead=(None,)),
+           "cross_attn": A.attention_specs(f, lead=(None,)),
+           "mlp": mlp_specs(cfg.act, f, lead=(None,)),
+           "norm1": P(None, None), "norm2": P(None, None),
+           "norm3": P(None, None)}
+    return {"embed": embed_specs(cfg.tie_embeddings, f),
+            "encoder": enc, "decoder": dec,
+            "enc_norm": P(None), "final_norm": P(None)}
 
 
 # --------------------------------------------------------------------- #

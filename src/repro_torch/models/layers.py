@@ -22,6 +22,47 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import backend as KB
+from repro_torch.parallel import weight
+
+
+# --------------------------------------------------------------------- #
+# sharding specs
+# --------------------------------------------------------------------- #
+
+class P(tuple):
+    """A partition spec (the reference's ``jax.sharding.PartitionSpec``,
+    without JAX): one entry a dim of the array, ``None`` (whole on every
+    rank), a mesh axis name (split over it) or a tuple of names (split
+    over their product, the first major).  ``launch.mesh.shard_box``
+    turns it into a rank's block."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+
+def fsdp_axis(multi_pod: bool):
+    """The axis (or axes) weights and batches are FSDP/data sharded over."""
+    return ("pod", "data") if multi_pod else "data"
+
+
+def mlp_specs(act: str, fsdp, lead: tuple = ()):
+    base = {"w_up": P(*lead, fsdp, "model"),
+            "w_down": P(*lead, "model", fsdp)}
+    if act == "silu":
+        base["w_gate"] = P(*lead, fsdp, "model")
+    return base
+
+
+def embed_specs(tie: bool, fsdp):
+    """The token embedding split by vocab rows over ``model``, the
+    untied head by vocab columns."""
+    p = {"tok": P("model", fsdp)}
+    if not tie:
+        p["lm_head"] = P(fsdp, "model")
+    return p
 
 
 # --------------------------------------------------------------------- #
@@ -126,13 +167,20 @@ class MLP(nn.Module):
             trunc_normal_(self.w_gate, 0.02, generator)
 
 
-def mlp(p: MLP, x, act: str):
-    up = x @ p.w_up.to(x.dtype)
+def mlp(p: MLP, x, act: str, tp=None):
+    """On a mesh (``tp``, a ``parallel.TensorParallel``) up and gate are
+    column-parallel and down row-parallel: this rank's d_ff/M columns,
+    the output summed over the model group."""
+    dt = x.dtype
+    if tp is not None:
+        x = tp.to_model(x)
+    up = x @ weight(p.w_up, dt, tp)
     if p.w_gate is not None:
-        h = act_fn(act)(x @ p.w_gate.to(x.dtype)) * up
+        h = act_fn(act)(x @ weight(p.w_gate, dt, tp)) * up
     else:
         h = act_fn(act)(up)
-    return h @ p.w_down.to(x.dtype)
+    out = h @ weight(p.w_down, dt, tp)
+    return out if tp is None else tp.from_model(out)
 
 
 # --------------------------------------------------------------------- #
@@ -148,7 +196,7 @@ def lm_head_matrix(model) -> torch.Tensor:
 
 
 def cross_entropy_chunked(h, W, labels, mask, logical_vocab: int, *,
-                          z_loss: float = 0.0, chunk: int = 512):
+                          z_loss: float = 0.0, chunk: int = 512, tp=None):
     """Loss over (B, S, d) hiddens against (B, S) labels without holding
     the (B, S, V) logits: the sequence goes in chunks of ``chunk``
     tokens, each chunk's float32 logits recomputed in the backward
@@ -156,18 +204,38 @@ def cross_entropy_chunked(h, W, labels, mask, logical_vocab: int, *,
     of its scan body; the ragged remainder is not recomputed, as
     there).  Logits of the padded vocab (ids >= ``logical_vocab``) are
     masked to -1e30.  Returns (loss, z_sq) as float32 token means; the
-    loss includes ``z_loss · z_sq``."""
+    loss includes ``z_loss · z_sq``.
+
+    On a mesh (``tp``) ``W`` holds this rank's vocab columns (d, V/M) and
+    the loss is vocab-parallel: the row max (no grad: the logsumexp's
+    value and grad do not depend on it), the sum of exps and the
+    target's logit are reduced over the model group, and z-loss comes
+    from the same logsumexp."""
     S, V = h.shape[1], W.shape[-1]
     chunk = min(chunk, S)
     n_chunks = S // chunk
     rem = S - n_chunks * chunk
-    vocab_ok = torch.arange(V, device=h.device) < logical_vocab
+    lo = 0
+    if tp is not None:
+        h, lo = tp.to_model(h), tp.vocab_start(V)
+    vocab_ok = torch.arange(lo, lo + V, device=h.device) < logical_vocab
 
     def chunk_loss(hc, yc, mc):
         logits = (hc @ W.to(hc.dtype)).float()
         logits = torch.where(vocab_ok, logits, -1e30)
-        z = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, yc[..., None])[..., 0]
+        if tp is None:
+            z = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, yc[..., None])[..., 0]
+        else:
+            m = tp.max_over_model(logits.amax(dim=-1))
+            s = torch.exp(logits - m[..., None]).sum(dim=-1)
+            local = yc - lo
+            inside = (local >= 0) & (local < V)
+            ll = torch.gather(logits, -1,
+                              local.clamp(0, V - 1)[..., None])[..., 0]
+            s, ll = tp.from_model(torch.stack(
+                [s, torch.where(inside, ll, 0.0)])).unbind()
+            z = m + torch.log(s)
         nll = (z - ll) * mc
         return torch.stack([nll.sum(), (z.square() * mc).sum(), mc.sum()])
 

@@ -24,7 +24,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import backend as KB
 from repro_torch.kernels.ref import cumsum16
-from repro_torch.models.layers import (cross_entropy_chunked, lm_head_matrix,
+from repro_torch.models.layers import (P, cross_entropy_chunked,
+                                       embed_specs, fsdp_axis, lm_head_matrix,
                                        out_std, param, recompute, rmsnorm,
                                        trunc_normal_)
 
@@ -141,6 +142,31 @@ class Mamba2(nn.Module):
 
 
 Model = Mamba2
+
+
+def mixer_specs(fsdp, lead: tuple = ()):
+    return {"w_z": P(*lead, fsdp, "model"),
+            "w_x": P(*lead, fsdp, "model"),
+            "w_B": P(*lead, fsdp, None),
+            "w_C": P(*lead, fsdp, None),
+            "w_dt": P(*lead, fsdp, None),
+            "dt_bias": P(*lead, None),
+            "A_log": P(*lead, None),
+            "D": P(*lead, None),
+            "conv_w": P(*lead, None, "model"),
+            "conv_b": P(*lead, "model"),
+            "norm": P(*lead, "model"),
+            "w_out": P(*lead, "model", fsdp)}
+
+
+def param_specs(cfg: ModelConfig, multi_pod: bool = False):
+    """The reference's spec tree (its leaf paths; ``lead`` is its
+    stacked layer dim)."""
+    f = fsdp_axis(multi_pod)
+    return {"embed": embed_specs(cfg.tie_embeddings, f),
+            "layers": {"mixer": mixer_specs(f, lead=(None,)),
+                       "norm": P(None, None)},
+            "final_norm": P(None)}
 
 
 # --------------------------------------------------------------------- #

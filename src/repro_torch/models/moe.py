@@ -58,7 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import out_std, param, trunc_normal_
+from repro_torch.models.layers import P, out_std, param, trunc_normal_
 
 GROUP_SIZE = 2048
 
@@ -84,6 +84,14 @@ class MoE(nn.Module):
         trunc_normal_(self.w_gate, 0.02, generator)
         trunc_normal_(self.w_up, 0.02, generator)
         trunc_normal_(self.w_down, out_std(n_layers), generator)
+
+
+def moe_specs(fsdp, lead: tuple = ()):
+    """Experts over ``model``; the router replicated."""
+    return {"router": P(*lead, None, None),
+            "w_gate": P(*lead, "model", fsdp, None),
+            "w_up": P(*lead, "model", fsdp, None),
+            "w_down": P(*lead, "model", None, fsdp)}
 
 
 def groups(cfg: ModelConfig, n_tokens: int,

@@ -28,7 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape
 from repro_torch.models import encdec, mamba2, rglru, transformer
+from repro_torch.models.layers import P, fsdp_axis
 
 _TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 ENCDEC_FAMILIES = ("encdec", "audio")
@@ -58,6 +60,38 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, dtype=torch.bfloat16,
     gen = torch.Generator(device=device).manual_seed(seed)
     model = fam.Model(cfg, dtype=dtype, device=device)
     return model.init_weights(gen).requires_grad_(trainable)
+
+
+def param_specs(cfg: ModelConfig, multi_pod: bool = False,
+                serve_resident: bool = False):
+    """The family's spec tree (the reference's leaf paths, a
+    :class:`layers.P` a leaf).  ``serve_resident=True`` drops the FSDP
+    axes ('data'/'pod') from every weight: weights replicate over data
+    and stay split over 'model' only (no per-step weight gather in
+    decode)."""
+    specs = family(cfg).param_specs(cfg, multi_pod)
+    if not serve_resident:
+        return specs
+
+    def strip(spec):
+        cleaned = []
+        for ax in spec:
+            if ax in ("data", "pod"):
+                cleaned.append(None)
+            elif isinstance(ax, tuple):
+                kept = tuple(a for a in ax if a not in ("data", "pod"))
+                cleaned.append(kept[0] if len(kept) == 1 else
+                               (kept or None))
+            else:
+                cleaned.append(ax)
+        return P(*cleaned)
+
+    def walk(tree):
+        if isinstance(tree, P):
+            return strip(tree)
+        return {k: walk(v) for k, v in tree.items()}
+
+    return walk(specs)
 
 
 def loss_fn(model, cfg: ModelConfig, batch, *, z_loss: float = 0.0,
@@ -232,3 +266,121 @@ def concrete_inputs(cfg: ModelConfig, mode: str, batch: int, seq_len: int,
                and cfg.arch_type in ENCDEC_FAMILIES else "prefix_emb")
         out[key] = t(emb, dtype)
     return out
+
+
+# --------------------------------------------------------------------- #
+# workload inputs and their shardings
+# --------------------------------------------------------------------- #
+
+def _meta(shape, dtype):
+    """A shape-and-dtype stand-in (the reference's
+    ``jax.ShapeDtypeStruct``): a tensor on the meta device, no memory."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_batch_struct(cfg: ModelConfig, batch: int, seq_len: int):
+    st = text_len(cfg, seq_len)
+    out = {"tokens": _meta((batch, st), torch.int64),
+           "labels": _meta((batch, st), torch.int64)}
+    if has_frontend(cfg):
+        key = "prefix_emb" if cfg.arch_type == "vlm" else "src_emb"
+        out[key] = _meta((batch, cfg.frontend_tokens, cfg.frontend_dim),
+                         torch.bfloat16)
+    return out
+
+
+def prefill_struct(cfg: ModelConfig, batch: int, seq_len: int):
+    out = {"tokens": _meta((batch, text_len(cfg, seq_len)), torch.int64)}
+    if has_frontend(cfg):
+        out["prefix_emb"] = _meta(
+            (batch, cfg.frontend_tokens, cfg.frontend_dim), torch.bfloat16)
+    return out
+
+
+def decode_struct(cfg: ModelConfig, batch: int, seq_len: int,
+                  dtype=torch.bfloat16):
+    """The decode step's inputs on the meta device: a decode cache of
+    ``seq_len`` positions is never allocated."""
+    from repro_torch.serving import cache as sc   # serving imports this
+    data = cache_struct(cfg, batch, seq_len, dtype=dtype, device="meta")
+    return {"cache": sc.DenseKVCache(data=data,
+                                     lengths=_meta((batch,), torch.int32)),
+            "token": _meta((batch, 1), torch.int64)}
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape):
+    """Stand-ins of every model input of a workload shape."""
+    if shape.mode == "train":
+        return train_batch_struct(cfg, shape.global_batch, shape.seq_len)
+    if shape.mode == "prefill":
+        return prefill_struct(cfg, shape.global_batch, shape.seq_len)
+    return decode_struct(cfg, shape.global_batch, shape.seq_len)
+
+
+def _batch_axes(batch: int, multi_pod: bool):
+    need = 32 if multi_pod else 16
+    if batch % need == 0:
+        return fsdp_axis(multi_pod)
+    if batch % 16 == 0:
+        return "data"
+    return None
+
+
+def _cache_spec(leaf_shape, b_axes, leading_layer: bool,
+                seq_shard: bool = False) -> P:
+    """The batch dim over the data axes; the last dim over 'model' when it
+    is a multiple of 16 (head_dim / feature shards), or with
+    ``seq_shard`` the KV sequence dim (the flash-decode layout)."""
+    spec = [None] * len(leaf_shape)
+    bdim = 1 if leading_layer else 0
+    if len(leaf_shape) > bdim:
+        spec[bdim] = b_axes
+    sdim = bdim + 1
+    if (seq_shard and len(leaf_shape) >= sdim + 2
+            and leaf_shape[sdim] % 16 == 0):
+        spec[sdim] = "model"
+    elif leaf_shape[-1] % 16 == 0 and len(leaf_shape) >= 2:
+        spec[-1] = "model"
+    return P(*spec)
+
+
+def _map_leaves(fn, tree):
+    from repro_torch.serving import cache as sc   # serving imports this
+    if isinstance(tree, sc.DenseKVCache):
+        return sc.DenseKVCache(data=_map_leaves(fn, tree.data),
+                               lengths=_map_leaves(fn, tree.lengths))
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
+    return fn(tree)
+
+
+def input_shardings(cfg: ModelConfig, shape: InputShape,
+                    multi_pod: bool = False,
+                    cache_seq_shard: bool = False):
+    """The spec tree of :func:`input_specs`' inputs, the reference's
+    rules: batches over the data axes when they divide; decode caches
+    (layer-stacked, the hybrid's a list) by :func:`_cache_spec`, their
+    int32 position arrays replicated."""
+    b = _batch_axes(shape.global_batch, multi_pod)
+    if shape.mode in ("train", "prefill"):
+        struct = input_specs(cfg, shape)
+        return {k: P(b, None, None) if v.dim() == 3 else P(b, None)
+                for k, v in struct.items()}
+    struct = decode_struct(cfg, shape.global_batch, shape.seq_len)
+    layer_stacked = cfg.arch_type != "hybrid"
+
+    def spec_of(leaf):
+        if leaf.dim() == 0:
+            return P()
+        if leaf.shape[-1] == 1 and leaf.dim() == 2:      # token (B, 1)
+            return P(b, None)
+        if leaf.dtype == torch.int32:                    # positions
+            return P(*([None] * leaf.dim()))
+        return _cache_spec(tuple(leaf.shape), b,
+                           layer_stacked and leaf.dim() >= 3,
+                           seq_shard=cache_seq_shard)
+
+    return {"cache": _map_leaves(spec_of, struct["cache"]),
+            "token": P(b, None)}

@@ -35,8 +35,9 @@ from repro_torch.configs.base import HybridConfig, ModelConfig, _pattern
 from repro_torch.kernels import backend as KB
 from repro_torch.models import attention as A
 from repro_torch.models.attention import Attention, attn_forward
-from repro_torch.models.layers import (MLP, act_fn, cross_entropy_chunked,
-                                       lm_head_matrix, mlp, out_std, param,
+from repro_torch.models.layers import (MLP, P, act_fn, cross_entropy_chunked,
+                                       embed_specs, fsdp_axis, lm_head_matrix,
+                                       mlp, mlp_specs, out_std, param,
                                        recompute, rmsnorm, trunc_normal_)
 from repro_torch.models.mamba2 import causal_conv1d
 from repro_torch.models.transformer import logits_from_hidden
@@ -202,6 +203,40 @@ class Hybrid(nn.Module):
 
 
 Model = Hybrid
+
+
+def recurrent_specs(fsdp, lead: tuple = ()):
+    return {"w_gate": P(*lead, fsdp, "model"),
+            "w_x": P(*lead, fsdp, "model"),
+            "conv_w": P(*lead, None, "model"),
+            "conv_b": P(*lead, "model"),
+            "w_r": P(*lead, fsdp, "model"),
+            "w_i": P(*lead, fsdp, "model"),
+            "lam": P(*lead, "model"),
+            "w_out": P(*lead, "model", fsdp)}
+
+
+def _layer_specs(kind: str, cfg: ModelConfig, fsdp, lead: tuple = ()):
+    t = (recurrent_specs(fsdp, lead) if kind == "recurrent"
+         else A.attention_specs(fsdp, lead))
+    return {"temporal": t,
+            "mlp": mlp_specs(cfg.act, fsdp, lead),
+            "norm1": P(*lead, None), "norm2": P(*lead, None)}
+
+
+def param_specs(cfg: ModelConfig, multi_pod: bool = False):
+    """The reference's spec tree: the full groups' slots stacked (a
+    leading group dim), the remainder's layers unstacked."""
+    f = fsdp_axis(multi_pod)
+    pat, n_full, rem = groups(cfg)
+    p = {"embed": embed_specs(cfg.tie_embeddings, f),
+         "final_norm": P(None)}
+    if n_full:
+        p["groups"] = {f"slot{j}": _layer_specs(pat[j], cfg, f, lead=(None,))
+                       for j in range(len(pat))}
+    for r, kind in enumerate(rem):
+        p[f"rem{r}"] = _layer_specs(kind, cfg, f)
+    return p
 
 
 # --------------------------------------------------------------------- #

@@ -25,8 +25,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models.attention import Attention, attn_forward
-from repro_torch.models.layers import (MLP, cross_entropy_chunked,
-                                       lm_head_matrix, mlp, param, recompute,
+from repro_torch.parallel import tp_of
+from repro_torch.models.layers import (MLP, P, cross_entropy_chunked,
+                                       embed_specs, fsdp_axis, lm_head_matrix,
+                                       mlp, mlp_specs, param, recompute,
                                        rmsnorm, trunc_normal_)
 
 
@@ -98,6 +100,22 @@ class Transformer(nn.Module):
 Model = Transformer
 
 
+def param_specs(cfg: ModelConfig, multi_pod: bool = False):
+    """The reference's spec tree over its leaf paths (``lead`` is its
+    stacked layer dim, which the port's ``ModuleList`` does not have)."""
+    f = fsdp_axis(multi_pod)
+    layers = {"attn": A.attention_specs(f, lead=(None,)),
+              "norm1": P(None, None),
+              "norm2": P(None, None)}
+    if cfg.arch_type == "moe":
+        layers["moe"] = M.moe_specs(f, lead=(None,))
+    else:
+        layers["mlp"] = mlp_specs(cfg.act, f, lead=(None,))
+    return {"embed": embed_specs(cfg.tie_embeddings, f),
+            "layers": layers,
+            "final_norm": P(None)}
+
+
 # --------------------------------------------------------------------- #
 # training forward and loss
 # --------------------------------------------------------------------- #
@@ -110,11 +128,12 @@ def ffn(layer: Layer, h, cfg: ModelConfig):
     return mlp(layer.mlp, h, cfg.act), {}
 
 
-def _layer(layer: Layer, x, cfg: ModelConfig):
+def _layer(layer: Layer, x, cfg: ModelConfig, tp=None):
     h = rmsnorm(x, layer.norm1, cfg.norm_eps)
     a, _ = attn_forward(layer.attn, h, n_heads=cfg.n_heads,
                         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                        rope_theta=cfg.rope_theta, window=cfg.sliding_window)
+                        rope_theta=cfg.rope_theta, window=cfg.sliding_window,
+                        tp=tp)
     x = x + a
     h = rmsnorm(x, layer.norm2, cfg.norm_eps)
     if cfg.arch_type == "moe":
@@ -123,14 +142,23 @@ def _layer(layer: Layer, x, cfg: ModelConfig):
         # sub-layer remat, as the reference's: the backward recomputes
         # the MLP apart from attention, so the peak holds one of their
         # interiors (the reference remats no MoE apart)
-        f, aux = recompute(mlp, layer.mlp, h, cfg.act), {}
+        f, aux = recompute(mlp, layer.mlp, h, cfg.act, tp), {}
     return x + f, aux
 
 
-def _embed(model: Transformer, tokens, prefix_emb, dtype):
+def _embed(model: Transformer, tokens, prefix_emb, dtype, tp=None):
     """The token embeddings in ``dtype`` (the embedding cast before the
-    gather, as the reference's), behind ``prefix_emb`` when given."""
-    x = F.embedding(tokens, model.tok.to(dtype))
+    gather, as the reference's), behind ``prefix_emb`` when given.  On a
+    mesh the embedding is vocab-parallel: this rank looks up the ids of
+    its rows, zeros for the rest, summed over the model group."""
+    if tp is None:
+        x = F.embedding(tokens, model.tok.to(dtype))
+    else:
+        W = tp.weight(model.tok, dtype)
+        local = tokens - tp.vocab_start(W.shape[0])
+        inside = (local >= 0) & (local < W.shape[0])
+        x = F.embedding(local.clamp(0, W.shape[0] - 1), W)
+        x = tp.from_model(torch.where(inside[..., None], x, 0.0))
     if prefix_emb is None:
         return x
     return torch.cat([prefix_emb.to(dtype), x], dim=1)
@@ -148,15 +176,18 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, tokens, *,
     ``remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``); it changes memory, not the numbers.
     A sliding-window config trains through ``chunked_attention``'s
-    autograd, as the reference trains it through XLA."""
+    autograd, as the reference trains it through XLA.  A model cut to a
+    mesh (``parallel.shard``) runs its layers sharded, each weight
+    gathered inside the layer's recompute region."""
     M.check_tokens(cfg, tokens.numel())
-    x = _embed(model, tokens, prefix_emb, dtype)
+    tp = tp_of(model)
+    x = _embed(model, tokens, prefix_emb, dtype, tp)
     auxs = []
     for layer in model.layers:
         if remat:
-            x, aux = recompute(_layer, layer, x, cfg)
+            x, aux = recompute(_layer, layer, x, cfg, tp)
         else:
-            x, aux = _layer(layer, x, cfg)
+            x, aux = _layer(layer, x, cfg, tp)
         auxs.append(aux)
     aux = {k: torch.stack([a[k].float() for a in auxs]).mean()
            for k in auxs[0]} if auxs else {}
@@ -182,8 +213,10 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch, *,
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
-    loss, z_sq = cross_entropy_chunked(h, lm_head_matrix(model), labels,
-                                       mask, cfg.vocab_size, z_loss=z_loss)
+    tp = tp_of(model)
+    W = lm_head_matrix(model) if tp is None else tp.head(model, h.dtype)
+    loss, z_sq = cross_entropy_chunked(h, W, labels, mask, cfg.vocab_size,
+                                       z_loss=z_loss, tp=tp)
     metrics = {"ce_loss": loss, "z_sq": z_sq}
     if cfg.arch_type == "moe":
         loss = loss + M.moe_aux_total(aux, cfg)

@@ -14,7 +14,9 @@ returns the same dicts.  The step ``count`` too is advanced in place,
 in the tensor ``init`` made, so a CUDA graph captured over the state
 reads and advances the same count at every replay.  ``lr`` is a float
 or a float32 0-d tensor (a CPU one is read by the card's kernels without
-a sync; a captured graph reads a device one).
+a sync; a captured graph reads a device one).  ``norm`` (optional) is the grads' global norm when the
+caller holds only shards of them (``parallel.global_norm`` on a mesh):
+the clip and normalized SGD use it in place of the local one.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ Tensors = Dict[str, torch.Tensor]
 class Optimizer(NamedTuple):
     init: Callable[[Tensors], Tensors]
     update: Callable[..., Tuple[Tensors, Tensors]]
-    # update(grads, state, params, lr) -> (params, state)
+    # update(grads, state, params, lr, norm=None) -> (params, state)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -39,10 +41,12 @@ def global_norm(tensors) -> torch.Tensor:
                         for x in tensors]).sum().sqrt()
 
 
-def _clip_by_global_norm_(grads: Tensors, max_norm: float) -> None:
+def _clip_by_global_norm_(grads: Tensors, max_norm: float,
+                          norm=None) -> None:
     if not max_norm:
         return
-    norm = global_norm(grads.values())
+    if norm is None:
+        norm = global_norm(grads.values())
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads.values():
         g.mul_(scale)
@@ -62,8 +66,8 @@ def sgd(momentum: float = 0.0, grad_clip: float = 0.0) -> Optimizer:
         return state
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
-        _clip_by_global_norm_(grads, grad_clip)
+    def update(grads, state, params, lr, norm=None):
+        _clip_by_global_norm_(grads, grad_clip, norm)
         for n, p in params.items():
             g = grads[n]
             if momentum:
@@ -84,8 +88,9 @@ def nsgd(grad_clip: float = 0.0, eps: float = 1e-12) -> Optimizer:
         return {"count": _count0(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
-        norm = global_norm(grads.values())
+    def update(grads, state, params, lr, norm=None):
+        if norm is None:
+            norm = global_norm(grads.values())
         scale = lr / torch.clamp(norm, min=eps)
         for n, p in params.items():
             p.sub_(scale * grads[n])
@@ -103,8 +108,8 @@ def adamw(beta1: float = 0.9, beta2: float = 0.95, eps: float = 1e-8,
                 "count": _count0(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
-        _clip_by_global_norm_(grads, grad_clip)
+    def update(grads, state, params, lr, norm=None):
+        _clip_by_global_norm_(grads, grad_clip, norm)
         c = state["count"].add_(1)
         bc1 = 1.0 - torch.pow(beta1, c.float())
         bc2 = 1.0 - torch.pow(beta2, c.float())

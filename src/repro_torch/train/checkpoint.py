@@ -11,7 +11,7 @@ stripped)::
                         # array index (key -> shape/dtype/block files,
                         # writer, crc32) + the save's generation + meta
       meta.json         # informational copy of the meta
-      arrays/<gen>/     # one .npy per leaf (one block, one writer)
+      arrays/<gen>/     # one .npy per distinct block of each leaf
         00042.0.npy     # <leaf index in sorted key order>.<block>
 
 The leaves are the reference's pytree leaves, ``p:<path>`` for the
@@ -37,10 +37,17 @@ replaying the same graphs.  Legacy single-file ``<base>.npz``
 checkpoints (:func:`save_npz`) restore through the same code.
 
 Multi-process runs (a ``torch.distributed`` group) save collectively,
-as the reference's processes do.  The state is replicated data-parallel,
-so every rank holds every leaf and is a candidate writer: leaf j in save
-order goes to rank ``j mod N`` (the manifest's ``writer``), whose bytes
-are the same whoever writes them.  A save agrees on the generation (the
+as the reference's processes do.  A leaf is one block held by every
+rank (replicated data-parallel state), or on a data × model mesh a
+:class:`Sharded` leaf: each rank holds one block, and the distinct
+blocks of the leaf (sorted by their start) are written once each, as
+``<leaf>.<j>.npy`` with the manifest's ``start``/``stop``.  The writer
+of a block rotates round-robin over the ranks that hold it, counted over
+all blocks in save order, as the reference's ``_plan_writes`` does
+(replicated leaves: block j of the save goes to rank ``j mod N``).  A
+restore reads, for each rank, the overlap of the saved blocks with its
+own block (``_fill_block``), so a checkpoint restores onto any mesh or
+one process.  A save agrees on the generation (the
 committed manifest, read by all after a barrier); rank 0 clears the
 leftovers and makes the directory; every rank streams its leaves and
 drops its completion marker ``.save-<gen>.<rank>.json`` with their
@@ -108,6 +115,24 @@ class Stacked(tuple):
     @property
     def dtype(self):
         return self[0].dtype
+
+
+class Sharded:
+    """One rank's block of a leaf on a mesh: ``local`` (a tensor, or a
+    :class:`Stacked` of the layers' blocks), the whole leaf's ``shape``
+    and ``boxes``, every rank's block in whole-leaf coordinates (rank
+    r's is ``boxes[r]``)."""
+
+    def __init__(self, local, shape, boxes, rank: int):
+        self.local, self.shape = local, tuple(shape)
+        self.boxes, self.rank = [tuple(b) for b in boxes], int(rank)
+
+    @property
+    def box(self) -> Block:
+        return self.boxes[self.rank]
+
+    def with_local(self, local) -> "Sharded":
+        return Sharded(local, self.shape, self.boxes, self.rank)
 
 
 def _np_dtype(dtype) -> np.dtype:
@@ -178,7 +203,10 @@ def _base(path: str) -> str:
 
 
 def _leaf_meta(leaf) -> Tuple[Tuple[int, ...], np.dtype]:
-    """(shape, numpy dtype) of a leaf as the checkpoint stores it."""
+    """(shape, numpy dtype) of a leaf as the checkpoint stores it (a
+    :class:`Sharded` leaf's whole shape)."""
+    if isinstance(leaf, Sharded):
+        return leaf.shape, _leaf_meta(leaf.local)[1]
     if isinstance(leaf, Stacked):
         first = leaf[0]
         for t in leaf:
@@ -375,25 +403,45 @@ def _prepare(base: str, *, collective: bool = True) -> Tuple[int, int]:
     return committed, gen
 
 
+def _block_table(leaf, nproc: int):
+    """(distinct blocks of the leaf, sorted; {block: sorted ranks holding
+    it}; {block: this rank's data of it}): a :class:`Sharded` leaf's
+    blocks by rank, else one whole block every rank holds."""
+    if isinstance(leaf, Sharded):
+        holders: Dict[Block, List[int]] = {}
+        for r, b in enumerate(leaf.boxes):
+            holders.setdefault(b, []).append(r)
+        return sorted(holders), holders, {leaf.box: leaf.local}
+    blk = _full_block(_leaf_meta(leaf)[0])
+    return [blk], {blk: list(range(nproc))}, {blk: leaf}
+
+
 def _plan_writes(flat: Dict[str, Any], gen: int):
-    """(manifest ``arrays`` dict, [(block entry, leaf), ...] of the
-    blocks THIS rank writes): one block per leaf, its writer rotating
-    round-robin over the ranks in save order (every rank holds every
-    leaf), as the reference rotates over the processes holding a
-    copy."""
+    """(manifest ``arrays`` dict, [(block entry, data), ...] of the
+    blocks THIS rank writes).  The writer of each block rotates
+    round-robin over the ranks holding it, over all blocks in save order
+    (the reference's rotation): replicated state spreads over every rank,
+    and a model-sharded leaf's blocks over their holders."""
     arrays: Dict[str, Any] = {}
     mine: List[Tuple[Dict, Any]] = []
     nproc, me = mesh.world_size(), mesh.rank()
+    rr = 0
     for li, (key, leaf) in enumerate(sorted(flat.items())):
         shape, dtype = _leaf_meta(leaf)
-        ent = {"file": _shard_file(gen, li, 0),
-               "start": [0] * len(shape),
-               "stop": list(shape),
-               "writer": li % nproc}
+        blocks, holders, local = _block_table(leaf, nproc)
+        shards = []
+        for j, blk in enumerate(blocks):
+            cands = holders[blk]
+            ent = {"file": _shard_file(gen, li, j),
+                   "start": [a for a, _ in blk],
+                   "stop": [b for _, b in blk],
+                   "writer": cands[rr % len(cands)]}
+            rr += 1
+            shards.append(ent)
+            if ent["writer"] == me:
+                mine.append((ent, local[blk]))
         arrays[key] = {"shape": list(shape), "dtype": dtype.name,
-                       "shards": [ent]}
-        if ent["writer"] == me:
-            mine.append((ent, leaf))
+                       "shards": shards}
     return arrays, mine
 
 
@@ -466,6 +514,9 @@ def save(path: str, params, opt_state, step: int, tokens_seen: int,
 
 
 def _materialize(leaf) -> np.ndarray:
+    if isinstance(leaf, Sharded):
+        raise ValueError("save_npz writes whole leaves; a mesh saves "
+                         "with save()")
     if isinstance(leaf, Stacked):
         return np.stack([_to_host(t) for t in leaf])
     return np.array(_to_host(leaf))
@@ -496,6 +547,8 @@ def snapshot_tree(tree):
     step."""
     if isinstance(tree, dict):
         return {k: snapshot_tree(v) for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        return tree.with_local(snapshot_tree(tree.local))
     if isinstance(tree, Stacked):
         return Stacked(t.detach().clone() for t in tree)
     if isinstance(tree, (list, tuple)):
@@ -507,6 +560,8 @@ def snapshot_tree(tree):
 
 def _cuda_device(tree) -> Optional[torch.device]:
     for leaf in _flatten(tree).values():
+        if isinstance(leaf, Sharded):
+            leaf = leaf.local
         t = leaf[0] if isinstance(leaf, Stacked) else leaf
         if isinstance(t, torch.Tensor) and t.device.type == "cuda":
             return t.device
@@ -798,9 +853,22 @@ def _check_leaf(key: str, template, gshape, saved_blocks):
 
 def _restore_leaf(template, saved_blocks):
     """Read one checked leaf into ``template``: a :class:`Stacked` layer
-    by layer (one layer's slice of the file at a time), anything else
-    whole."""
+    by layer (one layer's slice of the file at a time), a
+    :class:`Sharded` leaf's block (layer by layer when stacked),
+    anything else whole."""
     shape, dtype = _leaf_meta(template)
+    if isinstance(template, Sharded):
+        box = template.box
+        if isinstance(template.local, Stacked):
+            for i, t in enumerate(template.local):
+                layer = np.empty((1,) + tuple(t.shape), dtype)
+                _fill_block(layer, ((i, i + 1),) + box[1:], saved_blocks)
+                _assign(t, layer[0])
+            return template
+        out = np.empty(tuple(b - a for a, b in box), dtype)
+        _fill_block(out, box, saved_blocks)
+        _assign(template.local, out)
+        return template
     if isinstance(template, Stacked):
         rest = _full_block(shape[1:])
         for i, t in enumerate(template):

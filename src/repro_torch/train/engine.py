@@ -59,6 +59,15 @@ float32 buffer before the norm, the clip and the optimizer
 CUDA graph holds, so on the card a key holds two graphs, the grad half
 and the update half, and the all-reduce runs between their replays.
 With one process nothing of this runs: one graph a key, as before.
+
+On a data × model mesh of processes (``PhaseEngine(mesh=...)``, the
+launcher's ``--mesh``) each rank holds shards of the weights and of
+AdamW's state (``parallel.shard``) and trains on its data slot's rows;
+the step is a :class:`MeshStep`.  It runs eagerly on the card too: a
+gloo collective is host work that no CUDA graph holds, and a sharded
+step issues dozens of them (a gather before each weight's use, the
+model group's all-reduces, the recompute's again).  Capturing NCCL
+collectives waits for a cell whose ranks have cards of their own.
 """
 from __future__ import annotations
 
@@ -70,11 +79,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import graphs as G
+from repro_torch import parallel
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import schedules as S
 from repro_torch.core.seesaw import SeesawPlan
-from repro_torch.launch import mesh
+from repro_torch.launch import mesh as MESH
 from repro_torch.models import registry as R
+from repro_torch.models.layers import P
 from repro_torch.optim import optimizers as O
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -117,10 +128,18 @@ def _local_grads(model, cfg, batch, names, params, micro_batches, z_loss,
     return grads, {k: v.detach().float() for k, v in metrics.items()}
 
 
+def opt_state_specs(param_spec_tree, opt_state):
+    """The param specs mirrored onto the ``m``/``v``/``mu`` slots; the
+    scalars (``count``) replicated."""
+    return {k: param_spec_tree if k in ("m", "v", "mu") else P()
+            for k in opt_state}
+
+
 def make_grad_step(cfg: ModelConfig, optimizer: O.Optimizer, *,
                    micro_batches: int = 1, z_loss: float = 0.0,
                    dtype=torch.bfloat16, remat: bool = True,
-                   reduce: Optional["FlatReduce"] = None) -> Callable:
+                   reduce: Optional["FlatReduce"] = None,
+                   mesh=None) -> Callable:
     """The one training step builder: ``step(model, opt_state, batch,
     lr) → (model, opt_state, metrics)``.  With ``micro_batches`` > 1 the
     batch splits along its first dim; the grads are summed and divided
@@ -128,7 +147,11 @@ def make_grad_step(cfg: ModelConfig, optimizer: O.Optimizer, *,
     global norm of the averaged grads before clipping.  With ``reduce``
     (more than one rank) the step is a :class:`SplitStep`: this rank's
     grads and metrics are averaged over the ranks before the norm, the
-    clip and the optimizer."""
+    clip and the optimizer.  With ``mesh`` (a model cut to a data × model
+    mesh) the step is a :class:`MeshStep`."""
+    if mesh is not None:
+        return MeshStep(cfg, optimizer, micro_batches=micro_batches,
+                        z_loss=z_loss, dtype=dtype, remat=remat)
     if reduce is not None:
         return SplitStep(cfg, optimizer, micro_batches=micro_batches,
                          z_loss=z_loss, dtype=dtype, remat=remat,
@@ -262,6 +285,39 @@ class SplitStep:
         return model, opt_state, self.update_half(model, opt_state, lr)
 
 
+class MeshStep:
+    """An optimizer step of a model cut to a data × model mesh
+    (``parallel.shard``).  The backward sums each data-sharded grad over
+    the FSDP group inside the weights' gathers; then one float32
+    all-reduce over the FSDP group sums the replicated grads (the norms)
+    and the metrics; every grad and metric is divided by P·D, so the
+    metrics are the data slots' mean.  ``grad_norm`` counts each distinct
+    block once (``parallel.global_norm``, one scalar all-reduce over the
+    whole group); the optimizer's clip (and normalized SGD) use it, and
+    AdamW updates the rank's shards in place."""
+
+    def __init__(self, cfg, optimizer, *, micro_batches, z_loss, dtype,
+                 remat):
+        self.cfg, self.optimizer = cfg, optimizer
+        self.micro_batches, self.z_loss = micro_batches, z_loss
+        self.dtype, self.remat = dtype, remat
+
+    def __call__(self, model, opt_state, batch, lr):
+        tp = model.tp
+        params = dict(model.named_parameters())
+        names = list(params)
+        plist = [params[n] for n in names]
+        grads, metrics = _local_grads(model, self.cfg, batch, names, params,
+                                      self.micro_batches, self.z_loss,
+                                      self.dtype, self.remat)
+        grads, metrics = parallel.reduce_grads(tp, plist, grads, metrics)
+        norm = parallel.global_norm(tp, plist, grads)
+        metrics["grad_norm"] = norm
+        self.optimizer.update(dict(zip(names, grads)), opt_state, params,
+                              lr, norm=norm)
+        return model, opt_state, metrics
+
+
 # --------------------------------------------------------------------- #
 # 2. token-indexed LR
 # --------------------------------------------------------------------- #
@@ -352,10 +408,13 @@ class PhaseEngine:
     (``run_chunk(loss_ema=)``).  In a multi-process run (a
     ``torch.distributed`` group of more than one rank) each rank trains
     on its own rows of every global batch and the steps average grads
-    and metrics over the ranks (:class:`SplitStep`)."""
+    and metrics over the ranks (:class:`SplitStep`).  With ``mesh`` (a
+    ``launch.mesh.Mesh`` the model is cut to) each data slot trains on
+    its rows, the steps are :class:`MeshStep`s, run eagerly."""
 
     def __init__(self, cfg: RunConfig, optimizer: O.Optimizer,
-                 plan: SeesawPlan, *, max_device_batch: Optional[int] = None):
+                 plan: SeesawPlan, *, max_device_batch: Optional[int] = None,
+                 mesh=None):
         self.cfg = cfg
         self.model = cfg.model
         self.optimizer = optimizer
@@ -366,8 +425,10 @@ class PhaseEngine:
             self.ema_decay = float(cfg.schedule.ema_decay or 0.98)
         self.lr_fn = plan_lr_fn(plan, cfg.seq_len)
         self.dtype = DTYPES[cfg.dtype]
-        self.world = mesh.world_size()
-        self.reduce = FlatReduce(self.world) if self.world > 1 else None
+        self.mesh = mesh
+        self.world = MESH.world_size()
+        self.reduce = (FlatReduce(self.world)
+                       if self.world > 1 and mesh is None else None)
         self._cache: Dict[Tuple[int, int], _Step] = {}
         self.captures = 0                 # graphs captured
         self.capture_s = 0.0              # seconds spent capturing them
@@ -383,8 +444,10 @@ class PhaseEngine:
         self.prewarm_wait_s: Dict[Tuple[int, int], float] = {}
 
     def n_data_devices(self) -> int:
-        """The data-parallel width: the process group's size (1 in a
-        single-process run)."""
+        """The data-parallel width: the mesh's data slots (P·D), else the
+        process group's size (1 in a single-process run)."""
+        if self.mesh is not None:
+            return self.mesh.n_fsdp
         return self.world
 
     def micro_batches(self, batch_size: int) -> int:
@@ -446,7 +509,7 @@ class PhaseEngine:
             ent = self._cache[key] = _Step(make_grad_step(
                 self.model, self.optimizer, micro_batches=micro,
                 z_loss=self.cfg.z_loss, dtype=self.dtype,
-                remat=self.cfg.remat, reduce=self.reduce))
+                remat=self.cfg.remat, reduce=self.reduce, mesh=self.mesh))
         return ent
 
     def run_chunk(self, model, opt_state, tokens_seen, stacked_batch,
@@ -461,10 +524,12 @@ class PhaseEngine:
         adaptive engine returns a fourth element, the loss EMA after the
         chunk (a float32 0-d tensor on the batch's device), carried from
         ``loss_ema`` (None: unseeded, the first loss seeds it).  In a
-        multi-process run ``stacked_batch`` holds this rank's rows, and
-        the metrics are the global batch's."""
+        multi-process run ``stacked_batch`` holds this rank's rows (its
+        data slot's on a mesh), and the metrics are the global batch's.
+        A mesh's steps run eagerly on the card too."""
         first = next(iter(stacked_batch.values()))
-        k, batch_size = first.shape[0], first.shape[1] * self.world
+        k = first.shape[0]
+        batch_size = first.shape[1] * self.n_data_devices()
         n = k if n_valid is None else min(int(n_valid), k)
         if k * batch_size * self.cfg.seq_len >= 2 ** 31:
             raise ValueError(
@@ -475,7 +540,7 @@ class PhaseEngine:
                         -1 if step is None else int(step), n,
                         batch_size * self.cfg.seq_len)
         self._live = (model, opt_state)
-        if first.device.type == "cuda":
+        if first.device.type == "cuda" and self.mesh is None:
             metrics = self._run_card(ent, model, opt_state, stacked_batch,
                                      lrs, k)
         else:
@@ -575,8 +640,9 @@ class PhaseEngine:
         graph holds one step.
 
         Returns the started thread, or ``None`` when the key is captured
-        or warming already, when the batch lies on the CPU (nothing to
-        capture) or before the engine's first, eager, step.
+        or warming already, when the batch lies on the CPU or the engine
+        runs a mesh (nothing to capture) or before the engine's first,
+        eager, step.
         :meth:`step_for` joins a thread in flight for its key before
         using the entry, so a key is never captured twice.  Where the
         reference lets a failed background compile fall back to a lazy
@@ -591,14 +657,15 @@ class PhaseEngine:
         first = next(iter(stacked_batch.values()))
         micro = self.micro_batches(batch_size)
         key = (batch_size, micro)
-        if first.device.type != "cuda" or not self._warm or \
-                self._live is None or key in self._prewarm:
+        if first.device.type != "cuda" or self.mesh is not None or \
+                not self._warm or self._live is None or \
+                key in self._prewarm:
             return None
         ent = self.step_for(batch_size)
         if ent.graph is not None:
             return None
         model, opt_state = self._live
-        rows = batch_size // self.world
+        rows = batch_size // self.n_data_devices()
         batch = {name: torch.zeros((rows,) + tuple(v.shape[2:]),
                                    dtype=v.dtype, device=v.device)
                  for name, v in stacked_batch.items()}

@@ -26,6 +26,11 @@ In a multi-process run every rank runs this loop over its per-host
 loader: the engine averages grads and metrics over the ranks, so every
 rank logs the global batch's loss, feeds the controller the same EMA
 and cuts at the same boundary; saves and the stop poll are collective.
+On a data × model mesh (``Trainer(cfg, mesh=...)``) the model and its
+AdamW state are cut to the rank's shards (``parallel.shard``, after
+drawing the whole model from the seed, so every mesh starts from one
+process's weights), the loader feeds the rank's data slot, and a
+checkpoint holds each distinct block of a leaf once.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import parallel
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.adaptive import AdaptiveSeesaw
 from repro_torch.core.seesaw import build_plan
@@ -62,13 +68,16 @@ class TrainState:
 class Trainer:
     def __init__(self, cfg: RunConfig, *, device="cuda", seed: int = 0,
                  fuse_steps: Optional[int] = None,
-                 max_device_batch: Optional[int] = None):
+                 max_device_batch: Optional[int] = None, mesh=None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Trainer: device='cuda' but no CUDA device is present; "
                 "pass device='cpu' to train with the plain versions")
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:       # refused here, before any collective
+            parallel.check(cfg.model, mesh)
         self.fuse_steps = max(int(fuse_steps or 1), 1)
         sch = cfg.schedule
         self.plan = build_plan(
@@ -94,10 +103,13 @@ class Trainer:
                                       else sch.plateau_window))
         self.optimizer = O.from_config(cfg.optimizer)
         self.engine = E.PhaseEngine(cfg, self.optimizer, self.plan,
-                                    max_device_batch=max_device_batch)
+                                    max_device_batch=max_device_batch,
+                                    mesh=mesh)
         model = R.init_model(cfg.model, seed=cfg.seed + seed,
                              dtype=torch.float32, device=device,
                              trainable=True)
+        if mesh is not None:
+            parallel.shard(model, cfg.model, mesh)
         opt_state = self.optimizer.init(dict(model.named_parameters()))
         self.state = TrainState(model, opt_state)
         self.history: List[Dict[str, float]] = []

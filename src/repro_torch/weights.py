@@ -63,7 +63,7 @@ from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.rglru import Hybrid
 from repro_torch.models.rglru import groups as hybrid_groups
 from repro_torch.models.transformer import Transformer
-from repro_torch.train.checkpoint import Stacked
+from repro_torch.train.checkpoint import Sharded, Stacked
 
 
 def _copy(dst: torch.Tensor, src: np.ndarray, name: str) -> None:
@@ -139,17 +139,24 @@ _FAMILIES = {"dense": _dense, "moe": _dense, "vlm": _dense, "ssm": _ssm,
 
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, *,
                     dtype=torch.bfloat16, device="cuda",
-                    trainable: bool = False):
+                    trainable: bool = False, mesh=None,
+                    rank: Optional[int] = None):
     """Build the port's model of ``cfg``'s family (``Transformer`` for
     dense, moe and vlm, ``Mamba2`` for ssm, ``Hybrid`` for hybrid,
     ``EncDec`` for encdec and audio) from the
     reference's parameter pytree (numpy arrays); ``trainable`` turns on
-    the parameters' gradients."""
+    the parameters' gradients.  With ``mesh`` the model is cut to
+    ``rank``'s shards (``parallel.shard``; the process group's rank by
+    default)."""
     load = _FAMILIES.get(cfg.arch_type)
     if load is None:
         raise NotImplementedError(
             f"from_jax_params: arch_type {cfg.arch_type!r} is not ported")
-    return load(tree, cfg, dtype, device).requires_grad_(trainable)
+    model = load(tree, cfg, dtype, device).requires_grad_(trainable)
+    if mesh is not None:
+        from repro_torch import parallel
+        parallel.shard(model, cfg, mesh, rank)
+    return model
 
 
 # --------------------------------------------------------------------- #
@@ -193,19 +200,39 @@ def _tree_of(model, tensors: Dict[str, Any]) -> Dict[str, Any]:
             f"no reference layout for arch_type {model.cfg.arch_type!r}")
     tree: Dict[str, Any] = {}
     stacks: Dict[Tuple[str, ...], List] = {}
+    first: Dict[Tuple[str, ...], str] = {}
     for name, _ in model.named_parameters():
         path, layer = _ref_path(name, model.cfg)
         if layer is None:
-            _put(tree, path, tensors[name])
+            _put(tree, path, _sharded(model, name, tensors[name]))
         else:
             stacks.setdefault(path, []).append((layer, tensors[name]))
+            first.setdefault(path, name)
     for path, items in stacks.items():
         items.sort(key=lambda it: it[0])
         if [i for i, _ in items] != list(range(len(items))):
             raise ValueError(f"{'/'.join(path)}: layers "
                              f"{[i for i, _ in items]} are not 0..L-1")
-        _put(tree, path, Stacked(t for _, t in items))
+        _put(tree, path, _sharded(model, first[path],
+                                  Stacked(t for _, t in items)))
     return tree
+
+
+def _sharded(model, name: str, leaf):
+    """``leaf`` as a :class:`Sharded` block when ``model`` is cut to a
+    mesh (a :class:`Stacked` leaf's blocks take the whole layer dim),
+    else as it is."""
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        return leaf
+    from repro_torch.launch.mesh import shard_box
+    shape, spec = model.full_shapes[name], model.specs[name]
+    boxes = [shard_box(shape, spec, tp.mesh, r) for r in
+             range(tp.mesh.size)]
+    if isinstance(leaf, Stacked):
+        shape = (len(leaf),) + shape
+        boxes = [((0, len(leaf)),) + b for b in boxes]
+    return Sharded(leaf, shape, boxes, tp.rank)
 
 
 def param_tree(model) -> Dict[str, Any]:
@@ -225,14 +252,28 @@ def opt_tree(model, opt_state: Dict[str, Any]) -> Dict[str, Any]:
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        return _gathered(tree)
     if isinstance(tree, Stacked):
         return np.stack([t.detach().cpu().numpy() for t in tree])
     return tree.detach().cpu().numpy().copy()
 
 
+def _gathered(leaf: Sharded) -> np.ndarray:
+    """The whole leaf from every rank's block (collective: an all-gather
+    over the process group a tensor)."""
+    from repro_torch.parallel import gather_full
+    if isinstance(leaf.local, Stacked):
+        boxes = [b[1:] for b in leaf.boxes]
+        return np.stack([gather_full(t, leaf.shape[1:], boxes)
+                         .cpu().numpy() for t in leaf.local])
+    return gather_full(leaf.local, leaf.shape, leaf.boxes).cpu().numpy()
+
+
 def to_jax_params(model) -> Dict[str, Any]:
     """``model``'s parameters as the reference's pytree of numpy arrays
-    (the inverse of :func:`from_jax_params`)."""
+    (the inverse of :func:`from_jax_params`; on a mesh every rank calls
+    it and gets the whole tree)."""
     return _to_numpy(param_tree(model))
 
 
@@ -253,14 +294,18 @@ def _ref_leaf(tree, name: str,
 
 def from_jax_opt_state(tree: Dict[str, Any], model) -> Dict[str, Any]:
     """The reference's optimizer state (numpy leaves) as the port's
-    ``{slot: {name: tensor}, "count": tensor}`` on ``model``'s device."""
+    ``{slot: {name: tensor}, "count": tensor}`` on ``model``'s device
+    (each parameter's block of it on a mesh)."""
     device = next(model.parameters()).device
+    boxes = getattr(model, "boxes", None)
     out: Dict[str, Any] = {}
     for slot, v in tree.items():
         if isinstance(v, dict):
             out[slot] = {}
             for name, p in model.named_parameters():
                 a = _ref_leaf(v, name, model.cfg)
+                if boxes is not None:
+                    a = a[tuple(slice(lo, hi) for lo, hi in boxes[name])]
                 if tuple(a.shape) != tuple(p.shape):
                     raise ValueError(f"{slot}/{name}: reference shape "
                                      f"{tuple(a.shape)} != port shape "
