@@ -12,8 +12,10 @@ recurrentgemma-9b, train and serve the encoder-decoder
 seamless-m4t-medium, serve internvl2-76b with its image prefix and
 mistral-nemo-12b, train seesaw-150m data-parallel as two launcher
 processes sharing the card, train seesaw-150m and llama3.2-3b sharded
-over a data x model mesh of launcher processes sharing the card, and
-run the kernel benchmark on one NVIDIA card.
+over a data x model mesh of launcher processes sharing the card, train
+granite-moe-1b-a400m, mamba2-2.7b, recurrentgemma-9b and
+seamless-m4t-medium on such meshes, and run the kernel benchmark on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -188,8 +190,9 @@ decode graph, each replayed once per step.
   bfloat16 (``prefill_shapes`` of its ``kernels`` entry, ``graph_us``
   beside ``ms``); and the RMSNorm forward at a decode step's rows, 8 x
   2560 and 8 x 5120, checked and timed (``mamba2_decode_d*``).
-- Phase 6, mamba2-2.7b at full width and depth (64 layers, d_model
-  2560, 80 SSD heads, 2.70B parameters), random weights from a seed:
+- Phase 6, mamba2-2.7b at full width cut to 32 of its 64 layers
+  (``MAMBA2_TRAIN_LAYERS``: d_model 2560, 80 SSD heads),
+  random weights from a seed:
   ``kind="seesaw"``, α=2, B0=4, two cuts, seq 2048, 11·4·2048 tokens,
   base LR 8e-4, ``fuse_steps=1``, ``max_device_batch=4``, bfloat16
   compute with float32 weights and AdamW, remat on, data
@@ -270,8 +273,9 @@ decode graph, each replayed once per step.
   and dk/dv L each (counts set to 0 just before each ``Trainer.run``).
   Then figure 1's model and Seesaw plan in float32 on the card against
   the CPU from the same weights, 10 steps: loss within 1e-4 at every
-  step, LR, batch and phase equal.  (c) seesaw-150m at full width and
-  depth at its CBS: ``paper_run`` (AdamW 0.9/0.95, 10% warmup, lr 3e-3,
+  step, LR, batch and phase equal.  (c) seesaw-150m at full width cut
+  to 6 of its 12 layers (``PAPER_LAYERS``) at its CBS:
+  ``paper_run`` (AdamW 0.9/0.95, 10% warmup, lr 3e-3,
   α = 2, seq 1024, bf16, remat), B0 = ``CBS`` = 256, cut to a horizon of
   20 cosine steps (5,242,880 tokens) and 2 cuts, ``MarkovLM(2048, 0)``,
   micro-batches of 32: cosine 20 steps at 256, Seesaw 14 / 1 / 1 at 256
@@ -408,7 +412,8 @@ decode graph, each replayed once per step.
   data x model mesh (gloo; FSDP over data, tensor-parallel over model,
   ``repro_torch.parallel``), each step eager.  (a) float32, the same
   weights (the trainer's seed) and rows, 2 steps at B = 8: seesaw-150m
-  at full width and depth on a 2x2 mesh and llama3.2-3b at full width
+  at full width cut to 4 of 12 layers on a 2x2 mesh and
+  llama3.2-3b at full width
   cut to 2 layers on a 1x2 mesh (``MESH_RANK``), each against one
   process: the first batch's loss within 1e-4 and every gathered grad
   within 1e-3 of its leaf's max, grad norm within 1e-3 relative, then
@@ -427,6 +432,40 @@ decode graph, each replayed once per step.
   times its micro-batches.  The ``mesh`` line gives a step's wall, each
   kind of collective's ms and MB a step, each rank's peak memory and
   the differences.  No speed is claimed: the ranks share one card.
+- Phase 19, the model axis for every other family (``phase19``).  (a)
+  The split-row RMSNorm (Mamba-2's gated norm on a model axis) at
+  mamba2-2.7b's gated-norm rows (4,096 x 5,120 cut in 2 and 4 parts),
+  f32 (2e-5) and bf16 (2e-2), against its plain versions and the
+  reference's whole-row math (dscale within 2e-5 of its terms'
+  magnitudes), each part's kernels timed beside their plain versions,
+  the whole-row kernels on the whole rows and their bytes bound; the
+  SSD chunk kernel at a rank's 40 heads and the RG-LRU scan pair at a
+  rank's 2,048 channels (float32, beside their bounds).  (b) Four cells
+  in float32, remat on, each on its mesh of processes sharing the card
+  against one process on the same seeded weights and rows, 2 steps of
+  AdamW at lr 1e-4 (``FAM_CELLS``, ``FAM_RANK``; the granite, mamba2 and
+  seamless cells all at once, then the hybrid's ranks and after them its
+  one process, ``FAM_APART``): granite-moe-1b-a400m
+  (2 of 24 layers, 2x2: 16 of 32 experts and 8 of 16 heads a rank, B 4
+  x S 1,024 so each data slot routes one whole group of 2,048),
+  mamba2-2.7b (2 of 64 layers, 1x2: 40 of 80 SSD heads a rank, the
+  conv's cut at 2,688 against the heads' at 2,560, B 2 x S 2,048),
+  recurrentgemma-9b (3 layers, 2 recurrent and 1 windowed MQA
+  attention, 1x2: 2,048 of 4,096 RG-LRU channels a rank, the one KV
+  head gathered, B 1 x S 3,072 past the 2,048 window) and
+  seamless-m4t-medium (2 encoder and 2 decoder layers, 1x2, B 2 with
+  1,024 frames and 1,024 tokens).  Gates: the first batch's loss within
+  1e-4 and grad norm within 1e-3 relative of one process's; every grad
+  gathered whole within 1e-3 of its leaf's max of the whole model's on
+  the same rank (computed there before the cut); the two steps' loss
+  (1e-4) and grad norm (1e-3); every process launches every kernel
+  exactly its family's count a micro-batch times 3 (the flash kernels in
+  granite and seamless, the SSD chunk and the split row in Mamba-2's
+  ranks, the scan pair in the hybrid, the whole-row RMSNorm everywhere,
+  nothing else).  The ``mesh_families`` line gives each cell's step
+  wall, each kind of collective's calls, MB and ms a step and each
+  rank's peak memory.  No speed or capacity is claimed: the ranks share
+  one card.
 - Phase 8, the kernel benchmark: ``repro_torch.bench.kernels`` at full
   size through its ``main`` (the reference's attention, RMSNorm and SSD
   sweeps in float32, kernel and plain, forward and forward+backward; the
@@ -443,15 +482,16 @@ decode graph, each replayed once per step.
 
 Prints the card's name and power limit, one ``kernels`` JSON line (the
 eight kernels, the flash kernels at hd 32, the ragged decode at hd 32
-and 256, the RG-LRU scan pair, and on the flash, decode and RMSNorm
-entries the shapes of phase 16), one ``engine`` and one ``train``
-JSON line (phase 9's result in the latter), one ``mamba2`` JSON line,
+and 256, the RG-LRU scan pair, the split-row RMSNorm's four kernels,
+and on the flash, decode and RMSNorm entries the shapes of phase 16),
+one ``engine`` and one ``train`` JSON line (phase 9's result in the
+latter), one ``mamba2`` JSON line,
 one ``mamba2_serve``
 line (phases 11 and 11b, with the card), one ``server`` line (phase
 12), one ``paper`` line (phase 13), one ``moe`` line (phase 14), one
 ``hybrid`` line (phase 15), one ``families`` line (phase 16), one
 ``data_parallel`` line (phase 17), one ``mesh`` line (phase 18), one
-``checkpoint`` line
+``mesh_families`` line (phase 19), one ``checkpoint`` line
 (phase 10: bytes written, write, restore and verify seconds and GB/s,
 the async save's stall beside a sync save's time, the adaptive run's
 cuts, the card's name and power limit), and last ``{"ok": true,
@@ -2315,6 +2355,11 @@ def mamba2_counters(RN, FA, SSD):
             "flash_bwd_dkv": (FA, "dkv_launches")}
 
 
+# phase 6's depth: 32 of mamba2-2.7b's 64 layers, to keep the script
+# inside its time limit with phase 19
+MAMBA2_TRAIN_LAYERS = 32
+
+
 def phase6(cfg, RN, FA, SSD):
     from repro_torch.configs import (OptimizerConfig, RunConfig,
                                      ScheduleConfig)
@@ -2961,8 +3006,11 @@ def server_card_vs_cpu(small, R, Server, batches, seed):
 FLASH_HD32 = ((8, 64, 4, 4, "fig-B8"), (128, 64, 4, 4, "fig-B128"),
               (8, 77, 4, 4, "ragged-S77"), (8, 64, 4, 2, "gqa"))
 # 13c: seesaw-150m at its CBS, the horizon cut to 20 cosine steps and the
-# schedule to 2 cuts (the reference's planner then keeps every token)
+# schedule to 2 cuts (the reference's planner then keeps every token);
+# the depth cut to 6 of 12 layers, to keep the script inside its time
+# limit with phase 19
 PAPER_HORIZON, PAPER_CUTS, PAPER_MICRO = 20, 2, 32
+PAPER_LAYERS = 6
 
 
 def phase13a(FA, ref):
@@ -5060,7 +5108,9 @@ def phase17(cfg, ctr, smi):
 
 # 18a: float32, B = 8 of 1,024 tokens, 2 steps of a constant LR
 MESH_SEQ, MESH_B, MESH_STEPS = 1024, 8, 2
-MESH_18A = (("seesaw-150m", 0, "2x2"), ("llama3.2-3b", 2, "1x2"))
+# (seesaw-150m cut to 4 of 12 layers, to keep the script inside its
+# time limit with phase 19)
+MESH_18A = (("seesaw-150m", 4, "2x2"), ("llama3.2-3b", 2, "1x2"))
 # 18b: phase 17's run on a 2x2 mesh, 4 + 2 steps (B = 8 then 16), at
 # lr 1e-4: at phase 17's 3e-3 the run spikes (loss 10.1 -> 13.4 at step
 # 4) and turns any rounding difference into a different run (one process
@@ -5432,6 +5482,546 @@ def phase18(cfg, ctr, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------- #
+# phase 19: the model axis for every other family in training
+# --------------------------------------------------------------------- #
+
+# (tag, arch, decoder layers, encoder layers, mesh, B, S): full width,
+# depth cut; granite's data slots each route a whole group of 2,048
+# tokens, the hybrid's S passes its 2,048-token window
+FAM_CELLS = (("granite", MOE_ARCH, 2, 0, "2x2", 4, 1024),
+             ("mamba2", "mamba2-2.7b", 2, 0, "1x2", 2, 2048),
+             ("hybrid", HYBRID_ARCH, 3, 0, "1x2", 1, 3072),
+             ("seamless", ENCDEC_ARCH, 2, 2, "1x2", 2, 1024))
+FAM_STEPS = 2
+# the cell whose one process runs after the mesh's ranks, and after the
+# other cells, which run all at once (their ranks and one processes, 11
+# processes, ~60 GB with their CUDA contexts): the hybrid's 1.56B float32
+# parameters (its 256,000-row embedding) with grads and AdamW state take
+# 58 GB in one process, and its ranks 40 + 29 GB
+FAM_APART = ("hybrid",)
+# AdamW's first steps move each weight by about lr whatever its grad's
+# size, so a grad near 0 whose sign differs by rounding (or a routing
+# tie) moves apart by 2 lr; 1e-4 keeps that below the loss gate, as
+# phase 18b's MESH_LR does
+FAM_LR = 1e-4
+# one process of a phase-19 cell ("1x1": one process, no group): the
+# seeded model whole (on a mesh's rank 0, the first batch's grads of the
+# whole model first: what every gathered grad is held to), cut to the
+# mesh; the counts set to 0; the first batch's loss and grads on the
+# mesh (each leaf gathered whole and held to the whole model's on rank
+# 0, kept on the host between); then FAM_STEPS steps of AdamW at FAM_LR
+FAM_RANK = r"""
+import dataclasses, json, math, sys, time
+import numpy as np
+import torch
+from repro_torch import graphs, parallel
+from repro_torch.configs import OptimizerConfig, get_config
+from repro_torch.launch import mesh as M
+from repro_torch.launch.train import maybe_init_distributed
+from repro_torch.models import registry as R
+from repro_torch.optim import optimizers as O
+from repro_torch.train import engine as E
+t0 = time.perf_counter()
+stages = {}
+
+
+def stage(name):
+    torch.cuda.synchronize()
+    stages[name] = time.perf_counter() - t0
+
+
+out, arch, layers, enc, spec, port, rank, b, seq, steps, lr = sys.argv[1:12]
+layers, enc, rank, b, seq, steps = map(int, (layers, enc, rank, b, seq,
+                                             steps))
+dev = "cuda:0"
+world = math.prod(M.parse_mesh(spec).values())
+mesh = None
+if world > 1:
+    assert maybe_init_distributed(f"127.0.0.1:{port}", world, rank,
+                                  device="cuda")
+    mesh = M.make_launch_mesh(spec, distributed=True)
+torch.cuda.set_device(dev)
+cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                          **({"n_encoder_layers": enc} if enc else {}))
+if mesh is not None:
+    parallel.check_batch(cfg, mesh, b, seq)
+
+
+def batch(i, whole=False):
+    rng = np.random.default_rng(1900 + i)
+    toks = rng.integers(0, cfg.vocab_size, (b, seq))
+    x = {"tokens": torch.from_numpy(toks).to(dev),
+         "labels": torch.from_numpy(np.roll(toks, -1, axis=1)).to(dev)}
+    if R.has_frontend(cfg):
+        key = "prefix_emb" if cfg.arch_type == "vlm" else "src_emb"
+        x[key] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.frontend_tokens, cfg.frontend_dim),
+            dtype=np.float32)).to(dev)
+    return x if mesh is None or whole else E.slot_rows(x, mesh, rank)
+
+
+def grads_of(model, x):
+    params = dict(model.named_parameters())
+    names = list(params)
+    g, m = E._local_grads(model, cfg, x, names, params, 1, 0.0,
+                          torch.float32, True)
+    return names, [params[n] for n in names], g, m
+
+
+stage("imports_and_group")
+model = R.init_model(cfg, seed=0, dtype=torch.float32, device=dev,
+                     trainable=True)
+stage("init")
+whole = None
+if mesh is not None and rank == 0:
+    # held on the host: beside the shards, AdamW and the gathers, the
+    # hybrid's whole grads (6.2 GB) would not fit the shared card
+    names, _, g, m = grads_of(model, batch(0, whole=True))
+    whole = {n: t.cpu() for n, t in zip(names, g)}
+    del g, m
+    stage("whole_grads")
+if mesh is not None:
+    parallel.shard(model, cfg, mesh)
+torch.cuda.empty_cache()
+stage("shard")
+for mod, attr in graphs.COUNTERS:
+    setattr(mod, attr, 0)
+torch.cuda.reset_peak_memory_stats()
+names, plist, grads, metrics = grads_of(model, batch(0))
+stage("first_grads")
+diff = None
+if mesh is None:
+    norm = O.global_norm(grads)
+else:
+    tp = model.tp
+    grads, metrics = parallel.reduce_grads(tp, plist, grads, metrics)
+    norm = parallel.global_norm(tp, plist, grads)
+    rel = {}
+    for n, g in zip(names, grads):
+        shape, sp = model.full_shapes[n], model.specs[n]
+        full = parallel.gather_full(g, shape, [
+            M.shard_box(shape, sp, mesh, r) for r in range(mesh.size)])
+        if whole is not None:
+            w = whole.pop(n).to(dev)
+            rel[n] = float((full - w).abs().max() / w.abs().max())
+            del w
+        del full
+    if rank == 0:
+        k = max(rel, key=rel.get)
+        diff = {"max_rel": rel[k], "leaf": k, "leaves": len(rel)}
+first = {"loss": float(metrics["loss"]), "grad_norm": float(norm)}
+del grads, metrics, whole
+torch.cuda.empty_cache()
+stage("reduce_and_compare")
+opt = O.from_config(OptimizerConfig(kind="adamw"))
+opt_state = opt.init(dict(model.named_parameters()))
+step = E.make_grad_step(cfg, opt, dtype=torch.float32, remat=True,
+                        mesh=mesh)
+lr = torch.tensor(float(lr), device=dev)
+if mesh is not None:
+    tp.comms.reset()
+hist = []
+torch.cuda.synchronize()
+t = time.perf_counter()
+for i in range(steps):
+    model, opt_state, m = step(model, opt_state, batch(1 + i), lr)
+    hist.append({k: float(v) for k, v in m.items()})
+stage("steps")
+with open(out, "w") as f:
+    json.dump({"first": first, "grads": diff, "history": hist,
+               "stages_s": stages, "wall_s": time.perf_counter() - t,
+               "launches": list(graphs.launch_counts()),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "comms": (tp.comms.summary() if mesh is not None
+                         else None)}, f)
+if mesh is not None:
+    torch.distributed.destroy_process_group()
+"""
+
+
+def family_counters(RN, FA, PG, SSD, OV, RG):
+    """Every kernel's launch counter, the split row's among them."""
+    return dict(hybrid_counters(RN, FA, PG, SSD, OV, RG),
+                rmsnorm_split_sumsq=(RN, "split_sumsq_launches"),
+                rmsnorm_split_fwd=(RN, "split_fwd_launches"),
+                rmsnorm_split_dot=(RN, "split_dot_launches"),
+                rmsnorm_split_bwd=(RN, "split_bwd_launches"))
+
+
+def family_launches(cfg, ctr, on_mesh: bool) -> dict:
+    """Every kernel's launches a micro-batch of a phase-19 cell, remat
+    on: each family's training kernels, and on a mesh Mamba-2's gated
+    norm through the split row (sums of squares and the forward twice a
+    layer under remat, the dot and the backward once) in place of the
+    whole row's kernels."""
+    L = cfg.n_layers
+    per = dict.fromkeys(ctr, 0)
+    if cfg.arch_type == "ssm":
+        gated = 0 if on_mesh else 1
+        per.update(rmsnorm_fwd=2 * L * (1 + gated) + 1,
+                   rmsnorm_bwd=L * (1 + gated) + 1, ssd_chunk=2 * L)
+        if on_mesh:
+            per.update(rmsnorm_split_sumsq=2 * L, rmsnorm_split_fwd=2 * L,
+                       rmsnorm_split_dot=L, rmsnorm_split_bwd=L)
+    elif cfg.arch_type == "hybrid":
+        per.update({k: v for k, v in hybrid_launches(cfg, True).items()
+                    if k in per})
+    elif cfg.arch_type in ("audio", "encdec"):
+        per.update(encdec_launches(cfg, True))
+    else:
+        per.update(per_micro_batch(cfg, True))
+    return per
+
+
+def family_ranks(tmp, tag, cell, spec):
+    """Start ``FAM_RANK`` as one process a slot of ``spec`` ("1x1": one
+    process) for ``cell``; returns the processes and their JSON paths."""
+    _, arch, layers, enc, _, B, S = cell
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    port = str(free_port())
+    procs = []
+    for r in range(math.prod(int(x) for x in spec.split("x"))):
+        out = os.path.join(tmp, f"{tag}{r}.json")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", FAM_RANK, out, arch, str(layers),
+             str(enc), spec, port, str(r), str(B), str(S), str(FAM_STEPS),
+             str(FAM_LR)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), out))
+    return procs
+
+
+def family_wait(procs, timeout=600):
+    """Each process's (JSON record, stdout), as ``wait_ranks`` gives them,
+    but every process is waited for first, so the error holds each failed
+    one's output (a rank whose peer failed fails too, at its next
+    collective); anything still running at ``timeout`` is killed."""
+    texts, end = [], time.perf_counter() + timeout
+    try:
+        for p, _ in procs:
+            texts.append(p.communicate(
+                timeout=max(end - time.perf_counter(), 1.0))[0])
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [f"process {i} exited {p.returncode}: {t[-3000:]}"
+           for i, ((p, _), t) in enumerate(zip(procs, texts))
+           if p.returncode != 0]
+    if bad:
+        raise AssertionError("\n".join(bad))
+    res = []
+    for (_, out), text in zip(procs, texts):
+        with open(out) as f:
+            res.append(dict(json.load(f), stdout=text))
+    return res
+
+
+def phase19a(RN, SSD, RG, ref):
+    """The kernels of phase 19's cells at their shapes: the split-row
+    RMSNorm at mamba2-2.7b's gated-norm rows (B·S = 4,096 rows of d_inner
+    5,120, cut in 2 and 4 parts as that many model ranks hold them), f32
+    (2e-5) and bf16 (2e-2) against its plain versions, the row sums added
+    as the all-reduce adds them; each part's sums + forward and dot +
+    backward timed beside the plain versions, the whole-row kernels on
+    the whole rows and their bounds (bytes: a part's x read once, y or
+    dx written once, g read once, scale and the row sums).  The SSD chunk
+    kernel at a rank's 40 heads and the RG-LRU scan pair at a rank's
+    2,048 channels, float32 as the cells run, beside their bounds."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    timer = Timer(iters=20)
+    errors, times = [], {}
+    rows, d = 4096, 5120
+    for dtype in DTYPES:
+        dn = str(dtype).replace("torch.", "")
+        es = torch.tensor([], dtype=dtype).element_size()
+        x = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+        gy = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+        sc = 0.1 * torch.randn(d, generator=g, device="cuda")
+        want = ref.rmsnorm_ref(x, sc, 1e-5)
+        wdx, wds = ref.rmsnorm_bwd_ref(x, sc, gy, 1e-5)
+        whole = RN.rmsnorm_fwd(x, sc, 1e-5)
+        for parts in (2, 4):
+            xs, gs, ss_ = ([t.contiguous() for t in u.chunk(parts, -1)]
+                           for u in (x, gy, sc))
+            sums = [RN.split_sumsq(a, b) for a, b in zip(xs, ss_)]
+            dots = [RN.split_dot(a, b, c) for a, b, c in zip(xs, ss_, gs)]
+            ss, dot = sum(sums), sum(dots)
+            ys = [RN.split_fwd(a, b, ss, d) for a, b in zip(xs, ss_)]
+            bw = [RN.split_bwd(a, b, c, ss, dot, d)
+                  for a, b, c in zip(xs, ss_, gs)]
+            torch.cuda.synchronize()
+            y = torch.cat(ys, -1)
+            dx = torch.cat([t[0] for t in bw], -1)
+            ds = torch.cat([t[1] for t in bw])
+            plain_y = torch.cat([ref.rmsnorm_split_fwd_ref(
+                a, b, sum(ref.rmsnorm_split_sumsq_ref(u, v)
+                          for u, v in zip(xs, ss_)), d)
+                for a, b in zip(xs, ss_)], -1)
+            # each held to TOL (max_err) and dscale to 2e-5 of its terms'
+            # magnitudes (dscale_rel_err); both raise past them
+            errs = {"fwd": max_err(y, plain_y, dtype),
+                    "fwd_vs_reference": max_err(y, want, dtype),
+                    "bwd_dx": max_err(dx, wdx, dtype),
+                    "bwd_dscale_rel": dscale_rel_err(x, gy, ds, wds),
+                    "fwd_vs_whole_row_kernel": float(
+                        (y.float() - whole.float()).abs().max())}
+            errors.append(("rmsnorm_split", f"parts{parts}", dn, errs))
+            a, b, c = xs[0], ss_[0], gs[0]
+            n, dl = a.shape
+            part_s = f"x ({n}, {dl}) {dn}: 1 of {parts} parts of d {d}"
+            times[f"split_fwd/parts{parts}/{dn}"] = dict(
+                sumsq_ms=timer(lambda: RN.split_sumsq(a, b)),
+                ms=timer(lambda: RN.split_fwd(a, b, ss, d)),
+                plain_sumsq_ms=timer(
+                    lambda: ref.rmsnorm_split_sumsq_ref(a, b)),
+                plain_ms=timer(
+                    lambda: ref.rmsnorm_split_fwd_ref(a, b, ss, d)),
+                library_ms=None, shape=part_s,
+                sumsq_bound_ms=bound(n * dl * es + 4 * n, 2 * n * dl,
+                                     dtype)["bound_ms"],
+                **bound(2 * n * dl * es + 4 * dl + 4 * n, 4 * n * dl,
+                        dtype))
+            times[f"split_bwd/parts{parts}/{dn}"] = dict(
+                dot_ms=timer(lambda: RN.split_dot(a, b, c)),
+                ms=timer(lambda: RN.split_bwd(a, b, c, ss, dot, d)),
+                plain_dot_ms=timer(
+                    lambda: ref.rmsnorm_split_dot_ref(a, b, c)),
+                plain_ms=timer(lambda: ref.rmsnorm_split_bwd_ref(
+                    a, b, c, ss, dot, d)),
+                library_ms=None, shape=part_s,
+                dot_bound_ms=bound(2 * n * dl * es + 4 * dl + 4 * n,
+                                   3 * n * dl, dtype)["bound_ms"],
+                **bound(3 * n * dl * es + 8 * dl + 8 * n, 12 * n * dl,
+                        dtype))
+        times[f"whole_row/{dn}"] = dict(
+            fwd_ms=timer(lambda: RN.rmsnorm_fwd(x, sc, 1e-5)),
+            bwd_ms=timer(lambda: RN.rmsnorm_bwd(x, sc, gy, 1e-5)),
+            shape=f"x ({rows}, {d}) {dn}: the whole rows, one process")
+        del x, gy, sc, want, wdx, wds, whole
+        torch.cuda.empty_cache()
+    f32 = torch.float32
+    # the rank's 40 heads at mamba2-2.7b's decay, held as phase 1c holds
+    # its 80: the kernel no further from a float64 evaluation than twice
+    # the float32 plain version (or one float32 ulp of the largest output)
+    args = ssd_inputs(2, 2048, 40, 64, 128, f32, g, True)
+    xh, dt, A, Bm, Cm = args
+    Q = 256
+    y_k = SSD.ssd_chunk(xh, dt, A, Bm, Cm, Q)
+    y_p = ref.ssd_chunk_ref(xh, dt, A, Bm, Cm, Q)
+    exact = ref.ssd_chunk_ref(*(t.double() for t in args), Q)
+    torch.cuda.synchronize()
+    for name, u, v, e in zip(("y_intra", "states", "T"), y_k, y_p, exact):
+        err = float((u.double() - e).abs().max())
+        perr = float((v.double() - e).abs().max())
+        if not (err <= 2 * max(perr, F32_EPS * float(e.abs().max()))
+                and bool(torch.isfinite(u).all())):
+            raise AssertionError(f"ssd_chunk h40 {name}: error {err:.3g} "
+                                 f"vs float64, plain float32 {perr:.3g}")
+    errors.append(("ssd_chunk", "h40", "float32", max(
+        float((u - v).abs().max()) for u, v in zip(y_k, y_p))))
+    del exact
+    B, S, H, P = xh.shape
+    N, nc = Bm.shape[-1], S // Q
+    times["ssd_chunk/h40"] = dict(
+        ms=timer(lambda: SSD.ssd_chunk(xh, dt, A, Bm, Cm, Q)),
+        plain_ms=timer(lambda: ref.ssd_chunk_ref(xh, dt, A, Bm, Cm, Q)),
+        library_ms=None,
+        shape=f"x (B={B}, S={S}, H={H}, P={P}) f32 strided as in the "
+              f"mixer, N={N}, Q={Q}: a rank's heads of mamba2-2.7b on 1x2",
+        **bound(4 * (B * S * H * P + 2 * B * S * N + B * S * H + H
+                     + B * S * H * P + B * nc * H * N * P + B * nc * H),
+                B * nc * H * (Q * (Q + 1) * (N + P) + 2 * Q * N * P), f32))
+    del args, xh, dt, A, Bm, Cm, y_k, y_p
+    a, b_, h0, dhs, dhl = scan_case(2, 3072, 2048, g)
+    hs, hl = RG.rglru_scan_fwd(a, b_, None)
+    whs, whl = ref.rglru_scan_ref(a, b_, None)
+    torch.cuda.synchronize()
+    errors.append(("rglru_scan_fwd", "w2048", "float32",
+                   max(scan_err(hs, whs), scan_err(hl, whl))))
+    da, db, _ = RG.rglru_scan_bwd(a, hs, None, dhs, dhl, False)
+    wda, wdb, _ = ref.rglru_scan_bwd_ref(a, whs, None, dhs, dhl)
+    torch.cuda.synchronize()
+    errors.append(("rglru_scan_bwd", "w2048", "float32",
+                   max(scan_err(da, wda), scan_err(db, wdb))))
+    del da, db, wda, wdb
+    n = a.numel()
+    times["rglru_scan_fwd/w2048"] = dict(
+        ms=timer(lambda: RG.rglru_scan_fwd(a, b_, None)),
+        plain_ms=timer(lambda: ref.rglru_scan_ref(a, b_, None)),
+        library_ms=None, shape="a, b (2, 3072, 2048) f32: a rank's "
+                               "channels of recurrentgemma-9b on 1x2",
+        **bound(12 * n + 4 * 2 * 2048, 2 * n, f32))
+    times["rglru_scan_bwd/w2048"] = dict(
+        ms=timer(lambda: RG.rglru_scan_bwd(a, hs, None, dhs, dhl, False)),
+        plain_ms=timer(lambda: ref.rglru_scan_bwd_ref(a, hs, None, dhs,
+                                                      dhl)),
+        library_ms=None, shape="a, hs, dhs (2, 3072, 2048) f32 -> da, db",
+        **bound(20 * n + 4 * 2 * 2048, 3 * n, f32))
+    del a, b_, h0, dhs, dhl, hs, hl, whs, whl
+    torch.cuda.empty_cache()
+    return errors, times
+
+
+def family_cell(cell, ranks, one, ctr, cell_s):
+    """One cell's record from its ranks' and one process's records, and
+    its gates (phase 18a's): raises past them."""
+    from repro_torch.configs import get_config
+    tag, arch, layers, enc, spec, B, S = cell
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              **({"n_encoder_layers": enc} if enc else {}))
+    first, want = ranks[0]["first"], one["first"]
+    d_loss = abs(first["loss"] - want["loss"])
+    d_norm = abs(first["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+    grads = ranks[0]["grads"]
+    steps = [{"loss": abs(a["loss"] - b["loss"]),
+              "grad_norm": abs(a["grad_norm"] - b["grad_norm"])
+              / b["grad_norm"]}
+             for a, b in zip(ranks[0]["history"], one["history"])]
+    if any(r["history"] != ranks[0]["history"] for r in ranks):
+        raise AssertionError(f"{tag}: the ranks logged other steps")
+    if len(steps) != FAM_STEPS or d_loss > 1e-4 or d_norm > 1e-3 or \
+            grads["max_rel"] > 1e-3 or any(
+                s["loss"] > 1e-4 or s["grad_norm"] > 1e-3 for s in steps):
+        raise AssertionError(f"{tag} on {spec}: loss {d_loss}, grad norm "
+                             f"{d_norm}, grads {grads}, steps {steps}")
+    micro = 1 + FAM_STEPS
+    launches = check_rank_launches(
+        ranks, ctr, family_launches(cfg, ctr, True), micro, f"{tag}/{spec}")
+    launches.update(check_rank_launches(
+        [one], ctr, family_launches(cfg, ctr, False), micro, f"{tag}/one"))
+    rec = {"arch": arch, "layers": layers, "encoder_layers": enc,
+           "batch": B, "seq": S, "first_loss": first["loss"],
+           "first_loss_diff": d_loss, "first_grad_norm_rel": d_norm,
+           "grads": grads, "steps": steps,
+           "losses": [h["loss"] for h in ranks[0]["history"]],
+           "wall_s_per_step": ranks[0]["wall_s"] / FAM_STEPS,
+           "one_wall_s_per_step": one["wall_s"] / FAM_STEPS,
+           "comms_per_step": {k: {f: v / FAM_STEPS for f, v in c.items()}
+                              for k, c in ranks[0]["comms"].items()},
+           "peak_gb": [r["peak_gb"] for r in ranks],
+           "one_peak_gb": one["peak_gb"],
+           "stages_s": {"rank0": ranks[0]["stages_s"],
+                        "one": one["stages_s"]},
+           "apart": tag in FAM_APART, "cell_s": cell_s}
+    log(f"phase 19 {tag}/{spec}: {rec}")
+    return rec, launches
+
+
+def phase19b(tmp, ctr):
+    """Each ``FAM_CELLS`` cell on its mesh against one process on the
+    same seeded weights and rows, float32, remat on, and the gates of
+    phase 18a: the cells not in ``FAM_APART`` all at once (every rank and
+    one process side by side), then each apart cell, its one process
+    after its ranks."""
+    out, launches = {}, {}
+    t = time.perf_counter()
+    together = [c for c in FAM_CELLS if c[0] not in FAM_APART]
+    procs = [(family_ranks(tmp, f"{c[0]}-{c[4]}-", c, c[4]),
+              family_ranks(tmp, f"{c[0]}-1x1-", c, "1x1"))
+             for c in together]
+    res = family_wait([p for ps, one in procs for p in ps + one])
+    i = 0
+    for cell, (ps, _) in zip(together, procs):
+        ranks, one = res[i:i + len(ps)], res[i + len(ps)]
+        i += len(ps) + 1
+        key = f"{cell[0]}/{cell[4]}"
+        out[key], got = family_cell(cell, ranks, one, ctr,
+                                    time.perf_counter() - t)
+        launches.update(got)
+    for cell in FAM_CELLS:
+        if cell[0] not in FAM_APART:
+            continue
+        t = time.perf_counter()
+        ranks = family_wait(family_ranks(tmp, f"{cell[0]}-{cell[4]}-", cell,
+                                         cell[4]))
+        one = family_wait(family_ranks(tmp, f"{cell[0]}-1x1-", cell,
+                                       "1x1"))[0]
+        out[f"{cell[0]}/{cell[4]}"], got = family_cell(
+            cell, ranks, one, ctr, time.perf_counter() - t)
+        launches.update(got)
+    return out, launches
+
+
+def phase19(RN, SSD, RG, ref, ctr, smi):
+    """The model axis for the MoE, Mamba-2, hybrid and enc-dec families on
+    the card: 19a (the kernels at the cells' shapes) and 19b (the
+    cells).  The steps run eagerly: a gloo collective is host work no
+    CUDA graph holds."""
+    import shutil
+    import tempfile
+    t = time.perf_counter()
+    errors, times = phase19a(RN, SSD, RG, ref)
+    t_a = time.perf_counter() - t
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    try:
+        cells, launches = phase19b(tmp, ctr)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"kernels": {"errors": errors, "times": times}, "cells": cells,
+            "launches": launches,
+            "phase_s": {"19a": t_a, "19b": time.perf_counter() - t - t_a},
+            "steps": "eager: a gloo collective is host work that no CUDA "
+                     "graph holds; the ranks share one card, so no speed "
+                     "or capacity is claimed",
+            "card": smi}
+
+
+def family_kernel_entries(kernels, record):
+    """The split-row entries of the ``kernels`` line, and phase 19's
+    launches on the earlier entries of its path."""
+    fam = record["mesh_families"]
+    times = fam["kernels"]["times"]
+    errs = {(n, tag, dn): e for n, tag, dn, e in fam["kernels"]["errors"]}
+    launches = fam["launches"]
+    note = "none: no PyTorch call takes an outside row sum"
+    for name, key, err_key, replaces in (
+            ("rmsnorm_split_sumsq", "split_fwd", "fwd",
+             "src/repro/kernels/rmsnorm.py:30"),
+            ("rmsnorm_split_fwd", "split_fwd", "fwd",
+             "src/repro/kernels/rmsnorm.py:30"),
+            ("rmsnorm_split_dot", "split_bwd", "bwd_dx",
+             "src/repro/kernels/rmsnorm.py:38"),
+            ("rmsnorm_split_bwd", "split_bwd", "bwd_dx",
+             "src/repro/kernels/rmsnorm.py:38")):
+        sub = {"rmsnorm_split_sumsq": "sumsq_", "rmsnorm_split_dot":
+               "dot_"}.get(name, "")
+        tm = times[f"{key}/parts2/float32"]
+        ms = tm[f"{sub}ms"] if sub else tm["ms"]
+        plain = tm[f"plain_{sub}ms"] if sub else tm["plain_ms"]
+        bnd = tm[f"{sub}bound_ms"] if sub else tm["bound_ms"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/rmsnorm.cu",
+            "replaces": replaces,
+            "launches": launches["mamba2/1x2/rank0"][name],
+            "max_abs_err": errs[("rmsnorm_split", "parts2", "bfloat16")][
+                err_key],
+            "max_abs_err_f32": errs[("rmsnorm_split", "parts2",
+                                     "float32")][err_key],
+            "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": "bytes", "library_ms": None, "library_note": note,
+            "shape": tm["shape"],
+            "by_parts_and_dtype": {
+                k.split("/", 1)[1]: v for k, v in times.items()
+                if k.startswith(key + "/")},
+            "whole_row_kernel": {k: v for k, v in times.items()
+                                 if k.startswith("whole_row/")},
+            "launches_by_rank": {k: c[name] for k, c in launches.items()}})
+    for k in kernels:
+        if "/" in k["name"] or k["name"].startswith("rmsnorm_split"):
+            continue
+        if any(k["name"] in c for c in launches.values()):
+            k["mesh_families_launches"] = {
+                tag: c[k["name"]] for tag, c in launches.items()}
+        if k["name"] == "ssd_chunk":
+            k["rank_h40"] = dict(times["ssd_chunk/h40"], max_abs_err=errs[
+                ("ssd_chunk", "h40", "float32")])
+        if k["name"] in ("rglru_scan_fwd", "rglru_scan_bwd"):
+            k["rank_w2048"] = times[f"{k['name']}/w2048"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -5543,7 +6133,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     mcfg = get_config("mamba2-2.7b")
     t = time.perf_counter()
-    tr, record["mamba2"] = phase6(mcfg, RN, FA, SSD)
+    tr, record["mamba2"] = phase6(dataclasses.replace(
+        mcfg, n_layers=MAMBA2_TRAIN_LAYERS), RN, FA, SSD)
     record["mamba2"]["s"] = time.perf_counter() - t
     log(f"phase 6: {record['mamba2']['s']:.1f} s {record['mamba2']}")
     record["mamba2_profile"] = profile_train(
@@ -5600,7 +6191,8 @@ def main() -> int:
         f"{record['paper']['benchmarks']['figure1_card_vs_cpu']}")
     torch.cuda.empty_cache()
     t13 = time.perf_counter()
-    record["paper"]["cbs"] = phase13c(cfg, counters(RN, FA))
+    record["paper"]["cbs"] = phase13c(dataclasses.replace(
+        cfg, n_layers=PAPER_LAYERS), counters(RN, FA))
     record["paper"]["cbs"]["s"] = time.perf_counter() - t13
     record["paper"]["s"] = time.perf_counter() - t
     log(f"phase 13: {record['paper']['s']:.1f} s")
@@ -5690,6 +6282,14 @@ def main() -> int:
     record["mesh"] = phase18(cfg, counters(RN, FA), smi)
     record["mesh"]["s"] = time.perf_counter() - t
     log(f"phase 18: {record['mesh']['s']:.1f} s {record['mesh']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    record["mesh_families"] = phase19(
+        RN, SSD, RG, ref, family_counters(RN, FA, PG, SSD, OV, RG), smi)
+    record["mesh_families"]["s"] = time.perf_counter() - t
+    log(f"phase 19: {record['mesh_families']['s']:.1f} s "
+        f"{record['mesh_families']['phase_s']}")
     t = time.perf_counter()
     bench_ctr = dict(counters(RN, FA), ssd_chunk=(SSD, "launches"),
                      overlap_norm=(OV, "launches"))
@@ -5993,6 +6593,7 @@ def main() -> int:
             k["mesh_launches"] = {
                 tag: c[k["name"]] for tag, c in
                 record["mesh"]["launches"].items()}
+    family_kernel_entries(kernels, record)
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -6051,6 +6652,9 @@ def main() -> int:
         if k not in ("losses", "launches")}}))
     print(json.dumps({"mesh": {
         k: v for k, v in record["mesh"].items() if k != "launches"}}))
+    print(json.dumps({"mesh_families": {
+        k: v for k, v in record["mesh_families"].items()
+        if k not in ("launches", "kernels")}}))
     print(json.dumps({"checkpoint": record["checkpoint"],
                       "adaptive": adaptive, "card": smi}))
     print(json.dumps({"ok": True, "device": {

@@ -82,6 +82,25 @@
 //   resets, so no memset launch), and the groups' sums by the last group
 //   to finish: one launch, the same bits every run, and no block reads
 //   more than about 12 rows of partials.
+//
+// The split row (Mamba-2's gated norm on a model axis, whose d_inner is
+// cut over the model ranks): a rank holds d of the row's d_full columns,
+// and the row's mean square needs every rank's part.  Three kernels, the
+// all-reduces between them made by the caller (kernels/rmsnorm.py):
+// - rmsnorm_split_dot_kernel: each row's partial float32 sum of x * x
+//   (the forward's pass a) or of g * (1 + scale) * x (the backward's
+//   partial dot), a warp a row, one chain a lane then rt::warp_sum;
+// - rmsnorm_split_fwd_kernel: y = x * rsqrt(ss / d_full + eps) *
+//   (1 + scale) from the whole row's sum ss, a 16-byte vector a thread
+//   over a grid stride;
+// - rmsnorm_split_bwd_kernel: with rr = rsqrt(ss / d_full + eps) and the
+//   whole row's dot, mean(gs * xh) = rr * dot / d_full, so
+//   dx = rr * (gs - xh * rr * dot / d_full); a thread owns 4 columns of a
+//   chunk of rows and adds g * xh over them, and
+//   rmsnorm_split_dscale_kernel sums the chunks' partials in chunk order
+//   (no atomics: the same bits every run).
+// All three are bound by bytes like the whole row's kernels; they are the
+// simple form (x is read twice in each direction).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -632,6 +651,126 @@ int launch_bwd(const void* x, const void* scale, const void* g, void* dx,
   return 0;
 }
 
+// --------------------------------------------------------------------- //
+// the split row
+// --------------------------------------------------------------------- //
+
+constexpr int kSplitThreads = 256;
+
+// out[row] = sum over the row's columns of x * x (g null) or of
+// g * (1 + scale) * x, a warp a row, lane l summing vectors l, l + 32, ...
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads)
+rmsnorm_split_dot_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                         const float* __restrict__ scale,
+                         float* __restrict__ out, int rows, int d) {
+  constexpr int N = rt::Vec<T>::N;
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;                 // a whole warp leaves
+  const int nvec = d / N;
+  const size_t base = static_cast<size_t>(row) * d;
+  float acc = 0.f;
+#pragma unroll 4
+  for (int i = lane; i < nvec; i += 32) {
+    float v[N];
+    rt::load_vec(x + base + static_cast<size_t>(i) * N, v);
+    if (g == nullptr) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc = fmaf(v[j], v[j], acc);
+    } else {
+      float w[N], sc[N];
+      rt::load_vec(g + base + static_cast<size_t>(i) * N, w);
+#pragma unroll
+      for (int j = 0; j < N; j += 4) rt::load4(scale + i * N + j, sc + j);
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc = fmaf(w[j] * (1.f + sc[j]), v[j], acc);
+    }
+  }
+  acc = rt::warp_sum(acc);
+  if (lane == 0) out[row] = acc;
+}
+
+// y = x * rsqrt(ss[row] / d_full + eps) * (1 + scale), a 16-byte vector a
+// thread over a grid stride
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads)
+rmsnorm_split_fwd_kernel(const T* __restrict__ x,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ ss, T* __restrict__ y,
+                         int rows, int d, int d_full, float eps) {
+  constexpr int N = rt::Vec<T>::N;
+  const int nvec = d / N;
+  const int64_t total = static_cast<int64_t>(rows) * nvec;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                   + threadIdx.x; i < total; i += step) {
+    const int row = static_cast<int>(i / nvec);
+    const int c = static_cast<int>(i % nvec) * N;
+    const float rr = rsqrtf(ss[row] / static_cast<float>(d_full) + eps);
+    float v[N], sc[N];
+    rt::load_vec(x + i * N, v);
+#pragma unroll
+    for (int j = 0; j < N; j += 4) rt::load4(scale + c + j, sc + j);
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = v[j] * rr * (1.f + sc[j]);
+    rt::store_vec(y + i * N, v);
+  }
+}
+
+// dx of rows [blockIdx.y * chunk, ...) at this thread's 4 columns, and
+// their sum of g * xh into part[blockIdx.y]
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads)
+rmsnorm_split_bwd_kernel(const T* __restrict__ x,
+                         const float* __restrict__ scale,
+                         const T* __restrict__ g,
+                         const float* __restrict__ ss,
+                         const float* __restrict__ dot, T* __restrict__ dx,
+                         float* __restrict__ part, int rows, int d,
+                         int d_full, int chunk, float eps) {
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (c >= d) return;
+  const float inv_d = 1.f / static_cast<float>(d_full);
+  float sc[4], acc[4] = {0.f, 0.f, 0.f, 0.f};
+  rt::load4(scale + c, sc);
+  const int r0 = blockIdx.y * chunk, r1 = min(rows, r0 + chunk);
+#pragma unroll 4
+  for (int r = r0; r < r1; ++r) {
+    const float rr = rsqrtf(ss[r] / static_cast<float>(d_full) + eps);
+    const float proj = dot[r] * rr * inv_d;        // mean(gs * xh)
+    const size_t off = static_cast<size_t>(r) * d + c;
+    float xv[4], gv[4], o[4];
+    rt::load4(x + off, xv);
+    rt::load4(g + off, gv);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float xh = xv[j] * rr;
+      o[j] = rr * (gv[j] * (1.f + sc[j]) - xh * proj);
+      acc[j] = fmaf(gv[j], xh, acc[j]);
+    }
+    rt::store4(dx + off, o);
+  }
+  rt::store4(part + static_cast<size_t>(blockIdx.y) * d + c, acc);
+}
+
+// dscale[c] = the chunks' partials of column c, added in chunk order
+__global__ void __launch_bounds__(kSplitThreads)
+rmsnorm_split_dscale_kernel(const float* __restrict__ part,
+                            float* __restrict__ dscale, int chunks, int d) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  float a = 0.f;
+  for (int k = 0; k < chunks; ++k) a += part[static_cast<size_t>(k) * d + c];
+  dscale[c] = a;
+}
+
+bool split_shape_ok(int rows, int d, int d_full, int dtype) {
+  const int V = dtype == rt::DTYPE_BF16 ? 8 : 4;
+  return (dtype == rt::DTYPE_BF16 || dtype == rt::DTYPE_F32) && rows >= 0
+         && d >= V && d % V == 0 && d_full >= d;
+}
+
 }  // namespace
 
 // x, out: (rows, d) contiguous, d a multiple of 8 (bfloat16) or 4
@@ -700,5 +839,92 @@ extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* g,
     }
   }
   if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split row's partial sums: out (rows,) float32 = each row's sum of
+// x * x when g is null, else of g * (1 + scale) * x.  x, g: (rows, d)
+// contiguous, 16-byte aligned, d a multiple of 8 (bfloat16) or 4
+// (float32); scale: (d,) float32.  One launch.
+extern "C" int rmsnorm_split_dot(const void* x, const void* g,
+                                 const void* scale, void* out, int rows,
+                                 int d, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!split_shape_ok(rows, d, d, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows > 0) {
+    const int blocks = (rows + kSplitThreads / 32 - 1) / (kSplitThreads / 32);
+    if (dtype == rt::DTYPE_BF16)
+      rmsnorm_split_dot_kernel<__nv_bfloat16><<<blocks, kSplitThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x),
+          static_cast<const __nv_bfloat16*>(g),
+          static_cast<const float*>(scale), static_cast<float*>(out), rows, d);
+    else
+      rmsnorm_split_dot_kernel<float><<<blocks, kSplitThreads, 0, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(g),
+          static_cast<const float*>(scale), static_cast<float*>(out), rows, d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split row's forward from the whole rows' sums of squares ss (rows,)
+// float32: y = x * rsqrt(ss / d_full + eps) * (1 + scale).  x, y as for
+// rmsnorm_split_dot; `blocks` blocks of 256 threads over a grid stride.
+// One launch.
+extern "C" int rmsnorm_split_fwd(const void* x, const void* scale,
+                                 const void* ss, void* y, int rows, int d,
+                                 int d_full, float eps, int dtype, int blocks,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!split_shape_ok(rows, d, d_full, dtype) || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows > 0) {
+    if (dtype == rt::DTYPE_BF16)
+      rmsnorm_split_fwd_kernel<__nv_bfloat16><<<blocks, kSplitThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x),
+          static_cast<const float*>(scale), static_cast<const float*>(ss),
+          static_cast<__nv_bfloat16*>(y), rows, d, d_full, eps);
+    else
+      rmsnorm_split_fwd_kernel<float><<<blocks, kSplitThreads, 0, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(scale),
+          static_cast<const float*>(ss), static_cast<float*>(y), rows, d,
+          d_full, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split row's backward from the whole rows' ss and dot (rows,)
+// float32: dx (rows, d) in x's dtype and dscale (d,) float32 of this
+// rank's columns.  part: (ceil(rows / chunk), d) float32 scratch.  Two
+// launches: dx with the chunks' partials, then their sum in chunk order.
+extern "C" int rmsnorm_split_bwd(const void* x, const void* scale,
+                                 const void* g, const void* ss,
+                                 const void* dot, void* dx, void* dscale,
+                                 void* part, int rows, int d, int d_full,
+                                 int chunk, float eps, int dtype,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!split_shape_ok(rows, d, d_full, dtype) || chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (rows + chunk - 1) / chunk;
+  if (rows > 0) {
+    const dim3 grid((d / 4 + kSplitThreads - 1) / kSplitThreads, chunks);
+    if (dtype == rt::DTYPE_BF16)
+      rmsnorm_split_bwd_kernel<__nv_bfloat16><<<grid, kSplitThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x),
+          static_cast<const float*>(scale),
+          static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(ss),
+          static_cast<const float*>(dot), static_cast<__nv_bfloat16*>(dx),
+          static_cast<float*>(part), rows, d, d_full, chunk, eps);
+    else
+      rmsnorm_split_bwd_kernel<float><<<grid, kSplitThreads, 0, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(scale),
+          static_cast<const float*>(g), static_cast<const float*>(ss),
+          static_cast<const float*>(dot), static_cast<float*>(dx),
+          static_cast<float*>(part), rows, d, d_full, chunk, eps);
+  }
+  rmsnorm_split_dscale_kernel<<<(d + kSplitThreads - 1) / kSplitThreads,
+                                kSplitThreads, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(dscale), chunks, d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,7 +45,9 @@ from repro_torch.kernels import ssd as _ssd
 COUNTERS = ((_rn, "launches"), (_rn, "bwd_launches"), (_fa, "launches"),
             (_fa, "dq_launches"), (_fa, "dkv_launches"), (_pg, "launches"),
             (_ssd, "launches"), (_ov, "launches"), (_rg, "launches"),
-            (_rg, "bwd_launches"))
+            (_rg, "bwd_launches"), (_rn, "split_sumsq_launches"),
+            (_rn, "split_fwd_launches"), (_rn, "split_dot_launches"),
+            (_rn, "split_bwd_launches"))
 
 
 def launch_counts() -> Tuple[int, ...]:

@@ -49,6 +49,16 @@ def rmsnorm(x, scale, *, eps: float = 1e-5):
     return _ref.rmsnorm_ref(x, scale, eps)
 
 
+def rmsnorm_split(x, scale, *, d_full: int, reduce, eps: float = 1e-5):
+    """RMSNorm of rows cut over a group: x (..., d) holds this rank's d of
+    each row's ``d_full`` columns, scale (d,) float32 theirs; ``reduce``
+    sums a float32 tensor of row sums over the group.  The split-row
+    kernels on the card, their plain versions on the CPU, both under
+    ``kernels.rmsnorm.SplitRMSNorm``'s autograd."""
+    ops = _rn.SPLIT if _on_card(x, "rmsnorm_split") else _ref.RMSNORM_SPLIT
+    return _rn.SplitRMSNorm.apply(x, scale, eps, d_full, reduce, ops)
+
+
 def attention(q, k, v):
     """Causal self-attention in the models' layout: q (B, S, H, hd),
     k/v (B, S, Hkv, hd) -> (B, S, H, hd).  On the card the flash kernels

@@ -53,6 +53,45 @@ def rmsnorm_bwd_ref(x, scale, g, eps: float = 1e-5):
     return dx.to(x.dtype), dscale
 
 
+def rmsnorm_split_sumsq_ref(x, scale):
+    """The split row's pass a: each row of x (rows, d), this rank's d of
+    its columns, as its float32 sum of x² (scale unused)."""
+    return x.float().square().sum(dim=-1)
+
+
+def rmsnorm_split_dot_ref(x, scale, g):
+    """The split row's partial dot: each row's float32 sum of
+    g·(1+scale)·x over this rank's columns."""
+    return (g.float() * (1.0 + scale.float()) * x.float()).sum(dim=-1)
+
+
+def rmsnorm_split_fwd_ref(x, scale, ss, d_full: int, eps: float = 1e-5):
+    """y = x·rsqrt(ss/d_full + eps)·(1+scale) in float32, returned in x's
+    dtype; ss (rows,) the whole rows' sums of squares."""
+    rr = torch.rsqrt(ss[:, None] / d_full + eps)
+    return (x.float() * rr * (1.0 + scale.float())).to(x.dtype)
+
+
+def rmsnorm_split_bwd_ref(x, scale, g, ss, dot, d_full: int,
+                          eps: float = 1e-5):
+    """``rmsnorm_bwd_ref`` over this rank's columns of the rows, from the
+    whole rows' ss and dot (rows,): mean(gs·x̂) = rr·dot/d_full, so dx =
+    rr·(gs − x̂·rr·dot/d_full) in x's dtype, dscale = Σ_rows g·x̂ over the
+    rank's columns in float32."""
+    x32, g32 = x.float(), g.float()
+    rr = torch.rsqrt(ss[:, None] / d_full + eps)
+    xh = x32 * rr
+    gs = g32 * (1.0 + scale.float())
+    dx = rr * (gs - xh * (dot[:, None] * rr / d_full))
+    return dx.to(x.dtype), (g32 * xh).sum(dim=0)
+
+
+# the split row's plain ops, in the order ``kernels.rmsnorm.SplitRMSNorm``
+# takes them (sumsq, dot, fwd, bwd)
+RMSNORM_SPLIT = (rmsnorm_split_sumsq_ref, rmsnorm_split_dot_ref,
+                 rmsnorm_split_fwd_ref, rmsnorm_split_bwd_ref)
+
+
 def attention_ref(q, k, v, *, causal: bool = True):
     """q: (B, H, S, hd); k, v: (B, Hkv, S, hd) with H % Hkv == 0.
     Naive softmax attention in float32.  Returns (out (B, H, S, hd) in

@@ -55,17 +55,21 @@ on a resume, which may have another process count: a checkpoint
 restores on any number).  The stop poll is collective: a signal to one
 rank stops every rank at the same chunk boundary, and they save.
 
-``--mesh DxM`` (or ``PxDxM``) shards the dense family over a data ×
-model mesh of the processes (one process a slot; the reference's
-``--mesh``): FSDP over the data axes, tensor-parallel over model
-(``repro_torch.parallel``).  Each rank feeds its data slot's rows
-(``process_index`` = the slot, ``process_count`` = P·D; the ranks of a
-slot load the same rows), ``--max-device-batch`` counts rows a data
-slot, and a checkpoint holds each distinct block once.  The steps run
-eagerly (a gloo collective is host work no CUDA graph holds).  Another
-family, a head count or dim the mesh does not divide, or a mesh whose
-size is not the process count raises ``ValueError`` before any
-collective.  Without ``--mesh`` the ranks replicate the model, as above::
+``--mesh DxM`` (or ``PxDxM``) shards the model over a data × model mesh
+of the processes (one process a slot; the reference's ``--mesh``): FSDP
+over the data axes, tensor-parallel over model (``repro_torch.
+parallel``) — the dense, MoE (expert-parallel), Mamba-2 (head-parallel)
+and hybrid (width-parallel) families; the frontend archs train on a
+mesh through ``train.engine``'s grad step.  Each rank feeds its data
+slot's rows (``process_index`` = the slot, ``process_count`` = P·D; the
+ranks of a slot load the same rows), ``--max-device-batch`` counts rows
+a data slot, and a checkpoint holds each distinct block once.  The
+steps run eagerly (a gloo collective is host work no CUDA graph holds).
+Query heads, experts, SSD heads, the RG-LRU width or a dim the mesh
+does not divide, an MoE batch whose routing groups would straddle two
+data slots, or a mesh whose size is not the process count raises
+``ValueError`` before any collective.  Without ``--mesh`` the ranks
+replicate the model, as above::
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --device cpu --reduced --mesh 2x2 --batch-size 4 --steps 20
@@ -311,7 +315,8 @@ def main(argv=None):
                     help="this process's rank (or RANK)")
     ap.add_argument("--mesh", default=None,
                     help="DxM (data x model) or PxDxM: shard the model "
-                         "over the processes (dense family)")
+                         "over the processes (FSDP over data, tensor- or "
+                         "expert-parallel over model)")
     args = ap.parse_args(argv)
     if args.resume and not args.checkpoint:
         ap.error("--resume needs --checkpoint")
@@ -329,7 +334,12 @@ def main(argv=None):
             "launch.train: --device cuda but no CUDA device is present; "
             "pass --device cpu to train with the plain versions")
     if args.mesh:             # refused before the group and any collective
-        parallel.check_model(model, mesh.Mesh(mesh.parse_mesh(args.mesh)))
+        grid = mesh.Mesh(mesh.parse_mesh(args.mesh))
+        parallel.check_model(model, grid)
+        if not args.max_device_batch:     # the first phase's step
+            parallel.check_batch(model, grid, args.batch_size or 32,
+                                 args.seq_len or min(model.max_seq_len,
+                                                     1024))
     distributed = maybe_init_distributed(
         args.coordinator, args.num_processes, args.process_id,
         connect_attempts=args.connect_attempts,

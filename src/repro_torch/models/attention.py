@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import backend as KB
-from repro_torch.parallel import weight
+from repro_torch.parallel import kv_block, weight
 from repro_torch.models.layers import P, apply_rope, out_std, param, \
     trunc_normal_
 
@@ -142,6 +142,28 @@ def chunked_attention(q, k, v, *, causal: bool = True,
 # the attention block
 # --------------------------------------------------------------------- #
 
+def project_kv(p: Attention, x, *, n_heads: int, n_kv_heads: int,
+               head_dim: int, tp=None):
+    """K and V of x (B, S, d), each (B, S, Hkv', hd), before RoPE: every
+    KV head, or on a mesh (``tp``; x already through ``to_model``) the KV
+    heads this rank's H/M query heads attend to.  Where the model axis
+    divides the KV heads they are the rank's own Hkv/M; where it does not
+    (MQA, and GQA with Hkv mod M ≠ 0) ``w_k`` and ``w_v`` hold the spec's
+    column blocks, whose products are gathered whole over the model group
+    and cut to the heads of ``parallel.kv_block``."""
+    B, S, _ = x.shape
+    dt = x.dtype
+    k = x @ weight(p.w_k, dt, tp)
+    v = x @ weight(p.w_v, dt, tp)
+    if tp is None or n_kv_heads % tp.n_model == 0:
+        n = n_kv_heads if tp is None else n_kv_heads // tp.n_model
+        return (k.reshape(B, S, n, head_dim), v.reshape(B, S, n, head_dim))
+    first, n = kv_block(n_heads, n_kv_heads, tp.n_model, tp.model_index)
+    k, v = (tp.model_gather(t, -1).reshape(B, S, n_kv_heads, head_dim)
+            [:, :, first:first + n] for t in (k, v))
+    return k, v
+
+
 def attn_forward(p: Attention, x, *, n_heads: int, n_kv_heads: int,
                  head_dim: int, rope_theta: float,
                  window: Optional[int] = None, positions=None,
@@ -152,20 +174,19 @@ def attn_forward(p: Attention, x, *, n_heads: int, n_kv_heads: int,
     ``chunked_attention``, as the reference's XLA path (it has no Pallas
     kernel for either).  Returns (out (B, S, d), (k, v) each (B, S, Hkv,
     hd) after RoPE) — the K/V a cache stores.  On a mesh (``tp``) the
-    projections are this rank's H/M query and Hkv/M KV heads (the GQA
-    ratio kept), ``w_o`` its rows, and the output is summed over the
-    model group."""
+    projections are this rank's H/M query heads and the KV heads they
+    attend to (``project_kv``: its Hkv/M, or the gathered heads where the
+    model axis does not divide them), ``w_o`` its rows, and the output
+    is summed over the model group."""
     B, S, _ = x.shape
     dt = x.dtype
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     if tp is not None:
-        n_heads //= tp.n_model
-        n_kv_heads //= tp.n_model
         x = tp.to_model(x)
-    q = (x @ weight(p.w_q, dt, tp)).reshape(B, S, n_heads, head_dim)
-    k = (x @ weight(p.w_k, dt, tp)).reshape(B, S, n_kv_heads, head_dim)
-    v = (x @ weight(p.w_v, dt, tp)).reshape(B, S, n_kv_heads, head_dim)
+    q = (x @ weight(p.w_q, dt, tp)).reshape(B, S, -1, head_dim)
+    k, v = project_kv(p, x, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                      head_dim=head_dim, tp=tp)
     if rope_theta:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
@@ -173,7 +194,7 @@ def attn_forward(p: Attention, x, *, n_heads: int, n_kv_heads: int,
         o = KB.attention(q, k, v)
     else:
         o = chunked_attention(q, k, v, causal=causal, window=window)
-    o = o.reshape(B, S, n_heads * head_dim) @ weight(p.w_o, dt, tp)
+    o = o.reshape(B, S, -1) @ weight(p.w_o, dt, tp)
     return (o if tp is None else tp.from_model(o)), (k, v)
 
 

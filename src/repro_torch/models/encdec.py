@@ -29,18 +29,18 @@ backward, as the reference's ``jax.checkpoint`` of its scan body.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import backend as KB
 from repro_torch.models import attention as A
 from repro_torch.models.attention import Attention, attn_forward
-from repro_torch.models.layers import (MLP, P, cross_entropy_chunked,
-                                       embed_specs, fsdp_axis, lm_head_matrix,
-                                       mlp, mlp_specs, param, recompute,
-                                       rmsnorm, trunc_normal_)
+from repro_torch.models.layers import (MLP, P, embed, embed_specs,
+                                       fsdp_axis, lm_loss, mlp, mlp_specs,
+                                       param, recompute, rmsnorm,
+                                       trunc_normal_)
 from repro_torch.models.transformer import logits_from_hidden
+from repro_torch.parallel import tp_of, weight
 
 
 def _attention(cfg: ModelConfig, dtype, device) -> Attention:
@@ -154,74 +154,81 @@ def param_specs(cfg: ModelConfig, multi_pod: bool = False):
 # the encoder and the cross-attention
 # --------------------------------------------------------------------- #
 
-def _self_attn(p: Attention, h, cfg: ModelConfig, causal: bool):
+def _self_attn(p: Attention, h, cfg: ModelConfig, causal: bool, tp=None):
     return attn_forward(p, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                        causal=causal)
+                        causal=causal, tp=tp)
 
 
-def _enc_layer(layer: EncoderLayer, x, cfg: ModelConfig):
+def _enc_layer(layer: EncoderLayer, x, cfg: ModelConfig, tp=None):
     h = rmsnorm(x, layer.norm1, cfg.norm_eps)
-    x = x + _self_attn(layer.attn, h, cfg, causal=False)[0]
+    x = x + _self_attn(layer.attn, h, cfg, causal=False, tp=tp)[0]
     h = rmsnorm(x, layer.norm2, cfg.norm_eps)
-    return x + mlp(layer.mlp, h, cfg.act)
+    return x + mlp(layer.mlp, h, cfg.act, tp)
 
 
 def encode(model: EncDec, cfg: ModelConfig, src_emb, *, remat: bool = True):
     """src_emb (B, Se, d) in the compute dtype -> the encoder's output
     (B, Se, d) after ``enc_norm``."""
+    tp = tp_of(model)
     x = src_emb
     for layer in model.encoder:
-        x = (recompute(_enc_layer, layer, x, cfg) if remat
-             else _enc_layer(layer, x, cfg))
+        x = (recompute(_enc_layer, layer, x, cfg, tp) if remat
+             else _enc_layer(layer, x, cfg, tp))
     return rmsnorm(x, model.enc_norm, cfg.norm_eps)
 
 
-def _enc_kv(p: Attention, enc_out, cfg: ModelConfig):
+def _enc_kv(p: Attention, enc_out, cfg: ModelConfig, tp=None):
     """The cross-attention's K and V of the encoder's output, each (B, Se,
-    Hkv, hd), no RoPE."""
-    B, Se, _ = enc_out.shape
-    k = (enc_out @ p.w_k.to(enc_out.dtype)).reshape(B, Se, cfg.n_kv_heads,
-                                                   cfg.head_dim)
-    v = (enc_out @ p.w_v.to(enc_out.dtype)).reshape(B, Se, cfg.n_kv_heads,
-                                                   cfg.head_dim)
-    return k, v
+    Hkv, hd), no RoPE.  On a mesh the encoder output, whole on every
+    model rank, passes ``to_model`` before the column-parallel K/V, which
+    are the KV heads of the rank's query heads."""
+    if tp is not None:
+        enc_out = tp.to_model(enc_out)
+    return A.project_kv(p, enc_out, n_heads=cfg.n_heads,
+                        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                        tp=tp)
 
 
-def _cross_attend(p: Attention, h, ek, ev, cfg: ModelConfig):
-    """h (B, Sq, d) attends to every key of ek/ev (B, Se, Hkv, hd)."""
+def _cross_attend(p: Attention, h, ek, ev, cfg: ModelConfig, tp=None):
+    """h (B, Sq, d) attends to every key of ek/ev (B, Se, Hkv, hd); on a
+    mesh with the rank's query heads, ``w_o`` row-parallel."""
     B, Sq, _ = h.shape
-    q = (h @ p.w_q.to(h.dtype)).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+    if tp is not None:
+        h = tp.to_model(h)
+    q = (h @ weight(p.w_q, h.dtype, tp)).reshape(B, Sq, -1, cfg.head_dim)
     o = A.chunked_attention(q, ek.to(h.dtype), ev.to(h.dtype), causal=False)
-    return o.reshape(B, Sq, cfg.n_heads * cfg.head_dim) @ p.w_o.to(h.dtype)
+    o = o.reshape(B, Sq, -1) @ weight(p.w_o, h.dtype, tp)
+    return o if tp is None else tp.from_model(o)
 
 
-def _dec_layer(layer: DecoderLayer, x, enc_out, cfg: ModelConfig):
+def _dec_layer(layer: DecoderLayer, x, enc_out, cfg: ModelConfig, tp=None):
     """One decoder layer over x (B, S, d).  Returns (x, (k, v) of the
     self-attention, (ek, ev) of the cross-attention)."""
     h = rmsnorm(x, layer.norm1, cfg.norm_eps)
-    a, kv = _self_attn(layer.self_attn, h, cfg, causal=True)
+    a, kv = _self_attn(layer.self_attn, h, cfg, causal=True, tp=tp)
     x = x + a
     h = rmsnorm(x, layer.norm3, cfg.norm_eps)
-    ek, ev = _enc_kv(layer.cross_attn, enc_out, cfg)
-    x = x + _cross_attend(layer.cross_attn, h, ek, ev, cfg)
+    ek, ev = _enc_kv(layer.cross_attn, enc_out, cfg, tp)
+    x = x + _cross_attend(layer.cross_attn, h, ek, ev, cfg, tp)
     h = rmsnorm(x, layer.norm2, cfg.norm_eps)
-    return x + mlp(layer.mlp, h, cfg.act), kv, (ek, ev)
+    return x + mlp(layer.mlp, h, cfg.act, tp), kv, (ek, ev)
 
 
-def _dec_layer_x(layer, x, enc_out, cfg):
-    return _dec_layer(layer, x, enc_out, cfg)[0]
+def _dec_layer_x(layer, x, enc_out, cfg, tp=None):
+    return _dec_layer(layer, x, enc_out, cfg, tp)[0]
 
 
 def decode_trunk(model: EncDec, cfg: ModelConfig, tokens, enc_out, *,
                  dtype=torch.bfloat16, remat: bool = True):
     """tokens (B, S) -> the decoder's final hidden states (B, S, d) after
     ``final_norm``.  The embedding is cast to ``dtype`` before the
-    gather, as the reference does."""
-    x = F.embedding(tokens, model.tok.to(dtype))
+    gather, as the reference does (vocab-parallel on a mesh)."""
+    tp = tp_of(model)
+    x = embed(model, tokens, dtype, tp)
     for layer in model.decoder:
-        x = (recompute(_dec_layer_x, layer, x, enc_out, cfg) if remat
-             else _dec_layer_x(layer, x, enc_out, cfg))
+        x = (recompute(_dec_layer_x, layer, x, enc_out, cfg, tp) if remat
+             else _dec_layer_x(layer, x, enc_out, cfg, tp))
     return rmsnorm(x, model.final_norm, cfg.norm_eps)
 
 
@@ -232,7 +239,9 @@ def decode_trunk(model: EncDec, cfg: ModelConfig, tokens, enc_out, *,
 def forward_hidden(model: EncDec, cfg: ModelConfig, tokens, *, prefix_emb,
                    dtype=torch.bfloat16, remat: bool = True):
     """The decoder's final hidden states over ``tokens`` given the source
-    frames ``prefix_emb`` (B, Se, d).  Returns (h, {})."""
+    frames ``prefix_emb`` (B, Se, d).  Returns (h, {}).  On a mesh
+    (``parallel.shard``) both stacks run tensor-parallel, the frames
+    this data slot's rows."""
     if prefix_emb is None:
         raise ValueError("the enc-dec needs the source embeddings "
                          "(prefix_emb)")
@@ -249,13 +258,7 @@ def loss_fn(model: EncDec, cfg: ModelConfig, batch, *, z_loss: float = 0.0,
     h, _ = forward_hidden(model, cfg, batch["tokens"],
                           prefix_emb=batch["src_emb"], dtype=dtype,
                           remat=remat)
-    labels = batch["labels"]
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
-    loss, z_sq = cross_entropy_chunked(h, lm_head_matrix(model), labels,
-                                       mask, cfg.vocab_size, z_loss=z_loss)
+    loss, z_sq = lm_loss(model, cfg, h, batch, z_loss, tp_of(model))
     return loss, {"ce_loss": loss, "z_sq": z_sq, "loss": loss}
 
 

@@ -195,8 +195,45 @@ def lm_head_matrix(model) -> torch.Tensor:
     return model.tok.T
 
 
+def embed(model, tokens, dtype, tp=None):
+    """The token embeddings in ``dtype`` (the embedding cast before the
+    gather, as the reference's).  On a mesh the embedding is
+    vocab-parallel: this rank looks up the ids of its rows, zeros for
+    the rest, summed over the model group."""
+    if tp is None:
+        return F.embedding(tokens, model.tok.to(dtype))
+    W = tp.weight(model.tok, dtype)
+    local = tokens - tp.vocab_start(W.shape[0])
+    inside = (local >= 0) & (local < W.shape[0])
+    x = F.embedding(local.clamp(0, W.shape[0] - 1), W)
+    return tp.from_model(torch.where(inside[..., None], x, 0.0))
+
+
+def lm_loss(model, cfg, h, batch, z_loss: float = 0.0, tp=None):
+    """(loss, z_sq) of the final hiddens h (B, S, d) against
+    ``batch["labels"]`` under ``batch["mask"]`` (all ones when absent),
+    through the head: the whole head, or on a mesh this rank's vocab
+    columns and the vocab-parallel loss.  A mask may keep another count
+    of tokens in each data slot, so on a mesh of several slots the sums
+    are divided by the slots' mean count (``TensorParallel.
+    mean_over_data``): the slots' mean loss is then the global batch's,
+    as the reference's."""
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    n_tok = None
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    elif tp is not None and tp.n_fsdp > 1:
+        n_tok = tp.mean_over_data(mask.float().sum())
+    W = lm_head_matrix(model) if tp is None else tp.head(model, h.dtype)
+    return cross_entropy_chunked(h, W, labels, mask, cfg.vocab_size,
+                                 z_loss=z_loss, tp=tp, n_tok=n_tok)
+
+
 def cross_entropy_chunked(h, W, labels, mask, logical_vocab: int, *,
-                          z_loss: float = 0.0, chunk: int = 512, tp=None):
+                          z_loss: float = 0.0, chunk: int = 512, tp=None,
+                          n_tok=None):
     """Loss over (B, S, d) hiddens against (B, S) labels without holding
     the (B, S, V) logits: the sequence goes in chunks of ``chunk``
     tokens, each chunk's float32 logits recomputed in the backward
@@ -210,7 +247,8 @@ def cross_entropy_chunked(h, W, labels, mask, logical_vocab: int, *,
     the loss is vocab-parallel: the row max (no grad: the logsumexp's
     value and grad do not depend on it), the sum of exps and the
     target's logit are reduced over the model group, and z-loss comes
-    from the same logsumexp."""
+    from the same logsumexp.  ``n_tok`` (a float32 0-d tensor) is the
+    token count the sums are divided by, the mask's sum by default."""
     S, V = h.shape[1], W.shape[-1]
     chunk = min(chunk, S)
     n_chunks = S // chunk
@@ -247,8 +285,8 @@ def cross_entropy_chunked(h, W, labels, mask, logical_vocab: int, *,
     if rem:
         tot = tot + chunk_loss(h[:, -rem:], labels[:, -rem:],
                                mask[:, -rem:])
-    loss_sum, z_sq, n_tok = tot.unbind()
-    n_tok = torch.clamp(n_tok, min=1.0)
+    loss_sum, z_sq, n_mask = tot.unbind()
+    n_tok = torch.clamp(n_mask if n_tok is None else n_tok, min=1.0)
     loss = loss_sum / n_tok
     if z_loss:
         loss = loss + z_loss * z_sq / n_tok

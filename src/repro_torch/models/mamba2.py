@@ -24,10 +24,11 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import backend as KB
 from repro_torch.kernels.ref import cumsum16
-from repro_torch.models.layers import (P, cross_entropy_chunked,
-                                       embed_specs, fsdp_axis, lm_head_matrix,
-                                       out_std, param, recompute, rmsnorm,
+from repro_torch.models.layers import (P, embed, embed_specs, fsdp_axis,
+                                       lm_head_matrix, lm_loss, out_std,
+                                       param, recompute, rmsnorm,
                                        trunc_normal_)
+from repro_torch.parallel import tp_of, weight
 
 
 def _dims(cfg: ModelConfig):
@@ -255,14 +256,17 @@ def ssd_chunked(xh, dt, A, Bm, Cm, D, *, chunk: int, h0=None):
 # --------------------------------------------------------------------- #
 
 def mixer_forward(m: Mamba2Mixer, x, cfg: ModelConfig, *,
-                  with_state: bool = False):
+                  with_state: bool = False, tp=None):
     """x: (B, S, d) -> (B, S, d).  The SSD scan and the gated output norm
     run through ``kernels.backend`` (the kernels on the card).  With
     ``with_state`` also the state a decode step continues from:
     {"h": the SSD's final state (B, H, P, N) float32, "conv": the last
     d_conv − 1 conv inputs (B, d_conv − 1, d_inner + 2N)}, zero rows on
     the left of a sequence shorter than that, as the causal conv pads
-    it."""
+    it.  On a mesh (``tp``, training) the mixer is head-parallel: see
+    ``_mixer_tp``."""
+    if tp is not None:
+        return _mixer_tp(m, x, cfg, tp)
     s, di, H, P, N = _dims(cfg)
     B_, S, _ = x.shape
     z = x @ m.w_z.to(x.dtype)
@@ -286,9 +290,49 @@ def mixer_forward(m: Mamba2Mixer, x, cfg: ModelConfig, *,
     return out, {"h": h_final, "conv": tail}
 
 
-def _block(blk: Block, x, cfg: ModelConfig):
+def _mixer_tp(m: Mamba2Mixer, x, cfg: ModelConfig, tp):
+    """The mixer on this rank's H/M SSD heads.  ``w_z`` and ``w_x`` are
+    column-parallel (the heads' d_inner/M channels), ``w_out``
+    row-parallel; ``w_B``, ``w_C`` and ``w_dt`` and the per-head
+    parameters are whole on every model rank, so their outputs (B and C
+    before the conv, dt after the softplus, A, D) pass ``to_model``
+    before the rank takes its heads.  The conv's weights are cut over
+    the concatenated (x, B, C) channels, which is not the heads' cut:
+    they are gathered over the model group and the rank takes its heads'
+    x channels and all of B's and C's.  The gated norm normalises over
+    the whole d_inner from the ranks' parts (``kernels.backend.
+    rmsnorm_split``)."""
+    s, di, H, P, N = _dims(cfg)
+    B_, S, _ = x.shape
+    dt_ = x.dtype
+    hs = tp.model_slice(H // tp.n_model)
+    cs = tp.model_slice(di // tp.n_model)
+    xm = tp.to_model(x)
+    z = xm @ weight(m.w_z, dt_, tp)
+    xin = xm @ weight(m.w_x, dt_, tp)
+    Bm = tp.to_model(x @ weight(m.w_B, dt_, tp))
+    Cm = tp.to_model(x @ weight(m.w_C, dt_, tp))
+    dt = tp.to_model(F.softplus((x @ weight(m.w_dt, dt_, tp)).float()
+                                + m.dt_bias))[..., hs]
+    A = tp.to_model(-torch.exp(m.A_log))[hs]
+    D = tp.to_model(m.D)[hs]
+    conv_w, conv_b = (tp.model_gather(w, -1) for w in (m.conv_w, m.conv_b))
+    conv_w = torch.cat([conv_w[:, cs], conv_w[:, di:]], dim=-1)
+    conv_b = torch.cat([conv_b[cs], conv_b[di:]])
+    xbc = F.silu(causal_conv1d(torch.cat([xin, Bm, Cm], dim=-1), conv_w,
+                               conv_b))
+    xin, Bm, Cm = torch.split(xbc, [cs.stop - cs.start, N, N], dim=-1)
+    xh = xin.reshape(B_, S, hs.stop - hs.start, P)
+    y, _ = KB.ssd(xh, dt, A, Bm, Cm, D, chunk=s.chunk_size)
+    y = y.reshape(B_, S, -1) * F.silu(z)
+    y = KB.rmsnorm_split(y, m.norm, d_full=di, reduce=tp.sum_over_model,
+                         eps=cfg.norm_eps)
+    return tp.from_model(y @ weight(m.w_out, dt_, tp))
+
+
+def _block(blk: Block, x, cfg: ModelConfig, tp=None):
     return x + mixer_forward(blk.mixer, rmsnorm(x, blk.norm, cfg.norm_eps),
-                             cfg)
+                             cfg, tp=tp)
 
 
 def forward_hidden(model: Mamba2, cfg: ModelConfig, tokens, *,
@@ -297,13 +341,16 @@ def forward_hidden(model: Mamba2, cfg: ModelConfig, tokens, *,
     The embedding is cast to ``dtype`` before the gather, as the
     reference does.  ``remat`` recomputes each block in the backward
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
-    its scan body); it changes memory, not the numbers."""
-    x = F.embedding(tokens, model.tok.to(dtype))
+    its scan body); it changes memory, not the numbers.  A model cut to
+    a mesh (``parallel.shard``) runs its mixers head-parallel, the
+    embedding vocab-parallel."""
+    tp = tp_of(model)
+    x = embed(model, tokens, dtype, tp)
     for blk in model.layers:
         if remat:
-            x = recompute(_block, blk, x, cfg)
+            x = recompute(_block, blk, x, cfg, tp)
         else:
-            x = _block(blk, x, cfg)
+            x = _block(blk, x, cfg, tp)
     return rmsnorm(x, model.final_norm, cfg.norm_eps)
 
 
@@ -314,13 +361,7 @@ def loss_fn(model: Mamba2, cfg: ModelConfig, batch, *, z_loss: float = 0.0,
     and ``ce_loss`` (both with the z-loss term) and ``z_sq``."""
     h = forward_hidden(model, cfg, batch["tokens"], dtype=dtype,
                        remat=remat)
-    labels = batch["labels"]
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
-    loss, z_sq = cross_entropy_chunked(h, lm_head_matrix(model), labels,
-                                       mask, cfg.vocab_size, z_loss=z_loss)
+    loss, z_sq = lm_loss(model, cfg, h, batch, z_loss, tp_of(model))
     return loss, {"ce_loss": loss, "z_sq": z_sq, "loss": loss}
 
 

@@ -59,6 +59,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import P, out_std, param, trunc_normal_
+from repro_torch.parallel import weight
 
 GROUP_SIZE = 2048
 
@@ -94,29 +95,40 @@ def moe_specs(fsdp, lead: tuple = ()):
             "w_down": P(*lead, "model", None, fsdp)}
 
 
-def groups(cfg: ModelConfig, n_tokens: int,
-           group_size: int = GROUP_SIZE) -> Tuple[int, int, int]:
+def groups(cfg: ModelConfig, n_tokens: int, group_size: int = GROUP_SIZE,
+           n_slots: int = 1) -> Tuple[int, int, int]:
     """(groups G, tokens a group g, capacity C) of a call over
-    ``n_tokens`` tokens, the reference's arithmetic."""
+    ``n_tokens`` tokens, the reference's arithmetic.  On a mesh the call
+    holds one of ``n_slots`` data slots' tokens, and g and C come from
+    the global count, as the reference computes them."""
     m = cfg.moe
-    g = min(group_size, n_tokens)
+    g = min(group_size, n_tokens * n_slots)
     cap = int(math.ceil(g * m.top_k * m.capacity_factor / m.num_experts))
     cap = min(max(cap, m.top_k), g)
     return n_tokens // g, g, cap
 
 
 def check_tokens(cfg: ModelConfig, n_tokens: int,
-                 group_size: int = GROUP_SIZE) -> None:
+                 group_size: int = GROUP_SIZE, n_slots: int = 1) -> None:
     """Raise ``ValueError`` unless ``n_tokens`` split into whole groups
-    (the reference asserts it inside its jitted forward)."""
+    (the reference asserts it inside its jitted forward).  With
+    ``n_slots`` data slots of ``n_tokens`` each, a group of the global
+    count's size must not straddle two slots."""
     if cfg.arch_type != "moe" or n_tokens <= 0:
         return
-    g = min(group_size, n_tokens)
-    if n_tokens % g:
+    g = min(group_size, n_tokens * n_slots)
+    if n_tokens % g == 0:
+        return
+    if n_slots > 1:
         raise ValueError(
-            f"{cfg.name}: {n_tokens} tokens do not split into groups of "
-            f"{g} (the MoE routes whole groups of min({group_size}, "
-            f"B*S) tokens; the reference asserts tokens % g == 0)")
+            f"{cfg.name}: a routing group of {g} tokens would straddle "
+            f"two data slots of {n_tokens} tokens each (the MoE routes "
+            f"groups of min({group_size}, B*S) over the global batch; "
+            f"each data slot must hold whole groups)")
+    raise ValueError(
+        f"{cfg.name}: {n_tokens} tokens do not split into groups of "
+        f"{g} (the MoE routes whole groups of min({group_size}, "
+        f"B*S) tokens; the reference asserts tokens % g == 0)")
 
 
 # --------------------------------------------------------------------- #
@@ -213,28 +225,55 @@ def _slot_tables(gate_idx, pos, keep, E: int, cap: int):
     return slot_src, slot_src // k, tok_slot
 
 
+def _local_tables(slot_src, tok_slot, k: int, off: int, n: int):
+    """The tables cut to expert rows [off, off + n): (slot_src, slot_tok)
+    of those rows and tok_slot with every other row read as dropped
+    (row n, a zero row)."""
+    src = slot_src[off:off + n]
+    mine = (tok_slot >= off) & (tok_slot < off + n)
+    return src, src // k, torch.where(mine, tok_slot - off, n)
+
+
 def moe_forward(moe: MoE, x: torch.Tensor, cfg: ModelConfig, *,
-                group_size: int = GROUP_SIZE):
+                group_size: int = GROUP_SIZE, tp=None):
     """x: (B, S, d) -> (y (B, S, d), aux) with aux {lb_loss, rz_loss,
     frac_dropped}, float32 scalars, as the reference's ``moe_forward``.
-    Raises ``ValueError`` when B·S does not split into whole groups."""
+    Raises ``ValueError`` when B·S does not split into whole groups.
+
+    On a mesh (``tp``) the experts are parallel: this rank holds E/M of
+    them.  The replicated router and the slot tables run whole on every
+    rank (the same tokens dropped as on one device; the aux losses enter
+    the router's grad once); the token rows and the gates pass
+    ``to_model`` where the rank cuts them to its experts' rows, and the
+    partial combine is summed over the model group."""
     m = cfg.moe
     B, S_, d = x.shape
     E, k = m.num_experts, m.top_k
-    check_tokens(cfg, B * S_, group_size)
-    G, g, cap = groups(cfg, B * S_, group_size)
+    n_slots = 1 if tp is None else tp.n_fsdp
+    check_tokens(cfg, B * S_, group_size, n_slots)
+    G, g, cap = groups(cfg, B * S_, group_size, n_slots)
     xt = x.reshape(G * g, d)
-    logits = (xt @ moe.router.to(x.dtype)).float().reshape(G, g, E)
+    logits = (xt @ weight(moe.router, x.dtype, tp)).float().reshape(G, g, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx, pos, keep = _route(probs, k, cap)
     slot_src, slot_tok, tok_slot = _slot_tables(gate_idx, pos, keep, E,
                                                 cap)
-
-    ex = _Dispatch.apply(xt, slot_tok, tok_slot).reshape(E, G * cap, d)
-    h = F.silu(ex @ moe.w_gate.to(x.dtype)) * (ex @ moe.w_up.to(x.dtype))
-    ex_out = (h @ moe.w_down.to(x.dtype)).reshape(E * G * cap, d)
     w = (gate_vals * keep).to(x.dtype).reshape(G * g, k)
+    E_l = E
+    if tp is not None:
+        E_l = E // tp.n_model
+        n = E_l * G * cap
+        slot_src, slot_tok, tok_slot = _local_tables(
+            slot_src, tok_slot, k, tp.model_index * n, n)
+        xt, w = tp.to_model(xt), tp.to_model(w)
+
+    ex = _Dispatch.apply(xt, slot_tok, tok_slot).reshape(E_l, G * cap, d)
+    h = F.silu(ex @ weight(moe.w_gate, x.dtype, tp)) \
+        * (ex @ weight(moe.w_up, x.dtype, tp))
+    ex_out = (h @ weight(moe.w_down, x.dtype, tp)).reshape(E_l * G * cap, d)
     y = _Combine.apply(ex_out, w, tok_slot, slot_src)
+    if tp is not None:
+        y = tp.from_model(y)
     return y.reshape(B, S_, d), _aux(probs, logits, gate_idx, keep, E)
 
 

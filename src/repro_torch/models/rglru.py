@@ -35,12 +35,13 @@ from repro_torch.configs.base import HybridConfig, ModelConfig, _pattern
 from repro_torch.kernels import backend as KB
 from repro_torch.models import attention as A
 from repro_torch.models.attention import Attention, attn_forward
-from repro_torch.models.layers import (MLP, P, act_fn, cross_entropy_chunked,
-                                       embed_specs, fsdp_axis, lm_head_matrix,
-                                       mlp, mlp_specs, out_std, param,
-                                       recompute, rmsnorm, trunc_normal_)
+from repro_torch.models.layers import (MLP, P, act_fn, embed, embed_specs,
+                                       fsdp_axis, lm_loss, mlp, mlp_specs,
+                                       out_std, param, recompute, rmsnorm,
+                                       trunc_normal_)
 from repro_torch.models.mamba2 import causal_conv1d
 from repro_torch.models.transformer import logits_from_hidden
+from repro_torch.parallel import tp_of, weight
 
 LRU_C = 8.0
 
@@ -244,7 +245,7 @@ def param_specs(cfg: ModelConfig, multi_pod: bool = False):
 # --------------------------------------------------------------------- #
 
 def recurrent_forward(m: Recurrent, x, cfg: ModelConfig, *,
-                      with_state: bool = False):
+                      with_state: bool = False, tp=None):
     """x: (B, S, d) -> (B, S, d).  With ``with_state`` also the state a
     decode step continues from: {"conv": the last conv1d_width − 1 conv
     inputs (B, K − 1, W), "h": the final state (B, W) float32}.
@@ -252,16 +253,29 @@ def recurrent_forward(m: Recurrent, x, cfg: ModelConfig, *,
     The reference keeps ``y[:, -(K-1):]`` as the conv state, fewer rows
     than that for a prompt shorter than K − 1 (its first decode step
     then fails at S = 1 and 2, ROADMAP Queue 3).  Here the missing rows
-    are zeros, the padding the causal conv reads there."""
+    are zeros, the padding the causal conv reads there.
+
+    On a mesh (``tp``, training) the block is width-parallel: ``w_gate``
+    and ``w_x`` column-parallel over W, the conv, ``lam`` and the scan
+    on the rank's W/M channels, ``w_out`` row-parallel.  The gates'
+    ``w_r`` and ``w_i`` take the whole y (W, W), so y is gathered over
+    the model group before them (``model_gather``, whose backward sums
+    y's grad over the group)."""
     h_cfg, _ = _hybrid(cfg)
     gelu = act_fn("gelu")
-    gate = gelu(x @ m.w_gate.to(x.dtype))
-    y_in = x @ m.w_x.to(x.dtype)
+    dt = x.dtype
+    if tp is not None:
+        x = tp.to_model(x)
+    gate = gelu(x @ weight(m.w_gate, dt, tp))
+    y_in = x @ weight(m.w_x, dt, tp)
     y = causal_conv1d(y_in, m.conv_w, m.conv_b)
-    r = torch.sigmoid(y @ m.w_r.to(x.dtype))
-    i = torch.sigmoid(y @ m.w_i.to(x.dtype))
+    y_all = y if tp is None else tp.model_gather(y, -1)
+    r = torch.sigmoid(y_all @ weight(m.w_r, dt, tp))
+    i = torch.sigmoid(y_all @ weight(m.w_i, dt, tp))
     hs, h_last = rglru_scan(y, r, i, m.lam)
-    out = (gate * hs) @ m.w_out.to(x.dtype)
+    out = (gate * hs) @ weight(m.w_out, dt, tp)
+    if tp is not None:
+        return tp.from_model(out)
     if not with_state:
         return out
     K = h_cfg.conv1d_width
@@ -296,23 +310,23 @@ def recurrent_decode(m: Recurrent, x, state, cfg: ModelConfig):
 # layers and the loss
 # --------------------------------------------------------------------- #
 
-def _attention(layer: Layer, h, cfg: ModelConfig):
+def _attention(layer: Layer, h, cfg: ModelConfig, tp=None):
     h_cfg, _ = _hybrid(cfg)
     return attn_forward(layer.temporal, h, n_heads=cfg.n_heads,
                         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
                         rope_theta=cfg.rope_theta,
-                        window=h_cfg.local_window)
+                        window=h_cfg.local_window, tp=tp)
 
 
-def _layer(layer: Layer, x, cfg: ModelConfig):
+def _layer(layer: Layer, x, cfg: ModelConfig, tp=None):
     h = rmsnorm(x, layer.norm1, cfg.norm_eps)
     if layer.kind == "recurrent":
-        t = recurrent_forward(layer.temporal, h, cfg)
+        t = recurrent_forward(layer.temporal, h, cfg, tp=tp)
     else:
-        t, _ = _attention(layer, h, cfg)
+        t, _ = _attention(layer, h, cfg, tp)
     x = x + t
     return x + mlp(layer.mlp, rmsnorm(x, layer.norm2, cfg.norm_eps),
-                   cfg.act)
+                   cfg.act, tp)
 
 
 def forward_hidden(model: Hybrid, cfg: ModelConfig, tokens, *,
@@ -321,11 +335,14 @@ def forward_hidden(model: Hybrid, cfg: ModelConfig, tokens, *,
     The embedding is cast to ``dtype`` before the gather, as the
     reference does.  ``remat`` recomputes each layer in the backward
     (the reference's nested per-layer ``jax.checkpoint``); it changes
-    memory, not the numbers."""
-    x = F.embedding(tokens, model.tok.to(dtype))
+    memory, not the numbers.  A model cut to a mesh runs its recurrent
+    blocks width-parallel, its attention on the rank's heads (the one
+    KV head gathered), its MLPs and embedding as the dense family's."""
+    tp = tp_of(model)
+    x = embed(model, tokens, dtype, tp)
     for layer in model.layers:
-        x = recompute(_layer, layer, x, cfg) if remat else \
-            _layer(layer, x, cfg)
+        x = recompute(_layer, layer, x, cfg, tp) if remat else \
+            _layer(layer, x, cfg, tp)
     return rmsnorm(x, model.final_norm, cfg.norm_eps)
 
 
@@ -336,13 +353,7 @@ def loss_fn(model: Hybrid, cfg: ModelConfig, batch, *, z_loss: float = 0.0,
     and ``ce_loss`` (both with the z-loss term) and ``z_sq``."""
     h = forward_hidden(model, cfg, batch["tokens"], dtype=dtype,
                        remat=remat)
-    labels = batch["labels"]
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
-    loss, z_sq = cross_entropy_chunked(h, lm_head_matrix(model), labels,
-                                       mask, cfg.vocab_size, z_loss=z_loss)
+    loss, z_sq = lm_loss(model, cfg, h, batch, z_loss, tp_of(model))
     return loss, {"ce_loss": loss, "z_sq": z_sq, "loss": loss}
 
 

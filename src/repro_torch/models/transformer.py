@@ -18,7 +18,6 @@ forward (whose loss is taken on the text only) and in both prefills
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -26,8 +25,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models.attention import Attention, attn_forward
 from repro_torch.parallel import tp_of
-from repro_torch.models.layers import (MLP, P, cross_entropy_chunked,
-                                       embed_specs, fsdp_axis, lm_head_matrix,
+from repro_torch.models.layers import (MLP, P, embed, embed_specs,
+                                       fsdp_axis, lm_head_matrix, lm_loss,
                                        mlp, mlp_specs, param, recompute,
                                        rmsnorm, trunc_normal_)
 
@@ -137,7 +136,7 @@ def _layer(layer: Layer, x, cfg: ModelConfig, tp=None):
     x = x + a
     h = rmsnorm(x, layer.norm2, cfg.norm_eps)
     if cfg.arch_type == "moe":
-        f, aux = M.moe_forward(layer.moe, h, cfg)
+        f, aux = M.moe_forward(layer.moe, h, cfg, tp=tp)
     else:
         # sub-layer remat, as the reference's: the backward recomputes
         # the MLP apart from attention, so the peak holds one of their
@@ -147,18 +146,10 @@ def _layer(layer: Layer, x, cfg: ModelConfig, tp=None):
 
 
 def _embed(model: Transformer, tokens, prefix_emb, dtype, tp=None):
-    """The token embeddings in ``dtype`` (the embedding cast before the
-    gather, as the reference's), behind ``prefix_emb`` when given.  On a
-    mesh the embedding is vocab-parallel: this rank looks up the ids of
-    its rows, zeros for the rest, summed over the model group."""
-    if tp is None:
-        x = F.embedding(tokens, model.tok.to(dtype))
-    else:
-        W = tp.weight(model.tok, dtype)
-        local = tokens - tp.vocab_start(W.shape[0])
-        inside = (local >= 0) & (local < W.shape[0])
-        x = F.embedding(local.clamp(0, W.shape[0] - 1), W)
-        x = tp.from_model(torch.where(inside[..., None], x, 0.0))
+    """The token embeddings in ``dtype`` (``layers.embed``: vocab-parallel
+    on a mesh), behind ``prefix_emb`` when given (its rows this data
+    slot's, whole on every model rank)."""
+    x = embed(model, tokens, dtype, tp)
     if prefix_emb is None:
         return x
     return torch.cat([prefix_emb.to(dtype), x], dim=1)
@@ -179,8 +170,9 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, tokens, *,
     autograd, as the reference trains it through XLA.  A model cut to a
     mesh (``parallel.shard``) runs its layers sharded, each weight
     gathered inside the layer's recompute region."""
-    M.check_tokens(cfg, tokens.numel())
     tp = tp_of(model)
+    M.check_tokens(cfg, tokens.numel(), n_slots=1 if tp is None
+                   else tp.n_fsdp)
     x = _embed(model, tokens, prefix_emb, dtype, tp)
     auxs = []
     for layer in model.layers:
@@ -208,15 +200,7 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch, *,
                             dtype=dtype, remat=remat)
     if prefix is not None:
         h = h[:, prefix.shape[1]:]
-    labels = batch["labels"]
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
-    tp = tp_of(model)
-    W = lm_head_matrix(model) if tp is None else tp.head(model, h.dtype)
-    loss, z_sq = cross_entropy_chunked(h, W, labels, mask, cfg.vocab_size,
-                                       z_loss=z_loss, tp=tp)
+    loss, z_sq = lm_loss(model, cfg, h, batch, z_loss, tp_of(model))
     metrics = {"ce_loss": loss, "z_sq": z_sq}
     if cfg.arch_type == "moe":
         loss = loss + M.moe_aux_total(aux, cfg)

@@ -1,5 +1,6 @@
 """Model-axis sharding over a data × model mesh of processes: the
-reference's ``param_specs`` carried out by hand, for the dense family.
+reference's ``param_specs`` carried out by hand, for every family in
+training.
 
 The reference lets GSPMD place every weight by its spec and insert the
 collectives.  Here each rank holds the block of each parameter that
@@ -33,15 +34,36 @@ collectives itself, as ``torch.autograd.Function``s:
   and the target's logit over the model group: no rank holds a (rows,
   vocab) float32 logits tensor.
 
+- **Whole grads on every model rank.**  Wherever every model rank
+  computes a tensor whole and then each rank computes only its own part
+  from it, the tensor passes :meth:`to_model` where the whole
+  computation ends (the block input before a column-parallel product;
+  the MoE's token rows and gates before the rank's experts; Mamba-2's
+  B, C, dt, A and D before the rank's heads; the encoder output before
+  the cross-attention's K/V).  A weight whose stored block is not the
+  block the rank computes with (Mamba-2's conv over (x, B, C), whose
+  model cut is not its heads' cut) and an activation a rank needs whole
+  (the RG-LRU's y before its (W, W) gates, K/V of KV heads the model
+  axis does not divide) are gathered over the model group by
+  :meth:`model_gather`, whose backward sums over the group in float32
+  and keeps the rank's slice.  So every grad that reaches a weight
+  replicated over ``model`` is whole, none is summed twice, and
+  :func:`reduce_grads` and :func:`global_norm` need no family's case.
+- **KV heads the model axis does not divide** (MQA, and GQA with Hkv mod
+  M ≠ 0): ``w_k`` and ``w_v`` keep the spec's column blocks; k and v are
+  gathered over the model group after the product and each rank attends
+  its H/M query heads to the KV heads they map to (:func:`kv_block`).
+
 Every rank issues the same collectives in the same order (the recompute
 under remat too): the autograd graph is the same on every rank.  The
 collectives are timed by kind (:class:`Comms`) on the host clock, the
 rank's stream synced first on the card, so a time is the collective's
 alone.
 
-Only the dense family (``arch_type == "dense"``) runs on a mesh; every
-family's specs are ported (``models.registry.param_specs``), their
-execution is not.  :func:`check` refuses a mesh before any collective.
+:func:`check` refuses a mesh before any collective: query heads,
+experts, SSD heads, the RG-LRU width or any dim its mesh axis does not
+divide; :func:`check_batch` an MoE batch whose routing groups would
+straddle two data slots.
 """
 from __future__ import annotations
 
@@ -55,14 +77,16 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as MESH
 
-KINDS = ("fsdp_gather", "grad_reduce", "model_all_reduce")
+KINDS = ("fsdp_gather", "grad_reduce", "model_all_reduce",
+         "model_all_gather")
 
 
 class Comms:
     """Calls, bytes and seconds of each kind of collective: the FSDP
     gathers, the grad reduction (the gathers' backward, the replicated
-    grads' and the metrics' all-reduce, the norm's) and the model
-    group's all-reduces (forward and backward)."""
+    grads' and the metrics' all-reduce, the norm's), the model group's
+    all-reduces (forward and backward, the model gathers' backward
+    included) and its all-gathers."""
 
     def __init__(self):
         self.reset()
@@ -108,6 +132,26 @@ class _FsdpGather(torch.autograd.Function):
         n = g.shape[ctx.dim] // tp.n_fsdp
         keep = g.narrow(ctx.dim, tp.fsdp_index * n, n)
         return keep.to(ctx.wdtype).contiguous(), None, None, None
+
+
+class _ModelGather(torch.autograd.Function):
+    """The model group's blocks of x along ``dim`` gathered whole; the
+    backward sums the grad over the group in float32 and keeps this
+    rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp.gather_model(x.detach(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp, dim = ctx.tp, ctx.dim
+        g32 = g.to(torch.float32, copy=True).contiguous()
+        tp.all_reduce(g32, tp.model_group, "model_all_reduce")
+        n = g32.shape[dim] // tp.n_model
+        keep = g32.narrow(dim, tp.model_index * n, n)
+        return keep.to(g.dtype).contiguous(), None, None
 
 
 class _ToModel(torch.autograd.Function):
@@ -170,11 +214,24 @@ class TensorParallel:
             parts, x, group=self.fsdp_group))
         return torch.cat(parts, dim)
 
+    def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.n_model)]
+        self.comms.run("model_all_gather", x, lambda: dist.all_gather(
+            parts, x, group=self.model_group))
+        return torch.cat(parts, dim)
+
     def sum_over_model(self, x: torch.Tensor) -> torch.Tensor:
         """x summed over the model group, in float32, cast back."""
         y = x.to(torch.float32, copy=True).contiguous()
         self.all_reduce(y, self.model_group, "model_all_reduce")
         return y.to(x.dtype)
+
+    def mean_over_data(self, x: torch.Tensor) -> torch.Tensor:
+        """x's mean over the data slots (no grad), in float32."""
+        y = x.detach().to(torch.float32, copy=True).contiguous()
+        self.all_reduce(y, self.fsdp_group, "grad_reduce")
+        return y / self.n_fsdp
 
     def max_over_model(self, x: torch.Tensor) -> torch.Tensor:
         y = x.detach().contiguous().clone()
@@ -202,6 +259,16 @@ class TensorParallel:
 
     def from_model(self, x):
         return x if self.n_model == 1 else _FromModel.apply(x, self)
+
+    def model_gather(self, x, dim: int = -1):
+        """x's blocks over the model group, whole along ``dim``."""
+        if self.n_model == 1:
+            return x
+        return _ModelGather.apply(x, self, dim % x.dim())
+
+    def model_slice(self, n: int) -> slice:
+        """This rank's block of ``n`` · M entries cut in M."""
+        return slice(self.model_index * n, (self.model_index + 1) * n)
 
     def vocab_start(self, v_local: int) -> int:
         return self.model_index * v_local
@@ -252,30 +319,74 @@ def _fsdp_dim(spec) -> Optional[int]:
     return None
 
 
+def kv_block(n_heads: int, n_kv_heads: int, n_model: int,
+             index: int) -> Tuple[int, int]:
+    """(first, count) of the KV heads that model rank ``index``'s H/M query
+    heads attend to, when the model axis does not divide the KV heads.
+    Raises unless the rank's query heads take whole GQA groups, or all lie
+    in one (then each rank's heads keep a GQA ratio of their own)."""
+    hl, group = n_heads // n_model, n_heads // n_kv_heads
+    first = index * hl // group
+    count = (index * hl + hl - 1) // group + 1 - first
+    if hl % count or any((index * hl + j) // group - first != j // (
+            hl // count) for j in range(hl)):
+        raise ValueError(
+            f"{n_heads} query heads over {n_kv_heads} KV heads: model rank "
+            f"{index} of {n_model} holds query heads that split a GQA "
+            f"group unevenly")
+    return first, count
+
+
+def _divides(n: int, M: int, what: str, leaf: str, dim: int) -> None:
+    if n % M:
+        raise ValueError(
+            f"{leaf}: dim {dim} holds {n} {what}, which mesh axis 'model' "
+            f"of {M} does not divide")
+
+
 def check_model(cfg: ModelConfig, mesh: MESH.Mesh) -> Dict[str, tuple]:
     """Refuse a model the port cannot cut to ``mesh`` (no process group
-    needed): a family other than dense, a head count or a dim its mesh
-    axis does not divide.  Returns the leaf specs of a meta-device model
-    (no memory)."""
-    if cfg.arch_type != "dense":
-        raise ValueError(
-            f"arch_type {cfg.arch_type!r} does not run on a mesh yet: the "
-            f"port shards the dense family only (its specs are ported for "
-            f"every family; ROADMAP Queue 1 lists the model axis of the "
-            f"others)")
+    needed): query heads, experts, SSD heads or the RG-LRU width the
+    model axis does not divide; query heads that split a GQA group
+    unevenly where the KV heads do not divide; any dim its mesh axis
+    does not divide.  Returns the leaf specs of a meta-device model (no
+    memory)."""
     M = mesh.n_model
-    for n, what, leaf in ((cfg.n_heads, "query heads", "w_q"),
-                          (cfg.n_kv_heads, "KV heads", "w_k")):
-        if n % M:
-            raise ValueError(
-                f"layers/attn/{leaf}: dim 1 holds {n} {what}, which mesh "
-                f"axis 'model' of {M} does not divide")
+    if cfg.arch_type == "ssm":
+        from repro_torch.models.mamba2 import _dims
+        _divides(_dims(cfg)[2], M, "SSD heads", "layers/mixer/A_log", 0)
+    else:
+        _divides(cfg.n_heads, M, "query heads", "layers/attn/w_q", 1)
+        if cfg.n_kv_heads % M:
+            for r in range(M):
+                kv_block(cfg.n_heads, cfg.n_kv_heads, M, r)
+    if cfg.arch_type == "moe":
+        _divides(cfg.moe.num_experts, M, "experts", "layers/moe/w_gate", 0)
+    if cfg.arch_type == "hybrid":
+        from repro_torch.models.rglru import _hybrid
+        _divides(_hybrid(cfg)[1], M, "RG-LRU channels",
+                 "temporal/w_gate", 1)
     from repro_torch.models import registry as R
     model = R.family(cfg).Model(cfg, dtype=torch.float32, device="meta")
     specs = leaf_specs(model, cfg, "pod" in mesh.shape)
     for name, p in model.named_parameters():
         MESH.shard_box(tuple(p.shape), specs[name], mesh, 0, name=name)
     return specs
+
+
+def check_batch(cfg: ModelConfig, mesh: MESH.Mesh, batch_size: int,
+                seq_len: int) -> None:
+    """Refuse a (micro-)batch of ``batch_size`` rows of ``seq_len``
+    tokens across the mesh's data slots that the port cannot split there
+    (no process group needed): rows the slots do not divide, and an MoE
+    whose routing groups of min(2048, B·S) tokens would straddle two
+    slots (each slot routes whole groups)."""
+    if batch_size % mesh.n_fsdp:
+        raise ValueError(f"{batch_size} rows do not split over "
+                         f"{mesh.n_fsdp} data slots")
+    from repro_torch.models import moe
+    moe.check_tokens(cfg, batch_size // mesh.n_fsdp * seq_len,
+                     n_slots=mesh.n_fsdp)
 
 
 def check(cfg: ModelConfig, mesh: MESH.Mesh) -> Dict[str, tuple]:

@@ -285,6 +285,24 @@ class SplitStep:
         return model, opt_state, self.update_half(model, opt_state, lr)
 
 
+def slot_rows(batch: Dict[str, torch.Tensor], mesh,
+              rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The rows of a global batch that ``rank``'s data slot trains on:
+    every leaf (tokens, labels, mask, and a frontend's ``src_emb`` or
+    ``prefix_emb``) cut along its first dim to the slot's block of
+    B / (P·D) rows.  The ranks of one slot take the same rows."""
+    rank = MESH.rank() if rank is None else rank
+    i, n = mesh.fsdp_index(rank), mesh.n_fsdp
+    out = {}
+    for name, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"{name}: {v.shape[0]} rows do not split over "
+                             f"{n} data slots")
+        b = v.shape[0] // n
+        out[name] = v[i * b:(i + 1) * b]
+    return out
+
+
 class MeshStep:
     """An optimizer step of a model cut to a data × model mesh
     (``parallel.shard``).  The backward sums each data-sharded grad over
@@ -506,6 +524,9 @@ class PhaseEngine:
         self._join(key)
         ent = self._cache.get(key)
         if ent is None:
+            if self.mesh is not None:     # before the step's collectives
+                parallel.check_batch(self.model, self.mesh,
+                                     batch_size // micro, self.cfg.seq_len)
             ent = self._cache[key] = _Step(make_grad_step(
                 self.model, self.optimizer, micro_batches=micro,
                 z_loss=self.cfg.z_loss, dtype=self.dtype,

@@ -97,6 +97,39 @@ def test_rmsnorm_kernel(cuda, shape, dtype):
     _close(got, ref.rmsnorm_ref(x, s, 1e-5), dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d,parts", [(8, 512, 2), (77, 2560, 1),
+                                          (4096, 5120, 2), (4096, 5120, 4)])
+def test_split_rmsnorm_kernels(cuda, dtype, rows, d, parts):
+    """The split row's four kernels, a row cut in ``parts`` as that many
+    model ranks hold it, each against its plain version on the same
+    inputs (the row sums added as the all-reduce adds them)."""
+    g = torch.Generator(device=cuda).manual_seed(rows + parts)
+    x = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    gy = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    s = 0.1 * torch.randn(d, generator=g, device=cuda)
+    xs, gs, ss_ = (t.chunk(parts, -1) for t in (x, gy, s))
+    xs, gs = ([t.contiguous() for t in ts] for ts in (xs, gs))
+    ss_ = [t.contiguous() for t in ss_]
+    sums = [RN.split_sumsq(a, b) for a, b in zip(xs, ss_)]
+    dots = [RN.split_dot(a, b, c) for a, b, c in zip(xs, ss_, gs)]
+    for a, b, c, su, do in zip(xs, ss_, gs, sums, dots):
+        torch.testing.assert_close(su, ref.rmsnorm_split_sumsq_ref(a, b),
+                                   rtol=2e-5, atol=1e-3)
+        torch.testing.assert_close(do, ref.rmsnorm_split_dot_ref(a, b, c),
+                                   rtol=2e-5, atol=1e-3)
+    ss, dot = sum(sums), sum(dots)
+    for a, b, c in zip(xs, ss_, gs):
+        _close(RN.split_fwd(a, b, ss, d), ref.rmsnorm_split_fwd_ref(
+            a, b, ss, d), dtype)
+        dx, ds = RN.split_bwd(a, b, c, ss, dot, d)
+        wdx, wds = ref.rmsnorm_split_bwd_ref(a, b, c, ss, dot, d)
+        torch.cuda.synchronize()
+        _close(dx, wdx, dtype)
+        torch.testing.assert_close(ds, wds, rtol=2e-5, atol=2e-5 * float(
+            wds.abs().max()))
+
+
 # the forward's warps a row switch at these d: for a few rows (one vector
 # a lane) 1 -> 2 -> ... -> 16 warps, then up to 4 vectors a lane, then
 # chunks of 16 warps' worth; for 8192 rows (4 vectors a lane, staged)

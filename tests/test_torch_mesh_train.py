@@ -18,13 +18,16 @@ against the reference's single-device step, on the CPU.
   initial weights (its step-0 checkpoint, resumed), across one cut: step
   for step the JAX ``Trainer`` on one device (loss within 5e-4; step,
   tokens, LR, batch size and phase equal).
-- Checkpoints: a 2x2 save's manifest (files, start, stop, writer) is
-  what the reference's ``_plan_writes`` gives for the same leaves and
-  specs on a forced 4-device (2, 2) mesh, each device standing for a
-  process; leaves have several blocks and the writers rotate over the 4
-  ranks.  The resumes 2x2 → one process and one process → 2x2 are
+- Checkpoints, of the reduced seesaw-150m on 2x2, the reduced granite
+  (expert-parallel) on 2x2 at S 1,024 (each data slot routes a whole
+  group of 2,048) and the reduced mamba2 (head-parallel) on 1x2: a
+  mesh save's manifest (files, start, stop, writer) is what the
+  reference's ``_plan_writes`` gives for the same leaves and specs on a
+  forced 4-device mesh of the same shape, each device standing for a
+  process; leaves have several blocks and the writers rotate over the
+  ranks.  The resumes mesh → one process and one process → mesh are
   bitwise, a reference single-device checkpoint restores onto the mesh
-  bitwise, and the reference's ``CKPT.restore`` reads the 2x2 save
+  bitwise, and the reference's ``CKPT.restore`` reads the mesh save
   bitwise.
 
 The ranks are ``python -c`` processes (no JAX imported) on free ports,
@@ -32,7 +35,6 @@ as ``tests/test_torch_distributed.py`` starts them.
 """
 import json
 import os
-import shutil
 import socket
 import subprocess
 import sys
@@ -71,20 +73,24 @@ def one_thread():
 # the runs' configs, exec'd here and in the ranks
 CONFIGS = r'''
 SEQ, B0, STEPS, CKPT_STEPS = 32, 4, 12, 3
+# the checkpoint cases (arch, mesh, seq_len): granite's data slots each
+# route a whole group of 2,048 tokens
+CKPTS = (("seesaw-150m", "2x2", 32), ("granite-moe-1b-a400m", "2x2", 1024),
+         ("mamba2-2.7b", "1x2", 32))
 
 
-def run_cfg(pkg, steps=STEPS):
+def run_cfg(pkg, steps=STEPS, arch="seesaw-150m", seq=SEQ):
     """What ``launch.train --reduced --batch-size 4 --seq-len 32 --steps
     12 --max-cuts 1 --dtype float32`` builds: the reduced seesaw-150m,
-    a Seesaw ramp B 4 -> 8 (10 steps)."""
+    a Seesaw ramp B 4 -> 8 (10 steps); or ``arch`` at ``seq``."""
     return pkg.RunConfig(
-        model=pkg.get_config("seesaw-150m").reduced(),
+        model=pkg.get_config(arch).reduced(),
         schedule=pkg.ScheduleConfig(kind="seesaw", base_lr=3e-3, alpha=2.0,
                                     beta=2.0, n_cuts=1, ema_decay=0.98,
                                     plateau_window=50,
                                     plateau_threshold=2e-3),
-        optimizer=pkg.OptimizerConfig(kind="adamw"), seq_len=SEQ,
-        global_batch_size=B0, total_tokens=steps * B0 * SEQ,
+        optimizer=pkg.OptimizerConfig(kind="adamw"), seq_len=seq,
+        global_batch_size=B0, total_tokens=steps * B0 * seq,
         dtype="float32")
 
 
@@ -177,26 +183,29 @@ if job == "grads":
     save(out, f"grads_{spec}.pt")
 
 if job == "ckpt":
-    tr = Trainer(run_cfg(C, CKPT_STEPS + 2), device="cpu", mesh=mesh)
-    tr.restore_checkpoint(os.path.join(d, "jck0"), verify=True)
-    save(to_jax_params(tr.state.model), "mesh_init.pt")
+    arch, seq = sys.argv[7], int(sys.argv[8])
+    tag = f"{arch}-{spec}"
+    run = run_cfg(C, CKPT_STEPS + 2, arch, seq)
+    tr = Trainer(run, device="cpu", mesh=mesh)
+    tr.restore_checkpoint(os.path.join(d, f"jck0_{arch}"), verify=True)
+    save(to_jax_params(tr.state.model), f"mesh_init_{tag}.pt")
     from repro_torch.data import MarkovLM, PhaseDataLoader
-    loader = PhaseDataLoader(MarkovLM(512, seed=0), tr.plan, SEQ,
+    loader = PhaseDataLoader(MarkovLM(512, seed=0), tr.plan, seq,
                              device="cpu", per_host=True,
                              process_index=mesh.fsdp_index(rank),
                              process_count=mesh.n_fsdp)
     tr.run(loader, max_steps=CKPT_STEPS)
-    tr.save_checkpoint(os.path.join(d, "ck22"))
+    tr.save_checkpoint(os.path.join(d, f"ck_{tag}"))
     state = (to_jax_params(tr.state.model),
              to_jax_opt_state(tr.state.model, tr.state.opt_state))
-    save(state, "state22.pt")
-    tr.save_checkpoint(os.path.join(d, "ck22_async"), block=False)
+    save(state, f"state_{tag}.pt")
+    tr.save_checkpoint(os.path.join(d, f"ck_{tag}_async"), block=False)
     tr.close()
-    one = Trainer(run_cfg(C, CKPT_STEPS + 2), device="cpu", mesh=mesh)
-    one.restore_checkpoint(os.path.join(d, "ck1"), verify=True)
+    one = Trainer(run, device="cpu", mesh=mesh)
+    one.restore_checkpoint(os.path.join(d, f"ck1_{arch}"), verify=True)
     save((to_jax_params(one.state.model),
           to_jax_opt_state(one.state.model, one.state.opt_state),
-          one.state.step), "state1_on_22.pt")
+          one.state.step), f"state1_on_{tag}.pt")
 torch.distributed.destroy_process_group()
 '''
 
@@ -207,14 +216,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn(d, spec, job):
+def _spawn(d, spec, job, *extra):
     world = int(np.prod([int(x) for x in spec.split("x")]))
     port = str(_free_port())
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
     return [subprocess.Popen(
         [sys.executable, "-c", RANK, str(r), str(world), port, str(d), spec,
-         job], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+         job, *map(str, extra)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(world)]
 
 
@@ -284,7 +293,9 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.train import checkpoint as JCKPT
 
 leaves = json.load(open(sys.argv[1]))
-mesh = jax.make_mesh((2, 2), ("data", "model"))
+shape = tuple(int(x) for x in sys.argv[3].split("x"))
+n = int(np.prod(shape))
+mesh = jax.make_mesh(shape, ("data", "model"), devices=jax.devices()[:n])
 pos = {d: i for i, d in enumerate(mesh.devices.flat)}
 Dev = namedtuple("Dev", "process_index")
 Shard = namedtuple("Shard", "index data")
@@ -320,7 +331,7 @@ class Shim:
 
     @staticmethod
     def process_count():
-        return 4
+        return n
 
     @staticmethod
     def process_index():
@@ -351,10 +362,13 @@ def _subprocess(script, *argv, devices=4):
 def runs(tmp_path_factory):
     """The reference's single-device grads (written for the ranks), the
     grad ranks on the three meshes; the JAX ``Trainer``'s step-0
-    checkpoint and run; a one-process port save (``ck1``); the launcher's
-    2x2 ranks and the checkpoint ranks; the reference's sharded loss."""
+    checkpoint of each checkpoint case's arch and the seesaw run; a
+    one-process port save of each (``ck1_<arch>``); the launcher's 2x2
+    ranks and each case's checkpoint ranks; the reference's sharded
+    loss."""
     import repro.configs as JC
     import repro_torch.configs as C
+    from repro_torch.data import MarkovLM, PhaseDataLoader
     d = tmp_path_factory.mktemp("mesh")
     refs = {}
     for arch in ARCHS:
@@ -364,22 +378,28 @@ def runs(tmp_path_factory):
                  labels=batch["labels"], **_flat(params))
     procs = {spec: _spawn(d, spec, "grads") for spec in MESHES}
     jtr = JTrainer(run_cfg(JC))
-    jtr.save_checkpoint(str(d / "jck0"))
-    shutil.copytree(d / "jck0", d / "jck0_launch")   # the launcher saves
-    one = Trainer(run_cfg(C, CKPT_STEPS + 2), device="cpu")
-    one.restore_checkpoint(str(d / "jck0"))
-    from repro_torch.data import MarkovLM, PhaseDataLoader
-    one.run(PhaseDataLoader(MarkovLM(512, seed=0), one.plan, SEQ,
-                            device="cpu"), max_steps=2)
-    one.save_checkpoint(str(d / "ck1"))
+    jtr.save_checkpoint(str(d / "jck0_launch"))      # the launcher saves
+    jinit, ones = {}, {}
+    for arch, spec, seq in CKPTS:
+        jt = jtr if arch == "seesaw-150m" else JTrainer(
+            run_cfg(JC, arch=arch, seq=seq))
+        jt.save_checkpoint(str(d / f"jck0_{arch}"))
+        jinit[arch] = jax.tree.map(np.asarray, jt.state.params)
+        one = ones[arch] = Trainer(run_cfg(C, CKPT_STEPS + 2, arch, seq),
+                                   device="cpu")
+        one.restore_checkpoint(str(d / f"jck0_{arch}"))
+        one.run(PhaseDataLoader(MarkovLM(512, seed=0), one.plan, seq,
+                                device="cpu"), max_steps=2)
+        one.save_checkpoint(str(d / f"ck1_{arch}"))
     for p in procs.values():
         _wait(p)
-    late = _spawn(d, "2x2", "launch") + _spawn(d, "2x2", "ckpt")
-    jinit = jax.tree.map(np.asarray, jtr.state.params)
+    late = _spawn(d, "2x2", "launch")
+    for arch, spec, seq in CKPTS:
+        late += _spawn(d, spec, "ckpt", arch, seq)
     jtr.run(JLoader(JMarkovLM(512, seed=0), jtr.plan, SEQ))
     dup = _subprocess(DUPLICATE)
     _wait(late)
-    return dict(d=d, refs=refs, jtr=jtr, jinit=jinit, one=one, dup=dup,
+    return dict(d=d, refs=refs, jtr=jtr, jinit=jinit, ones=ones, dup=dup,
                 grads={s: torch.load(d / f"grads_{s}.pt") for s in MESHES})
 
 
@@ -455,11 +475,10 @@ def _manifest(path):
         return json.load(f)
 
 
-def _leaf_specs(keys):
+def _leaf_specs(keys, arch):
     """Each checkpoint leaf's spec from the reference's param specs."""
     from repro.models import registry as JRR
-    specs = _flat_specs(JRR.param_specs(j_get_config("seesaw-150m")
-                                        .reduced()))
+    specs = _flat_specs(JRR.param_specs(j_get_config(arch).reduced()))
     out = {}
     for k in keys:
         kind, path = k.split(":", 1)
@@ -482,26 +501,30 @@ def _flat_specs(tree, prefix=""):
                                  for e in tree]}
 
 
-def test_2x2_manifest_is_the_reference_plan(runs, tmp_path):
+@pytest.mark.parametrize("arch,spec,seq", CKPTS)
+def test_2x2_manifest_is_the_reference_plan(runs, tmp_path, arch, spec,
+                                            seq):
     d = runs["d"]
-    for ck in ("ck22", "ck22_async"):
+    world = int(np.prod([int(x) for x in spec.split("x")]))
+    for ck in (f"ck_{arch}-{spec}", f"ck_{arch}-{spec}_async"):
         m = _manifest(str(d / ck))
-        specs = _leaf_specs(m["arrays"])
+        specs = _leaf_specs(m["arrays"], arch)
         leaves = {k: [e["shape"], e["dtype"], specs[k]]
                   for k, e in m["arrays"].items()}
         with open(tmp_path / "leaves.json", "w") as f:
             json.dump(leaves, f)
-        want = _subprocess(PLAN, tmp_path / "leaves.json", m["generation"])
+        want = _subprocess(PLAN, tmp_path / "leaves.json", m["generation"],
+                           spec)
         got = {k: {"shape": e["shape"], "dtype": e["dtype"],
                    "shards": [{x: s[x] for x in ("file", "start", "stop",
                                                  "writer")}
                               for s in e["shards"]]}
                for k, e in m["arrays"].items()}
         assert got == want
-        assert m["meta"]["save_process_count"] == 4
-        assert max(len(e["shards"]) for e in m["arrays"].values()) == 4
+        assert m["meta"]["save_process_count"] == world
+        assert max(len(e["shards"]) for e in m["arrays"].values()) == world
         assert {s["writer"] for e in m["arrays"].values()
-                for s in e["shards"]} == {0, 1, 2, 3}
+                for s in e["shards"]} == set(range(world))
 
 
 def _equal(a, b):
@@ -511,34 +534,38 @@ def _equal(a, b):
         np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
 
 
-def test_checkpoint_resumes_are_bitwise(runs):
+@pytest.mark.parametrize("arch,spec,seq", CKPTS)
+def test_checkpoint_resumes_are_bitwise(runs, arch, spec, seq):
     import repro.configs as JC
     import repro_torch.configs as C
-    d = runs["d"]
-    # a reference single-device checkpoint onto the 2x2 mesh
-    _equal(torch.load(d / "mesh_init.pt", weights_only=False), runs["jinit"])
-    # 2x2 -> one process
-    params22, opt22 = torch.load(d / "state22.pt", weights_only=False)
-    one = Trainer(run_cfg(C, CKPT_STEPS + 2), device="cpu")
-    meta = one.restore_checkpoint(str(d / "ck22"), verify=True)
+    d, tag = runs["d"], f"{arch}-{spec}"
+    world = int(np.prod([int(x) for x in spec.split("x")]))
+    # a reference single-device checkpoint onto the mesh
+    _equal(torch.load(d / f"mesh_init_{tag}.pt", weights_only=False),
+           runs["jinit"][arch])
+    # mesh -> one process
+    params22, opt22 = torch.load(d / f"state_{tag}.pt", weights_only=False)
+    one = Trainer(run_cfg(C, CKPT_STEPS + 2, arch, seq), device="cpu")
+    meta = one.restore_checkpoint(str(d / f"ck_{tag}"), verify=True)
     assert meta["step"] == CKPT_STEPS
     _equal(W.to_jax_params(one.state.model), params22)
     _equal(W.to_jax_opt_state(one.state.model, one.state.opt_state), opt22)
-    # one process -> 2x2
-    p1, o1, step = torch.load(d / "state1_on_22.pt", weights_only=False)
+    # one process -> mesh
+    p1, o1, step = torch.load(d / f"state1_on_{tag}.pt", weights_only=False)
     assert step == 2
-    _equal(p1, W.to_jax_params(runs["one"].state.model))
-    _equal(o1, W.to_jax_opt_state(runs["one"].state.model,
-                                  runs["one"].state.opt_state))
-    # the reference reads the 2x2 save
-    jres = JTrainer(run_cfg(JC, CKPT_STEPS + 2))
-    meta = jres.restore_checkpoint(str(d / "ck22"), verify=True)
-    assert meta["save_process_count"] == 4
+    ref1 = runs["ones"][arch]
+    _equal(p1, W.to_jax_params(ref1.state.model))
+    _equal(o1, W.to_jax_opt_state(ref1.state.model, ref1.state.opt_state))
+    # the reference reads the mesh save
+    jres = JTrainer(run_cfg(JC, CKPT_STEPS + 2, arch, seq))
+    meta = jres.restore_checkpoint(str(d / f"ck_{tag}"), verify=True)
+    assert meta["save_process_count"] == world
     _equal(jax.tree.map(np.asarray, jres.state.params), params22)
     _equal(jax.tree.map(np.asarray, jres.state.opt_state), opt22)
     # the async save holds the same blocks
-    m, a = _manifest(str(d / "ck22")), _manifest(str(d / "ck22_async"))
+    m = _manifest(str(d / f"ck_{tag}"))
+    a = _manifest(str(d / f"ck_{tag}_async"))
     for k, e in m["arrays"].items():
         assert [s["crc32"] for s in e["shards"]] == \
             [s["crc32"] for s in a["arrays"][k]["shards"]], k
-    assert CKPT.read_meta(str(d / "ck22"))["step"] == CKPT_STEPS
+    assert CKPT.read_meta(str(d / f"ck_{tag}"))["step"] == CKPT_STEPS

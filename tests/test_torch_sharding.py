@@ -16,11 +16,14 @@
   layer dim dropped.
 - The mesh: rank coordinates (model fastest), data slots, the groups'
   ranks, the launch / test / production shapes.
-- Refusals, each a ``ValueError`` before any collective: a family other
-  than dense, a head count or dim the mesh does not divide (MQA's one
-  KV head at M=2), a mesh whose size is not the process count, and the
-  launcher's ``--mesh`` with a non-dense arch.
+- Every family is accepted on a mesh (the launcher's ``--mesh`` too,
+  for the token-fed ones), and MQA's one KV head at M=2.
+- Refusals, each a ``ValueError`` before any collective: query heads,
+  experts, SSD heads or a dim the mesh does not divide, an MoE batch
+  whose routing groups would straddle two data slots (the launcher's
+  first batch too), and a mesh whose size is not the process count.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -268,28 +271,53 @@ def no_collective(monkeypatch):
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-2.7b",
                                   "recurrentgemma-9b",
                                   "seamless-m4t-medium", "internvl2-76b"])
-def test_other_families_are_refused_on_a_mesh(arch, no_collective):
+def test_other_families_are_accepted_on_a_mesh(arch, no_collective):
+    """Every family cuts to a 2x2 mesh.  The launcher takes the
+    token-fed ones with ``--mesh`` and stops only at the process count
+    (one process here); it refuses the frontend archs, as it does for
+    one process."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(ValueError, match="dense family only"):
-        parallel.check_model(cfg, M.make_test_mesh(2, 2))
-    if R.has_frontend(cfg):        # the launcher refuses these anyway
+    specs = parallel.check_model(cfg, M.make_test_mesh(2, 2))
+    assert set(specs) == {n for n, _ in R.family(cfg).Model(
+        cfg, dtype=torch.float32, device="meta").named_parameters()}
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--mesh", "2x2",
+            "--steps", "1", "--seq-len", "1024", "--batch-size", "4"]
+    if R.has_frontend(cfg):
+        with pytest.raises(SystemExit):
+            launch_train.main(argv)
         return
-    with pytest.raises(ValueError, match="dense family only"):
-        launch_train.main(["--arch", arch, "--reduced", "--device", "cpu",
-                           "--mesh", "2x2", "--steps", "1"])
+    with pytest.raises(ValueError, match="4 slots but the run has 1"):
+        launch_train.main(argv)
 
 
 def test_an_undivided_dim_or_head_count_is_refused(no_collective):
     llama = get_config("llama3.2-3b").reduced()
     mqa = ModelConfig(**{**llama.__dict__, "n_kv_heads": 1})
-    with pytest.raises(ValueError, match=r"w_k: dim 1 holds 1 KV heads, "
-                       r"which mesh axis 'model' of 2 does not divide"):
-        parallel.check_model(mqa, M.make_test_mesh(1, 2))
+    # MQA's one KV head is gathered over the model group: accepted
+    assert parallel.check_model(mqa, M.make_test_mesh(1, 2))
+    assert parallel.kv_block(4, 1, 2, 1) == (0, 1)
+    assert parallel.kv_block(8, 2, 4, 3) == (1, 1)
     with pytest.raises(ValueError, match="query heads"):
         parallel.check_model(llama, M.make_test_mesh(1, 3))
     with pytest.raises(ValueError, match=r"tok: dim 1 of size 256 does not "
                        r"divide over mesh axis 'data' of 3"):
         parallel.check_model(llama, M.make_test_mesh(3, 1))
+    granite = get_config("granite-moe-1b-a400m").reduced()
+    with pytest.raises(ValueError, match=r"w_gate: dim 0 holds 4 experts, "
+                       r"which mesh axis 'model' of 8 does not divide"):
+        parallel.check_model(dataclasses.replace(granite, n_heads=8),
+                             M.make_test_mesh(1, 8))
+    with pytest.raises(ValueError, match="SSD heads"):
+        parallel.check_model(get_config("mamba2-2.7b").reduced(),
+                             M.make_test_mesh(1, 3))
+    # a routing group of 2,048 tokens over two data slots of 1,024
+    with pytest.raises(ValueError, match="straddle two data slots"):
+        parallel.check_batch(granite, M.make_test_mesh(2, 2), 4, 512)
+    parallel.check_batch(granite, M.make_test_mesh(2, 2), 8, 512)
+    with pytest.raises(ValueError, match="straddle"):
+        launch_train.main(["--arch", "granite-moe-1b-a400m", "--reduced",
+                           "--device", "cpu", "--mesh", "2x2", "--steps",
+                           "1", "--seq-len", "512", "--batch-size", "4"])
 
 
 def test_a_mesh_that_is_not_the_process_count_is_refused(no_collective):
