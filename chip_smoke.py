@@ -14,8 +14,9 @@ mistral-nemo-12b, train seesaw-150m data-parallel as two launcher
 processes sharing the card, train seesaw-150m and llama3.2-3b sharded
 over a data x model mesh of launcher processes sharing the card, train
 granite-moe-1b-a400m, mamba2-2.7b, recurrentgemma-9b and
-seamless-m4t-medium on such meshes, and run the kernel benchmark on one
-NVIDIA card.
+seamless-m4t-medium on such meshes, serve llama3.2-3b, starcoder2-3b and
+mamba2-2.7b sharded on such meshes from caches cut as the reference's
+specs cut them, and run the kernel benchmark on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -190,7 +191,7 @@ decode graph, each replayed once per step.
   bfloat16 (``prefill_shapes`` of its ``kernels`` entry, ``graph_us``
   beside ``ms``); and the RMSNorm forward at a decode step's rows, 8 x
   2560 and 8 x 5120, checked and timed (``mamba2_decode_d*``).
-- Phase 6, mamba2-2.7b at full width cut to 32 of its 64 layers
+- Phase 6, mamba2-2.7b at full width cut to 16 of its 64 layers
   (``MAMBA2_TRAIN_LAYERS``: d_model 2560, 80 SSD heads),
   random weights from a seed:
   ``kind="seesaw"``, α=2, B0=4, two cuts, seq 2048, 11·4·2048 tokens,
@@ -208,10 +209,11 @@ decode graph, each replayed once per step.
   same weights: loss within 1e-4, grads within 1e-3 of each tensor's
   largest |grad|; then three engine steps on each device, replays on
   the card, as in phase 5.
-- Phase 11, mamba2-2.7b served at full width and depth (after phase
-  6's trainer is freed): ``ServingEngine`` in its ``"state"`` mode,
+- Phase 11, mamba2-2.7b served at full width cut to 32 of its 64
+  layers (``MAMBA2_SERVE_LAYERS``; after phase 6's trainer is freed):
+  ``ServingEngine`` in its ``"state"`` mode,
   random weights from a seed, bfloat16, 8 slots, max_len 1024, one
-  state page per request (h and the conv rows of all 64 layers), phase
+  state page per request (h and the conv rows of all 32 layers), phase
   2's request mix.  A warm-up runs the first prefill and decode eagerly
   and captures one graph per distinct prompt length of the mix and the
   decode graph; the timed run must capture nothing.  Every request must
@@ -219,8 +221,8 @@ decode graph, each replayed once per step.
   engine hold one prefill entry per distinct length and one decode
   entry (its budget), the tokens equal those of an engine whose every
   call runs eagerly, and the launches (set to 0 just before the timed
-  run) be exactly ``ssd_chunk`` 64 a prefill and the RMSNorm forward
-  129 a prefill and a decode step, every other kernel 0.  Reports tok/s
+  run) be exactly ``ssd_chunk`` L = 32 a prefill and the RMSNorm
+  forward 2L+1 = 65 a prefill and a decode step, every other kernel 0.  Reports tok/s
   (and eager), decode steps, occupancy, captures and their seconds,
   peak memory, the pool's bytes, and one replayed decode step under
   torch.profiler (busy share, top kernels) beside its bytes bound.
@@ -240,12 +242,13 @@ decode graph, each replayed once per step.
   phase 2's first 8 requests through the engine (8 slots) and each
   alone through a Server sized to the engine's page window (the
   reference's oracle test): first-token logits within 1e-3, tokens
-  equal.  (b) starcoder2-3b at full width and depth (30 layers, GQA
-  24/2, hd 128, a 4096-token window), bf16, max_len 8192: a ring of
+  equal.  (b) starcoder2-3b at full width cut to 10 of its 30 layers
+  (``STARCODER_SERVE_LAYERS``; GQA 24/2, hd 128, a 4096-token window),
+  bf16, max_len 8192: a ring of
   4096 slots a layer.  2 prompts of 4,500 with 64 new (the ring built
   from S >= W), 2 of 4,000 with 160 new (the ring wraps at decode step
-  97); launches exactly the ragged decode 30 a decode step, the RMSNorm
-  forward 61 a prefill and a decode step, flash 0 (windowed layers run
+  97); launches exactly the ragged decode L a decode step, the RMSNorm
+  forward 2L+1 a prefill and a decode step, flash 0 (windowed layers run
   ``chunked_attention``); tokens equal to an all-eager Server's; tok/s,
   the prefill's seconds, peak memory, a replayed step beside its bytes
   bound and under torch.profiler, and one windowed layer's attention
@@ -274,7 +277,7 @@ decode graph, each replayed once per step.
   Then figure 1's model and Seesaw plan in float32 on the card against
   the CPU from the same weights, 10 steps: loss within 1e-4 at every
   step, LR, batch and phase equal.  (c) seesaw-150m at full width cut
-  to 6 of its 12 layers (``PAPER_LAYERS``) at its CBS:
+  to 3 of its 12 layers (``PAPER_LAYERS``) at its CBS:
   ``paper_run`` (AdamW 0.9/0.95, 10% warmup, lr 3e-3,
   α = 2, seq 1024, bf16, remat), B0 = ``CBS`` = 256, cut to a horizon of
   20 cosine steps (5,242,880 tokens) and 2 cuts, ``MarkovLM(2048, 0)``,
@@ -387,7 +390,8 @@ decode graph, each replayed once per step.
   to 16 layers through the bucketed ``Server``: 2 prompts of a 1,024-
   patch prefix and 64 text tokens, 32 new, the same gates and reports,
   and the reduced internvl card against CPU.  (e) mistral-nemo-12b at
-  full width and depth through the paged engine on phase 2's mix:
+  full width cut to 20 of its 40 layers (``NEMO_LAYERS``) through the
+  paged engine on phase 2's mix:
   tokens equal to an all-eager engine's, tok/s beside eager tok/s, a
   replayed decode step against its bound.  The ``families`` line holds
   it all.
@@ -395,7 +399,9 @@ decode graph, each replayed once per step.
   repro_torch.launch.train``'s ``main`` as two processes on the one card
   (``--coordinator 127.0.0.1:<free port> --num-processes 2 --process-id
   r --per-host``: a gloo group, since the ranks share the card) and as
-  one, seesaw-150m at full width and depth (``DP_ARGS``: bf16, AdamW,
+  one, seesaw-150m at full width cut to 6 of its 12 layers
+  (``DP_LAYERS``, given to the launcher by ``DP_RANK``; ``DP_ARGS``:
+  bf16, AdamW,
   Seesaw alpha = 2 from B = 8 to 16, at most 8 rows a micro-batch, 8
   steps, ``MarkovLM(2048)``).  Two ranks train steps 1-4 alone and
   save; then side by side two ranks resume for 5-8, one process resumes
@@ -418,7 +424,8 @@ decode graph, each replayed once per step.
   process: the first batch's loss within 1e-4 and every gathered grad
   within 1e-3 of its leaf's max, grad norm within 1e-3 relative, then
   the two steps' loss (1e-4) and grad norm (1e-3).  (b) bf16,
-  seesaw-150m through the launcher (``MESH_ARGS`` + ``--mesh 2x2``): a
+  seesaw-150m at ``DP_LAYERS`` through the launcher (``MESH_ARGS`` +
+  ``--mesh 2x2``): a
   Seesaw alpha = 2 ramp from B = 8 to 16 (4 + 2 steps) at lr 1e-4 (at
   phase 17's 3e-3 the run spikes and parts two float32 runs by 29% in
   grad norm within 6 steps; ``MESH_LR``), four ranks
@@ -452,7 +459,7 @@ decode graph, each replayed once per step.
   conv's cut at 2,688 against the heads' at 2,560, B 2 x S 2,048),
   recurrentgemma-9b (3 layers, 2 recurrent and 1 windowed MQA
   attention, 1x2: 2,048 of 4,096 RG-LRU channels a rank, the one KV
-  head gathered, B 1 x S 3,072 past the 2,048 window) and
+  head gathered, B 1 x S 2,304 past the 2,048 window) and
   seamless-m4t-medium (2 encoder and 2 decoder layers, 1x2, B 2 with
   1,024 frames and 1,024 tokens).  Gates: the first batch's loss within
   1e-4 and grad norm within 1e-3 relative of one process's; every grad
@@ -466,6 +473,36 @@ decode graph, each replayed once per step.
   wall, each kind of collective's calls, MB and ms a step and each
   rank's peak memory.  No speed or capacity is claimed: the ranks share
   one card.
+- Phase 20, sharded prefill and decode (``phase20``).  (a) The cut
+  caches' decode kernels at llama3.2-3b's decode shape (``CUT_SHAPE``:
+  B 16, GQA 24/8, Skv 4,096, lengths 0, 127 and Skv - 1 among them, hd
+  128 cut in 2 and 4), f32 (2e-5) and bf16 (2e-2) against their plain
+  versions: the head_dim cut's scores and softmax-P·V passes, the
+  sequence cut's partial softmax state, and their M parts summed or
+  merged against the whole-head decode kernel; each timed beside its
+  plain version and its bytes bound, the scores beside one
+  ``torch.matmul`` of the slices.  (b) ``SERVE_CELLS``, each run's
+  processes sharing the card over gloo against one process on the same
+  seeded model (``SERVE_RANK``; all at once): llama3.2-3b (8 layers, 16
+  rows, prompts of 512, ``cache_len_cap`` 1,024, 16 greedy steps) on
+  1x2 with ``serve_resident`` off and on and both cache cuts, and on
+  2x2 (``serve_resident``, the head_dim cut); starcoder2-3b (4 layers,
+  2 x 4,500 into the 4,096-slot ring, 8 steps) and mamba2-2.7b (4
+  layers, 2 x 1,024, 8 steps; its state cut by N, and by heads with the
+  sequence cut) on 1x2 in both cuts.  Gates, float32: every step's
+  logits (the rank's vocab block) within 1e-4 of one process's,
+  relative to the step's largest |logit|, the greedy tokens equal, each
+  collective kind's calls in the prefill and a decode step as
+  ``serve_comms`` predicts from the shapes (its MB printed beside the
+  prediction), every process's launches exactly ``serve_launches`` (the
+  scores and softmax-P·V kernels L a step in the head_dim cut, the
+  partial in the sequence cut, the whole-head decode kernel only in the
+  one process).  bf16 runs are reported beside one bf16 process,
+  ungated.  The ``mesh_serve`` line gives each run's differences,
+  collectives, walls and peak memory.  No speed is claimed: the ranks
+  share one card.  A bf16 run's tokens may part from one process's at
+  a near tie of bf16 logits (the vocab blocks round their own way);
+  its logits are compared up to the first pick that differs.
 - Phase 8, the kernel benchmark: ``repro_torch.bench.kernels`` at full
   size through its ``main`` (the reference's attention, RMSNorm and SSD
   sweeps in float32, kernel and plain, forward and forward+backward; the
@@ -483,7 +520,7 @@ decode graph, each replayed once per step.
 Prints the card's name and power limit, one ``kernels`` JSON line (the
 eight kernels, the flash kernels at hd 32, the ragged decode at hd 32
 and 256, the RG-LRU scan pair, the split-row RMSNorm's four kernels,
-and on the flash, decode and RMSNorm entries the shapes of phase 16),
+the cut caches' three decode kernels, and on the flash, decode and RMSNorm entries the shapes of phase 16),
 one ``engine`` and one ``train`` JSON line (phase 9's result in the
 latter), one ``mamba2`` JSON line,
 one ``mamba2_serve``
@@ -491,7 +528,8 @@ line (phases 11 and 11b, with the card), one ``server`` line (phase
 12), one ``paper`` line (phase 13), one ``moe`` line (phase 14), one
 ``hybrid`` line (phase 15), one ``families`` line (phase 16), one
 ``data_parallel`` line (phase 17), one ``mesh`` line (phase 18), one
-``mesh_families`` line (phase 19), one ``checkpoint`` line
+``mesh_families`` line (phase 19), one ``mesh_serve`` line (phase 20),
+one ``checkpoint`` line
 (phase 10: bytes written, write, restore and verify seconds and GB/s,
 the async save's stall beside a sync save's time, the adaptive run's
 cuts, the card's name and power limit), and last ``{"ok": true,
@@ -2355,9 +2393,10 @@ def mamba2_counters(RN, FA, SSD):
             "flash_bwd_dkv": (FA, "dkv_launches")}
 
 
-# phase 6's depth: 32 of mamba2-2.7b's 64 layers, to keep the script
-# inside its time limit with phase 19
-MAMBA2_TRAIN_LAYERS = 32
+# phase 6's depth: 16 of mamba2-2.7b's 64 layers, and phase 11's: 32, to
+# keep the script inside its time limit with phases 19 and 20
+MAMBA2_TRAIN_LAYERS = 16
+MAMBA2_SERVE_LAYERS = 32
 
 
 def phase6(cfg, RN, FA, SSD):
@@ -2523,8 +2562,9 @@ def second_step_kernels(prof, wall_us: float, fname: str) -> dict:
 
 
 def phase11(cfg, R, serving, ctr, smi):
-    """mamba2-2.7b at full width and depth, bf16, served in the engine's
-    state mode: 8 slots, max_len 1024, phase 2's request mix."""
+    """mamba2-2.7b at full width (the depth ``cfg``'s), bf16, served in
+    the engine's state mode: 8 slots, max_len 1024, phase 2's request
+    mix."""
     torch.cuda.reset_peak_memory_stats()
     model = R.init_model(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
     eng = serving.ServingEngine(cfg, model, decode_slots=8, max_len=1024,
@@ -2848,12 +2888,13 @@ def engine_vs_solo_server(cfg, R, serving, Server):
 
 
 def phase12b(cfg, R, Server, ctr, smi):
-    """starcoder2-3b at full width and depth, bf16, ``Server(max_len=
-    8192)``: a ring of W = 4096 slots a layer.  Batch (i): 2 prompts of
-    4,500, 64 new (the window binds in the prefill, the ring is built
-    from S >= W); batch (ii): 2 prompts of 4,000, 160 new (the ring
-    wraps at decode step 97).  Launches exact (the ragged decode 30 a
-    decode step, the RMSNorm forward 61 a prefill and a decode step,
+    """starcoder2-3b at full width (the depth ``cfg``'s), bf16,
+    ``Server(max_len=8192)``: a ring of W = 4096 slots a layer.  Batch
+    (i): 2 prompts of 4,500, 64 new (the window binds in the prefill,
+    the ring is built from S >= W); batch (ii): 2 prompts of 4,000, 160
+    new (the ring wraps at decode step 97).  Launches exact (the ragged
+    decode L a decode step, the RMSNorm forward 2L+1 a prefill and a
+    decode step,
     flash 0), tokens equal to an all-eager Server's; tok/s, the
     prefill's seconds, peak memory, a replayed step against its bound
     and under torch.profiler; and one windowed layer's attention
@@ -3007,10 +3048,10 @@ FLASH_HD32 = ((8, 64, 4, 4, "fig-B8"), (128, 64, 4, 4, "fig-B128"),
               (8, 77, 4, 4, "ragged-S77"), (8, 64, 4, 2, "gqa"))
 # 13c: seesaw-150m at its CBS, the horizon cut to 20 cosine steps and the
 # schedule to 2 cuts (the reference's planner then keeps every token);
-# the depth cut to 6 of 12 layers, to keep the script inside its time
-# limit with phase 19
+# the depth cut to 3 of 12 layers, to keep the script inside its time
+# limit with phases 19 and 20
 PAPER_HORIZON, PAPER_CUTS, PAPER_MICRO = 20, 2, 32
-PAPER_LAYERS = 6
+PAPER_LAYERS = 3
 
 
 def phase13a(FA, ref):
@@ -4159,6 +4200,11 @@ def hybrid_kernel_entries(kernels, record):
 ENCDEC_ARCH, VLM_ARCH = "seamless-m4t-medium", "internvl2-76b"
 NEMO_ARCH, YI_ARCH = "mistral-nemo-12b", "yi-34b"
 VLM_LAYERS = 16
+# 16e's depth: 20 of mistral-nemo-12b's 40 layers, to keep the script
+# inside its time limit with phases 19 and 20
+NEMO_LAYERS = 20
+# 12b's depth: 10 of starcoder2-3b's 30 layers, for the same reason
+STARCODER_SERVE_LAYERS = 10
 # 16b's plan: 6 steps at B = 4 and 2 at B = 8 of 1,024 text tokens (as 15b)
 ENCDEC_TOKENS = 9 * 4 * 1024
 # (B, S, H, Hkv, tag), hd 128: internvl's GQA 64/8 at its prefill of a
@@ -4737,7 +4783,8 @@ def phase16d(cfg, R, Server, ctr, smi):
 
 
 def phase16e(cfg, R, serving, kernel_modules, smi):
-    """mistral-nemo-12b at full width and depth (40 layers, 12.25B
+    """mistral-nemo-12b at full width (cut to ``NEMO_LAYERS`` of its 40
+    layers; whole: 12.25B
     parameters, 24.5 GB in bf16) from the paged engine on phase 2's mix
     (8 slots, page 16, max_len 1024, 16 requests): tokens equal an
     all-eager engine's, tok/s beside the eager tok/s, and a replayed
@@ -4834,15 +4881,22 @@ DP_ARGS = ["--arch", "seesaw-150m", "--schedule", "seesaw", "--alpha", "2",
            "--total-tokens", str(8 * 1024 * 9), "--max-device-batch", "8",
            "--fuse-steps", "1"]
 DP_SAVE_STEP = 4
-# each process: the launcher's main with the flags given, then its
-# history, wall, launch counts and peak memory into a JSON file
+# phases 17 and 18b's depth: 6 of seesaw-150m's 12 layers, to keep the
+# script inside its time limit with phases 19 and 20
+DP_LAYERS = 6
+# each process: the launcher's main with the flags given, its arch cut
+# to the layers given first, then its history, wall, launch counts and
+# peak memory into a JSON file
 DP_RANK = r"""
-import json, sys, time
+import dataclasses, json, sys, time
 import torch
 from repro_torch import graphs
 from repro_torch.launch import train
 t = time.perf_counter()
-hist = train.main(sys.argv[2:])
+layers, whole = int(sys.argv[2]), train.get_config
+train.get_config = lambda arch: dataclasses.replace(whole(arch),
+                                                    n_layers=layers)
+hist = train.main(sys.argv[3:])
 torch.cuda.synchronize()
 with open(sys.argv[1], "w") as f:
     json.dump({"history": hist, "wall_s": time.perf_counter() - t,
@@ -4875,7 +4929,8 @@ def launch_ranks(tmp, tag, n, extra, args=None):
                  if n > 1 else [])
         out = os.path.join(tmp, f"{tag}{r}.json")
         procs.append((subprocess.Popen(
-            [sys.executable, "-c", DP_RANK, out, *args, *extra, *group],
+            [sys.executable, "-c", DP_RANK, out, str(DP_LAYERS), *args,
+             *extra, *group],
             cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), out))
     return procs
@@ -5491,7 +5546,7 @@ def phase18(cfg, ctr, smi):
 # tokens, the hybrid's S passes its 2,048-token window
 FAM_CELLS = (("granite", MOE_ARCH, 2, 0, "2x2", 4, 1024),
              ("mamba2", "mamba2-2.7b", 2, 0, "1x2", 2, 2048),
-             ("hybrid", HYBRID_ARCH, 3, 0, "1x2", 1, 3072),
+             ("hybrid", HYBRID_ARCH, 3, 0, "1x2", 1, 2304),
              ("seamless", ENCDEC_ARCH, 2, 2, "1x2", 2, 1024))
 FAM_STEPS = 2
 # the cell whose one process runs after the mesh's ranks, and after the
@@ -6022,6 +6077,559 @@ def family_kernel_entries(kernels, record):
             k["rank_w2048"] = times[f"{k['name']}/w2048"]
 
 
+# --------------------------------------------------------------------- #
+# phase 20: sharded prefill and decode
+# --------------------------------------------------------------------- #
+
+# llama3.2-3b's decode shape, at which phase 20a holds the cut caches'
+# kernels: (B, query heads, KV heads, head_dim, Skv)
+CUT_SHAPE = (16, 24, 8, 128, 4096)
+# (tag, arch, layers, B, prompt, cache_len_cap, decode steps, runs), each
+# run (mesh, serve_resident, cache_seq_shard, dtype): full width, depth
+# cut; llama3.2-3b's 16 rows split over the 2x2 mesh's data slots,
+# starcoder2-3b's prompts of 4,500 wrap its 4,096-slot ring, mamba2-2.7b's
+# sequence cut cuts its state by heads (80 of them) where the default
+# cuts it by N
+SERVE_CELLS = (
+    ("llama", "llama3.2-3b", 8, 16, 512, 1024, 16,
+     (("1x2", False, False, "float32"), ("1x2", True, False, "float32"),
+      ("1x2", False, True, "float32"), ("1x2", True, True, "float32"),
+      ("1x2", True, False, "bfloat16"), ("2x2", True, False, "float32"),
+      ("2x2", True, False, "bfloat16"))),
+    ("starcoder2", "starcoder2-3b", 4, 2, 4500, 4608, 8,
+     (("1x2", True, False, "float32"), ("1x2", True, True, "float32"),
+      ("1x2", True, False, "bfloat16"))),
+    ("mamba2", "mamba2-2.7b", 4, 2, 1024, 1024, 8,
+     (("1x2", True, False, "float32"), ("1x2", True, True, "float32"),
+      ("1x2", True, False, "bfloat16"))))
+# the float32 gate: each step's logits within this of one process's,
+# relative to the step's largest |logit|
+SERVE_REL = 1e-4
+# one process of a phase-20 cell: "1x1" (the whole model, each dtype of
+# the cell's runs) or one rank of a mesh (the cell's runs on that mesh);
+# a run draws the seeded model (on a mesh only the rank's blocks), sets
+# the counts to 0, prefills the rank's rows and decodes greedily, each
+# step's logits block and tokens saved for the main process
+SERVE_RANK = r"""
+import dataclasses, json, math, sys, time
+import numpy as np
+import torch
+from repro_torch import graphs, parallel
+from repro_torch.configs import get_config
+from repro_torch.launch import mesh as M
+from repro_torch.launch.train import maybe_init_distributed
+from repro_torch.models import registry as R
+
+(out, tag, arch, layers, spec, port, rank, B, S, cap, steps,
+ runs) = sys.argv[1:13]
+layers, rank, B, S, cap, steps = map(int, (layers, rank, B, S, cap, steps))
+runs = json.loads(runs)
+dev = "cuda:0"
+world = math.prod(M.parse_mesh(spec).values())
+mesh = None
+if world > 1:
+    assert maybe_init_distributed(f"127.0.0.1:{port}", world, rank,
+                                  device="cuda")
+    mesh = M.make_launch_mesh(spec, distributed=True)
+torch.cuda.set_device(dev)
+cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+rng = np.random.default_rng(2000)
+toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+ssm = cfg.arch_type == "ssm"
+recs = []
+for i, (mspec, resident, seq_cut, dt) in enumerate(runs):
+    dtype = getattr(torch, dt)
+    t0 = time.perf_counter()
+    if mesh is None:
+        model = R.init_model(cfg, seed=0, dtype=dtype, device=dev)
+        lo, hi, tp, cut = 0, B, None, None
+    else:
+        model = R.init_model(cfg, seed=0, dtype=dtype, device=dev,
+                             mesh=mesh, serve_resident=resident)
+        tp = model.tp
+        lay = parallel.cache_layout(cfg, tp, B, cap, seq_cut)
+        lo, hi = lay.rows
+        cut = {n: lay.model_cut(n) for n in lay.specs}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kw = dict(cache_len_cap=None if ssm else cap)
+    if mesh is not None:
+        kw.update(global_batch=B, cache_seq_shard=seq_cut)
+        tp.comms.reset()
+
+    def pick(logits):
+        if tp is None:
+            return logits[:, -1].argmax(-1, keepdim=True)
+        return tp.greedy(logits)[:, -1:]
+
+    for mod, attr in graphs.COUNTERS:
+        setattr(mod, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = R.prefill(model, cfg, toks[lo:hi], **kw)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        pre_comms = None if tp is None else tp.comms.summary()
+        tok = pick(logits)
+        got, picks, comms = [logits[:, -1].float()], [tok], []
+        t = time.perf_counter()
+        for _ in range(steps):
+            if tp is not None:
+                tp.comms.reset()
+            logits, cache = R.decode_step(model, cfg, cache, tok)
+            if tp is not None:
+                comms.append(tp.comms.summary())
+            tok = pick(logits)
+            got.append(logits[:, -1].float())
+            picks.append(tok)
+        torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t) / steps
+    launches = list(graphs.launch_counts())
+    v0 = 0 if tp is None else tp.vocab_start(got[0].shape[-1])
+    torch.save({"logits": torch.stack(got).cpu(),
+                "tokens": torch.cat(picks, 1).cpu()},
+               f"{out}.run{i}.pt")
+    step = None
+    if comms:
+        step = {k: {f: sum(c[k][f] for c in comms) / len(comms)
+                    for f in ("calls", "MB", "ms")} for k in comms[0]}
+    recs.append({"run": [mspec, resident, seq_cut, dt], "rows": [lo, hi],
+                 "v0": v0, "cut": cut, "init_s": init_s,
+                 "prefill_s": prefill_s, "decode_s_per_step": decode_s,
+                 "prefill_comms": pre_comms, "step_comms": step,
+                 "launches": launches,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del model, cache, logits
+    torch.cuda.empty_cache()
+with open(out, "w") as f:
+    json.dump({"runs": recs}, f)
+if mesh is not None:
+    torch.distributed.destroy_process_group()
+"""
+
+
+
+def cut_counters(RN, FA, PG, SSD, OV, RG):
+    """Every kernel's launch counter, the cut caches' three among them."""
+    return dict(family_counters(RN, FA, PG, SSD, OV, RG),
+                decode_scores=(PG, "scores_launches"),
+                decode_softmax_pv=(PG, "softmax_pv_launches"),
+                ragged_decode_partial=(PG, "partial_launches"))
+
+
+def serve_launches(cfg, ctr, steps: int, on_mesh: bool,
+                   seq_cut: bool) -> dict:
+    """Every kernel's launches in a phase-20 run: a prefill and ``steps``
+    decode steps; 0 for a kernel off the path."""
+    L, T = cfg.n_layers, steps
+    per = dict.fromkeys(ctr, 0)
+    if cfg.arch_type == "ssm":
+        per["ssd_chunk"] = L
+        if on_mesh:    # the gated norm through the split row
+            per.update(rmsnorm_fwd=(L + 1) * (1 + T),
+                       rmsnorm_split_sumsq=L * (1 + T),
+                       rmsnorm_split_fwd=L * (1 + T))
+        else:
+            per["rmsnorm_fwd"] = (2 * L + 1) * (1 + T)
+        return per
+    per["rmsnorm_fwd"] = (2 * L + 1) * (1 + T)
+    per["flash_fwd"] = L if cfg.sliding_window is None else 0
+    if not on_mesh:
+        per["ragged_decode"] = L * T
+    elif seq_cut:
+        per["ragged_decode_partial"] = L * T
+    else:
+        per.update(decode_scores=L * T, decode_softmax_pv=L * T)
+    return per
+
+
+def serve_comms(cfg, spec: str, seq_cut: bool, B: int, S: int, cap: int,
+                dtype) -> dict:
+    """The collectives a rank of a phase-20 run calls, from the shapes
+    alone (the prediction ``PERF.md`` holds): calls and MB by kind in the
+    prefill and in one decode step.  Activations move in the model's
+    dtype, the row-parallel sums, scores and softmax states in float32;
+    no term moves cache bytes."""
+    D, M = (int(x) for x in spec.split("x"))
+    b = B // D if B % 16 == 0 else B
+    L, d = cfg.n_layers, cfg.d_model
+    es, f4 = torch.tensor([], dtype=dtype).element_size(), 4
+    pre = {k: [0, 0] for k in ("model_all_reduce", "model_all_gather",
+                                "model_all_to_all")}
+    dec = {k: [0, 0] for k in pre}
+
+    def add(t, kind, calls, nbytes):
+        t[kind][0] += calls
+        t[kind][1] += calls * nbytes
+
+    if cfg.arch_type == "ssm":
+        from repro_torch.models.mamba2 import _dims
+        s, di, H, P, N = _dims(cfg)
+        C, K = di + 2 * N, s.d_conv
+        heads_cut = seq_cut and H % 16 == 0
+        add(pre, "model_all_reduce", 1, b * S * d * f4)
+        add(pre, "model_all_reduce", L, b * S * f4)      # the split row
+        add(pre, "model_all_reduce", L, b * S * d * f4)  # w_out
+        add(pre, "model_all_gather", L, K * C // M * es)        # conv_w
+        add(pre, "model_all_gather", L, C // M * es)            # conv_b
+        add(pre, "model_all_gather", L, b * (K - 1) * di // M * es)
+        if not heads_cut:
+            add(pre, "model_all_to_all", L, b * H // M * P * N * f4)
+        add(dec, "model_all_reduce", 1, b * d * f4)
+        add(dec, "model_all_reduce", L, b * f4)
+        add(dec, "model_all_reduce", L, b * d * f4)
+        if not heads_cut:
+            add(dec, "model_all_reduce", L, b * H * P * f4)
+        add(dec, "model_all_gather", L, b * di // M * es)
+        add(dec, "model_all_gather", L, b * C // M * es)
+    else:
+        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        W = cap if cfg.sliding_window is None else min(cfg.sliding_window,
+                                                       cap)
+        rows = W if (seq_cut or cfg.sliding_window is not None) else S
+        add(pre, "model_all_reduce", 1 + 2 * L, b * S * d * f4)
+        add(pre, "model_all_to_all", 2 * L, b * rows * Hkv // M * hd * es)
+        add(dec, "model_all_reduce", 1 + 2 * L, b * d * f4)
+        add(dec, "model_all_gather", L, b * (H + 2 * Hkv) * hd // M * es)
+        if seq_cut:
+            add(dec, "model_all_gather", L, b * H * (hd + 2) * f4)
+        else:
+            add(dec, "model_all_reduce", L, b * H * W * f4)
+            add(dec, "model_all_to_all", L, b * H * hd // M * es)
+    return {w: {k: {"calls": c, "MB": n / 1e6} for k, (c, n) in t.items()}
+            for w, t in (("prefill", pre), ("decode_step", dec))}
+
+
+def phase20a(PG, ref):
+    """The cut caches' decode kernels at llama3.2-3b's decode shape
+    (``CUT_SHAPE``: B 16, GQA 24/8, Skv 4,096, lengths 0, 127 and
+    Skv - 1 among random ones), hd 128 cut in 2 and 4, float32 (2e-5)
+    and bfloat16 (2e-2) against their plain versions: the head_dim cut's
+    scores on each slice (only keys up to each length compared) and
+    softmax-P·V on the summed scores, the sequence cut's partial on each
+    block (its softmax state; acc and l relative to 1 + the largest),
+    and both cuts' M parts summed or merged against the whole-head
+    decode kernel.  Each timed as in phase 1 (rank 0's part) beside its
+    plain version and its bytes bound (each input read once: q, the
+    valid keys' K or V, the scores; the output written once); the
+    scores' library column is one ``torch.matmul`` of the slices (all
+    keys: it cannot stop at a length), the other two have none."""
+    from repro_torch.models.attention import merge_decode_partials
+    g = torch.Generator(device="cuda").manual_seed(20)
+    timer = Timer(iters=20)
+    B, H, Hkv, hd, S = CUT_SHAPE
+    G = H // Hkv
+    errors, times = [], {}
+    for dtype in DTYPES:
+        dn = str(dtype).replace("torch.", "")
+        es = torch.tensor([], dtype=dtype).element_size()
+        q = torch.randn(B, H, hd, generator=g, device="cuda").to(dtype)
+        k = torch.randn(B, S, Hkv, hd, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, S, Hkv, hd, generator=g, device="cuda").to(dtype)
+        lens = torch.randint(1, S - 1, (B,), generator=g, device="cuda")
+        lens[0], lens[1], lens[2] = 0, S - 1, 127
+        lens = lens.to(torch.int32)
+        n_keys = int(lens.long().sum()) + B
+        whole = PG.ragged_decode_attention(q, k.transpose(1, 2),
+                                           v.transpose(1, 2), lens)
+        valid = (torch.arange(S, device="cuda")[None, :]
+                 <= lens.long()[:, None])[:, None, :]
+        for M in (2, 4):
+            w, n = hd // M, S // M
+            qs = [q[..., i * w:(i + 1) * w] for i in range(M)]
+            ks = [k[..., i * w:(i + 1) * w].contiguous() for i in range(M)]
+            vs = [v[..., i * w:(i + 1) * w].contiguous() for i in range(M)]
+            sc = [PG.decode_scores(a, b_, lens) for a, b_ in zip(qs, ks)]
+            torch.cuda.synchronize()
+            # entries past a length are never written: compared as 0
+            e_s = max(max_err(torch.where(valid, s_, 0.0),
+                              ref.decode_scores_ref(a, b_, lens), dtype)
+                      for s_, a, b_ in zip(sc, qs, ks))
+            s = sum(sc)
+            pv = [PG.decode_softmax_pv(s, c, lens, head_dim=hd) for c in vs]
+            torch.cuda.synchronize()
+            e_pv = max(max_err(o, ref.decode_softmax_pv_ref(s, c, lens, hd),
+                               dtype) for o, c in zip(pv, vs))
+            e_hd = max_err(torch.cat(pv, -1), whole, dtype)
+            locs = [(lens - i * n).contiguous() for i in range(M)]
+            kb = [k[:, i * n:(i + 1) * n] for i in range(M)]
+            vb = [v[:, i * n:(i + 1) * n] for i in range(M)]
+            parts = [PG.ragged_decode_partial(q, a, b_, c)
+                     for a, b_, c in zip(kb, vb, locs)]
+            torch.cuda.synchronize()
+            e_part = 0.0
+            for p_, a, b_, c in zip(parts, kb, vb, locs):
+                want = ref.decode_partial_ref(q, a, b_, c)
+                torch.testing.assert_close(p_[..., 0], want[..., 0],
+                                           **TOL[torch.float32])
+                top = 1 + want[..., 1:].abs().amax(-1, keepdim=True)
+                e_part = max(e_part, max_err(p_[..., 1:] / top,
+                                             want[..., 1:] / top, dtype))
+            e_seq = max_err(merge_decode_partials(torch.stack(parts))
+                            .to(dtype), whole, dtype)
+            errors.append(("decode_cut", f"M{M}", dn,
+                           {"scores": e_s, "softmax_pv": e_pv,
+                            "hd_cut_vs_whole": e_hd, "partial": e_part,
+                            "seq_cut_vs_whole": e_seq}))
+            a, b_, c = qs[0], ks[0], vs[0]
+            shape = (f"B {B}, GQA {H}/{Hkv}, Skv {S}, hd {hd} cut in {M} "
+                     f"({w} a rank), {dn}, {n_keys} valid keys")
+            times[f"decode_scores/M{M}/{dn}"] = dict(
+                ms=timer(lambda: PG.decode_scores(a, b_, lens)),
+                plain_ms=timer(lambda: ref.decode_scores_ref(a, b_, lens)),
+                library_ms=timer(lambda: torch.matmul(
+                    a.reshape(B, Hkv, G, w),
+                    b_.permute(0, 2, 3, 1))),
+                library_call="torch.matmul of the slices over all Skv keys",
+                shape=shape,
+                **bound(B * H * w * es + n_keys * Hkv * w * es
+                        + n_keys * H * 4 + 4 * B,
+                        2 * n_keys * H * w, dtype))
+            times[f"decode_softmax_pv/M{M}/{dn}"] = dict(
+                ms=timer(lambda: PG.decode_softmax_pv(s, c, lens,
+                                                      head_dim=hd)),
+                plain_ms=timer(lambda: ref.decode_softmax_pv_ref(
+                    s, c, lens, hd)),
+                library_ms=None, shape=shape,
+                **bound(n_keys * H * 4 + n_keys * Hkv * w * es
+                        + B * H * w * es + 4 * B,
+                        n_keys * H * (2 * w + 4), dtype))
+            nb = int((locs[0].long().clamp(-1, n - 1) + 1).sum())
+            times[f"ragged_decode_partial/M{M}/{dn}"] = dict(
+                ms=timer(lambda: PG.ragged_decode_partial(
+                    q, kb[0], vb[0], locs[0])),
+                plain_ms=timer(lambda: ref.decode_partial_ref(
+                    q, kb[0], vb[0], locs[0])),
+                library_ms=None,
+                shape=(f"B {B}, GQA {H}/{Hkv}, hd {hd}, keys [0, {n}) of "
+                       f"{S} (rank 0 of {M}), {dn}, {nb} valid keys"),
+                **bound(B * H * hd * es + 2 * nb * Hkv * hd * es
+                        + B * H * (hd + 2) * 4 + 4 * B,
+                        4 * nb * H * hd, dtype))
+        del q, k, v, whole
+        torch.cuda.empty_cache()
+    return errors, times
+
+
+def serve_ranks(tmp, cell, spec, runs, tag):
+    """Start ``SERVE_RANK`` as one process a slot of ``spec`` ("1x1": one
+    process) for ``cell``'s ``runs``, their files named by ``tag``;
+    returns the processes and their JSON paths."""
+    name, arch, layers, B, S, cap, steps, _ = cell
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    port = str(free_port())
+    procs = []
+    for r in range(math.prod(int(x) for x in spec.split("x"))):
+        out = os.path.join(tmp, f"{name}-{tag}-{r}.json")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", SERVE_RANK, out, name, arch, str(layers),
+             spec, port, str(r), str(B), str(S), str(cap), str(steps),
+             json.dumps(runs)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), out))
+    return procs
+
+
+def serve_run(tmp, cell, cfg, spec, group, ranks, j, want, idx,
+              ctr) -> tuple:
+    """Run ``j`` of a phase-20 process group (``ranks``: its processes'
+    records) against one process (``want``: its saved logits and tokens
+    by dtype): (the run's key, its record).  Raises past the gates."""
+    tag, _, _, B, S, cap, steps, _ = cell
+    _, resident, seq_cut, dt = ranks[0][j]["run"]
+    ref_run = want[dt]
+    exp = serve_launches(cfg, ctr, steps, True, seq_cut)
+    rel = torch.zeros(steps + 1)
+    diff = steps + 1                  # the first pick that differs
+    for r, recs in enumerate(ranks):
+        rec = recs[j]
+        have = {n: rec["launches"][i] for n, i in idx.items()}
+        if have != exp:
+            raise AssertionError(f"{tag}/{spec} {rec['run']} rank {r}: "
+                                 f"launches {have}, want {exp}")
+        part = torch.load(os.path.join(tmp,
+                                       f"{tag}-{group}-{r}.json.run{j}.pt"))
+        lo, hi = rec["rows"]
+        V = part["logits"].shape[-1]
+        w = ref_run["logits"][:, lo:hi, rec["v0"]:rec["v0"] + V]
+        top = ref_run["logits"][:, lo:hi].abs().amax(dim=(1, 2))
+        rel = torch.maximum(rel, (part["logits"] - w).abs().amax(
+            dim=(1, 2)) / top)
+        bad = (part["tokens"] != ref_run["tokens"][lo:hi]).any(0)
+        if bad.any():
+            diff = min(diff, int(bad.nonzero()[0, 0]))
+    same = diff > steps
+    # a step's logits compare while the tokens before it agree
+    rel_agreed = float(rel[:diff + 1].max())
+    rel = float(rel.max())
+    pred = serve_comms(cfg, spec, seq_cut, B, S, cap, getattr(torch, dt))
+    key = (f"{spec}/{'resident' if resident else 'fsdp'}/"
+           f"{'seq' if seq_cut else 'hd'}/{dt}")
+    rec0 = ranks[0][j]
+    out = {"max_rel_logits": rel, "tokens_equal": same,
+           "first_token_diff_step": None if same else diff,
+           "max_rel_logits_until_diff": rel_agreed, "cut": rec0["cut"],
+           "launches_rank0": {n: rec0["launches"][i]
+                              for n, i in idx.items() if rec0["launches"][i]},
+           "prefill_comms": {k: v for k, v in rec0["prefill_comms"].items()
+                             if v["calls"]},
+           "prefill_comms_predicted": pred["prefill"],
+           "step_comms": {k: v for k, v in rec0["step_comms"].items()
+                          if v["calls"]},
+           "step_comms_predicted": pred["decode_step"],
+           "prefill_s": rec0["prefill_s"],
+           "decode_s_per_step": rec0["decode_s_per_step"],
+           "init_s": rec0["init_s"],
+           "peak_gb": [rr[j]["peak_gb"] for rr in ranks]}
+    if dt == "float32" and (rel > SERVE_REL or not same):
+        raise AssertionError(f"{tag}/{key}: logits {rel:.3g} of the largest "
+                             f"|logit| from one process's, tokens equal "
+                             f"{same}")
+    for w_ in ("prefill", "step"):
+        have = {k: (v["calls"], round(v["MB"] * 1e6))
+                for k, v in out[f"{w_}_comms"].items()}
+        exp_c = {k: (v["calls"], round(v["MB"] * 1e6))
+                 for k, v in out[f"{w_}_comms_predicted"].items()
+                 if v["calls"]}
+        if have != exp_c:
+            raise AssertionError(f"{tag}/{key} {w_}: collectives (calls, "
+                                 f"bytes) {have}, predicted {exp_c}")
+    log(f"phase 20 {tag}/{key}: logits {rel:.3g} ({rel_agreed:.3g} while the "
+        f"tokens agree), tokens {same} (first diff "
+        f"{None if same else diff}), step comms {out['step_comms']} "
+        f"(predicted {pred['decode_step']}), prefill comms "
+        f"{out['prefill_comms']} (predicted {pred['prefill']})")
+    return key, out
+
+
+def serve_cell(tmp, cell, got, ctr) -> dict:
+    """One cell's record from its processes' records (``got``: {spec:
+    [(group, the group's processes' records)]}), and its gates
+    (``serve_run``): every float32 run's logits within ``SERVE_REL`` of
+    one process's, relative to the step's largest |logit|, its greedy
+    tokens equal, every process's launches exactly ``serve_launches``,
+    its collectives as ``serve_comms`` predicts; bf16 reported against
+    one process's bf16."""
+    from repro_torch import graphs as G
+    from repro_torch.configs import get_config
+    tag, arch, layers, B, S, cap, steps, _ = cell
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    (g1, (one_runs,)), = got["1x1"]
+    one = {r["run"][3]: i for i, r in enumerate(one_runs)}
+    want = {dt: torch.load(os.path.join(tmp, f"{tag}-{g1}-0.json.run{i}.pt"))
+            for dt, i in one.items()}
+    idx = {n: G.COUNTERS.index(c) for n, c in ctr.items()}
+    exp = serve_launches(cfg, ctr, steps, False, False)
+    for r in one_runs:
+        have = {n: r["launches"][i] for n, i in idx.items()}
+        if have != exp:
+            raise AssertionError(f"{tag}/1x1: launches {have}, want {exp}")
+    out = {"arch": arch, "layers": layers, "batch": B, "prompt": S,
+           "cache_len_cap": cap, "steps": steps, "runs": {},
+           "one": {dt: {k: one_runs[i][k] for k in (
+               "init_s", "prefill_s", "decode_s_per_step", "peak_gb")}
+               for dt, i in one.items()}}
+    for spec, groups in got.items():
+        if spec == "1x1":
+            continue
+        for group, ranks in groups:
+            for j in range(len(ranks[0])):
+                key, rec = serve_run(tmp, cell, cfg, spec, group, ranks, j,
+                                     want, idx, ctr)
+                out["runs"][key] = rec
+    return out
+
+
+def phase20b(tmp, ctr):
+    """``SERVE_CELLS`` at once: each cell's one process and each of its
+    meshes' ranks, all sharing the card, then each cell's gates
+    (``serve_cell``)."""
+    procs, order = [], []
+    for cell in SERVE_CELLS:
+        groups = {("1x1", False): [["1x1", False, False, dt] for dt in
+                                   sorted({r[3] for r in cell[7]},
+                                          key=["float32",
+                                               "bfloat16"].index)]}
+        for run in cell[7]:
+            groups.setdefault((run[0], run[2]), []).append(list(run))
+        for (spec, seq_cut), runs in groups.items():
+            ps = serve_ranks(tmp, cell, spec, runs, tag=f"{spec}-{seq_cut:d}")
+            procs += ps
+            order.append((cell[0], spec, f"{spec}-{seq_cut:d}", len(ps)))
+    res = family_wait(procs)
+    got, i = {}, 0
+    for tag, spec, group, n in order:
+        got.setdefault(tag, {}).setdefault(spec, []).append(
+            (group, [r["runs"] for r in res[i:i + n]]))
+        i += n
+    return {cell[0]: serve_cell(tmp, cell, got[cell[0]], ctr)
+            for cell in SERVE_CELLS}
+
+
+def phase20(PG, ref, ctr, smi):
+    """Sharded prefill and decode on the card: 20a (the cut caches'
+    kernels) and 20b (``SERVE_CELLS``).  Eager: a gloo collective is
+    host work no CUDA graph holds; the ranks share one card, so no speed
+    is claimed."""
+    import shutil
+    import tempfile
+    t = time.perf_counter()
+    errors, times = phase20a(PG, ref)
+    t_a = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        cells = phase20b(tmp, ctr)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"kernels": {"errors": errors, "times": times}, "cells": cells,
+            "phase_s": {"20a": t_a, "20b": time.perf_counter() - t - t_a},
+            "steps": "eager: a gloo collective is host work that no CUDA "
+                     "graph holds; the ranks share one card, so no speed "
+                     "is claimed",
+            "card": smi}
+
+
+def cut_kernel_entries(kernels, record):
+    """The cut caches' three kernels in the ``kernels`` line: times at
+    M = 2 in bfloat16 (llama3.2-3b's decode on a 1x2 mesh), every (M,
+    dtype) beside them, and their launches in phase 20b's runs (rank 0 of
+    each run; the entry's ``launches`` from llama3.2-3b's float32 1x2
+    run of its cut)."""
+    srv = record["mesh_serve"]
+    times = srv["kernels"]["times"]
+    errs = {(tag, dn): e for _, tag, dn, e in srv["kernels"]["errors"]}
+    for name, err_key, run in (
+            ("decode_scores", "scores", "1x2/resident/hd/float32"),
+            ("decode_softmax_pv", "softmax_pv", "1x2/resident/hd/float32"),
+            ("ragged_decode_partial", "partial",
+             "1x2/resident/seq/float32")):
+        tm = times[f"{name}/M2/bfloat16"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_decode.cu",
+            "replaces": "src/repro/kernels/paged.py:32",
+            "launches": srv["cells"]["llama"]["runs"][run][
+                "launches_rank0"].get(name, 0),
+            "max_abs_err": errs[("M2", "bfloat16")][err_key],
+            "max_abs_err_f32": errs[("M2", "float32")][err_key],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"],
+            **({"library_call": tm["library_call"]}
+               if "library_call" in tm else
+               {"library_note": "none: no PyTorch call takes partial "
+                                "scores or stops at a softmax state"}),
+            "shape": tm["shape"],
+            "by_cut_and_dtype": {k.split("/", 1)[1]: v for k, v in
+                                 times.items() if k.startswith(name + "/")},
+            "launches_by_run": {
+                f"{tag}/{key}": r["launches_rank0"].get(name, 0)
+                for tag, c in srv["cells"].items()
+                for key, r in c["runs"].items()}})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -6152,7 +6760,8 @@ def main() -> int:
                              f"on the serving and training paths")
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    record["mamba2_serve"] = phase11(mcfg, R, serving,
+    record["mamba2_serve"] = phase11(dataclasses.replace(
+        mcfg, n_layers=MAMBA2_SERVE_LAYERS), R, serving,
                                      serve_counters(RN, FA, PG, SSD, OV),
                                      smi)
     record["mamba2_serve"]["s"] = time.perf_counter() - t
@@ -6170,7 +6779,8 @@ def main() -> int:
     record["server"] = {"seesaw": phase12a(cfg, R, serving, Server, ctr,
                                            smi)}
     torch.cuda.empty_cache()
-    record["server"]["starcoder2"] = phase12b(get_config("starcoder2-3b"),
+    record["server"]["starcoder2"] = phase12b(dataclasses.replace(
+        get_config("starcoder2-3b"), n_layers=STARCODER_SERVE_LAYERS),
                                               R, Server, ctr, smi)
     torch.cuda.empty_cache()
     record["server"]["ring"] = phase12c(get_config("starcoder2-3b"), R,
@@ -6264,7 +6874,8 @@ def main() -> int:
                                               Server, hctr, smi)),
             ("vlm_serve", lambda: phase16d(get_config(VLM_ARCH), R, Server,
                                            hctr, smi)),
-            ("nemo_serve", lambda: phase16e(get_config(NEMO_ARCH), R,
+            ("nemo_serve", lambda: phase16e(dataclasses.replace(
+                get_config(NEMO_ARCH), n_layers=NEMO_LAYERS), R,
                                             serving, (RN, FA, PG), smi))):
         t = time.perf_counter()
         fam[key] = fn()
@@ -6274,12 +6885,13 @@ def main() -> int:
         torch.cuda.empty_cache()
     fam["s"] = time.perf_counter() - t16
     t = time.perf_counter()
-    record["data_parallel"] = phase17(cfg, counters(RN, FA), smi)
+    dp_cfg = dataclasses.replace(cfg, n_layers=DP_LAYERS)
+    record["data_parallel"] = phase17(dp_cfg, counters(RN, FA), smi)
     record["data_parallel"]["s"] = time.perf_counter() - t
     log(f"phase 17: {record['data_parallel']['s']:.1f} s "
         f"{record['data_parallel']}")
     t = time.perf_counter()
-    record["mesh"] = phase18(cfg, counters(RN, FA), smi)
+    record["mesh"] = phase18(dp_cfg, counters(RN, FA), smi)
     record["mesh"]["s"] = time.perf_counter() - t
     log(f"phase 18: {record['mesh']['s']:.1f} s {record['mesh']}")
     gc.collect()
@@ -6290,6 +6902,14 @@ def main() -> int:
     record["mesh_families"]["s"] = time.perf_counter() - t
     log(f"phase 19: {record['mesh_families']['s']:.1f} s "
         f"{record['mesh_families']['phase_s']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    record["mesh_serve"] = phase20(
+        PG, ref, cut_counters(RN, FA, PG, SSD, OV, RG), smi)
+    record["mesh_serve"]["s"] = time.perf_counter() - t
+    log(f"phase 20: {record['mesh_serve']['s']:.1f} s "
+        f"{record['mesh_serve']['phase_s']}")
     t = time.perf_counter()
     bench_ctr = dict(counters(RN, FA), ssd_chunk=(SSD, "launches"),
                      overlap_norm=(OV, "launches"))
@@ -6594,6 +7214,7 @@ def main() -> int:
                 tag: c[k["name"]] for tag, c in
                 record["mesh"]["launches"].items()}
     family_kernel_entries(kernels, record)
+    cut_kernel_entries(kernels, record)
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -6655,6 +7276,8 @@ def main() -> int:
     print(json.dumps({"mesh_families": {
         k: v for k, v in record["mesh_families"].items()
         if k not in ("launches", "kernels")}}))
+    print(json.dumps({"mesh_serve": {
+        k: v for k, v in record["mesh_serve"].items() if k != "kernels"}}))
     print(json.dumps({"checkpoint": record["checkpoint"],
                       "adaptive": adaptive, "card": smi}))
     print(json.dumps({"ok": True, "device": {

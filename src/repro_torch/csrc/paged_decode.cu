@@ -50,6 +50,25 @@
 //   group) to finish (a counter per group, reset by that block) merges
 //   the splits in split order, so the bits do not depend on which block
 //   finished last.  One launch.
+//
+// The cut caches of sharded decode (a data x model mesh of processes)
+// run the same kernel in two more modes, and one kernel more:
+// - Partial (the sequence cut): a rank holds keys [lo, lo + Skv) of each
+//   request and is given lengths[b] - lo, which may be negative (no key).
+//   The kernel stops at the rank's merged state over its keys and writes
+//   (m, l, acc[hd]) float32 a (request, query head) in place of acc / l;
+//   an empty range writes (NEG_INF, 0, 0...).  The ranks' states are then
+//   merged in rank order outside the kernel, after an all-gather.
+// - Scores (the head_dim cut, pass 1, decode_scores_kernel): a rank holds
+//   hd_r = hd / M of every head's dims; s[b, h, j] = q[b, h, hd_r] .
+//   K[b, j, h / G, hd_r] in float32 for keys j <= lengths[b] (later
+//   entries are left as they were).  One block per (request, kv head,
+//   group of query heads, split of keys), so each K byte is read once.
+//   Bound: bytes, as the whole kernel's (K read once, s written once).
+// - From scores (the head_dim cut, pass 2): after the sum of s over the
+//   model group, the whole kernel's softmax and P V over the rank's hd_r
+//   dims of V, the score read from s (scaled by 1/sqrt of the WHOLE
+//   head_dim, passed in) instead of computed from K.
 #include "common.cuh"
 
 namespace {
@@ -57,6 +76,9 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kSplit = 128;             // keys a block reads at most
+
+// what a launch of paged_decode_kernel computes (see the file's header)
+enum Mode { kWhole = 0, kPartial = 1, kFromScores = 2 };
 
 // element strides of a paged (page, slot, head, head_dim) view whose
 // head_dim is contiguous
@@ -86,17 +108,19 @@ __device__ __forceinline__ void merge_state(float& m, float& l, float* acc,
   m = mx;
 }
 
-template <typename T, int HD, int GQ>
+template <typename T, int HD, int GQ, int MODE>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v,
                     const int64_t* __restrict__ pages,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ counters,
+                    const float* __restrict__ scores,
+                    float* __restrict__ fin,
                     int H, int Hkv, int P, int ps, int n_split, int n_grp,
                     int64_t q_sb, int64_t q_sh, Pool ks, Pool vs,
                     int64_t pg_sb, int64_t o_sb, int64_t o_sh,
-                    float sm_scale) {
+                    int64_t sc_sb, int64_t sc_sh, float sm_scale) {
   constexpr int V = rt::Vec<T>::N;      // elements of a 16-byte vector
   // vectors a lane holds of a row: one, or more where a row has more
   // vectors than a warp has lanes (float32 at hd 256)
@@ -120,8 +144,19 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int G = H / Hkv;
   const int h0 = hk * G + grp * GQ;     // this block's first query head
   const int gn = min(GQ, G - grp * GQ);
-  // keys 0..lengths[b] inclusive, at least one, within the table
-  const int n = min(max(lengths[b] + 1, 1), P * ps);
+  // keys 0..lengths[b] inclusive, at least one (none for a partial
+  // whose range starts past the request's length), within the table
+  const int n = min(max(lengths[b] + 1, MODE == kPartial ? 0 : 1), P * ps);
+  if (MODE == kPartial && n == 0) {
+    if (split == 0) {
+      for (int idx = threadIdx.x; idx < gn * (HD + 2); idx += kThreads) {
+        const int gi = idx / (HD + 2), e = idx % (HD + 2);
+        fin[(static_cast<int64_t>(b) * H + h0 + gi) * (HD + 2) + e] =
+            e == 0 ? rt::NEG_INF : 0.f;
+      }
+    }
+    return;
+  }
   const int n_active = (n + kSplit - 1) / kSplit;
   if (split >= n_active) return;
   const int s0 = split * kSplit, cnt = min(kSplit, n - s0);
@@ -136,7 +171,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[GQ][E], m[GQ], l[GQ], acc[GQ][E];
 #pragma unroll
   for (int gi = 0; gi < GQ; ++gi) {
-    if (gi < gn) {
+    if (MODE != kFromScores && gi < gn) {
       load_slice<NV, LPR>(q + b * q_sb + (h0 + gi) * q_sh + c * V, qr[gi]);
     } else {
 #pragma unroll
@@ -160,7 +195,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ok[u] = i < cnt;
       if (ok[u]) {
         const int64_t pg = pg_s[i], row = row_s[i];
-        load_slice<NV, LPR>(kb + pg * ks.p + row * ks.s, kf[u]);
+        if (MODE != kFromScores)
+          load_slice<NV, LPR>(kb + pg * ks.p + row * ks.s, kf[u]);
         load_slice<NV, LPR>(vb + pg * vs.p + row * vs.s, vf[u]);
       } else {
 #pragma unroll
@@ -175,11 +211,17 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         float d = 0.f;
+        if (MODE == kFromScores) {
+          // the summed partial scores of the key this row group reads
+          const int i = i0 + u * RPW + r;
+          if (ok[u]) d = scores[b * sc_sb + (h0 + gi) * sc_sh + s0 + i];
+        } else {
 #pragma unroll
-        for (int e = 0; e < E; ++e) d = fmaf(qr[gi][e], kf[u][e], d);
+          for (int e = 0; e < E; ++e) d = fmaf(qr[gi][e], kf[u][e], d);
 #pragma unroll
-        for (int o = 1; o < LPR; o <<= 1)
-          d += __shfl_xor_sync(rt::FULL_MASK, d, o);
+          for (int o = 1; o < LPR; o <<= 1)
+            d += __shfl_xor_sync(rt::FULL_MASK, d, o);
+        }
         s[u] = ok[u] ? d * sm_scale : rt::NEG_INF;
         mx = fmaxf(mx, s[u]);
       }
@@ -239,7 +281,14 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       A += w_acc[w][gi][d] * cw;
     }
     const int64_t bh = static_cast<int64_t>(b) * H + h0 + gi;
-    if (whole) {
+    if (whole && MODE == kPartial) {
+      float* f = fin + bh * (HD + 2);
+      f[2 + d] = A;
+      if (d == 0) {
+        f[0] = M;
+        f[1] = L;
+      }
+    } else if (whole) {
       rt::store1(out + b * o_sb + (h0 + gi) * o_sh + d, A / fmaxf(L, 1e-30f));
     } else {
       float* st = part + (bh * n_split + split) * (HD + 2);
@@ -277,7 +326,96 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float a = __ldcg(p + 2 + d);
       merge_state<1>(M, L, &A, __ldcg(p), __ldcg(p + 1), &a);
     }
-    rt::store1(out + b * o_sb + (h0 + gi) * o_sh + d, A / fmaxf(L, 1e-30f));
+    if (MODE == kPartial) {
+      float* f = fin + bh * (HD + 2);
+      f[2 + d] = A;
+      if (d == 0) {
+        f[0] = M;
+        f[1] = L;
+      }
+    } else {
+      rt::store1(out + b * o_sb + (h0 + gi) * o_sh + d,
+                 A / fmaxf(L, 1e-30f));
+    }
+  }
+}
+
+// Pass 1 of the head_dim cut: s[b, h, j] = q[b, h, :] . k[b, j, h / G, :]
+// over the rank's HD dims, float32, for keys j <= lengths[b].  The grid
+// and the loads are the decode kernel's (a contiguous cache: one page a
+// request); a lane group reads one key row, and the row's dots with each
+// query head of the block meet by xor shuffles.
+template <typename T, int HD, int GQ>
+__global__ void __launch_bounds__(kThreads)
+decode_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const int* __restrict__ lengths,
+                     float* __restrict__ scores, int H, int Hkv, int Skv,
+                     int n_split, int n_grp, int64_t q_sb, int64_t q_sh,
+                     rt::Strides kst, int64_t sc_sb, int64_t sc_sh) {
+  constexpr int V = rt::Vec<T>::N;
+  constexpr int NV = HD / V > 32 ? HD / V / 32 : 1;
+  constexpr int E = NV * V;
+  constexpr int LPR = HD / E;
+  constexpr int RPW = 32 / LPR;
+  constexpr int kUnroll = 4;
+  constexpr int KPI = kWarps * RPW * kUnroll;
+
+  const int split = static_cast<int>(blockIdx.x) % n_split;
+  int rest = static_cast<int>(blockIdx.x) / n_split;
+  const int grp = rest % n_grp;
+  rest /= n_grp;
+  const int hk = rest % Hkv, b = rest / Hkv;
+  const int G = H / Hkv;
+  const int h0 = hk * G + grp * GQ;
+  const int gn = min(GQ, G - grp * GQ);
+  const int n = min(max(lengths[b] + 1, 1), Skv);
+  const int n_active = (n + kSplit - 1) / kSplit;
+  if (split >= n_active) return;
+  const int s0 = split * kSplit, cnt = min(kSplit, n - s0);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = lane / LPR, c = lane % LPR;
+  float qr[GQ][E];
+#pragma unroll
+  for (int gi = 0; gi < GQ; ++gi) {
+    if (gi < gn) {
+      load_slice<NV, LPR>(q + b * q_sb + (h0 + gi) * q_sh + c * V, qr[gi]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) qr[gi][e] = 0.f;
+    }
+  }
+  const T* kb = k + b * kst.b + hk * kst.h + c * V;
+  float* sb = scores + b * sc_sb + s0;
+  for (int i0 = warp * RPW * kUnroll; i0 < cnt; i0 += KPI) {
+    float kf[kUnroll][E];
+    bool ok[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * RPW + r;
+      ok[u] = i < cnt;
+      if (ok[u]) {
+        load_slice<NV, LPR>(kb + static_cast<int64_t>(s0 + i) * kst.s,
+                            kf[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) kf[u][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < GQ; ++gi) {
+      if (gi >= gn) continue;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) d = fmaf(qr[gi][e], kf[u][e], d);
+#pragma unroll
+        for (int o = 1; o < LPR; o <<= 1)
+          d += __shfl_xor_sync(rt::FULL_MASK, d, o);
+        if (ok[u] && c == 0) sb[(h0 + gi) * sc_sh + i0 + u * RPW + r] = d;
+      }
+    }
   }
 }
 
@@ -288,10 +426,12 @@ struct Args {
   void* out;
   float* part;
   int* counters;
+  const float* scores;
+  float* fin;
   int B, H, Hkv, P, ps;
   int64_t q_sb, q_sh;
   Pool ks, vs;
-  int64_t pg_sb, o_sb, o_sh;
+  int64_t pg_sb, o_sb, o_sh, sc_sb, sc_sh;
   float sm_scale;
   cudaStream_t stream;
 };
@@ -301,31 +441,105 @@ struct Args {
 constexpr int kGroupHeads = 4;
 inline int heads_per_block(int G) { return G == 1 ? 1 : kGroupHeads; }
 
-template <typename T, int HD, int GQ>
+template <typename T, int HD, int GQ, int MODE>
 void launch(const Args& a) {
   const int G = a.H / a.Hkv;
   const int n_grp = (G + GQ - 1) / GQ;
   const int n_split = (a.P * a.ps + kSplit - 1) / kSplit;
-  paged_decode_kernel<T, HD, GQ>
+  paged_decode_kernel<T, HD, GQ, MODE>
       <<<a.B * a.Hkv * n_grp * n_split, kThreads, 0, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
           static_cast<const T*>(a.v), a.pages, a.lengths,
-          static_cast<T*>(a.out), a.part, a.counters, a.H, a.Hkv, a.P,
-          a.ps, n_split, n_grp, a.q_sb, a.q_sh, a.ks, a.vs, a.pg_sb, a.o_sb,
-          a.o_sh, a.sm_scale);
+          static_cast<T*>(a.out), a.part, a.counters, a.scores, a.fin, a.H,
+          a.Hkv, a.P, a.ps, n_split, n_grp, a.q_sb, a.q_sh, a.ks, a.vs,
+          a.pg_sb, a.o_sb, a.o_sh, a.sc_sb, a.sc_sh, a.sm_scale);
+}
+
+template <typename T, int HD, int MODE>
+void launch_gq(const Args& a) {
+  heads_per_block(a.H / a.Hkv) == 1 ? launch<T, HD, 1, MODE>(a)
+                                    : launch<T, HD, kGroupHeads, MODE>(a);
+}
+
+// head_dims of each mode: the whole heads' for the whole and partial
+// modes, a head_dim of 32-256 cut in 2-8 for the scores' pass 2
+template <typename T, int MODE>
+int dispatch_hd(const Args& a, int hd) {
+  if constexpr (MODE == kFromScores) {
+    if (hd == 16) {
+      launch_gq<T, 16, MODE>(a);
+      return 0;
+    }
+  } else {
+    if (hd == 256) {
+      launch_gq<T, 256, MODE>(a);
+      return 0;
+    }
+  }
+  if (hd == 32) {
+    launch_gq<T, 32, MODE>(a);
+  } else if (hd == 64) {
+    launch_gq<T, 64, MODE>(a);
+  } else if (hd == 128) {
+    launch_gq<T, 128, MODE>(a);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 template <typename T>
-int dispatch_hd(const Args& a, int hd) {
-  const bool one = heads_per_block(a.H / a.Hkv) == 1;
-  if (hd == 32) {
-    one ? launch<T, 32, 1>(a) : launch<T, 32, kGroupHeads>(a);
+int dispatch_mode(const Args& a, int hd, int mode) {
+  if (mode == kWhole) return dispatch_hd<T, kWhole>(a, hd);
+  if (mode == kPartial) return dispatch_hd<T, kPartial>(a, hd);
+  if (mode == kFromScores) return dispatch_hd<T, kFromScores>(a, hd);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, int HD, int GQ>
+void launch_scores(const void* q, const void* k, const int* lengths,
+                   float* s, int B, int H, int Hkv, int Skv, int64_t q_sb,
+                   int64_t q_sh, rt::Strides kst, int64_t sc_sb,
+                   int64_t sc_sh, cudaStream_t stream) {
+  const int n_grp = (H / Hkv + GQ - 1) / GQ;
+  const int n_split = (Skv + kSplit - 1) / kSplit;
+  decode_scores_kernel<T, HD, GQ>
+      <<<B * Hkv * n_grp * n_split, kThreads, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), lengths, s, H,
+          Hkv, Skv, n_split, n_grp, q_sb, q_sh, kst, sc_sb, sc_sh);
+}
+
+template <typename T, int HD>
+void scores_gq(const void* q, const void* k, const int* lengths, float* s,
+               int B, int H, int Hkv, int Skv, int64_t q_sb, int64_t q_sh,
+               rt::Strides kst, int64_t sc_sb, int64_t sc_sh,
+               cudaStream_t st) {
+  if (heads_per_block(H / Hkv) == 1) {
+    launch_scores<T, HD, 1>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh,
+                            kst, sc_sb, sc_sh, st);
+  } else {
+    launch_scores<T, HD, kGroupHeads>(q, k, lengths, s, B, H, Hkv, Skv,
+                                      q_sb, q_sh, kst, sc_sb, sc_sh, st);
+  }
+}
+
+template <typename T>
+int dispatch_scores(const void* q, const void* k, const int* lengths,
+                    float* s, int B, int H, int Hkv, int Skv, int hd,
+                    int64_t q_sb, int64_t q_sh, rt::Strides kst,
+                    int64_t sc_sb, int64_t sc_sh, cudaStream_t st) {
+  if (hd == 16) {
+    scores_gq<T, 16>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh, kst,
+                     sc_sb, sc_sh, st);
+  } else if (hd == 32) {
+    scores_gq<T, 32>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh, kst,
+                     sc_sb, sc_sh, st);
   } else if (hd == 64) {
-    one ? launch<T, 64, 1>(a) : launch<T, 64, kGroupHeads>(a);
+    scores_gq<T, 64>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh, kst,
+                     sc_sb, sc_sh, st);
   } else if (hd == 128) {
-    one ? launch<T, 128, 1>(a) : launch<T, 128, kGroupHeads>(a);
-  } else if (hd == 256) {
-    one ? launch<T, 256, 1>(a) : launch<T, 256, kGroupHeads>(a);
+    scores_gq<T, 128>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh, kst,
+                      sc_sb, sc_sh, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -352,12 +566,14 @@ extern "C" void paged_decode_layout(int* split, int* heads_per_group) {
 // by every launch.  Returns the CUDA error of the launch (0 on success).
 extern "C" int paged_decode(const void* q, const void* k, const void* v,
                             const void* pages, const void* lengths,
-                            void* out, void* part, void* counters, int B,
+                            void* out, void* part, void* counters,
+                            const void* scores, void* fin, int B,
                             int H, int Hkv, int P, int page_size, int hd,
                             int64_t q_sb, int64_t q_sh, int64_t k_sp,
                             int64_t k_ss, int64_t k_sh, int64_t v_sp,
                             int64_t v_ss, int64_t v_sh, int64_t pg_sb,
-                            int64_t o_sb, int64_t o_sh, float sm_scale,
+                            int64_t o_sb, int64_t o_sh, int64_t sc_sb,
+                            int64_t sc_sh, float sm_scale, int mode,
                             int dtype, void* stream) {
   if (B < 1 || P < 1 || page_size < 1 || Hkv < 1 || H % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -368,17 +584,51 @@ extern "C" int paged_decode(const void* q, const void* k, const void* v,
   a.out = out;
   a.part = static_cast<float*>(part);
   a.counters = static_cast<int*>(counters);
+  a.scores = static_cast<const float*>(scores);
+  a.fin = static_cast<float*>(fin);
   a.B = B; a.H = H; a.Hkv = Hkv; a.P = P; a.ps = page_size;
   a.q_sb = q_sb; a.q_sh = q_sh;
   a.ks = {k_sp, k_ss, k_sh}; a.vs = {v_sp, v_ss, v_sh};
   a.pg_sb = pg_sb; a.o_sb = o_sb; a.o_sh = o_sh;
+  a.sc_sb = sc_sb; a.sc_sh = sc_sh;
   a.sm_scale = sm_scale;
   a.stream = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == rt::DTYPE_BF16) {
-    err = dispatch_hd<__nv_bfloat16>(a, hd);
+    err = dispatch_mode<__nv_bfloat16>(a, hd, mode);
   } else if (dtype == rt::DTYPE_F32) {
-    err = dispatch_hd<float>(a, hd);
+    err = dispatch_mode<float>(a, hd, mode);
+  } else {
+    err = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass 1 of the head_dim cut: q (B, H, hd) given by its (b, h) element
+// strides, k (B, Skv, Hkv, hd) by its (b, s, h) strides, hd (the rank's
+// slice) 16, 32, 64 or 128 contiguous with 16-byte aligned rows; lengths
+// (B,) int32; scores (B, H, Skv) float32 by its (b, h) strides, written
+// for keys 0..lengths[b] only.  Returns the CUDA error of the launch.
+extern "C" int decode_scores(const void* q, const void* k,
+                             const void* lengths, void* scores, int B,
+                             int H, int Hkv, int Skv, int hd, int64_t q_sb,
+                             int64_t q_sh, int64_t k_sb, int64_t k_ss,
+                             int64_t k_sh, int64_t sc_sb, int64_t sc_sh,
+                             int dtype, void* stream) {
+  if (B < 1 || Skv < 1 || Hkv < 1 || H % Hkv)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const rt::Strides kst{k_sb, k_ss, k_sh};
+  const int* len = static_cast<const int*>(lengths);
+  float* s = static_cast<float*>(scores);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
+  if (dtype == rt::DTYPE_BF16) {
+    err = dispatch_scores<__nv_bfloat16>(q, k, len, s, B, H, Hkv, Skv, hd,
+                                         q_sb, q_sh, kst, sc_sb, sc_sh, st);
+  } else if (dtype == rt::DTYPE_F32) {
+    err = dispatch_scores<float>(q, k, len, s, B, H, Hkv, Skv, hd, q_sb,
+                                 q_sh, kst, sc_sb, sc_sh, st);
   } else {
     err = static_cast<int>(cudaErrorInvalidValue);
   }

@@ -47,7 +47,8 @@ COUNTERS = ((_rn, "launches"), (_rn, "bwd_launches"), (_fa, "launches"),
             (_ssd, "launches"), (_ov, "launches"), (_rg, "launches"),
             (_rg, "bwd_launches"), (_rn, "split_sumsq_launches"),
             (_rn, "split_fwd_launches"), (_rn, "split_dot_launches"),
-            (_rn, "split_bwd_launches"))
+            (_rn, "split_bwd_launches"), (_pg, "partial_launches"),
+            (_pg, "scores_launches"), (_pg, "softmax_pv_launches"))
 
 
 def launch_counts() -> Tuple[int, ...]:

@@ -87,6 +87,36 @@ def paged_decode_attention(q, k, v, lengths):
     return out[:, None]
 
 
+def decode_partial(q, k, v, lengths):
+    """The sequence cut's partial softmax state: q (B, H, hd) whole heads,
+    k, v (B, Skv, Hkv, hd) a rank's block of the keys, lengths (B,) int32
+    the requests' lengths less the block's first position (negative: no
+    key of the block is valid).  Returns (B, H, hd + 2) float32 (m, l,
+    acc), merged over the ranks by ``models.attention.
+    merge_decode_partials``."""
+    if _on_card(q, "decode_partial"):
+        return _paged.ragged_decode_partial(q, k, v, lengths)
+    return _ref.decode_partial_ref(q, k, v, lengths)
+
+
+def decode_scores(q, k, lengths):
+    """The head_dim cut's partial scores: q (B, H, hd_r), k (B, Skv, Hkv,
+    hd_r), a rank's slices; lengths (B,) int32.  Returns (B, H, Skv)
+    float32 (entries past lengths[b] not to be read)."""
+    if _on_card(q, "decode_scores"):
+        return _paged.decode_scores(q, k, lengths)
+    return _ref.decode_scores_ref(q, k, lengths)
+
+
+def decode_softmax_pv(s, v, lengths, *, head_dim: int):
+    """After the scores' sum over the group: the softmax of
+    s/sqrt(``head_dim``) over keys 0..lengths[b] and P V over a rank's
+    slice v (B, Skv, Hkv, hd_r).  Returns (B, H, hd_r) in v's dtype."""
+    if _on_card(v, "decode_softmax_pv"):
+        return _paged.decode_softmax_pv(s, v, lengths, head_dim=head_dim)
+    return _ref.decode_softmax_pv_ref(s, v, lengths, head_dim)
+
+
 def paged_decode_attention_pool(q, pool_layer, pages, lengths, *,
                                 page_size: int):
     """Ragged single-token decode attention with K and V read through the

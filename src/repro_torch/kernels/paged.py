@@ -14,6 +14,19 @@ never touched.  Two entries launch the same kernel:
 - ``ragged_decode_attention`` takes a gathered window, read as one page
   a request.  Its plain version is ``kernels.ref.ragged_decode_ref``.
 
+The caches of sharded decode (``models.attention.decode_attn_tp``) are
+cut over the model group, and three more entries serve them:
+
+- ``ragged_decode_partial`` (the sequence cut): the same kernel stopped
+  at the rank's merged softmax state (m, l, acc) over its own keys.
+  Plain version ``kernels.ref.decode_partial_ref``.
+- ``decode_scores`` and ``decode_softmax_pv`` (the head_dim cut): a
+  rank's partial scores over its slice of head_dim, then, after their
+  sum over the group, the softmax and P V over its slice of V (the
+  decode kernel reading its scores instead of computing them).  Plain
+  versions ``kernels.ref.decode_scores_ref`` and
+  ``decode_softmax_pv_ref``.
+
 ``kernels.backend`` picks between kernel and plain version by the
 device of the input.  Inference only: there is no backward.  Launches
 on one device share a buffer of counters that every launch leaves at
@@ -29,14 +42,25 @@ import torch
 
 from repro_torch.kernels import _build
 
-# launches of the kernel since the count was last set to 0
+# launches of each entry's kernel since the count was last set to 0: the
+# whole heads', the sequence cut's partial, the head_dim cut's two passes
 launches = 0
+partial_launches = 0
+scores_launches = 0
+softmax_pv_launches = 0
 
 HEAD_DIMS = (32, 64, 128, 256)
+# a head_dim cut in 2-8 parts: the rank's slice
+SLICE_DIMS = (16, 32, 64, 128)
+# the kernel's modes (``Mode`` in csrc/paged_decode.cu)
+_WHOLE, _PARTIAL, _FROM_SCORES = 0, 1, 2
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-             + [ctypes.c_int64] * 11
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+             + [ctypes.c_int64] * 13
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p])
+_SCORE_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_int64] * 7 + [ctypes.c_int, ctypes.c_void_p])
 
 # per (device, B): the page table arange(B)[:, None] of a gathered
 # window; the kernel's (keys a split, query heads a group)
@@ -57,60 +81,98 @@ def layout() -> Tuple[int, int]:
     return _layout
 
 
-def _launch(name, q, k, v, pages, lengths, page_size: int):
-    """q (B, H, hd); k, v (n_pages, page_size, Hkv, hd) views; pages (B,
-    P) int64; lengths (B,) int32, all checked for one CUDA device and
-    q's dtype by the caller.  Returns out (B, H, hd)."""
-    B, H, hd = q.shape
-    Hkv = k.shape[2]
+def _launch(name, q, k, v, pages, lengths, page_size: int, *,
+            mode: int = _WHOLE, scores=None, sm_scale=None,
+            counter: str = "launches"):
+    """q (B, H, hd) (for the from-scores mode, None: the scores (B, H,
+    Skv) float32 stand in for it); k, v (n_pages, page_size, Hkv, hd)
+    views; pages (B, P) int64; lengths (B,) int32, all checked for one
+    CUDA device and one dtype by the caller.  Returns out (B, H, hd), or
+    for the partial mode the states (B, H, hd + 2) float32."""
+    B, H = (q if q is not None else scores).shape[:2]
+    hd = v.shape[3]
+    Hkv = v.shape[2]
     P = pages.shape[1]
+    dims = SLICE_DIMS if mode == _FROM_SCORES else HEAD_DIMS
     if Hkv < 1 or H % Hkv:
         raise ValueError(f"{name}: n_heads={H} not a multiple of "
                          f"n_kv_heads={Hkv}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
+    if hd not in dims:
+        raise ValueError(f"{name}: head_dim {hd} not in {dims}")
     if k.shape != v.shape or tuple(k.shape[1:]) != (page_size, Hkv, hd):
         raise ValueError(f"{name}: k {tuple(k.shape)}, v {tuple(v.shape)}"
                          f", page_size {page_size}, head_dim {hd}")
     if k.shape[0] >= 2 ** 31:
         raise ValueError(f"{name}: {k.shape[0]} pages; at most 2^31 - 1")
+    dev = v.device
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,) \
-            or lengths.device != q.device or not lengths.is_contiguous():
+            or lengths.device != dev or not lengths.is_contiguous():
         raise ValueError(f"{name}: lengths must be contiguous int32 ({B},) "
-                         f"on {q.device}, got {lengths.dtype} "
+                         f"on {dev}, got {lengths.dtype} "
                          f"{tuple(lengths.shape)} on {lengths.device}")
     if pages.dtype != torch.int64 or pages.dim() != 2 \
-            or pages.shape[0] != B or pages.device != q.device \
+            or pages.shape[0] != B or pages.device != dev \
             or (P > 1 and pages.stride(1) != 1):
         raise ValueError(f"{name}: pages must be int64 ({B}, P) with unit "
-                         f"column stride on {q.device}, got {pages.dtype} "
+                         f"column stride on {dev}, got {pages.dtype} "
                          f"{tuple(pages.shape)} on {pages.device}")
-    for t in (q, k, v):
+    for t in (k, v) if q is None else (q, k, v):
         _build.check_rows(name, t)
-    code = _build.dtype_code(name, q, k, v)
-    out = torch.empty(B, H, hd, dtype=q.dtype, device=q.device)
+    if mode == _FROM_SCORES:
+        code = _build.dtype_code(name, k, v)
+        if scores.dtype != torch.float32 or scores.device != dev \
+                or tuple(scores.shape) != (B, H, P * page_size) \
+                or scores.stride(2) != 1:
+            raise ValueError(f"{name}: scores must be float32 ({B}, {H}, "
+                             f"{P * page_size}) with unit key stride on "
+                             f"{dev}, got {scores.dtype} "
+                             f"{tuple(scores.shape)}")
+        q_ptr, q_sb, q_sh = v.data_ptr(), 0, 0
+        sc_ptr, sc_sb, sc_sh = (scores.data_ptr(), scores.stride(0),
+                                scores.stride(1))
+    else:
+        code = _build.dtype_code(name, q, k, v)
+        q_ptr, q_sb, q_sh = q.data_ptr(), q.stride(0), q.stride(1)
+        sc_ptr, sc_sb, sc_sh = 0, 0, 0
+    if mode == _PARTIAL:
+        fin = torch.empty(B, H, hd + 2, dtype=torch.float32, device=dev)
+        out = fin
+    else:
+        fin = None
+        out = torch.empty(B, H, hd, dtype=v.dtype, device=dev)
     # split states (m, l, acc) when a window spans several splits, and a
     # counter per (request, kv head, group of query heads)
     split, heads = layout()
     n_split = -(-(P * page_size) // split)
     part = torch.empty(B * H * n_split * (hd + 2) if n_split > 1 else 0,
-                       dtype=torch.float32, device=q.device)
+                       dtype=torch.float32, device=dev)
     G = H // Hkv
-    ctr = _build.counters("paged_decode", q.device,
+    ctr = _build.counters("paged_decode", dev,
                           B * Hkv * (1 if G == 1 else -(-G // heads)))
     fn = _build.function("paged_decode", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pages.data_ptr(),
+    scale = 1.0 / math.sqrt(hd) if sm_scale is None else sm_scale
+    with torch.cuda.device(dev):
+        err = fn(q_ptr, k.data_ptr(), v.data_ptr(), pages.data_ptr(),
                  lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
-                 ctr.data_ptr(), B, H, Hkv, P, page_size, hd,
-                 q.stride(0), q.stride(1),
+                 ctr.data_ptr(), sc_ptr, 0 if fin is None else fin.data_ptr(),
+                 B, H, Hkv, P, page_size, hd, q_sb, q_sh,
                  k.stride(0), k.stride(1), k.stride(2),
                  v.stride(0), v.stride(1), v.stride(2),
-                 pages.stride(0), out.stride(0), out.stride(1),
-                 1.0 / math.sqrt(hd), code, _build.stream_of(q))
+                 pages.stride(0), out.stride(0), out.stride(1), sc_sb, sc_sh,
+                 scale, mode, code, _build.stream_of(v))
     _build.check(err, name)
-    _build.count(globals(), "launches", q)
+    _build.count(globals(), counter, v)
     return out
+
+
+def _table(device, B: int) -> torch.Tensor:
+    """The page table arange(B)[:, None] of a window read as one page a
+    request."""
+    table = _tables.get((device, B))
+    if table is None:
+        table = torch.arange(B, device=device)[:, None]
+        _tables[(device, B)] = table
+    return table
 
 
 def paged_decode_attention_pool(q: torch.Tensor, pool_layer: torch.Tensor,
@@ -149,9 +211,81 @@ def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor,
     if tuple(k.shape) != (B, Hkv, Skv, hd) or k.shape != v.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    table = _tables.get((q.device, B))
-    if table is None:
-        table = torch.arange(B, device=q.device)[:, None]
-        _tables[(q.device, B)] = table
-    return _launch(name, q, k.transpose(1, 2), v.transpose(1, 2), table,
-                   lengths, Skv)
+    return _launch(name, q, k.transpose(1, 2), v.transpose(1, 2),
+                   _table(q.device, B), lengths, Skv)
+
+
+def _cache_args(name, k, v):
+    if k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         f"are not one (B, Skv, Hkv, hd) shape")
+
+
+def ragged_decode_partial(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor,
+                          lengths: torch.Tensor) -> torch.Tensor:
+    """The sequence cut's partial: q (B, H, hd) whole heads; k, v (B, Skv,
+    Hkv, hd), the rank's block of each request's keys; lengths (B,)
+    int32, the request's length less the block's first position (keys
+    0..lengths[b] of the block are valid; none when it is negative).  On
+    one CUDA device, float32 or bfloat16, head_dim 32, 64, 128 or 256.
+    Returns (B, H, hd + 2) float32: each (request, head)'s softmax state
+    (m, l, acc) over the block's valid keys, scores scaled by
+    1/sqrt(hd); an empty block gives (-1e30, 0, 0...)."""
+    name = "ragged_decode_partial"
+    _cache_args(name, k, v)
+    B, Skv = k.shape[:2]
+    return _launch(name, q, k, v, _table(q.device, B), lengths, Skv,
+                   mode=_PARTIAL, counter="partial_launches")
+
+
+def decode_scores(q: torch.Tensor, k: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """The head_dim cut's pass 1: q (B, H, hd_r), the rank's slice of each
+    query head's dims (any strides, head_dim contiguous); k (B, Skv,
+    Hkv, hd_r), its slice of the cache; lengths (B,) int32.  On one CUDA
+    device, float32 or bfloat16, hd_r 16, 32, 64 or 128.  Returns s (B,
+    H, Skv) float32, the partial dot products (unscaled) of keys
+    0..lengths[b]; later entries are left unwritten."""
+    name = "decode_scores"
+    _cache_args(name, k, k)
+    code = _build.dtype_code(name, q, k)
+    B, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Skv, Hkv, hd) or Hkv < 1 or H % Hkv:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if hd not in SLICE_DIMS:
+        raise ValueError(f"{name}: head_dim slice {hd} not in {SLICE_DIMS}")
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,) \
+            or lengths.device != q.device or not lengths.is_contiguous():
+        raise ValueError(f"{name}: lengths must be contiguous int32 ({B},) "
+                         f"on {q.device}")
+    for t in (q, k):
+        _build.check_rows(name, t)
+    s = torch.empty(B, H, Skv, dtype=torch.float32, device=q.device)
+    fn = _build.function("decode_scores", _SCORE_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), lengths.data_ptr(),
+                 s.data_ptr(), B, H, Hkv, Skv, hd, q.stride(0), q.stride(1),
+                 k.stride(0), k.stride(1), k.stride(2), s.stride(0),
+                 s.stride(1), code, _build.stream_of(q))
+    _build.check(err, name)
+    _build.count(globals(), "scores_launches", q)
+    return s
+
+
+def decode_softmax_pv(s: torch.Tensor, v: torch.Tensor,
+                      lengths: torch.Tensor, *,
+                      head_dim: int) -> torch.Tensor:
+    """The head_dim cut's pass 2: s (B, H, Skv) float32, the scores summed
+    over the model group; v (B, Skv, Hkv, hd_r), the rank's slice of the
+    cache's V; lengths (B,) int32.  The softmax of s/sqrt(``head_dim``)
+    (the WHOLE head's) over keys 0..lengths[b], then P V over the slice.
+    Returns (B, H, hd_r) in v's dtype."""
+    name = "decode_softmax_pv"
+    _cache_args(name, v, v)
+    B, Skv = v.shape[:2]
+    return _launch(name, None, v, v, _table(v.device, B), lengths, Skv,
+                   mode=_FROM_SCORES, scores=s,
+                   sm_scale=1.0 / math.sqrt(head_dim),
+                   counter="softmax_pv_launches")

@@ -156,6 +156,58 @@ def ragged_decode_ref(q, k, v, lengths):
     return torch.einsum("bhk,bhkd->bhd", p, v).to(q.dtype)
 
 
+def decode_partial_ref(q, k, v, lengths):
+    """The sequence cut's partial (``kernels.paged.ragged_decode_partial``):
+    q (B, H, hd) whole heads; k, v (B, Skv, Hkv, hd) the rank's block of
+    the keys; lengths (B,) int, keys 0..lengths[b] of the block valid
+    (none when negative).  Returns (B, H, hd + 2) float32: m, the largest
+    valid score (scaled by 1/sqrt(hd); NEG_INF when none), l = Σ exp(s −
+    m) and acc = Σ exp(s − m)·v over the valid keys."""
+    B, H, hd = q.shape
+    Skv, G = k.shape[1], H // k.shape[2]
+    k = k.float().repeat_interleave(G, dim=2)
+    v = v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), k) / math.sqrt(hd)
+    valid = (torch.arange(Skv, device=q.device)[None, :]
+             <= lengths.to(q.device).long()[:, None])[:, None, :]
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]) * valid
+    acc = torch.einsum("bhk,bkhd->bhd", p, v)
+    return torch.cat([m[..., None], p.sum(dim=-1)[..., None], acc], dim=-1)
+
+
+def decode_scores_ref(q, k, lengths):
+    """The head_dim cut's pass 1 (``kernels.paged.decode_scores``): q (B,
+    H, hd_r) and k (B, Skv, Hkv, hd_r), the rank's slices of the heads'
+    dims; lengths (B,) int.  Returns the unscaled partial scores (B, H,
+    Skv) float32 of keys 0..lengths[b], zeros past them (the kernel
+    leaves those unwritten)."""
+    Skv, G = k.shape[1], q.shape[1] // k.shape[2]
+    k = k.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), k)
+    valid = (torch.arange(Skv, device=q.device)[None, :]
+             <= lengths.to(q.device).long()[:, None])[:, None, :]
+    return s.masked_fill(~valid, 0.0)
+
+
+def decode_softmax_pv_ref(s, v, lengths, head_dim: int):
+    """The head_dim cut's pass 2 (``kernels.paged.decode_softmax_pv``): s
+    (B, H, Skv) float32 scores summed over the group; v (B, Skv, Hkv,
+    hd_r) the rank's slice of V; lengths (B,) int.  The softmax of
+    s/sqrt(``head_dim``) (the whole head's) over keys 0..lengths[b], the
+    sum l clamped at 1e-30 as the kernel clamps it, then P V.  Returns
+    (B, H, hd_r) in v's dtype."""
+    Skv, G = v.shape[1], s.shape[1] // v.shape[2]
+    valid = (torch.arange(Skv, device=s.device)[None, :]
+             <= lengths.to(s.device).long()[:, None])[:, None, :]
+    x = (s / math.sqrt(head_dim)).masked_fill(~valid, NEG_INF)
+    p = torch.exp(x - x.amax(dim=-1, keepdim=True)) * valid
+    o = torch.einsum("bhk,bkhd->bhd", p,
+                     v.float().repeat_interleave(G, dim=2))
+    return (o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(v.dtype)
+
+
 def paged_decode_ref(q, pool_layer, pages, lengths, *, page_size: int):
     """``ragged_decode_ref`` over the keys a page table names: the
     request's window gathered from the pool (``serving.cache.

@@ -18,6 +18,13 @@ Where each attention goes:
 - Every form of ``decode_attn`` goes through
   ``kernels.backend.paged_decode_attention``: the ragged decode kernel's
   gathered-window entry on the card, ``ragged_decode_ref`` on the CPU.
+- ``decode_attn_tp``, the decode step on a data × model mesh, attends
+  over a cache cut by the reference's ``input_shardings``: over
+  head_dim (the default) through ``kernels.backend.decode_scores`` and
+  ``decode_softmax_pv`` around an all-reduce of the scores, or over the
+  sequence through ``kernels.backend.decode_partial`` and
+  ``merge_decode_partials`` after an all-gather of the ranks' softmax
+  states.  No cache byte moves between ranks.
 """
 from __future__ import annotations
 
@@ -309,3 +316,143 @@ def decode_attn(p: Attention, x, cache, cache_len, *, n_heads: int,
     o = KB.paged_decode_attention(q, kc, vc,
                                   lengths.to(torch.int32).contiguous())
     return o.reshape(B, 1, n_heads * head_dim) @ p.w_o, cache
+
+
+# --------------------------------------------------------------------- #
+# sharded serving: the caches cut over the model group
+# --------------------------------------------------------------------- #
+
+def qkv_whole(p: Attention, x, *, n_heads: int, n_kv_heads: int,
+              head_dim: int, tp):
+    """q (B, S, H, hd) and k, v (B, S, Hkv, hd) of x (B, S, d), every
+    head, on a mesh: each rank multiplies its column blocks of ``w_q``,
+    ``w_k`` and ``w_v`` and the products are gathered over the model
+    group in one all-gather (the ranks' blocks are the heads' columns in
+    order)."""
+    B, S, _ = x.shape
+    dt = x.dtype
+    ws = [weight(w, dt, tp) for w in (p.w_q, p.w_k, p.w_v)]
+    cols = torch.cat([x @ w for w in ws], dim=-1)
+    g = tp.gather_model(cols[None], 0).permute(1, 2, 0, 3)   # (B,S,M,c)
+    cq, ck = ws[0].shape[1], ws[1].shape[1]
+    return (g[..., :cq].reshape(B, S, n_heads, head_dim),
+            g[..., cq:cq + ck].reshape(B, S, n_kv_heads, head_dim),
+            g[..., cq + ck:].reshape(B, S, n_kv_heads, head_dim))
+
+
+def kv_to_box(tp, t, *, n_heads: int, n_kv_heads: int, dim: int):
+    """The re-cut of a prompt's K or V: t (B, S, Hkv', hd), the KV heads
+    this rank's query heads attend to (``project_kv``'s), -> every KV
+    head's block along ``dim`` (1: the sequence, 3: head_dim), the
+    rank's M-th part.  Where the model axis divides the KV heads, one
+    all-to-all; where it does not, each rank holds one head, shared with
+    its neighbours (``parallel.kv_block``): the ranks' heads are
+    gathered, one copy of each kept, and the block cut."""
+    M = tp.n_model
+    if n_kv_heads % M == 0:
+        return tp.model_all_to_all(t, split_dim=dim, cat_dim=2)
+    parts = tp.gather_model(t[None], 0)                    # (M, B, S, 1, hd)
+    owner = {}
+    for r in range(M):
+        owner.setdefault(kv_block(n_heads, n_kv_heads, M, r)[0], r)
+    whole = torch.cat([parts[owner[h]] for h in range(n_kv_heads)], dim=2)
+    n = whole.shape[dim] // M
+    return whole.narrow(dim, tp.model_index * n, n).contiguous()
+
+
+def merge_decode_partials(parts):
+    """The sequence cut's combine: parts (M, B, H, hd + 2) float32, each
+    rank's (m, l, acc) over its keys (``kernels.backend.
+    decode_partial``), merged in rank order as the decode kernel merges
+    its splits (so the bits do not depend on which rank arrived first).
+    Returns (B, H, hd) float32, acc / l with l clamped at 1e-30."""
+    m, l, acc = parts[0, ..., 0], parts[0, ..., 1], parts[0, ..., 2:]
+    for part in parts[1:]:
+        mx = torch.maximum(m, part[..., 0])
+        ca, cb = torch.exp(m - mx), torch.exp(part[..., 0] - mx)
+        l = l * ca + part[..., 1] * cb
+        acc = acc * ca[..., None] + part[..., 2:] * cb[..., None]
+        m = mx
+    return acc / l.clamp_min(1e-30)[..., None]
+
+
+def _write_owned(c, idx, own, new) -> None:
+    """c (N, ...) flat cache rows: row idx[i] <- new[i] where own[i], else
+    left as it was (rewritten with itself): no host sync."""
+    c.index_copy_(0, idx, torch.where(own.reshape(-1, *[1] * (new.dim() - 1)),
+                                      new, c.index_select(0, idx)))
+
+
+def decode_attn_tp(p: Attention, x, cache, cache_len, *, n_heads: int,
+                   n_kv_heads: int, head_dim: int, rope_theta: float,
+                   window: Optional[int], tp, cut, seq_len: int):
+    """``decode_attn`` on a mesh, against the rank's blocks of a cut
+    cache, written in place.  x (B, 1, d): the rank's rows; cache {"k",
+    "v"} (B, S', Hkv, hd') (and a ring's whole "pos" (W,)); cache_len the
+    rows' positions as ``decode_attn`` takes them; ``cut`` (dim, start,
+    stop) of the layer's K/V over 'model' (dim 1: the sequence, of
+    ``seq_len`` slots whole; dim 3: head_dim).
+
+    The new token's q, k and v are gathered whole (``qkv_whole``) and
+    rotated whole (RoPE pairs dim i with i + hd/2, which the head_dim cut
+    would split).  The head_dim cut: every rank writes its slice of the
+    new key, scores its slice of every head (``decode_scores``), the
+    scores are summed over the group, and each rank takes the softmax
+    and P V over its slice of V; the output (B, H, hd/M) is re-cut to the
+    rank's heads by an all-to-all.  The sequence cut: only the rank whose
+    block holds a row's position (a ring's slot) writes it; each rank's
+    softmax state over its keys is gathered and merged in rank order.
+    Then the rank's heads through the row-parallel ``w_o``.  Returns
+    (out (B, 1, d), cache)."""
+    B = x.shape[0]
+    kc, vc = cache["k"], cache["v"]
+    pos = torch.as_tensor(cache_len, device=x.device).long()
+    rows = pos if pos.dim() == 1 else pos.expand(B)
+    q, k, v = qkv_whole(p, x, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                        head_dim=head_dim, tp=tp)
+    if rope_theta:
+        q = apply_rope(q, rows[:, None], rope_theta)
+        k = apply_rope(k, rows[:, None], rope_theta)
+    dim, lo, hi = cut
+    ring = "pos" in cache
+    if ring:
+        if pos.dim() == 1:
+            raise ValueError(
+                "per-request cache_len needs a full cache; ring caches "
+                "share one position array across the batch")
+        slot = torch.remainder(pos, seq_len).reshape(1)
+        cache["pos"].index_copy_(0, slot, pos.reshape(1).to(torch.int32))
+        lengths = rows.clamp(max=seq_len - 1)
+        at = slot.expand(B)
+    else:
+        if window is not None:
+            raise ValueError("a windowed layer decodes from a ring cache")
+        lengths = rows
+        at = rows
+    n = kc.shape[1]
+    flat_k = kc.view(B * n, *kc.shape[2:])
+    flat_v = vc.view(B * n, *vc.shape[2:])
+    base = torch.arange(B, device=x.device) * n
+    if dim == 3:
+        flat_k.index_copy_(0, base + at, k[:, 0, :, lo:hi])
+        flat_v.index_copy_(0, base + at, v[:, 0, :, lo:hi])
+    else:
+        local = at - lo
+        own = (local >= 0) & (local < n)
+        idx = base + local.clamp(0, n - 1)
+        _write_owned(flat_k, idx, own, k[:, 0])
+        _write_owned(flat_v, idx, own, v[:, 0])
+    L32 = lengths.to(torch.int32).contiguous()
+    if dim == 3:
+        s = KB.decode_scores(q[:, 0, :, lo:hi], kc, L32)
+        if tp.n_model > 1:
+            tp.all_reduce(s, tp.model_group, "model_all_reduce")
+        o = KB.decode_softmax_pv(s, vc, L32, head_dim=head_dim)
+        o = tp.model_all_to_all(o, split_dim=1, cat_dim=2)
+    else:
+        part = KB.decode_partial(q[:, 0], kc, vc,
+                                 (lengths - lo).to(torch.int32).contiguous())
+        o = merge_decode_partials(tp.gather_model(part[None], 0))
+        o = o[:, tp.model_slice(n_heads // tp.n_model)].to(x.dtype)
+    o = o.reshape(B, 1, -1) @ weight(p.w_o, x.dtype, tp)
+    return tp.from_model(o), cache

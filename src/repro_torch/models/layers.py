@@ -77,14 +77,33 @@ def param(shape, *, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def whole_shape(t: torch.Tensor) -> tuple:
+    """The shape of the parameter ``t`` is a block of, in a rank-only init
+    (``parallel.init_blocks`` marks each block with ``whole``), else
+    ``t``'s own."""
+    whole = getattr(t, "whole", None)
+    return tuple(t.shape) if whole is None else whole[0]
+
+
+def copy_whole_(t: torch.Tensor, value: torch.Tensor) -> None:
+    """Write ``value``, of ``t``'s whole shape, into ``t``: all of it, or
+    in a rank-only init the block ``t`` holds."""
+    whole = getattr(t, "whole", None)
+    if whole is not None:
+        value = value[tuple(slice(a, b) for a, b in whole[1])]
+    t.data.copy_(value)
+
+
 def trunc_normal_(t: torch.Tensor, std: float,
                   generator: torch.Generator) -> None:
     """Fill ``t`` with std·N(0, 1) truncated at ±3 std (the reference's
-    ``trunc_normal``), drawn in float32 from ``generator`` and cast."""
-    w = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    ``trunc_normal``), drawn in float32 from ``generator`` and cast.  In
+    a rank-only init the whole parameter is drawn and ``t`` keeps its
+    block, so the generator advances as it does for the whole model."""
+    w = torch.empty(whole_shape(t), dtype=torch.float32, device=t.device)
     nn.init.trunc_normal_(w, mean=0.0, std=std, a=-3.0 * std, b=3.0 * std,
                           generator=generator)
-    t.data.copy_(w)
+    copy_whole_(t, w)
 
 
 def out_std(n_layers: int) -> float:

@@ -24,10 +24,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import backend as KB
 from repro_torch.kernels.ref import cumsum16
-from repro_torch.models.layers import (P, embed, embed_specs, fsdp_axis,
-                                       lm_head_matrix, lm_loss, out_std,
-                                       param, recompute, rmsnorm,
-                                       trunc_normal_)
+from repro_torch.models.layers import (P, copy_whole_, embed, embed_specs,
+                                       fsdp_axis, lm_head_matrix, lm_loss,
+                                       out_std, param, recompute, rmsnorm,
+                                       trunc_normal_, whole_shape)
 from repro_torch.parallel import tp_of, weight
 
 
@@ -75,12 +75,12 @@ class Mamba2Mixer(nn.Module):
         ``conv_w`` std 0.2, zero ``conv_b`` and norm scale."""
         for w in (self.w_z, self.w_x, self.w_B, self.w_C, self.w_dt):
             trunc_normal_(w, 0.02, generator)
-        H = self.A_log.shape[0]
+        H = whole_shape(self.A_log)[0]
         dev = self.A_log.device
         dt = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1), H,
                                       device=dev))
-        self.dt_bias.data.copy_(dt + torch.log(-torch.expm1(-dt)))
-        self.A_log.data.copy_(torch.log(torch.arange(
+        copy_whole_(self.dt_bias, dt + torch.log(-torch.expm1(-dt)))
+        copy_whole_(self.A_log, torch.log(torch.arange(
             1, H + 1, dtype=torch.float32, device=dev)))
         self.D.data.fill_(1.0)
         trunc_normal_(self.conv_w, 0.2, generator)
@@ -266,7 +266,7 @@ def mixer_forward(m: Mamba2Mixer, x, cfg: ModelConfig, *,
     it.  On a mesh (``tp``, training) the mixer is head-parallel: see
     ``_mixer_tp``."""
     if tp is not None:
-        return _mixer_tp(m, x, cfg, tp)
+        return _mixer_tp(m, x, cfg, tp, with_state=with_state)
     s, di, H, P, N = _dims(cfg)
     B_, S, _ = x.shape
     z = x @ m.w_z.to(x.dtype)
@@ -290,7 +290,8 @@ def mixer_forward(m: Mamba2Mixer, x, cfg: ModelConfig, *,
     return out, {"h": h_final, "conv": tail}
 
 
-def _mixer_tp(m: Mamba2Mixer, x, cfg: ModelConfig, tp):
+def _mixer_tp(m: Mamba2Mixer, x, cfg: ModelConfig, tp, *,
+              with_state: bool = False):
     """The mixer on this rank's H/M SSD heads.  ``w_z`` and ``w_x`` are
     column-parallel (the heads' d_inner/M channels), ``w_out``
     row-parallel; ``w_B``, ``w_C`` and ``w_dt`` and the per-head
@@ -301,7 +302,9 @@ def _mixer_tp(m: Mamba2Mixer, x, cfg: ModelConfig, tp):
     they are gathered over the model group and the rank takes its heads'
     x channels and all of B's and C's.  The gated norm normalises over
     the whole d_inner from the ranks' parts (``kernels.backend.
-    rmsnorm_split``)."""
+    rmsnorm_split``).  With ``with_state`` also the rank's state: "h"
+    (B, H/M, P, N) of its heads and "conv" the whole conv tail (B,
+    d_conv − 1, d_inner + 2N), the heads' x channels gathered."""
     s, di, H, P, N = _dims(cfg)
     B_, S, _ = x.shape
     dt_ = x.dtype
@@ -319,15 +322,23 @@ def _mixer_tp(m: Mamba2Mixer, x, cfg: ModelConfig, tp):
     conv_w, conv_b = (tp.model_gather(w, -1) for w in (m.conv_w, m.conv_b))
     conv_w = torch.cat([conv_w[:, cs], conv_w[:, di:]], dim=-1)
     conv_b = torch.cat([conv_b[cs], conv_b[di:]])
-    xbc = F.silu(causal_conv1d(torch.cat([xin, Bm, Cm], dim=-1), conv_w,
-                               conv_b))
+    xbc_in = torch.cat([xin, Bm, Cm], dim=-1)
+    xbc = F.silu(causal_conv1d(xbc_in, conv_w, conv_b))
     xin, Bm, Cm = torch.split(xbc, [cs.stop - cs.start, N, N], dim=-1)
     xh = xin.reshape(B_, S, hs.stop - hs.start, P)
-    y, _ = KB.ssd(xh, dt, A, Bm, Cm, D, chunk=s.chunk_size)
+    y, h_final = KB.ssd(xh, dt, A, Bm, Cm, D, chunk=s.chunk_size)
     y = y.reshape(B_, S, -1) * F.silu(z)
     y = KB.rmsnorm_split(y, m.norm, d_full=di, reduce=tp.sum_over_model,
                          eps=cfg.norm_eps)
-    return tp.from_model(y @ weight(m.w_out, dt_, tp))
+    out = tp.from_model(y @ weight(m.w_out, dt_, tp))
+    if not with_state:
+        return out
+    K = s.d_conv
+    tail = F.pad(xbc_in, (0, 0, K - 1, 0))[:, -(K - 1):]
+    w = cs.stop - cs.start
+    tail = torch.cat([tp.model_gather(tail[..., :w], -1), tail[..., w:]],
+                     dim=-1)
+    return out, {"h": h_final, "conv": tail}
 
 
 def _block(blk: Block, x, cfg: ModelConfig, tp=None):
@@ -369,19 +380,35 @@ def loss_fn(model: Mamba2, cfg: ModelConfig, batch, *, z_loss: float = 0.0,
 # serving: the recurrent step, prefill and decode
 # --------------------------------------------------------------------- #
 
+def ssd_update(h, x, dt, A, Bv):
+    """The state's half of ``ssd_step``: h·exp(dt·A) + dt·B ⊗ x in
+    float32 (over the N of Bv (B, N), all or a block of them)."""
+    dt32 = dt.float()
+    a = torch.exp(dt32 * A)                                   # (B, H)
+    dBx = (dt32[:, :, None] * x.float())[..., None] \
+        * Bv.float()[:, None, None, :]                        # (B, H, P, N)
+    return h * a[:, :, None, None] + dBx
+
+
 def ssd_step(h, x, dt, A, Bv, Cv, D):
     """One recurrent SSD step (the reference's ``ssd_step``).  h: (B, H,
     P, N) float32; x: (B, H, P); dt: (B, H) (post-softplus); A, D: (H,)
     float32; Bv, Cv: (B, N).  h' = h·exp(dt·A) + dt·B ⊗ x and
     y = h'·C + D·x, in float32.  Returns (h' float32, y in x's dtype)."""
-    dt32, x32 = dt.float(), x.float()
-    a = torch.exp(dt32 * A)                                   # (B, H)
-    dBx = (dt32[:, :, None] * x32)[..., None] \
-        * Bv.float()[:, None, None, :]                        # (B, H, P, N)
-    h = h * a[:, :, None, None] + dBx
+    h = ssd_update(h, x, dt, A, Bv)
     y = torch.einsum("bhpn,bn->bhp", h, Cv.float())
-    y = y + D[None, :, None] * x32
+    y = y + D[None, :, None] * x.float()
     return h, y.to(x.dtype)
+
+
+def conv_step(buf, w, b):
+    """The depthwise conv's output at the newest of ``buf``'s d_conv rows
+    (B, d_conv, C), its products summed in buf's dtype in the order
+    i = 0..K−1 as ``causal_conv1d`` sums them, then SiLU."""
+    out = buf[:, 0] * w[0]
+    for i in range(1, w.shape[0]):
+        out = out + buf[:, i] * w[i]
+    return F.silu(out + b)
 
 
 def mixer_decode(m: Mamba2Mixer, x, state, cfg: ModelConfig):
@@ -391,7 +418,7 @@ def mixer_decode(m: Mamba2Mixer, x, state, cfg: ModelConfig):
     dtype in the order i = 0..K−1 as ``causal_conv1d`` sums them; the
     gated norm runs through ``kernels.backend``.  Returns (out (B, 1, d),
     the new state)."""
-    s, di, H, P, N = _dims(cfg)
+    _, di, H, P, N = _dims(cfg)
     B_ = x.shape[0]
     xt = x[:, 0]
     z = xt @ m.w_z.to(x.dtype)
@@ -401,11 +428,7 @@ def mixer_decode(m: Mamba2Mixer, x, state, cfg: ModelConfig):
     dt = F.softplus((xt @ m.w_dt.to(x.dtype)).float() + m.dt_bias)
     xbc = torch.cat([xin, Bm, Cm], dim=-1)                    # (B, di+2N)
     buf = torch.cat([state["conv"], xbc[:, None]], dim=1)
-    w = m.conv_w.to(x.dtype)
-    out = buf[:, 0] * w[0]
-    for i in range(1, s.d_conv):
-        out = out + buf[:, i] * w[i]
-    xbc = F.silu(out + m.conv_b.to(x.dtype))
+    xbc = conv_step(buf, m.conv_w.to(x.dtype), m.conv_b.to(x.dtype))
     xin, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
     h, y = ssd_step(state["h"], xin.reshape(B_, H, P), dt,
                     -torch.exp(m.A_log), Bm, Cm, m.D)
@@ -427,7 +450,126 @@ def state_struct(cfg: ModelConfig, batch: int, *, dtype=torch.bfloat16,
                                 dtype=dtype, device=device)}
 
 
-def prefill(model: Mamba2, cfg: ModelConfig, tokens):
+def _state_cut(layout, name: str, whole_dims):
+    """(dim, start, stop) of a layer's state leaf cut over 'model', in the
+    layer's dims (the leaf's less its L), or None where it is whole over
+    'model'; a cut the port does not serve raises."""
+    cut = layout.model_cut(name)
+    if cut is None:
+        return None
+    if cut[0] - 1 not in whole_dims:
+        raise NotImplementedError(f"state leaf {name!r} cut "
+                                  f"{layout.specs[name]}")
+    return cut[0] - 1, cut[1], cut[2]
+
+
+def _h_to_box(tp, h, cut):
+    """The prefill's final state of the rank's heads (B, H/M, P, N) -> the
+    state's box: its heads' block as it is, its block of N (an
+    all-to-all: N out, heads in), or every head (an all-gather)."""
+    if cut is None:
+        return tp.model_gather(h, 1)
+    if cut[0] == 1:
+        return h
+    return tp.model_all_to_all(h, split_dim=3, cat_dim=1)
+
+
+def _prefill_tp(model: Mamba2, cfg: ModelConfig, tokens, layout):
+    """``prefill`` on a mesh: the rank's rows, the mixers head-parallel
+    (the SSD chunk kernel on the rank's heads, as in training); each
+    layer's final state re-cut to the state's box (``_h_to_box``) and the
+    conv tail cut to its channels.  Returns (the rank's vocab columns of
+    the last logits, the rank's state blocks)."""
+    tp = model.tp
+    h_cut = _state_cut(layout, "h", (1, 3))
+    c_cut = _state_cut(layout, "conv", (2,))
+    x = embed(model, tokens, model.dtype, tp)
+    hs, convs = [], []
+    for blk in model.layers:
+        y, st = _mixer_tp(blk.mixer, rmsnorm(x, blk.norm, cfg.norm_eps), cfg,
+                          tp, with_state=True)
+        x = x + y
+        hs.append(_h_to_box(tp, st["h"], h_cut))
+        conv = st["conv"]
+        convs.append(conv if c_cut is None else conv[..., c_cut[1]:c_cut[2]])
+    x = rmsnorm(x[:, -1:].contiguous(), model.final_norm, cfg.norm_eps)
+    return (x @ tp.head(model, x.dtype)).float(), \
+        {"h": torch.stack(hs), "conv": torch.stack(convs)}
+
+
+def _mixer_decode_tp(m: Mamba2Mixer, x, state, cfg: ModelConfig, tp,
+                     h_cut, c_cut):
+    """One token through the mixer on a mesh, the state the rank's blocks:
+    the conv over the rank's channels of (x, B, C) (its block of
+    ``conv_w``, or the whole conv gathered where the state is whole),
+    its output gathered; the SSD step on the state's cut (its N: the
+    partial y summed over the group in float32, D·x added after; its
+    heads; or whole); the gated norm over the rank's heads (the split
+    row) and the row-parallel ``w_out``."""
+    _, di, H, P, N = _dims(cfg)
+    B_ = x.shape[0]
+    dt_ = x.dtype
+    xt = x[:, 0]
+    hs = tp.model_slice(H // tp.n_model)
+    cs = tp.model_slice(di // tp.n_model)
+    z = xt @ weight(m.w_z, dt_, tp)
+    xin = tp.model_gather(xt @ weight(m.w_x, dt_, tp), -1)
+    Bm = xt @ weight(m.w_B, dt_, tp)
+    Cm = xt @ weight(m.w_C, dt_, tp)
+    dt = F.softplus((xt @ weight(m.w_dt, dt_, tp)).float() + m.dt_bias)
+    xbc = torch.cat([xin, Bm, Cm], dim=-1)                   # (B, di+2N)
+    conv_w, conv_b = m.conv_w.to(dt_), m.conv_b.to(dt_)
+    if c_cut is None:
+        conv_w, conv_b = (tp.model_gather(w, -1) for w in (conv_w, conv_b))
+    else:
+        xbc = xbc[:, c_cut[1]:c_cut[2]]
+    buf = torch.cat([state["conv"], xbc[:, None]], dim=1)
+    out = conv_step(buf, conv_w, conv_b)
+    if c_cut is not None:
+        out = tp.model_gather(out, -1)
+    xin, Bm, Cm = torch.split(out, [di, N, N], dim=-1)
+    xh = xin.reshape(B_, H, P)
+    A = -torch.exp(m.A_log)
+    if h_cut is not None and h_cut[0] == 1:                  # its heads
+        h, y = ssd_step(state["h"], xh[:, hs], dt[:, hs], A[hs], Bm, Cm,
+                        m.D[hs])
+    else:
+        # the state's N (all of them, or the rank's): y's partial sum
+        # over them, D·x added after the sum
+        ns = slice(None) if h_cut is None else slice(h_cut[1], h_cut[2])
+        h = ssd_update(state["h"], xh, dt, A, Bm[:, ns])
+        y = torch.einsum("bhpn,bn->bhp", h, Cm[:, ns].float())
+        if h_cut is not None:
+            tp.all_reduce(y, tp.model_group, "model_all_reduce")
+        y = (y + m.D[None, :, None] * xh.float()).to(dt_)[:, hs]
+    y = y.reshape(B_, -1) * F.silu(z)
+    y = KB.rmsnorm_split(y, m.norm, d_full=di, reduce=tp.sum_over_model,
+                         eps=cfg.norm_eps)
+    out = tp.from_model(y @ weight(m.w_out, dt_, tp))
+    return out[:, None], {"h": h, "conv": buf[:, 1:]}
+
+
+def _decode_tp(model: Mamba2, cfg: ModelConfig, state, token, layout):
+    """``decode_step`` on a mesh: the rank's rows and state blocks."""
+    tp = model.tp
+    h_cut = _state_cut(layout, "h", (1, 3))
+    c_cut = _state_cut(layout, "conv", (2,))
+    x = embed(model, token, model.dtype, tp)
+    hs, convs = [], []
+    for blk, h, conv in zip(model.layers, state["h"], state["conv"]):
+        y, st = _mixer_decode_tp(blk.mixer,
+                                 rmsnorm(x, blk.norm, cfg.norm_eps),
+                                 {"h": h, "conv": conv}, cfg, tp, h_cut,
+                                 c_cut)
+        x = x + y
+        hs.append(st["h"])
+        convs.append(st["conv"])
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return (x @ tp.head(model, x.dtype)).float(), \
+        {"h": torch.stack(hs), "conv": torch.stack(convs)}
+
+
+def prefill(model: Mamba2, cfg: ModelConfig, tokens, layout=None):
     """Run the prompt, tokens (B, S) int, at its exact length in the
     model's dtype.  Returns (logits (B, 1, V) float32 at the last
     position, the decode state {"h": (L, B, H, P, N) float32, "conv":
@@ -437,7 +579,10 @@ def prefill(model: Mamba2, cfg: ModelConfig, tokens):
     holds fewer rows than that for a prompt shorter than d_conv − 1
     (its ``scatter_state`` then fails at S = 2 and broadcasts one row
     into every slot at S = 1).  Here the missing rows are zeros, the
-    padding the causal conv reads there."""
+    padding the causal conv reads there.  On a mesh (``layout``, the
+    state's ``parallel.CacheLayout``) see ``_prefill_tp``."""
+    if layout is not None:
+        return _prefill_tp(model, cfg, tokens, layout)
     x = F.embedding(tokens, model.tok)
     hs, convs = [], []
     for blk in model.layers:
@@ -451,11 +596,16 @@ def prefill(model: Mamba2, cfg: ModelConfig, tokens):
         {"h": torch.stack(hs), "conv": torch.stack(convs)}
 
 
-def decode_step(model: Mamba2, cfg: ModelConfig, state, token):
+def decode_step(model: Mamba2, cfg: ModelConfig, state, token,
+                layout=None):
     """One token per row through every layer.  token: (B, 1) int; state:
     leaves (L, B, ...) as ``prefill`` returns them.  The recurrent step
     needs no position: the state is the history.  Returns (logits (B, 1,
-    V) float32, the new state); ``state`` is left as it was."""
+    V) float32, the new state); ``state`` is left as it was.  On a mesh
+    (``layout``) the rows, the state blocks and the logits are the
+    rank's (``_decode_tp``)."""
+    if layout is not None:
+        return _decode_tp(model, cfg, state, token, layout)
     x = F.embedding(token, model.tok)
     hs, convs = [], []
     for blk, h, conv in zip(model.layers, state["h"], state["conv"]):

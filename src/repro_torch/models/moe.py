@@ -51,7 +51,7 @@ raises ``ValueError`` there (:func:`check_tokens`), before any work.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -235,7 +235,8 @@ def _local_tables(slot_src, tok_slot, k: int, off: int, n: int):
 
 
 def moe_forward(moe: MoE, x: torch.Tensor, cfg: ModelConfig, *,
-                group_size: int = GROUP_SIZE, tp=None):
+                group_size: int = GROUP_SIZE, tp=None,
+                n_slots: Optional[int] = None):
     """x: (B, S, d) -> (y (B, S, d), aux) with aux {lb_loss, rz_loss,
     frac_dropped}, float32 scalars, as the reference's ``moe_forward``.
     Raises ``ValueError`` when B·S does not split into whole groups.
@@ -245,11 +246,15 @@ def moe_forward(moe: MoE, x: torch.Tensor, cfg: ModelConfig, *,
     rank (the same tokens dropped as on one device; the aux losses enter
     the router's grad once); the token rows and the gates pass
     ``to_model`` where the rank cuts them to its experts' rows, and the
-    partial combine is summed over the model group."""
+    partial combine is summed over the model group.  ``n_slots`` is the
+    number of data slots the call's batch is cut into (a mesh's P·D by
+    default; 1 where serving replicates the batch over data): g and C
+    come from the global count, and no group may straddle two slots."""
     m = cfg.moe
     B, S_, d = x.shape
     E, k = m.num_experts, m.top_k
-    n_slots = 1 if tp is None else tp.n_fsdp
+    if n_slots is None:
+        n_slots = 1 if tp is None else tp.n_fsdp
     check_tokens(cfg, B * S_, group_size, n_slots)
     G, g, cap = groups(cfg, B * S_, group_size, n_slots)
     xt = x.reshape(G * g, d)

@@ -48,18 +48,35 @@ def family(cfg: ModelConfig):
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, dtype=torch.bfloat16,
-               device="cuda", trainable: bool = False):
+               device="cuda", trainable: bool = False, mesh=None,
+               rank: Optional[int] = None, serve_resident: bool = False):
     """The model at the reference's init rules, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``.  (The
     reference draws from ``jax.random``, so the numbers differ; to hold
     the two packages against each other, load the reference's weights
     with ``weights.from_jax_params``.)  ``trainable`` turns on the
     parameters' gradients; train with ``dtype=torch.float32`` (master
-    weights) and pick the compute dtype in ``loss_fn``."""
+    weights) and pick the compute dtype in ``loss_fn``.
+
+    With ``mesh`` only ``rank``'s blocks (the process group's rank by
+    default) are kept, by the serving specs with ``serve_resident``:
+    each parameter is drawn whole from the same generator sequence, its
+    block kept and the rest dropped, one parameter at a time
+    (``parallel.init_blocks``), so a model too large for one card can be
+    drawn; the blocks are bitwise those of this call without ``mesh``
+    followed by ``parallel.shard``."""
     fam = family(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = fam.Model(cfg, dtype=dtype, device=device)
-    return model.init_weights(gen).requires_grad_(trainable)
+    if mesh is None:
+        model = fam.Model(cfg, dtype=dtype, device=device)
+        return model.init_weights(gen).requires_grad_(trainable)
+    from repro_torch import parallel
+    from repro_torch.launch import mesh as MESH
+    model = fam.Model(cfg, dtype=dtype, device="meta")
+    parallel.init_blocks(model, cfg, mesh,
+                         MESH.rank() if rank is None else rank, gen, device,
+                         serve_resident=serve_resident)
+    return model.requires_grad_(trainable)
 
 
 def param_specs(cfg: ModelConfig, multi_pod: bool = False,
@@ -122,7 +139,9 @@ def serving_mode(cfg: ModelConfig):
 
 
 def prefill(model, cfg: ModelConfig, tokens, *,
-            cache_len_cap: Optional[int] = None, prefix_emb=None):
+            cache_len_cap: Optional[int] = None, prefix_emb=None,
+            global_batch: Optional[int] = None,
+            cache_seq_shard: bool = False):
     """Run the prompt, tokens (B, S), at its exact length and build the
     decode cache.  Returns (logits (B, 1, V) float32, a
     ``serving.cache.DenseKVCache`` whose ``lengths`` are all S, the
@@ -131,7 +150,16 @@ def prefill(model, cfg: ModelConfig, tokens, *,
     slots, and so do the hybrid's attention layers and the enc-dec's
     self-attention; the ssm family's state is O(1) in the length and
     takes none.  ``prefix_emb`` (B, P, d) is the VLM's patches or the
-    enc-dec's source frames (which it needs)."""
+    enc-dec's source frames (which it needs).
+
+    A model cut to a mesh (the dense, MoE, VLM and ssm families) serves
+    sharded: ``tokens`` (and ``prefix_emb``) are this rank's rows of a
+    batch of ``global_batch`` (its block of the tokens' spec: the whole
+    batch where the batch does not split over data), the logits its
+    vocab columns (B, 1, V/M), and the cache its blocks of the decode
+    cache's ``input_shardings`` (``parallel.cache_layout``;
+    ``cache_seq_shard`` picks the sequence cut), ready for
+    :func:`decode_step`; ``lengths`` is whole."""
     from repro_torch.serving import cache as sc   # serving imports this
     fam = family(cfg)
     kw = {}
@@ -143,19 +171,45 @@ def prefill(model, cfg: ModelConfig, tokens, *,
     elif cfg.arch_type in ENCDEC_FAMILIES:
         raise ValueError("the enc-dec's prefill needs the source "
                          "embeddings (prefix_emb)")
-    if cfg.arch_type == "ssm":
-        logits, data = fam.prefill(model, cfg, tokens)
-    elif cache_len_cap is None:
+    if cfg.arch_type != "ssm" and cache_len_cap is None:
         raise ValueError(f"the {cfg.arch_type} family's prefill needs "
                          f"cache_len_cap")
+    B, S = tokens.shape
+    layout = _serve_layout(model, cfg, B, global_batch, cache_len_cap,
+                           cache_seq_shard)
+    if layout is not None:
+        kw["layout"] = layout
+        B = layout.batch
+    if cfg.arch_type == "ssm":
+        logits, data = fam.prefill(model, cfg, tokens, **kw)
     else:
         logits, data = fam.prefill(model, cfg, tokens,
                                    cache_len_cap=cache_len_cap, **kw)
-    B, S = tokens.shape
     if prefix_emb is not None and cfg.arch_type == "vlm":
         S += prefix_emb.shape[1]
     lengths = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
-    return logits, sc.DenseKVCache(data=data, lengths=lengths)
+    return logits, sc.DenseKVCache(data=data, lengths=lengths, layout=layout)
+
+
+def _serve_layout(model, cfg: ModelConfig, rows: int,
+                  global_batch: Optional[int], cache_len_cap,
+                  cache_seq_shard: bool):
+    """The rank's cache layout of a sharded model's prefill (None for a
+    model on one process), its rows checked against the batch's spec."""
+    from repro_torch import parallel
+    tp = parallel.tp_of(model)
+    if tp is None:
+        return None
+    if global_batch is None:
+        raise ValueError("a sharded prefill needs global_batch: its layout "
+                         "follows the whole batch's")
+    layout = parallel.cache_layout(cfg, tp, global_batch,
+                                   cache_len_cap or 1, cache_seq_shard)
+    lo, hi = layout.rows
+    if rows != hi - lo:
+        raise ValueError(f"rank {tp.rank} holds rows [{lo}, {hi}) of the "
+                         f"batch of {global_batch}, got {rows} rows")
+    return layout
 
 
 def prefill_ragged(model, cfg: ModelConfig, tokens, lengths, *,
@@ -186,7 +240,9 @@ def decode_step(model, cfg: ModelConfig, cache, token):
     steps at one depth as the reference's does.  The dense
     family's K/V and the hybrid's caches are written in place; the ssm
     family's state is left as it was.  Returns (logits (B, 1, V), the
-    cache with lengths advanced by one)."""
+    cache with lengths advanced by one).  A cache from a sharded prefill
+    (its ``layout`` set) steps the rank's rows (``token`` its block)
+    against its blocks, and the logits are the rank's vocab columns."""
     from repro_torch.serving import cache as sc   # serving imports this
     fam = family(cfg)
     if isinstance(cache, sc.PagedKVCache):
@@ -196,12 +252,17 @@ def decode_step(model, cfg: ModelConfig, cache, token):
             f"decode_step takes a DenseKVCache or a PagedKVCache, got "
             f"{type(cache).__name__}; build one with registry.prefill or "
             f"a serving.cache.PagePool")
+    kw = {} if cache.layout is None else {"layout": cache.layout}
     if cfg.arch_type == "ssm":
-        logits, data = fam.decode_step(model, cfg, cache.data, token)
+        logits, data = fam.decode_step(model, cfg, cache.data, token, **kw)
     else:
         cl = cache.lengths if supports_paged(cfg) else cache.lengths[0]
-        logits, data = fam.decode_step(model, cfg, cache.data, cl, token)
-    return logits, sc.DenseKVCache(data=data, lengths=cache.lengths + 1)
+        if cache.layout is not None and supports_paged(cfg):
+            cl = cl[slice(*cache.layout.rows)]
+        logits, data = fam.decode_step(model, cfg, cache.data, cl, token,
+                                       **kw)
+    return logits, sc.DenseKVCache(data=data, lengths=cache.lengths + 1,
+                                   layout=cache.layout)
 
 
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int = 0, *,

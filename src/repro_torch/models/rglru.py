@@ -35,10 +35,10 @@ from repro_torch.configs.base import HybridConfig, ModelConfig, _pattern
 from repro_torch.kernels import backend as KB
 from repro_torch.models import attention as A
 from repro_torch.models.attention import Attention, attn_forward
-from repro_torch.models.layers import (MLP, P, act_fn, embed, embed_specs,
-                                       fsdp_axis, lm_loss, mlp, mlp_specs,
-                                       out_std, param, recompute, rmsnorm,
-                                       trunc_normal_)
+from repro_torch.models.layers import (MLP, P, act_fn, copy_whole_, embed,
+                                       embed_specs, fsdp_axis, lm_loss, mlp,
+                                       mlp_specs, out_std, param, recompute,
+                                       rmsnorm, trunc_normal_, whole_shape)
 from repro_torch.models.mamba2 import causal_conv1d
 from repro_torch.models.transformer import logits_from_hidden
 from repro_torch.parallel import tp_of, weight
@@ -131,8 +131,8 @@ class Recurrent(nn.Module):
             trunc_normal_(w, 0.02, generator)
         trunc_normal_(self.conv_w, 0.2, generator)
         self.conv_b.data.zero_()
-        W = self.lam.shape[0]
-        self.lam.data.copy_(torch.log(torch.expm1(torch.linspace(
+        W = whole_shape(self.lam)[0]
+        copy_whole_(self.lam, torch.log(torch.expm1(torch.linspace(
             0.1, 0.5, W, dtype=torch.float32, device=self.lam.device))))
         trunc_normal_(self.w_out, out_std(n_layers), generator)
 

@@ -14,10 +14,21 @@ multimodal prefix: ``prefix_emb`` (B, P, d), the stub frontend's
 projected patches, goes ahead of the token embeddings in the training
 forward (whose loss is taken on the text only) and in both prefills
 (whose lengths count the prefix).  The decode steps see text only.
+
+A model cut to a data × model mesh (``parallel.shard`` or
+``registry.init_model(mesh=)``) serves sharded: ``prefill`` and
+``decode_step`` take the rank's rows, run the training path's
+tensor-parallel layers (vocab-parallel embedding, column- and
+row-parallel products, expert-parallel MoE) without remat, return the
+rank's vocab columns of the logits, and keep the cache in the rank's
+boxes of the reference's ``input_shardings`` (``parallel.CacheLayout``):
+the prompt's K/V are re-cut to them once per prefill, and decode attends
+over them in place (``attention.decode_attn_tp``).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -119,12 +130,13 @@ def param_specs(cfg: ModelConfig, multi_pod: bool = False):
 # training forward and loss
 # --------------------------------------------------------------------- #
 
-def ffn(layer: Layer, h, cfg: ModelConfig):
+def ffn(layer: Layer, h, cfg: ModelConfig, tp=None, n_slots=None):
     """The layer's feed-forward block over h (B, S, d): (out, aux), aux
-    the MoE's losses ({} for a dense MLP)."""
+    the MoE's losses ({} for a dense MLP); on a mesh (``tp``) tensor- or
+    expert-parallel, the batch cut into ``n_slots`` data slots."""
     if cfg.arch_type == "moe":
-        return M.moe_forward(layer.moe, h, cfg)
-    return mlp(layer.mlp, h, cfg.act), {}
+        return M.moe_forward(layer.moe, h, cfg, tp=tp, n_slots=n_slots)
+    return mlp(layer.mlp, h, cfg.act, tp), {}
 
 
 def _layer(layer: Layer, x, cfg: ModelConfig, tp=None):
@@ -259,15 +271,80 @@ def _prefill_trunk(model: Transformer, cfg: ModelConfig, tokens,
     return rmsnorm(x, model.final_norm, cfg.norm_eps), ks, vs
 
 
+def _kv_cut(layout):
+    """(dim, start, stop) of a layer's K/V cut over 'model' (its (B, S,
+    Hkv, hd) dims) from the cache's layout."""
+    cut = layout.model_cut("k")
+    if cut is None or cut[0] not in (2, 4):
+        raise NotImplementedError(
+            f"a decode cache cut {layout.specs['k']}: the port serves the "
+            f"head_dim cut and the sequence cut")
+    return cut[0] - 1, cut[1], cut[2]
+
+
+def _slots(cfg: ModelConfig, layout, tokens) -> int:
+    """The data slots the batch is cut into (1 where it is replicated);
+    an MoE's routing groups must not straddle them."""
+    n = layout.batch // tokens.shape[0]
+    M.check_tokens(cfg, tokens.numel(), n_slots=n)
+    return n
+
+
+def _prefill_tp(model: Transformer, cfg: ModelConfig, tokens, *,
+                prefix_emb, layout):
+    """``prefill`` on a mesh: the rank's rows (and their prefix), the
+    layers tensor-parallel; each layer's K/V (of the KV heads the rank's
+    query heads attend to, after RoPE) placed in the full cache or the
+    ring and re-cut to the cache's box (``attention.kv_to_box``).
+    Returns (the rank's vocab columns of the last position's logits
+    (B, 1, V/M) float32, the rank's cache blocks)."""
+    tp = model.tp
+    n_slots = _slots(cfg, layout, tokens)
+    dim = _kv_cut(layout)[0]
+    x = _embed(model, tokens, prefix_emb, model.dtype, tp)
+    B, S = x.shape[:2]
+    window = cfg.sliding_window
+    cap = layout.shapes["k"][2]
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, dim=dim)
+    data = {"k": [], "v": []}
+    pos = []
+    for layer in model.layers:
+        h = rmsnorm(x, layer.norm1, cfg.norm_eps)
+        a, kv = attn_forward(
+            layer.attn, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, window=window,
+            tp=tp)
+        x = x + a
+        h = rmsnorm(x, layer.norm2, cfg.norm_eps)
+        x = x + ffn(layer, h, cfg, tp, n_slots)[0]
+        if window is not None:
+            ring = A.ring_from_prefill(*kv, S, cap)
+            pos.append(ring["pos"])
+            kv = (ring["k"], ring["v"])
+        elif dim == 1:           # the sequence cut: its blocks of the cap
+            kv = tuple(F.pad(t, (0, 0, 0, 0, 0, cap - S)) for t in kv)
+        for n, t in zip(("k", "v"), kv):
+            t = A.kv_to_box(tp, t, **kw)
+            if window is None and dim == 3:
+                t = F.pad(t, (0, 0, 0, 0, 0, cap - S))
+            data[n].append(t)
+    data = {n: torch.stack(t) for n, t in data.items()}
+    if pos:
+        data["pos"] = torch.stack(pos)
+    x = rmsnorm(x[:, -1:].contiguous(), model.final_norm, cfg.norm_eps)
+    return (x @ tp.head(model, x.dtype)).float(), data
+
+
 def prefill(model: Transformer, cfg: ModelConfig, tokens, *,
-            cache_len_cap: int, prefix_emb=None):
+            cache_len_cap: int, prefix_emb=None, layout=None):
     """Run the prompt, tokens (B, S) behind ``prefix_emb`` (B, P, d) when
     given, at its exact length and build the decode cache (S counts the
     prefix from here on).  Returns (logits (B, 1, V) float32 at the last
     position, the cache): a full cache of ``cache_len_cap`` rows whose
     first S hold the prompt's K/V (the rest zeros), or for a sliding
     window a ring of min(window, cache_len_cap) slots
-    (``attention.ring_from_prefill``)."""
+    (``attention.ring_from_prefill``).  On a mesh (``layout``, the
+    cache's ``parallel.CacheLayout``) see ``_prefill_tp``."""
     B, S = tokens.shape
     if prefix_emb is not None:
         S += prefix_emb.shape[1]
@@ -275,6 +352,9 @@ def prefill(model: Transformer, cfg: ModelConfig, tokens, *,
     if window is None and S > cache_len_cap:
         raise ValueError(f"prompt of {S} tokens exceeds cache_len_cap "
                          f"{cache_len_cap}")
+    if layout is not None:
+        return _prefill_tp(model, cfg, tokens, prefix_emb=prefix_emb,
+                           layout=layout)
     x, ks, vs = _prefill_trunk(model, cfg, tokens, window, prefix_emb)
     if window is not None:
         W = min(window, cache_len_cap)
@@ -312,13 +392,40 @@ def prefill_ragged(model: Transformer, cfg: ModelConfig, tokens, lengths, *,
         torch.stack(vs)
 
 
+def _decode_tp(model: Transformer, cfg: ModelConfig, data, cache_len,
+               token, layout):
+    """``decode_step`` on a mesh: the rank's rows, its cache blocks
+    written in place, the rank's vocab columns of the logits."""
+    tp = model.tp
+    n_slots = _slots(cfg, layout, token)
+    cut = _kv_cut(layout)
+    x = embed(model, token, model.dtype, tp)
+    for i, layer in enumerate(model.layers):
+        h = rmsnorm(x, layer.norm1, cfg.norm_eps)
+        a, _ = A.decode_attn_tp(
+            layer.attn, h, {n: t[i] for n, t in data.items()}, cache_len,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            window=cfg.sliding_window, tp=tp, cut=cut,
+            seq_len=layout.shapes["k"][2])
+        x = x + a
+        h = rmsnorm(x, layer.norm2, cfg.norm_eps)
+        x = x + ffn(layer, h, cfg, tp, n_slots)[0]
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return (x @ tp.head(model, x.dtype)).float(), data
+
+
 def decode_step(model: Transformer, cfg: ModelConfig, data, cache_len,
-                token):
+                token, layout=None):
     """One decode step.  token: (B, 1) int; data: the layer-stacked cache
     from ``prefill`` or ``cache_struct``, written in place (so a captured
     CUDA graph can replay the step); cache_len: the new token's position,
     a 0-d tensor (or int) for all rows, or (B,) per request (full cache
-    only).  Returns (logits (B, 1, V) float32, data)."""
+    only).  Returns (logits (B, 1, V) float32, data).  On a mesh
+    (``layout``) the rows, the cache and the logits are the rank's (see
+    ``_decode_tp``)."""
+    if layout is not None:
+        return _decode_tp(model, cfg, data, cache_len, token, layout)
     x = model.tok[token]
     for i, layer in enumerate(model.layers):
         h = rmsnorm(x, layer.norm1, cfg.norm_eps)

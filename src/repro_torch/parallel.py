@@ -12,11 +12,15 @@ collectives itself, as ``torch.autograd.Function``s:
   :meth:`TensorParallel.weight` all-gathers a weight's shards along its
   data-sharded dim just before use, cast to the compute dtype first (a
   bf16 gather moves half the bytes).  Its backward sums the full grad
-  over the FSDP group in float32 and keeps the rank's slice.  gloo has
-  no reduce-scatter, so both backends run an all-reduce and keep the
-  slice.  The layers call it inside their recompute region, so no
-  gathered weight outlives its layer: the backward's recompute gathers
-  again.
+  over the FSDP group in float32 and keeps the rank's slice, by an
+  all-reduce and a slice on both backends.  (gloo takes
+  ``reduce_scatter_tensor`` too, on CPU tensors and, with torch
+  2.11.0+cu128, on CUDA tensors, as NCCL does; it takes
+  ``all_to_all_single`` but not the list ``all_to_all``.)  The layers
+  call it inside their recompute region, so no gathered weight outlives
+  its layer: the backward's recompute gathers again.  A model cut for
+  serving with ``serve_resident`` holds no FSDP dim: its weights are
+  whole over data and split over model only, and nothing is gathered.
 - **Tensor-parallel over the model axis** (the M ranks of one data
   slot): q/k/v, up and gate are column-parallel (the rank's H/M query
   heads, Hkv/M KV heads, d_ff/M columns), o and down row-parallel.  The
@@ -54,6 +58,14 @@ collectives itself, as ``torch.autograd.Function``s:
   gathered over the model group after the product and each rank attends
   its H/M query heads to the KV heads they map to (:func:`kv_block`).
 
+Sharded serving (``models.transformer``/``models.mamba2``'s prefill and
+decode on a mesh) adds the serving collectives: :meth:`TensorParallel.
+model_all_to_all` (the re-cut of a prompt's K/V or Mamba-2 state to its
+cache's box, and of the decode attention's output to the rank's heads),
+:meth:`TensorParallel.greedy` (the greedy pick over the ranks' vocab
+blocks), and :func:`cache_layout`, each decode cache leaf's box of the
+reference's ``input_shardings``.
+
 Every rank issues the same collectives in the same order (the recompute
 under remat too): the autograd graph is the same on every rank.  The
 collectives are timed by kind (:class:`Comms`) on the host clock, the
@@ -68,6 +80,7 @@ straddle two data slots.
 from __future__ import annotations
 
 import time
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -78,7 +91,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as MESH
 
 KINDS = ("fsdp_gather", "grad_reduce", "model_all_reduce",
-         "model_all_gather")
+         "model_all_gather", "model_all_to_all")
 
 
 class Comms:
@@ -86,7 +99,7 @@ class Comms:
     gathers, the grad reduction (the gathers' backward, the replicated
     grads' and the metrics' all-reduce, the norm's), the model group's
     all-reduces (forward and backward, the model gathers' backward
-    included) and its all-gathers."""
+    included), its all-gathers and its all-to-alls."""
 
     def __init__(self):
         self.reset()
@@ -196,10 +209,19 @@ class TensorParallel:
         self.n_fsdp, self.n_model = mesh.n_fsdp, mesh.n_model
         self.fsdp_index = mesh.fsdp_index(rank)
         self.model_index = mesh.model_index(rank)
-        self.fsdp_group, self.model_group = mesh.groups()
         self.fsdp_dims: Dict[int, Optional[int]] = {}
         self.first_holder: Dict[int, bool] = {}
         self.comms = Comms()
+
+    # the groups are made at the first collective (``Mesh.groups``, which
+    # every rank reaches at the same point of the same program)
+    @property
+    def fsdp_group(self):
+        return self.mesh.groups()[0]
+
+    @property
+    def model_group(self):
+        return self.mesh.groups()[1]
 
     # -- raw collectives (timed) ----------------------------------------- #
     def all_reduce(self, t: torch.Tensor, group, kind: str,
@@ -220,6 +242,36 @@ class TensorParallel:
         self.comms.run("model_all_gather", x, lambda: dist.all_gather(
             parts, x, group=self.model_group))
         return torch.cat(parts, dim)
+
+    def model_all_to_all(self, x: torch.Tensor, split_dim: int,
+                         cat_dim: int) -> torch.Tensor:
+        """x cut in M equal parts along ``split_dim``, part j sent to model
+        rank j; the parts received, in rank order, joined along
+        ``cat_dim`` (one ``all_to_all_single`` over the model group)."""
+        if self.n_model == 1:
+            return x
+        inp = torch.stack(x.chunk(self.n_model, split_dim)).contiguous()
+        out = torch.empty_like(inp)
+        self.comms.run("model_all_to_all", inp,
+                       lambda: dist.all_to_all_single(
+                           out, inp, group=self.model_group))
+        return torch.cat(out.unbind(0), cat_dim)
+
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy pick over vocab blocks: logits (B, S, V/M), this
+        rank's columns -> (B, S) int64, the id of the largest logit over
+        the whole vocab, the first such id on a tie (the reference's
+        ``argmax``).  Each rank's (max, first index) go to every rank of
+        the model group (one all-gather); the ranks' blocks are in vocab
+        order, so the first rank holding the max holds its first id."""
+        v, i = logits.float().max(dim=-1)
+        i = i + self.vocab_start(logits.shape[-1])
+        if self.n_model == 1:
+            return i
+        pair = torch.stack([v.double(), i.double()], dim=-1)
+        parts = self.gather_model(pair[None], 0)          # (M, B, S, 2)
+        best = parts[..., 0].argmax(dim=0, keepdim=True)  # first max rank
+        return parts[..., 1].gather(0, best)[0].long()
 
     def sum_over_model(self, x: torch.Tensor) -> torch.Tensor:
         """x summed over the model group, in float32, cast back."""
@@ -295,14 +347,15 @@ def _spec_at(tree, path):
     return tree
 
 
-def leaf_specs(model, cfg: ModelConfig,
-               multi_pod: bool = False) -> Dict[str, tuple]:
+def leaf_specs(model, cfg: ModelConfig, multi_pod: bool = False,
+               serve_resident: bool = False) -> Dict[str, tuple]:
     """{port parameter name: its spec}: the reference's spec at the
     parameter's reference path (``weights._ref_path``), its stacked
-    layer entry dropped (the port's ``ModuleList`` has no such dim)."""
+    layer entry dropped (the port's ``ModuleList`` has no such dim);
+    ``serve_resident`` drops the FSDP axes (``registry.param_specs``)."""
     from repro_torch.models import registry as R
     from repro_torch.weights import _ref_path
-    tree = R.param_specs(cfg, multi_pod)
+    tree = R.param_specs(cfg, multi_pod, serve_resident=serve_resident)
     out = {}
     for name, _ in model.named_parameters():
         path, layer = _ref_path(name, cfg)
@@ -344,13 +397,14 @@ def _divides(n: int, M: int, what: str, leaf: str, dim: int) -> None:
             f"of {M} does not divide")
 
 
-def check_model(cfg: ModelConfig, mesh: MESH.Mesh) -> Dict[str, tuple]:
+def check_model(cfg: ModelConfig, mesh: MESH.Mesh,
+                serve_resident: bool = False) -> Dict[str, tuple]:
     """Refuse a model the port cannot cut to ``mesh`` (no process group
     needed): query heads, experts, SSD heads or the RG-LRU width the
     model axis does not divide; query heads that split a GQA group
     unevenly where the KV heads do not divide; any dim its mesh axis
     does not divide.  Returns the leaf specs of a meta-device model (no
-    memory)."""
+    memory), the serving specs with ``serve_resident``."""
     M = mesh.n_model
     if cfg.arch_type == "ssm":
         from repro_torch.models.mamba2 import _dims
@@ -368,7 +422,7 @@ def check_model(cfg: ModelConfig, mesh: MESH.Mesh) -> Dict[str, tuple]:
                  "temporal/w_gate", 1)
     from repro_torch.models import registry as R
     model = R.family(cfg).Model(cfg, dtype=torch.float32, device="meta")
-    specs = leaf_specs(model, cfg, "pod" in mesh.shape)
+    specs = leaf_specs(model, cfg, "pod" in mesh.shape, serve_resident)
     for name, p in model.named_parameters():
         MESH.shard_box(tuple(p.shape), specs[name], mesh, 0, name=name)
     return specs
@@ -389,10 +443,11 @@ def check_batch(cfg: ModelConfig, mesh: MESH.Mesh, batch_size: int,
                      n_slots=mesh.n_fsdp)
 
 
-def check(cfg: ModelConfig, mesh: MESH.Mesh) -> Dict[str, tuple]:
+def check(cfg: ModelConfig, mesh: MESH.Mesh,
+          serve_resident: bool = False) -> Dict[str, tuple]:
     """:func:`check_model`, and a mesh whose size is not the process
     group's; raised before any collective."""
-    specs = check_model(cfg, mesh)
+    specs = check_model(cfg, mesh, serve_resident)
     if mesh.size != MESH.world_size():
         raise ValueError(
             f"mesh {mesh.shape} has {mesh.size} slots but the process "
@@ -408,26 +463,11 @@ def _first_holder(spec, mesh: MESH.Mesh, rank: int) -> bool:
     return all(c[a] == 0 for a in mesh.axis_names if a not in named)
 
 
-def shard(model, cfg: ModelConfig, mesh: MESH.Mesh,
-          rank: Optional[int] = None):
-    """Cut ``model``'s parameters to ``rank``'s blocks (in place: each
-    ``nn.Parameter`` is replaced by one of the block's shape) and attach
-    its :class:`TensorParallel` as ``model.tp`` (this makes the mesh's
-    groups: every rank calls it).  ``rank`` defaults to the process
-    group's."""
-    specs = check(cfg, mesh)
-    rank = MESH.rank() if rank is None else rank
-    boxes, shapes = {}, {}
-    for name, p in list(model.named_parameters()):
-        shapes[name] = tuple(p.shape)
-        box = MESH.shard_box(tuple(p.shape), specs[name], mesh, rank,
-                             name=name)
-        local = p.detach()[tuple(slice(a, b) for a, b in box)].clone()
-        mod_name, _, attr = name.rpartition(".")
-        mod = model.get_submodule(mod_name) if mod_name else model
-        setattr(mod, attr, nn.Parameter(local,
-                                        requires_grad=p.requires_grad))
-        boxes[name] = box
+def _attach(model, specs, boxes, shapes, mesh: MESH.Mesh, rank: int,
+            serve_resident: bool):
+    """Attach the :class:`TensorParallel` of ``rank`` and the cut's
+    record (specs, boxes, whole shapes) to a model whose parameters are
+    already the rank's blocks."""
     tp = TensorParallel(mesh, rank)
     for name, p in model.named_parameters():
         tp.fsdp_dims[id(p)] = _fsdp_dim(specs[name])
@@ -436,7 +476,124 @@ def shard(model, cfg: ModelConfig, mesh: MESH.Mesh,
     model.specs = specs
     model.boxes = boxes
     model.full_shapes = shapes
+    model.serve_resident = serve_resident
     return model
+
+
+def _set_param(model, name: str, value: nn.Parameter) -> None:
+    mod_name, _, attr = name.rpartition(".")
+    mod = model.get_submodule(mod_name) if mod_name else model
+    setattr(mod, attr, value)
+
+
+def shard(model, cfg: ModelConfig, mesh: MESH.Mesh,
+          rank: Optional[int] = None, *, serve_resident: bool = False):
+    """Cut ``model``'s parameters to ``rank``'s blocks (in place: each
+    ``nn.Parameter`` is replaced by one of the block's shape) and attach
+    its :class:`TensorParallel` as ``model.tp``.  ``rank`` defaults to
+    the process group's.  ``serve_resident`` cuts by the serving specs
+    (no FSDP dim: the weights whole over data, split over model)."""
+    specs = check(cfg, mesh, serve_resident)
+    rank = MESH.rank() if rank is None else rank
+    boxes, shapes = {}, {}
+    for name, p in list(model.named_parameters()):
+        shapes[name] = tuple(p.shape)
+        box = MESH.shard_box(tuple(p.shape), specs[name], mesh, rank,
+                             name=name)
+        local = p.detach()[tuple(slice(a, b) for a, b in box)].clone()
+        _set_param(model, name, nn.Parameter(
+            local, requires_grad=p.requires_grad))
+        boxes[name] = box
+    return _attach(model, specs, boxes, shapes, mesh, rank, serve_resident)
+
+
+def init_blocks(model, cfg: ModelConfig, mesh: MESH.Mesh, rank: int,
+                generator: torch.Generator, device, *,
+                serve_resident: bool = False):
+    """The rank-only init: ``model`` built on the meta device (whole
+    shapes, no memory) gets, for each parameter, an empty block of the
+    rank's box on ``device``, marked with its whole shape and box
+    (``layers.trunc_normal_`` and ``layers.copy_whole_`` read the mark:
+    each draws the whole parameter from ``generator``, in the order
+    ``init_weights`` draws, and keeps the block).  One whole parameter
+    lives at a time, so the peak is the largest parameter, and the blocks
+    are bitwise those of ``init_weights`` followed by :func:`shard`."""
+    specs = check(cfg, mesh, serve_resident)
+    boxes, shapes = {}, {}
+    for name, p in list(model.named_parameters()):
+        shapes[name] = tuple(p.shape)
+        box = boxes[name] = MESH.shard_box(shapes[name], specs[name], mesh,
+                                           rank, name=name)
+        local = nn.Parameter(torch.empty(
+            tuple(b - a for a, b in box), dtype=p.dtype, device=device),
+            requires_grad=False)
+        local.whole = (shapes[name], box)
+        _set_param(model, name, local)
+    model.init_weights(generator)
+    for _, p in model.named_parameters():
+        del p.whole
+    return _attach(model, specs, boxes, shapes, mesh, rank, serve_resident)
+
+
+# --------------------------------------------------------------------- #
+# the decode caches' boxes
+# --------------------------------------------------------------------- #
+
+@dataclasses.dataclass
+class CacheLayout:
+    """A rank's blocks of a decode cache cut by the reference's
+    ``input_shardings``: each leaf's whole shape, spec and box (by leaf
+    name: "k", "v", "pos"; "h", "conv"), ``rows`` the rank's rows of the
+    batch (its block of the token's spec) and ``batch`` the whole
+    batch."""
+    shapes: Dict[str, tuple]
+    specs: Dict[str, tuple]
+    boxes: Dict[str, MESH.Block]
+    rows: Tuple[int, int]
+    batch: int
+
+    def model_cut(self, name: str) -> Optional[Tuple[int, int, int]]:
+        """(dim, start, stop) of leaf ``name``'s cut over 'model', or
+        None where the leaf is whole over 'model'."""
+        for dim, e in enumerate(self.specs[name]):
+            if "model" in MESH._spec_axes(e):
+                return (dim, *self.boxes[name][dim])
+        return None
+
+    def block(self, name: str, t: torch.Tensor,
+              layer_dim: bool = True) -> torch.Tensor:
+        """The rank's block of leaf ``name`` from ``t``, the leaf whole
+        but for its layer dim (absent from ``t`` when ``layer_dim`` is
+        False)."""
+        box = self.boxes[name][0 if layer_dim else 1:]
+        return t[tuple(slice(a, b) for a, b in box)]
+
+
+def cache_layout(cfg: ModelConfig, tp: TensorParallel, batch: int,
+                 max_len: int, cache_seq_shard: bool = False) -> CacheLayout:
+    """The rank's boxes of the decode cache of ``batch`` rows and
+    ``max_len`` positions (a full cache, a ring of min(window, max_len)
+    slots, or Mamba-2's state): the reference's ``input_shardings`` of a
+    decode shape, ``cache_seq_shard`` choosing the sequence cut over the
+    head_dim cut, read through ``launch.mesh.shard_box``."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import registry as R
+    if cfg.arch_type not in ("dense", "moe", "vlm", "ssm"):
+        raise NotImplementedError(
+            f"sharded serving of the {cfg.arch_type} family is not ported "
+            f"(the dense, MoE, VLM and ssm families are)")
+    multi_pod = "pod" in tp.mesh.shape
+    shape = InputShape("serve", max_len, batch, "decode")
+    specs = R.input_shardings(cfg, shape, multi_pod,
+                              cache_seq_shard=cache_seq_shard)
+    struct = R.decode_struct(cfg, batch, max_len)
+    shapes = {n: tuple(t.shape) for n, t in struct["cache"].data.items()}
+    cspecs = {n: tuple(sp) for n, sp in specs["cache"].data.items()}
+    boxes = {n: MESH.shard_box(shapes[n], cspecs[n], tp.mesh, tp.rank,
+                               name=f"cache/{n}") for n in shapes}
+    rows = MESH.shard_box((batch, 1), specs["token"], tp.mesh, tp.rank,
+                          name="token")[0]
+    return CacheLayout(shapes, cspecs, boxes, rows, batch)
 
 
 # --------------------------------------------------------------------- #

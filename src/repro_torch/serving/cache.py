@@ -61,10 +61,13 @@ class DenseKVCache:
     """The contiguous per-family cache: ``data`` is what the family's
     ``prefill`` builds (row b of every leaf is request b) and
     ``lengths`` (B,) int32 the tokens cached per request; the recurrent
-    state keeps all rows at one depth."""
+    state keeps all rows at one depth.  On a mesh ``layout`` (a
+    ``parallel.CacheLayout``) says which block of each leaf this rank's
+    ``data`` holds; ``lengths`` stays whole, as its spec replicates it."""
 
     data: Any
     lengths: torch.Tensor
+    layout: Any = None
 
 
 @dataclasses.dataclass

@@ -140,14 +140,15 @@ _FAMILIES = {"dense": _dense, "moe": _dense, "vlm": _dense, "ssm": _ssm,
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, *,
                     dtype=torch.bfloat16, device="cuda",
                     trainable: bool = False, mesh=None,
-                    rank: Optional[int] = None):
+                    rank: Optional[int] = None,
+                    serve_resident: bool = False):
     """Build the port's model of ``cfg``'s family (``Transformer`` for
     dense, moe and vlm, ``Mamba2`` for ssm, ``Hybrid`` for hybrid,
     ``EncDec`` for encdec and audio) from the
     reference's parameter pytree (numpy arrays); ``trainable`` turns on
     the parameters' gradients.  With ``mesh`` the model is cut to
     ``rank``'s shards (``parallel.shard``; the process group's rank by
-    default)."""
+    default), by the serving specs with ``serve_resident``."""
     load = _FAMILIES.get(cfg.arch_type)
     if load is None:
         raise NotImplementedError(
@@ -155,7 +156,7 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, *,
     model = load(tree, cfg, dtype, device).requires_grad_(trainable)
     if mesh is not None:
         from repro_torch import parallel
-        parallel.shard(model, cfg, mesh, rank)
+        parallel.shard(model, cfg, mesh, rank, serve_resident=serve_resident)
     return model
 
 

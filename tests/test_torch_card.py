@@ -16,7 +16,12 @@ plain versions and under a captured graph, the ragged decode at head_dim
 256, and the RG-LRU hybrid trained and served on the card against the
 CPU.  The enc-dec (seamless-m4t-medium) trained and served and the
 VLM (internvl2-76b) served with its prefix, on the card against the
-CPU; the kernels at their GQA groups of 8 and 7 and at d 8192.
+CPU; the kernels at their GQA groups of 8 and 7 and at d 8192.  The
+decode kernels of the cut caches (sharded serving): the head_dim cut's
+scores and softmax-P·V passes and the sequence cut's partial, each
+against its plain version at llama3.2-3b's decode shape (GQA 24/8, hd
+128 cut in 2 and 4, Skv 4,096, lengths 0 and Skv − 1 among them), and
+their M parts summed or merged against the whole-head decode kernel.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no JAX, so it runs on the card's machine as it is:
@@ -1495,3 +1500,81 @@ def test_frontend_server_on_card_matches_cpu(cuda, arch):
     for _ in range(2):
         np.testing.assert_array_equal(gen(srv), gen(eager))
     assert srv.captures == 1 and eager.captures == 0
+
+
+# --------------------------------------------------------------------- #
+# the decode kernels of the cut caches
+# --------------------------------------------------------------------- #
+
+def _cut_case(cuda, dtype, B=16, H=24, Hkv=8, S=4096, hd=128):
+    g = torch.Generator(device=cuda).manual_seed(30)
+    q = torch.randn(B, H, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, S, Hkv, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, S, Hkv, hd, generator=g, device=cuda).to(dtype)
+    lens = torch.randint(1, S - 1, (B,), generator=g, device=cuda)
+    lens[0], lens[1], lens[2] = 0, S - 1, 127
+    return q, k, v, lens.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", [2, 4])
+def test_head_dim_cut_decode_kernels(cuda, M, dtype):
+    q, k, v, lens = _cut_case(cuda, dtype)
+    hd, S = q.shape[-1], k.shape[1]
+    w = hd // M
+    valid = (torch.arange(S, device=cuda)[None, :]
+             <= lens.long()[:, None])[:, None, :]
+    parts = []
+    for i in range(M):
+        qs, ks = q[..., i * w:(i + 1) * w], k[..., i * w:(i + 1) * w]
+        got = PG.decode_scores(qs, ks.contiguous(), lens)
+        torch.cuda.synchronize()
+        _close(torch.where(valid, got, 0.0),
+               ref.decode_scores_ref(qs, ks, lens), dtype)
+        parts.append(got)
+    s = sum(parts)
+    outs = []
+    for i in range(M):
+        vs = v[..., i * w:(i + 1) * w].contiguous()
+        got = PG.decode_softmax_pv(s, vs, lens, head_dim=hd)
+        torch.cuda.synchronize()
+        _close(got, ref.decode_softmax_pv_ref(s, vs, lens, hd), dtype)
+        outs.append(got)
+    whole = PG.ragged_decode_attention(q, k.transpose(1, 2),
+                                       v.transpose(1, 2), lens)
+    _close(torch.cat(outs, -1), whole, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", [2, 4])
+def test_sequence_cut_decode_partial(cuda, M, dtype):
+    from repro_torch.models.attention import merge_decode_partials
+    q, k, v, lens = _cut_case(cuda, dtype)
+    S = k.shape[1]
+    n = S // M
+    parts = []
+    for i in range(M):
+        ks, vs = k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n]
+        local = (lens - i * n).contiguous()
+        got = PG.ragged_decode_partial(q, ks, vs, local)
+        torch.cuda.synchronize()
+        want = ref.decode_partial_ref(q, ks, vs, local)
+        torch.testing.assert_close(got[..., 0], want[..., 0], **F32)
+        scale = 1 + want[..., 1:].abs().amax(-1, keepdim=True)
+        _close(got[..., 1:] / scale, want[..., 1:] / scale, dtype)
+        parts.append(got)
+    out = merge_decode_partials(torch.stack(parts)).to(dtype)
+    whole = PG.ragged_decode_attention(q, k.transpose(1, 2),
+                                       v.transpose(1, 2), lens)
+    _close(out, whole, dtype)
+
+
+def test_cut_cache_kernels_raise_rather_than_fall_back(cuda):
+    q, k, v, lens = _cut_case(cuda, torch.float32, B=4, S=256)
+    with pytest.raises(ValueError, match="head_dim slice"):
+        PG.decode_scores(q[..., :48], k[..., :48].contiguous(), lens)
+    with pytest.raises(ValueError, match="int32"):
+        PG.ragged_decode_partial(q, k, v, lens.long())
+    with pytest.raises(ValueError, match="scores"):
+        PG.decode_softmax_pv(torch.zeros(4, 24, 255, device=cuda),
+                             v[..., :64].contiguous(), lens, head_dim=128)
