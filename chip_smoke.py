@@ -474,30 +474,43 @@ decode graph, each replayed once per step.
   rank's peak memory.  No speed or capacity is claimed: the ranks share
   one card.
 - Phase 20, sharded prefill and decode (``phase20``).  (a) The cut
-  caches' decode kernels at llama3.2-3b's decode shape (``CUT_SHAPE``:
-  B 16, GQA 24/8, Skv 4,096, lengths 0, 127 and Skv - 1 among them, hd
-  128 cut in 2 and 4), f32 (2e-5) and bf16 (2e-2) against their plain
+  caches' decode kernels (``CUT_SHAPES``) at llama3.2-3b's decode shape
+  (B 16, GQA 24/8, Skv 4,096, lengths 0, 127 and Skv - 1 among them, hd
+  128 cut in 2 and 4), at recurrentgemma-9b's ring (B 2, MQA 16/1, hd
+  256 cut in 2 and 4, 2,048 slots all valid) and at seamless-m4t-
+  medium's cross-attention (B 2, MHA 16/16, hd 64 cut in 2, 1,024
+  frames all valid, the blocks held frames-major as the cache holds
+  them), f32 (2e-5) and bf16 (2e-2) against their plain
   versions: the head_dim cut's scores and softmax-P·V passes, the
   sequence cut's partial softmax state, and their M parts summed or
   merged against the whole-head decode kernel; each timed beside its
   plain version and its bytes bound, the scores beside one
   ``torch.matmul`` of the slices.  (b) ``SERVE_CELLS``, each run's
   processes sharing the card over gloo against one process on the same
-  seeded model (``SERVE_RANK``; all at once): llama3.2-3b (8 layers, 16
+  seeded model (``SERVE_RANK``; all at once, but recurrentgemma-9b and
+  seamless-m4t-medium each alone after them): llama3.2-3b (8 layers, 16
   rows, prompts of 512, ``cache_len_cap`` 1,024, 16 greedy steps) on
   1x2 with ``serve_resident`` off and on and both cache cuts, and on
   2x2 (``serve_resident``, the head_dim cut); starcoder2-3b (4 layers,
-  2 x 4,500 into the 4,096-slot ring, 8 steps) and mamba2-2.7b (4
+  2 x 4,500 into the 4,096-slot ring, 8 steps), mamba2-2.7b (4
   layers, 2 x 1,024, 8 steps; its state cut by N, and by heads with the
+  sequence cut), recurrentgemma-9b (8 of 38 layers: two recurrent,
+  recurrent, attention groups and the recurrent, recurrent remainder;
+  2 x 2,100 into the 2,048-slot ring, ``cache_len_cap`` 2,304, 8 steps;
+  its recurrent states cut by channels) and seamless-m4t-medium (12 +
+  12 layers, 2 rows of 1,024 frames and 128 tokens, ``cache_len_cap``
+  256, 8 steps; its cross K/V cut by head_dim, or by frames with the
   sequence cut) on 1x2 in both cuts.  Gates, float32: every step's
   logits (the rank's vocab block) within 1e-4 of one process's,
   relative to the step's largest |logit|, the greedy tokens equal, each
   collective kind's calls in the prefill and a decode step as
   ``serve_comms`` predicts from the shapes (its MB printed beside the
   prediction), every process's launches exactly ``serve_launches`` (the
-  scores and softmax-P·V kernels L a step in the head_dim cut, the
+  scores and softmax-P·V kernels once a step for each attention, the
+  enc-dec's cross-attention among them, in the head_dim cut, the
   partial in the sequence cut, the whole-head decode kernel only in the
-  one process).  bf16 runs are reported beside one bf16 process,
+  one process; the hybrid's prefill launches the RG-LRU scan once a
+  recurrent layer, and no flash kernel: its attention is windowed).  bf16 runs are reported beside one bf16 process,
   ungated.  The ``mesh_serve`` line gives each run's differences,
   collectives, walls and peak memory.  No speed is claimed: the ranks
   share one card.  A bf16 run's tokens may part from one process's at
@@ -6081,15 +6094,23 @@ def family_kernel_entries(kernels, record):
 # phase 20: sharded prefill and decode
 # --------------------------------------------------------------------- #
 
-# llama3.2-3b's decode shape, at which phase 20a holds the cut caches'
-# kernels: (B, query heads, KV heads, head_dim, Skv)
-CUT_SHAPE = (16, 24, 8, 128, 4096)
+# the shapes at which phase 20a holds the cut caches' kernels: (tag, B,
+# query heads, KV heads, head_dim, Skv, the cuts M, frames-major):
+# llama3.2-3b's decode shape (random lengths; its entries keep the
+# untagged names), recurrentgemma-9b's ring after the prompt wraps it and
+# seamless-m4t-medium's cross-attention (every key valid), the latter held
+# (B, Hkv, Se, hd) as its cache holds it
+CUT_SHAPES = (("llama", 16, 24, 8, 128, 4096, (2, 4), False),
+              ("recurrentgemma", 2, 16, 1, 256, 2048, (2, 4), False),
+              ("seamless", 2, 16, 16, 64, 1024, (2,), True))
 # (tag, arch, layers, B, prompt, cache_len_cap, decode steps, runs), each
 # run (mesh, serve_resident, cache_seq_shard, dtype): full width, depth
 # cut; llama3.2-3b's 16 rows split over the 2x2 mesh's data slots,
 # starcoder2-3b's prompts of 4,500 wrap its 4,096-slot ring, mamba2-2.7b's
 # sequence cut cuts its state by heads (80 of them) where the default
-# cuts it by N
+# cuts it by N; recurrentgemma-9b's 8 layers are two full groups and the
+# remainder of its layout, its prompts of 2,100 wrap the 2,048-slot ring;
+# seamless-m4t-medium runs whole (12 + 12 layers) on 1,024 frames
 SERVE_CELLS = (
     ("llama", "llama3.2-3b", 8, 16, 512, 1024, 16,
      (("1x2", False, False, "float32"), ("1x2", True, False, "float32"),
@@ -6101,7 +6122,19 @@ SERVE_CELLS = (
       ("1x2", True, False, "bfloat16"))),
     ("mamba2", "mamba2-2.7b", 4, 2, 1024, 1024, 8,
      (("1x2", True, False, "float32"), ("1x2", True, True, "float32"),
+      ("1x2", True, False, "bfloat16"))),
+    ("recurrentgemma", "recurrentgemma-9b", 8, 2, 2100, 2304, 8,
+     (("1x2", True, False, "float32"), ("1x2", True, True, "float32"),
+      ("1x2", True, False, "bfloat16"))),
+    ("seamless", "seamless-m4t-medium", 12, 2, 128, 256, 8,
+     (("1x2", True, False, "float32"), ("1x2", True, True, "float32"),
       ("1x2", True, False, "bfloat16"))))
+# the cells that run after the others, each alone (the card's memory:
+# recurrentgemma-9b's 8 layers and untied 256,000-row embedding and head
+# hold 3.48B parameters, and its cell alone peaked at 63.4 GB of the
+# card's 80 by nvidia-smi, its one float32 process 18.1 GB reserved and
+# each rank 11.2; seamless-m4t-medium's at 18.6 GB)
+SERVE_APART = ("recurrentgemma", "seamless")
 # the float32 gate: each step's logits within this of one process's,
 # relative to the step's largest |logit|
 SERVE_REL = 1e-4
@@ -6135,6 +6168,10 @@ torch.cuda.set_device(dev)
 cfg = dataclasses.replace(get_config(arch), n_layers=layers)
 rng = np.random.default_rng(2000)
 toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+frames = None
+if cfg.arch_type in R.ENCDEC_FAMILIES:
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)).to(dev)
 ssm = cfg.arch_type == "ssm"
 recs = []
 for i, (mspec, resident, seq_cut, dt) in enumerate(runs):
@@ -6153,6 +6190,8 @@ for i, (mspec, resident, seq_cut, dt) in enumerate(runs):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     kw = dict(cache_len_cap=None if ssm else cap)
+    if frames is not None:
+        kw["prefix_emb"] = frames[lo:hi]
     if mesh is not None:
         kw.update(global_batch=B, cache_seq_shard=seq_cut)
         tp.comms.reset()
@@ -6200,7 +6239,8 @@ for i, (mspec, resident, seq_cut, dt) in enumerate(runs):
                  "prefill_s": prefill_s, "decode_s_per_step": decode_s,
                  "prefill_comms": pre_comms, "step_comms": step,
                  "launches": launches,
-                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9})
     del model, cache, logits
     torch.cuda.empty_cache()
 with open(out, "w") as f:
@@ -6219,10 +6259,38 @@ def cut_counters(RN, FA, PG, SSD, OV, RG):
                 ragged_decode_partial=(PG, "partial_launches"))
 
 
+def serve_attention(cfg, cap: int, seq_cut: bool):
+    """The decode attentions of a phase-20 run, one entry a kind: (count
+    of them, keys each attends over, whether its cache is cut on the
+    sequence).  The reference's specs cut a cache on the sequence only
+    where 16 divides its slots (or frames), else on head_dim; a ring
+    holds min(window, cap) slots (the hybrid's window is its own)."""
+    L = cfg.n_layers
+    if cfg.arch_type == "hybrid":
+        from repro_torch.models import rglru as HY
+        n = sum(k == "attention" for k in HY.kinds(cfg))
+        w = min(HY._hybrid(cfg)[0].local_window, cap)
+        return [(n, w, seq_cut and w % 16 == 0)]
+    if cfg.arch_type in ("audio", "encdec"):
+        se = cfg.frontend_tokens
+        return [(L, cap, seq_cut and cap % 16 == 0),
+                (L, se, seq_cut and se % 16 == 0)]
+    w = cap if cfg.sliding_window is None else min(cfg.sliding_window, cap)
+    return [(L, w, seq_cut and w % 16 == 0)]
+
+
 def serve_launches(cfg, ctr, steps: int, on_mesh: bool,
-                   seq_cut: bool) -> dict:
+                   seq_cut: bool, cap: int = 0) -> dict:
     """Every kernel's launches in a phase-20 run: a prefill and ``steps``
-    decode steps; 0 for a kernel off the path."""
+    decode steps; 0 for a kernel off the path.  The RMSNorms: two a
+    layer and the final one (the enc-dec's decoder three, its encoder
+    two and ``enc_norm`` in the prefill only); the flash forward once a
+    causal full-attention layer (not the hybrid's windowed attention nor
+    the enc-dec's encoder and cross-attention: ``chunked_attention``);
+    the RG-LRU scan once a recurrent layer in the prefill; each decode
+    attention a step through the whole-head kernel in one process, the
+    scores and softmax-P·V pair (head_dim cut) or the partial (sequence
+    cut) on a mesh."""
     L, T = cfg.n_layers, steps
     per = dict.fromkeys(ctr, 0)
     if cfg.arch_type == "ssm":
@@ -6234,14 +6302,25 @@ def serve_launches(cfg, ctr, steps: int, on_mesh: bool,
         else:
             per["rmsnorm_fwd"] = (2 * L + 1) * (1 + T)
         return per
-    per["rmsnorm_fwd"] = (2 * L + 1) * (1 + T)
-    per["flash_fwd"] = L if cfg.sliding_window is None else 0
-    if not on_mesh:
-        per["ragged_decode"] = L * T
-    elif seq_cut:
-        per["ragged_decode_partial"] = L * T
+    if cfg.arch_type in ("audio", "encdec"):
+        per["rmsnorm_fwd"] = (2 * cfg.n_encoder_layers + 1
+                              + (3 * L + 1) * (1 + T))
+        per["flash_fwd"] = L
     else:
-        per.update(decode_scores=L * T, decode_softmax_pv=L * T)
+        per["rmsnorm_fwd"] = (2 * L + 1) * (1 + T)
+        per["flash_fwd"] = (L if cfg.sliding_window is None
+                            and cfg.arch_type != "hybrid" else 0)
+    if cfg.arch_type == "hybrid":
+        from repro_torch.models import rglru as HY
+        per["rglru_scan_fwd"] = sum(k == "recurrent" for k in HY.kinds(cfg))
+    for n, _, seq in serve_attention(cfg, cap, seq_cut):
+        if not on_mesh:
+            per["ragged_decode"] += n * T
+        elif seq:
+            per["ragged_decode_partial"] += n * T
+        else:
+            per["decode_scores"] += n * T
+            per["decode_softmax_pv"] += n * T
     return per
 
 
@@ -6286,130 +6365,193 @@ def serve_comms(cfg, spec: str, seq_cut: bool, B: int, S: int, cap: int,
         add(dec, "model_all_gather", L, b * C // M * es)
     else:
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        W = cap if cfg.sliding_window is None else min(cfg.sliding_window,
-                                                       cap)
-        rows = W if (seq_cut or cfg.sliding_window is not None) else S
-        add(pre, "model_all_reduce", 1 + 2 * L, b * S * d * f4)
-        add(pre, "model_all_to_all", 2 * L, b * rows * Hkv // M * hd * es)
-        add(dec, "model_all_reduce", 1 + 2 * L, b * d * f4)
-        add(dec, "model_all_gather", L, b * (H + 2 * Hkv) * hd // M * es)
-        if seq_cut:
-            add(dec, "model_all_gather", L, b * H * (hd + 2) * f4)
+        att = serve_attention(cfg, cap, seq_cut)
+        n_self, w, seq = att[0]
+        # the prompt's K/V re-cut to the cache's box: an all-to-all of the
+        # rank's KV heads (of the ring, or of the cap for the sequence
+        # cut), none where every rank already holds the one KV head (MQA),
+        # but K and V of the rank's columns gathered in each attention
+        kv_split = Hkv % M == 0
+        rows = w if (seq or cfg.sliding_window is not None
+                     or cfg.arch_type == "hybrid") else S
+        if kv_split:
+            add(pre, "model_all_to_all", 2 * n_self,
+                b * rows * Hkv // M * hd * es)
+        elif Hkv == 1:
+            add(pre, "model_all_gather", 2 * n_self, b * S * hd // M * es)
         else:
-            add(dec, "model_all_reduce", L, b * H * W * f4)
-            add(dec, "model_all_to_all", L, b * H * hd // M * es)
+            raise NotImplementedError(f"{cfg.name}: a prediction for "
+                                      f"{Hkv} KV heads over {M} ranks")
+        add(pre, "model_all_reduce", 1 + 2 * L, b * S * d * f4)
+        add(dec, "model_all_reduce", 1 + 2 * L, b * d * f4)
+        if cfg.arch_type == "hybrid":
+            from repro_torch.models import rglru as HY
+            n_rec = L - n_self
+            W = HY._hybrid(cfg)[1]
+            add(pre, "model_all_gather", n_rec, b * S * W // M * es)  # y
+            add(dec, "model_all_gather", n_rec, b * W // M * es)
+        if cfg.arch_type in ("audio", "encdec"):
+            Le, se = cfg.n_encoder_layers, cfg.frontend_tokens
+            add(pre, "model_all_reduce", 2 * Le, b * se * d * f4)
+            add(pre, "model_all_reduce", L, b * S * d * f4)   # cross w_o
+            add(pre, "model_all_to_all", 2 * L, b * se * Hkv // M * hd * es)
+            add(dec, "model_all_reduce", L, b * d * f4)       # cross w_o
+        for i, (n, keys, seq) in enumerate(att):
+            q_only = i == 1                    # the cross-attention's q
+            add(dec, "model_all_gather", n,
+                b * (H if q_only else H + 2 * Hkv) * hd // M * es)
+            if seq:
+                add(dec, "model_all_gather", n, b * H * (hd + 2) * f4)
+            else:
+                add(dec, "model_all_reduce", n, b * H * keys * f4)
+                add(dec, "model_all_to_all", n, b * H * hd // M * es)
     return {w: {k: {"calls": c, "MB": n / 1e6} for k, (c, n) in t.items()}
             for w, t in (("prefill", pre), ("decode_step", dec))}
 
 
+def cut_blocks(t, M: int, dim: int, frames_major: bool) -> list:
+    """The M blocks of a cache (B, S, Hkv, hd) cut along ``dim`` (1 or 3)
+    as the ranks hold them: contiguous, or with ``frames_major`` the
+    enc-dec's cross K/V (B, Hkv, S', hd') read through their (B, S', Hkv,
+    hd') view, as ``attention.cross_decode_tp`` reads them."""
+    n = t.shape[dim] // M
+    if not frames_major:
+        return [t.narrow(dim, i * n, n).contiguous() for i in range(M)]
+    store = t.transpose(1, 2)
+    sdim = 2 if dim == 1 else 3
+    return [store.narrow(sdim, i * n, n).contiguous().transpose(1, 2)
+            for i in range(M)]
+
+
 def phase20a(PG, ref):
-    """The cut caches' decode kernels at llama3.2-3b's decode shape
-    (``CUT_SHAPE``: B 16, GQA 24/8, Skv 4,096, lengths 0, 127 and
-    Skv - 1 among random ones), hd 128 cut in 2 and 4, float32 (2e-5)
-    and bfloat16 (2e-2) against their plain versions: the head_dim cut's
-    scores on each slice (only keys up to each length compared) and
-    softmax-P·V on the summed scores, the sequence cut's partial on each
-    block (its softmax state; acc and l relative to 1 + the largest),
-    and both cuts' M parts summed or merged against the whole-head
-    decode kernel.  Each timed as in phase 1 (rank 0's part) beside its
-    plain version and its bytes bound (each input read once: q, the
-    valid keys' K or V, the scores; the output written once); the
-    scores' library column is one ``torch.matmul`` of the slices (all
-    keys: it cannot stop at a length), the other two have none."""
+    """The cut caches' decode kernels at ``CUT_SHAPES``: llama3.2-3b's
+    decode shape (B 16, GQA 24/8, Skv 4,096, lengths 0, 127 and Skv - 1
+    among random ones, hd 128 cut in 2 and 4), recurrentgemma-9b's ring
+    (B 2, MQA 16/1, hd 256 cut in 2 and 4: hd_r 128 and 64; its 2,048
+    slots all valid) and seamless-m4t-medium's cross-attention (B 2, MHA
+    16/16, hd 64 cut in 2: hd_r 32; 1,024 frames all valid, the blocks
+    held frames-major), float32 (2e-5) and bfloat16 (2e-2) against their
+    plain versions: the head_dim cut's scores on each slice (only keys
+    up to each length compared) and softmax-P·V on the summed scores,
+    the sequence cut's partial on each block (its softmax state; acc and
+    l relative to 1 + the largest), and both cuts' M parts summed or
+    merged against the whole-head decode kernel.  Each timed as in phase
+    1 (rank 0's part) beside its plain version and its bytes bound (each
+    input read once: q, the valid keys' K or V, the scores; the output
+    written once); the scores' library column is one ``torch.matmul`` of
+    the slices (all keys: it cannot stop at a length), the other two
+    have none.  The llama shape's entries keep their untagged names
+    (``decode_scores/M2/bfloat16``), the others carry their tag
+    (``decode_scores/recurrentgemma/M2/bfloat16``)."""
     from repro_torch.models.attention import merge_decode_partials
     g = torch.Generator(device="cuda").manual_seed(20)
     timer = Timer(iters=20)
-    B, H, Hkv, hd, S = CUT_SHAPE
-    G = H // Hkv
     errors, times = [], {}
-    for dtype in DTYPES:
-        dn = str(dtype).replace("torch.", "")
-        es = torch.tensor([], dtype=dtype).element_size()
-        q = torch.randn(B, H, hd, generator=g, device="cuda").to(dtype)
-        k = torch.randn(B, S, Hkv, hd, generator=g, device="cuda").to(dtype)
-        v = torch.randn(B, S, Hkv, hd, generator=g, device="cuda").to(dtype)
-        lens = torch.randint(1, S - 1, (B,), generator=g, device="cuda")
-        lens[0], lens[1], lens[2] = 0, S - 1, 127
-        lens = lens.to(torch.int32)
-        n_keys = int(lens.long().sum()) + B
-        whole = PG.ragged_decode_attention(q, k.transpose(1, 2),
-                                           v.transpose(1, 2), lens)
-        valid = (torch.arange(S, device="cuda")[None, :]
-                 <= lens.long()[:, None])[:, None, :]
-        for M in (2, 4):
-            w, n = hd // M, S // M
-            qs = [q[..., i * w:(i + 1) * w] for i in range(M)]
-            ks = [k[..., i * w:(i + 1) * w].contiguous() for i in range(M)]
-            vs = [v[..., i * w:(i + 1) * w].contiguous() for i in range(M)]
-            sc = [PG.decode_scores(a, b_, lens) for a, b_ in zip(qs, ks)]
-            torch.cuda.synchronize()
-            # entries past a length are never written: compared as 0
-            e_s = max(max_err(torch.where(valid, s_, 0.0),
-                              ref.decode_scores_ref(a, b_, lens), dtype)
-                      for s_, a, b_ in zip(sc, qs, ks))
-            s = sum(sc)
-            pv = [PG.decode_softmax_pv(s, c, lens, head_dim=hd) for c in vs]
-            torch.cuda.synchronize()
-            e_pv = max(max_err(o, ref.decode_softmax_pv_ref(s, c, lens, hd),
-                               dtype) for o, c in zip(pv, vs))
-            e_hd = max_err(torch.cat(pv, -1), whole, dtype)
-            locs = [(lens - i * n).contiguous() for i in range(M)]
-            kb = [k[:, i * n:(i + 1) * n] for i in range(M)]
-            vb = [v[:, i * n:(i + 1) * n] for i in range(M)]
-            parts = [PG.ragged_decode_partial(q, a, b_, c)
-                     for a, b_, c in zip(kb, vb, locs)]
-            torch.cuda.synchronize()
-            e_part = 0.0
-            for p_, a, b_, c in zip(parts, kb, vb, locs):
-                want = ref.decode_partial_ref(q, a, b_, c)
-                torch.testing.assert_close(p_[..., 0], want[..., 0],
-                                           **TOL[torch.float32])
-                top = 1 + want[..., 1:].abs().amax(-1, keepdim=True)
-                e_part = max(e_part, max_err(p_[..., 1:] / top,
-                                             want[..., 1:] / top, dtype))
-            e_seq = max_err(merge_decode_partials(torch.stack(parts))
-                            .to(dtype), whole, dtype)
-            errors.append(("decode_cut", f"M{M}", dn,
-                           {"scores": e_s, "softmax_pv": e_pv,
-                            "hd_cut_vs_whole": e_hd, "partial": e_part,
-                            "seq_cut_vs_whole": e_seq}))
-            a, b_, c = qs[0], ks[0], vs[0]
-            shape = (f"B {B}, GQA {H}/{Hkv}, Skv {S}, hd {hd} cut in {M} "
-                     f"({w} a rank), {dn}, {n_keys} valid keys")
-            times[f"decode_scores/M{M}/{dn}"] = dict(
-                ms=timer(lambda: PG.decode_scores(a, b_, lens)),
-                plain_ms=timer(lambda: ref.decode_scores_ref(a, b_, lens)),
-                library_ms=timer(lambda: torch.matmul(
-                    a.reshape(B, Hkv, G, w),
-                    b_.permute(0, 2, 3, 1))),
-                library_call="torch.matmul of the slices over all Skv keys",
-                shape=shape,
-                **bound(B * H * w * es + n_keys * Hkv * w * es
-                        + n_keys * H * 4 + 4 * B,
-                        2 * n_keys * H * w, dtype))
-            times[f"decode_softmax_pv/M{M}/{dn}"] = dict(
-                ms=timer(lambda: PG.decode_softmax_pv(s, c, lens,
-                                                      head_dim=hd)),
-                plain_ms=timer(lambda: ref.decode_softmax_pv_ref(
-                    s, c, lens, hd)),
-                library_ms=None, shape=shape,
-                **bound(n_keys * H * 4 + n_keys * Hkv * w * es
-                        + B * H * w * es + 4 * B,
-                        n_keys * H * (2 * w + 4), dtype))
-            nb = int((locs[0].long().clamp(-1, n - 1) + 1).sum())
-            times[f"ragged_decode_partial/M{M}/{dn}"] = dict(
-                ms=timer(lambda: PG.ragged_decode_partial(
-                    q, kb[0], vb[0], locs[0])),
-                plain_ms=timer(lambda: ref.decode_partial_ref(
-                    q, kb[0], vb[0], locs[0])),
-                library_ms=None,
-                shape=(f"B {B}, GQA {H}/{Hkv}, hd {hd}, keys [0, {n}) of "
-                       f"{S} (rank 0 of {M}), {dn}, {nb} valid keys"),
-                **bound(B * H * hd * es + 2 * nb * Hkv * hd * es
-                        + B * H * (hd + 2) * 4 + 4 * B,
-                        4 * nb * H * hd, dtype))
-        del q, k, v, whole
-        torch.cuda.empty_cache()
+    for tag, B, H, Hkv, hd, S, cuts, frames_major in CUT_SHAPES:
+        G = H // Hkv
+        pre = "" if tag == "llama" else f"{tag}/"
+        for dtype in DTYPES:
+            dn = str(dtype).replace("torch.", "")
+            es = torch.tensor([], dtype=dtype).element_size()
+            q = torch.randn(B, H, hd, generator=g, device="cuda").to(dtype)
+            k = torch.randn(B, S, Hkv, hd, generator=g,
+                            device="cuda").to(dtype)
+            v = torch.randn(B, S, Hkv, hd, generator=g,
+                            device="cuda").to(dtype)
+            if tag == "llama":
+                lens = torch.randint(1, S - 1, (B,), generator=g,
+                                     device="cuda")
+                lens[0], lens[1], lens[2] = 0, S - 1, 127
+            else:          # the serving path's: every key valid
+                lens = torch.full((B,), S - 1, device="cuda")
+            lens = lens.to(torch.int32)
+            n_keys = int(lens.long().sum()) + B
+            whole = PG.ragged_decode_attention(q, k.transpose(1, 2),
+                                               v.transpose(1, 2), lens)
+            valid = (torch.arange(S, device="cuda")[None, :]
+                     <= lens.long()[:, None])[:, None, :]
+            for M in cuts:
+                w, n = hd // M, S // M
+                qs = [q[..., i * w:(i + 1) * w] for i in range(M)]
+                ks = cut_blocks(k, M, 3, frames_major)
+                vs = cut_blocks(v, M, 3, frames_major)
+                sc = [PG.decode_scores(a, b_, lens) for a, b_ in zip(qs, ks)]
+                torch.cuda.synchronize()
+                # entries past a length are never written: compared as 0
+                e_s = max(max_err(torch.where(valid, s_, 0.0),
+                                  ref.decode_scores_ref(a, b_, lens), dtype)
+                          for s_, a, b_ in zip(sc, qs, ks))
+                s = sum(sc)
+                pv = [PG.decode_softmax_pv(s, c, lens, head_dim=hd)
+                      for c in vs]
+                torch.cuda.synchronize()
+                e_pv = max(max_err(o, ref.decode_softmax_pv_ref(
+                    s, c, lens, hd), dtype) for o, c in zip(pv, vs))
+                e_hd = max_err(torch.cat(pv, -1), whole, dtype)
+                locs = [(lens - i * n).contiguous() for i in range(M)]
+                kb = cut_blocks(k, M, 1, frames_major)
+                vb = cut_blocks(v, M, 1, frames_major)
+                parts = [PG.ragged_decode_partial(q, a, b_, c)
+                         for a, b_, c in zip(kb, vb, locs)]
+                torch.cuda.synchronize()
+                e_part = 0.0
+                for p_, a, b_, c in zip(parts, kb, vb, locs):
+                    want = ref.decode_partial_ref(q, a, b_, c)
+                    torch.testing.assert_close(p_[..., 0], want[..., 0],
+                                               **TOL[torch.float32])
+                    top = 1 + want[..., 1:].abs().amax(-1, keepdim=True)
+                    e_part = max(e_part, max_err(p_[..., 1:] / top,
+                                                 want[..., 1:] / top, dtype))
+                e_seq = max_err(merge_decode_partials(torch.stack(parts))
+                                .to(dtype), whole, dtype)
+                errors.append(("decode_cut", f"{pre}M{M}", dn,
+                               {"scores": e_s, "softmax_pv": e_pv,
+                                "hd_cut_vs_whole": e_hd, "partial": e_part,
+                                "seq_cut_vs_whole": e_seq}))
+                a, b_, c = qs[0], ks[0], vs[0]
+                gqa = "MQA" if Hkv == 1 else ("MHA" if G == 1 else "GQA")
+                shape = (f"{tag}: B {B}, {gqa} {H}/{Hkv}, Skv {S}, hd {hd} "
+                         f"cut in {M} ({w} a rank), {dn}, {n_keys} valid "
+                         f"keys" + (", frames-major" if frames_major
+                                    else ""))
+                times[f"decode_scores/{pre}M{M}/{dn}"] = dict(
+                    ms=timer(lambda: PG.decode_scores(a, b_, lens)),
+                    plain_ms=timer(lambda: ref.decode_scores_ref(a, b_,
+                                                                 lens)),
+                    library_ms=timer(lambda: torch.matmul(
+                        a.reshape(B, Hkv, G, w),
+                        b_.permute(0, 2, 3, 1))),
+                    library_call="torch.matmul of the slices over all Skv "
+                                 "keys",
+                    shape=shape,
+                    **bound(B * H * w * es + n_keys * Hkv * w * es
+                            + n_keys * H * 4 + 4 * B,
+                            2 * n_keys * H * w, dtype))
+                times[f"decode_softmax_pv/{pre}M{M}/{dn}"] = dict(
+                    ms=timer(lambda: PG.decode_softmax_pv(s, c, lens,
+                                                          head_dim=hd)),
+                    plain_ms=timer(lambda: ref.decode_softmax_pv_ref(
+                        s, c, lens, hd)),
+                    library_ms=None, shape=shape,
+                    **bound(n_keys * H * 4 + n_keys * Hkv * w * es
+                            + B * H * w * es + 4 * B,
+                            n_keys * H * (2 * w + 4), dtype))
+                nb = int((locs[0].long().clamp(-1, n - 1) + 1).sum())
+                times[f"ragged_decode_partial/{pre}M{M}/{dn}"] = dict(
+                    ms=timer(lambda: PG.ragged_decode_partial(
+                        q, kb[0], vb[0], locs[0])),
+                    plain_ms=timer(lambda: ref.decode_partial_ref(
+                        q, kb[0], vb[0], locs[0])),
+                    library_ms=None,
+                    shape=(f"{tag}: B {B}, {gqa} {H}/{Hkv}, hd {hd}, keys "
+                           f"[0, {n}) of {S} (rank 0 of {M}), {dn}, {nb} "
+                           f"valid keys" + (", frames-major"
+                                            if frames_major else "")),
+                    **bound(B * H * hd * es + 2 * nb * Hkv * hd * es
+                            + B * H * (hd + 2) * 4 + 4 * B,
+                            4 * nb * H * hd, dtype))
+            del q, k, v, whole
+            torch.cuda.empty_cache()
     return errors, times
 
 
@@ -6439,7 +6581,7 @@ def serve_run(tmp, cell, cfg, spec, group, ranks, j, want, idx,
     tag, _, _, B, S, cap, steps, _ = cell
     _, resident, seq_cut, dt = ranks[0][j]["run"]
     ref_run = want[dt]
-    exp = serve_launches(cfg, ctr, steps, True, seq_cut)
+    exp = serve_launches(cfg, ctr, steps, True, seq_cut, cap)
     rel = torch.zeros(steps + 1)
     diff = steps + 1                  # the first pick that differs
     for r, recs in enumerate(ranks):
@@ -6481,7 +6623,8 @@ def serve_run(tmp, cell, cfg, spec, group, ranks, j, want, idx,
            "prefill_s": rec0["prefill_s"],
            "decode_s_per_step": rec0["decode_s_per_step"],
            "init_s": rec0["init_s"],
-           "peak_gb": [rr[j]["peak_gb"] for rr in ranks]}
+           "peak_gb": [rr[j]["peak_gb"] for rr in ranks],
+           "peak_reserved_gb": [rr[j]["peak_reserved_gb"] for rr in ranks]}
     if dt == "float32" and (rel > SERVE_REL or not same):
         raise AssertionError(f"{tag}/{key}: logits {rel:.3g} of the largest "
                              f"|logit| from one process's, tokens equal "
@@ -6520,7 +6663,7 @@ def serve_cell(tmp, cell, got, ctr) -> dict:
     want = {dt: torch.load(os.path.join(tmp, f"{tag}-{g1}-0.json.run{i}.pt"))
             for dt, i in one.items()}
     idx = {n: G.COUNTERS.index(c) for n, c in ctr.items()}
-    exp = serve_launches(cfg, ctr, steps, False, False)
+    exp = serve_launches(cfg, ctr, steps, False, False, cap)
     for r in one_runs:
         have = {n: r["launches"][i] for n, i in idx.items()}
         if have != exp:
@@ -6528,7 +6671,8 @@ def serve_cell(tmp, cell, got, ctr) -> dict:
     out = {"arch": arch, "layers": layers, "batch": B, "prompt": S,
            "cache_len_cap": cap, "steps": steps, "runs": {},
            "one": {dt: {k: one_runs[i][k] for k in (
-               "init_s", "prefill_s", "decode_s_per_step", "peak_gb")}
+               "init_s", "prefill_s", "decode_s_per_step", "peak_gb",
+               "peak_reserved_gb")}
                for dt, i in one.items()}}
     for spec, groups in got.items():
         if spec == "1x1":
@@ -6542,29 +6686,39 @@ def serve_cell(tmp, cell, got, ctr) -> dict:
 
 
 def phase20b(tmp, ctr):
-    """``SERVE_CELLS`` at once: each cell's one process and each of its
-    meshes' ranks, all sharing the card, then each cell's gates
-    (``serve_cell``)."""
-    procs, order = [], []
-    for cell in SERVE_CELLS:
-        groups = {("1x1", False): [["1x1", False, False, dt] for dt in
-                                   sorted({r[3] for r in cell[7]},
-                                          key=["float32",
-                                               "bfloat16"].index)]}
-        for run in cell[7]:
-            groups.setdefault((run[0], run[2]), []).append(list(run))
-        for (spec, seq_cut), runs in groups.items():
-            ps = serve_ranks(tmp, cell, spec, runs, tag=f"{spec}-{seq_cut:d}")
-            procs += ps
-            order.append((cell[0], spec, f"{spec}-{seq_cut:d}", len(ps)))
-    res = family_wait(procs)
-    got, i = {}, 0
-    for tag, spec, group, n in order:
-        got.setdefault(tag, {}).setdefault(spec, []).append(
-            (group, [r["runs"] for r in res[i:i + n]]))
-        i += n
-    return {cell[0]: serve_cell(tmp, cell, got[cell[0]], ctr)
-            for cell in SERVE_CELLS}
+    """``SERVE_CELLS`` in waves: the cells not in ``SERVE_APART`` at once,
+    then each apart cell alone; in a wave each cell's one process and
+    each of its meshes' ranks all share the card.  Then each cell's gates
+    (``serve_cell``).  Each cell's record holds its wave's wall."""
+    out = {}
+    waves = [[c for c in SERVE_CELLS if c[0] not in SERVE_APART]]
+    waves += [[c] for c in SERVE_CELLS if c[0] in SERVE_APART]
+    for cells in waves:
+        t = time.perf_counter()
+        procs, order = [], []
+        for cell in cells:
+            groups = {("1x1", False): [["1x1", False, False, dt] for dt in
+                                       sorted({r[3] for r in cell[7]},
+                                              key=["float32",
+                                                   "bfloat16"].index)]}
+            for run in cell[7]:
+                groups.setdefault((run[0], run[2]), []).append(list(run))
+            for (spec, seq_cut), runs in groups.items():
+                ps = serve_ranks(tmp, cell, spec, runs,
+                                 tag=f"{spec}-{seq_cut:d}")
+                procs += ps
+                order.append((cell[0], spec, f"{spec}-{seq_cut:d}", len(ps)))
+        res = family_wait(procs)
+        wall = time.perf_counter() - t
+        got, i = {}, 0
+        for tag, spec, group, n in order:
+            got.setdefault(tag, {}).setdefault(spec, []).append(
+                (group, [r["runs"] for r in res[i:i + n]]))
+            i += n
+        for cell in cells:
+            out[cell[0]] = dict(serve_cell(tmp, cell, got[cell[0]], ctr),
+                                wave_s=wall)
+    return out
 
 
 def phase20(PG, ref, ctr, smi):

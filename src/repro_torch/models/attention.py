@@ -24,7 +24,10 @@ Where each attention goes:
   ``decode_softmax_pv`` around an all-reduce of the scores, or over the
   sequence through ``kernels.backend.decode_partial`` and
   ``merge_decode_partials`` after an all-gather of the ranks' softmax
-  states.  No cache byte moves between ranks.
+  states.  No cache byte moves between ranks.  ``cross_decode_tp`` is
+  the enc-dec's cross-attention there (only q gathered; its K/V cut on
+  head_dim or on the frames); ``cache_to_box`` re-cuts a prompt's K/V
+  to the cache's box.
 """
 from __future__ import annotations
 
@@ -347,10 +350,14 @@ def kv_to_box(tp, t, *, n_heads: int, n_kv_heads: int, dim: int):
     rank's M-th part.  Where the model axis divides the KV heads, one
     all-to-all; where it does not, each rank holds one head, shared with
     its neighbours (``parallel.kv_block``): the ranks' heads are
-    gathered, one copy of each kept, and the block cut."""
+    gathered, one copy of each kept, and the block cut; a rank that holds
+    every KV head (MQA) cuts its block with no collective."""
     M = tp.n_model
     if n_kv_heads % M == 0:
         return tp.model_all_to_all(t, split_dim=dim, cat_dim=2)
+    if t.shape[2] == n_kv_heads:
+        n = t.shape[dim] // M
+        return t.narrow(dim, tp.model_index * n, n).contiguous()
     parts = tp.gather_model(t[None], 0)                    # (M, B, S, 1, hd)
     owner = {}
     for r in range(M):
@@ -358,6 +365,34 @@ def kv_to_box(tp, t, *, n_heads: int, n_kv_heads: int, dim: int):
     whole = torch.cat([parts[owner[h]] for h in range(n_kv_heads)], dim=2)
     n = whole.shape[dim] // M
     return whole.narrow(dim, tp.model_index * n, n).contiguous()
+
+
+def cache_to_box(tp, k, v, *, slots: int, ring: bool, dim: int,
+                 n_heads: int, n_kv_heads: int):
+    """A layer's decode cache in the rank's box, from its prompt's K/V
+    (B, S, Hkv', hd) after RoPE (the KV heads the rank's query heads
+    attend to, ``project_kv``'s): a full cache of ``slots`` positions,
+    the prompt in its first S and zeros after, or a ring of ``slots``
+    (``ring_from_prefill``, its whole ``pos`` kept), each re-cut along
+    ``dim`` (1: the sequence, 3: head_dim) by :func:`kv_to_box`.
+    Returns {"k", "v"} (and the ring's "pos")."""
+    S = k.shape[1]
+    pos = None
+    if ring:
+        r = ring_from_prefill(k, v, S, slots)
+        k, v, pos = r["k"], r["v"], r["pos"]
+    elif dim == 1:               # the sequence cut: its blocks of the cap
+        k, v = (F.pad(t, (0, 0, 0, 0, 0, slots - S)) for t in (k, v))
+    out = {}
+    for n, t in (("k", k), ("v", v)):
+        t = kv_to_box(tp, t, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                      dim=dim)
+        if not ring and dim == 3:
+            t = F.pad(t, (0, 0, 0, 0, 0, slots - S))
+        out[n] = t
+    if pos is not None:
+        out["pos"] = pos
+    return out
 
 
 def merge_decode_partials(parts):
@@ -442,17 +477,56 @@ def decode_attn_tp(p: Attention, x, cache, cache_len, *, n_heads: int,
         idx = base + local.clamp(0, n - 1)
         _write_owned(flat_k, idx, own, k[:, 0])
         _write_owned(flat_v, idx, own, v[:, 0])
-    L32 = lengths.to(torch.int32).contiguous()
+    return _attend_cut(p, q[:, 0], kc, vc, lengths, cut, head_dim=head_dim,
+                       tp=tp, dtype=x.dtype), cache
+
+
+def _attend_cut(p: Attention, q, k, v, lengths, cut, *, head_dim: int, tp,
+                dtype):
+    """One token's attention over the rank's blocks of a cut cache, then
+    the row-parallel ``w_o``.  q (B, H, hd) every head, whole; k, v (B,
+    S', Hkv, hd') the rank's blocks; lengths (B,) each row's last valid
+    key, a whole-cache position; ``cut`` (dim, start, stop) of the blocks
+    in those dims (1: the keys, 3: head_dim).  The head_dim cut: the
+    rank's slice of every head scored (``decode_scores``), the scores
+    summed over the group, softmax and P V over its V slice with the
+    whole head's scale, the output re-cut to the rank's heads by an
+    all-to-all.  The key cut: the rank's softmax states over its keys
+    (``decode_partial``), gathered and merged in rank order, the rank's
+    heads kept.  Returns out (B, 1, d), summed over the group."""
+    B, H = q.shape[:2]
+    dim, lo, hi = cut
     if dim == 3:
-        s = KB.decode_scores(q[:, 0, :, lo:hi], kc, L32)
+        L32 = lengths.to(torch.int32).contiguous()
+        s = KB.decode_scores(q[..., lo:hi], k, L32)
         if tp.n_model > 1:
             tp.all_reduce(s, tp.model_group, "model_all_reduce")
-        o = KB.decode_softmax_pv(s, vc, L32, head_dim=head_dim)
+        o = KB.decode_softmax_pv(s, v, L32, head_dim=head_dim)
         o = tp.model_all_to_all(o, split_dim=1, cat_dim=2)
     else:
-        part = KB.decode_partial(q[:, 0], kc, vc,
+        part = KB.decode_partial(q, k, v,
                                  (lengths - lo).to(torch.int32).contiguous())
         o = merge_decode_partials(tp.gather_model(part[None], 0))
-        o = o[:, tp.model_slice(n_heads // tp.n_model)].to(x.dtype)
-    o = o.reshape(B, 1, -1) @ weight(p.w_o, x.dtype, tp)
-    return tp.from_model(o), cache
+        o = o[:, tp.model_slice(H // tp.n_model)].to(dtype)
+    o = o.reshape(B, 1, -1) @ weight(p.w_o, dtype, tp)
+    return tp.from_model(o)
+
+
+def cross_decode_tp(p: Attention, x, ek, ev, *, n_heads: int,
+                    head_dim: int, tp, cut, frames: int):
+    """The enc-dec's cross-attention for one token on a mesh, against the
+    rank's blocks of the layer's ``ek``/``ev`` (B, Hkv, Se', hd'), the
+    decode kernel's layout, read through their (B, Se', Hkv, hd') views;
+    every one of the ``frames`` frames of every row is valid.  x (B, 1,
+    d): the rank's rows; ``cut`` (dim, start, stop) of the blocks over
+    'model' in the views' dims (1: the frames, 3: head_dim).  Only q
+    moves: each rank multiplies its column block of ``w_q`` and the
+    products are gathered whole over the model group (no RoPE; no cache
+    byte is written or moved).  Then ``decode_attn_tp``'s attention over
+    a cut cache.  Returns out (B, 1, d)."""
+    B = x.shape[0]
+    q = tp.gather_model(x[:, 0] @ weight(p.w_q, x.dtype, tp), -1)
+    last = torch.full((B,), frames - 1, dtype=torch.int32, device=x.device)
+    return _attend_cut(p, q.reshape(B, n_heads, head_dim),
+                       ek.transpose(1, 2), ev.transpose(1, 2), last, cut,
+                       head_dim=head_dim, tp=tp, dtype=x.dtype)

@@ -21,6 +21,12 @@ precomputed frame embeddings (B, frames, d_model), the batch's
   so it is passed Se − 1).  ``decode_step`` writes the self-attention
   cache in place, so a captured CUDA graph replays it, and never writes
   ``ek``/``ev``.
+- **Sharded serving** (a model cut to a mesh): the encoder and the
+  decoder tensor-parallel as in training; the self-attention's cache and
+  ``ek``/``ev`` in the rank's boxes of the reference's
+  ``input_shardings`` (``ek``/``ev`` cut on head_dim, or on the frames
+  with ``cache_seq_shard``), attended over in place
+  (``attention.decode_attn_tp``, ``attention.cross_decode_tp``).
 
 The reference scans stacked layers; here each stack is a ``ModuleList``
 and the loop is Python.  ``remat`` recomputes each layer in the
@@ -39,7 +45,7 @@ from repro_torch.models.layers import (MLP, P, embed, embed_specs,
                                        fsdp_axis, lm_loss, mlp, mlp_specs,
                                        param, recompute, rmsnorm,
                                        trunc_normal_)
-from repro_torch.models.transformer import logits_from_hidden
+from repro_torch.models.transformer import kv_cut, logits_from_hidden
 from repro_torch.parallel import tp_of, weight
 
 
@@ -283,13 +289,57 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int, *,
             "ek": z(L, batch, Hkv, Se, hd), "ev": z(L, batch, Hkv, Se, hd)}
 
 
+# the cache's cross-attention K/V leaves
+CROSS_KV = ("ek", "ev")
+
+
+def _cross_cut(layout):
+    """(dim, start, stop) of the cross K/V's cut over 'model' in the
+    reference's (B, Se, Hkv, hd) order of a layer (1: the frames, 3:
+    head_dim), the order of every other family's K/V."""
+    cut = layout.layer_cut("ek")
+    if cut is None:
+        raise NotImplementedError(
+            f"a cross-attention cache cut {layout.specs['ek']}: the port "
+            f"serves the head_dim cut and the frame cut")
+    return {2: 1, 3: 3}[cut[0]], cut[1], cut[2]
+
+
+def _prefill_tp(model: EncDec, cfg: ModelConfig, tokens, enc_out, layout):
+    """``prefill`` on a mesh: the rank's rows, the encoder's output
+    ``enc_out`` (the encoder run tensor-parallel, as in training); each
+    decoder layer tensor-parallel, its self-attention's K/V placed in
+    the full cache and cut to its box, its cross-attention's K/V cut to
+    theirs (``attention.kv_to_box`` in the reference's (B, Se, Hkv, hd)
+    order, then transposed to the port's).  Returns (the rank's vocab
+    columns of the last position's logits (B, 1, V/M) float32, the
+    rank's cache blocks)."""
+    tp = model.tp
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+    dim, e_dim = kv_cut(layout)[0], _cross_cut(layout)[0]
+    x = embed(model, tokens, model.dtype, tp)
+    layers = []
+    for layer in model.decoder:
+        x, kv, ekv = _dec_layer(layer, x, enc_out, cfg, tp)
+        c = A.cache_to_box(tp, *kv, slots=layout.shapes["k"][2], ring=False,
+                           dim=dim, **kw)
+        for n, t in zip(CROSS_KV, ekv):
+            c[n] = A.kv_to_box(tp, t, dim=e_dim, **kw).transpose(
+                1, 2).contiguous()
+        layers.append(c)
+    data = {n: torch.stack([c[n] for c in layers]) for n in layers[0]}
+    x = rmsnorm(x[:, -1:].contiguous(), model.final_norm, cfg.norm_eps)
+    return (x @ tp.head(model, x.dtype)).float(), data
+
+
 def prefill(model: EncDec, cfg: ModelConfig, tokens, *, prefix_emb,
-            cache_len_cap: int):
+            cache_len_cap: int, layout=None):
     """Encode the source frames ``prefix_emb`` (B, Se, d) and run the
     prompt, tokens (B, S), at its exact length.  Returns (logits (B, 1,
     V) float32 at the last position, the cache of ``cache_struct``: the
     prompt's K/V in the first S rows of ``k``/``v``, each layer's
-    cross-attention K/V in ``ek``/``ev``)."""
+    cross-attention K/V in ``ek``/``ev``).  On a mesh (``layout``, the
+    cache's ``parallel.CacheLayout``) see ``_prefill_tp``."""
     if prefix_emb is None:
         raise ValueError("the enc-dec's prefill needs the source "
                          "embeddings (prefix_emb)")
@@ -297,13 +347,15 @@ def prefill(model: EncDec, cfg: ModelConfig, tokens, *, prefix_emb,
     if S > cache_len_cap:
         raise ValueError(f"prompt of {S} tokens exceeds cache_len_cap "
                          f"{cache_len_cap}")
+    if prefix_emb.shape[1] != cfg.frontend_tokens:
+        raise ValueError(f"{prefix_emb.shape[1]} source frames; the config "
+                         f"takes {cfg.frontend_tokens}")
     enc_out = encode(model, cfg, prefix_emb.to(model.dtype), remat=False)
+    if layout is not None:
+        return _prefill_tp(model, cfg, tokens, enc_out, layout)
     x = model.tok[tokens]
     data = cache_struct(cfg, B, cache_len_cap, dtype=model.dtype,
                         device=x.device)
-    if enc_out.shape[1] != data["ek"].shape[3]:
-        raise ValueError(f"{enc_out.shape[1]} source frames; the config "
-                         f"takes {cfg.frontend_tokens}")
     for i, layer in enumerate(model.decoder):
         x, (k, v), (ek, ev) = _dec_layer(layer, x, enc_out, cfg)
         data["k"][i, :, :S] = k
@@ -326,11 +378,44 @@ def _cross_decode(p: Attention, h, ek, ev, cfg: ModelConfig):
     return o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p.w_o
 
 
-def decode_step(model: EncDec, cfg: ModelConfig, data, cache_len, token):
+def _decode_tp(model: EncDec, cfg: ModelConfig, data, cache_len, token,
+               layout):
+    """``decode_step`` on a mesh: the rank's rows; the self-attention over
+    its blocks of ``k``/``v``, written in place (``attention.
+    decode_attn_tp``), the cross-attention over its blocks of
+    ``ek``/``ev`` (``attention.cross_decode_tp``); the rank's vocab
+    columns of the logits."""
+    tp = model.tp
+    cut, e_cut = kv_cut(layout), _cross_cut(layout)
+    kw = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim, tp=tp)
+    x = embed(model, token, model.dtype, tp)
+    for i, layer in enumerate(model.decoder):
+        h = rmsnorm(x, layer.norm1, cfg.norm_eps)
+        a, _ = A.decode_attn_tp(
+            layer.self_attn, h, {"k": data["k"][i], "v": data["v"][i]},
+            cache_len, n_kv_heads=cfg.n_kv_heads, rope_theta=cfg.rope_theta,
+            window=None, cut=cut, seq_len=layout.shapes["k"][2], **kw)
+        x = x + a
+        h = rmsnorm(x, layer.norm3, cfg.norm_eps)
+        x = x + A.cross_decode_tp(layer.cross_attn, h, data["ek"][i],
+                                  data["ev"][i], cut=e_cut,
+                                  frames=cfg.frontend_tokens, **kw)
+        h = rmsnorm(x, layer.norm2, cfg.norm_eps)
+        x = x + mlp(layer.mlp, h, cfg.act, tp)
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return (x @ tp.head(model, x.dtype)).float(), data
+
+
+def decode_step(model: EncDec, cfg: ModelConfig, data, cache_len, token,
+                layout=None):
     """One decode step.  token: (B, 1) int; data: the cache from
     ``prefill`` or ``cache_struct``, its ``k``/``v`` written in place at
     ``cache_len`` (an int or 0-d tensor: every row at one depth).
-    Returns (logits (B, 1, V) float32, data)."""
+    Returns (logits (B, 1, V) float32, data).  On a mesh (``layout``)
+    the rows, the cache blocks and the logits are the rank's
+    (``_decode_tp``)."""
+    if layout is not None:
+        return _decode_tp(model, cfg, data, cache_len, token, layout)
     x = model.tok[token]
     for i, layer in enumerate(model.decoder):
         h = rmsnorm(x, layer.norm1, cfg.norm_eps)

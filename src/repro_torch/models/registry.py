@@ -152,14 +152,14 @@ def prefill(model, cfg: ModelConfig, tokens, *,
     takes none.  ``prefix_emb`` (B, P, d) is the VLM's patches or the
     enc-dec's source frames (which it needs).
 
-    A model cut to a mesh (the dense, MoE, VLM and ssm families) serves
-    sharded: ``tokens`` (and ``prefix_emb``) are this rank's rows of a
-    batch of ``global_batch`` (its block of the tokens' spec: the whole
-    batch where the batch does not split over data), the logits its
-    vocab columns (B, 1, V/M), and the cache its blocks of the decode
-    cache's ``input_shardings`` (``parallel.cache_layout``;
-    ``cache_seq_shard`` picks the sequence cut), ready for
-    :func:`decode_step`; ``lengths`` is whole."""
+    A model cut to a mesh serves sharded, in every family (the dense,
+    MoE, VLM, ssm, hybrid and enc-dec ones): ``tokens`` (and
+    ``prefix_emb``) are this rank's rows of a batch of ``global_batch``
+    (its block of the tokens' spec: the whole batch where the batch does
+    not split over data), the logits its vocab columns (B, 1, V/M), and
+    the cache its blocks of the decode cache's ``input_shardings``
+    (``parallel.cache_layout``; ``cache_seq_shard`` picks the sequence
+    cut), ready for :func:`decode_step`; ``lengths`` is whole."""
     from repro_torch.serving import cache as sc   # serving imports this
     fam = family(cfg)
     kw = {}
@@ -417,13 +417,31 @@ def _map_leaves(fn, tree):
     return fn(tree)
 
 
+def _swap_frames(seq):
+    """The enc-dec's cross K/V shape or spec between the port's dim order
+    (L, B, Hkv, Se, hd), the decode kernel's layout, and the reference's
+    (L, B, Se, Hkv, hd): dims 2 and 3 swapped (the swap is its own
+    inverse)."""
+    seq = list(seq)
+    seq[2], seq[3] = seq[3], seq[2]
+    return seq
+
+
 def input_shardings(cfg: ModelConfig, shape: InputShape,
                     multi_pod: bool = False,
                     cache_seq_shard: bool = False):
     """The spec tree of :func:`input_specs`' inputs, the reference's
     rules: batches over the data axes when they divide; decode caches
     (layer-stacked, the hybrid's a list) by :func:`_cache_spec`, their
-    int32 position arrays replicated."""
+    int32 position arrays replicated.
+
+    Each spec cuts the same logical dims as the reference's spec of the
+    same leaf, leaf for leaf.  For every leaf but the enc-dec's ``ek`` /
+    ``ev`` that is the same tuple.  Those two the port holds (L, B, Hkv,
+    Se, hd): their spec is computed on the reference's (L, B, Se, Hkv,
+    hd) and then permuted to the port's order, so the sequence cut falls
+    on the frames (port dim 3) and the default on head_dim, as the
+    reference's do."""
     b = _batch_axes(shape.global_batch, multi_pod)
     if shape.mode in ("train", "prefill"):
         struct = input_specs(cfg, shape)
@@ -432,16 +450,21 @@ def input_shardings(cfg: ModelConfig, shape: InputShape,
     struct = decode_struct(cfg, shape.global_batch, shape.seq_len)
     layer_stacked = cfg.arch_type != "hybrid"
 
-    def spec_of(leaf):
+    def spec_of(leaf, cross=False):
         if leaf.dim() == 0:
             return P()
         if leaf.shape[-1] == 1 and leaf.dim() == 2:      # token (B, 1)
             return P(b, None)
         if leaf.dtype == torch.int32:                    # positions
             return P(*([None] * leaf.dim()))
-        return _cache_spec(tuple(leaf.shape), b,
+        dims = _swap_frames(leaf.shape) if cross else tuple(leaf.shape)
+        spec = _cache_spec(tuple(dims), b,
                            layer_stacked and leaf.dim() >= 3,
                            seq_shard=cache_seq_shard)
+        return P(*_swap_frames(spec)) if cross else spec
 
-    return {"cache": _map_leaves(spec_of, struct["cache"]),
-            "token": P(b, None)}
+    cache = _map_leaves(spec_of, struct["cache"])
+    if cfg.arch_type in ENCDEC_FAMILIES:
+        for n in encdec.CROSS_KV:
+            cache.data[n] = spec_of(struct["cache"].data[n], cross=True)
+    return {"cache": cache, "token": P(b, None)}

@@ -24,6 +24,11 @@ decode step.
   {"conv": its last conv1d_width − 1 inputs, "h": the float32 state}, an
   attention layer's ring {"k", "v", "pos"}.  ``decode_step`` writes every
   one in place, so a captured CUDA graph replays it.
+- **Sharded serving** (a model cut to a mesh): the recurrent blocks
+  width-parallel, their states the rank's block of channels (as the
+  reference's specs cut them: no collective builds them); the rings cut
+  on head_dim or on the slots and attended over in place
+  (``attention.decode_attn_tp`` with the window).
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from repro_torch.models.layers import (MLP, P, act_fn, copy_whole_, embed,
                                        mlp_specs, out_std, param, recompute,
                                        rmsnorm, trunc_normal_, whole_shape)
 from repro_torch.models.mamba2 import causal_conv1d
-from repro_torch.models.transformer import logits_from_hidden
+from repro_torch.models.transformer import kv_cut, logits_from_hidden
 from repro_torch.parallel import tp_of, weight
 
 LRU_C = 8.0
@@ -260,7 +265,9 @@ def recurrent_forward(m: Recurrent, x, cfg: ModelConfig, *,
     on the rank's W/M channels, ``w_out`` row-parallel.  The gates'
     ``w_r`` and ``w_i`` take the whole y (W, W), so y is gathered over
     the model group before them (``model_gather``, whose backward sums
-    y's grad over the group)."""
+    y's grad over the group).  The state is then the rank's block of
+    channels, the decode cache's block (``conv`` and ``h`` are cut over
+    W as ``w_x`` and ``lam`` are): it needs no collective."""
     h_cfg, _ = _hybrid(cfg)
     gelu = act_fn("gelu")
     dt = x.dtype
@@ -275,7 +282,7 @@ def recurrent_forward(m: Recurrent, x, cfg: ModelConfig, *,
     hs, h_last = rglru_scan(y, r, i, m.lam)
     out = (gate * hs) @ weight(m.w_out, dt, tp)
     if tp is not None:
-        return tp.from_model(out)
+        out = tp.from_model(out)
     if not with_state:
         return out
     K = h_cfg.conv1d_width
@@ -283,27 +290,38 @@ def recurrent_forward(m: Recurrent, x, cfg: ModelConfig, *,
     return out, {"conv": tail, "h": h_last}
 
 
-def recurrent_decode(m: Recurrent, x, state, cfg: ModelConfig):
+def recurrent_decode(m: Recurrent, x, state, cfg: ModelConfig, tp=None):
     """One token through the block.  x: (B, 1, d); state: {"conv": (B,
     K − 1, W) in x's dtype, "h": (B, W) float32}, both written in place.
     The conv sums its K products in x's dtype in the order i = 0..K−1, as
-    ``causal_conv1d`` does.  Returns out (B, 1, d)."""
+    ``causal_conv1d`` does.  Returns out (B, 1, d).
+
+    On a mesh (``tp``) the block is width-parallel as in
+    ``recurrent_forward``: x holds the rank's rows, the state the rank's
+    blocks of its channels (W/M); y is gathered over the model group
+    before ``w_r`` and ``w_i``, so r and i come out as the rank's block,
+    and ``w_out`` is row-parallel."""
     gelu = act_fn("gelu")
+    dt = x.dtype
     xt = x[:, 0]
-    gate = gelu(xt @ m.w_gate.to(x.dtype))
-    buf = torch.cat([state["conv"], (xt @ m.w_x.to(x.dtype))[:, None]],
+    gate = gelu(xt @ weight(m.w_gate, dt, tp))
+    buf = torch.cat([state["conv"], (xt @ weight(m.w_x, dt, tp))[:, None]],
                     dim=1)
-    w = m.conv_w.to(x.dtype)
+    w = m.conv_w.to(dt)
     y = buf[:, 0] * w[0]
     for k in range(1, w.shape[0]):
         y = y + buf[:, k] * w[k]
-    y = y + m.conv_b.to(x.dtype)
-    r = torch.sigmoid(y @ m.w_r.to(x.dtype))
-    i = torch.sigmoid(y @ m.w_i.to(x.dtype))
+    y = y + m.conv_b.to(dt)
+    y_all = y if tp is None else tp.model_gather(y, -1)
+    r = torch.sigmoid(y_all @ weight(m.w_r, dt, tp))
+    i = torch.sigmoid(y_all @ weight(m.w_i, dt, tp))
     h, h32 = rglru_step(state["h"], y, r, i, m.lam)
     state["conv"].copy_(buf[:, 1:])
     state["h"].copy_(h32)
-    return ((gate * h) @ m.w_out.to(x.dtype))[:, None]
+    out = (gate * h) @ weight(m.w_out, dt, tp)
+    if tp is not None:
+        out = tp.from_model(out)
+    return out[:, None]
 
 
 # --------------------------------------------------------------------- #
@@ -383,11 +401,94 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int, *,
     return caches
 
 
-def prefill(model: Hybrid, cfg: ModelConfig, tokens, *, cache_len_cap: int):
+def _state_cut(layout) -> None:
+    """Refuse a recurrent state not cut over its channels as the block's
+    weights are (the rank's W/M of ``conv`` and ``h``)."""
+    for name, dim in (("conv", 2), ("h", 1)):
+        cut = layout.layer_cut(name)
+        if cut is None or cut[0] != dim:
+            raise NotImplementedError(
+                f"recurrent state {name!r} cut {layout.specs[name]}: the "
+                f"port serves it cut over its channels")
+
+
+def _ring_cut(layout):
+    """(dim, start, stop) of the rings' cut over 'model' in a ring's
+    (B, W, Hkv, hd) dims, None where the config has no attention
+    layer."""
+    return kv_cut(layout) if "k" in layout.shapes else None
+
+
+def _prefill_tp(model: Hybrid, cfg: ModelConfig, tokens, layout):
+    """``prefill`` on a mesh: the rank's rows, the layers as in training
+    (width-parallel recurrent blocks, the attention on the rank's heads,
+    the one KV head gathered); each recurrent layer's state its block of
+    channels as computed, each attention layer's ring cut to its box
+    (``attention.cache_to_box``).  Returns (the rank's vocab columns of
+    the last position's logits (B, 1, V/M) float32, the rank's cache
+    blocks, a list in network order)."""
+    tp = model.tp
+    _state_cut(layout)
+    cut = _ring_cut(layout)
+    x = embed(model, tokens, model.dtype, tp)
+    caches = []
+    for layer in model.layers:
+        h = rmsnorm(x, layer.norm1, cfg.norm_eps)
+        if layer.kind == "recurrent":
+            t, st = recurrent_forward(layer.temporal, h, cfg,
+                                      with_state=True, tp=tp)
+            caches.append(st)
+        else:
+            t, kv = _attention(layer, h, cfg, tp)
+            caches.append(A.cache_to_box(
+                tp, *kv, slots=layout.shapes["k"][1], ring=True,
+                dim=cut[0], n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads))
+        x = x + t
+        x = x + mlp(layer.mlp, rmsnorm(x, layer.norm2, cfg.norm_eps),
+                    cfg.act, tp)
+    x = rmsnorm(x[:, -1:].contiguous(), model.final_norm, cfg.norm_eps)
+    return (x @ tp.head(model, x.dtype)).float(), caches
+
+
+def _decode_tp(model: Hybrid, cfg: ModelConfig, cache, cache_len, token,
+               layout):
+    """``decode_step`` on a mesh: the rank's rows, its cache blocks
+    written in place (``recurrent_decode(tp=)``; the rings through
+    ``attention.decode_attn_tp`` with the window), the rank's vocab
+    columns of the logits."""
+    tp = model.tp
+    _state_cut(layout)
+    cut = _ring_cut(layout)
+    h_cfg, _ = _hybrid(cfg)
+    x = embed(model, token, model.dtype, tp)
+    for layer, cl in zip(model.layers, cache):
+        h = rmsnorm(x, layer.norm1, cfg.norm_eps)
+        if layer.kind == "recurrent":
+            t = recurrent_decode(layer.temporal, h, cl, cfg, tp)
+        else:
+            t, _ = A.decode_attn_tp(
+                layer.temporal, h, cl, cache_len, n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                rope_theta=cfg.rope_theta, window=h_cfg.local_window,
+                tp=tp, cut=cut, seq_len=layout.shapes["k"][1])
+        x = x + t
+        x = x + mlp(layer.mlp, rmsnorm(x, layer.norm2, cfg.norm_eps),
+                    cfg.act, tp)
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return (x @ tp.head(model, x.dtype)).float(), cache
+
+
+def prefill(model: Hybrid, cfg: ModelConfig, tokens, *, cache_len_cap: int,
+            layout=None):
     """Run the prompt, tokens (B, S), at its exact length in the model's
     dtype.  Returns (logits (B, 1, V) float32 at the last position, the
     cache: ``cache_struct``'s list, each ring of min(window,
-    cache_len_cap) slots built by ``attention.ring_from_prefill``)."""
+    cache_len_cap) slots built by ``attention.ring_from_prefill``).  On a
+    mesh (``layout``, the cache's ``parallel.CacheLayout``) see
+    ``_prefill_tp``."""
+    if layout is not None:
+        return _prefill_tp(model, cfg, tokens, layout)
     h_cfg, _ = _hybrid(cfg)
     S = tokens.shape[1]
     W = min(h_cfg.local_window, cache_len_cap)
@@ -409,12 +510,16 @@ def prefill(model: Hybrid, cfg: ModelConfig, tokens, *, cache_len_cap: int):
     return logits_from_hidden(model, x[:, -1:]), caches
 
 
-def decode_step(model: Hybrid, cfg: ModelConfig, cache, cache_len, token):
+def decode_step(model: Hybrid, cfg: ModelConfig, cache, cache_len, token,
+                layout=None):
     """One decode step for every row at one depth.  token: (B, 1) int;
     cache: the list from ``prefill`` or ``cache_struct``, written in
     place; cache_len: the new token's position (an int or a 0-d tensor;
     the rings' rows share one ``pos``).  Returns (logits (B, 1, V)
-    float32, cache)."""
+    float32, cache).  On a mesh (``layout``) the rows, the cache blocks
+    and the logits are the rank's (``_decode_tp``)."""
+    if layout is not None:
+        return _decode_tp(model, cfg, cache, cache_len, token, layout)
     h_cfg, _ = _hybrid(cfg)
     x = model.tok[token]
     for layer, cl in zip(model.layers, cache):

@@ -28,7 +28,6 @@ over them in place (``attention.decode_attn_tp``).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -271,15 +270,15 @@ def _prefill_trunk(model: Transformer, cfg: ModelConfig, tokens,
     return rmsnorm(x, model.final_norm, cfg.norm_eps), ks, vs
 
 
-def _kv_cut(layout):
+def kv_cut(layout):
     """(dim, start, stop) of a layer's K/V cut over 'model' (its (B, S,
     Hkv, hd) dims) from the cache's layout."""
-    cut = layout.model_cut("k")
-    if cut is None or cut[0] not in (2, 4):
+    cut = layout.layer_cut("k")
+    if cut is None or cut[0] not in (1, 3):
         raise NotImplementedError(
             f"a decode cache cut {layout.specs['k']}: the port serves the "
             f"head_dim cut and the sequence cut")
-    return cut[0] - 1, cut[1], cut[2]
+    return cut
 
 
 def _slots(cfg: ModelConfig, layout, tokens) -> int:
@@ -300,14 +299,12 @@ def _prefill_tp(model: Transformer, cfg: ModelConfig, tokens, *,
     (B, 1, V/M) float32, the rank's cache blocks)."""
     tp = model.tp
     n_slots = _slots(cfg, layout, tokens)
-    dim = _kv_cut(layout)[0]
+    dim = kv_cut(layout)[0]
     x = _embed(model, tokens, prefix_emb, model.dtype, tp)
     B, S = x.shape[:2]
     window = cfg.sliding_window
     cap = layout.shapes["k"][2]
-    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, dim=dim)
-    data = {"k": [], "v": []}
-    pos = []
+    layers = []
     for layer in model.layers:
         h = rmsnorm(x, layer.norm1, cfg.norm_eps)
         a, kv = attn_forward(
@@ -317,20 +314,10 @@ def _prefill_tp(model: Transformer, cfg: ModelConfig, tokens, *,
         x = x + a
         h = rmsnorm(x, layer.norm2, cfg.norm_eps)
         x = x + ffn(layer, h, cfg, tp, n_slots)[0]
-        if window is not None:
-            ring = A.ring_from_prefill(*kv, S, cap)
-            pos.append(ring["pos"])
-            kv = (ring["k"], ring["v"])
-        elif dim == 1:           # the sequence cut: its blocks of the cap
-            kv = tuple(F.pad(t, (0, 0, 0, 0, 0, cap - S)) for t in kv)
-        for n, t in zip(("k", "v"), kv):
-            t = A.kv_to_box(tp, t, **kw)
-            if window is None and dim == 3:
-                t = F.pad(t, (0, 0, 0, 0, 0, cap - S))
-            data[n].append(t)
-    data = {n: torch.stack(t) for n, t in data.items()}
-    if pos:
-        data["pos"] = torch.stack(pos)
+        layers.append(A.cache_to_box(
+            tp, *kv, slots=cap, ring=window is not None, dim=dim,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads))
+    data = {n: torch.stack([c[n] for c in layers]) for n in layers[0]}
     x = rmsnorm(x[:, -1:].contiguous(), model.final_norm, cfg.norm_eps)
     return (x @ tp.head(model, x.dtype)).float(), data
 
@@ -398,7 +385,7 @@ def _decode_tp(model: Transformer, cfg: ModelConfig, data, cache_len,
     written in place, the rank's vocab columns of the logits."""
     tp = model.tp
     n_slots = _slots(cfg, layout, token)
-    cut = _kv_cut(layout)
+    cut = kv_cut(layout)
     x = embed(model, token, model.dtype, tp)
     for i, layer in enumerate(model.layers):
         h = rmsnorm(x, layer.norm1, cfg.norm_eps)

@@ -58,13 +58,13 @@ collectives itself, as ``torch.autograd.Function``s:
   gathered over the model group after the product and each rank attends
   its H/M query heads to the KV heads they map to (:func:`kv_block`).
 
-Sharded serving (``models.transformer``/``models.mamba2``'s prefill and
-decode on a mesh) adds the serving collectives: :meth:`TensorParallel.
-model_all_to_all` (the re-cut of a prompt's K/V or Mamba-2 state to its
-cache's box, and of the decode attention's output to the rank's heads),
-:meth:`TensorParallel.greedy` (the greedy pick over the ranks' vocab
-blocks), and :func:`cache_layout`, each decode cache leaf's box of the
-reference's ``input_shardings``.
+Sharded serving (every family's prefill and decode on a mesh) adds the
+serving collectives: :meth:`TensorParallel.model_all_to_all` (the re-cut
+of a prompt's K/V or Mamba-2 state to its cache's box, and of the decode
+attention's output to the rank's heads), :meth:`TensorParallel.greedy`
+(the greedy pick over the ranks' vocab blocks), and :func:`cache_layout`,
+each decode cache leaf's box of the reference's ``input_shardings`` (the
+layer-stacked caches, and the hybrid's per-layer list by leaf name).
 
 Every rank issues the same collectives in the same order (the recompute
 under remat too): the autograd graph is the same on every rank.  The
@@ -543,14 +543,18 @@ def init_blocks(model, cfg: ModelConfig, mesh: MESH.Mesh, rank: int,
 class CacheLayout:
     """A rank's blocks of a decode cache cut by the reference's
     ``input_shardings``: each leaf's whole shape, spec and box (by leaf
-    name: "k", "v", "pos"; "h", "conv"), ``rows`` the rank's rows of the
-    batch (its block of the token's spec) and ``batch`` the whole
-    batch."""
+    name: "k", "v", "pos"; "h", "conv"; the enc-dec's "ek", "ev"),
+    ``rows`` the rank's rows of the batch (its block of the token's
+    spec) and ``batch`` the whole batch.  ``stacked`` says whether the
+    leaves carry a leading layer dim; the hybrid's per-layer caches do
+    not, and a name stands for every layer that holds it (all of one
+    shape and one spec)."""
     shapes: Dict[str, tuple]
     specs: Dict[str, tuple]
     boxes: Dict[str, MESH.Block]
     rows: Tuple[int, int]
     batch: int
+    stacked: bool = True
 
     def model_cut(self, name: str) -> Optional[Tuple[int, int, int]]:
         """(dim, start, stop) of leaf ``name``'s cut over 'model', or
@@ -560,40 +564,60 @@ class CacheLayout:
                 return (dim, *self.boxes[name][dim])
         return None
 
+    def layer_cut(self, name: str) -> Optional[Tuple[int, int, int]]:
+        """:meth:`model_cut` in one layer's dims (the layer dim dropped
+        from a stacked leaf)."""
+        cut = self.model_cut(name)
+        if cut is None or not self.stacked:
+            return cut
+        return cut[0] - 1, cut[1], cut[2]
+
     def block(self, name: str, t: torch.Tensor,
               layer_dim: bool = True) -> torch.Tensor:
         """The rank's block of leaf ``name`` from ``t``, the leaf whole
         but for its layer dim (absent from ``t`` when ``layer_dim`` is
-        False)."""
-        box = self.boxes[name][0 if layer_dim else 1:]
+        False; a leaf that is not stacked has none)."""
+        box = self.boxes[name][1 if self.stacked and not layer_dim else 0:]
         return t[tuple(slice(a, b) for a, b in box)]
+
+
+def _named_leaves(data):
+    """(name, leaf) of a decode cache's data: a dict of leaves, or the
+    hybrid's list of per-layer dicts, in order."""
+    for layer in (data if isinstance(data, list) else [data]):
+        yield from layer.items()
 
 
 def cache_layout(cfg: ModelConfig, tp: TensorParallel, batch: int,
                  max_len: int, cache_seq_shard: bool = False) -> CacheLayout:
     """The rank's boxes of the decode cache of ``batch`` rows and
     ``max_len`` positions (a full cache, a ring of min(window, max_len)
-    slots, or Mamba-2's state): the reference's ``input_shardings`` of a
-    decode shape, ``cache_seq_shard`` choosing the sequence cut over the
-    head_dim cut, read through ``launch.mesh.shard_box``."""
+    slots, Mamba-2's state, the hybrid's per-layer states and rings, the
+    enc-dec's self- and cross-attention caches): the reference's
+    ``input_shardings`` of a decode shape, ``cache_seq_shard`` choosing
+    the sequence cut over the head_dim cut, read through
+    ``launch.mesh.shard_box``."""
     from repro_torch.configs.base import InputShape
     from repro_torch.models import registry as R
-    if cfg.arch_type not in ("dense", "moe", "vlm", "ssm"):
-        raise NotImplementedError(
-            f"sharded serving of the {cfg.arch_type} family is not ported "
-            f"(the dense, MoE, VLM and ssm families are)")
     multi_pod = "pod" in tp.mesh.shape
     shape = InputShape("serve", max_len, batch, "decode")
     specs = R.input_shardings(cfg, shape, multi_pod,
                               cache_seq_shard=cache_seq_shard)
     struct = R.decode_struct(cfg, batch, max_len)
-    shapes = {n: tuple(t.shape) for n, t in struct["cache"].data.items()}
-    cspecs = {n: tuple(sp) for n, sp in specs["cache"].data.items()}
+    shapes, cspecs = {}, {}
+    for (n, t), (_, sp) in zip(_named_leaves(struct["cache"].data),
+                               _named_leaves(specs["cache"].data)):
+        one = (tuple(t.shape), tuple(sp))
+        if (shapes.setdefault(n, one[0]), cspecs.setdefault(n, one[1])) \
+                != one:
+            raise ValueError(f"cache leaf {n!r}: {one} in one layer, "
+                             f"{(shapes[n], cspecs[n])} in another")
     boxes = {n: MESH.shard_box(shapes[n], cspecs[n], tp.mesh, tp.rank,
                                name=f"cache/{n}") for n in shapes}
     rows = MESH.shard_box((batch, 1), specs["token"], tp.mesh, tp.rank,
                           name="token")[0]
-    return CacheLayout(shapes, cspecs, boxes, rows, batch)
+    return CacheLayout(shapes, cspecs, boxes, rows, batch,
+                       stacked=not isinstance(struct["cache"].data, list))
 
 
 # --------------------------------------------------------------------- #

@@ -1512,53 +1512,67 @@ def _cut_case(cuda, dtype, B=16, H=24, Hkv=8, S=4096, hd=128):
     k = torch.randn(B, S, Hkv, hd, generator=g, device=cuda).to(dtype)
     v = torch.randn(B, S, Hkv, hd, generator=g, device=cuda).to(dtype)
     lens = torch.randint(1, S - 1, (B,), generator=g, device=cuda)
-    lens[0], lens[1], lens[2] = 0, S - 1, 127
+    lens[:3] = torch.tensor([0, S - 1, 127])[:B]
     return q, k, v, lens.to(torch.int32)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("M", [2, 4])
-def test_head_dim_cut_decode_kernels(cuda, M, dtype):
-    q, k, v, lens = _cut_case(cuda, dtype)
+def _blocks(t, M, dim, frames_major):
+    """The M blocks of a cache (B, S, Hkv, hd) cut along ``dim`` (1 or 3),
+    each as the rank holds it: contiguous (B, S', Hkv, hd'), or with
+    ``frames_major`` the enc-dec's cross K/V layout (B, Hkv, S', hd')
+    read through its (B, S', Hkv, hd') view."""
+    n = t.shape[dim] // M
+    store = t.transpose(1, 2) if frames_major else t
+    sdim = {1: 2, 3: 3}[dim] if frames_major else dim
+    return [store.narrow(sdim, i * n, n).contiguous().transpose(1, 2)
+            if frames_major else store.narrow(sdim, i * n, n).contiguous()
+            for i in range(M)]
+
+
+def _check_head_dim_cut(cuda, q, k, v, lens, M, dtype, frames_major=False):
+    """The head_dim cut's scores on each slice of q (a view of the whole
+    q) against its K slice, softmax-P·V on the summed scores over each V
+    slice, each against its plain version; the slices' outputs joined
+    against the whole-head decode kernel."""
     hd, S = q.shape[-1], k.shape[1]
     w = hd // M
     valid = (torch.arange(S, device=cuda)[None, :]
              <= lens.long()[:, None])[:, None, :]
+    ks, vs = (_blocks(t, M, 3, frames_major) for t in (k, v))
     parts = []
     for i in range(M):
-        qs, ks = q[..., i * w:(i + 1) * w], k[..., i * w:(i + 1) * w]
-        got = PG.decode_scores(qs, ks.contiguous(), lens)
+        qs = q[..., i * w:(i + 1) * w]
+        got = PG.decode_scores(qs, ks[i], lens)
         torch.cuda.synchronize()
         _close(torch.where(valid, got, 0.0),
-               ref.decode_scores_ref(qs, ks, lens), dtype)
+               ref.decode_scores_ref(qs, ks[i], lens), dtype)
         parts.append(got)
     s = sum(parts)
     outs = []
     for i in range(M):
-        vs = v[..., i * w:(i + 1) * w].contiguous()
-        got = PG.decode_softmax_pv(s, vs, lens, head_dim=hd)
+        got = PG.decode_softmax_pv(s, vs[i], lens, head_dim=hd)
         torch.cuda.synchronize()
-        _close(got, ref.decode_softmax_pv_ref(s, vs, lens, hd), dtype)
+        _close(got, ref.decode_softmax_pv_ref(s, vs[i], lens, hd), dtype)
         outs.append(got)
     whole = PG.ragged_decode_attention(q, k.transpose(1, 2),
                                        v.transpose(1, 2), lens)
     _close(torch.cat(outs, -1), whole, dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("M", [2, 4])
-def test_sequence_cut_decode_partial(cuda, M, dtype):
+def _check_sequence_cut(cuda, q, k, v, lens, M, dtype, frames_major=False):
+    """The sequence cut's partial on each block of the keys against its
+    plain version (m exact to float32's tolerance; l and acc relative to
+    1 + the largest), the blocks merged in order against the whole-head
+    decode kernel."""
     from repro_torch.models.attention import merge_decode_partials
-    q, k, v, lens = _cut_case(cuda, dtype)
-    S = k.shape[1]
-    n = S // M
+    n = k.shape[1] // M
+    ks, vs = (_blocks(t, M, 1, frames_major) for t in (k, v))
     parts = []
     for i in range(M):
-        ks, vs = k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n]
         local = (lens - i * n).contiguous()
-        got = PG.ragged_decode_partial(q, ks, vs, local)
+        got = PG.ragged_decode_partial(q, ks[i], vs[i], local)
         torch.cuda.synchronize()
-        want = ref.decode_partial_ref(q, ks, vs, local)
+        want = ref.decode_partial_ref(q, ks[i], vs[i], local)
         torch.testing.assert_close(got[..., 0], want[..., 0], **F32)
         scale = 1 + want[..., 1:].abs().amax(-1, keepdim=True)
         _close(got[..., 1:] / scale, want[..., 1:] / scale, dtype)
@@ -1567,6 +1581,40 @@ def test_sequence_cut_decode_partial(cuda, M, dtype):
     whole = PG.ragged_decode_attention(q, k.transpose(1, 2),
                                        v.transpose(1, 2), lens)
     _close(out, whole, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", [2, 4])
+def test_head_dim_cut_decode_kernels(cuda, M, dtype):
+    _check_head_dim_cut(cuda, *_cut_case(cuda, dtype), M, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", [2, 4])
+def test_sequence_cut_decode_partial(cuda, M, dtype):
+    _check_sequence_cut(cuda, *_cut_case(cuda, dtype), M, dtype)
+
+
+# the serving families' cut caches: recurrentgemma-9b's ring (MQA 16/1 at
+# hd 256, 2,048 slots, full after the prompt wraps it) cut in 2 and 4,
+# and seamless-m4t-medium's cross K/V (MHA 16/16 at hd 64 over 1,024
+# frames, every frame valid, held frames-major) cut in 2
+FAMILY_CUTS = {"ring": (dict(B=2, H=16, Hkv=1, S=2048, hd=256), (2, 4),
+                        False),
+               "cross": (dict(B=2, H=16, Hkv=16, S=1024, hd=64), (2,),
+                         True)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cache,M", [(c, m) for c, (_, ms, _) in
+                                     FAMILY_CUTS.items() for m in ms])
+def test_family_cut_decode_kernels(cuda, cache, M, dtype):
+    shape, _, frames_major = FAMILY_CUTS[cache]
+    q, k, v, _ = _cut_case(cuda, dtype, **shape)
+    lens = torch.full((shape["B"],), shape["S"] - 1, dtype=torch.int32,
+                      device=cuda)
+    _check_head_dim_cut(cuda, q, k, v, lens, M, dtype, frames_major)
+    _check_sequence_cut(cuda, q, k, v, lens, M, dtype, frames_major)
 
 
 def test_cut_cache_kernels_raise_rather_than_fall_back(cuda):

@@ -2,10 +2,12 @@
 
 - Spec trees: ``registry.param_specs`` of every registered arch (full
   and ``reduced()``, ``multi_pod`` and ``serve_resident`` both ways)
-  equals the reference's leaf for leaf; ``input_shardings`` (every
-  ``INPUT_SHAPES`` entry, ``multi_pod`` and ``cache_seq_shard`` both
-  ways) and ``input_specs``' shapes too; ``opt_state_specs`` mirrors the
-  params onto ``m``/``v``.
+  equals the reference's leaf for leaf; ``input_shardings`` (full and
+  ``reduced()``, every ``INPUT_SHAPES`` entry, ``multi_pod`` and
+  ``cache_seq_shard`` both ways) and ``input_specs``' shapes too, the
+  enc-dec's cross K/V compared by the logical dim each entry cuts (the
+  port holds them (L, B, Hkv, Se, hd), the reference (L, B, Se, Hkv,
+  hd)); ``opt_state_specs`` mirrors the params onto ``m``/``v``.
 - Boxes: on the (2, 2) and (2, 1, 2) meshes, ``launch.mesh.shard_box``
   of every leaf of every arch, for rank r, equals the reference's
   ``NamedSharding(mesh, spec).devices_indices_map(shape)`` for the
@@ -91,29 +93,42 @@ def test_param_specs_match_reference(arch):
                 assert got == want, (cfg.name, multi_pod, resident)
 
 
+# the enc-dec's cross-attention K/V: what each dim holds, in each
+# package's order (the port's is the decode kernel's layout)
+CROSS_DIMS = {"port": ("layer", "rows", "kv_heads", "frames", "head_dim"),
+              "ref": ("layer", "rows", "frames", "kv_heads", "head_dim")}
+
+
+def by_logical_dims(flat, side):
+    """Flat specs (or shapes) with the enc-dec's ``ek``/``ev`` leaves as
+    {logical dim: entry}, ``side`` "port" or "ref" naming the package's
+    dim order: the two packages' leaves then compare by what each dim
+    holds (the frames, the KV heads, head_dim), not by position."""
+    return {path: (dict(zip(CROSS_DIMS[side], v))
+                   if path.rsplit("/", 1)[-1] in ("ek", "ev") else v)
+            for path, v in flat.items()}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_input_shardings_and_specs_match_reference(arch):
-    cfg, jcfg = get_config(arch), j_get_config(arch)
     assert set(INPUT_SHAPES) == set(J_INPUT_SHAPES)
-    for name, shape in INPUT_SHAPES.items():
-        jshape = J_INPUT_SHAPES[name]
-        for multi_pod in (False, True):
-            for seq_shard in (False, True):
-                got = _flat(R.input_shardings(cfg, shape, multi_pod,
-                                              seq_shard))
-                want = _flat(JR.input_shardings(jcfg, jshape, multi_pod,
-                                                seq_shard))
-                assert got == want, (name, multi_pod, seq_shard)
-        ours = _flat(R.input_specs(cfg, shape), leaf=lambda t: t.shape)
-        theirs = _flat(JR.input_specs(jcfg, jshape), leaf=lambda t: t.shape)
-        for path in ("cache/data/ek", "cache/data/ev"):
-            # the port stores the enc-dec's cross K/V (L, B, Hkv, Se, hd),
-            # the decode kernel's layout; the reference (L, B, Se, Hkv, hd)
-            if path in theirs:
-                L, B, Se, H, hd = theirs[path]
-                theirs[path] = (L, B, H, Se, hd)
-        assert {k: tuple(v) for k, v in ours.items()} == \
-            {k: tuple(v) for k, v in theirs.items()}, name
+    for cfg, jcfg in _cfgs(arch):
+        for name, shape in INPUT_SHAPES.items():
+            jshape = J_INPUT_SHAPES[name]
+            for multi_pod in (False, True):
+                for seq_shard in (False, True):
+                    got = _flat(R.input_shardings(cfg, shape, multi_pod,
+                                                  seq_shard))
+                    want = _flat(JR.input_shardings(jcfg, jshape,
+                                                    multi_pod, seq_shard))
+                    assert by_logical_dims(got, "port") == \
+                        by_logical_dims(want, "ref"), \
+                        (cfg.name, name, multi_pod, seq_shard)
+            shape_of = (lambda t: tuple(t.shape))
+            ours = _flat(R.input_specs(cfg, shape), leaf=shape_of)
+            theirs = _flat(JR.input_specs(jcfg, jshape), leaf=shape_of)
+            assert by_logical_dims(ours, "port") == \
+                by_logical_dims(theirs, "ref"), (cfg.name, name)
 
 
 def test_opt_state_specs_mirror_the_params():
