@@ -461,12 +461,17 @@ decode graph, each replayed once per step.
   attention, 1x2: 2,048 of 4,096 RG-LRU channels a rank, the one KV
   head gathered, B 1 x S 2,304 past the 2,048 window) and
   seamless-m4t-medium (2 encoder and 2 decoder layers, 1x2, B 2 with
-  1,024 frames and 1,024 tokens).  Gates: the first batch's loss within
+  1,024 frames and 1,024 tokens).  A mesh rank takes the first batch
+  twice, its residual whole on every model rank (the family's
+  ``loss_fn(seq_shard=False)``) and then cut (the reference's layout,
+  the steps'), each under the gates: the first batch's loss within
   1e-4 and grad norm within 1e-3 relative of one process's; every grad
   gathered whole within 1e-3 of its leaf's max of the whole model's on
-  the same rank (computed there before the cut); the two steps' loss
-  (1e-4) and grad norm (1e-3); every process launches every kernel
-  exactly its family's count a micro-batch times 3 (the flash kernels in
+  the same rank (computed there before the cut); reduce-scatters in the
+  cut's step and none in the whole's.  Then the two steps' loss (1e-4)
+  and grad norm (1e-3); every process launches every kernel exactly its
+  family's count a micro-batch times its micro-batches (4 on a mesh, 3
+  in one process) (the flash kernels in
   granite and seamless, the SSD chunk and the split row in Mamba-2's
   ranks, the scan pair in the hybrid, the whole-row RMSNorm everywhere,
   nothing else).  The ``mesh_families`` line gives each cell's step
@@ -1807,6 +1812,135 @@ def profile_train(tr, step_s: float, batch: int, name: str):
     if out["cuda_graph_launch_calls"] != 1 or \
             out["cuda_launch_kernel_calls"] >= 50 or not out["device_kernels"]:
         raise AssertionError(f"profiled step: {out}")
+    return out
+
+
+GEMM_OPS = ("mm", "addmm", "bmm", "baddbmm")
+# a cuBLAS or CUTLASS GEMM kernel's name in a profile
+GEMM_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass", re.IGNORECASE)
+
+
+def gemm_mode():
+    """A dispatch mode counting the GEMM calls (``GEMM_OPS``) that reach
+    the device: one under a selective-checkpoint mode sees a product the
+    recompute takes from the forward's cache no more."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ in GEMM_OPS:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return Count()
+
+
+def load_state(model, opt_state, snap) -> None:
+    """Write a ``clone_state`` snapshot back into ``model`` and
+    ``opt_state`` in place (a captured graph reads them by address)."""
+    m, o = snap
+    with torch.no_grad():
+        for p, q in zip(model.parameters(), m.parameters()):
+            p.copy_(q)
+        for k, v in opt_state.items():
+            if isinstance(v, dict):
+                for n, t in v.items():
+                    t.copy_(o[k][n])
+            else:
+                v.copy_(o[k])
+
+
+def phase21c(tr, ctr, smi) -> dict:
+    """``remat_policy="dots"`` on the card (21c): phase 4's seesaw-150m
+    trainer (bf16, B 8, S 1,024, its graph of B 8 captured), from the
+    same weights and state, one step under "" (the trainer's engine) and
+    one under "dots" (an engine made with ``remat_policy="dots"`` over
+    the same model and state: its eager first step, then its graph
+    captured and replayed).  Per policy: the replayed step's
+    loss (gate: "dots" within 1e-4 of "", and "dots"'s replay equal to
+    its eager step bit for bit), its wall by CUDA events (median of 5
+    replays) and its device time and GEMM kernels (torch.profiler, one
+    replay: kernels named as ``GEMM_KERNEL``), the eager step's peak
+    memory and its GEMM calls (``gemm_mode``: the graph holds the same
+    launches), and the flash forwards a replay launches (gate: equal
+    under both policies)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import graphs as G
+    from repro_torch.data import MarkovLM
+    from repro_torch.train import engine as E
+    st = tr.state
+    engines = {"": tr.engine, "dots": E.PhaseEngine(
+        tr.cfg, tr.optimizer, tr.plan, remat_policy="dots")}
+    B, S = 8, tr.cfg.seq_len
+    raw = MarkovLM(2048, seed=21).sample(0, B, S)
+    batch = {k: torch.from_numpy(v.astype(np.int64))[None].cuda()
+             for k, v in raw.items()}
+    snap = clone_state(st.model, st.opt_state)
+    flash = G.COUNTERS.index(ctr["flash_fwd"])
+    out = {}
+
+    def replay():
+        return eng.run_chunk(st.model, st.opt_state, 0, batch, n_valid=1,
+                             step=0)[2]
+
+    for policy, eng in engines.items():
+        ent = eng.step_for(B)
+        load_state(st.model, st.opt_state, snap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lr = torch.zeros((), dtype=torch.float32, device="cuda")
+        with gemm_mode() as gm:
+            _, _, em = ent.grad(st.model, st.opt_state,
+                                {k: v[0] for k, v in batch.items()}, lr)
+            torch.cuda.synchronize()
+        eager_loss = float(em["loss"])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not eng._warm:                        # a new engine's eager step
+            load_state(st.model, st.opt_state, snap)
+            replay()
+        load_state(st.model, st.opt_state, snap)
+        loss = float(replay()["loss"][0])        # a new graph captures here
+        walls = []
+        for _ in range(5):
+            load_state(st.model, st.opt_state, snap)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            before = G.launch_counts()[flash]
+            a.record()
+            replay()
+            b.record()
+            b.synchronize()
+            walls.append(a.elapsed_time(b))
+            launches = G.launch_counts()[flash] - before
+        load_state(st.model, st.opt_state, snap)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            replay()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        gemm_k = [e for e in dev if GEMM_KERNEL.search(e.key)]
+        out[policy or "full"] = {
+            "loss": loss, "eager_loss": eager_loss,
+            "replay_equals_eager": loss == eager_loss,
+            "replay_ms_median": float(np.median(walls)), "replay_ms": walls,
+            "device_busy_ms": sum(e.self_device_time_total
+                                  for e in dev) / 1e3,
+            "gemm_kernel_ms": sum(e.self_device_time_total
+                                  for e in gemm_k) / 1e3,
+            "gemm_kernels": sum(e.count for e in gemm_k),
+            "eager_peak_gb": peak, "eager_gemm_calls": gm.n,
+            "flash_fwd_launches": launches}
+    load_state(st.model, st.opt_state, snap)
+    full, dots = out["full"], out["dots"]
+    if abs(dots["loss"] - full["loss"]) > 1e-4 or \
+            not dots["replay_equals_eager"] or \
+            dots["flash_fwd_launches"] != full["flash_fwd_launches"]:
+        raise AssertionError(f"21c: {out}")
+    out["card"] = smi
+    log(f"phase 21c: {out}")
     return out
 
 
@@ -5202,6 +5336,7 @@ from repro_torch.configs import (OptimizerConfig, RunConfig,
 from repro_torch.data import MarkovLM, PhaseDataLoader
 from repro_torch.launch import mesh as M
 from repro_torch.launch.train import maybe_init_distributed
+from repro_torch.models import layers as Ly
 from repro_torch.optim import optimizers as O
 from repro_torch.train import engine as E
 from repro_torch.train.trainer import Trainer
@@ -5239,22 +5374,70 @@ it.close()
 model = tr.state.model
 params = dict(model.named_parameters())
 names, plist = list(params), list(params.values())
-grads, metrics = E._local_grads(model, cfg, batch, names, params, 1, 0.0,
-                                torch.float32, run.remat)
-if mesh is None:
-    norm, full = O.global_norm(grads), dict(zip(names, grads))
-else:
-    grads, metrics = parallel.reduce_grads(model.tp, plist, grads, metrics)
-    norm = parallel.global_norm(model.tp, plist, grads)
-    full = {}
-    for n, g in zip(names, grads):
-        shape, sp = model.full_shapes[n], model.specs[n]
-        full[n] = parallel.gather_full(g, shape, [
-            M.shard_box(shape, sp, mesh, r) for r in range(mesh.size)])
-if rank == 0:
-    torch.save({n: g.cpu() for n, g in full.items()}, out + ".grads.pt")
-first = {"loss": float(metrics["loss"]), "grad_norm": float(norm)}
-del grads, full, metrics
+
+
+# the first batch's loss and grads in one residual layout (21a): the
+# grads gathered whole (rank 0 saves them), the step's collectives, the
+# peak memory and the bytes of the residual checkpoints (the tensor inputs
+# of the layers' remat regions the forward opens)
+def first_grads(seq_shard):
+    real, held, depth = Ly.checkpoint, [0], [0]
+
+    def counting(f, *args, **kw):
+        if depth[0] or torch._C._current_graph_task_id() != -1:
+            return real(f, *args, **kw)
+        if f.__name__ == "_layer":
+            held[0] += sum(a.numel() * a.element_size() for a in args
+                           if isinstance(a, torch.Tensor))
+        depth[0] += 1
+        try:
+            return real(f, *args, **kw)
+        finally:
+            depth[0] -= 1
+
+    if mesh is not None:
+        model.tp.comms.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    Ly.checkpoint = counting
+    try:
+        grads, metrics = E._local_grads(model, cfg, batch, names, params, 1,
+                                        0.0, torch.float32, run.remat,
+                                        seq_shard=seq_shard)
+    finally:
+        Ly.checkpoint = real
+    comms = None
+    if mesh is None:
+        norm, full = O.global_norm(grads), dict(zip(names, grads))
+    else:
+        grads, metrics = parallel.reduce_grads(model.tp, plist, grads,
+                                               metrics)
+        norm = parallel.global_norm(model.tp, plist, grads)
+        comms = {k: [model.tp.comms.calls[k], model.tp.comms.bytes[k],
+                     model.tp.comms.seconds[k] * 1e3]
+                 for k in parallel.KINDS}
+        full = {}
+        for n, g in zip(names, grads):
+            shape, sp = model.full_shapes[n], model.specs[n]
+            full[n] = parallel.gather_full(g, shape, [
+                M.shard_box(shape, sp, mesh, r) for r in range(mesh.size)])
+    torch.cuda.synchronize()
+    rec = {"loss": float(metrics["loss"]), "grad_norm": float(norm),
+           "comms": comms, "residual_bytes": held[0],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return rec, full
+
+
+# 21a: the whole residual then the cut (the reference's layout, the
+# trainer's default); one process has one layout
+firsts = {}
+for lay in (("whole", "cut") if mesh is not None else ("cut",)):
+    firsts[lay], full = first_grads(lay == "cut")
+    if rank == 0:
+        torch.save({n: g.cpu() for n, g in full.items()},
+                   f"{out}.grads_{lay}.pt")
+    del full
+first = {k: firsts["cut"][k] for k in ("loss", "grad_norm")}
 if mesh is not None:
     model.tp.comms.reset()
 torch.cuda.synchronize()
@@ -5262,7 +5445,7 @@ t = time.perf_counter()
 hist = tr.run(loader(), max_steps=steps)
 torch.cuda.synchronize()
 with open(out, "w") as f:
-    json.dump({"first": first, "history": hist,
+    json.dump({"first": first, "layouts": firsts, "history": hist,
                "wall_s": time.perf_counter() - t,
                "launches": list(graphs.launch_counts()),
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -5338,7 +5521,7 @@ def phase18a(tmp, ctr):
     res, i = {}, 0
     for k, ps in procs.items():
         res[k], i = flat[i:i + len(ps)], i + len(ps)
-    out, launches = {}, {}
+    out, launches, seq = {}, {}, {}
     for arch, layers, spec in MESH_18A:
         cfg = get_config(arch)
         if layers:
@@ -5353,8 +5536,10 @@ def phase18a(tmp, ctr):
         d_norm = abs(first["grad_norm"] - want["grad_norm"]) / \
             want["grad_norm"]
         grads = mesh_grads_diff(
-            os.path.join(tmp, f"{arch}-{spec}-0.json.grads.pt"),
-            os.path.join(tmp, f"{arch}-1x1-0.json.grads.pt"))
+            os.path.join(tmp, f"{arch}-{spec}-0.json.grads_cut.pt"),
+            os.path.join(tmp, f"{arch}-1x1-0.json.grads_cut.pt"))
+        seq[f"{arch}/{spec}"] = seq_layouts(tmp, cfg, arch, spec, ranks,
+                                            want)
         steps = []
         for a, b in zip(ranks[0]["history"], one["history"]):
             if [a[k] for k in DP_HIST_KEYS] != [b[k] for k in DP_HIST_KEYS]:
@@ -5370,8 +5555,9 @@ def phase18a(tmp, ctr):
                                  f"norm {d_norm}, grads {grads}, steps "
                                  f"{steps}")
         per_micro = per_micro_batch(cfg, True)
+        # a mesh rank takes its first step in both layouts (21a)
         launches.update(check_rank_launches(ranks, ctr, per_micro,
-                                            1 + MESH_STEPS, f"{arch}/{spec}"))
+                                            2 + MESH_STEPS, f"{arch}/{spec}"))
         launches.update(check_rank_launches([one], ctr, per_micro,
                                             1 + MESH_STEPS, f"{arch}/one"))
         out[f"{arch}/{spec}"] = {
@@ -5384,7 +5570,82 @@ def phase18a(tmp, ctr):
                                for k, c in ranks[0]["comms"].items()},
             "peak_gb": [r["peak_gb"] for r in ranks],
             "one_peak_gb": one["peak_gb"]}
-    return out, launches
+    return out, launches, seq
+
+
+def seq_step_delta(cfg, spec: str, B: int, S: int) -> dict:
+    """What the cut residual changes in a dense float32 training step's
+    collectives on ``spec`` (remat on), from the shapes: each of a layer's
+    two blocks enters by an all-gather of the rank's S/M rows (the forward
+    and the recompute; its backward's all-reduce replaces ``to_model``'s)
+    and leaves by a float32 reduce-scatter (the attention's recomputed
+    too, the MLP's not) whose backward all-gathers the grad, where the
+    whole residual all-reduced; the embedding likewise; the final hiddens
+    are gathered whole before the head (its backward all-reduce replaces
+    the head's ``to_model``); with one data slot the partial norm grads
+    take one all-reduce.  {kind: [calls, bytes]} to add to the whole
+    layout's."""
+    from repro_torch import parallel
+    D, M = (int(x) for x in spec.split("x"))
+    b, d, L = B // D, cfg.d_model, cfg.n_layers
+    F, G = b * S * d * 4, b * S // M * d * 4
+    t = {k: [0, 0] for k in parallel.KINDS}
+
+    def add(kind, calls, nbytes):
+        t[kind][0] += calls
+        t[kind][1] += calls * nbytes
+
+    for r in (1, 0) * L:
+        add("model_all_gather", 3, G)
+        add("model_reduce_scatter", 1 + r, F)
+        add("model_all_reduce", -(1 + r), F)
+    add("model_reduce_scatter", 1, F)                   # the embedding
+    add("model_all_reduce", -1, F)
+    add("model_all_gather", 2, G)       # its backward, the final gather
+    if D == 1:
+        add("grad_reduce", 1, 4 * d * (2 * L + 1))
+    return t
+
+
+def seq_layouts(tmp, cfg, arch, spec, ranks, want) -> dict:
+    """21a: the first step of the mesh's ranks in each residual layout
+    against one process (loss 1e-4, grad norm and every grad 1e-3 of the
+    leaf's largest), the cut's collectives exactly the whole's plus
+    ``seq_step_delta``; each layout's peak memory a rank and residual
+    checkpoint bytes (reported)."""
+    out = {}
+    for lay in ("whole", "cut"):
+        first = ranks[0]["layouts"][lay]
+        grads = mesh_grads_diff(
+            os.path.join(tmp, f"{arch}-{spec}-0.json.grads_{lay}.pt"),
+            os.path.join(tmp, f"{arch}-1x1-0.json.grads_cut.pt"))
+        d_loss = abs(first["loss"] - want["loss"])
+        d_norm = abs(first["grad_norm"] - want["grad_norm"]) / \
+            want["grad_norm"]
+        if d_loss > 1e-4 or d_norm > 1e-3 or grads["max_rel"] > 1e-3:
+            raise AssertionError(f"21a {arch}/{spec} {lay}: loss {d_loss}, "
+                                 f"grad norm {d_norm}, grads {grads}")
+        out[lay] = {"loss_diff": d_loss, "grad_norm_rel": d_norm,
+                    "grads": grads,
+                    "comms": {k: {"calls": c, "MB": n / 1e6, "ms": ms}
+                              for k, (c, n, ms) in first["comms"].items()
+                              if c},
+                    "peak_gb": [r["layouts"][lay]["peak_gb"] for r in ranks],
+                    "residual_bytes": first["residual_bytes"]}
+    B = MESH_B
+    delta = seq_step_delta(cfg, spec, B, MESH_SEQ)
+    whole, cut = (ranks[0]["layouts"][k]["comms"] for k in ("whole", "cut"))
+    pred = {k: [whole[k][0] + delta[k][0], whole[k][1] + delta[k][1]]
+            for k in whole}
+    have = {k: v[:2] for k, v in cut.items()}
+    if have != pred:
+        raise AssertionError(f"21a {arch}/{spec}: collectives {have}, "
+                             f"predicted {pred}")
+    out["predicted_delta"] = {k: v for k, v in delta.items() if v[0]}
+    out["residual_ratio"] = (out["whole"]["residual_bytes"]
+                             / out["cut"]["residual_bytes"])
+    log(f"phase 21a {arch}/{spec}: {out}")
+    return out
 
 
 def ckpt_blocks(path: str) -> dict:
@@ -5535,11 +5796,12 @@ def phase18(cfg, ctr, smi):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
         t = time.perf_counter()
-        f32, launches = phase18a(tmp, ctr)
+        f32, launches, seq = phase18a(tmp, ctr)
         t_a = time.perf_counter() - t
         bf16 = phase18b(tmp, cfg, ctr)
         launches.update(bf16.pop("launches"))
         return {"float32": f32, "bf16": bf16, "launches": launches,
+                "seq_shard": seq,
                 "phase_s": {"18a": t_a, "18b": time.perf_counter() - t -
                             t_a},
                 "steps": "eager: a gloo collective is host work that no "
@@ -5629,12 +5891,25 @@ def batch(i, whole=False):
     return x if mesh is None or whole else E.slot_rows(x, mesh, rank)
 
 
-def grads_of(model, x):
+# (names, params, grads, metrics) of batch x; seq_shard=False runs the
+# family's loss with the residual whole on every model rank (the
+# registry's cuts it for Mamba-2, the hybrid and the enc-dec whatever it
+# is asked, as the reference's **_ does)
+def grads_of(model, x, seq_shard=True):
     params = dict(model.named_parameters())
     names = list(params)
-    g, m = E._local_grads(model, cfg, x, names, params, 1, 0.0,
-                          torch.float32, True)
-    return names, [params[n] for n in names], g, m
+    plist = [params[n] for n in names]
+    if seq_shard:
+        g, m = E._local_grads(model, cfg, x, names, params, 1, 0.0,
+                              torch.float32, True)
+        return names, plist, g, m
+    tp = parallel.tp_of(model)
+    if tp is not None:
+        tp.model_partial.clear()
+    loss, m = R.family(cfg).loss_fn(model, cfg, x, dtype=torch.float32,
+                                    remat=True, seq_shard=False)
+    g = torch.autograd.grad(loss, plist)
+    return names, plist, g, {k: v.detach().float() for k, v in m.items()}
 
 
 stage("imports_and_group")
@@ -5656,30 +5931,53 @@ stage("shard")
 for mod, attr in graphs.COUNTERS:
     setattr(mod, attr, 0)
 torch.cuda.reset_peak_memory_stats()
-names, plist, grads, metrics = grads_of(model, batch(0))
+
+
+# the first batch's loss, grad norm and (rank 0) its grads gathered whole
+# against the whole model's, in one residual layout; on a mesh the step's
+# collectives by kind, [calls, bytes]
+def first_step(seq_shard):
+    names, plist, grads, metrics = grads_of(model, batch(0), seq_shard)
+    diff = comms = None
+    if mesh is None:
+        norm = O.global_norm(grads)
+    else:
+        grads, metrics = parallel.reduce_grads(tp, plist, grads, metrics)
+        norm = parallel.global_norm(tp, plist, grads)
+        comms = {k: [tp.comms.calls[k], tp.comms.bytes[k]]
+                 for k in parallel.KINDS}
+        rel = {}
+        for n, g in zip(names, grads):
+            shape, sp = model.full_shapes[n], model.specs[n]
+            full = parallel.gather_full(g, shape, [
+                M.shard_box(shape, sp, mesh, r) for r in range(mesh.size)])
+            if whole is not None:
+                w = whole[n].to(dev)
+                rel[n] = float((full - w).abs().max() / w.abs().max())
+                del w
+            del full
+        if rank == 0:
+            k = max(rel, key=rel.get)
+            diff = {"max_rel": rel[k], "leaf": k, "leaves": len(rel)}
+        tp.comms.reset()
+    return {"loss": float(metrics["loss"]), "grad_norm": float(norm),
+            "grads": diff, "comms": comms}
+
+
+# on a mesh the first step in both layouts: the residual whole on every
+# model rank, then cut (the reference's, the steps' below); one process
+# has one layout
+tp = model.tp if mesh is not None else None
+if tp is not None:
+    tp.comms.reset()
+layouts = {}
+for lay in (("whole", "cut") if mesh is not None else ("cut",)):
+    layouts[lay] = first_step(lay == "cut")
+    torch.cuda.empty_cache()
 stage("first_grads")
-diff = None
-if mesh is None:
-    norm = O.global_norm(grads)
-else:
-    tp = model.tp
-    grads, metrics = parallel.reduce_grads(tp, plist, grads, metrics)
-    norm = parallel.global_norm(tp, plist, grads)
-    rel = {}
-    for n, g in zip(names, grads):
-        shape, sp = model.full_shapes[n], model.specs[n]
-        full = parallel.gather_full(g, shape, [
-            M.shard_box(shape, sp, mesh, r) for r in range(mesh.size)])
-        if whole is not None:
-            w = whole.pop(n).to(dev)
-            rel[n] = float((full - w).abs().max() / w.abs().max())
-            del w
-        del full
-    if rank == 0:
-        k = max(rel, key=rel.get)
-        diff = {"max_rel": rel[k], "leaf": k, "leaves": len(rel)}
-first = {"loss": float(metrics["loss"]), "grad_norm": float(norm)}
-del grads, metrics, whole
+first = {k: layouts["cut"][k] for k in ("loss", "grad_norm")}
+diff = layouts["cut"]["grads"]
+del whole
 torch.cuda.empty_cache()
 stage("reduce_and_compare")
 opt = O.from_config(OptimizerConfig(kind="adamw"))
@@ -5697,7 +5995,8 @@ for i in range(steps):
     hist.append({k: float(v) for k, v in m.items()})
 stage("steps")
 with open(out, "w") as f:
-    json.dump({"first": first, "grads": diff, "history": hist,
+    json.dump({"first": first, "grads": diff, "layouts": layouts,
+               "history": hist,
                "stages_s": stages, "wall_s": time.perf_counter() - t,
                "launches": list(graphs.launch_counts()),
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -5943,26 +6242,43 @@ def family_cell(cell, ranks, one, ctr, cell_s):
     d_loss = abs(first["loss"] - want["loss"])
     d_norm = abs(first["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
     grads = ranks[0]["grads"]
+    # the first step in each layout, held to one process's: the whole
+    # residual (seq_shard=False, the layout before the cut) and the cut
+    layouts = {}
+    for lay, got in ranks[0]["layouts"].items():
+        rs = got["comms"]["model_reduce_scatter"][0]
+        layouts[lay] = {
+            "loss_diff": abs(got["loss"] - want["loss"]),
+            "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"])
+            / want["grad_norm"], "grads": got["grads"],
+            "comms": got["comms"]}
+        if layouts[lay]["loss_diff"] > 1e-4 or \
+                layouts[lay]["grad_norm_rel"] > 1e-3 or \
+                got["grads"]["max_rel"] > 1e-3 or \
+                (rs > 0) != (lay == "cut"):
+            raise AssertionError(f"{tag} on {spec}, the {lay} residual: "
+                                 f"{layouts[lay]}")
     steps = [{"loss": abs(a["loss"] - b["loss"]),
               "grad_norm": abs(a["grad_norm"] - b["grad_norm"])
               / b["grad_norm"]}
              for a, b in zip(ranks[0]["history"], one["history"])]
     if any(r["history"] != ranks[0]["history"] for r in ranks):
         raise AssertionError(f"{tag}: the ranks logged other steps")
-    if len(steps) != FAM_STEPS or d_loss > 1e-4 or d_norm > 1e-3 or \
-            grads["max_rel"] > 1e-3 or any(
-                s["loss"] > 1e-4 or s["grad_norm"] > 1e-3 for s in steps):
+    if sorted(layouts) != ["cut", "whole"] or len(steps) != FAM_STEPS or \
+            any(s["loss"] > 1e-4 or s["grad_norm"] > 1e-3 for s in steps):
         raise AssertionError(f"{tag} on {spec}: loss {d_loss}, grad norm "
                              f"{d_norm}, grads {grads}, steps {steps}")
-    micro = 1 + FAM_STEPS
+    # a mesh rank's first batch runs twice (whole, then cut)
     launches = check_rank_launches(
-        ranks, ctr, family_launches(cfg, ctr, True), micro, f"{tag}/{spec}")
+        ranks, ctr, family_launches(cfg, ctr, True), 2 + FAM_STEPS,
+        f"{tag}/{spec}")
     launches.update(check_rank_launches(
-        [one], ctr, family_launches(cfg, ctr, False), micro, f"{tag}/one"))
+        [one], ctr, family_launches(cfg, ctr, False), 1 + FAM_STEPS,
+        f"{tag}/one"))
     rec = {"arch": arch, "layers": layers, "encoder_layers": enc,
            "batch": B, "seq": S, "first_loss": first["loss"],
            "first_loss_diff": d_loss, "first_grad_norm_rel": d_norm,
-           "grads": grads, "steps": steps,
+           "grads": grads, "layouts": layouts, "steps": steps,
            "losses": [h["loss"] for h in ranks[0]["history"]],
            "wall_s_per_step": ranks[0]["wall_s"] / FAM_STEPS,
            "one_wall_s_per_step": one["wall_s"] / FAM_STEPS,
@@ -6110,10 +6426,16 @@ CUT_SHAPES = (("llama", 16, 24, 8, 128, 4096, (2, 4), False),
 # sequence cut cuts its state by heads (80 of them) where the default
 # cuts it by N; recurrentgemma-9b's 8 layers are two full groups and the
 # remainder of its layout, its prompts of 2,100 wrap the 2,048-slot ring;
-# seamless-m4t-medium runs whole (12 + 12 layers) on 1,024 frames
+# seamless-m4t-medium runs whole (12 + 12 layers) on 1,024 frames.  A
+# run's fifth entry, True, prefills the cut residual (21b: llama3.2-3b's
+# and mamba2-2.7b's beside their whole float32 runs, each after its
+# process's first run, which pays the first calls' costs); the others
+# prefill the whole residual, but the enc-dec's prefill cuts whatever it
+# is asked, as the reference's
 SERVE_CELLS = (
     ("llama", "llama3.2-3b", 8, 16, 512, 1024, 16,
      (("1x2", False, False, "float32"), ("1x2", True, False, "float32"),
+      ("1x2", True, False, "float32", True),
       ("1x2", False, True, "float32"), ("1x2", True, True, "float32"),
       ("1x2", True, False, "bfloat16"), ("2x2", True, False, "float32"),
       ("2x2", True, False, "bfloat16"))),
@@ -6121,8 +6443,9 @@ SERVE_CELLS = (
      (("1x2", True, False, "float32"), ("1x2", True, True, "float32"),
       ("1x2", True, False, "bfloat16"))),
     ("mamba2", "mamba2-2.7b", 4, 2, 1024, 1024, 8,
-     (("1x2", True, False, "float32"), ("1x2", True, True, "float32"),
-      ("1x2", True, False, "bfloat16"))),
+     (("1x2", True, False, "bfloat16"), ("1x2", True, False, "float32"),
+      ("1x2", True, False, "float32", True),
+      ("1x2", True, True, "float32"))),
     ("recurrentgemma", "recurrentgemma-9b", 8, 2, 2100, 2304, 8,
      (("1x2", True, False, "float32"), ("1x2", True, True, "float32"),
       ("1x2", True, False, "bfloat16"))),
@@ -6174,7 +6497,10 @@ if cfg.arch_type in R.ENCDEC_FAMILIES:
         (B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)).to(dev)
 ssm = cfg.arch_type == "ssm"
 recs = []
-for i, (mspec, resident, seq_cut, dt) in enumerate(runs):
+for i, run in enumerate(runs):
+    # a run's fifth entry asks for the cut residual in the prefill (21b);
+    # the others prefill the whole residual, as before
+    (mspec, resident, seq_cut, dt), seq_shard = run[:4], run[4:] == [True]
     dtype = getattr(torch, dt)
     t0 = time.perf_counter()
     if mesh is None:
@@ -6193,7 +6519,8 @@ for i, (mspec, resident, seq_cut, dt) in enumerate(runs):
     if frames is not None:
         kw["prefix_emb"] = frames[lo:hi]
     if mesh is not None:
-        kw.update(global_batch=B, cache_seq_shard=seq_cut)
+        kw.update(global_batch=B, cache_seq_shard=seq_cut,
+                  seq_shard=seq_shard)
         tp.comms.reset()
 
     def pick(logits):
@@ -6211,6 +6538,7 @@ for i, (mspec, resident, seq_cut, dt) in enumerate(runs):
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t
         pre_comms = None if tp is None else tp.comms.summary()
+        pre_bytes = None if tp is None else dict(tp.comms.bytes)
         tok = pick(logits)
         got, picks, comms = [logits[:, -1].float()], [tok], []
         t = time.perf_counter()
@@ -6234,7 +6562,8 @@ for i, (mspec, resident, seq_cut, dt) in enumerate(runs):
     if comms:
         step = {k: {f: sum(c[k][f] for c in comms) / len(comms)
                     for f in ("calls", "MB", "ms")} for k in comms[0]}
-    recs.append({"run": [mspec, resident, seq_cut, dt], "rows": [lo, hi],
+    recs.append({"run": list(run), "rows": [lo, hi],
+                 "prefill_bytes": pre_bytes,
                  "v0": v0, "cut": cut, "init_s": init_s,
                  "prefill_s": prefill_s, "decode_s_per_step": decode_s,
                  "prefill_comms": pre_comms, "step_comms": step,
@@ -6325,32 +6654,52 @@ def serve_launches(cfg, ctr, steps: int, on_mesh: bool,
 
 
 def serve_comms(cfg, spec: str, seq_cut: bool, B: int, S: int, cap: int,
-                dtype) -> dict:
+                dtype, seq_shard: bool = False) -> dict:
     """The collectives a rank of a phase-20 run calls, from the shapes
     alone (the prediction ``PERF.md`` holds): calls and MB by kind in the
     prefill and in one decode step.  Activations move in the model's
     dtype, the row-parallel sums, scores and softmax states in float32;
-    no term moves cache bytes."""
+    no term moves cache bytes.  The prefill's residual sums (the
+    embedding's and each block's exit) are float32 all-reduces of the
+    whole residual, or, with the cut residual (``seq_shard``, and the
+    enc-dec's always, as the reference's prefill takes no knob, where
+    ``parallel.seq_cut`` holds), float32 reduce-scatters, each block's
+    entry an all-gather of the rank's S/M rows, and one all-gather of the
+    last rows (the enc-dec's encoder cut over frames, gathered before
+    ``enc_norm``)."""
+    from repro_torch import parallel
     D, M = (int(x) for x in spec.split("x"))
     b = B // D if B % 16 == 0 else B
     L, d = cfg.n_layers, cfg.d_model
     es, f4 = torch.tensor([], dtype=dtype).element_size(), 4
+    enc = cfg.arch_type in ("audio", "encdec")
     pre = {k: [0, 0] for k in ("model_all_reduce", "model_all_gather",
-                                "model_all_to_all")}
+                                "model_all_to_all", "model_reduce_scatter")}
     dec = {k: [0, 0] for k in pre}
 
     def add(t, kind, calls, nbytes):
         t[kind][0] += calls
         t[kind][1] += calls * nbytes
 
+    def residual(n, rows, cut, embedding=True):
+        """n residual sums of (b, rows, d), the embedding's among them."""
+        if not cut:
+            add(pre, "model_all_reduce", n, b * rows * d * f4)
+            return
+        add(pre, "model_reduce_scatter", n, b * rows * d * f4)
+        add(pre, "model_all_gather", n - embedding, b * rows // M * d * es)
+        # the decoder's last rows, or the encoder's before enc_norm
+        add(pre, "model_all_gather", 1,
+            b * d * es if embedding else b * rows // M * d * es)
+    cut = (seq_shard or enc) and parallel.seq_cut(S, M)
+
     if cfg.arch_type == "ssm":
         from repro_torch.models.mamba2 import _dims
         s, di, H, P, N = _dims(cfg)
         C, K = di + 2 * N, s.d_conv
         heads_cut = seq_cut and H % 16 == 0
-        add(pre, "model_all_reduce", 1, b * S * d * f4)
+        residual(1 + L, S, cut)                  # the embedding, w_out
         add(pre, "model_all_reduce", L, b * S * f4)      # the split row
-        add(pre, "model_all_reduce", L, b * S * d * f4)  # w_out
         add(pre, "model_all_gather", L, K * C // M * es)        # conv_w
         add(pre, "model_all_gather", L, C // M * es)            # conv_b
         add(pre, "model_all_gather", L, b * (K - 1) * di // M * es)
@@ -6382,7 +6731,7 @@ def serve_comms(cfg, spec: str, seq_cut: bool, B: int, S: int, cap: int,
         else:
             raise NotImplementedError(f"{cfg.name}: a prediction for "
                                       f"{Hkv} KV heads over {M} ranks")
-        add(pre, "model_all_reduce", 1 + 2 * L, b * S * d * f4)
+        residual(1 + (3 if enc else 2) * L, S, cut)
         add(dec, "model_all_reduce", 1 + 2 * L, b * d * f4)
         if cfg.arch_type == "hybrid":
             from repro_torch.models import rglru as HY
@@ -6392,8 +6741,9 @@ def serve_comms(cfg, spec: str, seq_cut: bool, B: int, S: int, cap: int,
             add(dec, "model_all_gather", n_rec, b * W // M * es)
         if cfg.arch_type in ("audio", "encdec"):
             Le, se = cfg.n_encoder_layers, cfg.frontend_tokens
-            add(pre, "model_all_reduce", 2 * Le, b * se * d * f4)
-            add(pre, "model_all_reduce", L, b * S * d * f4)   # cross w_o
+            # the encoder's blocks (no embedding), its gather before
+            # enc_norm; the decoder's cross w_o is counted above
+            residual(2 * Le, se, parallel.seq_cut(se, M), embedding=False)
             add(pre, "model_all_to_all", 2 * L, b * se * Hkv // M * hd * es)
             add(dec, "model_all_reduce", L, b * d * f4)       # cross w_o
         for i, (n, keys, seq) in enumerate(att):
@@ -6579,7 +6929,8 @@ def serve_run(tmp, cell, cfg, spec, group, ranks, j, want, idx,
     records) against one process (``want``: its saved logits and tokens
     by dtype): (the run's key, its record).  Raises past the gates."""
     tag, _, _, B, S, cap, steps, _ = cell
-    _, resident, seq_cut, dt = ranks[0][j]["run"]
+    run = ranks[0][j]["run"]
+    (_, resident, seq_cut, dt), seq_shard = run[:4], run[4:] == [True]
     ref_run = want[dt]
     exp = serve_launches(cfg, ctr, steps, True, seq_cut, cap)
     rel = torch.zeros(steps + 1)
@@ -6605,9 +6956,11 @@ def serve_run(tmp, cell, cfg, spec, group, ranks, j, want, idx,
     # a step's logits compare while the tokens before it agree
     rel_agreed = float(rel[:diff + 1].max())
     rel = float(rel.max())
-    pred = serve_comms(cfg, spec, seq_cut, B, S, cap, getattr(torch, dt))
+    pred = serve_comms(cfg, spec, seq_cut, B, S, cap, getattr(torch, dt),
+                       seq_shard)
     key = (f"{spec}/{'resident' if resident else 'fsdp'}/"
-           f"{'seq' if seq_cut else 'hd'}/{dt}")
+           f"{'seq' if seq_cut else 'hd'}/{dt}"
+           f"{'/cut_residual' if seq_shard else ''}")
     rec0 = ranks[0][j]
     out = {"max_rel_logits": rel, "tokens_equal": same,
            "first_token_diff_step": None if same else diff,
@@ -6743,6 +7096,25 @@ def phase20(PG, ref, ctr, smi):
                      "graph holds; the ranks share one card, so no speed "
                      "is claimed",
             "card": smi}
+
+
+def phase21_record(record, dots) -> dict:
+    """Phase 21's record: 21a (the cut residual in training, run in phase
+    18a's processes), 21b (the cut prefill beside the whole one, in phase
+    20b's) and 21c (``remat_policy="dots"``)."""
+    cells = record["mesh_serve"]["cells"]
+    prefill = {}
+    for tag in ("llama", "mamba2"):
+        runs = cells[tag]["runs"]
+        prefill[tag] = {
+            lay: {k: runs[key][k] for k in (
+                "prefill_s", "prefill_comms", "max_rel_logits",
+                "tokens_equal", "peak_gb")}
+            for lay, key in (("whole", "1x2/resident/hd/float32"),
+                             ("cut", "1x2/resident/hd/float32/"
+                                     "cut_residual"))}
+    return {"21a": record["mesh"]["seq_shard"], "21b": prefill,
+            "21c": dots, "card": record["nvidia_smi"]}
 
 
 def cut_kernel_entries(kernels, record):
@@ -6882,6 +7254,9 @@ def main() -> int:
     record["checkpoint"]["s"] = time.perf_counter() - t
     log(f"phase 10: {record['checkpoint']['s']:.1f} s "
         f"{record['checkpoint']} {record['adaptive']}")
+    t = time.perf_counter()
+    dots = phase21c(tr, counters(RN, FA), smi)
+    dots["s"] = time.perf_counter() - t
     del tr, final4
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -7072,6 +7447,8 @@ def main() -> int:
     log(f"phase 8: {record['bench_kernels']['s']:.1f} s "
         f"{record['bench_kernels']['launches']} "
         f"{record['bench_kernels']['errors']}")
+
+    record["phase21"] = phase21_record(record, dots)
 
     launches = record["engine"]["launches"]
     train_launches = record["train"]["launches"]
@@ -7432,6 +7809,7 @@ def main() -> int:
         if k not in ("launches", "kernels")}}))
     print(json.dumps({"mesh_serve": {
         k: v for k, v in record["mesh_serve"].items() if k != "kernels"}}))
+    print(json.dumps({"seq_shard_and_dots": record["phase21"]}))
     print(json.dumps({"checkpoint": record["checkpoint"],
                       "adaptive": adaptive, "card": smi}))
     print(json.dumps({"ok": True, "device": {

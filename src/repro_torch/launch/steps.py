@@ -23,13 +23,21 @@ model built on the meta device, AdamW's state of it, the inputs of
   place.
 
 The serving steps run in the dtype the model's weights are held in, so
-``dtype`` must be that dtype there.  The reference's knobs that only
-pick a path the port does not have are refused when they ask for it:
-``block_skip`` (the XLA chunked attention's triangular blocking; the
-port's causal attention is the flash kernel, which skips masked tiles
-itself), ``seq_shard`` (the sequence-parallel residual layout; the
-port's residual is whole on every model rank) and ``remat_policy``
-(the port recomputes whole layers).
+``dtype`` must be that dtype there.  The knobs default to the
+reference's.  ``seq_shard=True`` (the sequence-parallel residual:
+each rank holds S/M rows of the residual between blocks, gathered on a
+block's entry and reduce-scattered on its exit, ``parallel``'s
+docstring) reaches the train step's family loss, where the transformer
+family honours it and Mamba-2, the hybrid and the enc-dec cut whatever
+is asked, as their reference losses swallow it; the prefill step passes
+no knob, as the reference's does, so every family's prefill cuts
+(``parallel.seq_cut``: where 16 and the model axis divide S).
+``seq_shard=False`` keeps the residual whole on every model rank where
+the family honours it.  ``remat_policy="dots"`` keeps the products'
+outputs under remat in the transformer family (``layers.recompute``).
+The one knob refused is ``block_skip`` (the XLA chunked attention's
+triangular blocking): the port's causal attention is the flash kernel,
+which skips masked tiles itself.
 """
 from __future__ import annotations
 
@@ -93,19 +101,12 @@ def shape_supported(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
     return True, ""
 
 
-def _refuse(block_skip: bool, seq_shard: bool, remat_policy: str) -> None:
-    for on, knob, why in (
-            (block_skip, "block_skip=True",
-             "the causal attention is the flash kernel, which skips "
-             "masked tiles itself"),
-            (seq_shard, "seq_shard=True",
-             "the residual is whole on every model rank; there is no "
-             "sequence-parallel layout"),
-            (bool(remat_policy), f"remat_policy={remat_policy!r}",
-             "remat recomputes whole layers")):
-        if on:
-            raise NotImplementedError(f"build_workload: {knob} has no path "
-                                      f"in the port ({why})")
+def _refuse(block_skip: bool) -> None:
+    if block_skip:
+        raise NotImplementedError(
+            "build_workload: block_skip=True has no path in the port (the "
+            "causal attention is the flash kernel, which skips masked "
+            "tiles itself)")
 
 
 def _check_dtype(model, dtype) -> None:
@@ -118,12 +119,12 @@ def _check_dtype(model, dtype) -> None:
 def build_workload(cfg: ModelConfig, shape: InputShape, *,
                    multi_pod: bool = False, opt_kind: str = "adamw",
                    z_loss: float = 0.0, remat: bool = True,
-                   block_skip: bool = False, seq_shard: bool = False,
+                   block_skip: bool = False, seq_shard: bool = True,
                    remat_policy: str = "", serve_resident: bool = False,
                    cache_seq_shard: bool = False, dtype=torch.bfloat16):
     """Returns (fn, args of meta-device stand-ins, in_specs, out_specs) of
     ``shape``'s mode (see the module's docstring)."""
-    _refuse(block_skip, seq_shard, remat_policy)
+    _refuse(block_skip)
     pspec = R.param_specs(cfg, multi_pod,
                           serve_resident=(serve_resident and
                                           shape.mode != "train"))
@@ -144,9 +145,10 @@ def build_workload(cfg: ModelConfig, shape: InputShape, *,
             tp = tp_of(model)
             mesh = None if tp is None else tp.mesh
             if mesh not in steps:
-                steps[mesh] = E.make_grad_step(cfg, opt, z_loss=z_loss,
-                                               dtype=dtype, remat=remat,
-                                               mesh=mesh)
+                steps[mesh] = E.make_grad_step(
+                    cfg, opt, z_loss=z_loss, dtype=dtype, remat=remat,
+                    mesh=mesh, seq_shard=seq_shard,
+                    remat_policy=remat_policy)
             model, opt_state, metrics = steps[mesh](model, opt_state, batch,
                                                     lr)
             return model, opt_state, metrics["loss"]

@@ -177,7 +177,7 @@ def project_kv(p: Attention, x, *, n_heads: int, n_kv_heads: int,
 def attn_forward(p: Attention, x, *, n_heads: int, n_kv_heads: int,
                  head_dim: int, rope_theta: float,
                  window: Optional[int] = None, positions=None,
-                 causal: bool = True, tp=None):
+                 causal: bool = True, tp=None, seq: bool = False):
     """Self-attention over x: (B, S, d).  Causal and full: the flash
     kernels on the card.  Causal within a sliding ``window``, or
     bidirectional (``causal=False``, the enc-dec encoder):
@@ -187,13 +187,16 @@ def attn_forward(p: Attention, x, *, n_heads: int, n_kv_heads: int,
     projections are this rank's H/M query heads and the KV heads they
     attend to (``project_kv``: its Hkv/M, or the gathered heads where the
     model axis does not divide them), ``w_o`` its rows, and the output
-    is summed over the model group."""
-    B, S, _ = x.shape
+    is summed over the model group.  With ``seq`` x is the rank's S/M
+    rows of the cut residual: gathered along S first (so q, k, v and the
+    K/V returned cover the whole S), the output reduce-scattered back to
+    the rank's rows."""
     dt = x.dtype
+    if tp is not None:
+        x = tp.enter(x, seq)
+    B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    if tp is not None:
-        x = tp.to_model(x)
     q = (x @ weight(p.w_q, dt, tp)).reshape(B, S, -1, head_dim)
     k, v = project_kv(p, x, n_heads=n_heads, n_kv_heads=n_kv_heads,
                       head_dim=head_dim, tp=tp)
@@ -205,7 +208,7 @@ def attn_forward(p: Attention, x, *, n_heads: int, n_kv_heads: int,
     else:
         o = chunked_attention(q, k, v, causal=causal, window=window)
     o = o.reshape(B, S, -1) @ weight(p.w_o, dt, tp)
-    return (o if tp is None else tp.from_model(o)), (k, v)
+    return (o if tp is None else tp.leave(o, seq)), (k, v)
 
 
 # --------------------------------------------------------------------- #

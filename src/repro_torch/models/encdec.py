@@ -28,6 +28,16 @@ precomputed frame embeddings (B, frames, d_model), the batch's
   with ``cache_seq_shard``), attended over in place
   (``attention.decode_attn_tp``, ``attention.cross_decode_tp``).
 
+- **The sequence-parallel residual** (a model cut to a mesh, the
+  reference's default): the encoder's residual is cut over frames and
+  gathered whole before ``enc_norm`` (``encdec.py:115``), so ``enc_out``,
+  whole on every model rank, feeds every decoder layer's cross K/V; the
+  decoder's residual is cut over tokens and gathered whole before
+  ``final_norm`` (``encdec.py:146``).  Each attention and MLP enters on
+  the gathered rows and leaves by a reduce-scatter, the cross-attention's
+  q as the self-attention's.  ``enc_norm`` and ``final_norm`` see every
+  row, so only the layers' norms are partial over ``model``.
+
 The reference scans stacked layers; here each stack is a ``ModuleList``
 and the loop is Python.  ``remat`` recomputes each layer in the
 backward, as the reference's ``jax.checkpoint`` of its scan body.
@@ -46,7 +56,7 @@ from repro_torch.models.layers import (MLP, P, embed, embed_specs,
                                        param, recompute, rmsnorm,
                                        trunc_normal_)
 from repro_torch.models.transformer import kv_cut, logits_from_hidden
-from repro_torch.parallel import tp_of, weight
+from repro_torch.parallel import seq_of, tp_of, weight
 
 
 def _attention(cfg: ModelConfig, dtype, device) -> Attention:
@@ -160,27 +170,42 @@ def param_specs(cfg: ModelConfig, multi_pod: bool = False):
 # the encoder and the cross-attention
 # --------------------------------------------------------------------- #
 
-def _self_attn(p: Attention, h, cfg: ModelConfig, causal: bool, tp=None):
+def _self_attn(p: Attention, h, cfg: ModelConfig, causal: bool, tp=None,
+               seq: bool = False):
     return attn_forward(p, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                        causal=causal, tp=tp)
+                        causal=causal, tp=tp, seq=seq)
 
 
-def _enc_layer(layer: EncoderLayer, x, cfg: ModelConfig, tp=None):
+def _enc_layer(layer: EncoderLayer, x, cfg: ModelConfig, tp=None,
+               seq: bool = False):
     h = rmsnorm(x, layer.norm1, cfg.norm_eps)
-    x = x + _self_attn(layer.attn, h, cfg, causal=False, tp=tp)[0]
+    x = x + _self_attn(layer.attn, h, cfg, causal=False, tp=tp, seq=seq)[0]
     h = rmsnorm(x, layer.norm2, cfg.norm_eps)
-    return x + mlp(layer.mlp, h, cfg.act, tp)
+    return x + mlp(layer.mlp, h, cfg.act, tp, seq)
 
 
-def encode(model: EncDec, cfg: ModelConfig, src_emb, *, remat: bool = True):
+def encode(model: EncDec, cfg: ModelConfig, src_emb, *, remat: bool = True,
+           seq_shard: bool = True):
     """src_emb (B, Se, d) in the compute dtype -> the encoder's output
-    (B, Se, d) after ``enc_norm``."""
+    (B, Se, d) after ``enc_norm``.  On a mesh with ``seq_shard`` and
+    ``parallel.seq_cut`` of Se the residual is the rank's Se/M frames
+    (cut from ``src_emb``, whole on every model rank), gathered whole
+    before ``enc_norm``: every consumer of ``enc_out`` passes ``to_model``,
+    so that gather's backward only keeps the rank's frames."""
     tp = tp_of(model)
+    seq = seq_of(tp, src_emb.shape[1], seq_shard)
     x = src_emb
+    if seq:
+        n = x.shape[1] // tp.n_model
+        x = x[:, tp.model_slice(n)].contiguous()
+        tp.note_partial(*(n_ for layer in model.encoder
+                          for n_ in (layer.norm1, layer.norm2)))
     for layer in model.encoder:
-        x = (recompute(_enc_layer, layer, x, cfg, tp) if remat
-             else _enc_layer(layer, x, cfg, tp))
+        x = (recompute(_enc_layer, layer, x, cfg, tp, seq) if remat
+             else _enc_layer(layer, x, cfg, tp, seq))
+    if seq:
+        x = tp.seq_gather(x, whole_grad=True)
     return rmsnorm(x, model.enc_norm, cfg.norm_eps)
 
 
@@ -196,45 +221,69 @@ def _enc_kv(p: Attention, enc_out, cfg: ModelConfig, tp=None):
                         tp=tp)
 
 
-def _cross_attend(p: Attention, h, ek, ev, cfg: ModelConfig, tp=None):
+def _cross_attend(p: Attention, h, ek, ev, cfg: ModelConfig, tp=None,
+                  seq: bool = False):
     """h (B, Sq, d) attends to every key of ek/ev (B, Se, Hkv, hd); on a
-    mesh with the rank's query heads, ``w_o`` row-parallel."""
-    B, Sq, _ = h.shape
+    mesh with the rank's query heads, ``w_o`` row-parallel; with ``seq``
+    h is the rank's rows of the cut residual, gathered on entry, the
+    output reduce-scattered back."""
     if tp is not None:
-        h = tp.to_model(h)
+        h = tp.enter(h, seq)
+    B, Sq, _ = h.shape
     q = (h @ weight(p.w_q, h.dtype, tp)).reshape(B, Sq, -1, cfg.head_dim)
     o = A.chunked_attention(q, ek.to(h.dtype), ev.to(h.dtype), causal=False)
     o = o.reshape(B, Sq, -1) @ weight(p.w_o, h.dtype, tp)
-    return o if tp is None else tp.from_model(o)
+    return o if tp is None else tp.leave(o, seq)
 
 
-def _dec_layer(layer: DecoderLayer, x, enc_out, cfg: ModelConfig, tp=None):
-    """One decoder layer over x (B, S, d).  Returns (x, (k, v) of the
-    self-attention, (ek, ev) of the cross-attention)."""
+def _dec_layer(layer: DecoderLayer, x, enc_out, cfg: ModelConfig, tp=None,
+               seq: bool = False):
+    """One decoder layer over x (B, S, d) (the rank's rows with ``seq``).
+    Returns (x, (k, v) of the self-attention, (ek, ev) of the
+    cross-attention), K/V over the whole S."""
     h = rmsnorm(x, layer.norm1, cfg.norm_eps)
-    a, kv = _self_attn(layer.self_attn, h, cfg, causal=True, tp=tp)
+    a, kv = _self_attn(layer.self_attn, h, cfg, causal=True, tp=tp, seq=seq)
     x = x + a
     h = rmsnorm(x, layer.norm3, cfg.norm_eps)
     ek, ev = _enc_kv(layer.cross_attn, enc_out, cfg, tp)
-    x = x + _cross_attend(layer.cross_attn, h, ek, ev, cfg, tp)
+    x = x + _cross_attend(layer.cross_attn, h, ek, ev, cfg, tp, seq)
     h = rmsnorm(x, layer.norm2, cfg.norm_eps)
-    return x + mlp(layer.mlp, h, cfg.act, tp), kv, (ek, ev)
+    return x + mlp(layer.mlp, h, cfg.act, tp, seq), kv, (ek, ev)
 
 
-def _dec_layer_x(layer, x, enc_out, cfg, tp=None):
-    return _dec_layer(layer, x, enc_out, cfg, tp)[0]
+def _dec_layer_x(layer, x, enc_out, cfg, tp=None, seq=False):
+    return _dec_layer(layer, x, enc_out, cfg, tp, seq)[0]
+
+
+def _dec_cut(model: EncDec, tokens, seq_shard: bool) -> bool:
+    """Whether the decoder over ``tokens`` cuts its residual, recording
+    its layers' norms as partial where it does."""
+    tp = tp_of(model)
+    seq = seq_of(tp, tokens.shape[1], seq_shard)
+    if seq:
+        tp.note_partial(*(n for layer in model.decoder
+                          for n in (layer.norm1, layer.norm2, layer.norm3)))
+    return seq
 
 
 def decode_trunk(model: EncDec, cfg: ModelConfig, tokens, enc_out, *,
-                 dtype=torch.bfloat16, remat: bool = True):
+                 dtype=torch.bfloat16, remat: bool = True,
+                 seq_shard: bool = True):
     """tokens (B, S) -> the decoder's final hidden states (B, S, d) after
     ``final_norm``.  The embedding is cast to ``dtype`` before the
-    gather, as the reference does (vocab-parallel on a mesh)."""
+    gather, as the reference does (vocab-parallel on a mesh).  With
+    ``seq_shard`` and ``parallel.seq_cut`` of S the residual is cut over
+    tokens and gathered whole before ``final_norm`` (whose grads are then
+    whole, the head's ``to_model`` summing them: the gather's backward
+    only keeps the rank's rows)."""
     tp = tp_of(model)
-    x = embed(model, tokens, dtype, tp)
+    seq = _dec_cut(model, tokens, seq_shard)
+    x = embed(model, tokens, dtype, tp, seq)
     for layer in model.decoder:
-        x = (recompute(_dec_layer_x, layer, x, enc_out, cfg, tp) if remat
-             else _dec_layer_x(layer, x, enc_out, cfg, tp))
+        x = (recompute(_dec_layer_x, layer, x, enc_out, cfg, tp, seq)
+             if remat else _dec_layer_x(layer, x, enc_out, cfg, tp, seq))
+    if seq:
+        x = tp.seq_gather(x, whole_grad=True)
     return rmsnorm(x, model.final_norm, cfg.norm_eps)
 
 
@@ -243,27 +292,33 @@ def decode_trunk(model: EncDec, cfg: ModelConfig, tokens, enc_out, *,
 # --------------------------------------------------------------------- #
 
 def forward_hidden(model: EncDec, cfg: ModelConfig, tokens, *, prefix_emb,
-                   dtype=torch.bfloat16, remat: bool = True):
+                   dtype=torch.bfloat16, remat: bool = True,
+                   seq_shard: bool = True):
     """The decoder's final hidden states over ``tokens`` given the source
     frames ``prefix_emb`` (B, Se, d).  Returns (h, {}).  On a mesh
     (``parallel.shard``) both stacks run tensor-parallel, the frames
-    this data slot's rows."""
+    this data slot's rows, each residual cut by ``seq_shard``."""
     if prefix_emb is None:
         raise ValueError("the enc-dec needs the source embeddings "
                          "(prefix_emb)")
-    enc_out = encode(model, cfg, prefix_emb.to(dtype), remat=remat)
+    enc_out = encode(model, cfg, prefix_emb.to(dtype), remat=remat,
+                     seq_shard=seq_shard)
     return decode_trunk(model, cfg, tokens, enc_out, dtype=dtype,
-                        remat=remat), {}
+                        remat=remat, seq_shard=seq_shard), {}
 
 
 def loss_fn(model: EncDec, cfg: ModelConfig, batch, *, z_loss: float = 0.0,
-            dtype=torch.bfloat16, remat: bool = True):
+            dtype=torch.bfloat16, remat: bool = True,
+            seq_shard: bool = True):
     """batch: ``src_emb`` (B, Se, d) frames, ``tokens`` and ``labels`` (B,
     S) int64, optional ``mask`` (B, S) float32.  Returns (loss, metrics)
-    as the reference: ``loss``, ``ce_loss`` and ``z_sq``."""
+    as the reference: ``loss``, ``ce_loss`` and ``z_sq``.  ``seq_shard``
+    as in ``forward_hidden``; ``registry.loss_fn`` passes none, as the
+    reference's ``loss_fn`` (``encdec.py:150``) swallows it in ``**_``,
+    so training through the registry always cuts."""
     h, _ = forward_hidden(model, cfg, batch["tokens"],
                           prefix_emb=batch["src_emb"], dtype=dtype,
-                          remat=remat)
+                          remat=remat, seq_shard=seq_shard)
     loss, z_sq = lm_loss(model, cfg, h, batch, z_loss, tp_of(model))
     return loss, {"ce_loss": loss, "z_sq": z_sq, "loss": loss}
 
@@ -305,22 +360,29 @@ def _cross_cut(layout):
     return {2: 1, 3: 3}[cut[0]], cut[1], cut[2]
 
 
-def _prefill_tp(model: EncDec, cfg: ModelConfig, tokens, enc_out, layout):
+def _prefill_tp(model: EncDec, cfg: ModelConfig, tokens, enc_out, layout,
+                seq_shard: bool = True):
     """``prefill`` on a mesh: the rank's rows, the encoder's output
     ``enc_out`` (the encoder run tensor-parallel, as in training); each
     decoder layer tensor-parallel, its self-attention's K/V placed in
     the full cache and cut to its box, its cross-attention's K/V cut to
     theirs (``attention.kv_to_box`` in the reference's (B, Se, Hkv, hd)
-    order, then transposed to the port's).  Returns (the rank's vocab
-    columns of the last position's logits (B, 1, V/M) float32, the
-    rank's cache blocks)."""
+    order, then transposed to the port's).  With ``seq_shard`` the
+    decoder's residual is cut along the sequence wherever
+    ``parallel.seq_cut`` holds, as the reference's prefill cuts it
+    (``encdec.py:203``); the last position's hidden then comes from the
+    last model rank
+    (``TensorParallel.last_row``).  Returns (the rank's vocab columns of
+    the last position's logits (B, 1, V/M) float32, the rank's cache
+    blocks)."""
     tp = model.tp
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
     dim, e_dim = kv_cut(layout)[0], _cross_cut(layout)[0]
-    x = embed(model, tokens, model.dtype, tp)
+    seq = _dec_cut(model, tokens, seq_shard)
+    x = embed(model, tokens, model.dtype, tp, seq)
     layers = []
     for layer in model.decoder:
-        x, kv, ekv = _dec_layer(layer, x, enc_out, cfg, tp)
+        x, kv, ekv = _dec_layer(layer, x, enc_out, cfg, tp, seq)
         c = A.cache_to_box(tp, *kv, slots=layout.shapes["k"][2], ring=False,
                            dim=dim, **kw)
         for n, t in zip(CROSS_KV, ekv):
@@ -328,18 +390,22 @@ def _prefill_tp(model: EncDec, cfg: ModelConfig, tokens, enc_out, layout):
                 1, 2).contiguous()
         layers.append(c)
     data = {n: torch.stack([c[n] for c in layers]) for n in layers[0]}
-    x = rmsnorm(x[:, -1:].contiguous(), model.final_norm, cfg.norm_eps)
+    x = rmsnorm(tp.last_row(x, seq), model.final_norm, cfg.norm_eps)
     return (x @ tp.head(model, x.dtype)).float(), data
 
 
 def prefill(model: EncDec, cfg: ModelConfig, tokens, *, prefix_emb,
-            cache_len_cap: int, layout=None):
+            cache_len_cap: int, layout=None, seq_shard: bool = True):
     """Encode the source frames ``prefix_emb`` (B, Se, d) and run the
     prompt, tokens (B, S), at its exact length.  Returns (logits (B, 1,
     V) float32 at the last position, the cache of ``cache_struct``: the
     prompt's K/V in the first S rows of ``k``/``v``, each layer's
     cross-attention K/V in ``ek``/``ev``).  On a mesh (``layout``, the
-    cache's ``parallel.CacheLayout``) see ``_prefill_tp``."""
+    cache's ``parallel.CacheLayout``) see ``_prefill_tp``: with
+    ``seq_shard`` the encoder's and the decoder's residuals are cut
+    wherever ``parallel.seq_cut`` holds.  ``registry.prefill`` passes no
+    ``seq_shard`` here, as the reference's ``prefill`` takes none
+    (``encdec.py:194``), so serving through the registry always cuts."""
     if prefix_emb is None:
         raise ValueError("the enc-dec's prefill needs the source "
                          "embeddings (prefix_emb)")
@@ -350,9 +416,10 @@ def prefill(model: EncDec, cfg: ModelConfig, tokens, *, prefix_emb,
     if prefix_emb.shape[1] != cfg.frontend_tokens:
         raise ValueError(f"{prefix_emb.shape[1]} source frames; the config "
                          f"takes {cfg.frontend_tokens}")
-    enc_out = encode(model, cfg, prefix_emb.to(model.dtype), remat=False)
+    enc_out = encode(model, cfg, prefix_emb.to(model.dtype), remat=False,
+                     seq_shard=seq_shard)
     if layout is not None:
-        return _prefill_tp(model, cfg, tokens, enc_out, layout)
+        return _prefill_tp(model, cfg, tokens, enc_out, layout, seq_shard)
     x = model.tok[tokens]
     data = cache_struct(cfg, B, cache_len_cap, dtype=model.dtype,
                         device=x.device)

@@ -13,13 +13,16 @@ Norm scales stay float32: the norm adds them to 1 in float32.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import backend as KB
 from repro_torch.parallel import weight
@@ -116,14 +119,56 @@ def out_std(n_layers: int) -> float:
 # recompute in the backward
 # --------------------------------------------------------------------- #
 
-def recompute(fn, *args):
+# the products the "dots" policy keeps: matrix products without batch
+# dims (the reference's dots_with_no_batch_dims_saveable); bmm and the
+# kernels' autograd Functions are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_unsaved = threading.local()
+
+
+@contextlib.contextmanager
+def not_saved():
+    """Products run inside are recomputed under the "dots" policy: a
+    product whose output the backward never reads (the MLP's down
+    projection, read only by the residual add), which the reference's
+    policy, keeping only what its backward reads, does not keep."""
+    prev = getattr(_unsaved, "on", False)
+    _unsaved.on = True
+    try:
+        yield
+    finally:
+        _unsaved.on = prev
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS and not getattr(_unsaved, "on", False):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def recompute(fn, *args, policy: str = ""):
     """``fn(*args)``, recomputed in the backward
     (``torch.utils.checkpoint``, non-reentrant).  No forward here draws
     random numbers (there is no dropout), so the recompute stashes no
     RNG state: the result is the same, and a CUDA graph capture, during
-    which the card's generator state cannot be read, can run it."""
+    which the card's generator state cannot be read, can run it.
+
+    ``policy="dots"`` is the reference's ``remat_policy="dots"``
+    (``dots_with_no_batch_dims_saveable``): the outputs of the products
+    without batch dims (``aten.mm``, ``aten.addmm``) are kept from the
+    forward, not recomputed (``create_selective_checkpoint_contexts``),
+    except those run under :func:`not_saved`; everything else is
+    recomputed.  Any other string runs full remat, as the reference's
+    ``else`` branch does."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = _dots_contexts
     return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+                      preserve_rng_state=False, **kw)
 
 
 # --------------------------------------------------------------------- #
@@ -186,20 +231,24 @@ class MLP(nn.Module):
             trunc_normal_(self.w_gate, 0.02, generator)
 
 
-def mlp(p: MLP, x, act: str, tp=None):
+def mlp(p: MLP, x, act: str, tp=None, seq: bool = False):
     """On a mesh (``tp``, a ``parallel.TensorParallel``) up and gate are
     column-parallel and down row-parallel: this rank's d_ff/M columns,
-    the output summed over the model group."""
+    the output summed over the model group.  With ``seq`` x is the rank's
+    rows of the cut residual: gathered along S on entry, the output
+    reduce-scattered back to the rank's rows.  The down projection's
+    output is not kept by the "dots" policy (``not_saved``)."""
     dt = x.dtype
     if tp is not None:
-        x = tp.to_model(x)
+        x = tp.enter(x, seq)
     up = x @ weight(p.w_up, dt, tp)
     if p.w_gate is not None:
         h = act_fn(act)(x @ weight(p.w_gate, dt, tp)) * up
     else:
         h = act_fn(act)(up)
-    out = h @ weight(p.w_down, dt, tp)
-    return out if tp is None else tp.from_model(out)
+    with not_saved():
+        out = h @ weight(p.w_down, dt, tp)
+    return out if tp is None else tp.leave(out, seq)
 
 
 # --------------------------------------------------------------------- #
@@ -214,21 +263,33 @@ def lm_head_matrix(model) -> torch.Tensor:
     return model.tok.T
 
 
-def embed(model, tokens, dtype, tp=None):
+def embed(model, tokens, dtype, tp=None, seq: bool = False, prefix=None):
     """The token embeddings in ``dtype`` (the embedding cast before the
     gather, as the reference's).  On a mesh the embedding is
     vocab-parallel: this rank looks up the ids of its rows, zeros for
-    the rest, summed over the model group."""
+    the rest, summed over the model group.  With ``seq`` the sum is the
+    reduce-scatter into the cut residual: this rank's S/M rows, of the
+    embeddings behind ``prefix`` (B, P, d) when given (the VLM's patches,
+    whole on every model rank: put in by model rank 0 only, so the
+    float32 sum adds zeros to them)."""
     if tp is None:
         return F.embedding(tokens, model.tok.to(dtype))
     W = tp.weight(model.tok, dtype)
     local = tokens - tp.vocab_start(W.shape[0])
     inside = (local >= 0) & (local < W.shape[0])
-    x = F.embedding(local.clamp(0, W.shape[0] - 1), W)
-    return tp.from_model(torch.where(inside[..., None], x, 0.0))
+    x = torch.where(inside[..., None],
+                    F.embedding(local.clamp(0, W.shape[0] - 1), W), 0.0)
+    if not seq:
+        return tp.from_model(x)
+    if prefix is not None:
+        pre = prefix.to(dtype)
+        x = torch.cat([pre if tp.model_index == 0 else torch.zeros_like(pre),
+                       x], dim=1)
+    return tp.seq_scatter(x)
 
 
-def lm_loss(model, cfg, h, batch, z_loss: float = 0.0, tp=None):
+def lm_loss(model, cfg, h, batch, z_loss: float = 0.0, tp=None,
+            gathered: bool = False):
     """(loss, z_sq) of the final hiddens h (B, S, d) against
     ``batch["labels"]`` under ``batch["mask"]`` (all ones when absent),
     through the head: the whole head, or on a mesh this rank's vocab
@@ -236,7 +297,9 @@ def lm_loss(model, cfg, h, batch, z_loss: float = 0.0, tp=None):
     of tokens in each data slot, so on a mesh of several slots the sums
     are divided by the slots' mean count (``TensorParallel.
     mean_over_data``): the slots' mean loss is then the global batch's,
-    as the reference's."""
+    as the reference's.  ``gathered``: h came from the cut residual
+    through ``TensorParallel.seq_gather``, whose backward already sums its
+    grad over the model group, so it does not pass ``to_model``."""
     labels = batch["labels"]
     mask = batch.get("mask")
     n_tok = None
@@ -247,12 +310,13 @@ def lm_loss(model, cfg, h, batch, z_loss: float = 0.0, tp=None):
         n_tok = tp.mean_over_data(mask.float().sum())
     W = lm_head_matrix(model) if tp is None else tp.head(model, h.dtype)
     return cross_entropy_chunked(h, W, labels, mask, cfg.vocab_size,
-                                 z_loss=z_loss, tp=tp, n_tok=n_tok)
+                                 z_loss=z_loss, tp=tp, n_tok=n_tok,
+                                 gathered=gathered)
 
 
 def cross_entropy_chunked(h, W, labels, mask, logical_vocab: int, *,
                           z_loss: float = 0.0, chunk: int = 512, tp=None,
-                          n_tok=None):
+                          n_tok=None, gathered: bool = False):
     """Loss over (B, S, d) hiddens against (B, S) labels without holding
     the (B, S, V) logits: the sequence goes in chunks of ``chunk``
     tokens, each chunk's float32 logits recomputed in the backward
@@ -267,14 +331,17 @@ def cross_entropy_chunked(h, W, labels, mask, logical_vocab: int, *,
     value and grad do not depend on it), the sum of exps and the
     target's logit are reduced over the model group, and z-loss comes
     from the same logsumexp.  ``n_tok`` (a float32 0-d tensor) is the
-    token count the sums are divided by, the mask's sum by default."""
+    token count the sums are divided by, the mask's sum by default.
+    ``gathered``: see ``lm_loss``."""
     S, V = h.shape[1], W.shape[-1]
     chunk = min(chunk, S)
     n_chunks = S // chunk
     rem = S - n_chunks * chunk
     lo = 0
     if tp is not None:
-        h, lo = tp.to_model(h), tp.vocab_start(V)
+        lo = tp.vocab_start(V)
+        if not gathered:
+            h = tp.to_model(h)
     vocab_ok = torch.arange(lo, lo + V, device=h.device) < logical_vocab
 
     def chunk_loss(hc, yc, mc):

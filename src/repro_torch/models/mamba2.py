@@ -12,6 +12,12 @@ run in ``ssd_chunked`` here.  Decode is the O(1) recurrent step
 last d_conv − 1 conv inputs per layer and request.
 The reference stacks its layers along a leading L dim and scans them;
 here each block is a module of a ``ModuleList`` and the loop is Python.
+
+On a data × model mesh the forward and the prefill cut the residual
+along the sequence by default (``seq_shard=True``, the reference's
+``residual_spec``): the mixer enters on the gathered rows (the conv and
+the SSD need the whole S) and leaves by the reduce-scatter of ``w_out``'s
+partial sums; the block norms and the final norm run on the rank's rows.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from repro_torch.models.layers import (P, copy_whole_, embed, embed_specs,
                                        fsdp_axis, lm_head_matrix, lm_loss,
                                        out_std, param, recompute, rmsnorm,
                                        trunc_normal_, whole_shape)
-from repro_torch.parallel import tp_of, weight
+from repro_torch.parallel import seq_of, tp_of, weight
 
 
 def _dims(cfg: ModelConfig):
@@ -256,7 +262,7 @@ def ssd_chunked(xh, dt, A, Bm, Cm, D, *, chunk: int, h0=None):
 # --------------------------------------------------------------------- #
 
 def mixer_forward(m: Mamba2Mixer, x, cfg: ModelConfig, *,
-                  with_state: bool = False, tp=None):
+                  with_state: bool = False, tp=None, seq: bool = False):
     """x: (B, S, d) -> (B, S, d).  The SSD scan and the gated output norm
     run through ``kernels.backend`` (the kernels on the card).  With
     ``with_state`` also the state a decode step continues from:
@@ -266,7 +272,7 @@ def mixer_forward(m: Mamba2Mixer, x, cfg: ModelConfig, *,
     it.  On a mesh (``tp``, training) the mixer is head-parallel: see
     ``_mixer_tp``."""
     if tp is not None:
-        return _mixer_tp(m, x, cfg, tp, with_state=with_state)
+        return _mixer_tp(m, x, cfg, tp, with_state=with_state, seq=seq)
     s, di, H, P, N = _dims(cfg)
     B_, S, _ = x.shape
     z = x @ m.w_z.to(x.dtype)
@@ -291,7 +297,7 @@ def mixer_forward(m: Mamba2Mixer, x, cfg: ModelConfig, *,
 
 
 def _mixer_tp(m: Mamba2Mixer, x, cfg: ModelConfig, tp, *,
-              with_state: bool = False):
+              with_state: bool = False, seq: bool = False):
     """The mixer on this rank's H/M SSD heads.  ``w_z`` and ``w_x`` are
     column-parallel (the heads' d_inner/M channels), ``w_out``
     row-parallel; ``w_B``, ``w_C`` and ``w_dt`` and the per-head
@@ -304,7 +310,13 @@ def _mixer_tp(m: Mamba2Mixer, x, cfg: ModelConfig, tp, *,
     the whole d_inner from the ranks' parts (``kernels.backend.
     rmsnorm_split``).  With ``with_state`` also the rank's state: "h"
     (B, H/M, P, N) of its heads and "conv" the whole conv tail (B,
-    d_conv − 1, d_inner + 2N), the heads' x channels gathered."""
+    d_conv − 1, d_inner + 2N), the heads' x channels gathered.  With
+    ``seq`` x is the rank's rows of the cut residual: gathered along S
+    first (every consumer of the gathered rows gives whole grads, so the
+    gather's backward only keeps the rank's rows), the output
+    reduce-scattered back to them."""
+    if seq:
+        x = tp.seq_gather(x, whole_grad=True)
     s, di, H, P, N = _dims(cfg)
     B_, S, _ = x.shape
     dt_ = x.dtype
@@ -330,7 +342,7 @@ def _mixer_tp(m: Mamba2Mixer, x, cfg: ModelConfig, tp, *,
     y = y.reshape(B_, S, -1) * F.silu(z)
     y = KB.rmsnorm_split(y, m.norm, d_full=di, reduce=tp.sum_over_model,
                          eps=cfg.norm_eps)
-    out = tp.from_model(y @ weight(m.w_out, dt_, tp))
+    out = tp.leave(y @ weight(m.w_out, dt_, tp), seq)
     if not with_state:
         return out
     K = s.d_conv
@@ -341,38 +353,54 @@ def _mixer_tp(m: Mamba2Mixer, x, cfg: ModelConfig, tp, *,
     return out, {"h": h_final, "conv": tail}
 
 
-def _block(blk: Block, x, cfg: ModelConfig, tp=None):
+def _block(blk: Block, x, cfg: ModelConfig, tp=None, seq: bool = False):
     return x + mixer_forward(blk.mixer, rmsnorm(x, blk.norm, cfg.norm_eps),
-                             cfg, tp=tp)
+                             cfg, tp=tp, seq=seq)
 
 
 def forward_hidden(model: Mamba2, cfg: ModelConfig, tokens, *,
-                   dtype=torch.bfloat16, remat: bool = True):
+                   dtype=torch.bfloat16, remat: bool = True,
+                   seq_shard: bool = True):
     """tokens: (B, S) int -> final hidden states (B, S, d) in ``dtype``.
     The embedding is cast to ``dtype`` before the gather, as the
     reference does.  ``remat`` recomputes each block in the backward
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
     its scan body); it changes memory, not the numbers.  A model cut to
     a mesh (``parallel.shard``) runs its mixers head-parallel, the
-    embedding vocab-parallel."""
+    embedding vocab-parallel; with ``seq_shard`` and ``parallel.seq_cut``
+    of S the residual is cut along the sequence (the module's
+    docstring), the block norms and the final norm recorded as partial
+    (``TensorParallel.note_partial``; the reference norms the cut
+    residual, ``mamba2.py:280``) and the final hiddens gathered whole."""
     tp = tp_of(model)
-    x = embed(model, tokens, dtype, tp)
+    seq = seq_of(tp, tokens.shape[1], seq_shard)
+    x = embed(model, tokens, dtype, tp, seq)
+    if seq:
+        tp.note_partial(model.final_norm, *(b.norm for b in model.layers))
     for blk in model.layers:
         if remat:
-            x = recompute(_block, blk, x, cfg, tp)
+            x = recompute(_block, blk, x, cfg, tp, seq)
         else:
-            x = _block(blk, x, cfg, tp)
-    return rmsnorm(x, model.final_norm, cfg.norm_eps)
+            x = _block(blk, x, cfg, tp, seq)
+    h = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return tp.seq_gather(h) if seq else h
 
 
 def loss_fn(model: Mamba2, cfg: ModelConfig, batch, *, z_loss: float = 0.0,
-            dtype=torch.bfloat16, remat: bool = True):
+            dtype=torch.bfloat16, remat: bool = True,
+            seq_shard: bool = True):
     """batch: ``tokens`` and ``labels`` (B, S) int64, optional ``mask``
     (B, S) float32.  Returns (loss, metrics) as the reference: the loss
-    and ``ce_loss`` (both with the z-loss term) and ``z_sq``."""
+    and ``ce_loss`` (both with the z-loss term) and ``z_sq``.
+    ``seq_shard`` as in ``forward_hidden``; ``registry.loss_fn`` passes
+    none, as the reference's ``loss_fn`` (``mamba2.py:284``) swallows it
+    in ``**_``, so training through the registry always cuts."""
     h = forward_hidden(model, cfg, batch["tokens"], dtype=dtype,
-                       remat=remat)
-    loss, z_sq = lm_loss(model, cfg, h, batch, z_loss, tp_of(model))
+                       remat=remat, seq_shard=seq_shard)
+    tp = tp_of(model)
+    loss, z_sq = lm_loss(model, cfg, h, batch, z_loss, tp,
+                         gathered=seq_of(tp, batch["tokens"].shape[1],
+                                         seq_shard))
     return loss, {"ce_loss": loss, "z_sq": z_sq, "loss": loss}
 
 
@@ -474,25 +502,31 @@ def _h_to_box(tp, h, cut):
     return tp.model_all_to_all(h, split_dim=3, cat_dim=1)
 
 
-def _prefill_tp(model: Mamba2, cfg: ModelConfig, tokens, layout):
+def _prefill_tp(model: Mamba2, cfg: ModelConfig, tokens, layout,
+                seq_shard: bool = True):
     """``prefill`` on a mesh: the rank's rows, the mixers head-parallel
     (the SSD chunk kernel on the rank's heads, as in training); each
     layer's final state re-cut to the state's box (``_h_to_box``) and the
-    conv tail cut to its channels.  Returns (the rank's vocab columns of
-    the last logits, the rank's state blocks)."""
+    conv tail cut to its channels.  With ``seq_shard`` and
+    ``parallel.seq_cut`` of S the residual is cut along the sequence, as
+    the reference's prefill cuts it (``mamba2.py:313``); the states come
+    from the gathered rows, and the last position's hidden from the last
+    model rank (``TensorParallel.last_row``).  Returns (the rank's vocab
+    columns of the last logits, the rank's state blocks)."""
     tp = model.tp
     h_cut = _state_cut(layout, "h", (1, 3))
     c_cut = _state_cut(layout, "conv", (2,))
-    x = embed(model, tokens, model.dtype, tp)
+    seq = seq_of(tp, tokens.shape[1], seq_shard)
+    x = embed(model, tokens, model.dtype, tp, seq)
     hs, convs = [], []
     for blk in model.layers:
         y, st = _mixer_tp(blk.mixer, rmsnorm(x, blk.norm, cfg.norm_eps), cfg,
-                          tp, with_state=True)
+                          tp, with_state=True, seq=seq)
         x = x + y
         hs.append(_h_to_box(tp, st["h"], h_cut))
         conv = st["conv"]
         convs.append(conv if c_cut is None else conv[..., c_cut[1]:c_cut[2]])
-    x = rmsnorm(x[:, -1:].contiguous(), model.final_norm, cfg.norm_eps)
+    x = rmsnorm(tp.last_row(x, seq), model.final_norm, cfg.norm_eps)
     return (x @ tp.head(model, x.dtype)).float(), \
         {"h": torch.stack(hs), "conv": torch.stack(convs)}
 
@@ -569,7 +603,8 @@ def _decode_tp(model: Mamba2, cfg: ModelConfig, state, token, layout):
         {"h": torch.stack(hs), "conv": torch.stack(convs)}
 
 
-def prefill(model: Mamba2, cfg: ModelConfig, tokens, layout=None):
+def prefill(model: Mamba2, cfg: ModelConfig, tokens, layout=None,
+            seq_shard: bool = True):
     """Run the prompt, tokens (B, S) int, at its exact length in the
     model's dtype.  Returns (logits (B, 1, V) float32 at the last
     position, the decode state {"h": (L, B, H, P, N) float32, "conv":
@@ -580,9 +615,10 @@ def prefill(model: Mamba2, cfg: ModelConfig, tokens, layout=None):
     (its ``scatter_state`` then fails at S = 2 and broadcasts one row
     into every slot at S = 1).  Here the missing rows are zeros, the
     padding the causal conv reads there.  On a mesh (``layout``, the
-    state's ``parallel.CacheLayout``) see ``_prefill_tp``."""
+    state's ``parallel.CacheLayout``) see ``_prefill_tp``; ``seq_shard``
+    changes nothing on one process."""
     if layout is not None:
-        return _prefill_tp(model, cfg, tokens, layout)
+        return _prefill_tp(model, cfg, tokens, layout, seq_shard)
     x = F.embedding(tokens, model.tok)
     hs, convs = [], []
     for blk in model.layers:

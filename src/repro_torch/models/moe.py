@@ -236,7 +236,7 @@ def _local_tables(slot_src, tok_slot, k: int, off: int, n: int):
 
 def moe_forward(moe: MoE, x: torch.Tensor, cfg: ModelConfig, *,
                 group_size: int = GROUP_SIZE, tp=None,
-                n_slots: Optional[int] = None):
+                n_slots: Optional[int] = None, seq: bool = False):
     """x: (B, S, d) -> (y (B, S, d), aux) with aux {lb_loss, rz_loss,
     frac_dropped}, float32 scalars, as the reference's ``moe_forward``.
     Raises ``ValueError`` when B·S does not split into whole groups.
@@ -249,8 +249,17 @@ def moe_forward(moe: MoE, x: torch.Tensor, cfg: ModelConfig, *,
     partial combine is summed over the model group.  ``n_slots`` is the
     number of data slots the call's batch is cut into (a mesh's P·D by
     default; 1 where serving replicates the batch over data): g and C
-    come from the global count, and no group may straddle two slots."""
+    come from the global count, and no group may straddle two slots.
+
+    With ``seq`` x is the rank's S/M rows of the cut residual: gathered
+    along S before routing (so a routing group is the slot's whole B·S
+    tokens, as without the cut), the output reduce-scattered back to the
+    rank's rows.  Every consumer of the gathered rows (the replicated
+    router, and the rows' ``to_model``) already gives whole grads, so the
+    gather's backward only keeps the rank's rows."""
     m = cfg.moe
+    if tp is not None and seq:
+        x = tp.seq_gather(x, whole_grad=True)
     B, S_, d = x.shape
     E, k = m.num_experts, m.top_k
     if n_slots is None:
@@ -277,9 +286,10 @@ def moe_forward(moe: MoE, x: torch.Tensor, cfg: ModelConfig, *,
         * (ex @ weight(moe.w_up, x.dtype, tp))
     ex_out = (h @ weight(moe.w_down, x.dtype, tp)).reshape(E_l * G * cap, d)
     y = _Combine.apply(ex_out, w, tok_slot, slot_src)
+    y = y.reshape(B, S_, d)
     if tp is not None:
-        y = tp.from_model(y)
-    return y.reshape(B, S_, d), _aux(probs, logits, gate_idx, keep, E)
+        y = tp.seq_scatter(y) if seq else tp.from_model(y)
+    return y, _aux(probs, logits, gate_idx, keep, E)
 
 
 def _aux(probs, logits, gate_idx, keep, E: int) -> Dict[str, torch.Tensor]:

@@ -112,10 +112,22 @@ def param_specs(cfg: ModelConfig, multi_pod: bool = False,
 
 
 def loss_fn(model, cfg: ModelConfig, batch, *, z_loss: float = 0.0,
-            dtype=torch.bfloat16, remat: bool = True):
-    """The family's training loss: (loss, metrics)."""
+            dtype=torch.bfloat16, remat: bool = True, seq_shard: bool = True,
+            remat_policy: str = ""):
+    """The family's training loss: (loss, metrics).  ``seq_shard`` (the
+    sequence-parallel residual on a mesh) and ``remat_policy`` ("dots":
+    the products' outputs kept under remat) reach the family as the
+    reference's ``**kw`` do: the transformer family (dense, MoE, VLM)
+    honours both (``transformer.py:148``); Mamba-2, the hybrid and the
+    enc-dec take neither, as the reference's ``loss_fn`` of each swallows them
+    in ``**_`` (``mamba2.py:284``, ``rglru.py:294``, ``encdec.py:150``):
+    their residual is cut on a mesh whatever is asked, and "dots" is not
+    applied."""
+    kw = {}
+    if cfg.arch_type in _TRANSFORMER_FAMILIES:
+        kw = dict(seq_shard=seq_shard, remat_policy=remat_policy)
     return family(cfg).loss_fn(model, cfg, batch, z_loss=z_loss,
-                               dtype=dtype, remat=remat)
+                               dtype=dtype, remat=remat, **kw)
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
@@ -141,7 +153,7 @@ def serving_mode(cfg: ModelConfig):
 def prefill(model, cfg: ModelConfig, tokens, *,
             cache_len_cap: Optional[int] = None, prefix_emb=None,
             global_batch: Optional[int] = None,
-            cache_seq_shard: bool = False):
+            cache_seq_shard: bool = False, seq_shard: bool = True):
     """Run the prompt, tokens (B, S), at its exact length and build the
     decode cache.  Returns (logits (B, 1, V) float32, a
     ``serving.cache.DenseKVCache`` whose ``lengths`` are all S, the
@@ -159,7 +171,11 @@ def prefill(model, cfg: ModelConfig, tokens, *,
     not split over data), the logits its vocab columns (B, 1, V/M), and
     the cache its blocks of the decode cache's ``input_shardings``
     (``parallel.cache_layout``; ``cache_seq_shard`` picks the sequence
-    cut), ready for :func:`decode_step`; ``lengths`` is whole."""
+    cut), ready for :func:`decode_step`; ``lengths`` is whole.  There
+    ``seq_shard`` cuts the residual along the sequence (the reference's
+    default): the dense, MoE, VLM, ssm and hybrid families honour it, the
+    enc-dec cuts whatever is asked, as its reference ``prefill`` takes no
+    knob (``encdec.py:194``)."""
     from repro_torch.serving import cache as sc   # serving imports this
     fam = family(cfg)
     kw = {}
@@ -180,6 +196,8 @@ def prefill(model, cfg: ModelConfig, tokens, *,
     if layout is not None:
         kw["layout"] = layout
         B = layout.batch
+        if cfg.arch_type not in ENCDEC_FAMILIES:
+            kw["seq_shard"] = seq_shard
     if cfg.arch_type == "ssm":
         logits, data = fam.prefill(model, cfg, tokens, **kw)
     else:

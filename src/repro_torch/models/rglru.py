@@ -46,7 +46,7 @@ from repro_torch.models.layers import (MLP, P, act_fn, copy_whole_, embed,
                                        rmsnorm, trunc_normal_, whole_shape)
 from repro_torch.models.mamba2 import causal_conv1d
 from repro_torch.models.transformer import kv_cut, logits_from_hidden
-from repro_torch.parallel import tp_of, weight
+from repro_torch.parallel import seq_of, tp_of, weight
 
 LRU_C = 8.0
 
@@ -250,7 +250,7 @@ def param_specs(cfg: ModelConfig, multi_pod: bool = False):
 # --------------------------------------------------------------------- #
 
 def recurrent_forward(m: Recurrent, x, cfg: ModelConfig, *,
-                      with_state: bool = False, tp=None):
+                      with_state: bool = False, tp=None, seq: bool = False):
     """x: (B, S, d) -> (B, S, d).  With ``with_state`` also the state a
     decode step continues from: {"conv": the last conv1d_width − 1 conv
     inputs (B, K − 1, W), "h": the final state (B, W) float32}.
@@ -267,12 +267,14 @@ def recurrent_forward(m: Recurrent, x, cfg: ModelConfig, *,
     the model group before them (``model_gather``, whose backward sums
     y's grad over the group).  The state is then the rank's block of
     channels, the decode cache's block (``conv`` and ``h`` are cut over
-    W as ``w_x`` and ``lam`` are): it needs no collective."""
+    W as ``w_x`` and ``lam`` are): it needs no collective.  With ``seq``
+    x is the rank's rows of the cut residual, gathered along S first (the
+    scan needs the whole S), the output reduce-scattered back to them."""
     h_cfg, _ = _hybrid(cfg)
     gelu = act_fn("gelu")
     dt = x.dtype
     if tp is not None:
-        x = tp.to_model(x)
+        x = tp.enter(x, seq)
     gate = gelu(x @ weight(m.w_gate, dt, tp))
     y_in = x @ weight(m.w_x, dt, tp)
     y = causal_conv1d(y_in, m.conv_w, m.conv_b)
@@ -282,7 +284,7 @@ def recurrent_forward(m: Recurrent, x, cfg: ModelConfig, *,
     hs, h_last = rglru_scan(y, r, i, m.lam)
     out = (gate * hs) @ weight(m.w_out, dt, tp)
     if tp is not None:
-        out = tp.from_model(out)
+        out = tp.leave(out, seq)
     if not with_state:
         return out
     K = h_cfg.conv1d_width
@@ -328,50 +330,70 @@ def recurrent_decode(m: Recurrent, x, state, cfg: ModelConfig, tp=None):
 # layers and the loss
 # --------------------------------------------------------------------- #
 
-def _attention(layer: Layer, h, cfg: ModelConfig, tp=None):
+def _attention(layer: Layer, h, cfg: ModelConfig, tp=None,
+               seq: bool = False):
     h_cfg, _ = _hybrid(cfg)
     return attn_forward(layer.temporal, h, n_heads=cfg.n_heads,
                         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
                         rope_theta=cfg.rope_theta,
-                        window=h_cfg.local_window, tp=tp)
+                        window=h_cfg.local_window, tp=tp, seq=seq)
 
 
-def _layer(layer: Layer, x, cfg: ModelConfig, tp=None):
+def _layer(layer: Layer, x, cfg: ModelConfig, tp=None, seq: bool = False):
     h = rmsnorm(x, layer.norm1, cfg.norm_eps)
     if layer.kind == "recurrent":
-        t = recurrent_forward(layer.temporal, h, cfg, tp=tp)
+        t = recurrent_forward(layer.temporal, h, cfg, tp=tp, seq=seq)
     else:
-        t, _ = _attention(layer, h, cfg, tp)
+        t, _ = _attention(layer, h, cfg, tp, seq)
     x = x + t
     return x + mlp(layer.mlp, rmsnorm(x, layer.norm2, cfg.norm_eps),
-                   cfg.act, tp)
+                   cfg.act, tp, seq)
 
 
 def forward_hidden(model: Hybrid, cfg: ModelConfig, tokens, *,
-                   dtype=torch.bfloat16, remat: bool = True):
+                   dtype=torch.bfloat16, remat: bool = True,
+                   seq_shard: bool = True):
     """tokens: (B, S) int -> final hidden states (B, S, d) in ``dtype``.
     The embedding is cast to ``dtype`` before the gather, as the
     reference does.  ``remat`` recomputes each layer in the backward
     (the reference's nested per-layer ``jax.checkpoint``); it changes
     memory, not the numbers.  A model cut to a mesh runs its recurrent
     blocks width-parallel, its attention on the rank's heads (the one
-    KV head gathered), its MLPs and embedding as the dense family's."""
+    KV head gathered), its MLPs and embedding as the dense family's.
+    With ``seq_shard`` and ``parallel.seq_cut`` of S the residual is cut
+    along the sequence, as the reference's (``rglru.py:261``): every
+    block gathers the rank's rows and reduce-scatters its output, the
+    norms (the final one too, ``rglru.py:291``) run on the rank's rows
+    and are recorded as partial, and the final hiddens are gathered."""
     tp = tp_of(model)
-    x = embed(model, tokens, dtype, tp)
+    seq = seq_of(tp, tokens.shape[1], seq_shard)
+    x = embed(model, tokens, dtype, tp, seq)
+    if seq:
+        tp.note_partial(model.final_norm, *(n for layer in model.layers
+                                            for n in (layer.norm1,
+                                                      layer.norm2)))
     for layer in model.layers:
-        x = recompute(_layer, layer, x, cfg, tp) if remat else \
-            _layer(layer, x, cfg, tp)
-    return rmsnorm(x, model.final_norm, cfg.norm_eps)
+        x = recompute(_layer, layer, x, cfg, tp, seq) if remat else \
+            _layer(layer, x, cfg, tp, seq)
+    h = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return tp.seq_gather(h) if seq else h
 
 
 def loss_fn(model: Hybrid, cfg: ModelConfig, batch, *, z_loss: float = 0.0,
-            dtype=torch.bfloat16, remat: bool = True):
+            dtype=torch.bfloat16, remat: bool = True,
+            seq_shard: bool = True):
     """batch: ``tokens`` and ``labels`` (B, S) int64, optional ``mask``
     (B, S) float32.  Returns (loss, metrics) as the reference: the loss
-    and ``ce_loss`` (both with the z-loss term) and ``z_sq``."""
+    and ``ce_loss`` (both with the z-loss term) and ``z_sq``.
+    ``seq_shard`` as in ``forward_hidden``; ``registry.loss_fn`` passes
+    none, as the reference's ``loss_fn`` (``rglru.py:294``) swallows it in
+    ``**_``, so training through the registry always cuts."""
     h = forward_hidden(model, cfg, batch["tokens"], dtype=dtype,
-                       remat=remat)
-    loss, z_sq = lm_loss(model, cfg, h, batch, z_loss, tp_of(model))
+                       remat=remat, seq_shard=seq_shard)
+    tp = tp_of(model)
+    loss, z_sq = lm_loss(model, cfg, h, batch, z_loss, tp,
+                         gathered=seq_of(tp, batch["tokens"].shape[1],
+                                         seq_shard))
     return loss, {"ce_loss": loss, "z_sq": z_sq, "loss": loss}
 
 
@@ -419,35 +441,41 @@ def _ring_cut(layout):
     return kv_cut(layout) if "k" in layout.shapes else None
 
 
-def _prefill_tp(model: Hybrid, cfg: ModelConfig, tokens, layout):
+def _prefill_tp(model: Hybrid, cfg: ModelConfig, tokens, layout,
+                seq_shard: bool = True):
     """``prefill`` on a mesh: the rank's rows, the layers as in training
     (width-parallel recurrent blocks, the attention on the rank's heads,
     the one KV head gathered); each recurrent layer's state its block of
     channels as computed, each attention layer's ring cut to its box
-    (``attention.cache_to_box``).  Returns (the rank's vocab columns of
-    the last position's logits (B, 1, V/M) float32, the rank's cache
-    blocks, a list in network order)."""
+    (``attention.cache_to_box``).  With ``seq_shard`` and
+    ``parallel.seq_cut`` of S the residual is cut along the sequence, as
+    the reference's prefill cuts it (``rglru.py:342``); states and rings
+    come from the gathered rows, the last position's hidden from the last
+    model rank (``TensorParallel.last_row``).  Returns (the rank's vocab
+    columns of the last position's logits (B, 1, V/M) float32, the rank's
+    cache blocks, a list in network order)."""
     tp = model.tp
     _state_cut(layout)
     cut = _ring_cut(layout)
-    x = embed(model, tokens, model.dtype, tp)
+    seq = seq_of(tp, tokens.shape[1], seq_shard)
+    x = embed(model, tokens, model.dtype, tp, seq)
     caches = []
     for layer in model.layers:
         h = rmsnorm(x, layer.norm1, cfg.norm_eps)
         if layer.kind == "recurrent":
             t, st = recurrent_forward(layer.temporal, h, cfg,
-                                      with_state=True, tp=tp)
+                                      with_state=True, tp=tp, seq=seq)
             caches.append(st)
         else:
-            t, kv = _attention(layer, h, cfg, tp)
+            t, kv = _attention(layer, h, cfg, tp, seq)
             caches.append(A.cache_to_box(
                 tp, *kv, slots=layout.shapes["k"][1], ring=True,
                 dim=cut[0], n_heads=cfg.n_heads,
                 n_kv_heads=cfg.n_kv_heads))
         x = x + t
         x = x + mlp(layer.mlp, rmsnorm(x, layer.norm2, cfg.norm_eps),
-                    cfg.act, tp)
-    x = rmsnorm(x[:, -1:].contiguous(), model.final_norm, cfg.norm_eps)
+                    cfg.act, tp, seq)
+    x = rmsnorm(tp.last_row(x, seq), model.final_norm, cfg.norm_eps)
     return (x @ tp.head(model, x.dtype)).float(), caches
 
 
@@ -480,15 +508,15 @@ def _decode_tp(model: Hybrid, cfg: ModelConfig, cache, cache_len, token,
 
 
 def prefill(model: Hybrid, cfg: ModelConfig, tokens, *, cache_len_cap: int,
-            layout=None):
+            layout=None, seq_shard: bool = True):
     """Run the prompt, tokens (B, S), at its exact length in the model's
     dtype.  Returns (logits (B, 1, V) float32 at the last position, the
     cache: ``cache_struct``'s list, each ring of min(window,
     cache_len_cap) slots built by ``attention.ring_from_prefill``).  On a
     mesh (``layout``, the cache's ``parallel.CacheLayout``) see
-    ``_prefill_tp``."""
+    ``_prefill_tp``; ``seq_shard`` changes nothing on one process."""
     if layout is not None:
-        return _prefill_tp(model, cfg, tokens, layout)
+        return _prefill_tp(model, cfg, tokens, layout, seq_shard)
     h_cfg, _ = _hybrid(cfg)
     S = tokens.shape[1]
     W = min(h_cfg.local_window, cache_len_cap)

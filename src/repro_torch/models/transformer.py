@@ -15,6 +15,14 @@ projected patches, goes ahead of the token embeddings in the training
 forward (whose loss is taken on the text only) and in both prefills
 (whose lengths count the prefix).  The decode steps see text only.
 
+On a data × model mesh the training forward and the prefill run the
+reference's sequence-parallel residual by default (``seq_shard=True``,
+``parallel.seq_cut``): the residual between blocks is the rank's S/M
+rows, each block gathers them on entry and reduce-scatters its output,
+the final norm runs on the cut rows and the hiddens are gathered whole
+before the head.  ``remat_policy="dots"`` keeps the products' outputs
+under remat (``layers.recompute``).
+
 A model cut to a data × model mesh (``parallel.shard`` or
 ``registry.init_model(mesh=)``) serves sharded: ``prefill`` and
 ``decode_step`` take the rank's rows, run the training path's
@@ -34,7 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models.attention import Attention, attn_forward
-from repro_torch.parallel import tp_of
+from repro_torch.parallel import seq_of, tp_of
 from repro_torch.models.layers import (MLP, P, embed, embed_specs,
                                        fsdp_axis, lm_head_matrix, lm_loss,
                                        mlp, mlp_specs, param, recompute,
@@ -129,46 +137,61 @@ def param_specs(cfg: ModelConfig, multi_pod: bool = False):
 # training forward and loss
 # --------------------------------------------------------------------- #
 
-def ffn(layer: Layer, h, cfg: ModelConfig, tp=None, n_slots=None):
+def ffn(layer: Layer, h, cfg: ModelConfig, tp=None, n_slots=None,
+        seq: bool = False):
     """The layer's feed-forward block over h (B, S, d): (out, aux), aux
     the MoE's losses ({} for a dense MLP); on a mesh (``tp``) tensor- or
-    expert-parallel, the batch cut into ``n_slots`` data slots."""
+    expert-parallel, the batch cut into ``n_slots`` data slots, h the
+    rank's rows of the cut residual with ``seq``."""
     if cfg.arch_type == "moe":
-        return M.moe_forward(layer.moe, h, cfg, tp=tp, n_slots=n_slots)
-    return mlp(layer.mlp, h, cfg.act, tp), {}
+        return M.moe_forward(layer.moe, h, cfg, tp=tp, n_slots=n_slots,
+                             seq=seq)
+    return mlp(layer.mlp, h, cfg.act, tp, seq), {}
 
 
-def _layer(layer: Layer, x, cfg: ModelConfig, tp=None):
+def _layer(layer: Layer, x, cfg: ModelConfig, tp=None, seq: bool = False):
     h = rmsnorm(x, layer.norm1, cfg.norm_eps)
     a, _ = attn_forward(layer.attn, h, n_heads=cfg.n_heads,
                         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
                         rope_theta=cfg.rope_theta, window=cfg.sliding_window,
-                        tp=tp)
+                        tp=tp, seq=seq)
     x = x + a
     h = rmsnorm(x, layer.norm2, cfg.norm_eps)
     if cfg.arch_type == "moe":
-        f, aux = M.moe_forward(layer.moe, h, cfg, tp=tp)
+        f, aux = M.moe_forward(layer.moe, h, cfg, tp=tp, seq=seq)
     else:
         # sub-layer remat, as the reference's: the backward recomputes
         # the MLP apart from attention, so the peak holds one of their
         # interiors (the reference remats no MoE apart)
-        f, aux = recompute(mlp, layer.mlp, h, cfg.act, tp), {}
+        f, aux = recompute(mlp, layer.mlp, h, cfg.act, tp, seq), {}
     return x + f, aux
 
 
-def _embed(model: Transformer, tokens, prefix_emb, dtype, tp=None):
+def _embed(model: Transformer, tokens, prefix_emb, dtype, tp=None,
+           seq: bool = False):
     """The token embeddings in ``dtype`` (``layers.embed``: vocab-parallel
     on a mesh), behind ``prefix_emb`` when given (its rows this data
-    slot's, whole on every model rank)."""
+    slot's, whole on every model rank); with ``seq`` the rank's rows of
+    the cut residual, the prefix counted in S."""
+    if seq:
+        return embed(model, tokens, dtype, tp, seq=True, prefix=prefix_emb)
     x = embed(model, tokens, dtype, tp)
     if prefix_emb is None:
         return x
     return torch.cat([prefix_emb.to(dtype), x], dim=1)
 
 
+def _seq(model: Transformer, tokens, prefix_emb, seq_shard: bool) -> bool:
+    """Whether the forward over ``tokens`` behind ``prefix_emb`` cuts the
+    residual (``parallel.seq_of``: S counts the prefix)."""
+    S = tokens.shape[1] + (0 if prefix_emb is None else prefix_emb.shape[1])
+    return seq_of(tp_of(model), S, seq_shard)
+
+
 def forward_hidden(model: Transformer, cfg: ModelConfig, tokens, *,
                    prefix_emb=None, dtype=torch.bfloat16,
-                   remat: bool = True):
+                   remat: bool = True, seq_shard: bool = True,
+                   remat_policy: str = ""):
     """tokens: (B, S) int, prefix_emb: None or (B, P, d) -> (final hidden
     states (B, P + S, d) in ``dtype``, aux), aux each MoE loss averaged
     over the layers in float32 ({} for the dense family).  The embedding is cast to
@@ -176,42 +199,63 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, tokens, *,
     ``F.embedding``'s backward sums each row's grads in a fixed order
     (an indexing backward would add them with atomics on the card).
     ``remat`` recomputes each layer in the backward
-    (``torch.utils.checkpoint``); it changes memory, not the numbers.
+    (``torch.utils.checkpoint``); it changes memory, not the numbers;
+    ``remat_policy="dots"`` keeps the products' outputs
+    (``layers.recompute``).
     A sliding-window config trains through ``chunked_attention``'s
     autograd, as the reference trains it through XLA.  A model cut to a
     mesh (``parallel.shard``) runs its layers sharded, each weight
-    gathered inside the layer's recompute region."""
+    gathered inside the layer's recompute region; with ``seq_shard``
+    (the reference's default) and ``parallel.seq_cut`` of P + S the
+    residual is cut along the sequence (the module's docstring): the
+    norms run on the rank's rows (their scales recorded as partial,
+    ``TensorParallel.note_partial``, the final norm's too, as the
+    reference norms the cut residual, ``transformer.py:142``) and the
+    final hiddens are gathered whole."""
     tp = tp_of(model)
     M.check_tokens(cfg, tokens.numel(), n_slots=1 if tp is None
                    else tp.n_fsdp)
-    x = _embed(model, tokens, prefix_emb, dtype, tp)
+    seq = _seq(model, tokens, prefix_emb, seq_shard)
+    x = _embed(model, tokens, prefix_emb, dtype, tp, seq)
+    if seq:
+        tp.note_partial(model.final_norm, *(n for layer in model.layers
+                                            for n in (layer.norm1,
+                                                      layer.norm2)))
     auxs = []
     for layer in model.layers:
         if remat:
-            x, aux = recompute(_layer, layer, x, cfg, tp)
+            x, aux = recompute(_layer, layer, x, cfg, tp, seq,
+                               policy=remat_policy)
         else:
-            x, aux = _layer(layer, x, cfg, tp)
+            x, aux = _layer(layer, x, cfg, tp, seq)
         auxs.append(aux)
     aux = {k: torch.stack([a[k].float() for a in auxs]).mean()
            for k in auxs[0]} if auxs else {}
-    return rmsnorm(x, model.final_norm, cfg.norm_eps), aux
+    h = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return (tp.seq_gather(h) if seq else h), aux
 
 
 def loss_fn(model: Transformer, cfg: ModelConfig, batch, *,
-            z_loss: float = 0.0, dtype=torch.bfloat16, remat: bool = True):
+            z_loss: float = 0.0, dtype=torch.bfloat16, remat: bool = True,
+            seq_shard: bool = True, remat_policy: str = ""):
     """batch: ``tokens`` and ``labels`` (B, S) int64, optional ``mask``
     (B, S) float32 and ``prefix_emb`` (B, P, d) (the VLM's patches; the
     loss is taken on the text only).  Returns (loss, metrics) as the reference: the loss
     and ``ce_loss`` (both with the z-loss term) and ``z_sq``, float32
     scalars; the MoE family adds ``moe_aux_total`` to the loss (not to
     ``ce_loss``) and reports ``lb_loss``, ``rz_loss`` and
-    ``frac_dropped``."""
+    ``frac_dropped``.  ``seq_shard`` and ``remat_policy`` as in
+    ``forward_hidden``: the transformer family honours both, as the
+    reference's (``transformer.py:148``)."""
     prefix = batch.get("prefix_emb")
     h, aux = forward_hidden(model, cfg, batch["tokens"], prefix_emb=prefix,
-                            dtype=dtype, remat=remat)
+                            dtype=dtype, remat=remat, seq_shard=seq_shard,
+                            remat_policy=remat_policy)
     if prefix is not None:
         h = h[:, prefix.shape[1]:]
-    loss, z_sq = lm_loss(model, cfg, h, batch, z_loss, tp_of(model))
+    loss, z_sq = lm_loss(model, cfg, h, batch, z_loss, tp_of(model),
+                         gathered=_seq(model, batch["tokens"], prefix,
+                                       seq_shard))
     metrics = {"ce_loss": loss, "z_sq": z_sq}
     if cfg.arch_type == "moe":
         loss = loss + M.moe_aux_total(aux, cfg)
@@ -290,18 +334,24 @@ def _slots(cfg: ModelConfig, layout, tokens) -> int:
 
 
 def _prefill_tp(model: Transformer, cfg: ModelConfig, tokens, *,
-                prefix_emb, layout):
+                prefix_emb, layout, seq_shard: bool = True):
     """``prefill`` on a mesh: the rank's rows (and their prefix), the
     layers tensor-parallel; each layer's K/V (of the KV heads the rank's
     query heads attend to, after RoPE) placed in the full cache or the
-    ring and re-cut to the cache's box (``attention.kv_to_box``).
-    Returns (the rank's vocab columns of the last position's logits
-    (B, 1, V/M) float32, the rank's cache blocks)."""
+    ring and re-cut to the cache's box (``attention.kv_to_box``).  With
+    ``seq_shard`` and ``parallel.seq_cut`` of the prompt (the prefix
+    counted) the residual is cut along the sequence, as the reference's
+    prefill cuts it (``transformer.py:210``): each layer's K/V come from
+    the gathered rows, so they are the whole prompt's, and the last
+    position's hidden is brought from the last model rank
+    (``TensorParallel.last_row``).  Returns (the rank's vocab columns of
+    the last position's logits (B, 1, V/M) float32, the rank's cache
+    blocks)."""
     tp = model.tp
     n_slots = _slots(cfg, layout, tokens)
     dim = kv_cut(layout)[0]
-    x = _embed(model, tokens, prefix_emb, model.dtype, tp)
-    B, S = x.shape[:2]
+    seq = _seq(model, tokens, prefix_emb, seq_shard)
+    x = _embed(model, tokens, prefix_emb, model.dtype, tp, seq)
     window = cfg.sliding_window
     cap = layout.shapes["k"][2]
     layers = []
@@ -310,20 +360,21 @@ def _prefill_tp(model: Transformer, cfg: ModelConfig, tokens, *,
         a, kv = attn_forward(
             layer.attn, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, window=window,
-            tp=tp)
+            tp=tp, seq=seq)
         x = x + a
         h = rmsnorm(x, layer.norm2, cfg.norm_eps)
-        x = x + ffn(layer, h, cfg, tp, n_slots)[0]
+        x = x + ffn(layer, h, cfg, tp, n_slots, seq)[0]
         layers.append(A.cache_to_box(
             tp, *kv, slots=cap, ring=window is not None, dim=dim,
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads))
     data = {n: torch.stack([c[n] for c in layers]) for n in layers[0]}
-    x = rmsnorm(x[:, -1:].contiguous(), model.final_norm, cfg.norm_eps)
+    x = rmsnorm(tp.last_row(x, seq), model.final_norm, cfg.norm_eps)
     return (x @ tp.head(model, x.dtype)).float(), data
 
 
 def prefill(model: Transformer, cfg: ModelConfig, tokens, *,
-            cache_len_cap: int, prefix_emb=None, layout=None):
+            cache_len_cap: int, prefix_emb=None, layout=None,
+            seq_shard: bool = True):
     """Run the prompt, tokens (B, S) behind ``prefix_emb`` (B, P, d) when
     given, at its exact length and build the decode cache (S counts the
     prefix from here on).  Returns (logits (B, 1, V) float32 at the last
@@ -331,7 +382,8 @@ def prefill(model: Transformer, cfg: ModelConfig, tokens, *,
     first S hold the prompt's K/V (the rest zeros), or for a sliding
     window a ring of min(window, cache_len_cap) slots
     (``attention.ring_from_prefill``).  On a mesh (``layout``, the
-    cache's ``parallel.CacheLayout``) see ``_prefill_tp``."""
+    cache's ``parallel.CacheLayout``) see ``_prefill_tp``; ``seq_shard``
+    changes nothing on one process."""
     B, S = tokens.shape
     if prefix_emb is not None:
         S += prefix_emb.shape[1]
@@ -341,7 +393,7 @@ def prefill(model: Transformer, cfg: ModelConfig, tokens, *,
                          f"{cache_len_cap}")
     if layout is not None:
         return _prefill_tp(model, cfg, tokens, prefix_emb=prefix_emb,
-                           layout=layout)
+                           layout=layout, seq_shard=seq_shard)
     x, ks, vs = _prefill_trunk(model, cfg, tokens, window, prefix_emb)
     if window is not None:
         W = min(window, cache_len_cap)

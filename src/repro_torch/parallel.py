@@ -26,7 +26,8 @@ collectives itself, as ``torch.autograd.Function``s:
   heads, Hkv/M KV heads, d_ff/M columns), o and down row-parallel.  The
   input of a column-parallel product goes through :meth:`to_model`
   (identity forward, all-reduce backward), so the grads reaching the
-  replicated residual and norms are whole on every model rank; the
+  replicated residual and norms are whole on every model rank (where the
+  residual is whole; the cut residual is below); the
   output of a row-parallel product through :meth:`from_model`
   (all-reduce forward, identity backward).  Partial sums are all-reduced
   in float32.
@@ -52,7 +53,31 @@ collectives itself, as ``torch.autograd.Function``s:
   :meth:`model_gather`, whose backward sums over the group in float32
   and keeps the rank's slice.  So every grad that reaches a weight
   replicated over ``model`` is whole, none is summed twice, and
-  :func:`reduce_grads` and :func:`global_norm` need no family's case.
+  :func:`reduce_grads` needs no family's case, with one exception: the
+  norm scales of the cut residual below.
+- **The sequence-parallel residual** (the reference's ``residual_spec``,
+  Megatron-SP; its default ``seq_shard=True``): where :func:`seq_cut`
+  holds, the residual stream between blocks is cut along the sequence
+  over the model group, each rank holding S/M rows.  A block enters by
+  :meth:`TensorParallel.seq_gather`, an all-gather along S of the normed
+  rows in the compute dtype, whose backward sums the grad over the group
+  in float32 and keeps the rank's rows (:class:`_ModelGather` along S);
+  a block whose every consumer of the gathered rows already gives whole
+  grads (the MoE's replicated router and its ``to_model`` rows, Mamba-2's
+  B, C and dt and its ``to_model`` input) enters with ``whole_grad``,
+  whose backward only keeps the rank's rows.  A block leaves by
+  :meth:`TensorParallel.seq_scatter`, a float32 reduce-scatter along S of
+  the row-parallel partial sums (its backward all-gathers the grad), in
+  place of the all-reduce.  The vocab-parallel embedding leaves by the
+  reduce-scatter too, and the final hiddens are gathered before the head
+  (a sum-backward gather, so the head's ``to_model`` does not run as
+  well).  The norm scales applied to the cut rows see only the rank's
+  tokens, so their grads are partial over ``model``: the forward records
+  them in :attr:`TensorParallel.model_partial` and :func:`reduce_grads`
+  sums them over the model group, inside its one flat buffer.  Where 16
+  divides S but M does not, the reference's GSPMD pads the cut; the port
+  keeps the residual whole there: the layout differs, the numbers do
+  not.
 - **KV heads the model axis does not divide** (MQA, and GQA with Hkv mod
   M ≠ 0): ``w_k`` and ``w_v`` keep the spec's column blocks; k and v are
   gathered over the model group after the product and each rank attends
@@ -91,7 +116,26 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as MESH
 
 KINDS = ("fsdp_gather", "grad_reduce", "model_all_reduce",
-         "model_all_gather", "model_all_to_all")
+         "model_all_gather", "model_all_to_all", "model_reduce_scatter")
+
+# the reference's residual_spec cuts the sequence where 16 divides it
+SEQ_MULTIPLE = 16
+
+
+def seq_cut(S: int, n_model: int) -> bool:
+    """Whether a residual of S rows is cut along the sequence over a model
+    axis of ``n_model``: the reference's rule (``S % 16 == 0``, its
+    ``layers.residual_spec``) where the axis also divides S.  Where 16
+    divides S but the axis does not (3, say), the reference's GSPMD pads
+    the cut; the port keeps the residual whole there, which changes the
+    layout and not the numbers.  A model axis of 1 cuts nothing."""
+    return n_model > 1 and S % SEQ_MULTIPLE == 0 and S % n_model == 0
+
+
+def seq_of(tp, S: int, seq_shard: bool = True) -> bool:
+    """Whether a forward of S rows on ``tp`` (None: one process) runs the
+    cut residual: ``seq_shard`` asks for it and :func:`seq_cut` holds."""
+    return tp is not None and seq_shard and seq_cut(S, tp.n_model)
 
 
 class Comms:
@@ -99,7 +143,10 @@ class Comms:
     gathers, the grad reduction (the gathers' backward, the replicated
     grads' and the metrics' all-reduce, the norm's), the model group's
     all-reduces (forward and backward, the model gathers' backward
-    included), its all-gathers and its all-to-alls."""
+    included), its all-gathers, its all-to-alls and its reduce-scatters
+    (the cut residual's).  Bytes are those of the tensor handed to the
+    collective: a rank's block for an all-gather, the whole float32
+    partial sums for a reduce-scatter, as for an all-reduce."""
 
     def __init__(self):
         self.reset()
@@ -150,21 +197,41 @@ class _FsdpGather(torch.autograd.Function):
 class _ModelGather(torch.autograd.Function):
     """The model group's blocks of x along ``dim`` gathered whole; the
     backward sums the grad over the group in float32 and keeps this
-    rank's slice."""
+    rank's slice.  With ``whole_grad`` the grad reaching the gathered
+    tensor is already whole on every rank (each of its consumers sums
+    its own over the group), and the backward only keeps the slice."""
 
     @staticmethod
-    def forward(ctx, x, tp, dim):
-        ctx.tp, ctx.dim = tp, dim
+    def forward(ctx, x, tp, dim, whole_grad=False):
+        ctx.tp, ctx.dim, ctx.whole_grad = tp, dim, whole_grad
         return tp.gather_model(x.detach(), dim)
 
     @staticmethod
     def backward(ctx, g):
         tp, dim = ctx.tp, ctx.dim
+        n = g.shape[dim] // tp.n_model
+        if ctx.whole_grad:
+            keep = g.narrow(dim, tp.model_index * n, n)
+            return keep.contiguous(), None, None, None
         g32 = g.to(torch.float32, copy=True).contiguous()
         tp.all_reduce(g32, tp.model_group, "model_all_reduce")
-        n = g32.shape[dim] // tp.n_model
         keep = g32.narrow(dim, tp.model_index * n, n)
-        return keep.to(g.dtype).contiguous(), None, None
+        return keep.to(g.dtype).contiguous(), None, None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """The model group's partial sums x (B, S, ...) summed in float32 and
+    cut along S, this rank's S/M rows kept (one reduce-scatter), cast
+    back; the backward all-gathers the grad along S."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.reduce_scatter(x.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.gather_model(g, 1), None
 
 
 class _ToModel(torch.autograd.Function):
@@ -212,6 +279,9 @@ class TensorParallel:
         self.fsdp_dims: Dict[int, Optional[int]] = {}
         self.first_holder: Dict[int, bool] = {}
         self.comms = Comms()
+        # ids of the parameters whose grads the forward left partial over
+        # the model group (the norm scales of the cut residual)
+        self.model_partial: set = set()
 
     # the groups are made at the first collective (``Mesh.groups``, which
     # every rank reaches at the same point of the same program)
@@ -242,6 +312,19 @@ class TensorParallel:
         self.comms.run("model_all_gather", x, lambda: dist.all_gather(
             parts, x, group=self.model_group))
         return torch.cat(parts, dim)
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, S, ...): the model group's partial sums, summed in float32
+        and cut along S; this rank's S/M rows, cast back (one
+        reduce-scatter over the model group)."""
+        M, (B, S) = self.n_model, x.shape[:2]
+        parts = x.to(torch.float32).reshape(B, M, S // M, *x.shape[2:])
+        inp = parts.transpose(0, 1).reshape(M * B, S // M, *x.shape[2:])
+        out = inp.new_empty(B, S // M, *x.shape[2:])
+        self.comms.run("model_reduce_scatter", inp,
+                       lambda: dist.reduce_scatter_tensor(
+                           out, inp, group=self.model_group))
+        return out.to(x.dtype)
 
     def model_all_to_all(self, x: torch.Tensor, split_dim: int,
                          cat_dim: int) -> torch.Tensor:
@@ -317,6 +400,49 @@ class TensorParallel:
         if self.n_model == 1:
             return x
         return _ModelGather.apply(x, self, dim % x.dim())
+
+    # -- the cut residual (module doc) ------------------------------------ #
+    def seq_gather(self, x, whole_grad: bool = False):
+        """x (B, S/M, ...), this rank's rows of the cut residual -> (B, S,
+        ...) every rank's, in x's dtype.  The backward sums the grad over
+        the model group and keeps the rank's rows; with ``whole_grad``
+        (every consumer of the result already gives whole grads) it only
+        keeps them."""
+        return _ModelGather.apply(x, self, 1, whole_grad)
+
+    def seq_scatter(self, x):
+        """x (B, S, ...): the partial sums of a row-parallel product ->
+        this rank's S/M rows of their sum (a float32 reduce-scatter; the
+        backward all-gathers the grad)."""
+        return _SeqScatter.apply(x, self)
+
+    def enter(self, x, seq: bool):
+        """A block's input before its column-parallel products:
+        :meth:`seq_gather` of the cut residual's rows (``seq``), else
+        :meth:`to_model` of the whole residual."""
+        return self.seq_gather(x) if seq else self.to_model(x)
+
+    def leave(self, x, seq: bool):
+        """A block's row-parallel output: :meth:`seq_scatter` into the cut
+        residual (``seq``), else :meth:`from_model`."""
+        return self.seq_scatter(x) if seq else self.from_model(x)
+
+    def last_row(self, x, seq: bool):
+        """x[:, -1:] of the residual x (B, S', d).  With ``seq`` x is the
+        rank's rows of the cut residual, whose last row lies on the last
+        model rank: every rank's last row is gathered over the model group
+        (one all-gather) and the last rank's kept."""
+        last = x[:, -1:].contiguous()
+        if not seq:
+            return last
+        return self.gather_model(last, 1)[:, -1:].contiguous()
+
+    def note_partial(self, *params) -> None:
+        """Record parameters whose grads this forward leaves partial over
+        the model group (applied to the cut residual's rows only); while
+        grads are being taken, for :func:`reduce_grads`."""
+        if torch.is_grad_enabled():
+            self.model_partial.update(id(p) for p in params)
 
     def model_slice(self, n: int) -> slice:
         """This rank's block of ``n`` · M entries cut in M."""
@@ -631,26 +757,54 @@ def reduce_grads(tp: TensorParallel, params: List[torch.Tensor],
     """This rank's grads and metrics averaged over the data slots: the
     data-sharded grads were summed by the gathers' backward; the rest
     (the replicated norms) and the metrics are summed by one float32
-    all-reduce over the FSDP group; all are divided by P·D."""
+    all-reduce over the FSDP group; all are divided by P·D.
+
+    The grads the forward left partial over the model group
+    (``tp.model_partial``: the norm scales of the cut residual) are
+    summed over it in the same buffer: where both axes are > 1 the buffer
+    is all-reduced over the whole group, every other entry (whole on each
+    model rank) put in by model rank 0 only, zeros elsewhere; with one
+    data slot one all-reduce over the model group sums them alone.  The
+    record is cleared."""
     grads = list(grads)
+    part = {i for i, p in enumerate(params) if id(p) in tp.model_partial}
+    tp.model_partial.clear()
     if tp.n_fsdp == 1:
+        if part:
+            idx = sorted(part)
+            flat = torch.cat([grads[i].reshape(-1).float() for i in idx])
+            tp.all_reduce(flat, tp.model_group, "grad_reduce")
+            _unflatten(flat, grads, idx)
         return grads, metrics
     rep = [i for i, p in enumerate(params)
            if tp.fsdp_dims.get(id(p)) is None]
+    if part - set(rep):
+        raise ValueError("a data-sharded parameter's grad is partial over "
+                         "the model group")
     names = sorted(metrics)
-    flat = torch.cat([grads[i].reshape(-1).float() for i in rep]
-                     + [torch.stack([metrics[k].float() for k in names])])
-    tp.all_reduce(flat, tp.fsdp_group, "grad_reduce")
-    off = 0
-    for i in rep:
-        n = grads[i].numel()
-        grads[i] = flat[off:off + n].view(grads[i].shape).to(
-            grads[i].dtype)
-        off += n
+    keep = float(tp.model_index == 0) if part else 1.0
+    flat = torch.cat([grads[i].reshape(-1).float()
+                      * (1.0 if i in part else keep) for i in rep]
+                     + [torch.stack([metrics[k].float() for k in names])
+                        * keep])
+    tp.all_reduce(flat, None if part else tp.fsdp_group, "grad_reduce")
+    off = _unflatten(flat, grads, rep)
     inv = 1.0 / tp.n_fsdp
     grads = [g.mul_(inv) for g in grads]
     metrics = {k: flat[off + j] * inv for j, k in enumerate(names)}
     return grads, metrics
+
+
+def _unflatten(flat: torch.Tensor, grads: List[torch.Tensor],
+               idx: List[int]) -> int:
+    """grads[i] for i in ``idx`` <- their runs of ``flat`` in order, in
+    each grad's dtype; returns the offset past them."""
+    off = 0
+    for i in idx:
+        n = grads[i].numel()
+        grads[i] = flat[off:off + n].view(grads[i].shape).to(grads[i].dtype)
+        off += n
+    return off
 
 
 def global_norm(tp: TensorParallel, params: List[torch.Tensor],

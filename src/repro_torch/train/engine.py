@@ -96,18 +96,26 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # --------------------------------------------------------------------- #
 
 def _local_grads(model, cfg, batch, names, params, micro_batches, z_loss,
-                 dtype, remat):
+                 dtype, remat, seq_shard: bool = True,
+                 remat_policy: str = ""):
     """(grads in ``names``' order, float32 metrics) of ``batch`` on this
     process: with ``micro_batches`` > 1 the batch splits along its first
     dim, the grads are summed and divided by the count, the metrics
-    averaged."""
+    averaged.  ``seq_shard`` and ``remat_policy`` go to
+    ``registry.loss_fn`` (which families honour them is said there); on a
+    mesh the record of the grads the forward leaves partial over the
+    model group starts empty (``parallel.reduce_grads`` reads it)."""
+    tp = parallel.tp_of(model)
+    if tp is not None:
+        tp.model_partial.clear()
+    kw = dict(z_loss=z_loss, dtype=dtype, remat=remat, seq_shard=seq_shard,
+              remat_policy=remat_policy)
     if micro_batches > 1:
         b = next(iter(batch.values())).shape[0] // micro_batches
         gacc, rows = None, []
         for i in range(micro_batches):
             mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
-            loss, aux = R.loss_fn(model, cfg, mb, z_loss=z_loss,
-                                  dtype=dtype, remat=remat)
+            loss, aux = R.loss_fn(model, cfg, mb, **kw)
             g = torch.autograd.grad(loss, [params[n] for n in names])
             if gacc is None:
                 gacc = list(g)
@@ -122,8 +130,7 @@ def _local_grads(model, cfg, batch, names, params, micro_batches, z_loss,
         metrics = {k: torch.stack([r[k].detach() for r in rows]).mean()
                    for k in rows[0]}
     else:
-        loss, metrics = R.loss_fn(model, cfg, batch, z_loss=z_loss,
-                                  dtype=dtype, remat=remat)
+        loss, metrics = R.loss_fn(model, cfg, batch, **kw)
         grads = torch.autograd.grad(loss, [params[n] for n in names])
     return grads, {k: v.detach().float() for k, v in metrics.items()}
 
@@ -139,7 +146,8 @@ def make_grad_step(cfg: ModelConfig, optimizer: O.Optimizer, *,
                    micro_batches: int = 1, z_loss: float = 0.0,
                    dtype=torch.bfloat16, remat: bool = True,
                    reduce: Optional["FlatReduce"] = None,
-                   mesh=None) -> Callable:
+                   mesh=None, seq_shard: bool = True,
+                   remat_policy: str = "") -> Callable:
     """The one training step builder: ``step(model, opt_state, batch,
     lr) → (model, opt_state, metrics)``.  With ``micro_batches`` > 1 the
     batch splits along its first dim; the grads are summed and divided
@@ -148,20 +156,23 @@ def make_grad_step(cfg: ModelConfig, optimizer: O.Optimizer, *,
     (more than one rank) the step is a :class:`SplitStep`: this rank's
     grads and metrics are averaged over the ranks before the norm, the
     clip and the optimizer.  With ``mesh`` (a model cut to a data × model
-    mesh) the step is a :class:`MeshStep`."""
+    mesh) the step is a :class:`MeshStep`.  ``seq_shard`` (the reference's
+    default: the sequence-parallel residual on a mesh; nothing on one
+    process) and ``remat_policy`` ("dots": the products' outputs kept
+    under remat) reach the family's loss (``registry.loss_fn``)."""
+    kw = dict(micro_batches=micro_batches, z_loss=z_loss, dtype=dtype,
+              remat=remat, seq_shard=seq_shard, remat_policy=remat_policy)
     if mesh is not None:
-        return MeshStep(cfg, optimizer, micro_batches=micro_batches,
-                        z_loss=z_loss, dtype=dtype, remat=remat)
+        return MeshStep(cfg, optimizer, **kw)
     if reduce is not None:
-        return SplitStep(cfg, optimizer, micro_batches=micro_batches,
-                         z_loss=z_loss, dtype=dtype, remat=remat,
-                         reduce=reduce)
+        return SplitStep(cfg, optimizer, reduce=reduce, **kw)
 
     def step(model, opt_state, batch, lr):
         params = dict(model.named_parameters())
         names = list(params)
         grads, metrics = _local_grads(model, cfg, batch, names, params,
-                                      micro_batches, z_loss, dtype, remat)
+                                      micro_batches, z_loss, dtype, remat,
+                                      seq_shard, remat_policy)
         metrics["grad_norm"] = O.global_norm(grads)
         _, opt_state = optimizer.update(dict(zip(names, grads)), opt_state,
                                         params, lr)
@@ -247,10 +258,12 @@ class SplitStep:
     replays."""
 
     def __init__(self, cfg, optimizer, *, micro_batches, z_loss, dtype,
-                 remat, reduce: FlatReduce):
+                 remat, reduce: FlatReduce, seq_shard: bool = True,
+                 remat_policy: str = ""):
         self.cfg, self.optimizer = cfg, optimizer
         self.micro_batches, self.z_loss = micro_batches, z_loss
         self.dtype, self.remat = dtype, remat
+        self.seq_shard, self.remat_policy = seq_shard, remat_policy
         self.reduce = reduce
 
     def grad_half(self, model, batch) -> None:
@@ -258,7 +271,8 @@ class SplitStep:
         names = list(params)
         grads, metrics = _local_grads(model, self.cfg, batch, names, params,
                                       self.micro_batches, self.z_loss,
-                                      self.dtype, self.remat)
+                                      self.dtype, self.remat, self.seq_shard,
+                                      self.remat_policy)
         views, mvec = self.reduce.buffers([params[n] for n in names],
                                           metrics)
         for v, g in zip(views, grads):
@@ -312,13 +326,17 @@ class MeshStep:
     metrics are the data slots' mean.  ``grad_norm`` counts each distinct
     block once (``parallel.global_norm``, one scalar all-reduce over the
     whole group); the optimizer's clip (and normalized SGD) use it, and
-    AdamW updates the rank's shards in place."""
+    AdamW updates the rank's shards in place.  With ``seq_shard`` (the
+    reference's default) the families cut the residual along the sequence
+    (``parallel``'s docstring), and the norm scales the forward records as
+    partial are summed over the model group in the same all-reduce."""
 
     def __init__(self, cfg, optimizer, *, micro_batches, z_loss, dtype,
-                 remat):
+                 remat, seq_shard: bool = True, remat_policy: str = ""):
         self.cfg, self.optimizer = cfg, optimizer
         self.micro_batches, self.z_loss = micro_batches, z_loss
         self.dtype, self.remat = dtype, remat
+        self.seq_shard, self.remat_policy = seq_shard, remat_policy
 
     def __call__(self, model, opt_state, batch, lr):
         tp = model.tp
@@ -327,7 +345,8 @@ class MeshStep:
         plist = [params[n] for n in names]
         grads, metrics = _local_grads(model, self.cfg, batch, names, params,
                                       self.micro_batches, self.z_loss,
-                                      self.dtype, self.remat)
+                                      self.dtype, self.remat, self.seq_shard,
+                                      self.remat_policy)
         grads, metrics = parallel.reduce_grads(tp, plist, grads, metrics)
         norm = parallel.global_norm(tp, plist, grads)
         metrics["grad_norm"] = norm
@@ -428,11 +447,15 @@ class PhaseEngine:
     on its own rows of every global batch and the steps average grads
     and metrics over the ranks (:class:`SplitStep`).  With ``mesh`` (a
     ``launch.mesh.Mesh`` the model is cut to) each data slot trains on
-    its rows, the steps are :class:`MeshStep`s, run eagerly."""
+    its rows, the steps are :class:`MeshStep`s, run eagerly.
+    ``remat_policy`` is the steps' (``recompute``'s; "dots" keeps the
+    products' outputs), fixed for the engine's life: the reference's
+    trainer runs the loss's default ("") and ``seq_shard=True``
+    (``make_grad_step``'s)."""
 
     def __init__(self, cfg: RunConfig, optimizer: O.Optimizer,
                  plan: SeesawPlan, *, max_device_batch: Optional[int] = None,
-                 mesh=None):
+                 mesh=None, remat_policy: str = ""):
         self.cfg = cfg
         self.model = cfg.model
         self.optimizer = optimizer
@@ -444,6 +467,7 @@ class PhaseEngine:
         self.lr_fn = plan_lr_fn(plan, cfg.seq_len)
         self.dtype = DTYPES[cfg.dtype]
         self.mesh = mesh
+        self.remat_policy = remat_policy
         self.world = MESH.world_size()
         self.reduce = (FlatReduce(self.world)
                        if self.world > 1 and mesh is None else None)
@@ -520,7 +544,7 @@ class PhaseEngine:
         background capture of its key still under way is joined first,
         and its error raised here."""
         micro = self.micro_batches(batch_size)
-        key = (batch_size, micro)
+        key = self._key(batch_size)
         self._join(key)
         ent = self._cache.get(key)
         if ent is None:
@@ -530,8 +554,16 @@ class PhaseEngine:
             ent = self._cache[key] = _Step(make_grad_step(
                 self.model, self.optimizer, micro_batches=micro,
                 z_loss=self.cfg.z_loss, dtype=self.dtype,
-                remat=self.cfg.remat, reduce=self.reduce, mesh=self.mesh))
+                remat=self.cfg.remat, reduce=self.reduce, mesh=self.mesh,
+                remat_policy=self.remat_policy))
         return ent
+
+    def _key(self, batch_size: int) -> tuple:
+        """The step cache's key: (batch_size, micro), the reference's.
+        Neither knob keys anything: the remat policy is the engine's, and
+        ``seq_shard`` changes nothing on one process, while a mesh
+        captures no graph."""
+        return (batch_size, self.micro_batches(batch_size))
 
     def run_chunk(self, model, opt_state, tokens_seen, stacked_batch,
                   n_valid: Optional[int] = None,
@@ -676,8 +708,7 @@ class PhaseEngine:
         (at the new key's first chunk, or at the end of the run) before
         anything else could."""
         first = next(iter(stacked_batch.values()))
-        micro = self.micro_batches(batch_size)
-        key = (batch_size, micro)
+        key = self._key(batch_size)
         if first.device.type != "cuda" or self.mesh is not None or \
                 not self._warm or self._live is None or \
                 key in self._prewarm:

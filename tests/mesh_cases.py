@@ -53,6 +53,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as M
 from repro_torch.launch.train import maybe_init_distributed
+from repro_torch.models import registry as R
 from repro_torch.train import engine as E
 from repro_torch.weights import from_jax_params
 
@@ -94,8 +95,13 @@ for name, c in cases.items():
     batch = E.slot_rows(batch, mesh, rank)
     params = dict(model.named_parameters())
     names, plist = list(params), list(params.values())
-    grads, metrics = E._local_grads(model, cfg, batch, names, params, 1,
-                                    0.0, torch.float32, True)
+    # the family's loss with the residual whole on every model rank (the
+    # registry's would cut it: tests/test_torch_seq_shard.py holds that)
+    loss, metrics = R.family(cfg).loss_fn(model, cfg, batch,
+                                          dtype=torch.float32, remat=True,
+                                          seq_shard=False)
+    grads = torch.autograd.grad(loss, plist)
+    metrics = {k: v.detach().float() for k, v in metrics.items()}
     grads, metrics = parallel.reduce_grads(tp, plist, grads, metrics)
     norm = parallel.global_norm(tp, plist, grads)
     full = {}
@@ -370,10 +376,13 @@ for name, c in cases.items():
                 tp.comms.reset()
                 logits = pf(model, batch)
                 rec["prefill_comms"] = tp.comms.summary()
+                # the whole residual, where the family honours it (the
+                # prefill fn above runs the reference's cut)
                 _, cache = R.prefill(model, cfg, batch["tokens"],
                                      prefix_emb=batch.get("prefix_emb"),
                                      cache_len_cap=cap, global_batch=B,
-                                     cache_seq_shard=seq_cut)
+                                     cache_seq_shard=seq_cut,
+                                     seq_shard=False)
                 V = logits.shape[-1]
                 v0 = tp.vocab_start(V)
 

@@ -1626,3 +1626,72 @@ def test_cut_cache_kernels_raise_rather_than_fall_back(cuda):
     with pytest.raises(ValueError, match="scores"):
         PG.decode_softmax_pv(torch.zeros(4, 24, 255, device=cuda),
                              v[..., :64].contiguous(), lens, head_dim=128)
+
+
+# two gloo ranks sharing the card: the cut residual's reduce-scatter
+# (parallel._SeqScatter) forward and backward on CUDA tensors, each
+# rank's part and grad written for the test to hold to a float64 sum
+SEQ_SCATTER_RANK = r'''
+import sys
+import torch
+from repro_torch import parallel
+from repro_torch.launch import mesh as M
+from repro_torch.launch.train import maybe_init_distributed
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+assert maybe_init_distributed(f"127.0.0.1:{port}", 2, rank, device="cuda")
+tp = parallel.TensorParallel(M.make_launch_mesh("1x2", distributed=True),
+                             rank)
+res = {}
+for dtype in (torch.float32, torch.bfloat16):
+    g = torch.Generator().manual_seed(100 + rank)
+    x = torch.randn(3, 64, 40, generator=g).to(dtype).cuda()
+    x.requires_grad_(True)
+    y = tp.seq_scatter(x)
+    gy = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+        7 + rank)).to(dtype).cuda()
+    (gx,) = torch.autograd.grad(y, x, gy)
+    res[str(dtype)] = {"x": x.detach().cpu(), "y": y.detach().cpu(),
+                       "gy": gy.cpu(), "gx": gx.cpu(), "dev": y.device.type}
+res["comms"] = tp.comms.summary()
+torch.save(res, out)
+torch.distributed.destroy_process_group()
+'''
+
+
+def test_seq_scatter_on_the_card(cuda, tmp_path):
+    """Forward: each rank's S/M rows of the float32 sum of the two ranks'
+    partials (cast back), against a float64 sum (float32 within 1e-6,
+    bf16 within one rounding); backward: the grad all-gathered along S,
+    both ranks' grads in rank order, exactly."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    outs = [str(tmp_path / f"r{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", SEQ_SCATTER_RANK,
+                               str(r), port, outs[r]], cwd=root, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    for p in procs:
+        o, e = p.communicate(timeout=300)
+        assert p.returncode == 0, e[-3000:]
+    recs = [torch.load(o) for o in outs]
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = (r[str(dtype)] for r in recs)
+        assert a["dev"] == "cuda"
+        whole = a["x"].double() + b["x"].double()
+        for r, rec in enumerate((a, b)):
+            want = whole[:, 32 * r:32 * (r + 1)]
+            tol = 1e-6 if dtype == torch.float32 else 8e-3
+            err = float((rec["y"].double() - want).abs().max())
+            assert err <= tol * float(want.abs().max()), (dtype, r, err)
+            assert torch.equal(rec["gx"], torch.cat([a["gy"], b["gy"]], 1))
+    c = recs[0]["comms"]
+    assert c["model_reduce_scatter"]["calls"] == 2
+    assert c["model_all_gather"]["calls"] == 2

@@ -172,7 +172,8 @@ if job == "grads":
         params = dict(model.named_parameters())
         names, plist = list(params), list(params.values())
         grads, metrics = E._local_grads(model, cfg, batch, names, params, 1,
-                                        0.0, torch.float32, True)
+                                        0.0, torch.float32, True,
+                                        seq_shard=False)
         grads, metrics = parallel.reduce_grads(tp, plist, grads, metrics)
         norm = parallel.global_norm(tp, plist, grads)
         out[arch] = {"loss": float(metrics["loss"]),

@@ -5,7 +5,10 @@ reference, in this process (``build_workload`` allocates nothing).
   every registered arch × {train_4k, prefill_32k, decode_32k, long_500k}
   × ``multi_pod`` × ``serve_resident`` × ``cache_seq_shard`` (the
   enc-dec's cross K/V by the logical dim each entry cuts); its args are
-  meta-device stand-ins; the knobs whose path the port lacks are refused.
+  meta-device stand-ins; ``block_skip``, whose path the port lacks, is
+  refused; ``seq_shard`` (default True, the reference's) and
+  ``remat_policy="dots"`` are taken for every arch and shape
+  ``shape_supported`` admits.
 - ``shape_supported`` agrees with the reference on every arch and shape.
 - ``validate_feeding`` passes and raises where the reference's does, with
   the same messages, on the same plans (whole ramps and elastic resumes),
@@ -79,12 +82,13 @@ def test_build_workload_specs_equal_the_reference(arch):
 
 
 def test_build_workload_refuses_paths_it_does_not_have():
+    """``block_skip`` is the one knob refused; ``seq_shard`` and
+    ``remat_policy`` have their paths now (``test_build_workload_takes_
+    the_reference_knobs``)."""
     cfg = get_config("llama3.2-3b")
-    for kw, what in ((dict(block_skip=True), "block_skip"),
-                     (dict(seq_shard=True), "seq_shard"),
-                     (dict(remat_policy="dots"), "remat_policy")):
-        with pytest.raises(NotImplementedError, match=what):
-            ST.build_workload(cfg, INPUT_SHAPES["train_4k"], **kw)
+    for shape in ("train_4k", "prefill_32k"):
+        with pytest.raises(NotImplementedError, match="block_skip"):
+            ST.build_workload(cfg, INPUT_SHAPES[shape], block_skip=True)
 
 
 def test_serving_steps_refuse_a_model_held_in_another_dtype():
@@ -173,3 +177,82 @@ def test_rank_only_init_is_bitwise_init_and_shard(arch, monkeypatch):
                 assert got.full_shapes == want.full_shapes
                 assert got.serve_resident is resident
                 assert got.tp.rank == r
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_build_workload_takes_the_reference_knobs(arch):
+    """``seq_shard=True`` (the default, as the reference's) and
+    ``remat_policy="dots"`` build every mode ``shape_supported`` admits,
+    with the reference's spec trees."""
+    import inspect
+    sig = inspect.signature(ST.build_workload).parameters
+    jsig = inspect.signature(JST.build_workload).parameters
+    for knob in ("seq_shard", "remat_policy", "block_skip"):
+        assert sig[knob].default == jsig[knob].default, knob
+    cfg, jcfg = get_config(arch), j_get_config(arch)
+    for name in SHAPES:
+        if not ST.shape_supported(cfg, INPUT_SHAPES[name])[0]:
+            continue
+        kw = dict(seq_shard=True, remat_policy="dots")
+        _, _, ins, outs = ST.build_workload(cfg, INPUT_SHAPES[name], **kw)
+        _, _, jins, jouts = JST.build_workload(jcfg, J_INPUT_SHAPES[name],
+                                               **kw)
+        assert by_logical_dims(_flat(list(ins)), "port") == \
+            by_logical_dims(_flat(list(jins)), "ref"), name
+        assert by_logical_dims(_flat(_seq(outs)), "port") == \
+            by_logical_dims(_flat(_seq(jouts)), "ref"), name
+
+
+FN_ARCHS = ("llama3.2-3b", "granite-moe-1b-a400m", "internvl2-76b",
+            "mamba2-2.7b", "recurrentgemma-9b", "seamless-m4t-medium")
+
+
+@pytest.mark.parametrize("arch", FN_ARCHS)
+def test_train_and_prefill_fns_equal_the_reference_on_one_device(arch):
+    """The train step's loss (``seq_shard=True``, ``remat_policy="dots"``)
+    within 1e-5 of the reference's step's, and the prefill's logits within
+    2e-5 of the reference's largest, float32, on one device (the reduced
+    config, 2 x 32)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.configs import OptimizerConfig as JOptimizerConfig
+    from repro.configs.base import InputShape as JInputShape
+    from repro.models import registry as JR
+    from repro.optim import optimizers as JO
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.configs.base import InputShape
+    from repro_torch.optim import optimizers as O
+    from repro_torch.weights import from_jax_params
+    cfg, jcfg = get_config(arch).reduced(), j_get_config(arch).reduced()
+    params = JR.init_params(jax.random.PRNGKey(3), jcfg)
+    npp = jax.tree.map(np.asarray, params)
+    knobs = dict(seq_shard=True, remat_policy="dots")
+    got, want = {}, {}
+    for mode in ("train", "prefill"):
+        batch = {k: np.array(v, dtype=np.float32 if v.dtype != jnp.int32
+                               else np.int32)
+                 for k, v in JR.concrete_inputs(jcfg, mode, 2, 32).items()}
+        tb = {k: torch.from_numpy(v).long() if v.dtype == np.int32
+              else torch.from_numpy(v) for k, v in batch.items()}
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        fn = ST.build_workload(cfg, InputShape("s", 32, 2, mode),
+                               dtype=torch.float32, **knobs)[0]
+        jfn = jax.jit(JST.build_workload(
+            jcfg, JInputShape("s", 32, 2, mode), dtype=jnp.float32,
+            **knobs)[0])
+        model = from_jax_params(npp, cfg, dtype=torch.float32, device="cpu",
+                                trainable=mode == "train")
+        if mode == "train":
+            opt = O.from_config(OptimizerConfig(kind="adamw"))
+            jopt = JO.from_config(JOptimizerConfig(kind="adamw"))
+            got[mode] = float(fn(model, opt.init(dict(
+                model.named_parameters())), tb, torch.tensor(1e-3))[2])
+            want[mode] = float(jfn(params, jopt.init(params), jb,
+                                   jnp.float32(1e-3))[2])
+        else:
+            got[mode] = fn(model, tb).detach().numpy()
+            want[mode] = np.asarray(jfn(params, jb))
+    assert abs(got["train"] - want["train"]) <= 1e-5
+    assert np.abs(got["prefill"] - want["prefill"]).max() <= \
+        2e-5 * np.abs(want["prefill"]).max()
