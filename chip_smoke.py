@@ -492,11 +492,13 @@ decode graph, each replayed once per step.
   plain version and its bytes bound, the scores beside one
   ``torch.matmul`` of the slices.  (b) ``SERVE_CELLS``, each run's
   processes sharing the card over gloo against one process on the same
-  seeded model (``SERVE_RANK``; all at once, but recurrentgemma-9b and
-  seamless-m4t-medium each alone after them): llama3.2-3b (8 layers, 16
+  seeded model (``SERVE_RANK``; all at once, but recurrentgemma-9b
+  alone after them, then seamless-m4t-medium beside granite-moe-1b-
+  a400m): llama3.2-3b (8 layers, 16
   rows, prompts of 512, ``cache_len_cap`` 1,024, 16 greedy steps) on
   1x2 with ``serve_resident`` off and on and both cache cuts, and on
-  2x2 (``serve_resident``, the head_dim cut); starcoder2-3b (4 layers,
+  2x2 (``serve_resident``, the head_dim cut; the whole residual and,
+  for 22c, the cut one in float32); starcoder2-3b (4 layers,
   2 x 4,500 into the 4,096-slot ring, 8 steps), mamba2-2.7b (4
   layers, 2 x 1,024, 8 steps; its state cut by N, and by heads with the
   sequence cut), recurrentgemma-9b (8 of 38 layers: two recurrent,
@@ -521,6 +523,30 @@ decode graph, each replayed once per step.
   share one card.  A bf16 run's tokens may part from one process's at
   a near tie of bf16 logits (the vocab blocks round their own way);
   its logits are compared up to the first pick that differs.
+- Phase 22, the dry-run's slice (``phase22a``-``phase22d``).  (a)
+  ``kernels.ops`` on the card against ``use_pallas=False`` (its plain
+  versions on the same inputs): the flash attention causal and not,
+  RMSNorm, the SSD against the naive sequential scan (float32: the
+  kernel's error against a float64 scan at most twice the naive float32
+  scan's), f32 2e-5 and bf16 2e-2; the cut caches' scores and
+  softmax-P·V kernels at the production meshes' head_dim cut 16 ways
+  (``CUT16_SHAPES``: slices of 8 and 4) against their plain versions,
+  timed beside them and their bytes bounds.  (b) The roofline of phase
+  4's seesaw-150m steps (B 8, 16, 32) and phase 6's mamba2-2.7b steps:
+  ``bench.flops.step_flops`` at chips 1, the compute and memory terms
+  with the H100's data-sheet constants, the measured wall a step over
+  the bound and the share of the bf16 peak (6·N_active·tokens / (ms ·
+  989 TFLOP/s)): the ``roofline`` line, reported.  (c) The dry-run
+  (``launch.dryrun.measure``: a fake process group, meta tensors, no
+  card, in a process of its own, started at phase 22 with no timed
+  phase beside it) of phase 18a's seesaw-150m 2x2 float32 step and of
+  phase 20b's llama3.2-3b 2x2 cut prefill and a decode step of it: its collectives' calls and
+  bytes by kind equal rank 0's measured ones, its argument bytes the
+  bytes the rank holds; its predicted peak beside the ranks'
+  ``max_memory_allocated``, reported.  (d) granite-moe-1b-a400m (2
+  layers, 16 rows, prompts of 128) on 2x2 in phase 20b: its routing
+  groups span both data slots (gathered over them), held to one process
+  at 20b's float32 gates, bf16 reported.
 - Phase 8, the kernel benchmark: ``repro_torch.bench.kernels`` at full
   size through its ``main`` (the reference's attention, RMSNorm and SSD
   sweeps in float32, kernel and plain, forward and forward+backward; the
@@ -547,7 +573,8 @@ line (phases 11 and 11b, with the card), one ``server`` line (phase
 ``hybrid`` line (phase 15), one ``families`` line (phase 16), one
 ``data_parallel`` line (phase 17), one ``mesh`` line (phase 18), one
 ``mesh_families`` line (phase 19), one ``mesh_serve`` line (phase 20),
-one ``checkpoint`` line
+one ``seq_shard_and_dots`` line (phase 21), one ``roofline`` line and
+one ``dryrun`` line (phase 22), one ``checkpoint`` line
 (phase 10: bytes written, write, restore and verify seconds and GB/s,
 the async save's stall beside a sync save's time, the adaptive run's
 cuts, the card's name and power limit), and last ``{"ok": true,
@@ -5376,6 +5403,19 @@ params = dict(model.named_parameters())
 names, plist = list(params), list(params.values())
 
 
+def nbytes(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for v in tree.values())
+    return 0
+
+
+# the bytes the rank holds at its first step (22c's arguments)
+held = {"params": nbytes(params), "opt_state": nbytes(tr.state.opt_state),
+        "batch": nbytes(batch)}
+
+
 # the first batch's loss and grads in one residual layout (21a): the
 # grads gathered whole (rank 0 saves them), the step's collectives, the
 # peak memory and the bytes of the residual checkpoints (the tensor inputs
@@ -5446,6 +5486,7 @@ hist = tr.run(loader(), max_steps=steps)
 torch.cuda.synchronize()
 with open(out, "w") as f:
     json.dump({"first": first, "layouts": firsts, "history": hist,
+               "held": held,
                "wall_s": time.perf_counter() - t,
                "launches": list(graphs.launch_counts()),
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -5569,7 +5610,12 @@ def phase18a(tmp, ctr):
             "comms_per_step": {k: {f: v / MESH_STEPS for f, v in c.items()}
                                for k, c in ranks[0]["comms"].items()},
             "peak_gb": [r["peak_gb"] for r in ranks],
-            "one_peak_gb": one["peak_gb"]}
+            "one_peak_gb": one["peak_gb"],
+            # rank 0's first step in the reference's layout (22c)
+            "first_cut_comms_rank0": ranks[0]["layouts"]["cut"]["comms"],
+            "first_cut_peak_gb": [r["layouts"]["cut"]["peak_gb"]
+                                  for r in ranks],
+            "held_rank0": ranks[0]["held"]}
     return out, launches, seq
 
 
@@ -6426,19 +6472,23 @@ CUT_SHAPES = (("llama", 16, 24, 8, 128, 4096, (2, 4), False),
 # sequence cut cuts its state by heads (80 of them) where the default
 # cuts it by N; recurrentgemma-9b's 8 layers are two full groups and the
 # remainder of its layout, its prompts of 2,100 wrap the 2,048-slot ring;
-# seamless-m4t-medium runs whole (12 + 12 layers) on 1,024 frames.  A
-# run's fifth entry, True, prefills the cut residual (21b: llama3.2-3b's
-# and mamba2-2.7b's beside their whole float32 runs, each after its
-# process's first run, which pays the first calls' costs); the others
-# prefill the whole residual, but the enc-dec's prefill cuts whatever it
-# is asked, as the reference's
+# seamless-m4t-medium runs whole (12 + 12 layers) on 1,024 frames;
+# granite-moe-1b-a400m (2 layers, 22d) on 2x2: 8 rows a data slot, so a
+# routing group (2,048 tokens in the prefill, 16 in a decode step) spans
+# both slots.  A run's fifth entry, True, prefills the cut residual (21b:
+# llama3.2-3b's and mamba2-2.7b's beside their whole float32 runs, each
+# after its process's first run, which pays the first calls' costs; 22c:
+# llama3.2-3b's on 2x2, the reference's layout the dry-run runs); the
+# others prefill the whole residual, but the enc-dec's prefill cuts
+# whatever it is asked, as the reference's
 SERVE_CELLS = (
     ("llama", "llama3.2-3b", 8, 16, 512, 1024, 16,
      (("1x2", False, False, "float32"), ("1x2", True, False, "float32"),
       ("1x2", True, False, "float32", True),
       ("1x2", False, True, "float32"), ("1x2", True, True, "float32"),
       ("1x2", True, False, "bfloat16"), ("2x2", True, False, "float32"),
-      ("2x2", True, False, "bfloat16"))),
+      ("2x2", True, False, "bfloat16"),
+      ("2x2", True, False, "float32", True))),
     ("starcoder2", "starcoder2-3b", 4, 2, 4500, 4608, 8,
      (("1x2", True, False, "float32"), ("1x2", True, True, "float32"),
       ("1x2", True, False, "bfloat16"))),
@@ -6451,13 +6501,16 @@ SERVE_CELLS = (
       ("1x2", True, False, "bfloat16"))),
     ("seamless", "seamless-m4t-medium", 12, 2, 128, 256, 8,
      (("1x2", True, False, "float32"), ("1x2", True, True, "float32"),
-      ("1x2", True, False, "bfloat16"))))
-# the cells that run after the others, each alone (the card's memory:
-# recurrentgemma-9b's 8 layers and untied 256,000-row embedding and head
-# hold 3.48B parameters, and its cell alone peaked at 63.4 GB of the
-# card's 80 by nvidia-smi, its one float32 process 18.1 GB reserved and
-# each rank 11.2; seamless-m4t-medium's at 18.6 GB)
-SERVE_APART = ("recurrentgemma", "seamless")
+      ("1x2", True, False, "bfloat16"))),
+    ("granite", MOE_ARCH, 2, 16, 128, 256, 8,
+     (("2x2", True, False, "float32"), ("2x2", True, False, "bfloat16"))))
+# the waves that run after the others, one after another (the card's
+# memory: recurrentgemma-9b's 8 layers and untied 256,000-row embedding
+# and head hold 3.48B parameters, and its cell alone peaked at 63.4 GB of
+# the card's 80 by nvidia-smi, its one float32 process 18.1 GB reserved
+# and each rank 11.2; seamless-m4t-medium's at 18.6 GB; granite-moe-1b-
+# a400m's five processes beside the first wave ran it out of memory)
+SERVE_APART = (("recurrentgemma",), ("seamless", "granite"))
 # the float32 gate: each step's logits within this of one process's,
 # relative to the step's largest |logit|
 SERVE_REL = 1e-4
@@ -6570,6 +6623,15 @@ for i, run in enumerate(runs):
                  "launches": launches,
                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                  "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9})
+    recs[-1]["held"] = {
+        "params": sum(p.numel() * p.element_size()
+                      for p in model.parameters()),
+        "tokens": toks[lo:hi].numel() * toks.element_size(),
+        "cache": sum(t.numel() * t.element_size()
+                     for layer in (cache.data if isinstance(cache.data, list)
+                                   else [cache.data])
+                     for t in layer.values()) + cache.lengths.numel() * 4,
+        "token": tok.numel() * tok.element_size()}
     del model, cache, logits
     torch.cuda.empty_cache()
 with open(out, "w") as f:
@@ -6674,7 +6736,8 @@ def serve_comms(cfg, spec: str, seq_cut: bool, B: int, S: int, cap: int,
     es, f4 = torch.tensor([], dtype=dtype).element_size(), 4
     enc = cfg.arch_type in ("audio", "encdec")
     pre = {k: [0, 0] for k in ("model_all_reduce", "model_all_gather",
-                                "model_all_to_all", "model_reduce_scatter")}
+                                "model_all_to_all", "model_reduce_scatter",
+                                "slot_gather")}
     dec = {k: [0, 0] for k in pre}
 
     def add(t, kind, calls, nbytes):
@@ -6746,6 +6809,13 @@ def serve_comms(cfg, spec: str, seq_cut: bool, B: int, S: int, cap: int,
             residual(2 * Le, se, parallel.seq_cut(se, M), embedding=False)
             add(pre, "model_all_to_all", 2 * L, b * se * Hkv // M * hd * es)
             add(dec, "model_all_reduce", L, b * d * f4)       # cross w_o
+        if cfg.arch_type == "moe" and b < B:
+            # a routing group of min(2048, B·S) spanning several data
+            # slots: each MoE layer gathers the slot's rows over them
+            from repro_torch.models.moe import GROUP_SIZE, slot_span
+            for t, rows in ((pre, S), (dec, 1)):
+                if slot_span(b * rows, min(GROUP_SIZE, B * rows)) > 1:
+                    add(t, "slot_gather", L, b * rows * d * es)
         for i, (n, keys, seq) in enumerate(att):
             q_only = i == 1                    # the cross-attention's q
             add(dec, "model_all_gather", n,
@@ -6975,7 +7045,7 @@ def serve_run(tmp, cell, cfg, spec, group, ranks, j, want, idx,
            "step_comms_predicted": pred["decode_step"],
            "prefill_s": rec0["prefill_s"],
            "decode_s_per_step": rec0["decode_s_per_step"],
-           "init_s": rec0["init_s"],
+           "init_s": rec0["init_s"], "held_rank0": rec0["held"],
            "peak_gb": [rr[j]["peak_gb"] for rr in ranks],
            "peak_reserved_gb": [rr[j]["peak_reserved_gb"] for rr in ranks]}
     if dt == "float32" and (rel > SERVE_REL or not same):
@@ -7040,12 +7110,14 @@ def serve_cell(tmp, cell, got, ctr) -> dict:
 
 def phase20b(tmp, ctr):
     """``SERVE_CELLS`` in waves: the cells not in ``SERVE_APART`` at once,
-    then each apart cell alone; in a wave each cell's one process and
-    each of its meshes' ranks all share the card.  Then each cell's gates
+    then each of its waves; in a wave each cell's one process and each
+    of its meshes' ranks all share the card.  Then each cell's gates
     (``serve_cell``).  Each cell's record holds its wave's wall."""
     out = {}
-    waves = [[c for c in SERVE_CELLS if c[0] not in SERVE_APART]]
-    waves += [[c] for c in SERVE_CELLS if c[0] in SERVE_APART]
+    apart = {t for wave in SERVE_APART for t in wave}
+    waves = [[c for c in SERVE_CELLS if c[0] not in apart]]
+    waves += [[c for c in SERVE_CELLS if c[0] in wave]
+              for wave in SERVE_APART]
     for cells in waves:
         t = time.perf_counter()
         procs, order = [], []
@@ -7098,6 +7170,287 @@ def phase20(PG, ref, ctr, smi):
             "card": smi}
 
 
+# --------------------------------------------------------------------- #
+# phase 22: kernels.ops, the FLOPs model's roofline, the dry-run against
+# the card's ranks, the MoE's groups across data slots
+# --------------------------------------------------------------------- #
+
+# the production meshes' head_dim cut 16 ways: llama3.2-3b's hd 128 into
+# slices of 8, granite-moe-1b-a400m's hd 64 into slices of 4 (tag, B, H,
+# Hkv, hd, Skv); rank 0's slice, every key valid
+CUT16_SHAPES = (("llama", 8, 24, 8, 128, 1024),
+                ("granite", 8, 16, 8, 64, 1024))
+# the dry-run of 22c, one entry a (phase, step): (arch, layers, mesh, the
+# step's InputShape fields, the dry-run's knobs), each phase's own cell
+DRY_CELLS = {
+    "18a/train": ("seesaw-150m", 4, "2x2", ("t", MESH_SEQ, MESH_B, "train"),
+                  {"slot_rows": True}),
+    "20b/prefill": ("llama3.2-3b", 8, "2x2", ("p", 512, 16, "prefill"),
+                    {"serve_resident": True}),
+    "20b/decode": ("llama3.2-3b", 8, "2x2", ("d", 1024, 16, "decode"),
+                   {"serve_resident": True})}
+# one process, no card: every DRY_CELLS entry's shape-only rank-0 step on a
+# fake process group, float32 (the cells' dtype), its record to a file
+DRY_SCRIPT = r"""
+import dataclasses, json, sys, time
+import torch
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import mesh as M
+out, cells = sys.argv[1], json.loads(sys.argv[2])
+res = {}
+for key, (arch, layers, spec, shape, kw) in cells.items():
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    t = time.perf_counter()
+    res[key] = D.measure(cfg, InputShape(*shape), M.Mesh(M.parse_mesh(spec)),
+                         dtype=torch.float32, **kw)
+    res[key]["wall_s"] = time.perf_counter() - t
+with open(out, "w") as f:
+    json.dump(res, f)
+"""
+
+
+def phase22a(PG, ref):
+    """``kernels.ops`` on the card against ``use_pallas=False`` (the plain
+    versions on the same inputs): the flash attention causal (the kernel)
+    and not (the chunked attention), RMSNorm, and the SSD against the
+    naive sequential scan (float32: the SSD gate of phase 1c, the
+    kernel's error against a float64 scan at most twice the plain
+    float32 scan's; bfloat16: 2e-2); f32 2e-5, bf16 2e-2.  The cut
+    caches' scores and softmax-P·V kernels at the production meshes'
+    head_dim cut 16 ways (``CUT16_SHAPES``: slices of 8 and 4), against
+    their plain versions and timed beside them and their bytes bounds;
+    the decode kernel's layout as ``paged.SOURCE_LAYOUT`` says."""
+    from repro_torch.kernels import ops
+    if PG.layout() != PG.SOURCE_LAYOUT:
+        raise AssertionError(f"paged_decode layout {PG.layout()}, "
+                             f"SOURCE_LAYOUT {PG.SOURCE_LAYOUT}")
+    g = torch.Generator(device="cuda").manual_seed(22)
+    timer = Timer()
+    errors, times, f64 = [], {}, []
+    for dtype in DTYPES:
+        dn = str(dtype).replace("torch.", "")
+        q = torch.randn(2, 8, 512, 64, generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn(2, 2, 512, 64, generator=g,
+                            device="cuda").to(dtype) for _ in range(2))
+        for causal in (True, False):
+            got = ops.flash_attention(q, k, v, causal=causal)
+            want = ops.flash_attention(q, k, v, causal=causal,
+                                       use_pallas=False)
+            torch.cuda.synchronize()
+            errors.append(("ops.flash_attention",
+                           "causal" if causal else "bidirectional", dn,
+                           max_err(got, want, dtype)))
+        x = torch.randn(4096, 1024, generator=g, device="cuda").to(dtype)
+        sc = 0.1 * torch.randn(1024, generator=g, device="cuda")
+        errors.append(("ops.rmsnorm", "4096x1024", dn, max_err(
+            ops.rmsnorm(x, sc), ops.rmsnorm(x, sc, use_pallas=False),
+            dtype)))
+        args = ssd_inputs(1, 256, 8, 64, 16, dtype, g, True)
+        D = torch.randn(8, generator=g, device="cuda")
+        xh, dt, A, Bm, Cm = args
+        got = ops.ssd(xh, dt, A, Bm, Cm, D, chunk=64)
+        naive = ops.ssd(xh, dt, A, Bm, Cm, D, use_pallas=False)
+        torch.cuda.synchronize()
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, naive)]
+        if dtype == torch.float32:
+            exact = ref.ssd_ref(*(t.double() for t in (xh, dt, A, Bm, Cm,
+                                                       D)))
+            for out, a, p_, e in zip(("y", "h_final"), got, naive, exact):
+                err = float((a.double() - e).abs().max())
+                perr = float((p_.double() - e).abs().max())
+                ulp = F32_EPS * float(e.abs().max())
+                if not (err <= 2 * max(perr, ulp)
+                        and bool(torch.isfinite(a).all())):
+                    raise AssertionError(
+                        f"ops.ssd {out}: error {err:.3g} vs float64, the "
+                        f"naive float32 scan's {perr:.3g}")
+                f64.append({"output": out, "kernel_err": err,
+                            "plain_err": perr, "ulp_floor": ulp})
+        else:
+            for a, b in zip(got, naive):
+                max_err(a, b, dtype)
+        errors.append(("ops.ssd", "1x256 h8 p64 n16", dn, max(errs)))
+        for tag, B, H, Hkv, hd, S in CUT16_SHAPES:
+            w = hd // 16
+            qh = torch.randn(B, H, hd, generator=g, device="cuda").to(dtype)
+            kc, vc = (torch.randn(B, S, Hkv, w, generator=g,
+                                  device="cuda").to(dtype)
+                      for _ in range(2))
+            lens = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+            qs = qh[..., :w]
+            s = PG.decode_scores(qs, kc, lens)
+            o = PG.decode_softmax_pv(s, vc, lens, head_dim=hd)
+            torch.cuda.synchronize()
+            errors.append(("decode_scores", f"cut16-{tag}", dn, max_err(
+                s, ref.decode_scores_ref(qs, kc, lens), dtype)))
+            errors.append(("decode_softmax_pv", f"cut16-{tag}", dn, max_err(
+                o, ref.decode_softmax_pv_ref(s, vc, lens, hd), dtype)))
+            es, n_keys = qh.element_size(), B * S
+            shape = (f"{tag}: B {B}, GQA {H}/{Hkv}, hd {hd} cut in 16 "
+                     f"(slices of {w}), {S} keys all valid, {dn}")
+            times[f"decode_scores/cut16-{tag}/{dn}"] = dict(
+                ms=timer(lambda: PG.decode_scores(qs, kc, lens)),
+                plain_ms=timer(lambda: ref.decode_scores_ref(qs, kc, lens)),
+                library_ms=timer(lambda: torch.matmul(
+                    qs.reshape(B, Hkv, H // Hkv, w),
+                    kc.permute(0, 2, 3, 1))),
+                library_call="torch.matmul of the slices over all Skv keys",
+                shape=shape,
+                **bound(B * H * w * es + n_keys * Hkv * w * es
+                        + n_keys * H * 4 + 4 * B, 2 * n_keys * H * w, dtype))
+            times[f"decode_softmax_pv/cut16-{tag}/{dn}"] = dict(
+                ms=timer(lambda: PG.decode_softmax_pv(s, vc, lens,
+                                                      head_dim=hd)),
+                plain_ms=timer(lambda: ref.decode_softmax_pv_ref(
+                    s, vc, lens, hd)),
+                library_ms=None, shape=shape,
+                **bound(n_keys * H * 4 + n_keys * Hkv * w * es
+                        + B * H * w * es + 4 * B,
+                        n_keys * H * (2 * w + 4), dtype))
+    for name, tag, dn, err in errors:
+        log(f"phase 22a: {name} {tag} {dn}: max |err| {err:.3g}")
+    for k, t in times.items():
+        log(f"phase 22a: {k}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+            f"bound {t['bound_ms']:.5f} by {t['bound_by']})")
+    return {"errors": errors, "times": times, "ssd_vs_float64": f64}
+
+
+def phase22b(record, cfg, mcfg, smi) -> dict:
+    """The roofline of the one-card training cells phases 4 and 6 timed:
+    each batch size's step against ``bench.flops`` at chips 1 (the
+    reference's closed form: 4× the forward under remat), the compute
+    and memory terms with the H100's data-sheet constants (no collective
+    on one card), the measured wall a step (captures out, the card
+    synced) over the bound, and the share of the bf16 peak,
+    6·N_active·tokens / (ms · 989 TFLOP/s).  Reported, not gated."""
+    from repro_torch.bench import flops as FM
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import mesh as MESH
+    peak, bw = MESH.H100_PEAK_FLOPS_BF16, MESH.H100_HBM_BW
+    rows = {}
+    for name, c, seq, per in (
+            ("seesaw-150m", cfg, 1024, record["train"]["per_batch_size"]),
+            (f"mamba2-2.7b/{mcfg.n_layers}L", mcfg, 2048,
+             record["mamba2"]["per_batch_size"])):
+        for b, st in per.items():
+            shape = InputShape("t", seq, int(b), "train")
+            flops = FM.step_flops(c, shape)
+            hbm = FM.hbm_bytes(c, shape, chips=1)
+            t_c, t_m = flops / peak, hbm / bw
+            ms = st["wall_s_per_step"] * 1e3
+            tokens = int(b) * seq
+            rows[f"{name}/B{b}"] = {
+                "step_flops": flops, "hbm_bytes": hbm,
+                "t_compute_ms": t_c * 1e3, "t_memory_ms": t_m * 1e3,
+                "t_collective_ms": 0.0, "bound_ms": max(t_c, t_m) * 1e3,
+                "dominant": "compute" if t_c >= t_m else "memory",
+                "measured_ms": ms, "measured_over_bound":
+                    ms / (max(t_c, t_m) * 1e3),
+                "share_of_peak": 6 * c.active_param_count() * tokens
+                / (ms / 1e3 * peak),
+                "tokens": tokens}
+    log(f"phase 22b: {rows}")
+    return {"cells": rows, "constants": {"peak_flops_bf16": peak,
+                                         "hbm_bw": bw},
+            "card": smi}
+
+
+def dry_start(tmp):
+    """Start the dry-run of ``DRY_CELLS`` in a process of its own, the
+    card hidden from it (``CUDA_VISIBLE_DEVICES`` empty); returns (the
+    process, its output path)."""
+    out = os.path.join(tmp, "dryrun.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-c", DRY_SCRIPT, out, json.dumps(DRY_CELLS)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True), out
+
+
+def phase22c(proc, out, record) -> dict:
+    """The dry-run (``launch.dryrun.measure``, started by ``dry_start``)
+    against the card's ranks of phases 18a and 20b at their cells: its
+    collectives' calls and bytes by kind equal rank 0's measured ones
+    (18a: the first step in the reference's layout; 20b: llama3.2-3b's
+    cut prefill on 2x2 and a decode step of it), and its argument bytes
+    equal the bytes the rank holds (parameters, AdamW's state and the
+    rows with the step's lr scalar; parameters and prompt rows; parameters,
+    cache and token).  Its peak (arguments + tracked temporaries) is
+    printed beside the ranks' ``max_memory_allocated``, not gated."""
+    o, _ = proc.communicate(timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"phase 22c dry-run: {o[-3000:]}")
+    with open(out) as f:
+        dry = json.load(f)
+    train = record["mesh"]["float32"]["seesaw-150m/2x2"]
+    serve = record["mesh_serve"]["cells"]["llama"]["runs"][
+        "2x2/resident/hd/float32/cut_residual"]
+    got = {"18a/train": ({k: c[:2] for k, c in
+                          train["first_cut_comms_rank0"].items()},
+                         train["held_rank0"]["params"]
+                         + train["held_rank0"]["opt_state"]
+                         + train["held_rank0"]["batch"] + 4,
+                         max(train["first_cut_peak_gb"])),
+           "20b/prefill": ({k: [v["calls"], round(v["MB"] * 1e6)]
+                            for k, v in serve["prefill_comms"].items()},
+                           serve["held_rank0"]["params"]
+                           + serve["held_rank0"]["tokens"],
+                           max(serve["peak_gb"])),
+           "20b/decode": ({k: [round(v["calls"]), round(v["MB"] * 1e6)]
+                           for k, v in serve["step_comms"].items()},
+                          serve["held_rank0"]["params"]
+                          + serve["held_rank0"]["cache"]
+                          + serve["held_rank0"]["token"],
+                          max(serve["peak_gb"]))}
+    res = {}
+    for key, (comms, args, peak_gb) in got.items():
+        d = dry[key]
+        pred = {k: c for k, c in d["port_collectives"].items() if c[0]}
+        have = {k: c for k, c in comms.items() if c[0]}
+        mem = d["memory_analysis"]
+        if pred != have:
+            raise AssertionError(f"phase 22c {key}: the dry-run's "
+                                 f"collectives {pred}, the rank's {have}")
+        if mem["argument_size_in_bytes"] != args:
+            raise AssertionError(
+                f"phase 22c {key}: the dry-run's arguments "
+                f"{mem['argument_size_in_bytes']} bytes "
+                f"({d['argument_parts']}), the rank holds {args}")
+        res[key] = {"collectives": pred, "argument_bytes": args,
+                    "predicted_peak_gb": (mem["argument_size_in_bytes"]
+                                          + mem["temp_size_in_bytes"]) / 1e9,
+                    "measured_peak_gb": peak_gb,
+                    "flops": d["cost_analysis"]["flops"],
+                    "dry_run_wall_s": d["wall_s"]}
+        log(f"phase 22c {key}: collectives equal {pred}, arguments "
+            f"{args} bytes; peak predicted "
+            f"{res[key]['predicted_peak_gb']:.3f} GB, measured {peak_gb:.3f}")
+    return res
+
+
+def phase22d(record) -> dict:
+    """granite-moe-1b-a400m on 2x2 in phase 20b (its routing groups span
+    both data slots, gathered over them): the float32 run held to one
+    process there (logits 1e-4, tokens equal, collectives as
+    ``serve_comms`` predicts, the slot gathers among them); the bf16
+    run reported."""
+    cell = record["mesh_serve"]["cells"]["granite"]
+    runs = {k: {f: r[f] for f in ("max_rel_logits", "tokens_equal",
+                                  "prefill_comms", "step_comms",
+                                  "prefill_s", "decode_s_per_step",
+                                  "peak_gb")}
+            for k, r in cell["runs"].items()}
+    f32 = runs["2x2/resident/hd/float32"]
+    if "slot_gather" not in f32["step_comms"] or \
+            "slot_gather" not in f32["prefill_comms"]:
+        raise AssertionError(f"phase 22d: no slot gather in {f32}")
+    return {"runs": runs, "one": cell["one"]}
+
+
 def phase21_record(record, dots) -> dict:
     """Phase 21's record: 21a (the cut residual in training, run in phase
     18a's processes), 21b (the cut prefill beside the whole one, in phase
@@ -7126,6 +7479,9 @@ def cut_kernel_entries(kernels, record):
     srv = record["mesh_serve"]
     times = srv["kernels"]["times"]
     errs = {(tag, dn): e for _, tag, dn, e in srv["kernels"]["errors"]}
+    # phase 22a: the head_dim cut 16 ways (slices of 8 and 4)
+    err16 = {(n, tag, dn): e
+             for n, tag, dn, e in record["phase22"]["a"]["errors"]}
     for name, err_key, run in (
             ("decode_scores", "scores", "1x2/resident/hd/float32"),
             ("decode_softmax_pv", "softmax_pv", "1x2/resident/hd/float32"),
@@ -7150,6 +7506,12 @@ def cut_kernel_entries(kernels, record):
             "shape": tm["shape"],
             "by_cut_and_dtype": {k.split("/", 1)[1]: v for k, v in
                                  times.items() if k.startswith(name + "/")},
+            **({"cut16": {
+                k.split("/", 1)[1]: dict(v, max_abs_err=err16[
+                    (name, k.split("/")[1], k.split("/")[2])])
+                for k, v in record["phase22"]["a"]["times"].items()
+                if k.startswith(name + "/cut16")}}
+               if name != "ragged_decode_partial" else {}),
             "launches_by_run": {
                 f"{tag}/{key}": r["launches_rank0"].get(name, 0)
                 for tag, c in srv["cells"].items()
@@ -7439,6 +7801,22 @@ def main() -> int:
     record["mesh_serve"]["s"] = time.perf_counter() - t
     log(f"phase 20: {record['mesh_serve']['s']:.1f} s "
         f"{record['mesh_serve']['phase_s']}")
+    t = time.perf_counter()
+    # the dry-run (no card) holds host cores: nothing timed runs beside it,
+    # only 22b, which reads the record
+    import shutil
+    import tempfile
+    dry_tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry_proc, dry_out = dry_start(dry_tmp)
+    ph22 = record["phase22"] = {}
+    ph22["b"] = phase22b(record, cfg, dataclasses.replace(
+        mcfg, n_layers=MAMBA2_TRAIN_LAYERS), smi)
+    ph22["c"] = phase22c(dry_proc, dry_out, record)
+    shutil.rmtree(dry_tmp, ignore_errors=True)
+    ph22["a"] = phase22a(PG, ref)
+    ph22["d"] = phase22d(record)
+    ph22["s"] = time.perf_counter() - t
+    log(f"phase 22: {ph22['s']:.1f} s")
     t = time.perf_counter()
     bench_ctr = dict(counters(RN, FA), ssd_chunk=(SSD, "launches"),
                      overlap_norm=(OV, "launches"))
@@ -7810,6 +8188,11 @@ def main() -> int:
     print(json.dumps({"mesh_serve": {
         k: v for k, v in record["mesh_serve"].items() if k != "kernels"}}))
     print(json.dumps({"seq_shard_and_dots": record["phase21"]}))
+    print(json.dumps({"roofline": ph22["b"]}))
+    print(json.dumps({"dryrun": {k: ph22[k] for k in ("c", "d", "s")},
+                      "ops": {"errors": ph22["a"]["errors"],
+                              "ssd_vs_float64": ph22["a"]["ssd_vs_float64"]},
+                      "card": smi}))
     print(json.dumps({"checkpoint": record["checkpoint"],
                       "adaptive": adaptive, "card": smi}))
     print(json.dumps({"ok": True, "device": {

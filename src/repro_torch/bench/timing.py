@@ -16,8 +16,12 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+from repro_torch.launch.mesh import (H100_HBM_BW, H100_PEAK_FLOPS_BF16,
+                                     H100_PEAK_FLOPS_F32)
+
+HBM_BYTES_PER_S = H100_HBM_BW       # H100 SXM data sheet
+PEAK_OPS = {torch.bfloat16: H100_PEAK_FLOPS_BF16,
+            torch.float32: H100_PEAK_FLOPS_F32}
 
 
 class Timer:

@@ -41,6 +41,13 @@ _CONFIGS = {
 }
 
 
+# the reference's assigned architectures, in its order (the dry-run's --all)
+ASSIGNED_ARCHS: List[str] = [
+    "mistral-nemo-12b", "llama3.2-3b", "seamless-m4t-medium",
+    "recurrentgemma-9b", "yi-34b", "phi3.5-moe-42b-a6.6b",
+    "granite-moe-1b-a400m", "internvl2-76b", "mamba2-2.7b", "starcoder2-3b"]
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in _CONFIGS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_CONFIGS)}")
@@ -51,6 +58,6 @@ def list_archs() -> List[str]:
     return list(_CONFIGS)
 
 
-__all__ = ["INPUT_SHAPES", "HybridConfig", "InputShape", "ModelConfig",
-           "MoEConfig", "OptimizerConfig", "RunConfig", "SSMConfig",
-           "ScheduleConfig", "get_config", "list_archs"]
+__all__ = ["ASSIGNED_ARCHS", "INPUT_SHAPES", "HybridConfig", "InputShape",
+           "ModelConfig", "MoEConfig", "OptimizerConfig", "RunConfig",
+           "SSMConfig", "ScheduleConfig", "get_config", "list_archs"]

@@ -69,6 +69,10 @@
 //   model group, the whole kernel's softmax and P V over the rank's hd_r
 //   dims of V, the score read from s (scaled by 1/sqrt of the WHOLE
 //   head_dim, passed in) instead of computed from K.
+// - Both passes take a head_dim cut 16 ways (the production meshes' model
+//   axis): a lane then reads a whole row slice of 8 elements (16 bytes in
+//   bfloat16, 32 in float32) or 4 (8 bytes in bfloat16, one 8-byte load),
+//   32 or 16 key rows a warp.
 #include "common.cuh"
 
 namespace {
@@ -86,13 +90,39 @@ struct Pool {
   int64_t p, s, h;
 };
 
-// the NV 16-byte vectors a lane holds of a row: vector j of lane c is
-// vector j * LPR + c of the row, so a warp's loads stay contiguous
-template <int NV, int LPR, typename T>
+// elements a lane loads at once: a 16-byte vector, or the whole row where
+// the row is shorter (a head_dim slice of a cut 16 ways: 8 elements, or 4
+// bfloat16 ones in 8 bytes)
+template <typename T, int HD>
+constexpr int kVecN = HD < rt::Vec<T>::N ? HD : rt::Vec<T>::N;
+
+// V elements of a row -> float[V]: one 16-byte vector, or 4 bfloat16
+// elements in one 8-byte load
+template <int V, typename T>
+__device__ __forceinline__ void load_part(const T* p, float* o) {
+  if constexpr (V == rt::Vec<T>::N) {
+    rt::load_vec(p, o);
+  } else {
+    static_assert(V == 4 && sizeof(T) == 2, "4 bfloat16 elements");
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const uint32_t w[2] = {raw.x, raw.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+}
+
+// the NV loads of V elements a lane holds of a row: load j of lane c is
+// elements (j * LPR + c) * V.. of the row, so a warp's loads stay
+// contiguous
+template <int NV, int LPR, int V, typename T>
 __device__ __forceinline__ void load_slice(const T* p, float* o) {
 #pragma unroll
-  for (int j = 0; j < NV; ++j)
-    rt::load_vec(p + j * LPR * rt::Vec<T>::N, o + j * rt::Vec<T>::N);
+  for (int j = 0; j < NV; ++j) load_part<V>(p + j * LPR * V, o + j * V);
 }
 
 // the softmax state (m, l, acc) of b merged into a's
@@ -121,7 +151,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int64_t q_sb, int64_t q_sh, Pool ks, Pool vs,
                     int64_t pg_sb, int64_t o_sb, int64_t o_sh,
                     int64_t sc_sb, int64_t sc_sh, float sm_scale) {
-  constexpr int V = rt::Vec<T>::N;      // elements of a 16-byte vector
+  constexpr int V = kVecN<T, HD>;       // elements of a lane's load
   // vectors a lane holds of a row: one, or more where a row has more
   // vectors than a warp has lanes (float32 at hd 256)
   constexpr int NV = HD / V > 32 ? HD / V / 32 : 1;
@@ -172,7 +202,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int gi = 0; gi < GQ; ++gi) {
     if (MODE != kFromScores && gi < gn) {
-      load_slice<NV, LPR>(q + b * q_sb + (h0 + gi) * q_sh + c * V, qr[gi]);
+      load_slice<NV, LPR, V>(q + b * q_sb + (h0 + gi) * q_sh + c * V, qr[gi]);
     } else {
 #pragma unroll
       for (int e = 0; e < E; ++e) qr[gi][e] = 0.f;
@@ -196,8 +226,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (ok[u]) {
         const int64_t pg = pg_s[i], row = row_s[i];
         if (MODE != kFromScores)
-          load_slice<NV, LPR>(kb + pg * ks.p + row * ks.s, kf[u]);
-        load_slice<NV, LPR>(vb + pg * vs.p + row * vs.s, vf[u]);
+          load_slice<NV, LPR, V>(kb + pg * ks.p + row * ks.s, kf[u]);
+        load_slice<NV, LPR, V>(vb + pg * vs.p + row * vs.s, vf[u]);
       } else {
 #pragma unroll
         for (int e = 0; e < E; ++e) kf[u][e] = vf[u][e] = 0.f;
@@ -352,7 +382,7 @@ decode_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      float* __restrict__ scores, int H, int Hkv, int Skv,
                      int n_split, int n_grp, int64_t q_sb, int64_t q_sh,
                      rt::Strides kst, int64_t sc_sb, int64_t sc_sh) {
-  constexpr int V = rt::Vec<T>::N;
+  constexpr int V = kVecN<T, HD>;
   constexpr int NV = HD / V > 32 ? HD / V / 32 : 1;
   constexpr int E = NV * V;
   constexpr int LPR = HD / E;
@@ -379,7 +409,7 @@ decode_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int gi = 0; gi < GQ; ++gi) {
     if (gi < gn) {
-      load_slice<NV, LPR>(q + b * q_sb + (h0 + gi) * q_sh + c * V, qr[gi]);
+      load_slice<NV, LPR, V>(q + b * q_sb + (h0 + gi) * q_sh + c * V, qr[gi]);
     } else {
 #pragma unroll
       for (int e = 0; e < E; ++e) qr[gi][e] = 0.f;
@@ -395,7 +425,7 @@ decode_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = i0 + u * RPW + r;
       ok[u] = i < cnt;
       if (ok[u]) {
-        load_slice<NV, LPR>(kb + static_cast<int64_t>(s0 + i) * kst.s,
+        load_slice<NV, LPR, V>(kb + static_cast<int64_t>(s0 + i) * kst.s,
                             kf[u]);
       } else {
 #pragma unroll
@@ -462,10 +492,19 @@ void launch_gq(const Args& a) {
 }
 
 // head_dims of each mode: the whole heads' for the whole and partial
-// modes, a head_dim of 32-256 cut in 2-8 for the scores' pass 2
+// modes, a head_dim of 32-256 cut in 2-16 for the scores' pass 2 (slices
+// of 4-128)
 template <typename T, int MODE>
 int dispatch_hd(const Args& a, int hd) {
   if constexpr (MODE == kFromScores) {
+    if (hd == 4) {
+      launch_gq<T, 4, MODE>(a);
+      return 0;
+    }
+    if (hd == 8) {
+      launch_gq<T, 8, MODE>(a);
+      return 0;
+    }
     if (hd == 16) {
       launch_gq<T, 16, MODE>(a);
       return 0;
@@ -528,7 +567,13 @@ int dispatch_scores(const void* q, const void* k, const int* lengths,
                     float* s, int B, int H, int Hkv, int Skv, int hd,
                     int64_t q_sb, int64_t q_sh, rt::Strides kst,
                     int64_t sc_sb, int64_t sc_sh, cudaStream_t st) {
-  if (hd == 16) {
+  if (hd == 4) {
+    scores_gq<T, 4>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh, kst,
+                    sc_sb, sc_sh, st);
+  } else if (hd == 8) {
+    scores_gq<T, 8>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh, kst,
+                    sc_sb, sc_sh, st);
+  } else if (hd == 16) {
     scores_gq<T, 16>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh, kst,
                      sc_sb, sc_sh, st);
   } else if (hd == 32) {
@@ -607,7 +652,8 @@ extern "C" int paged_decode(const void* q, const void* k, const void* v,
 
 // Pass 1 of the head_dim cut: q (B, H, hd) given by its (b, h) element
 // strides, k (B, Skv, Hkv, hd) by its (b, s, h) strides, hd (the rank's
-// slice) 16, 32, 64 or 128 contiguous with 16-byte aligned rows; lengths
+// slice) 4, 8, 16, 32, 64 or 128 contiguous with 16-byte aligned rows (8
+// bytes for 4 bfloat16 elements); lengths
 // (B,) int32; scores (B, H, Skv) float32 by its (b, h) strides, written
 // for keys 0..lengths[b] only.  Returns the CUDA error of the launch.
 extern "C" int decode_scores(const void* q, const void* k,

@@ -195,13 +195,31 @@ def check(err: int, name: str) -> None:
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# the operations that the wrappers' shape-only calls stood for, since the
+# count was last set to 0 (``shape_only``)
+meta_ops = 0.0
+
+
+def shape_only(t: torch.Tensor, n_ops: float) -> bool:
+    """Whether a wrapper's call on ``t`` is shape-only: ``t`` lies on the
+    meta device (the dry-run, ``launch.dryrun``).  Then the call's
+    operation count ``n_ops`` (the one its bound in ``PERF.md`` uses) is
+    added to ``meta_ops``, and the wrapper returns the outputs it
+    allocated, launching nothing and never loading the library."""
+    global meta_ops
+    if t.device.type != "meta":
+        return False
+    meta_ops += float(n_ops)
+    return True
+
 
 def dtype_code(name: str, *tensors) -> int:
     """The kernels' dtype code (0 float32, 1 bfloat16) of tensors that
-    must all share one dtype on one CUDA device."""
+    must all share one dtype on one CUDA device (or all on the meta
+    device: a shape-only call)."""
     t0 = tensors[0]
     for t in tensors:
-        if t.device.type != "cuda" or t.device != t0.device:
+        if t.device.type not in ("cuda", "meta") or t.device != t0.device:
             raise ValueError(f"{name}: every tensor must lie on one CUDA "
                              f"device, got {[str(x.device) for x in tensors]}")
         if t.dtype != t0.dtype:
@@ -214,26 +232,27 @@ def dtype_code(name: str, *tensors) -> int:
     return code
 
 
-def rows_aligned(t) -> bool:
+def rows_aligned(t, align: int = 16) -> bool:
     """Whether the kernels can read ``t`` as it is: rows of the last dim
-    are read with 16-byte vectors, so the last dim must be contiguous
-    and every row start 16-byte aligned (the stride of a dim of size 1
-    is never used)."""
+    are read with 16-byte vectors (``align`` bytes where a kernel reads
+    shorter rows), so the last dim must be contiguous and every row
+    start ``align``-byte aligned (the stride of a dim of size 1 is never
+    used)."""
     es = t.element_size()
     strides = [s for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1]
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and not any((s * es) % 16 for s in strides)
-            and (t.shape[-1] * es) % 16 == 0)
+    return (t.stride(-1) == 1 and t.data_ptr() % align == 0
+            and not any((s * es) % align for s in strides)
+            and (t.shape[-1] * es) % align == 0)
 
 
-def check_rows(name: str, t) -> None:
-    """Raise unless ``rows_aligned(t)``."""
+def check_rows(name: str, t, align: int = 16) -> None:
+    """Raise unless ``rows_aligned(t, align)``."""
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: last dim must be contiguous, strides "
                          f"{t.stride()}")
-    if not rows_aligned(t):
-        raise ValueError(f"{name}: rows must be 16-byte aligned (shape "
-                         f"{tuple(t.shape)}, strides {t.stride()})")
+    if not rows_aligned(t, align):
+        raise ValueError(f"{name}: rows must be {align}-byte aligned "
+                         f"(shape {tuple(t.shape)}, strides {t.stride()})")
 
 
 def stream_of(t) -> int:

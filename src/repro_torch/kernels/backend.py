@@ -14,6 +14,13 @@ the device of the input picks the code.
   through the plain chunked scan, as the reference's does (it has no
   backward kernel).  Nothing falls back to the plain version or to the
   CPU.
+- A tensor on the meta device (the dry-run, ``launch.dryrun``) takes
+  the card's path: each wrapper allocates what it allocates on the card
+  and the tensors its ``autograd.Function`` saves, adds its call's
+  operation count to ``kernels._build.meta_ops``, and launches nothing
+  (``_build.shape_only``).  Nothing on meta computes, and no plain
+  version runs there (the plain attention's B·H·S² scores would
+  describe a path the card does not take).
 - Any other device raises.
 
 The ops take the models' layouts (attention: (B, S, H, hd)); the kernels
@@ -32,13 +39,13 @@ from repro_torch.kernels import ssd as _ssd
 
 
 def _on_card(t: torch.Tensor, op: str) -> bool:
-    if t.device.type == "cuda":
+    if t.device.type in ("cuda", "meta"):
         return True
     if t.device.type == "cpu":
         return False
     raise ValueError(f"{op}: no implementation for device {t.device}; "
-                     f"the port runs on 'cuda' (kernels) or 'cpu' (plain "
-                     f"versions)")
+                     f"the port runs on 'cuda' (kernels), 'cpu' (plain "
+                     f"versions) or 'meta' (shape only)")
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-5):

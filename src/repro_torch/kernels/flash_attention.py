@@ -12,7 +12,11 @@ log-sum-exp rows ``lse`` (B·H, S), which the backward reads.  The kernels
 mask the ragged tail themselves, so ``S`` need not be a multiple of any
 block and nothing is padded.  The plain versions are
 ``kernels.ref.attention_ref`` and ``kernels.ref.flash_bwd_ref``;
-``kernels.backend.attention`` picks by the device of the input.
+``kernels.backend.attention`` picks by the device of the input.  A
+call with no heads (a rank of a model axis that does not divide the
+query heads may hold none) launches nothing; a call on meta tensors
+(the dry-run) allocates its outputs and counts its operations
+(``_build.shape_only``).
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ def _check(name: str, q, k, v) -> int:
     if tuple(k.shape) != (B, Hkv, S, hd) or k.shape != v.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if Hkv < 1 or H % Hkv:
+    if H and (Hkv < 1 or H % Hkv):
         raise ValueError(f"{name}: n_heads={H} not a multiple of "
                          f"n_kv_heads={Hkv}")
     if hd not in HEAD_DIMS:
@@ -56,6 +60,13 @@ def _check(name: str, q, k, v) -> int:
     for t in (q, k, v):
         _build.check_rows(name, t)
     return code
+
+
+def _pairs(q) -> float:
+    """The (query, key) pairs causal attention over q (B, H, S, hd)
+    scores: B·H·S·(S+1)/2 (the count of the kernels' bounds)."""
+    B, H, S, _ = q.shape
+    return B * H * S * (S + 1) / 2
 
 
 def _bsh(*tensors):
@@ -88,6 +99,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     B, H, S, hd = q.shape
     out = _like(q)
     lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
+    if B * H * S == 0:              # a rank with no heads: nothing to launch
+        return out, lse
+    if _build.shape_only(q, 4 * hd * _pairs(q)):
+        return out, lse
     fn = _build.function(name, _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -121,6 +136,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta):
     _check_rows_of(name, q, (lse, delta), do)
     B, H, S, hd = q.shape
     dq = _like(q)
+    if B * H * S == 0 or _build.shape_only(q, 6 * hd * _pairs(q)):
+        return dq
     fn = _build.function(name, _DQ_ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -143,6 +160,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta):
     _check_rows_of(name, q, (lse, delta), do)
     B, H, S, hd = q.shape
     dk, dv = _like(k), _like(v)
+    if B * H * S == 0 or _build.shape_only(q, 8 * hd * _pairs(q)):
+        return dk, dv
     fn = _build.function(name, _DKV_ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

@@ -50,8 +50,8 @@ scores_launches = 0
 softmax_pv_launches = 0
 
 HEAD_DIMS = (32, 64, 128, 256)
-# a head_dim cut in 2-8 parts: the rank's slice
-SLICE_DIMS = (16, 32, 64, 128)
+# a head_dim cut in 2-16 parts: the rank's slice
+SLICE_DIMS = (4, 8, 16, 32, 64, 128)
 # the kernel's modes (``Mode`` in csrc/paged_decode.cu)
 _WHOLE, _PARTIAL, _FROM_SCORES = 0, 1, 2
 
@@ -66,6 +66,9 @@ _SCORE_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
 # window; the kernel's (keys a split, query heads a group)
 _tables: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 _layout: Tuple[int, int] = ()
+# kSplit and kGroupHeads of csrc/paged_decode.cu, for shape-only calls,
+# which never load the library (chip_smoke.py holds them to ``layout()``)
+SOURCE_LAYOUT = (128, 4)
 
 
 def layout() -> Tuple[int, int]:
@@ -79,6 +82,12 @@ def layout() -> Tuple[int, int]:
         fn(ctypes.byref(split), ctypes.byref(heads))
         _layout = (split.value, heads.value)
     return _layout
+
+
+def _align(t: torch.Tensor) -> int:
+    """The row alignment the kernel's loads need: 16 bytes, or 8 for a
+    slice of 4 bfloat16 elements (one 8-byte load a row)."""
+    return min(16, t.shape[-1] * t.element_size())
 
 
 def _launch(name, q, k, v, pages, lengths, page_size: int, *,
@@ -117,7 +126,7 @@ def _launch(name, q, k, v, pages, lengths, page_size: int, *,
                          f"column stride on {dev}, got {pages.dtype} "
                          f"{tuple(pages.shape)} on {pages.device}")
     for t in (k, v) if q is None else (q, k, v):
-        _build.check_rows(name, t)
+        _build.check_rows(name, t, _align(t))
     if mode == _FROM_SCORES:
         code = _build.dtype_code(name, k, v)
         if scores.dtype != torch.float32 or scores.device != dev \
@@ -142,10 +151,15 @@ def _launch(name, q, k, v, pages, lengths, page_size: int, *,
         out = torch.empty(B, H, hd, dtype=v.dtype, device=dev)
     # split states (m, l, acc) when a window spans several splits, and a
     # counter per (request, kv head, group of query heads)
-    split, heads = layout()
+    split, heads = SOURCE_LAYOUT if dev.type == "meta" else layout()
     n_split = -(-(P * page_size) // split)
     part = torch.empty(B * H * n_split * (hd + 2) if n_split > 1 else 0,
                        dtype=torch.float32, device=dev)
+    # a shape-only call cannot read the lengths: every slot counts
+    keys = B * P * page_size
+    if _build.shape_only(v, keys * H * (2 * hd + 4 if mode == _FROM_SCORES
+                                        else 4 * hd)):
+        return out
     G = H // Hkv
     ctr = _build.counters("paged_decode", dev,
                           B * Hkv * (1 if G == 1 else -(-G // heads)))
@@ -244,7 +258,7 @@ def decode_scores(q: torch.Tensor, k: torch.Tensor,
     """The head_dim cut's pass 1: q (B, H, hd_r), the rank's slice of each
     query head's dims (any strides, head_dim contiguous); k (B, Skv,
     Hkv, hd_r), its slice of the cache; lengths (B,) int32.  On one CUDA
-    device, float32 or bfloat16, hd_r 16, 32, 64 or 128.  Returns s (B,
+    device, float32 or bfloat16, hd_r 4, 8, 16, 32, 64 or 128.  Returns s (B,
     H, Skv) float32, the partial dot products (unscaled) of keys
     0..lengths[b]; later entries are left unwritten."""
     name = "decode_scores"
@@ -261,8 +275,10 @@ def decode_scores(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: lengths must be contiguous int32 ({B},) "
                          f"on {q.device}")
     for t in (q, k):
-        _build.check_rows(name, t)
+        _build.check_rows(name, t, _align(t))
     s = torch.empty(B, H, Skv, dtype=torch.float32, device=q.device)
+    if _build.shape_only(q, 2 * B * Skv * H * hd):
+        return s
     fn = _build.function("decode_scores", _SCORE_ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), lengths.data_ptr(),

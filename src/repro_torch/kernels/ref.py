@@ -98,7 +98,7 @@ def attention_ref(q, k, v, *, causal: bool = True):
     q's dtype, lse (B·H, S) float32) — the flash forward's two
     outputs."""
     B, H, S, hd = q.shape
-    G = H // k.shape[1]
+    G = H // max(k.shape[1], 1)          # a rank with no heads: H = Hkv = 0
     k = k.float().repeat_interleave(G, dim=1)
     v = v.float().repeat_interleave(G, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) / math.sqrt(hd)

@@ -39,7 +39,7 @@ def _check(name, a, *others):
     """a: (B, S, W) float32 contiguous on a CUDA device; each of
     ``others`` None, of a's shape, or (B, W), float32 contiguous on a's
     device."""
-    if a.device.type != "cuda" or a.dtype != torch.float32 \
+    if a.device.type not in ("cuda", "meta") or a.dtype != torch.float32 \
             or a.dim() != 3 or not a.is_contiguous():
         raise ValueError(f"{name}: a must be a contiguous float32 (B, S, W) "
                          f"tensor on a CUDA device, got {a.dtype} "
@@ -71,6 +71,8 @@ def rglru_scan_fwd(a: torch.Tensor, b: torch.Tensor,
                          f"{None if h0 is None else tuple(h0.shape)}")
     hs = torch.empty_like(a)
     h_last = torch.empty(B, W, dtype=torch.float32, device=a.device)
+    if _build.shape_only(a, 2 * a.numel()):
+        return hs, h_last
     fn = _build.function(name, _FWD_ARGTYPES)
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), b.data_ptr(), _ptr(h0), hs.data_ptr(),
@@ -97,6 +99,8 @@ def rglru_scan_bwd(a: torch.Tensor, hs: torch.Tensor, h0, dhs, dh_last,
     db = torch.empty_like(a)
     dh0 = (torch.empty(B, W, dtype=torch.float32, device=a.device)
            if want_dh0 else None)
+    if _build.shape_only(a, 3 * a.numel()):
+        return da, db, dh0
     fn = _build.function(name, _BWD_ARGTYPES)
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), hs.data_ptr(), _ptr(h0), _ptr(dhs),

@@ -125,8 +125,8 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
     d = x.shape[-1]
     out = torch.empty_like(x)
     rows = x.numel() // d
-    if rows == 0:                       # nothing to launch, nothing counted
-        return out
+    if rows == 0 or _build.shape_only(x, 4 * x.numel()):
+        return out                      # nothing to launch, nothing counted
     layout = fwd_layout(rows, d, code, _sm_count(x.device))
     fn = _build.function(name, _ARGTYPES)
     with torch.cuda.device(x.device):
@@ -158,6 +158,10 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     rows = x.numel() // d
     if rows == 0:
         return dx, torch.zeros_like(scale)
+    if _build.shape_only(x, 12 * x.numel()):
+        # the scratch partials are sized by the library from the card's
+        # SMs (a few MB), so a shape-only call leaves them out
+        return dx, torch.empty_like(scale)
     scratch = _bwd_scratch(rows, d, code)
     if scratch is None:
         raise ValueError(f"{name}: d={d} is longer than a block holds "
@@ -229,6 +233,8 @@ def _split_check(name: str, x, scale, like=(), sums=()) -> int:
 def _split_dot(name: str, attr: str, x, scale, g):
     code = _split_check(name, x, scale, like=() if g is None else (g,))
     out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    if _build.shape_only(x, (2 if g is None else 3) * x.numel()):
+        return out
     fn = _build.function("rmsnorm_split_dot", _SPLIT_DOT_ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), 0 if g is None else g.data_ptr(),
@@ -262,7 +268,7 @@ def split_fwd(x: torch.Tensor, scale: torch.Tensor, ss: torch.Tensor,
     name = "rmsnorm_split_fwd"
     code = _split_check(name, x, scale, sums=(ss,))
     y = torch.empty_like(x)
-    if x.shape[0] == 0:
+    if x.shape[0] == 0 or _build.shape_only(x, 4 * x.numel()):
         return y
     n = x.numel() // (8 if code == 1 else 4)
     blocks = max(1, min(-(-n // 256), _sm_count(x.device) * 8))
@@ -291,6 +297,8 @@ def split_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     dscale = torch.empty_like(scale)
     part = torch.empty(max(-(-rows // SPLIT_CHUNK), 1), d,
                        dtype=torch.float32, device=x.device)
+    if _build.shape_only(x, 12 * x.numel()):
+        return dx, dscale
     fn = _build.function(name, _SPLIT_BWD_ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(), ss.data_ptr(),

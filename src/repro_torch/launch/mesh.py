@@ -38,6 +38,21 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
+# The roofline's constants (``bench.roofline``), beside the meshes they
+# describe.  The reference's TPU v5e, a chip of its production meshes:
+PEAK_FLOPS_BF16 = 197e12        # FLOP/s
+HBM_BW = 819e9                  # B/s
+ICI_BW = 50e9                   # B/s a link
+# The port's NVIDIA H100 SXM (data sheet): dense bf16 and float32 peaks,
+# HBM3 rate and size.  A model axis of 16 spans two 8-card nodes, so the
+# slowest link a group of the production meshes crosses is one 400 Gb/s
+# NDR port a card: 50e9 B/s, the collective term's rate.
+H100_PEAK_FLOPS_BF16 = 989e12   # FLOP/s
+H100_PEAK_FLOPS_F32 = 67e12     # FLOP/s
+H100_HBM_BW = 3.35e12           # B/s
+H100_HBM_BYTES = 80e9           # B
+H100_LINK_BW = 50e9             # B/s a card, one NDR port
+
 
 def data_parallel_size(mesh) -> int:
     """Number of data-parallel shards of the global batch: the product
@@ -169,6 +184,7 @@ class Mesh:
         self.axis_names = tuple(self.shape)
         self.size = math.prod(self.shape.values())
         self._groups = None
+        self._slot_groups: Dict[int, object] = {}
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
@@ -227,6 +243,29 @@ class Mesh:
             self._groups = (fsdp[self.model_index(me)],
                             model[self.fsdp_index(me)])
         return self._groups
+
+    def slot_group(self, span: int):
+        """This process's group of ``span`` consecutive data slots at its
+        model coordinate (its block: slots [s - s mod span, ... + span)),
+        made on first call for that span: every rank makes every block's
+        group, by model coordinate, then by block (``new_group`` is
+        collective).  The whole FSDP group when ``span`` is P·D."""
+        if span == self.n_fsdp:
+            return self.groups()[0]
+        if span not in self._slot_groups:
+            if self.n_fsdp % span:
+                raise ValueError(f"{self.n_fsdp} data slots do not split "
+                                 f"into blocks of {span}")
+            me = rank()
+            mine = None
+            for m in range(self.n_model):
+                ranks = self.fsdp_ranks(m)
+                for b in range(0, self.n_fsdp, span):
+                    g = dist.new_group(ranks[b:b + span])
+                    if me in ranks[b:b + span]:
+                        mine = g
+            self._slot_groups[span] = mine
+        return self._slot_groups[span]
 
 
 def _spec_axes(entry) -> Tuple[str, ...]:

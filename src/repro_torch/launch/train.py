@@ -65,9 +65,9 @@ slot's rows (``process_index`` = the slot, ``process_count`` = P·D; the
 ranks of a slot load the same rows), ``--max-device-batch`` counts rows
 a data slot, and a checkpoint holds each distinct block once.  The
 steps run eagerly (a gloo collective is host work no CUDA graph holds).
-Query heads, experts, SSD heads, the RG-LRU width or a dim the mesh
-does not divide, an MoE batch whose routing groups would straddle two
-data slots, or a mesh whose size is not the process count raises
+Experts, SSD heads, the RG-LRU width or a dim the mesh does not
+divide, an MoE batch that does not split into whole routing groups, or
+a mesh whose size is not the process count raises
 ``ValueError`` before any collective.  Without ``--mesh`` the ranks
 replicate the model, as above::
 

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import backend as KB
-from repro_torch.parallel import kv_block, weight
+from repro_torch.parallel import head_block, kv_block, uneven_heads, weight
 from repro_torch.models.layers import P, apply_rope, out_std, param, \
     trunc_normal_
 
@@ -119,7 +119,7 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     -1.  Returns (B, Sq, H, hd) in q's dtype."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    G = H // Hkv
+    G = H // max(Hkv, 1)                 # a rank with no heads: H = Hkv = 0
     scale = 1.0 / math.sqrt(hd)
     qpos = q_offset + torch.arange(Sq, device=q.device)
     if kpos is None:
@@ -168,10 +168,48 @@ def project_kv(p: Attention, x, *, n_heads: int, n_kv_heads: int,
     if tp is None or n_kv_heads % tp.n_model == 0:
         n = n_kv_heads if tp is None else n_kv_heads // tp.n_model
         return (k.reshape(B, S, n, head_dim), v.reshape(B, S, n, head_dim))
-    first, n = kv_block(n_heads, n_kv_heads, tp.n_model, tp.model_index)
     k, v = (tp.model_gather(t, -1).reshape(B, S, n_kv_heads, head_dim)
-            [:, :, first:first + n] for t in (k, v))
-    return k, v
+            for t in (k, v))
+    if uneven_heads(n_heads, tp):
+        return k, v
+    first, n = kv_block(n_heads, n_kv_heads, tp.n_model, tp.model_index)
+    return k[:, :, first:first + n], v[:, :, first:first + n]
+
+
+def rank_heads(tp, q, k, v, *, n_heads: int, n_kv_heads: int,
+               head_dim: int):
+    """Query heads the model axis does not divide (``parallel.
+    uneven_heads``): q (B, S, H·hd/M), the rank's columns of ``w_q``'s
+    product, and k, v (B, S, Hkv, hd), every KV head -> the rank's block
+    of whole query heads (``parallel.head_block``: ceil(H/M), the last
+    ranks fewer or none) and the KV heads they attend to.  q's columns
+    are gathered over the model group (one all-gather) and cut to the
+    block; k and v are cut to a GQA block where the rank's heads take
+    whole groups or lie in one, else to one KV head a query head."""
+    B, S = q.shape[:2]
+    first, n = head_block(n_heads, tp.n_model, tp.model_index)
+    q = tp.model_gather(q, -1).reshape(B, S, n_heads, head_dim)
+    q = q[:, :, first:first + n]
+    G = n_heads // n_kv_heads
+    lo = first // G
+    hi = (first + n - 1) // G + 1 if n else lo
+    if n and (hi - lo == 1 or (first % G == 0 and n % G == 0)):
+        return q, k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = torch.arange(first, first + n, device=k.device) // G
+    return q, k.index_select(2, idx), v.index_select(2, idx)
+
+
+def rank_cols(tp, o, *, n_heads: int, head_dim: int):
+    """The way back of :func:`rank_heads`: o (B, S, n·hd), the output of
+    the rank's block of heads -> the rank's H·hd/M columns of every
+    head's output, the rows of ``w_o`` it holds.  Each rank's block,
+    padded to ceil(H/M) heads, is gathered over the model group (one
+    all-gather) and the rank's columns kept; the gather's backward sums
+    the grads over the group and keeps the rank's block."""
+    per = -(-n_heads // tp.n_model) * head_dim
+    o = F.pad(o, (0, per - o.shape[-1]))
+    w = n_heads * head_dim // tp.n_model
+    return tp.model_gather(o, -1).narrow(-1, tp.model_index * w, w)
 
 
 def attn_forward(p: Attention, x, *, n_heads: int, n_kv_heads: int,
@@ -187,28 +225,41 @@ def attn_forward(p: Attention, x, *, n_heads: int, n_kv_heads: int,
     projections are this rank's H/M query heads and the KV heads they
     attend to (``project_kv``: its Hkv/M, or the gathered heads where the
     model axis does not divide them), ``w_o`` its rows, and the output
-    is summed over the model group.  With ``seq`` x is the rank's S/M
-    rows of the cut residual: gathered along S first (so q, k, v and the
-    K/V returned cover the whole S), the output reduce-scattered back to
-    the rank's rows."""
+    is summed over the model group.  Where the axis does not divide the
+    query heads the rank attends with its block of whole heads
+    (``rank_heads``, ``rank_cols``) and returns every KV head.  With
+    ``seq`` x is the rank's S/M rows of the cut residual: gathered along
+    S first (so q, k, v and the K/V returned cover the whole S), the
+    output reduce-scattered back to the rank's rows."""
     dt = x.dtype
     if tp is not None:
         x = tp.enter(x, seq)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q = (x @ weight(p.w_q, dt, tp)).reshape(B, S, -1, head_dim)
+    q = x @ weight(p.w_q, dt, tp)
     k, v = project_kv(p, x, n_heads=n_heads, n_kv_heads=n_kv_heads,
                       head_dim=head_dim, tp=tp)
     if rope_theta:
-        q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
+    kv = (k, v)
+    uneven = uneven_heads(n_heads, tp)
+    if uneven:
+        q, k, v = rank_heads(tp, q, k, v, n_heads=n_heads,
+                             n_kv_heads=n_kv_heads, head_dim=head_dim)
+    else:
+        q = q.reshape(B, S, -1, head_dim)
+    if rope_theta:
+        q = apply_rope(q, positions, rope_theta)
     if causal and window is None:
         o = KB.attention(q, k, v)
     else:
         o = chunked_attention(q, k, v, causal=causal, window=window)
-    o = o.reshape(B, S, -1) @ weight(p.w_o, dt, tp)
-    return (o if tp is None else tp.leave(o, seq)), (k, v)
+    o = o.reshape(B, S, -1)
+    if uneven:
+        o = rank_cols(tp, o, n_heads=n_heads, head_dim=head_dim)
+    o = o @ weight(p.w_o, dt, tp)
+    return (o if tp is None else tp.leave(o, seq)), kv
 
 
 # --------------------------------------------------------------------- #
@@ -493,24 +544,31 @@ def _attend_cut(p: Attention, q, k, v, lengths, cut, *, head_dim: int, tp,
     in those dims (1: the keys, 3: head_dim).  The head_dim cut: the
     rank's slice of every head scored (``decode_scores``), the scores
     summed over the group, softmax and P V over its V slice with the
-    whole head's scale, the output re-cut to the rank's heads by an
-    all-to-all.  The key cut: the rank's softmax states over its keys
-    (``decode_partial``), gathered and merged in rank order, the rank's
-    heads kept.  Returns out (B, 1, d), summed over the group."""
+    whole head's scale, the output re-cut to the rank's H·hd/M columns
+    (the rows of ``w_o`` it holds) by an all-to-all, or where the model
+    axis does not divide the heads by an all-gather.  The key cut: the
+    rank's softmax states over its keys (``decode_partial``), gathered
+    and merged in rank order, the rank's columns kept.  Returns out (B,
+    1, d), summed over the group."""
     B, H = q.shape[:2]
     dim, lo, hi = cut
+    cols = H * head_dim // tp.n_model
     if dim == 3:
         L32 = lengths.to(torch.int32).contiguous()
         s = KB.decode_scores(q[..., lo:hi], k, L32)
         if tp.n_model > 1:
             tp.all_reduce(s, tp.model_group, "model_all_reduce")
         o = KB.decode_softmax_pv(s, v, L32, head_dim=head_dim)
-        o = tp.model_all_to_all(o, split_dim=1, cat_dim=2)
+        if H % tp.n_model == 0:
+            o = tp.model_all_to_all(o, split_dim=1, cat_dim=2)
+        else:               # no head boundary at the rank's columns
+            o = tp.gather_model(o[None], 0).permute(1, 2, 0, 3)
+            o = o.reshape(B, -1)[:, tp.model_slice(cols)]
     else:
         part = KB.decode_partial(q, k, v,
                                  (lengths - lo).to(torch.int32).contiguous())
         o = merge_decode_partials(tp.gather_model(part[None], 0))
-        o = o[:, tp.model_slice(H // tp.n_model)].to(dtype)
+        o = o.reshape(B, -1)[:, tp.model_slice(cols)].to(dtype)
     o = o.reshape(B, 1, -1) @ weight(p.w_o, dtype, tp)
     return tp.from_model(o)
 

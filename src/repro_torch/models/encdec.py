@@ -56,7 +56,7 @@ from repro_torch.models.layers import (MLP, P, embed, embed_specs,
                                        param, recompute, rmsnorm,
                                        trunc_normal_)
 from repro_torch.models.transformer import kv_cut, logits_from_hidden
-from repro_torch.parallel import seq_of, tp_of, weight
+from repro_torch.parallel import seq_of, tp_of, uneven_heads, weight
 
 
 def _attention(cfg: ModelConfig, dtype, device) -> Attention:
@@ -230,9 +230,19 @@ def _cross_attend(p: Attention, h, ek, ev, cfg: ModelConfig, tp=None,
     if tp is not None:
         h = tp.enter(h, seq)
     B, Sq, _ = h.shape
-    q = (h @ weight(p.w_q, h.dtype, tp)).reshape(B, Sq, -1, cfg.head_dim)
-    o = A.chunked_attention(q, ek.to(h.dtype), ev.to(h.dtype), causal=False)
-    o = o.reshape(B, Sq, -1) @ weight(p.w_o, h.dtype, tp)
+    q = h @ weight(p.w_q, h.dtype, tp)
+    ek, ev = ek.to(h.dtype), ev.to(h.dtype)
+    uneven = uneven_heads(cfg.n_heads, tp)
+    kw = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim)
+    if uneven:
+        q, ek, ev = A.rank_heads(tp, q, ek, ev, n_kv_heads=cfg.n_kv_heads,
+                                 **kw)
+    else:
+        q = q.reshape(B, Sq, -1, cfg.head_dim)
+    o = A.chunked_attention(q, ek, ev, causal=False).reshape(B, Sq, -1)
+    if uneven:
+        o = A.rank_cols(tp, o, **kw)
+    o = o @ weight(p.w_o, h.dtype, tp)
     return o if tp is None else tp.leave(o, seq)
 
 

@@ -46,7 +46,9 @@ tie with negligible probability.
 
 The reference asserts that the tokens of a call split into whole
 groups (``tokens % g == 0`` once B·S exceeds ``group_size``); the port
-raises ``ValueError`` there (:func:`check_tokens`), before any work.
+raises ``ValueError`` there (:func:`check_tokens`), before any work.  On
+a mesh a group may span several data slots; the slots that hold it
+gather its tokens (``moe_forward``).
 """
 from __future__ import annotations
 
@@ -110,25 +112,27 @@ def groups(cfg: ModelConfig, n_tokens: int, group_size: int = GROUP_SIZE,
 
 def check_tokens(cfg: ModelConfig, n_tokens: int,
                  group_size: int = GROUP_SIZE, n_slots: int = 1) -> None:
-    """Raise ``ValueError`` unless ``n_tokens`` split into whole groups
-    (the reference asserts it inside its jitted forward).  With
-    ``n_slots`` data slots of ``n_tokens`` each, a group of the global
-    count's size must not straddle two slots."""
+    """Raise ``ValueError`` unless the tokens of a call split into whole
+    groups (the reference asserts it inside its jitted forward): the
+    ``n_slots`` data slots' ``n_tokens`` each, the global count.  A group
+    may span several slots (:func:`slot_span`)."""
     if cfg.arch_type != "moe" or n_tokens <= 0:
         return
-    g = min(group_size, n_tokens * n_slots)
-    if n_tokens % g == 0:
-        return
-    if n_slots > 1:
+    total = n_tokens * n_slots
+    g = min(group_size, total)
+    if total % g:
         raise ValueError(
-            f"{cfg.name}: a routing group of {g} tokens would straddle "
-            f"two data slots of {n_tokens} tokens each (the MoE routes "
-            f"groups of min({group_size}, B*S) over the global batch; "
-            f"each data slot must hold whole groups)")
-    raise ValueError(
-        f"{cfg.name}: {n_tokens} tokens do not split into groups of "
-        f"{g} (the MoE routes whole groups of min({group_size}, "
-        f"B*S) tokens; the reference asserts tokens % g == 0)")
+            f"{cfg.name}: {total} tokens do not split into groups of "
+            f"{g} (the MoE routes whole groups of min({group_size}, "
+            f"B*S) tokens; the reference asserts tokens % g == 0)")
+
+
+def slot_span(n_tokens: int, g: int) -> int:
+    """The data slots of ``n_tokens`` each that hold whole routing groups
+    of ``g`` together: 1 where a slot holds whole groups, else
+    lcm(n_tokens, g) / n_tokens (a decode step's 8 tokens a slot and a
+    group of 128: 16 slots)."""
+    return math.lcm(n_tokens, g) // n_tokens
 
 
 # --------------------------------------------------------------------- #
@@ -249,7 +253,15 @@ def moe_forward(moe: MoE, x: torch.Tensor, cfg: ModelConfig, *,
     partial combine is summed over the model group.  ``n_slots`` is the
     number of data slots the call's batch is cut into (a mesh's P·D by
     default; 1 where serving replicates the batch over data): g and C
-    come from the global count, and no group may straddle two slots.
+    come from the global count.
+
+    A routing group that spans several data slots (:func:`slot_span`:
+    fewer tokens a slot than a group, as in a decode step) is routed
+    whole, as the reference routes it: the rank gathers the token rows of
+    the slots that hold its group (``TensorParallel.slot_gather``, whose
+    backward sums the grads over them in float32 and keeps the rank's
+    rows), routes and computes them with the capacity and queue places of
+    the whole group, and keeps its own rows.
 
     With ``seq`` x is the rank's S/M rows of the cut residual: gathered
     along S before routing (so a routing group is the slot's whole B·S
@@ -265,7 +277,10 @@ def moe_forward(moe: MoE, x: torch.Tensor, cfg: ModelConfig, *,
     if n_slots is None:
         n_slots = 1 if tp is None else tp.n_fsdp
     check_tokens(cfg, B * S_, group_size, n_slots)
-    G, g, cap = groups(cfg, B * S_, group_size, n_slots)
+    span = slot_span(B * S_, min(group_size, B * S_ * n_slots))
+    if span > 1:
+        x = tp.slot_gather(x, span)
+    G, g, cap = groups(cfg, span * B * S_, group_size, n_slots // span)
     xt = x.reshape(G * g, d)
     logits = (xt @ weight(moe.router, x.dtype, tp)).float().reshape(G, g, E)
     probs = torch.softmax(logits, dim=-1)
@@ -286,7 +301,9 @@ def moe_forward(moe: MoE, x: torch.Tensor, cfg: ModelConfig, *,
         * (ex @ weight(moe.w_up, x.dtype, tp))
     ex_out = (h @ weight(moe.w_down, x.dtype, tp)).reshape(E_l * G * cap, d)
     y = _Combine.apply(ex_out, w, tok_slot, slot_src)
-    y = y.reshape(B, S_, d)
+    y = y.reshape(span * B, S_, d)
+    if span > 1:
+        y = tp.slot_rows(y, span)
     if tp is not None:
         y = tp.seq_scatter(y) if seq else tp.from_model(y)
     return y, _aux(probs, logits, gate_idx, keep, E)

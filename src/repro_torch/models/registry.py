@@ -379,12 +379,19 @@ def prefill_struct(cfg: ModelConfig, batch: int, seq_len: int):
 def decode_struct(cfg: ModelConfig, batch: int, seq_len: int,
                   dtype=torch.bfloat16):
     """The decode step's inputs on the meta device: a decode cache of
-    ``seq_len`` positions is never allocated."""
+    ``seq_len`` positions is never allocated.  They stand for shapes
+    (``parallel.cache_layout`` reads its boxes from them inside a
+    prefill), so they are made outside any dispatch mode: a tracker
+    around a running step (the dry-run's memory tracker and FLOP
+    counter) does not count them."""
+    from torch.utils._python_dispatch import _disable_current_modes
     from repro_torch.serving import cache as sc   # serving imports this
-    data = cache_struct(cfg, batch, seq_len, dtype=dtype, device="meta")
-    return {"cache": sc.DenseKVCache(data=data,
-                                     lengths=_meta((batch,), torch.int32)),
-            "token": _meta((batch, 1), torch.int64)}
+    with _disable_current_modes():
+        data = cache_struct(cfg, batch, seq_len, dtype=dtype,
+                            device="meta")
+        return {"cache": sc.DenseKVCache(
+                    data=data, lengths=_meta((batch,), torch.int32)),
+                "token": _meta((batch, 1), torch.int64)}
 
 
 def input_specs(cfg: ModelConfig, shape: InputShape):

@@ -327,7 +327,7 @@ def kv_cut(layout):
 
 def _slots(cfg: ModelConfig, layout, tokens) -> int:
     """The data slots the batch is cut into (1 where it is replicated);
-    an MoE's routing groups must not straddle them."""
+    an MoE's tokens must split into whole routing groups over them."""
     n = layout.batch // tokens.shape[0]
     M.check_tokens(cfg, tokens.numel(), n_slots=n)
     return n

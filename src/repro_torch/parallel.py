@@ -82,6 +82,14 @@ collectives itself, as ``torch.autograd.Function``s:
   M ≠ 0): ``w_k`` and ``w_v`` keep the spec's column blocks; k and v are
   gathered over the model group after the product and each rank attends
   its H/M query heads to the KV heads they map to (:func:`kv_block`).
+- **Query heads the model axis does not divide** (24 on 16): the stored
+  blocks stay the reference's (1.5 heads of ``w_q`` a rank); q's columns
+  and the attention's output are gathered over the model group, and each
+  rank attends a block of ceil(H/M) whole heads (:func:`head_block`).
+- **An MoE routing group that spans several data slots** (a decode
+  step's 128 tokens over 16 slots): the slots that hold it gather its
+  rows (:meth:`TensorParallel.slot_gather`), route it whole and keep
+  their own.
 
 Sharded serving (every family's prefill and decode on a mesh) adds the
 serving collectives: :meth:`TensorParallel.model_all_to_all` (the re-cut
@@ -97,10 +105,9 @@ collectives are timed by kind (:class:`Comms`) on the host clock, the
 rank's stream synced first on the card, so a time is the collective's
 alone.
 
-:func:`check` refuses a mesh before any collective: query heads,
-experts, SSD heads, the RG-LRU width or any dim its mesh axis does not
-divide; :func:`check_batch` an MoE batch whose routing groups would
-straddle two data slots.
+:func:`check` refuses a mesh before any collective: experts, SSD
+heads, the RG-LRU width or any dim its mesh axis does not divide;
+:func:`check_batch` a batch its data slots do not divide.
 """
 from __future__ import annotations
 
@@ -116,7 +123,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as MESH
 
 KINDS = ("fsdp_gather", "grad_reduce", "model_all_reduce",
-         "model_all_gather", "model_all_to_all", "model_reduce_scatter")
+         "model_all_gather", "model_all_to_all", "model_reduce_scatter",
+         "slot_gather")
 
 # the reference's residual_spec cuts the sequence where 16 divides it
 SEQ_MULTIPLE = 16
@@ -140,13 +148,16 @@ def seq_of(tp, S: int, seq_shard: bool = True) -> bool:
 
 class Comms:
     """Calls, bytes and seconds of each kind of collective: the FSDP
-    gathers, the grad reduction (the gathers' backward, the replicated
-    grads' and the metrics' all-reduce, the norm's), the model group's
-    all-reduces (forward and backward, the model gathers' backward
-    included), its all-gathers, its all-to-alls and its reduce-scatters
-    (the cut residual's).  Bytes are those of the tensor handed to the
-    collective: a rank's block for an all-gather, the whole float32
-    partial sums for a reduce-scatter, as for an all-reduce."""
+    gathers, the grad reduction (the gathers' backward, the slot
+    gathers' too, the replicated grads' and the metrics' all-reduce, the
+    norm's), the model group's all-reduces (forward and backward, the
+    model gathers' backward included), its all-gathers, its all-to-alls
+    and its reduce-scatters (the cut residual's), and the MoE's gathers
+    of a routing group's tokens over the data slots that hold it
+    (:meth:`TensorParallel.slot_gather`).  Bytes are those of the tensor
+    handed to the collective: a rank's block for an all-gather, the
+    whole float32 partial sums for a reduce-scatter, as for an
+    all-reduce."""
 
     def __init__(self):
         self.reset()
@@ -217,6 +228,27 @@ class _ModelGather(torch.autograd.Function):
         tp.all_reduce(g32, tp.model_group, "model_all_reduce")
         keep = g32.narrow(dim, tp.model_index * n, n)
         return keep.to(g.dtype).contiguous(), None, None, None
+
+
+class _SlotGather(torch.autograd.Function):
+    """x (b, ...), this rank's rows, gathered along dim 0 over the
+    ``span`` consecutive data slots of its slot group, in slot order; the
+    backward sums the grad over the group in float32 and keeps this
+    rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, tp, span):
+        ctx.tp, ctx.span = tp, span
+        return tp.gather_slots(x.detach(), span)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp, span = ctx.tp, ctx.span
+        g32 = g.to(torch.float32, copy=True).contiguous()
+        tp.all_reduce(g32, tp.mesh.slot_group(span), "grad_reduce")
+        n = g.shape[0] // span
+        keep = g32.narrow(0, tp.fsdp_index % span * n, n)
+        return keep.to(g.dtype).contiguous(), None, None
 
 
 class _SeqScatter(torch.autograd.Function):
@@ -312,6 +344,27 @@ class TensorParallel:
         self.comms.run("model_all_gather", x, lambda: dist.all_gather(
             parts, x, group=self.model_group))
         return torch.cat(parts, dim)
+
+    def gather_slots(self, x: torch.Tensor, span: int) -> torch.Tensor:
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(span)]
+        self.comms.run("slot_gather", x, lambda: dist.all_gather(
+            parts, x, group=self.mesh.slot_group(span)))
+        return torch.cat(parts, 0)
+
+    def slot_gather(self, x, span: int):
+        """x (b, ...), the rows of this rank's data slot -> the rows of
+        the ``span`` consecutive slots of its block (``Mesh.
+        slot_group``), in slot order (one all-gather); the backward sums
+        the grad over them in float32 and keeps the rank's rows.  The
+        MoE's routing group that spans several slots."""
+        return _SlotGather.apply(x, self, span)
+
+    def slot_rows(self, y, span: int):
+        """The rows of this rank's slot from y (span·b, ...), the rows of
+        its slot block (``slot_gather``'s)."""
+        n = y.shape[0] // span
+        return y.narrow(0, self.fsdp_index % span * n, n)
 
     def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, S, ...): the model group's partial sums, summed in float32
@@ -516,6 +569,27 @@ def kv_block(n_heads: int, n_kv_heads: int, n_model: int,
     return first, count
 
 
+def uneven_heads(n_heads: int, tp) -> bool:
+    """Whether a mesh's model axis does not divide the query heads (24
+    heads on 16 ranks, say).  The stored blocks are the reference's all
+    the same: a rank holds H·hd/M columns of ``w_q`` (1.5 heads at 24 on
+    16) and H·hd/M rows of ``w_o``; the attention regroups them
+    (:func:`head_block`, ``models.attention.rank_heads`` and
+    ``rank_cols``)."""
+    return tp is not None and n_heads % tp.n_model != 0
+
+
+def head_block(n_heads: int, n_model: int, index: int) -> Tuple[int, int]:
+    """(first, count) of the whole query heads model rank ``index``
+    attends to: its H/M where the model axis divides H, else a block of
+    ceil(H/M), the last ranks fewer or none (24 heads on 16 ranks: 2
+    each on ranks 0-11, none on 12-15).  Rank 0 holds the largest
+    block."""
+    per = -(-n_heads // n_model)
+    first = min(index * per, n_heads)
+    return first, min(per, n_heads - first)
+
+
 def _divides(n: int, M: int, what: str, leaf: str, dim: int) -> None:
     if n % M:
         raise ValueError(
@@ -526,20 +600,21 @@ def _divides(n: int, M: int, what: str, leaf: str, dim: int) -> None:
 def check_model(cfg: ModelConfig, mesh: MESH.Mesh,
                 serve_resident: bool = False) -> Dict[str, tuple]:
     """Refuse a model the port cannot cut to ``mesh`` (no process group
-    needed): query heads, experts, SSD heads or the RG-LRU width the
-    model axis does not divide; query heads that split a GQA group
+    needed): experts, SSD heads or the RG-LRU width the model axis does
+    not divide; query heads the axis divides that split a GQA group
     unevenly where the KV heads do not divide; any dim its mesh axis
-    does not divide.  Returns the leaf specs of a meta-device model (no
-    memory), the serving specs with ``serve_resident``."""
+    does not divide (which the reference could not lower either).  Query
+    heads the axis does not divide are taken: the stored blocks are the
+    reference's, and the attention regroups them (:func:`head_block`).
+    Returns the leaf specs of a meta-device model (no memory), the
+    serving specs with ``serve_resident``."""
     M = mesh.n_model
     if cfg.arch_type == "ssm":
         from repro_torch.models.mamba2 import _dims
         _divides(_dims(cfg)[2], M, "SSD heads", "layers/mixer/A_log", 0)
-    else:
-        _divides(cfg.n_heads, M, "query heads", "layers/attn/w_q", 1)
-        if cfg.n_kv_heads % M:
-            for r in range(M):
-                kv_block(cfg.n_heads, cfg.n_kv_heads, M, r)
+    elif cfg.n_kv_heads % M and cfg.n_heads % M == 0:
+        for r in range(M):
+            kv_block(cfg.n_heads, cfg.n_kv_heads, M, r)
     if cfg.arch_type == "moe":
         _divides(cfg.moe.num_experts, M, "experts", "layers/moe/w_gate", 0)
     if cfg.arch_type == "hybrid":
@@ -559,8 +634,9 @@ def check_batch(cfg: ModelConfig, mesh: MESH.Mesh, batch_size: int,
     """Refuse a (micro-)batch of ``batch_size`` rows of ``seq_len``
     tokens across the mesh's data slots that the port cannot split there
     (no process group needed): rows the slots do not divide, and an MoE
-    whose routing groups of min(2048, B·S) tokens would straddle two
-    slots (each slot routes whole groups)."""
+    whose tokens do not split into whole routing groups of min(2048,
+    B·S) (the reference refuses those too; a group may span several
+    slots, ``moe.slot_span``)."""
     if batch_size % mesh.n_fsdp:
         raise ValueError(f"{batch_size} rows do not split over "
                          f"{mesh.n_fsdp} data slots")

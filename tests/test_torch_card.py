@@ -1617,6 +1617,20 @@ def test_family_cut_decode_kernels(cuda, cache, M, dtype):
     _check_sequence_cut(cuda, q, k, v, lens, M, dtype, frames_major)
 
 
+# the production meshes' model axis of 16: llama3.2-3b's head_dim 128 cut
+# into slices of 8, granite-moe-1b-a400m's 64 into slices of 4 (4
+# bfloat16 elements: 8-byte rows)
+CUT16 = {"hd128": dict(B=8, H=24, Hkv=8, S=1024, hd=128),
+         "hd64": dict(B=8, H=16, Hkv=8, S=1024, hd=64)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", sorted(CUT16))
+def test_head_dim_cut_16_ways(cuda, shape, dtype):
+    _check_head_dim_cut(cuda, *_cut_case(cuda, dtype, **CUT16[shape]), 16,
+                        dtype)
+
+
 def test_cut_cache_kernels_raise_rather_than_fall_back(cuda):
     q, k, v, lens = _cut_case(cuda, torch.float32, B=4, S=256)
     with pytest.raises(ValueError, match="head_dim slice"):

@@ -283,6 +283,16 @@ def test_wrappers_refuse_cpu_tensors():
 
 
 def test_backend_refuses_other_devices():
-    x = torch.zeros(2, 64, device="meta")
+    """A device other than the CPU, a card or meta raises.  (Meta tensors
+    take the card's path since the dry-run: shape only, nothing
+    launched.)  No other device exists in this build of torch, so a
+    stand-in carries one."""
+    import types
+    x = types.SimpleNamespace(device=torch.device("mps"))
     with pytest.raises(ValueError, match="no implementation"):
-        KB.rmsnorm(x, torch.zeros(64, device="meta"))
+        KB.rmsnorm(x, torch.zeros(64))
+    m = torch.zeros(2, 64, device="meta")
+    before = RN.launches
+    y = KB.rmsnorm(m, torch.zeros(64, device="meta"))
+    assert y.device.type == "meta" and y.shape == m.shape
+    assert RN.launches == before

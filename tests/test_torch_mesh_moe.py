@@ -4,9 +4,11 @@ reference's single-device step, on the CPU.
 - Loss, metrics and grads: the reduced granite-moe-1b-a400m (4 experts,
   top-2, GQA 4/2, tied head) at B 8 × S 512, float32, remat on, on 1x2
   and 2x2: expert-parallel (2 experts a rank), each data slot routing
-  one whole group of 2,048 tokens.  Loss 1e-5, ``lb_loss``, ``rz_loss``
-  and ``frac_dropped`` 1e-5, every gathered grad within 1e-4 of its
-  leaf's max, ``grad_norm`` within 1e-5 relative (``mesh_cases``).
+  one whole group of 2,048 tokens; and at B 4 on 2x2, where the one
+  group spans the two slots (gathered over them, routed whole).  Loss
+  1e-5, ``lb_loss``, ``rz_loss`` and ``frac_dropped`` 1e-5, every
+  gathered grad within 1e-4 of its leaf's max, ``grad_norm`` within
+  1e-5 relative (``mesh_cases``).
 - The launcher: ``launch.train --arch granite-moe-1b-a400m --reduced
   --mesh 2x2 --device cpu --dtype float32 --seq-len 1024 --batch-size
   4`` as four ranks, from the reference ``Trainer``'s step-0 checkpoint,
@@ -28,7 +30,9 @@ from repro.train.trainer import Trainer as JTrainer
 
 ARCH = "granite-moe-1b-a400m"
 MESHES = ("1x2", "2x2")
-CASES = {"granite": {"arch": ARCH, "B": 8, "S": 512, "seed": 0}}
+CASES = {"granite": {"arch": ARCH, "B": 8, "S": 512, "seed": 0},
+         # 2 rows of 512 a slot on 2x2: the group of 2,048 spans 2 slots
+         "granite_span": {"arch": ARCH, "B": 4, "S": 512, "seed": 1}}
 SEQ, B0, STEPS = 1024, 4, 7
 
 
@@ -100,6 +104,23 @@ def test_sharded_loss_and_grads_match_single_device(runs, spec):
     MC.check_case(runs["refs"]["granite"], runs["got"][spec]["granite"],
                   metrics=("loss", "ce_loss", "lb_loss", "rz_loss",
                            "frac_dropped"))
+
+
+def test_group_across_two_slots_matches_single_device(runs):
+    """B 4 × S 512 on 2x2: each data slot holds 1,024 tokens of the one
+    routing group of 2,048, so each MoE layer gathers the group's rows
+    over the two slots (forward and recompute; its backward sums the
+    grads over them) and routes it whole, as the reference does."""
+    got = runs["got"]["2x2"]["granite_span"]
+    MC.check_case(runs["refs"]["granite_span"], got,
+                  metrics=("loss", "ce_loss", "lb_loss", "rz_loss",
+                           "frac_dropped"))
+    L, rows, d = 2, 2 * 512, 256
+    c = got["comms"]
+    assert c["slot_gather"]["calls"] == 2 * L
+    assert round(c["slot_gather"]["MB"] * 1e6) == 2 * L * rows * d * 4
+    assert runs["got"]["1x2"]["granite_span"]["comms"]["slot_gather"][
+        "calls"] == 0
 
 
 @pytest.mark.parametrize("spec", MESHES)

@@ -12,8 +12,10 @@ the same numpy weights and prompts, on the CPU.
 - Meshes: 1x2, 2x2 (the batch cut over data: 8 rows a slot) and 1x4 (the
   KV heads 2 < 4: each rank's one query head attends to a KV head shared
   with a neighbour); ``serve_resident`` off and on, the head_dim cut and
-  the sequence cut of the cache.  On 2x2 the MoE's decode is refused: its
-  routing group of the 16 tokens would straddle the two data slots.
+  the sequence cut of the cache.  On 2x2 the MoE's decode routes one
+  group of the 16 tokens, which spans the two data slots of 8: each rank
+  gathers the group's rows over the slots (``TensorParallel.
+  slot_gather``), routes it whole and keeps its own rows.
 - Each rank runs ``launch.steps.build_workload``'s prefill and decode
   ``fn``s (and ``registry.prefill`` for the cache): its vocab block of
   the logits within 2e-5 of the reference's at the prefill and each of 4
@@ -23,10 +25,11 @@ the same numpy weights and prompts, on the CPU.
   after the steps.  A decode step's collectives are counted by kind and
   size: the new token's q, k and v, the scores or the softmax states, the
   attention output's re-cut and the rows' partial sums; no cache byte.
-- One case, llama3.2-3b decode with ``serve_resident`` on 2x2, is also
-  held to the reference's own sharded jitted step (``build_workload``
-  jitted with its in/out shardings on a forced 4-device host mesh, in a
-  subprocess), within 2e-5.
+- Two cases, llama3.2-3b's and granite-moe-1b-a400m's decode with
+  ``serve_resident`` on 2x2, are also held to the reference's own
+  sharded jitted step (``build_workload`` jitted with its in/out
+  shardings on a forced 4-device host mesh, in a subprocess), within
+  2e-5.
 """
 import pytest
 import torch
@@ -40,7 +43,7 @@ CASES = {
               "jit": True},
     "starcoder2": {"arch": "starcoder2-3b", "S": 72, "cap": 96, "seed": 1},
     "granite": {"arch": "granite-moe-1b-a400m", "S": 16, "cap": 32,
-                "seed": 2, "refuse": ["2x2"]},
+                "seed": 2, "jit": True},
     "internvl": {"arch": "internvl2-76b", "S": 12, "cap": 48, "seed": 3},
     "mamba2": {"arch": "mamba2-2.7b", "S": 40, "seed": 4},
     "mamba2_h16": {"arch": "mamba2-2.7b", "replace": {"d_model": 512},
@@ -76,11 +79,18 @@ def test_sharded_serving_matches_single_device(runs, name, spec):
     MC.check_serving(runs, CASES, name, spec)
 
 
-def test_moe_decode_refused_where_its_group_straddles_two_slots(runs):
-    for resident, seq_cut in _combos("granite"):
-        for ranks in runs["got"]["2x2"]:
-            msg = ranks[f"granite/{int(resident)}/{int(seq_cut)}"]["refused"]
-            assert msg is not None and "straddle two data slots" in msg
+def test_moe_decode_gathers_its_group_across_two_slots(runs):
+    """granite on 2x2: a decode step's group of 16 tokens spans the two
+    slots of 8, so each MoE layer gathers the slot's 8 rows (one
+    all-gather a layer); on 1x2 and 1x4 a slot holds the group."""
+    from repro_torch.configs import get_config
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    for spec in MESHES:
+        for resident, seq_cut in _combos("granite"):
+            c = runs["got"][spec][0][f"granite/{int(resident)}/"
+                                     f"{int(seq_cut)}"]["comms"]
+            want = cfg.n_layers if spec == "2x2" else 0
+            assert c["slot_gather"]["calls"] == want, (spec, c)
 
 
 def _cut_dim(name, seq_cut):
@@ -122,7 +132,9 @@ def _decode_bytes(name, spec, resident, seq_cut):
     b = B // D if B % 16 == 0 else B          # the rank's rows
     L, d, f4 = cfg.n_layers, cfg.d_model, 4
     want = {"model_all_reduce": b * d * f4, "model_all_gather": 0,
-            "model_all_to_all": 0}            # the embedding's sum
+            "model_all_to_all": 0, "slot_gather": 0}  # the embedding's sum
+    if cfg.arch_type == "moe" and D > 1:     # the group's rows of 2 slots
+        want["slot_gather"] = L * b * d * f4
     if cfg.arch_type == "ssm":
         s, di, H, P, N = _dims(cfg)
         C = di + 2 * N
@@ -165,3 +177,9 @@ def test_a_decode_step_moves_no_cache_bytes(runs, spec):
 
 def test_reference_sharded_jitted_step_agrees(runs):
     MC.check_jit(runs, "llama")
+
+
+def test_reference_sharded_jitted_moe_step_agrees(runs):
+    """The reference's jitted granite decode on 2x2 routes the group of
+    16 whole, constrained over data; the port's ranks agree with it."""
+    MC.check_jit(runs, "granite")

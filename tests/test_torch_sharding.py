@@ -20,10 +20,12 @@
   ranks, the launch / test / production shapes.
 - Every family is accepted on a mesh (the launcher's ``--mesh`` too,
   for the token-fed ones), and MQA's one KV head at M=2.
-- Refusals, each a ``ValueError`` before any collective: query heads,
-  experts, SSD heads or a dim the mesh does not divide, an MoE batch
-  whose routing groups would straddle two data slots (the launcher's
-  first batch too), and a mesh whose size is not the process count.
+- Refusals, each a ``ValueError`` before any collective: experts, SSD
+  heads or a dim the mesh does not divide (query heads are taken where
+  their stored blocks divide: 1.5 heads a rank), an MoE batch that does
+  not split into whole routing groups (the launcher's first batch too),
+  and a mesh whose size is not the process count; an MoE group that
+  spans two data slots is taken.
 """
 import dataclasses
 import json
@@ -312,8 +314,14 @@ def test_an_undivided_dim_or_head_count_is_refused(no_collective):
     assert parallel.check_model(mqa, M.make_test_mesh(1, 2))
     assert parallel.kv_block(4, 1, 2, 1) == (0, 1)
     assert parallel.kv_block(8, 2, 4, 3) == (1, 1)
-    with pytest.raises(ValueError, match="query heads"):
+    # 4 heads over 3 ranks: the stored blocks do not divide (GSPMD would
+    # pad: w_q's 256 columns, the 512 vocab rows); 6 heads over 4: 96
+    # columns a rank, 1.5 heads, taken
+    with pytest.raises(ValueError, match=r"does not divide over mesh axis "
+                       r"'model' of 3"):
         parallel.check_model(llama, M.make_test_mesh(1, 3))
+    assert parallel.check_model(
+        dataclasses.replace(llama, n_heads=6), M.make_test_mesh(1, 4))
     with pytest.raises(ValueError, match=r"tok: dim 1 of size 256 does not "
                        r"divide over mesh axis 'data' of 3"):
         parallel.check_model(llama, M.make_test_mesh(3, 1))
@@ -325,14 +333,17 @@ def test_an_undivided_dim_or_head_count_is_refused(no_collective):
     with pytest.raises(ValueError, match="SSD heads"):
         parallel.check_model(get_config("mamba2-2.7b").reduced(),
                              M.make_test_mesh(1, 3))
-    # a routing group of 2,048 tokens over two data slots of 1,024
-    with pytest.raises(ValueError, match="straddle two data slots"):
-        parallel.check_batch(granite, M.make_test_mesh(2, 2), 4, 512)
+    # 3,072 tokens over two data slots: not whole groups of 2,048, as
+    # the reference refuses; a group of 2,048 over two slots of 1,024 is
+    # taken
+    with pytest.raises(ValueError, match="do not split into groups"):
+        parallel.check_batch(granite, M.make_test_mesh(2, 2), 4, 768)
+    parallel.check_batch(granite, M.make_test_mesh(2, 2), 4, 512)
     parallel.check_batch(granite, M.make_test_mesh(2, 2), 8, 512)
-    with pytest.raises(ValueError, match="straddle"):
+    with pytest.raises(ValueError, match="do not split into groups"):
         launch_train.main(["--arch", "granite-moe-1b-a400m", "--reduced",
                            "--device", "cpu", "--mesh", "2x2", "--steps",
-                           "1", "--seq-len", "512", "--batch-size", "4"])
+                           "1", "--seq-len", "768", "--batch-size", "4"])
 
 
 def test_a_mesh_that_is_not_the_process_count_is_refused(no_collective):
