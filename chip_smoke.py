@@ -482,10 +482,11 @@ decode graph, each replayed once per step.
   caches' decode kernels (``CUT_SHAPES``) at llama3.2-3b's decode shape
   (B 16, GQA 24/8, Skv 4,096, lengths 0, 127 and Skv - 1 among them, hd
   128 cut in 2 and 4), at recurrentgemma-9b's ring (B 2, MQA 16/1, hd
-  256 cut in 2 and 4, 2,048 slots all valid) and at seamless-m4t-
+  256 cut in 2 and 4, 2,048 slots all valid), at seamless-m4t-
   medium's cross-attention (B 2, MHA 16/16, hd 64 cut in 2, 1,024
   frames all valid, the blocks held frames-major as the cache holds
-  them), f32 (2e-5) and bf16 (2e-2) against their plain
+  them) and at starcoder2-3b's ring (B 2, GQA 24/2, hd 128 cut in 2,
+  4,096 slots all valid), f32 (2e-5) and bf16 (2e-2) against their plain
   versions: the head_dim cut's scores and softmax-P·V passes, the
   sequence cut's partial softmax state, and their M parts summed or
   merged against the whole-head decode kernel; each timed beside its
@@ -1077,7 +1078,9 @@ def compiled_report(_build, lib):
     and spill bytes.  The bfloat16 forward, dq and dk/dv kernels must
     hold HMMA and spill nothing at hd 64, the bfloat16 SSD chunk kernel
     must hold HMMA and spill nothing; their float32 forms must hold
-    none."""
+    none.  The head_dim cut's scores pass must hold HMMA in bfloat16 at
+    slices of 16-128 and none at 8 and 4 or in float32, and neither cut
+    pass may spill in bfloat16 at slices of 128."""
     regs = _build.ptxas_report(lib)
     hmma = _build.sass_counts(lib, "HMMA")
     out = {}
@@ -1107,6 +1110,12 @@ def compiled_report(_build, lib):
             dtype = "float32" if m.group(1) == "f" else "bfloat16"
             out[f"paged_decode_kernel<{dtype}, hd {m.group(2)}, "
                 f"{m.group(3)} heads>"] = dict(**r)
+        m = re.search(r"(cut_scores|cut_softmax_pv)_kernelI(f|13__nv_bfloat16)"
+                      r"Li(\d+)E", mangled)
+        if m:
+            dtype = "float32" if m.group(2) == "f" else "bfloat16"
+            out[f"{m.group(1)}_kernel<{dtype}, hd_r {m.group(3)}>"] = dict(
+                hmma=hmma[mangled], **r)
     tc, f32 = (out["ssd_chunk_mma_kernel<bfloat16>"],
                out["ssd_chunk_kernel<float32>"])
     if not tc["hmma"] > 0 or f32["hmma"] != 0 \
@@ -1122,6 +1131,16 @@ def compiled_report(_build, lib):
                                      f"form {tc}, in the f32 form {f32}")
             if hd == 64 and (tc["spill_stores"] or tc["spill_loads"]):
                 raise AssertionError(f"{name} bf16 hd 64 spills: {tc}")
+    for hd in (4, 8, 16, 32, 64, 128):
+        tc = out[f"cut_scores_kernel<bfloat16, hd_r {hd}>"]
+        f32 = out[f"cut_scores_kernel<float32, hd_r {hd}>"]
+        if (tc["hmma"] > 0) != (hd >= 16) or f32["hmma"] != 0:
+            raise AssertionError(f"cut_scores hd_r {hd}: HMMA in the bf16 "
+                                 f"form {tc}, in the f32 form {f32}")
+    for name in ("cut_scores", "cut_softmax_pv"):
+        tc = out[f"{name}_kernel<bfloat16, hd_r 128>"]
+        if tc["spill_stores"] or tc["spill_loads"]:
+            raise AssertionError(f"{name} bf16 hd_r 128 spills: {tc}")
     return out
 
 
@@ -6459,12 +6478,14 @@ def family_kernel_entries(kernels, record):
 # the shapes at which phase 20a holds the cut caches' kernels: (tag, B,
 # query heads, KV heads, head_dim, Skv, the cuts M, frames-major):
 # llama3.2-3b's decode shape (random lengths; its entries keep the
-# untagged names), recurrentgemma-9b's ring after the prompt wraps it and
-# seamless-m4t-medium's cross-attention (every key valid), the latter held
-# (B, Hkv, Se, hd) as its cache holds it
+# untagged names), recurrentgemma-9b's ring after the prompt wraps it,
+# seamless-m4t-medium's cross-attention (every key valid), held (B, Hkv,
+# Se, hd) as its cache holds it, and starcoder2-3b's ring after its
+# prompts of 4,500 wrap it (GQA 24/2: 12 query heads a KV head)
 CUT_SHAPES = (("llama", 16, 24, 8, 128, 4096, (2, 4), False),
               ("recurrentgemma", 2, 16, 1, 256, 2048, (2, 4), False),
-              ("seamless", 2, 16, 16, 64, 1024, (2,), True))
+              ("seamless", 2, 16, 16, 64, 1024, (2,), True),
+              ("starcoder2", 2, 24, 2, 128, 4096, (2,), False))
 # (tag, arch, layers, B, prompt, cache_len_cap, decode steps, runs), each
 # run (mesh, serve_resident, cache_seq_shard, dtype): full width, depth
 # cut; llama3.2-3b's 16 rows split over the 2x2 mesh's data slots,
@@ -6848,9 +6869,11 @@ def phase20a(PG, ref):
     decode shape (B 16, GQA 24/8, Skv 4,096, lengths 0, 127 and Skv - 1
     among random ones, hd 128 cut in 2 and 4), recurrentgemma-9b's ring
     (B 2, MQA 16/1, hd 256 cut in 2 and 4: hd_r 128 and 64; its 2,048
-    slots all valid) and seamless-m4t-medium's cross-attention (B 2, MHA
+    slots all valid), seamless-m4t-medium's cross-attention (B 2, MHA
     16/16, hd 64 cut in 2: hd_r 32; 1,024 frames all valid, the blocks
-    held frames-major), float32 (2e-5) and bfloat16 (2e-2) against their
+    held frames-major) and starcoder2-3b's ring (B 2, GQA 24/2, hd 128
+    cut in 2; 4,096 slots all valid), float32 (2e-5) and bfloat16 (2e-2)
+    against their
     plain versions: the head_dim cut's scores on each slice (only keys
     up to each length compared) and softmax-P·V on the summed scores,
     the sequence cut's partial on each block (its softmax state; acc and
@@ -6930,10 +6953,14 @@ def phase20a(PG, ref):
                                 "seq_cut_vs_whole": e_seq}))
                 a, b_, c = qs[0], ks[0], vs[0]
                 gqa = "MQA" if Hkv == 1 else ("MHA" if G == 1 else "GQA")
+                sms = PG._sm_count(q.device)
+                tiles = (PG.cut_tiles(B, Hkv, S, sms),
+                         PG.cut_tiles(B, Hkv, S, sms, merge=True))
                 shape = (f"{tag}: B {B}, {gqa} {H}/{Hkv}, Skv {S}, hd {hd} "
                          f"cut in {M} ({w} a rank), {dn}, {n_keys} valid "
                          f"keys" + (", frames-major" if frames_major
-                                    else ""))
+                                    else "")
+                         + f", (tile, per) {tiles[0]} / {tiles[1]}")
                 times[f"decode_scores/{pre}M{M}/{dn}"] = dict(
                     ms=timer(lambda: PG.decode_scores(a, b_, lens)),
                     plain_ms=timer(lambda: ref.decode_scores_ref(a, b_,
@@ -7488,9 +7515,17 @@ def cut_kernel_entries(kernels, record):
             ("ragged_decode_partial", "partial",
              "1x2/resident/seq/float32")):
         tm = times[f"{name}/M2/bfloat16"]
+        kern = {"decode_scores": "cut_scores_kernel",
+                "decode_softmax_pv": "cut_softmax_pv_kernel"}.get(name)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/paged_decode.cu",
+            "source": ("src/repro_torch/csrc/paged_decode.cu"
+                       if kern is None else
+                       "src/repro_torch/csrc/decode_cut.cu"),
+            **({"ptxas": {k.split("<", 1)[1].rstrip(">"): v
+                          for k, v in record["compiled"].items()
+                          if k.startswith(kern + "<")}}
+               if kern else {}),
             "replaces": "src/repro/kernels/paged.py:32",
             "launches": srv["cells"]["llama"]["runs"][run][
                 "launches_rank0"].get(name, 0),

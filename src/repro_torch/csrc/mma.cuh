@@ -21,7 +21,10 @@
 // A 64-byte row (head_dim 32, 4 chunks) fills half of the 128 bytes the
 // 32 banks span, so two rows share them: chunk c of row r is stored at
 // c ^ ((r / 2) % 4), and row r's bank group is 4 (r % 2) + that, eight
-// distinct groups over any eight consecutive rows.
+// distinct groups over any eight consecutive rows.  Likewise a 32-byte row
+// (2 chunks: a head_dim slice of 16 bf16 or 8 float32 elements) stores
+// chunk c at c ^ ((r / 4) % 2), and a 16-byte row is not swizzled: eight
+// consecutive rows fill the 32 banks.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,6 +47,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                ::"r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
+// 8 bytes, for rows of 4 bf16 elements (a head_dim slice of a cut 16 ways)
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               ::"r"(dst), "l"(src), "r"(valid ? 8 : 0) : "memory");
+}
+
 // 4 bytes, for float32 rows whose start need not be 16-byte aligned
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool valid) {
@@ -64,8 +74,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // byte offset of chunk c of row r in a swizzled tile of CPR chunks a row
 template <int CPR>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  static_assert(CPR % 8 == 0 || CPR == 4, "rows of 4 or 8k chunks");
-  const int x = CPR == 4 ? (r >> 1) & 3 : r & 7;
+  static_assert(CPR % 8 == 0 || CPR == 4 || CPR == 2 || CPR == 1,
+                "rows of 1, 2, 4 or 8k chunks");
+  const int x = CPR == 1   ? 0
+                : CPR == 2 ? (r >> 2) & 1
+                : CPR == 4 ? (r >> 1) & 3
+                           : r & 7;
   return static_cast<uint32_t>((r * CPR + (c ^ x)) * 16);
 }
 

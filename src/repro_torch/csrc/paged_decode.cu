@@ -51,28 +51,15 @@
 //   the splits in split order, so the bits do not depend on which block
 //   finished last.  One launch.
 //
-// The cut caches of sharded decode (a data x model mesh of processes)
-// run the same kernel in two more modes, and one kernel more:
-// - Partial (the sequence cut): a rank holds keys [lo, lo + Skv) of each
-//   request and is given lengths[b] - lo, which may be negative (no key).
-//   The kernel stops at the rank's merged state over its keys and writes
-//   (m, l, acc[hd]) float32 a (request, query head) in place of acc / l;
-//   an empty range writes (NEG_INF, 0, 0...).  The ranks' states are then
-//   merged in rank order outside the kernel, after an all-gather.
-// - Scores (the head_dim cut, pass 1, decode_scores_kernel): a rank holds
-//   hd_r = hd / M of every head's dims; s[b, h, j] = q[b, h, hd_r] .
-//   K[b, j, h / G, hd_r] in float32 for keys j <= lengths[b] (later
-//   entries are left as they were).  One block per (request, kv head,
-//   group of query heads, split of keys), so each K byte is read once.
-//   Bound: bytes, as the whole kernel's (K read once, s written once).
-// - From scores (the head_dim cut, pass 2): after the sum of s over the
-//   model group, the whole kernel's softmax and P V over the rank's hd_r
-//   dims of V, the score read from s (scaled by 1/sqrt of the WHOLE
-//   head_dim, passed in) instead of computed from K.
-// - Both passes take a head_dim cut 16 ways (the production meshes' model
-//   axis): a lane then reads a whole row slice of 8 elements (16 bytes in
-//   bfloat16, 32 in float32) or 4 (8 bytes in bfloat16, one 8-byte load),
-//   32 or 16 key rows a warp.
+// A cache cut over the sequence (sharded decode on a data x model mesh of
+// processes) runs the same kernel in a second mode, Partial: a rank holds
+// keys [lo, lo + Skv) of each request and is given lengths[b] - lo, which
+// may be negative (no key).  The kernel stops at the rank's merged state
+// over its keys and writes (m, l, acc[hd]) float32 a (request, query head)
+// in place of acc / l; an empty range writes (NEG_INF, 0, 0...).  The
+// ranks' states are then merged in rank order outside the kernel, after an
+// all-gather.  A cache cut inside head_dim has kernels of its own
+// (decode_cut.cu).
 #include "common.cuh"
 
 namespace {
@@ -82,7 +69,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kSplit = 128;             // keys a block reads at most
 
 // what a launch of paged_decode_kernel computes (see the file's header)
-enum Mode { kWhole = 0, kPartial = 1, kFromScores = 2 };
+enum Mode { kWhole = 0, kPartial = 1 };
 
 // element strides of a paged (page, slot, head, head_dim) view whose
 // head_dim is contiguous
@@ -90,39 +77,13 @@ struct Pool {
   int64_t p, s, h;
 };
 
-// elements a lane loads at once: a 16-byte vector, or the whole row where
-// the row is shorter (a head_dim slice of a cut 16 ways: 8 elements, or 4
-// bfloat16 ones in 8 bytes)
-template <typename T, int HD>
-constexpr int kVecN = HD < rt::Vec<T>::N ? HD : rt::Vec<T>::N;
-
-// V elements of a row -> float[V]: one 16-byte vector, or 4 bfloat16
-// elements in one 8-byte load
-template <int V, typename T>
-__device__ __forceinline__ void load_part(const T* p, float* o) {
-  if constexpr (V == rt::Vec<T>::N) {
-    rt::load_vec(p, o);
-  } else {
-    static_assert(V == 4 && sizeof(T) == 2, "4 bfloat16 elements");
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const uint32_t w[2] = {raw.x, raw.y};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float2 f = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-}
-
-// the NV loads of V elements a lane holds of a row: load j of lane c is
-// elements (j * LPR + c) * V.. of the row, so a warp's loads stay
-// contiguous
+// the NV 16-byte vectors of V elements a lane holds of a row: load j of
+// lane c is elements (j * LPR + c) * V.. of the row, so a warp's loads
+// stay contiguous
 template <int NV, int LPR, int V, typename T>
 __device__ __forceinline__ void load_slice(const T* p, float* o) {
 #pragma unroll
-  for (int j = 0; j < NV; ++j) load_part<V>(p + j * LPR * V, o + j * V);
+  for (int j = 0; j < NV; ++j) rt::load_vec(p + j * LPR * V, o + j * V);
 }
 
 // the softmax state (m, l, acc) of b merged into a's
@@ -145,13 +106,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int64_t* __restrict__ pages,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ counters,
-                    const float* __restrict__ scores,
                     float* __restrict__ fin,
                     int H, int Hkv, int P, int ps, int n_split, int n_grp,
                     int64_t q_sb, int64_t q_sh, Pool ks, Pool vs,
                     int64_t pg_sb, int64_t o_sb, int64_t o_sh,
-                    int64_t sc_sb, int64_t sc_sh, float sm_scale) {
-  constexpr int V = kVecN<T, HD>;       // elements of a lane's load
+                    float sm_scale) {
+  constexpr int V = rt::Vec<T>::N;      // elements of a lane's load
   // vectors a lane holds of a row: one, or more where a row has more
   // vectors than a warp has lanes (float32 at hd 256)
   constexpr int NV = HD / V > 32 ? HD / V / 32 : 1;
@@ -201,7 +161,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[GQ][E], m[GQ], l[GQ], acc[GQ][E];
 #pragma unroll
   for (int gi = 0; gi < GQ; ++gi) {
-    if (MODE != kFromScores && gi < gn) {
+    if (gi < gn) {
       load_slice<NV, LPR, V>(q + b * q_sb + (h0 + gi) * q_sh + c * V, qr[gi]);
     } else {
 #pragma unroll
@@ -225,8 +185,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ok[u] = i < cnt;
       if (ok[u]) {
         const int64_t pg = pg_s[i], row = row_s[i];
-        if (MODE != kFromScores)
-          load_slice<NV, LPR, V>(kb + pg * ks.p + row * ks.s, kf[u]);
+        load_slice<NV, LPR, V>(kb + pg * ks.p + row * ks.s, kf[u]);
         load_slice<NV, LPR, V>(vb + pg * vs.p + row * vs.s, vf[u]);
       } else {
 #pragma unroll
@@ -241,17 +200,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         float d = 0.f;
-        if (MODE == kFromScores) {
-          // the summed partial scores of the key this row group reads
-          const int i = i0 + u * RPW + r;
-          if (ok[u]) d = scores[b * sc_sb + (h0 + gi) * sc_sh + s0 + i];
-        } else {
 #pragma unroll
-          for (int e = 0; e < E; ++e) d = fmaf(qr[gi][e], kf[u][e], d);
+        for (int e = 0; e < E; ++e) d = fmaf(qr[gi][e], kf[u][e], d);
 #pragma unroll
-          for (int o = 1; o < LPR; o <<= 1)
-            d += __shfl_xor_sync(rt::FULL_MASK, d, o);
-        }
+        for (int o = 1; o < LPR; o <<= 1)
+          d += __shfl_xor_sync(rt::FULL_MASK, d, o);
         s[u] = ok[u] ? d * sm_scale : rt::NEG_INF;
         mx = fmaxf(mx, s[u]);
       }
@@ -370,85 +323,6 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Pass 1 of the head_dim cut: s[b, h, j] = q[b, h, :] . k[b, j, h / G, :]
-// over the rank's HD dims, float32, for keys j <= lengths[b].  The grid
-// and the loads are the decode kernel's (a contiguous cache: one page a
-// request); a lane group reads one key row, and the row's dots with each
-// query head of the block meet by xor shuffles.
-template <typename T, int HD, int GQ>
-__global__ void __launch_bounds__(kThreads)
-decode_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const int* __restrict__ lengths,
-                     float* __restrict__ scores, int H, int Hkv, int Skv,
-                     int n_split, int n_grp, int64_t q_sb, int64_t q_sh,
-                     rt::Strides kst, int64_t sc_sb, int64_t sc_sh) {
-  constexpr int V = kVecN<T, HD>;
-  constexpr int NV = HD / V > 32 ? HD / V / 32 : 1;
-  constexpr int E = NV * V;
-  constexpr int LPR = HD / E;
-  constexpr int RPW = 32 / LPR;
-  constexpr int kUnroll = 4;
-  constexpr int KPI = kWarps * RPW * kUnroll;
-
-  const int split = static_cast<int>(blockIdx.x) % n_split;
-  int rest = static_cast<int>(blockIdx.x) / n_split;
-  const int grp = rest % n_grp;
-  rest /= n_grp;
-  const int hk = rest % Hkv, b = rest / Hkv;
-  const int G = H / Hkv;
-  const int h0 = hk * G + grp * GQ;
-  const int gn = min(GQ, G - grp * GQ);
-  const int n = min(max(lengths[b] + 1, 1), Skv);
-  const int n_active = (n + kSplit - 1) / kSplit;
-  if (split >= n_active) return;
-  const int s0 = split * kSplit, cnt = min(kSplit, n - s0);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = lane / LPR, c = lane % LPR;
-  float qr[GQ][E];
-#pragma unroll
-  for (int gi = 0; gi < GQ; ++gi) {
-    if (gi < gn) {
-      load_slice<NV, LPR, V>(q + b * q_sb + (h0 + gi) * q_sh + c * V, qr[gi]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) qr[gi][e] = 0.f;
-    }
-  }
-  const T* kb = k + b * kst.b + hk * kst.h + c * V;
-  float* sb = scores + b * sc_sb + s0;
-  for (int i0 = warp * RPW * kUnroll; i0 < cnt; i0 += KPI) {
-    float kf[kUnroll][E];
-    bool ok[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = i0 + u * RPW + r;
-      ok[u] = i < cnt;
-      if (ok[u]) {
-        load_slice<NV, LPR, V>(kb + static_cast<int64_t>(s0 + i) * kst.s,
-                            kf[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) kf[u][e] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int gi = 0; gi < GQ; ++gi) {
-      if (gi >= gn) continue;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) d = fmaf(qr[gi][e], kf[u][e], d);
-#pragma unroll
-        for (int o = 1; o < LPR; o <<= 1)
-          d += __shfl_xor_sync(rt::FULL_MASK, d, o);
-        if (ok[u] && c == 0) sb[(h0 + gi) * sc_sh + i0 + u * RPW + r] = d;
-      }
-    }
-  }
-}
-
 struct Args {
   const void *q, *k, *v;
   const int64_t* pages;
@@ -456,12 +330,11 @@ struct Args {
   void* out;
   float* part;
   int* counters;
-  const float* scores;
   float* fin;
   int B, H, Hkv, P, ps;
   int64_t q_sb, q_sh;
   Pool ks, vs;
-  int64_t pg_sb, o_sb, o_sh, sc_sb, sc_sh;
+  int64_t pg_sb, o_sb, o_sh;
   float sm_scale;
   cudaStream_t stream;
 };
@@ -480,9 +353,9 @@ void launch(const Args& a) {
       <<<a.B * a.Hkv * n_grp * n_split, kThreads, 0, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
           static_cast<const T*>(a.v), a.pages, a.lengths,
-          static_cast<T*>(a.out), a.part, a.counters, a.scores, a.fin, a.H,
-          a.Hkv, a.P, a.ps, n_split, n_grp, a.q_sb, a.q_sh, a.ks, a.vs,
-          a.pg_sb, a.o_sb, a.o_sh, a.sc_sb, a.sc_sh, a.sm_scale);
+          static_cast<T*>(a.out), a.part, a.counters, a.fin, a.H, a.Hkv,
+          a.P, a.ps, n_split, n_grp, a.q_sb, a.q_sh, a.ks, a.vs, a.pg_sb,
+          a.o_sb, a.o_sh, a.sm_scale);
 }
 
 template <typename T, int HD, int MODE>
@@ -491,31 +364,11 @@ void launch_gq(const Args& a) {
                                     : launch<T, HD, kGroupHeads, MODE>(a);
 }
 
-// head_dims of each mode: the whole heads' for the whole and partial
-// modes, a head_dim of 32-256 cut in 2-16 for the scores' pass 2 (slices
-// of 4-128)
 template <typename T, int MODE>
 int dispatch_hd(const Args& a, int hd) {
-  if constexpr (MODE == kFromScores) {
-    if (hd == 4) {
-      launch_gq<T, 4, MODE>(a);
-      return 0;
-    }
-    if (hd == 8) {
-      launch_gq<T, 8, MODE>(a);
-      return 0;
-    }
-    if (hd == 16) {
-      launch_gq<T, 16, MODE>(a);
-      return 0;
-    }
-  } else {
-    if (hd == 256) {
-      launch_gq<T, 256, MODE>(a);
-      return 0;
-    }
-  }
-  if (hd == 32) {
+  if (hd == 256) {
+    launch_gq<T, 256, MODE>(a);
+  } else if (hd == 32) {
     launch_gq<T, 32, MODE>(a);
   } else if (hd == 64) {
     launch_gq<T, 64, MODE>(a);
@@ -531,64 +384,7 @@ template <typename T>
 int dispatch_mode(const Args& a, int hd, int mode) {
   if (mode == kWhole) return dispatch_hd<T, kWhole>(a, hd);
   if (mode == kPartial) return dispatch_hd<T, kPartial>(a, hd);
-  if (mode == kFromScores) return dispatch_hd<T, kFromScores>(a, hd);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T, int HD, int GQ>
-void launch_scores(const void* q, const void* k, const int* lengths,
-                   float* s, int B, int H, int Hkv, int Skv, int64_t q_sb,
-                   int64_t q_sh, rt::Strides kst, int64_t sc_sb,
-                   int64_t sc_sh, cudaStream_t stream) {
-  const int n_grp = (H / Hkv + GQ - 1) / GQ;
-  const int n_split = (Skv + kSplit - 1) / kSplit;
-  decode_scores_kernel<T, HD, GQ>
-      <<<B * Hkv * n_grp * n_split, kThreads, 0, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k), lengths, s, H,
-          Hkv, Skv, n_split, n_grp, q_sb, q_sh, kst, sc_sb, sc_sh);
-}
-
-template <typename T, int HD>
-void scores_gq(const void* q, const void* k, const int* lengths, float* s,
-               int B, int H, int Hkv, int Skv, int64_t q_sb, int64_t q_sh,
-               rt::Strides kst, int64_t sc_sb, int64_t sc_sh,
-               cudaStream_t st) {
-  if (heads_per_block(H / Hkv) == 1) {
-    launch_scores<T, HD, 1>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh,
-                            kst, sc_sb, sc_sh, st);
-  } else {
-    launch_scores<T, HD, kGroupHeads>(q, k, lengths, s, B, H, Hkv, Skv,
-                                      q_sb, q_sh, kst, sc_sb, sc_sh, st);
-  }
-}
-
-template <typename T>
-int dispatch_scores(const void* q, const void* k, const int* lengths,
-                    float* s, int B, int H, int Hkv, int Skv, int hd,
-                    int64_t q_sb, int64_t q_sh, rt::Strides kst,
-                    int64_t sc_sb, int64_t sc_sh, cudaStream_t st) {
-  if (hd == 4) {
-    scores_gq<T, 4>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh, kst,
-                    sc_sb, sc_sh, st);
-  } else if (hd == 8) {
-    scores_gq<T, 8>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh, kst,
-                    sc_sb, sc_sh, st);
-  } else if (hd == 16) {
-    scores_gq<T, 16>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh, kst,
-                     sc_sb, sc_sh, st);
-  } else if (hd == 32) {
-    scores_gq<T, 32>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh, kst,
-                     sc_sb, sc_sh, st);
-  } else if (hd == 64) {
-    scores_gq<T, 64>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh, kst,
-                     sc_sb, sc_sh, st);
-  } else if (hd == 128) {
-    scores_gq<T, 128>(q, k, lengths, s, B, H, Hkv, Skv, q_sb, q_sh, kst,
-                      sc_sb, sc_sh, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return 0;
 }
 
 }  // namespace
@@ -612,13 +408,12 @@ extern "C" void paged_decode_layout(int* split, int* heads_per_group) {
 extern "C" int paged_decode(const void* q, const void* k, const void* v,
                             const void* pages, const void* lengths,
                             void* out, void* part, void* counters,
-                            const void* scores, void* fin, int B,
-                            int H, int Hkv, int P, int page_size, int hd,
-                            int64_t q_sb, int64_t q_sh, int64_t k_sp,
-                            int64_t k_ss, int64_t k_sh, int64_t v_sp,
-                            int64_t v_ss, int64_t v_sh, int64_t pg_sb,
-                            int64_t o_sb, int64_t o_sh, int64_t sc_sb,
-                            int64_t sc_sh, float sm_scale, int mode,
+                            void* fin, int B, int H, int Hkv, int P,
+                            int page_size, int hd, int64_t q_sb,
+                            int64_t q_sh, int64_t k_sp, int64_t k_ss,
+                            int64_t k_sh, int64_t v_sp, int64_t v_ss,
+                            int64_t v_sh, int64_t pg_sb, int64_t o_sb,
+                            int64_t o_sh, float sm_scale, int mode,
                             int dtype, void* stream) {
   if (B < 1 || P < 1 || page_size < 1 || Hkv < 1 || H % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -629,13 +424,11 @@ extern "C" int paged_decode(const void* q, const void* k, const void* v,
   a.out = out;
   a.part = static_cast<float*>(part);
   a.counters = static_cast<int*>(counters);
-  a.scores = static_cast<const float*>(scores);
   a.fin = static_cast<float*>(fin);
   a.B = B; a.H = H; a.Hkv = Hkv; a.P = P; a.ps = page_size;
   a.q_sb = q_sb; a.q_sh = q_sh;
   a.ks = {k_sp, k_ss, k_sh}; a.vs = {v_sp, v_ss, v_sh};
   a.pg_sb = pg_sb; a.o_sb = o_sb; a.o_sh = o_sh;
-  a.sc_sb = sc_sb; a.sc_sh = sc_sh;
   a.sm_scale = sm_scale;
   a.stream = static_cast<cudaStream_t>(stream);
   int err;
@@ -643,38 +436,6 @@ extern "C" int paged_decode(const void* q, const void* k, const void* v,
     err = dispatch_mode<__nv_bfloat16>(a, hd, mode);
   } else if (dtype == rt::DTYPE_F32) {
     err = dispatch_mode<float>(a, hd, mode);
-  } else {
-    err = static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (err) return err;
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Pass 1 of the head_dim cut: q (B, H, hd) given by its (b, h) element
-// strides, k (B, Skv, Hkv, hd) by its (b, s, h) strides, hd (the rank's
-// slice) 4, 8, 16, 32, 64 or 128 contiguous with 16-byte aligned rows (8
-// bytes for 4 bfloat16 elements); lengths
-// (B,) int32; scores (B, H, Skv) float32 by its (b, h) strides, written
-// for keys 0..lengths[b] only.  Returns the CUDA error of the launch.
-extern "C" int decode_scores(const void* q, const void* k,
-                             const void* lengths, void* scores, int B,
-                             int H, int Hkv, int Skv, int hd, int64_t q_sb,
-                             int64_t q_sh, int64_t k_sb, int64_t k_ss,
-                             int64_t k_sh, int64_t sc_sb, int64_t sc_sh,
-                             int dtype, void* stream) {
-  if (B < 1 || Skv < 1 || Hkv < 1 || H % Hkv)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const rt::Strides kst{k_sb, k_ss, k_sh};
-  const int* len = static_cast<const int*>(lengths);
-  float* s = static_cast<float*>(scores);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err;
-  if (dtype == rt::DTYPE_BF16) {
-    err = dispatch_scores<__nv_bfloat16>(q, k, len, s, B, H, Hkv, Skv, hd,
-                                         q_sb, q_sh, kst, sc_sb, sc_sh, st);
-  } else if (dtype == rt::DTYPE_F32) {
-    err = dispatch_scores<float>(q, k, len, s, B, H, Hkv, Skv, hd, q_sb,
-                                 q_sh, kst, sc_sb, sc_sh, st);
   } else {
     err = static_cast<int>(cudaErrorInvalidValue);
   }

@@ -33,7 +33,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("errors.cu", "rmsnorm.cu", "flash_fwd.cu", "flash_bwd.cu",
-           "paged_decode.cu", "ssd_chunk.cu", "overlap.cu", "rglru_scan.cu")
+           "paged_decode.cu", "decode_cut.cu", "ssd_chunk.cu", "overlap.cu",
+           "rglru_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 

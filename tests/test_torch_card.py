@@ -21,7 +21,11 @@ decode kernels of the cut caches (sharded serving): the head_dim cut's
 scores and softmax-P·V passes and the sequence cut's partial, each
 against its plain version at llama3.2-3b's decode shape (GQA 24/8, hd
 128 cut in 2 and 4, Skv 4,096, lengths 0 and Skv − 1 among them), and
-their M parts summed or merged against the whole-head decode kernel.
+their M parts summed or merged against the whole-head decode kernel; the
+head_dim cut at every group size of the repo's configs (1-16 query heads
+a KV head) in both cache layouts, at lengths around the key tile, its
+scores pass leaving entries past a length untouched, and in bfloat16 on
+the tensor cores.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no JAX, so it runs on the card's machine as it is:
@@ -35,6 +39,8 @@ a chunk, where float32 sums of it differ by ~1e-4 relative) is held to
 a float64 evaluation of its plain version instead: its error must not
 exceed twice the float32 plain version's.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -1597,12 +1603,15 @@ def test_sequence_cut_decode_partial(cuda, M, dtype):
 
 # the serving families' cut caches: recurrentgemma-9b's ring (MQA 16/1 at
 # hd 256, 2,048 slots, full after the prompt wraps it) cut in 2 and 4,
-# and seamless-m4t-medium's cross K/V (MHA 16/16 at hd 64 over 1,024
-# frames, every frame valid, held frames-major) cut in 2
+# seamless-m4t-medium's cross K/V (MHA 16/16 at hd 64 over 1,024 frames,
+# every frame valid, held frames-major) cut in 2, and starcoder2-3b's ring
+# (GQA 24/2 at hd 128, 4,096 slots all valid) cut in 2
 FAMILY_CUTS = {"ring": (dict(B=2, H=16, Hkv=1, S=2048, hd=256), (2, 4),
                         False),
                "cross": (dict(B=2, H=16, Hkv=16, S=1024, hd=64), (2,),
-                         True)}
+                         True),
+               "ring_starcoder2": (dict(B=2, H=24, Hkv=2, S=4096, hd=128),
+                                   (2,), False)}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1629,6 +1638,92 @@ CUT16 = {"hd128": dict(B=8, H=24, Hkv=8, S=1024, hd=128),
 def test_head_dim_cut_16_ways(cuda, shape, dtype):
     _check_head_dim_cut(cuda, *_cut_case(cuda, dtype, **CUT16[shape]), 16,
                         dtype)
+
+
+# the query heads a KV head in the repo's configs: seamless and the seesaw
+# presets 1, granite 2, llama3.2-3b 3, mistral-nemo and phi3.5-moe 4,
+# yi-34b 7, internvl2-76b 8, starcoder2-3b 12, recurrentgemma-9b 16
+CUT_GROUPS = (1, 2, 3, 4, 7, 8, 12, 16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("frames_major", [False, True])
+@pytest.mark.parametrize("G", CUT_GROUPS)
+def test_head_dim_cut_at_every_group(cuda, G, frames_major, dtype):
+    """One block serves all G query heads of a KV head: hd 64 cut in 2
+    (slices of 32: bf16 on the tensor cores) and in 8 (slices of 8: the
+    CUDA cores), 2 KV heads, 300 keys (not a multiple of a tile)."""
+    q, k, v, lens = _cut_case(cuda, dtype, B=3, H=2 * G, Hkv=2, S=300,
+                              hd=64)
+    for M in (2, 8):
+        _check_head_dim_cut(cuda, q, k, v, lens, M, dtype, frames_major)
+
+
+# (B, H, Hkv, Skv, hd): MQA 16/1 (tiles of 32 keys), GQA 24/8 (48 rows:
+# tiles of 64); Skv a multiple of neither
+TILE_EDGES = {"mqa": (6, 16, 1, 333, 128), "gqa": (6, 24, 8, 333, 64)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", sorted(TILE_EDGES))
+def test_head_dim_cut_at_the_tile_edges(cuda, shape, dtype):
+    """Lengths 0, tile − 2, tile − 1, tile (so tile − 1, tile and tile + 1
+    keys), tile + 1 and Skv − 1, the tile the wrapper picks on this
+    card; pass 2 spans several splits and merges them."""
+    B, H, Hkv, S, hd = TILE_EDGES[shape]
+    q, k, v, _ = _cut_case(cuda, dtype, B=B, H=H, Hkv=Hkv, S=S, hd=hd)
+    tile, _ = PG.cut_tiles(B, Hkv, S, PG._sm_count(q.device))
+    lens = torch.tensor([0, tile - 2, tile - 1, tile, tile + 1, S - 1],
+                        dtype=torch.int32, device=cuda)
+    for M in (2, 4):
+        _check_head_dim_cut(cuda, q, k, v, lens, M, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scores_past_a_length_are_left_untouched(cuda, dtype, monkeypatch):
+    """Pass 1 writes keys 0..lengths[b] only: its output, filled with NaN
+    before the launch, still holds NaN past each length."""
+    B, H, Hkv, S, hd = TILE_EDGES["gqa"]
+    q, k, _, _ = _cut_case(cuda, dtype, B=B, H=H, Hkv=Hkv, S=S, hd=hd)
+    lens = torch.tensor([0, 30, 31, 64, 200, S - 1], dtype=torch.int32,
+                        device=cuda)
+    empty = torch.empty
+
+    def nan_empty(*size, **kw):
+        t = empty(*size, **kw)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+    for w in (32, 8):
+        s = PG.decode_scores(q[..., :w], k[..., :w].contiguous(), lens)
+        torch.cuda.synchronize()
+        valid = (torch.arange(S, device=cuda)[None, :]
+                 <= lens.long()[:, None])[:, None, :].expand_as(s)
+        assert torch.isfinite(s[valid]).all()
+        assert torch.isnan(s[~valid]).all()
+
+
+def test_bf16_cut_scores_run_on_tensor_cores(sass):
+    """The bfloat16 scores pass at slices of 16-128 holds mma.sync (HMMA
+    in the SASS); at slices of 8 and 4, and in float32, none.  Neither
+    pass spills in bfloat16 at slices of 128 (16 query heads a block)."""
+    lib = sass.build()
+    hmma = sass.sass_counts(lib, "HMMA")
+    bf16 = {int(m.group(1)): c for n, c in hmma.items()
+            if (m := re.search(r"cut_scores_kernelI13__nv_bfloat16Li(\d+)E",
+                               n))}
+    f32 = {int(m.group(1)): c for n, c in hmma.items()
+           if (m := re.search(r"cut_scores_kernelIfLi(\d+)E", n))}
+    assert sorted(bf16) == sorted(f32) == [4, 8, 16, 32, 64, 128], \
+        sorted(hmma)
+    assert all(bf16[hd] > 0 for hd in (16, 32, 64, 128)), bf16
+    assert bf16[4] == bf16[8] == 0 and not any(f32.values()), (bf16, f32)
+    report = sass.ptxas_report(lib)
+    for kern in ("cut_scores_kernel", "cut_softmax_pv_kernel"):
+        name = next(n for n in report
+                    if f"{kern}I13__nv_bfloat16Li128E" in n)
+        r = report[name]
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (kern, r)
 
 
 def test_cut_cache_kernels_raise_rather_than_fall_back(cuda):
